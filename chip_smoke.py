@@ -1,0 +1,419 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (nos_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code != 0):
+
+1. build: every CUDA kernel of the port, compiled by nvcc from the
+   checkout's sources, all at once (nos_tpu_torch/ops/_build.py);
+2. kernels: each kernel's wrapper against its plain PyTorch version on
+   the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
+   bf16), with CUDA-event times of the kernel, the plain version, one
+   PyTorch library call (SDPA, a yardstick the port never calls) and the
+   card's bound for the same work;
+3. model: Llama-3-8B at full width (random weights from a seed),
+   attention="flash": llama_forward flash against dense on [1, 1024],
+   generate() greedy on [2, 512] prompts (the kernel's launch count is
+   zeroed just before and read just after: one launch per layer), one
+   decode step's time beside the weight-read bound with a torch.profiler
+   pass over eight steps (device-busy time, idle share, launches, top
+   kernels), and a tiny config on the card against the same config on
+   the CPU;
+4. engine: the continuous-batching Engine serving six requests (padded
+   and chunked admission, a shared-prefix cache hit), 32 tokens each.
+
+Every line but the last two is a JSON object; the card's name and power
+limit (nvidia-smi) come second to last, and the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Without a GPU, or outside a checkout of the repository, it prints no
+result and exits non-zero.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published dense peaks (NVIDIA data sheet), the bound's rates.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES_S = 3.35e12
+O_ATOL = 2e-2      # bf16 O: about one bf16 ulp of values of order 1
+LSE_ATOL = 1e-3    # f32 row statistics, different summation order
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def visible_pairs(sq, skv, q_off, kv_off, causal, window) -> int:
+    """(query, key) pairs this call's masks leave visible, per (b, h)."""
+    if not causal:
+        return sq * skv
+    total = 0
+    for i in range(sq):
+        hi = min(skv - 1, q_off + i - kv_off)
+        lo = 0 if window is None else max(0, q_off + i - kv_off - window + 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attention_bound_ms(b, sq, skv, hq, hkv, hd, pairs):
+    """Least time the card could take: QK^T and PV cost 4*hd operations
+    per visible pair; q, k, v read once, O (bf16) and LSE (f32) written
+    once. Returns (ms, "operations" | "bytes")."""
+    flops = 4.0 * hd * pairs * b * hq
+    nbytes = 2 * (b * sq * hq * hd + 2 * b * skv * hkv * hd + b * sq * hq * hd)
+    nbytes += 4 * b * hq * sq
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_attention(card, name, b, sq, skv, q_off=0, kv_off=0, causal=True,
+                    window=None, timed=True):
+    """One kernel-vs-plain case at the 8B attention shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    import nos_tpu_torch.ops.flash_attention as fa
+
+    hq, hkv, hd = 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(sq * 7 + skv)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v = randn(b, sq, hq, hd), randn(b, skv, hkv, hd), randn(b, skv, hkv, hd)
+
+    def kernel():
+        return fa.flash_attention_block(q, k, v, q_off, kv_off, causal=causal,
+                                        window=window)
+
+    def plain():
+        return fa.flash_attention_reference(q, k, v, q_off, kv_off,
+                                            causal=causal, window=window)
+
+    out, lse = kernel()
+    want, want_lse = plain()
+    torch.cuda.synchronize()
+    o_err = float((out.float() - want.float()).abs().max())
+    neg_same = bool(torch.equal(torch.isneginf(lse), torch.isneginf(want_lse)))
+    fin = torch.isfinite(want_lse)
+    lse_err = float((lse[fin] - want_lse[fin]).abs().max()) if fin.any() else 0.0
+    finite = bool(torch.isfinite(out.float()).all())
+    ok = o_err <= O_ATOL and lse_err <= LSE_ATOL and neg_same and finite
+    row = {
+        "phase": "kernel", "case": name, "b": b, "sq": sq, "skv": skv,
+        "hq": hq, "hkv": hkv, "hd": hd, "causal": causal, "window": window,
+        "q_off": q_off, "kv_off": kv_off, "o_max_abs_err": o_err,
+        "lse_max_abs_err": lse_err, "neg_inf_rows_match": neg_same,
+        "o_atol": O_ATOL, "lse_atol": LSE_ATOL, "ok": ok, "card": card,
+    }
+    if timed:
+        pairs = visible_pairs(sq, skv, q_off, kv_off, causal, window)
+        bound, bound_by = attention_bound_ms(b, sq, skv, hq, hkv, hd, pairs)
+        # SDPA wants [B, H, S, hd]; the layout change stays outside the timing
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = None
+        if causal and (window is not None or q_off or kv_off):
+            qpos = q_off + torch.arange(sq, device="cuda")
+            kpos = kv_off + torch.arange(skv, device="cuda")
+            mask = kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                mask = mask & (qpos[:, None] - kpos[None, :] < window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True,
+            )
+
+        row.update(
+            kernel_ms=time_ms(kernel), plain_ms=time_ms(plain, reps=10),
+            library_ms=time_ms(library), bound_ms=bound, bound_by=bound_by,
+            visible_pairs_per_head=pairs,
+        )
+        row["kernel_tflops"] = 4.0 * hd * pairs * b * hq / row["kernel_ms"] / 1e9
+    emit(row)
+    if not ok:
+        raise SystemExit(f"kernel case {name} disagrees with its plain version: {row}")
+    return row
+
+
+def profile_decode(decode_steps, card, step_ms: float, steps: int = 8) -> dict:
+    """torch.profiler over ``steps`` decode steps: device-busy time, the
+    idle share of the wall time (profiled, and against the unprofiled
+    ``step_ms``), kernel launches, top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        decode_steps(steps)
+        wall_us = (time.time() - t0) * 1e6
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        kernels.append((us, ev.count, ev.key))
+    busy_us = sum(us for us, _, _ in kernels)
+    kernels.sort(reverse=True)
+    return {
+        "phase": "decode_profile", "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
+        "device_idle_share": 1.0 - busy_us / wall_us,
+        "device_idle_share_unprofiled": 1.0 - busy_us / steps / 1e3 / step_ms,
+        "kernel_launches_per_step": sum(n for _, n, _ in kernels) / steps,
+        "top_kernels": [{"name": k[:80], "ms_per_step": us / steps / 1e3,
+                         "launches_per_step": n / steps}
+                        for us, n, k in kernels[:8]],
+        "card": card,
+    }
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    if not os.path.isfile(os.path.join(HERE, "nos_tpu_torch", "__init__.py")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(nos_tpu_torch/ not found beside this script)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    t_start = time.time()
+    card = card_line()
+
+    # ------------------------------------------------------------- build
+    from nos_tpu_torch.ops import _build
+
+    t0 = time.time()
+    libs = _build.build(_build.KERNELS)
+    emit({"phase": "build", "kernels": sorted(libs), "seconds": time.time() - t0,
+          "card": card})
+
+    # ----------------------------------------------------------- kernels
+    import nos_tpu_torch.ops.flash_attention as fa
+
+    main_case = check_attention(card, "generate_prefill_b2_s512", 2, 512, 512)
+    check_attention(card, "causal_b2_s2048", 2, 2048, 2048)
+    check_attention(card, "causal_ragged_s1000", 1, 1000, 1000)
+    check_attention(card, "window512_s2048", 1, 2048, 2048, window=512)
+    check_attention(card, "noncausal_s512", 1, 512, 512, causal=False)
+    check_attention(card, "block_kv_offset", 1, 512, 512, q_off=1024, kv_off=512)
+    check_attention(card, "block_fully_future", 1, 256, 256, q_off=0,
+                    kv_off=4096, timed=False)
+
+    # ------------------------------------------------------------- model
+    import dataclasses
+
+    from nos_tpu_torch.models import generate as gen_mod
+    from nos_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash")
+    dense_cfg = dataclasses.replace(cfg, attention="dense")
+    t0 = time.time()
+    params = llama.init_llama_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(
+        t.numel() for t in [params["embed"], params["final_norm"], params["lm_head"]]
+    ) + sum(t.numel() for layer in params["layers"] for t in layer.values())
+    emit({"phase": "init", "config": "llama_3_8b", "params": n_params,
+          "seconds": time.time() - t0,
+          "gib": torch.cuda.memory_allocated() / 2**30, "card": card})
+
+    tok_gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=tok_gen,
+                               device="cuda")
+        fa.LAUNCHES = 0
+        flash_logits = llama.llama_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        forward_launches = fa.LAUNCHES
+        dense_logits = llama.llama_forward(params, tokens, dense_cfg)
+        diff = (flash_logits - dense_logits).abs()
+        rel = float(diff.max() / dense_logits.abs().max())
+        p_diff = float((torch.softmax(flash_logits, -1)
+                        - torch.softmax(dense_logits, -1)).abs().max())
+        agree = float((flash_logits.argmax(-1) == dense_logits.argmax(-1))
+                      .float().mean())
+        finite = bool(torch.isfinite(flash_logits).all())
+    fwd = {"phase": "llama_forward", "tokens": [1, 1024],
+           "flash_launches": forward_launches,
+           "logits_max_abs_diff": float(diff.max()), "logits_max_rel_diff": rel,
+           "probs_max_abs_diff": p_diff, "argmax_agreement": agree,
+           "finite": finite, "card": card}
+    fwd["ok"] = (finite and forward_launches == cfg.n_layers and rel <= 5e-2
+                 and p_diff <= 1e-2 and agree >= 0.8)
+    emit(fwd)
+    if not fwd["ok"]:
+        raise SystemExit(f"flash forward disagrees with dense: {fwd}")
+    del flash_logits, dense_logits, diff
+
+    # the main path: generate() with the launch counts zeroed just before
+    with torch.no_grad():
+        prompt = torch.randint(1, cfg.vocab_size, (2, 512), generator=tok_gen,
+                               device="cuda")
+        torch.cuda.synchronize()
+        fa.LAUNCHES = 0
+        t0 = time.time()
+        out = gen_mod.generate(params, prompt, cfg, max_new_tokens=32)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        main_launches = fa.LAUNCHES
+    gen_ok = (tuple(out.shape) == (2, 32) and main_launches == cfg.n_layers
+              and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+    emit({"phase": "generate", "prompt": [2, 512], "new_tokens": 32,
+          "flash_launches": main_launches, "seconds": wall,
+          "tokens_per_s": 2 * 32 / wall, "ok": gen_ok, "card": card})
+    if not gen_ok:
+        raise SystemExit(f"generate() failed: shape {tuple(out.shape)}, "
+                         f"launches {main_launches}")
+
+    # one decode step at the generate shapes, beside the weight-read bound
+    with torch.no_grad():
+        _, cache = gen_mod.prefill(params, prompt, cfg, 512 + 32)
+
+        def decode_steps(n, token=out[:, 0]):
+            for i in range(n):
+                logits, _ = gen_mod.decode_step(params, cache, 512 + i, token, cfg)
+                token = logits.argmax(dim=-1)
+            torch.cuda.synchronize()
+
+        decode_steps(2)
+        t0 = time.time()
+        decode_steps(16)
+        step_ms = (time.time() - t0) / 16 * 1e3
+        emit({"phase": "decode_step", "batch": 2, "cache_len": 544,
+              "ms_per_step": step_ms,
+              "weight_read_bound_ms": 2 * n_params / PEAK_HBM_BYTES_S * 1e3,
+              "card": card})
+        emit(profile_decode(decode_steps, card, step_ms))
+    del cache
+
+    # a small input against a reference: the same tiny model on the CPU
+    tiny = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                             attention="flash")
+    tiny_gpu = llama.init_llama_params(tiny, seed=3, device="cuda")
+    tiny_cpu = {k: (v.cpu() if torch.is_tensor(v) else [
+        {kk: vv.cpu() for kk, vv in layer.items()} for layer in v
+    ]) for k, v in tiny_gpu.items()}
+    small = torch.randint(0, tiny.vocab_size, (2, 96), generator=tok_gen,
+                          device="cuda")
+    with torch.no_grad():
+        a = llama.llama_forward(tiny_gpu, small, tiny).cpu()
+        b = llama.llama_forward(tiny_cpu, small.cpu(), tiny)
+    tiny_err = float((a - b).abs().max())
+    tiny_ok = tiny_err <= 1e-1 and bool(torch.isfinite(a).all())
+    emit({"phase": "tiny_card_vs_cpu", "logits_max_abs_diff": tiny_err,
+          "atol": 1e-1, "ok": tiny_ok, "card": card})
+    if not tiny_ok:
+        raise SystemExit(f"tiny model on the card disagrees with the CPU: {tiny_err}")
+
+    # ------------------------------------------------------------ engine
+    from nos_tpu_torch.serve import Engine, GenRequest
+    from nos_tpu_torch.util import metrics
+
+    rng_tokens = torch.randint(1, cfg.vocab_size, (2000,), generator=tok_gen,
+                               device="cuda").tolist()
+    shared = rng_tokens[:300]
+    prompts = [
+        rng_tokens[300:320],                      # 20: padded prefill
+        shared + rng_tokens[320:370],             # 350: chunked, stores prefix
+        shared + rng_tokens[370:460],             # 390: chunked, prefix hit
+        rng_tokens[460:1160],                     # 700: chunked, 3 pieces
+        rng_tokens[1160:1260],                    # 100: padded
+        rng_tokens[1260:1460],                    # 200: padded (bucket 256)
+    ]
+    hits0 = metrics.SERVE_PREFIX_HITS.value
+    ticks0 = metrics.SERVE_TICKS.value
+    eng = Engine(params, cfg, max_slots=4, max_len=1024, prefill_chunk=256,
+                 prefix_cache_entries=2)
+    with torch.no_grad():
+        fa.LAUNCHES = 0
+        t0 = time.time()
+        ids = [eng.submit(GenRequest(prompt=p, max_new_tokens=32)) for p in prompts]
+        results = eng.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    hits = metrics.SERVE_PREFIX_HITS.value - hits0
+    lens_ok = all(len(results[i]) == 32 for i in ids)
+    eng_ok = lens_ok and hits >= 1 and all(
+        0 <= t < cfg.vocab_size for i in ids for t in results[i]
+    )
+    emit({"phase": "engine", "requests": len(ids),
+          "prompt_tokens": [len(p) for p in prompts], "new_tokens": 32,
+          "prefix_hits": hits, "seconds": wall,
+          "tokens_per_s": 32 * len(ids) / wall,
+          "decode_ticks": metrics.SERVE_TICKS.value - ticks0,
+          "flash_launches": fa.LAUNCHES, "ok": eng_ok, "card": card})
+    if not eng_ok:
+        raise SystemExit(f"engine failed: lengths ok {lens_ok}, prefix hits {hits}")
+
+    # ----------------------------------------------------------- summary
+    emit({"kernels": [{
+        "name": "flash_fwd",
+        "route": "cuda",
+        "source": "nos_tpu_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "nos_tpu/ops/flash_attention.py:175",
+        "launches": main_launches,
+        "max_abs_err": main_case["o_max_abs_err"],
+        "ms": main_case["kernel_ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+        "shape": "q [2,512,32,128], k/v [2,512,8,128] bf16 causal",
+        "check": "pass",
+    }], "seconds": time.time() - t_start, "card": card})
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

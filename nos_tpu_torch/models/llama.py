@@ -1,0 +1,384 @@
+"""Llama-style decoder-only transformer in PyTorch.
+
+Counterpart of ``nos_tpu/models/llama.py``, with the same parameter
+layout (a dict: ``embed`` [V, D], ``final_norm``, optional ``lm_head``
+[D, V], ``layers[i]`` holding ``[in, out]`` matrices) so weights bridge
+from the reference unchanged (``nos_tpu_torch.bridge``). The dtype
+rounding points are the reference's: RoPE tables computed in f32 then
+cast to the model dtype, the plain RMSNorm downcasting before its weight
+(the Gemma offset form staying f32), a model-dtype ``embed_scale``,
+attention probabilities cast to the input dtype before PV, and logits
+unembedded in the model dtype then cast to f32.
+
+``attention="flash"`` runs the hand-written Hopper kernel on a CUDA
+tensor and its plain version on a CPU one (``nos_tpu_torch.ops``).
+
+Not in this slice (each raises NotImplementedError naming its ROADMAP
+item): a ``mesh``, ``n_experts > 0``, quantized / LoRA weight leaves.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from nos_tpu_torch import _resolve_device
+
+Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 14336
+    rope_theta: float = 500000.0
+    # ("llama3", factor, low_freq_factor, high_freq_factor,
+    #  original_max_position_embeddings); None = plain RoPE.
+    rope_scaling: Any = None
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    # "dense" (torch einsums) or "flash" (the hand-written kernel).
+    attention: str = "dense"
+    # Per-layer activation checkpointing when gradients are taken.
+    remat: bool = False
+    # Mistral-style sliding window: each query attends only the last
+    # `sliding_window` positions. None = full causal attention.
+    sliding_window: Any = None
+    # Sequence-parallel strategy under a mesh (not in this slice).
+    sp_strategy: str = "ring"
+    # Gemma dialect: "silu" or "gelu" (tanh form) gated MLP.
+    hidden_act: str = "silu"
+    # RMSNorm multiplies by (1 + w) in f32 when True, by w when False.
+    norm_offset: bool = False
+    # Multiply embeddings by sqrt(d_model) after lookup.
+    scale_embeddings: bool = False
+    # Unembed with the input embedding (params carry no lm_head).
+    tie_embeddings: bool = False
+    # Explicit head dim when it differs from d_model / n_heads.
+    qk_head_dim: Any = None
+    # Routed mixture-of-experts (not in this slice).
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_coef: float = 0.01
+
+    @property
+    def head_dim(self) -> int:
+        if self.qk_head_dim is not None:
+            return int(self.qk_head_dim)
+        return self.d_model // self.n_heads
+
+    @property
+    def embed_scale(self):
+        """Post-lookup embedding multiplier, or None: sqrt(d_model)
+        rounded to the model dtype (as the reference implementations
+        cast the scalar before multiplying). A CPU scalar tensor: it
+        broadcasts onto any device."""
+        if not self.scale_embeddings:
+            return None
+        return torch.tensor(math.sqrt(self.d_model), dtype=self.dtype)
+
+
+def tiny_config(**overrides) -> LlamaConfig:
+    """Small config for tests and dry runs."""
+    defaults = dict(
+        vocab_size=256,
+        d_model=64,
+        n_layers=2,
+        n_heads=8,
+        n_kv_heads=8,
+        d_ff=128,
+    )
+    defaults.update(overrides)
+    return LlamaConfig(**defaults)
+
+
+def llama_3_8b_config() -> LlamaConfig:
+    return LlamaConfig()
+
+
+def gemma_2b_config() -> LlamaConfig:
+    """Gemma-2B: gelu gated MLP, (1 + w) RMSNorm, sqrt(d_model)-scaled
+    embeddings, tied unembedding, MQA and a 256 head dim."""
+    return LlamaConfig(
+        vocab_size=256000,
+        d_model=2048,
+        n_layers=18,
+        n_heads=8,
+        n_kv_heads=1,
+        d_ff=16384,
+        rope_theta=10000.0,
+        norm_eps=1e-6,
+        hidden_act="gelu",
+        norm_offset=True,
+        scale_embeddings=True,
+        tie_embeddings=True,
+        qk_head_dim=256,
+    )
+
+
+def _check_slice(config: LlamaConfig, mesh=None) -> None:
+    """Loud errors for what this slice of the port does not cover."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh / sharded execution is not ported yet "
+            "(ROADMAP Queue 1 item 9: multi-device)"
+        )
+    if config.n_experts > 0:
+        raise NotImplementedError(
+            "n_experts > 0 (routed MoE) is not ported yet "
+            "(ROADMAP Queue 1 item 8: serving extensions, moe.py)"
+        )
+
+
+# ------------------------------------------------------------------- init
+
+
+def init_llama_params(config: LlamaConfig, seed: int = 0, device=None) -> Params:
+    """Random weights drawn on ``device`` from a seeded generator, one
+    tensor at a time (f32 normal / sqrt(fan_in), cast to the model
+    dtype): a full-size model never exists in f32 or on the host. Not
+    the reference's numbers (``jax.random`` has no torch twin): to hold
+    the port against the reference, bridge its weights instead."""
+    c = config
+    _check_slice(c)
+    dev = _resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return w.div_(math.sqrt(fan_in)).to(c.dtype)
+
+    def norm():
+        fill = 0.0 if c.norm_offset else 1.0
+        return torch.full((c.d_model,), fill, dtype=c.dtype, device=dev)
+
+    hd = c.head_dim
+    params: Params = {
+        "embed": dense((c.vocab_size, c.d_model), c.d_model),
+        "final_norm": norm(),
+        "layers": [],
+    }
+    if not c.tie_embeddings:
+        params["lm_head"] = dense((c.d_model, c.vocab_size), c.d_model)
+    for _ in range(c.n_layers):
+        params["layers"].append({
+            "attn_norm": norm(),
+            "wq": dense((c.d_model, c.n_heads * hd), c.d_model),
+            "wk": dense((c.d_model, c.n_kv_heads * hd), c.d_model),
+            "wv": dense((c.d_model, c.n_kv_heads * hd), c.d_model),
+            "wo": dense((c.n_heads * hd, c.d_model), c.n_heads * hd),
+            "mlp_norm": norm(),
+            "w_gate": dense((c.d_model, c.d_ff), c.d_model),
+            "w_up": dense((c.d_model, c.d_ff), c.d_model),
+            "w_down": dense((c.d_ff, c.d_model), c.d_ff),
+        })
+    return params
+
+
+def params_device(params: Params) -> torch.device:
+    return params["embed"].device
+
+
+# ---------------------------------------------------------------- forward
+
+
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a dense weight leaf."""
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(
+            f"weight leaf {type(w).__name__}: quantized / LoRA / MultiLoRA "
+            "leaves are not ported yet (ROADMAP Queue 1 item 8)"
+        )
+    return x @ w
+
+
+def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor, scale=None) -> torch.Tensor:
+    # Advanced indexing wraps negative ids (the engine's pad id -1) the
+    # way the reference's gather does; those rows are masked everywhere.
+    rows = embed[tokens]
+    if scale is not None:
+        rows = rows * scale.to(rows.device)
+    return rows
+
+
+def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, offset: bool = False):
+    x32 = x.float()
+    rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    if offset:
+        # (1 + w) in f32: in bf16 small weights would quantize away.
+        return ((x32 * rms) * (weight.float() + 1.0)).to(x.dtype)
+    return (x32 * rms).to(x.dtype) * weight
+
+
+def _unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Vocab logits in the model dtype; tied models reuse the embedding."""
+    if "lm_head" in params:
+        return _mm(x, params["lm_head"])
+    return _mm(x, params["embed"].T)
+
+
+def _llama3_scaled_freqs(freqs: torch.Tensor, scaling) -> torch.Tensor:
+    """The Llama-3.1 frequency transform: long wavelengths divide by
+    ``factor``, short ones stay, the middle band interpolates."""
+    _, factor, low_ff, high_ff, orig_max = scaling
+    wavelen = 2.0 * math.pi / freqs
+    low_wavelen = orig_max / low_ff
+    high_wavelen = orig_max / high_ff
+    smooth = (orig_max / wavelen - low_ff) / (high_ff - low_ff)
+    mid = (1.0 - smooth) * freqs / factor + smooth * freqs
+    out = torch.where(wavelen > low_wavelen, freqs / factor, mid)
+    return torch.where(wavelen < high_wavelen, freqs, out)
+
+
+def _rope_at(positions: torch.Tensor, head_dim: int, theta: float, dtype, scaling=None):
+    """(cos, sin) tables for positions [P] → each [P, hd/2], computed in
+    f32 and cast to ``dtype``."""
+    dev = positions.device
+    freqs = theta ** (
+        -torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim
+    )
+    if scaling is not None:
+        freqs = _llama3_scaled_freqs(freqs, scaling)
+    angles = positions.float()[:, None] * freqs[None, :]
+    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
+
+
+def _rope(seq_len: int, head_dim: int, theta: float, dtype, scaling=None, device=None):
+    return _rope_at(
+        torch.arange(seq_len, device=device), head_dim, theta, dtype, scaling
+    )
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, hd] rotated half-and-half (not interleaved) by tables
+    of rank 2 ([S, hd/2], shared across the batch) or rank 4 (already
+    broadcast). Every path calls this one formula."""
+    x1, x2 = x.chunk(2, dim=-1)
+    if cos.dim() == 2:
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _window_causal_mask(s: int, sliding_window, device=None) -> torch.Tensor:
+    """THE causal mask [s, s]: lower-triangular, banded to the last
+    ``sliding_window`` positions when set."""
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))
+    if sliding_window is not None:
+        pos = torch.arange(s, device=device)
+        causal = causal & (pos[:, None] - pos[None, :] < sliding_window)
+    return causal
+
+
+def _grouped_scores(q: torch.Tensor, k: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
+    """q [B, S, Hq, hd] · k [B, T, Hkv, hd] → f32 [B, Hkv, G, S, T]
+    (bf16 products are exact in f32: f32 accumulation of bf16 operands)."""
+    b, s, hq, hd = q.shape
+    qg = q.reshape(b, s, n_kv_heads, hq // n_kv_heads, hd)
+    return torch.einsum("bsKgh,btKh->bKgst", qg.float(), k.float())
+
+
+def _grouped_values(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs [B, Hkv, G, S, T] (already in the value dtype) · v → [B, S,
+    Hq*hd] in that dtype, accumulated in f32."""
+    b, hkv, g, s, _ = probs.shape
+    out = torch.einsum("bKgst,btKh->bsKgh", probs.float(), v.float())
+    return out.reshape(b, s, hkv * g * v.shape[-1]).to(probs.dtype)
+
+
+def gqa_dense_attention(q, k, v, mask=None) -> torch.Tensor:
+    """Grouped-query dense attention, q [B,S,Hq,hd], k/v [B,S,Hkv,hd] →
+    [B,S,Hq,hd]. ``mask`` is a [Sq,Skv] bool (True = attend)."""
+    b, s, hq, hd = q.shape
+    scores = _grouped_scores(q, k, k.shape[2]) / math.sqrt(hd)
+    if mask is not None:
+        # -1e30, not -inf: a fully masked row softmaxes finite, not NaN
+        scores = torch.where(mask[None, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return _grouped_values(probs, v).reshape(b, s, hq, hd)
+
+
+def _qkv(h: torch.Tensor, layer: Params, c: LlamaConfig):
+    b, s, _ = h.shape
+    hd = c.head_dim
+    q = _mm(h, layer["wq"]).reshape(b, s, c.n_heads, hd)
+    k = _mm(h, layer["wk"]).reshape(b, s, c.n_kv_heads, hd)
+    v = _mm(h, layer["wv"]).reshape(b, s, c.n_kv_heads, hd)
+    return q, k, v
+
+
+def _attention(x, layer: Params, config: LlamaConfig, cos, sin) -> torch.Tensor:
+    c = config
+    b, s, _ = x.shape
+    q, k, v = _qkv(x, layer, c)
+    q = _apply_rope(q, cos, sin)
+    k = _apply_rope(k, cos, sin)
+    if c.attention == "flash":
+        from nos_tpu_torch.ops.flash_attention import flash_attention
+
+        out = flash_attention(q, k, v, causal=True, window=c.sliding_window)
+    else:
+        out = gqa_dense_attention(
+            q, k, v, _window_causal_mask(s, c.sliding_window, x.device)
+        )
+    return _mm(out.reshape(b, s, c.n_heads * c.head_dim), layer["wo"])
+
+
+def _act(x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "silu":
+        return F.silu(x)
+    if act == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown hidden_act {act!r}")
+
+
+def _mlp(x: torch.Tensor, layer: Params, act: str = "silu") -> torch.Tensor:
+    gate = _act(_mm(x, layer["w_gate"]), act)
+    return _mm(gate * _mm(x, layer["w_up"]), layer["w_down"])
+
+
+def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
+                  mesh=None) -> torch.Tensor:
+    """tokens [B, S] int → logits [B, S, vocab] (float32)."""
+    c = config
+    _check_slice(c, mesh)
+    tokens = tokens.to(params_device(params))
+    x = _embed_rows(params["embed"], tokens, c.embed_scale)
+    cos, sin = _rope(tokens.shape[1], c.head_dim, c.rope_theta, c.dtype,
+                     c.rope_scaling, device=x.device)
+
+    def block(x, layer):
+        x = x + _attention(
+            _rms_norm(x, layer["attn_norm"], c.norm_eps, c.norm_offset),
+            layer, c, cos, sin,
+        )
+        h = _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset)
+        return x + _mlp(h, layer, c.hidden_act)
+
+    for layer in params["layers"]:
+        if c.remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            x = checkpoint(block, x, layer, use_reentrant=False)
+        else:
+            x = block(x, layer)
+    x = _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset)
+    return _unembed(params, x).float()
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL as logsumexp(logits) - logits[target]."""
+    targets = tokens[:, 1:].to(logits.device).long()
+    logits_t = logits[:, :-1]
+    lse = torch.logsumexp(logits_t, dim=-1)
+    picked = torch.gather(logits_t, -1, targets[..., None])[..., 0]
+    return (lse - picked).mean()

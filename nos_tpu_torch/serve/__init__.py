@@ -1,0 +1,7 @@
+from nos_tpu_torch.serve.engine import Completion, Engine, GenRequest  # noqa: F401
+from nos_tpu_torch.serve.telemetry import (  # noqa: F401
+    RequestRecord,
+    ServeClock,
+    ServeTelemetry,
+    VirtualServeClock,
+)

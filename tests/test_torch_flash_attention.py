@@ -1,0 +1,179 @@
+"""Port flash attention (nos_tpu_torch.ops) against the JAX kernel.
+
+On the CPU the port runs its plain version; the JAX side runs the
+Pallas kernel in interpret mode, as tests/ops/test_flash_attention.py
+does. Inputs come from numpy with a fixed seed and go to both.
+
+Tolerances: f32 cases compare at atol 1e-5 — the same online softmax
+over different key tilings, so only the summation order differs. bf16
+cases compare at atol 2e-2 — both round O to bf16 once at the end, so
+they differ by at most about one bf16 ulp of values of order 1. The
+CUDA kernel itself is held against the plain version on the card by
+tests/test_torch_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nos_tpu.ops import flash_attention as jax_flash
+from nos_tpu.ops.flash_attention import (
+    flash_attention_block as jax_block,
+    merge_flash_partials as jax_merge,
+)
+import nos_tpu_torch.ops.flash_attention as fa
+
+F32_ATOL = 1e-5
+BF16_ATOL = 2e-2
+
+
+def qkv_np(seed, b=1, s=32, hq=4, hkv=2, hd=8, skv=None):
+    rng = np.random.default_rng(seed)
+    skv = s if skv is None else skv
+    return (
+        rng.standard_normal((b, s, hq, hd), dtype=np.float32),
+        rng.standard_normal((b, skv, hkv, hd), dtype=np.float32),
+        rng.standard_normal((b, skv, hkv, hd), dtype=np.float32),
+    )
+
+
+def to_jax(arrs, dtype=jnp.float32):
+    return [jnp.asarray(a, dtype) for a in arrs]
+
+
+def to_torch(arrs, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrs]
+
+
+def close(got_torch, want_jax, atol):
+    got = got_torch.float().numpy()
+    want = np.asarray(jnp.asarray(want_jax, jnp.float32))
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err <= atol, err
+
+
+class TestForwardParity:
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_matches_jax_kernel(self, causal):
+        arrs = qkv_np(0, b=2, s=64, hq=4, hkv=4, hd=16)
+        want = jax_flash(*to_jax(arrs), causal=causal, blk_q=16, blk_k=16,
+                         interpret=True)
+        got = fa.flash_attention(*to_torch(arrs), causal=causal, blk_k=16)
+        close(got, want, F32_ATOL)
+
+    def test_gqa_grouping(self):
+        arrs = qkv_np(1, s=32, hq=8, hkv=2, hd=8)
+        want = jax_flash(*to_jax(arrs), blk_q=8, blk_k=8, interpret=True)
+        close(fa.flash_attention(*to_torch(arrs), blk_k=8), want, F32_ATOL)
+
+    def test_single_block(self):
+        arrs = qkv_np(2, s=8, hq=2, hkv=2, hd=8)
+        want = jax_flash(*to_jax(arrs), interpret=True)
+        close(fa.flash_attention(*to_torch(arrs)), want, F32_ATOL)
+
+    def test_bfloat16_inputs(self):
+        arrs = qkv_np(3, s=32, hq=2, hkv=2, hd=8)
+        want = jax_flash(*to_jax(arrs, jnp.bfloat16), blk_q=16, blk_k=16,
+                         interpret=True)
+        got = fa.flash_attention(*to_torch(arrs, torch.bfloat16), blk_k=16)
+        assert got.dtype == torch.bfloat16
+        close(got, want, BF16_ATOL)
+
+    @pytest.mark.parametrize("s", [24, 37])
+    def test_odd_sequence_length(self, s):
+        # the reference clamps its blocks to divisors of S; the port's
+        # tiles run past the ragged edge and mask it: same outputs
+        arrs = qkv_np(5, s=s, hq=4, hkv=2, hd=8)
+        want = jax_flash(*to_jax(arrs), blk_q=16, blk_k=16, interpret=True)
+        close(fa.flash_attention(*to_torch(arrs), blk_k=16), want, F32_ATOL)
+
+    @pytest.mark.parametrize("window", [3, 5, 16, 100])
+    def test_sliding_window(self, window):
+        arrs = qkv_np(60, s=64, hq=4, hkv=2, hd=16)
+        want = jax_flash(*to_jax(arrs), window=window, blk_q=16, blk_k=16,
+                         interpret=True)
+        got = fa.flash_attention(*to_torch(arrs), window=window, blk_k=16)
+        close(got, want, F32_ATOL)
+
+    def test_key_tiling_does_not_change_the_result(self):
+        arrs = to_torch(qkv_np(7, s=40, hq=4, hkv=2, hd=8))
+        a = fa.flash_attention(*arrs, blk_k=8)
+        b = fa.flash_attention(*arrs, blk_k=64)
+        assert float((a - b).abs().max()) <= F32_ATOL
+
+    def test_cpu_runs_never_count_as_launches(self):
+        before = fa.LAUNCHES
+        fa.flash_attention(*to_torch(qkv_np(8, s=16)))
+        assert fa.LAUNCHES == before
+
+    def test_default_blocks_are_the_kernel_tile(self):
+        assert fa.default_blocks(None) == (fa.BLOCK_M, fa.BLOCK_N)
+        assert fa.default_blocks(512) == (fa.BLOCK_M, fa.BLOCK_N)
+
+
+class TestBlockPartials:
+    def test_partials_at_offsets_match_jax(self):
+        arrs = qkv_np(20, b=2, s=32, hq=4, hkv=2, hd=16)
+        jq, jk, jv = to_jax(arrs)
+        tq, tk, tv = to_torch(arrs)
+        half = 16
+        for sl, off in ((slice(0, half), 0), (slice(half, None), half)):
+            jo, jl = jax_block(jq, jk[:, sl], jv[:, sl], 0, off, interpret=True)
+            to, tl = fa.flash_attention_block(tq, tk[:, sl], tv[:, sl], 0, off)
+            close(to, jo, F32_ATOL)
+            # -inf rows (queries before this block) must agree exactly
+            assert torch.equal(torch.isneginf(tl), torch.from_numpy(np.isneginf(np.asarray(jl))))
+            fin = torch.isfinite(tl)
+            err = (tl[fin] - torch.from_numpy(np.array(jl))[fin]).abs().max()
+            assert float(err) <= F32_ATOL
+
+    def test_two_halves_merge_to_whole(self):
+        arrs = qkv_np(21, b=2, s=32, hq=4, hkv=2, hd=16)
+        tq, tk, tv = to_torch(arrs)
+        half = 16
+        o1, l1 = fa.flash_attention_block(tq, tk[:, :half], tv[:, :half], 0, 0)
+        o2, l2 = fa.flash_attention_block(tq, tk[:, half:], tv[:, half:], 0, half)
+        out, lse = fa.merge_flash_partials(o1, l1, o2, l2)
+        whole, whole_lse = fa.flash_attention_block(tq, tk, tv, 0, 0)
+        assert float((out - whole).abs().max()) <= F32_ATOL
+        assert float((lse - whole_lse).abs().max()) <= F32_ATOL
+        # and the merge itself matches the reference's merge
+        jout, jlse = jax_merge(*(jnp.asarray(x.numpy()) for x in (o1, l1, o2, l2)))
+        close(out, jout, F32_ATOL)
+        close(lse, jlse, F32_ATOL)
+
+    def test_fully_future_block_is_zero_with_neg_inf_lse(self):
+        arrs = qkv_np(22, s=16, hq=2, hkv=2, hd=8)
+        out, lse = fa.flash_attention_block(*to_torch(arrs), 0, 1000)
+        assert torch.all(out == 0)
+        assert torch.all(torch.isneginf(lse))
+        jo, jl = jax_block(*to_jax(arrs), 0, 1000, interpret=True)
+        assert np.all(np.asarray(jo) == 0) and np.all(np.isneginf(np.asarray(jl)))
+        # merging an all-empty partial with itself stays empty, not NaN
+        mo, ml = fa.merge_flash_partials(out, lse, out, lse)
+        assert torch.all(mo == 0) and torch.all(torch.isneginf(ml))
+
+    def test_window_at_offsets_matches_jax(self):
+        arrs = qkv_np(23, s=24, hq=4, hkv=2, hd=8, skv=40)
+        want_o, want_l = jax_block(*to_jax(arrs), 30, 4, window=9, interpret=True)
+        got_o, got_l = fa.flash_attention_block(*to_torch(arrs), 30, 4, window=9)
+        close(got_o, want_o, F32_ATOL)
+        fin = torch.isfinite(got_l)
+        assert torch.equal(fin, torch.from_numpy(np.isfinite(np.asarray(want_l))))
+
+
+class TestContract:
+    def test_rejects_bad_head_grouping(self):
+        arrs = to_torch(qkv_np(4, s=24, hq=3, hkv=2, hd=8))
+        with pytest.raises(ValueError, match="multiple"):
+            fa.flash_attention(*arrs)
+        with pytest.raises(ValueError, match="multiple"):
+            fa.flash_attention_block(*arrs, 0, 0)
+
+    def test_window_contract(self):
+        arrs = to_torch(qkv_np(63, s=16))
+        with pytest.raises(ValueError, match="causal"):
+            fa.flash_attention(*arrs, causal=False, window=4)
+        with pytest.raises(ValueError, match=">= 1"):
+            fa.flash_attention(*arrs, window=0)
