@@ -11,7 +11,10 @@ Phases, each fatal on failure (exit code != 0):
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
    PyTorch library call (SDPA, a yardstick the port never calls) and the
-   card's bound for the same work;
+   card's bound for the same work. kernel_bwd: the dQ and dK/dV kernels
+   against their plain version at seven cases and at the training shape
+   (B 4, S 2048, causal), where each is timed beside its bound, the plain
+   version and SDPA's backward (its forward+backward minus its forward);
 3. model: Llama-3-8B at full width (random weights from a seed),
    attention="flash": llama_forward flash against dense on [1, 1024],
    generate() greedy on [2, 512] prompts (the kernel's launch count is
@@ -21,7 +24,16 @@ Phases, each fatal on failure (exit code != 0):
    kernels), and a tiny config on the card against the same config on
    the CPU;
 4. engine: the continuous-batching Engine serving six requests (padded
-   and chunked admission, a shared-prefix cache hit), 32 tokens each.
+   and chunked admission, a shared-prefix cache hit), 32 tokens each;
+5. train_grads: full width, 2 layers, [1, 1024]: llama_loss gradients
+   through the kernels (flash) against autograd of the einsums (dense);
+6. train: the trainer's main path, Llama-3-8B at full width and depth,
+   flash + remat, bf16, built-in momentum SGD, batches of [4, 2048] from
+   BatchLoader through prefetch_to_device: one warm-up and three timed
+   steps, launches counted per step (forward 64 with the recompute, dQ
+   32, dK/dV 32), step time, tokens/s, MFU, peak memory;
+7. train_adamw: 4 layers at full width, the AdamW factory with
+   accum_steps=2, two steps.
 
 Every line but the last two is a JSON object; the card's name and power
 limit (nvidia-smi) come second to last, and the last line is
@@ -31,6 +43,8 @@ result and exits non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -45,6 +59,19 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_S = 3.35e12
 O_ATOL = 2e-2      # bf16 O: about one bf16 ulp of values of order 1
 LSE_ATOL = 1e-3    # f32 row statistics, different summation order
+# Backward kernels against their plain version, elementwise
+# |err| <= BWD_ATOL + BWD_RTOL * |want|: both round p and dS to bf16 at the
+# same points, but on f32 values that differ in their last bits, and the
+# bf16 gradients round once more.
+BWD_ATOL = 1e-2
+BWD_RTOL = 1e-2
+# Flash against dense gradients of llama_loss (bf16 model), per leaf kind:
+# max |g_flash - g_dense| over the kind's largest dense gradient, the
+# forward check's own 5e-2 relative bar; the loss within 2e-2, the
+# reference's flash-vs-dense loss bar (tests/ops/test_flash_attention.py).
+GRAD_REL_LIMIT = 5e-2
+LOSS_LIMIT = 2e-2
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 
 
 def emit(obj) -> None:
@@ -173,8 +200,303 @@ def check_attention(card, name, b, sq, skv, q_off=0, kv_off=0, causal=True,
     return row
 
 
-def profile_decode(decode_steps, card, step_ms: float, steps: int = 8) -> dict:
-    """torch.profiler over ``steps`` decode steps: device-busy time, the
+def counts():
+    """(forward, dQ, dK/dV) kernel launches so far."""
+    import nos_tpu_torch.ops.flash_attention as fa
+
+    return fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES
+
+
+def zero_counts() -> None:
+    import nos_tpu_torch.ops.flash_attention as fa
+
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+
+
+def bwd_bound_ms(b, sq, skv, hq, hkv, hd, pairs, ops_per_pair, n_out_kv):
+    """Least time for one backward kernel: ``ops_per_pair`` * hd
+    operations per visible pair (dQ: S, dP, dQ products, 6; dK/dV: S, dP,
+    dV, dK, 8) at the bf16 peak, against q, k, v, dO (bf16) and lse,
+    delta (f32) read once and its outputs (bf16) written once: dQ's
+    [b, sq, hq, hd], or dK and dV ([b, skv, hkv, hd] each, ``n_out_kv``
+    2). Returns (ms, "operations" | "bytes")."""
+    flops = ops_per_pair * hd * pairs * b * hq
+    nbytes = 2 * (2 * b * sq * hq * hd + 2 * b * skv * hkv * hd) + 4 * 2 * b * hq * sq
+    nbytes += 2 * (n_out_kv * b * skv * hkv * hd if n_out_kv else b * sq * hq * hd)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_backward(card, name, b, sq, skv, hq=32, hkv=8, hd=128, q_off=0,
+                   kv_off=0, causal=True, window=None, timed=False):
+    """dQ and dK/dV kernels against their plain version on one case; at
+    ``timed``, each kernel's time beside its bound, the plain version and
+    SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    import nos_tpu_torch.ops.flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(sq * 13 + skv + hd)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v = randn(b, sq, hq, hd), randn(b, skv, hkv, hd), randn(b, skv, hkv, hd)
+    do = randn(b, sq, hq, hd)
+    out, lse = fa.flash_attention_block(q, k, v, q_off, kv_off, causal=causal,
+                                        window=window)
+    delta = fa.flash_delta(do, out)
+    kw = dict(causal=causal, window=window, delta=delta)
+    got = fa.flash_block_grads(q, k, v, out, lse, do, q_off, kv_off, **kw)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, q_off, kv_off, **kw)
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        errs[gname] = float((g - w).abs().max())
+        ok = ok and bool(((g - w).abs() <= BWD_ATOL + BWD_RTOL * w.abs()).all())
+        ok = ok and bool(torch.isfinite(g).all())
+    if bool(torch.isneginf(lse).all()):  # no visible key anywhere: exact zeros
+        ok = ok and all(bool((g == 0).all()) for g in got)
+    row = {
+        "phase": "kernel_bwd", "case": name, "b": b, "sq": sq, "skv": skv,
+        "hq": hq, "hkv": hkv, "hd": hd, "causal": causal, "window": window,
+        "q_off": q_off, "kv_off": kv_off,
+        **{f"{g}_max_abs_err": e for g, e in errs.items()},
+        "atol": BWD_ATOL, "rtol": BWD_RTOL, "ok": ok, "card": card,
+    }
+    if timed:
+        pairs = visible_pairs(sq, skv, q_off, kv_off, causal, window)
+        args = (q, k, v, lse, do, delta, q_off, kv_off, causal, window, None)
+        row["dq_ms"] = time_ms(lambda: fa._flash_bwd_cuda(*args, True, False))
+        row["dkv_ms"] = time_ms(lambda: fa._flash_bwd_cuda(*args, False, True))
+        row["dq_bound_ms"], row["dq_bound_by"] = bwd_bound_ms(
+            b, sq, skv, hq, hkv, hd, pairs, 6, 0)
+        row["dkv_bound_ms"], row["dkv_bound_by"] = bwd_bound_ms(
+            b, sq, skv, hq, hkv, hd, pairs, 8, 2)
+        row["plain_ms"] = time_ms(
+            lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, q_off,
+                                                     kv_off, **kw),
+            reps=3, warmup=1)
+        # SDPA (a yardstick the port never calls): forward+backward minus
+        # forward, [B, H, S, hd] copies made outside the timing
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        row["sdpa_fwd_ms"] = time_ms(sdpa)
+        row["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
+        row["library_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
+        row["visible_pairs"] = pairs * b * hq
+        for kname, ops in (("dq", 6), ("dkv", 8)):
+            row[f"{kname}_tflops"] = ops * hd * pairs * b * hq / row[f"{kname}_ms"] / 1e9
+    emit(row)
+    if not ok:
+        raise SystemExit(f"backward case {name} disagrees with its plain version: {row}")
+    return row
+
+
+def changed_fraction(before, after) -> float:
+    """Share of elements that differ between two lists of tensors."""
+    changed = sum(int((a != b).sum()) for a, b in zip(before, after))
+    return changed / sum(a.numel() for a in before)
+
+
+def named_leaves(params):
+    """(kind, tensor) in the order of nos_tpu_torch.parallel.train.tree_leaves."""
+    for key, value in params.items():
+        if key == "layers":
+            for layer in value:
+                yield from layer.items()
+        else:
+            yield key, value
+
+
+def train_grads_phase(card) -> dict:
+    """llama_loss gradients at full width, 2 layers, [1, 1024]: the flash
+    path (kernels) against the dense path (autograd of the einsums)."""
+    import torch
+
+    from nos_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), n_layers=2,
+                              attention="flash")
+    dense_cfg = dataclasses.replace(cfg, attention="dense")
+    params = llama.init_llama_params(cfg, seed=5, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen, device="cuda")
+    named = list(named_leaves(params))
+    leaves = [t.requires_grad_(True) for _, t in named]
+
+    def loss_and_grads(c):
+        loss = llama.llama_loss(params, tokens, c)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    loss_f, grads_f = loss_and_grads(cfg)
+    torch.cuda.synchronize()
+    launches = counts()
+    loss_d, grads_d = loss_and_grads(dense_cfg)
+    diff, ref = {}, {}
+    for (kind, _), gf, gd in zip(named, grads_f, grads_d):
+        diff[kind] = max(diff.get(kind, 0.0), float((gf.float() - gd.float()).abs().max()))
+        ref[kind] = max(ref.get(kind, 0.0), float(gd.float().abs().max()))
+    rel = {kind: diff[kind] / ref[kind] for kind in diff}
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in grads_f)
+    loss_diff = abs(float(loss_f) - float(loss_d))
+    row = {"phase": "train_grads", "layers": 2, "tokens": [1, 1024],
+           "loss_flash": float(loss_f), "loss_dense": float(loss_d),
+           "loss_abs_diff": loss_diff, "loss_limit": LOSS_LIMIT,
+           "grad_rel_err": rel, "grad_rel_limit": GRAD_REL_LIMIT,
+           "launches_fwd_dq_dkv": list(launches), "finite": finite, "card": card}
+    row["ok"] = (finite and loss_diff <= LOSS_LIMIT
+                 and max(rel.values()) <= GRAD_REL_LIMIT
+                 and launches == (cfg.n_layers,) * 3)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"flash gradients disagree with dense: {row}")
+    return row
+
+
+def train_phase(card) -> dict:
+    """The trainer's main path: Llama-3-8B, full width and depth, flash +
+    remat, built-in momentum SGD, batches from BatchLoader through
+    prefetch_to_device."""
+    import numpy as np
+    import torch
+
+    from nos_tpu_torch.data import BatchLoader, prefetch_to_device
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import make_train_step
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash",
+                              remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    # bf16 weights of order 2^-6 have a half-ulp of 6e-5: an SGD update
+    # below that rounds away, and at lr 1e-3 none of the probed weights
+    # moved in three steps from the random init. lr 1.0 makes the update
+    # visible; the step's work is the same at any lr.
+    step, shard_state = make_train_step(None, cfg, learning_rate=1.0)
+    state = shard_state(llama.init_llama_params(cfg, seed=7, device="cuda"),
+                        donate=True)
+    params = state[0]
+    probes = [params["lm_head"], params["layers"][0]["wq"],
+              params["layers"][-1]["w_down"]]
+    before = [t.detach().clone() for t in probes]
+    layer_mm = sum(params["layers"][0][key].numel() for key in
+                   ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+    matmul_params = layer_mm * cfg.n_layers + params["lm_head"].numel()
+    corpus = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=1 << 22).astype(np.int32)
+    loader = BatchLoader(corpus, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=7)
+    stream = prefetch_to_device(iter(loader))
+    torch.cuda.synchronize()
+    zero_counts()  # the main path: every launch from here on is the trainer's
+    step_ms, losses, per_step = [], [], []
+    for _ in range(4):  # one warm-up, three timed
+        at_start = counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, next(stream))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        per_step.append(tuple(a - b for a, b in zip(counts(), at_start)))
+    totals = counts()
+    timed_ms = statistics.median(step_ms[1:])
+    holder = [state]
+
+    def more_steps(n):
+        for _ in range(n):
+            holder[0], _ = step(holder[0], next(stream))
+        torch.cuda.synchronize()
+
+    # one more step under torch.profiler, after the counts were read
+    emit(profile_steps(more_steps, card, timed_ms, steps=1, phase="train_profile"))
+    stream.close()
+    losses = [float(x) for x in losses]
+    changed = changed_fraction(before, probes)
+    del before
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2 * TRAIN_BATCH * cfg.n_heads
+    flops = 6.0 * matmul_params * tokens + 3 * 4.0 * cfg.head_dim * pairs * cfg.n_layers
+    expect = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    row = {"phase": "train", "config": "llama_3_8b", "layers": cfg.n_layers,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "optimizer": "momentum_sgd(lr=1.0, momentum=0.9)",
+           "remat": True, "step_ms": step_ms, "ms_per_step": timed_ms,
+           "tokens_per_s": tokens / timed_ms * 1e3,
+           "model_flops_per_step": flops,
+           "mfu": flops / (timed_ms / 1e3) / PEAK_BF16_FLOPS,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step_fwd_dq_dkv": [list(x) for x in per_step],
+           "launches_total_fwd_dq_dkv": list(totals), "losses": losses,
+           "probed_params_changed_fraction": changed, "card": card}
+    row["ok"] = (all(x == expect for x in per_step) and changed > 0
+                 and all(np.isfinite(losses)))
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"train phase failed: {row}")
+    return row
+
+
+def train_adamw_phase(card) -> dict:
+    """4 layers at full width, the AdamW factory, accum_steps=2."""
+    import numpy as np
+    import torch
+
+    from nos_tpu_torch.data import BatchLoader, prefetch_to_device
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import make_train_step
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), n_layers=4,
+                              attention="flash", remat=True)
+    factory = functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=0.01)
+    step, shard_state = make_train_step(None, cfg, optimizer=factory, accum_steps=2)
+    state = shard_state(llama.init_llama_params(cfg, seed=9, device="cuda"),
+                        donate=True)
+    corpus = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=1 << 20).astype(np.int32)
+    stream = prefetch_to_device(iter(BatchLoader(corpus, batch=4, seq_len=TRAIN_SEQ,
+                                                 seed=9)))
+    probe = state[0]["layers"][3]["w_down"]
+    before = [probe.detach().clone()]
+    zero_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        state, loss = step(state, next(stream))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stream.close()
+    losses = [float(x) for x in losses]
+    launches = counts()
+    expect = (2 * 2 * 2 * cfg.n_layers, 2 * 2 * cfg.n_layers, 2 * 2 * cfg.n_layers)
+    changed = changed_fraction(before, [probe])
+    row = {"phase": "train_adamw", "layers": cfg.n_layers, "batch": [4, TRAIN_SEQ],
+           "accum_steps": 2, "optimizer": "torch.optim.AdamW(lr=1e-4, wd=0.01)",
+           "losses": losses, "seconds": wall, "launches_fwd_dq_dkv": list(launches),
+           "probed_params_changed_fraction": changed, "card": card}
+    row["ok"] = bool(all(np.isfinite(losses)) and changed > 0 and launches == expect)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"train_adamw phase failed: {row}")
+    return row
+
+
+def profile_steps(run_steps, card, step_ms: float, steps: int = 8,
+                  phase: str = "decode_profile") -> dict:
+    """torch.profiler over ``run_steps(steps)``: device-busy time, the
     idle share of the wall time (profiled, and against the unprofiled
     ``step_ms``), kernel launches, top kernels."""
     import torch
@@ -182,7 +504,7 @@ def profile_decode(decode_steps, card, step_ms: float, steps: int = 8) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        decode_steps(steps)
+        run_steps(steps)
         wall_us = (time.time() - t0) * 1e6
     kernels = []
     for ev in prof.key_averages():
@@ -195,7 +517,7 @@ def profile_decode(decode_steps, card, step_ms: float, steps: int = 8) -> dict:
     busy_us = sum(us for us, _, _ in kernels)
     kernels.sort(reverse=True)
     return {
-        "phase": "decode_profile", "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+        "phase": phase, "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,
         "device_idle_share_unprofiled": 1.0 - busy_us / steps / 1e3 / step_ms,
@@ -244,10 +566,25 @@ def main() -> int:
     check_attention(card, "block_kv_offset", 1, 512, 512, q_off=1024, kv_off=512)
     check_attention(card, "block_fully_future", 1, 256, 256, q_off=0,
                     kv_off=4096, timed=False)
+    check_attention(card, "train_shape_b4_s2048", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ)
+
+    # the seven backward cases of tests/test_torch_cuda.py, then the
+    # training shape, timed
+    check_backward(card, "causal_b2_s128_hq4", 2, 128, 128, hq=4, hkv=2)
+    check_backward(card, "causal_ragged_s100", 1, 100, 100, hq=8, hkv=2)
+    check_backward(card, "window37_mqa_hd64_s200", 1, 200, 200, hq=4, hkv=1,
+                   hd=64, window=37)
+    check_backward(card, "noncausal_ragged_s77", 2, 77, 77, hq=4, hkv=4,
+                   causal=False)
+    check_backward(card, "block_all_past", 1, 64, 96, hq=4, hkv=2, q_off=96)
+    check_backward(card, "block_window_offsets", 1, 64, 96, hq=4, hkv=2,
+                   q_off=40, kv_off=20, window=50)
+    check_backward(card, "block_fully_future", 1, 64, 64, hq=4, hkv=2,
+                   kv_off=1000)
+    bwd_case = check_backward(card, "train_shape_b4_s2048", TRAIN_BATCH,
+                              TRAIN_SEQ, TRAIN_SEQ, timed=True)
 
     # ------------------------------------------------------------- model
-    import dataclasses
-
     from nos_tpu_torch.models import generate as gen_mod
     from nos_tpu_torch.models import llama
 
@@ -329,7 +666,7 @@ def main() -> int:
               "ms_per_step": step_ms,
               "weight_read_bound_ms": 2 * n_params / PEAK_HBM_BYTES_S * 1e3,
               "card": card})
-        emit(profile_decode(decode_steps, card, step_ms))
+        emit(profile_steps(decode_steps, card, step_ms))
     del cache
 
     # a small input against a reference: the same tiny model on the CPU
@@ -391,6 +728,16 @@ def main() -> int:
     if not eng_ok:
         raise SystemExit(f"engine failed: lengths ok {lens_ok}, prefix hits {hits}")
 
+    # ---------------------------------------------------------- training
+    # the serving weights and caches go first: the trainer needs ~51 GB
+    del eng, params, prompt, out, tiny_gpu, tiny_cpu
+    torch.cuda.empty_cache()
+    train_grads_phase(card)
+    torch.cuda.empty_cache()
+    train = train_phase(card)
+    torch.cuda.empty_cache()
+    train_adamw_phase(card)
+
     # ----------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "flash_fwd",
@@ -405,8 +752,27 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "shape": "q [2,512,32,128], k/v [2,512,8,128] bf16 causal",
+        "launches_train": train["launches_total_fwd_dq_dkv"][0],
         "check": "pass",
-    }], "seconds": time.time() - t_start, "card": card})
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "nos_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": replaces,
+        "launches": train["launches_total_fwd_dq_dkv"][index],
+        "max_abs_err": max(bwd_case[f"{g}_max_abs_err"] for g in grads),
+        "ms": bwd_case[f"{key}_ms"],
+        "plain_ms": bwd_case["plain_ms"],
+        "bound_ms": bwd_case[f"{key}_bound_ms"],
+        "bound_by": bwd_case[f"{key}_bound_by"],
+        "library_ms": bwd_case["library_ms"],
+        "shape": "q/dO [4,2048,32,128], k/v [4,2048,8,128] bf16 causal",
+        "plain_and_library_cover": "dq, dk and dv together",
+        "check": "pass",
+    } for name, replaces, index, key, grads in (
+        ("flash_dq", "nos_tpu/ops/flash_attention.py:326", 1, "dq", ("dq",)),
+        ("flash_dkv", "nos_tpu/ops/flash_attention.py:368", 2, "dkv", ("dk", "dv")),
+    )], "seconds": time.time() - t_start, "card": card})
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

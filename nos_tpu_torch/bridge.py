@@ -6,6 +6,12 @@ the caller's side; this module never imports jax) and returns the port's
 dict with the same keys and the same ``[in, out]`` layout. bf16 leaves
 arrive as ``ml_dtypes`` arrays that torch cannot read: they are widened
 to f32 (exact) and cast to ``config.dtype``.
+
+``params_to_numpy`` goes the other way, so a caller can hold the port's
+params against the reference's after a training step: f32 leaves come
+back as f32 arrays and bf16 leaves as ``ml_dtypes.bfloat16`` arrays
+(jax's own bf16 numpy type), bit for bit. A velocity tree has the
+params' structure and crosses through ``params_from_numpy`` as it is.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import numpy as np
 import torch
 
 from nos_tpu_torch import _resolve_device
-from nos_tpu_torch.models.llama import LlamaConfig, _check_slice
+from nos_tpu_torch.models.llama import LlamaConfig, _check_slice, tree_map
 
 _LAYER_KEYS = (
     "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down",
@@ -62,3 +68,18 @@ def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig, device=None):
             for key in _LAYER_KEYS
         })
     return out
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # jax's bf16 numpy type; only this direction needs it
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's params (or a tree of their shape) → the same tree with
+    numpy leaves on the host, each leaf's bits unchanged."""
+    return tree_map(_array, params)

@@ -1,5 +1,10 @@
 """The Llama-family decoder and its KV-cache generation, in PyTorch."""
 
-from nos_tpu_torch.models.llama import LlamaConfig, init_llama_params, llama_forward
+from nos_tpu_torch.models.llama import (
+    LlamaConfig,
+    init_llama_params,
+    llama_forward,
+    llama_loss,
+)
 
-__all__ = ["LlamaConfig", "init_llama_params", "llama_forward"]
+__all__ = ["LlamaConfig", "init_llama_params", "llama_forward", "llama_loss"]

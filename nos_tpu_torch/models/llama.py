@@ -13,6 +13,9 @@ unembedded in the model dtype then cast to f32.
 ``attention="flash"`` runs the hand-written Hopper kernel on a CUDA
 tensor and its plain version on a CPU one (``nos_tpu_torch.ops``).
 
+``llama_loss`` is the training objective; gradients of the flash branch
+run the hand-written backward kernels (``nos_tpu_torch.ops``).
+
 Not in this slice (each raises NotImplementedError naming its ROADMAP
 item): a ``mesh``, ``n_experts > 0``, quantized / LoRA weight leaves.
 """
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List
 
 import torch
 import torch.nn.functional as F
@@ -182,6 +185,29 @@ def init_llama_params(config: LlamaConfig, seed: int = 0, device=None) -> Params
             "w_down": dense((c.d_ff, c.d_model), c.d_ff),
         })
     return params
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a params-shaped tree (dicts in key order, lists in
+    order): one fixed order for params, gradients and velocity."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for key in tree for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    raise TypeError(f"params tree holds a {type(tree).__name__}")
+
+
+def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
+    """``fn`` on every tensor of a params-shaped tree, same structure."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, item) for item in tree)
+    raise TypeError(f"params tree holds a {type(tree).__name__}")
 
 
 def params_device(params: Params) -> torch.device:
@@ -347,8 +373,12 @@ def _mlp(x: torch.Tensor, layer: Params, act: str = "silu") -> torch.Tensor:
 
 
 def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
-                  mesh=None) -> torch.Tensor:
-    """tokens [B, S] int → logits [B, S, vocab] (float32)."""
+                  mesh=None, with_aux: bool = False):
+    """tokens [B, S] int → logits [B, S, vocab] (float32). ``with_aux``
+    also returns the summed MoE load-balancing loss: a 0-d f32 zero, as
+    every model of this slice is dense. With ``remat`` and gradients on,
+    each block is checkpointed and recomputed (flash kernel included) in
+    the backward."""
     c = config
     _check_slice(c, mesh)
     tokens = tokens.to(params_device(params))
@@ -372,7 +402,10 @@ def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
         else:
             x = block(x, layer)
     x = _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset)
-    return _unembed(params, x).float()
+    logits = _unembed(params, x).float()
+    if with_aux:
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits
 
 
 def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -382,3 +415,13 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits_t, dim=-1)
     picked = torch.gather(logits_t, -1, targets[..., None])[..., 0]
     return (lse - picked).mean()
+
+
+def llama_loss(params: Params, tokens: torch.Tensor, config: LlamaConfig,
+               mesh=None) -> torch.Tensor:
+    """Next-token cross entropy over shifted tokens: the forward runs on
+    the full sequence and the last position's logits are dropped. The
+    reference adds the MoE balance loss for ``n_experts > 0``, which
+    this slice refuses (``_check_slice``), so the loss is the NLL."""
+    logits, _ = llama_forward(params, tokens, config, mesh, with_aux=True)
+    return next_token_nll(logits, tokens)

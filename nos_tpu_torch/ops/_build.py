@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # Every kernel source of the port (csrc/<name>.cu).
-KERNELS = ("flash_fwd",)
+KERNELS = ("flash_fwd", "flash_bwd")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

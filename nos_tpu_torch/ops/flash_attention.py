@@ -1,20 +1,29 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: hand-written Hopper kernels and
+their plain PyTorch versions.
 
-Counterpart of ``nos_tpu/ops/flash_attention.py`` (forward only: the two
-backward kernels are the training slice, still to port). Public layout is
-the reference's: q ``[B, Sq, Hq, hd]``, k/v ``[B, Skv, Hkv, hd]``; the
-kernel reads them through strides, so no transposed copies are made.
+Counterpart of ``nos_tpu/ops/flash_attention.py``. Public layout is the
+reference's: q ``[B, Sq, Hq, hd]``, k/v ``[B, Skv, Hkv, hd]``; the kernels
+read them through strides, so no transposed copies are made.
 
 Dispatch is by the tensors' device and nothing else: a CUDA tensor
-launches ``csrc/flash_fwd.cu`` (built by nvcc at first use, see
-``_build.py``) or raises; a CPU tensor runs ``flash_attention_reference``,
-the plain version that repeats the kernel's arithmetic (f32 scores and
-softmax statistics, probabilities rounded to the value dtype before the
-PV product, O = 0 and LSE = -inf for a row with no visible key).
+launches the kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, built
+by nvcc at first use, see ``_build.py``) or raises; a CPU tensor runs the
+plain versions that repeat the kernels' arithmetic:
+``flash_attention_reference`` (f32 scores and softmax statistics,
+probabilities rounded to the value dtype before the PV product, O = 0 and
+LSE = -inf for a row with no visible key) and
+``flash_attention_bwd_reference`` (probabilities recomputed from the LSE,
+p and dS rounded to q's dtype before their second products, f32 sums,
+dK/dV summed over the GQA group in f32 and cast once).
 
-``LAUNCHES`` counts kernel launches (never plain-version calls), so a run
-can show that its main path went through the kernel.
+``flash_attention`` is differentiable through ``_FlashAttention``, a
+``torch.autograd.Function`` (the reference's ``custom_vjp``): it saves
+(q, k, v, out, lse) and its backward runs the dQ and dK/dV kernels.
+``flash_block_grads`` is the ring path's explicit per-block backward.
+
+``LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count kernel launches
+(never plain-version calls), so a run can show that its main path went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -23,8 +32,11 @@ import math
 
 import torch
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset them to 0):
+# forward, dQ and dK/dV.
 LAUNCHES = 0
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
 
 # The CUDA kernel's tile: 64 query rows per block, 64 keys per K/V tile.
 BLOCK_M = 64
@@ -138,37 +150,63 @@ def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
-def _kernel_symbol():
-    """The launcher of csrc/flash_fwd.cu, built and typed on first use.
-    Every pointer and the stream are c_void_p (a bare int would be cut
-    to 32 bits)."""
-    from nos_tpu_torch.ops import _build
-
-    fn = _build.load("flash_fwd").nos_flash_fwd_bf16
+def _typed(fn, argtypes):
+    """Set a ctypes launcher's signature once. Every pointer and the
+    stream are c_void_p (a bare int would be cut to 32 bits)."""
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.POINTER(ctypes.c_longlong)
-        ] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = argtypes
     return fn
 
 
-def _flash_fwd_cuda(q, k, v, q_offset, kv_offset, causal, window):
-    global LAUNCHES
-    for name, x in (("q", q), ("k", k), ("v", v)):
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+
+
+def _kernel_symbol():
+    """The launcher of csrc/flash_fwd.cu, built and typed on first use."""
+    from nos_tpu_torch.ops import _build
+
+    return _typed(
+        _build.load("flash_fwd").nos_flash_fwd_bf16,
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [_STRIDES]
+        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    )
+
+
+def _bwd_symbols():
+    """The dQ and dK/dV launchers of csrc/flash_bwd.cu."""
+    from nos_tpu_torch.ops import _build
+
+    lib = _build.load("flash_bwd")
+    tail = [ctypes.c_int] * 6 + [_STRIDES] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    return (
+        _typed(lib.nos_flash_bwd_dq, [ctypes.c_void_p] * 7 + tail),
+        _typed(lib.nos_flash_bwd_dkv, [ctypes.c_void_p] * 8 + tail),
+    )
+
+
+def _check_kernel_operands(hd: int, **tensors) -> None:
+    """What the kernels take: bf16 operands, head_dim 64 or 128, one
+    device. Anything else raises; nothing falls back."""
+    for name, x in tensors.items():
         if x.dtype != torch.bfloat16:
             raise TypeError(f"the CUDA flash kernel takes bf16; {name} is {x.dtype}")
-    hd = q.shape[3]
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"the CUDA flash kernel is built for head_dim in {KERNEL_HEAD_DIMS}, "
             f"got {hd}"
         )
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash attention backward kernels are not ported yet "
-            "(ROADMAP Queue 1 item 6: training slice)"
-        )
+    devices = {x.device for x in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"the flash kernel's operands lie on several devices: {devices}")
+
+
+def _flash_fwd_cuda(q, k, v, q_offset, kv_offset, causal, window):
+    global LAUNCHES
+    hd = q.shape[3]
+    _check_kernel_operands(hd, q=q, k=k, v=v)
     q, k, v = (_kernel_ready(x) for x in (q, k, v))
     b, sq, hq, _ = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -192,15 +230,19 @@ def _flash_fwd_cuda(q, k, v, q_offset, kv_offset, causal, window):
     return out, lse
 
 
+def _check_tiles(blk_q, blk_k) -> None:
+    if blk_q not in (None, BLOCK_M) or blk_k not in (None, BLOCK_N):
+        raise ValueError(
+            f"the CUDA kernel's tiles are fixed at {BLOCK_M}x{BLOCK_N}; "
+            f"got blk_q={blk_q}, blk_k={blk_k}"
+        )
+
+
 def _forward(q, k, v, q_offset, kv_offset, causal, window, blk_q, blk_k):
     _check_inputs(q, k, v)
     validate_window(causal, window)
     if q.device.type == "cuda":
-        if blk_q not in (None, BLOCK_M) or blk_k not in (None, BLOCK_N):
-            raise ValueError(
-                f"the CUDA kernel's tiles are fixed at {BLOCK_M}x{BLOCK_N}; "
-                f"got blk_q={blk_q}, blk_k={blk_k}"
-            )
+        _check_tiles(blk_q, blk_k)
         return _flash_fwd_cuda(q, k, v, q_offset, kv_offset, causal, window)
     if q.device.type == "cpu":
         return flash_attention_reference(
@@ -208,6 +250,185 @@ def _forward(q, k, v, q_offset, kv_offset, causal, window, blk_q, blk_k):
             blk_k=blk_k,
         )
     raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+
+
+# ----------------------------------------------------------------- backward
+
+
+def flash_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta_i = rowsum(dO_i * O_i) in f32: [B, S, H, hd] inputs →
+    [B, H, S, 1] (the reference's ``_delta``)."""
+    d = (do.float() * out.float()).sum(dim=-1)
+    return d.transpose(1, 2).unsqueeze(-1).contiguous()
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+    *,
+    causal: bool = True,
+    window: "int | None" = None,
+    grad_dtype=None,
+    delta: "torch.Tensor | None" = None,
+    blk_k: "int | None" = None,
+):
+    """The plain version of both backward kernels → (dq [B, Sq, Hq, hd],
+    dk, dv [B, Skv, Hkv, hd]): the contribution of this K/V block, at
+    these global offsets, given the full attention's ``out`` and ``lse``
+    ([B, Hq, Sq, 1]). Mirrors ``_bwd_p_ds``: f32 scores, p = 0 where lse
+    is -inf or the pair is masked, p and dS rounded to q's dtype before
+    the dV / dK / dQ products, f32 sums (dK/dV over the GQA group too),
+    one cast to ``grad_dtype`` (else q's / k's dtype) at the end. Key
+    tiles of ``blk_k`` (default four kernel tiles) bound the memory of
+    its f32 score tiles; they change no result."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    blk = blk_k or 4 * BLOCK_N
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    if delta is None:
+        delta = flash_delta(do, out)
+    qf = q.float().reshape(b, sq, hkv, group, hd)
+    dof = do.float().reshape(b, sq, hkv, group, hd)
+    lse_g = lse.float().reshape(b, hkv, group, sq, 1)
+    finite = torch.isfinite(lse_g)
+    safe_lse = torch.where(finite, lse_g, 0.0)
+    delta_g = delta.float().reshape(b, hkv, group, sq, 1)
+    qpos = int(q_offset) + torch.arange(sq, device=dev)
+    dq = torch.zeros((b, sq, hkv, group, hd), device=dev)
+    dk = torch.empty((b, skv, hkv, hd), device=dev)
+    dv = torch.empty((b, skv, hkv, hd), device=dev)
+    for n0 in range(0, skv, blk):
+        kt = k[:, n0:n0 + blk].float()
+        vt = v[:, n0:n0 + blk].float()
+        s = torch.einsum("bsKgh,btKh->bKgst", qf, kt) * scale
+        p = torch.where(finite, torch.exp(s - safe_lse), 0.0)
+        if causal:
+            kpos = int(kv_offset) + torch.arange(n0, n0 + kt.shape[1], device=dev)
+            visible = kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                visible = visible & (qpos[:, None] - kpos[None, :] < window)
+            p = torch.where(visible, p, 0.0)
+        dp = torch.einsum("bsKgh,btKh->bKgst", dof, vt)
+        ds = p * (dp - delta_g) * scale
+        # the kernels' rounding points: bf16 operands of the second products
+        p_r = p.to(q.dtype).float()
+        ds_r = ds.to(q.dtype).float()
+        dv[:, n0:n0 + blk] = torch.einsum("bKgst,bsKgh->btKh", p_r, dof)
+        dk[:, n0:n0 + blk] = torch.einsum("bKgst,bsKgh->btKh", ds_r, qf)
+        dq += torch.einsum("bKgst,btKh->bsKgh", ds_r, kt)
+    return (
+        dq.reshape(b, sq, hq, hd).to(grad_dtype or q.dtype),
+        dk.to(grad_dtype or k.dtype),
+        dv.to(grad_dtype or k.dtype),
+    )
+
+
+def _flash_bwd_cuda(q, k, v, lse, do, delta, q_offset, kv_offset, causal,
+                    window, grad_dtype, need_dq=True, need_dkv=True):
+    """Launch the dQ and/or dK/dV kernels; a gradient not asked for is
+    returned as None and its kernel is not launched."""
+    global DQ_LAUNCHES, DKV_LAUNCHES
+    hd = q.shape[3]
+    _check_kernel_operands(hd, q=q, k=k, v=v, do=do)
+    if lse.device != q.device or delta.device != q.device:
+        raise ValueError("lse and delta must lie on q's device")
+    if grad_dtype not in (None, torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA flash backward writes bf16 or f32, not {grad_dtype}")
+    if tuple(lse.shape) != (q.shape[0], q.shape[2], q.shape[1], 1):
+        raise ValueError(f"lse must be [B, Hq, Sq, 1], got {tuple(lse.shape)}")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError("lse and delta must be f32")
+    if tuple(delta.shape) != tuple(lse.shape):
+        raise ValueError(f"delta must be [B, Hq, Sq, 1], got {tuple(delta.shape)}")
+    out_dtype = grad_dtype or torch.bfloat16
+    out_f32 = int(out_dtype == torch.float32)
+    q, k, v, do = (_kernel_ready(x) for x in (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    b, sq, hq, _ = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    args = (int(q_offset), int(kv_offset), int(bool(causal)),
+            0 if window is None else int(window), 1.0 / math.sqrt(hd), out_f32)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    in_strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    dq_fn, dkv_fn = _bwd_symbols()
+    dq = dk = dv = None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if need_dq:
+            dq = torch.empty((b, sq, hq, hd), dtype=out_dtype, device=q.device)
+            strides = (ctypes.c_longlong * 15)(*in_strides, *dq.stride()[:3])
+            err = dq_fn(*ins, dq.data_ptr(), b, sq, skv, hq, hkv, hd, strides,
+                        *args, stream)
+            if err != 0:
+                raise RuntimeError(f"flash dQ kernel launch failed: cudaError {err}")
+            DQ_LAUNCHES += 1
+        if need_dkv:
+            dk = torch.empty((b, skv, hkv, hd), dtype=out_dtype, device=q.device)
+            dv = torch.empty_like(dk)
+            strides = (ctypes.c_longlong * 18)(
+                *in_strides, *dk.stride()[:3], *dv.stride()[:3]
+            )
+            err = dkv_fn(*ins, dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv,
+                         hd, strides, *args, stream)
+            if err != 0:
+                raise RuntimeError(f"flash dK/dV kernel launch failed: cudaError {err}")
+            DKV_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def _backward(q, k, v, out, lse, do, q_offset, kv_offset, causal, window,
+              blk_k=None, grad_dtype=None, delta=None, need_dq=True,
+              need_dkv=True):
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(
+            f"do {tuple(do.shape)} and out {tuple(out.shape)} must have q's "
+            f"shape {tuple(q.shape)}"
+        )
+    if delta is None:
+        delta = flash_delta(do, out)
+    if q.device.type == "cuda":
+        return _flash_bwd_cuda(q, k, v, lse, do, delta, q_offset, kv_offset,
+                               causal, window, grad_dtype, need_dq, need_dkv)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, out, lse, do, q_offset, kv_offset, causal=causal,
+            window=window, grad_dtype=grad_dtype, delta=delta, blk_k=blk_k,
+        )
+    raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` (``_flash``): the forward kernel,
+    then a backward that recomputes the probabilities from the saved LSE
+    in the dQ and dK/dV kernels. Under ``torch.utils.checkpoint`` the
+    forward runs again in the backward pass, as ``jax.checkpoint`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, blk_q, blk_k):
+        out, lse = _forward(q, k, v, 0, 0, causal, window, blk_q, blk_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.blk_k = causal, window, blk_k
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        dq, dk, dv = _backward(
+            q, k, v, out, lse, do, 0, 0, ctx.causal, ctx.window, ctx.blk_k,
+            need_dq=need_q, need_dkv=need_k or need_v,
+        )
+        return (dq if need_q else None, dk if need_k else None,
+                dv if need_v else None, None, None, None, None)
 
 
 def flash_attention(
@@ -226,8 +447,9 @@ def flash_attention(
     ragged edge itself. ``window`` (requires causal): query i attends
     keys (i - window, i]; tiles outside the band are skipped.
     ``blk_q``/``blk_k`` set the plain version's key tiling on the CPU;
-    on the card they must be None or the kernel's own 64 x 64."""
-    return _forward(q, k, v, 0, 0, causal, window, blk_q, blk_k)[0]
+    on the card they must be None or the kernel's own 64 x 64.
+    Differentiable: the backward runs the dQ and dK/dV kernels."""
+    return _FlashAttention.apply(q, k, v, causal, window, blk_q, blk_k)
 
 
 def flash_attention_block(
@@ -246,8 +468,50 @@ def flash_attention_block(
     [B, Skv, Hkv, hd] whose global positions start at the given offsets
     → (out [B, Sq, Hq, hd], lse [B, Hq, Sq, 1] f32). Rows with no
     visible key in this block give out = 0 and lse = -inf, so partials
-    merge exactly with ``merge_flash_partials``."""
+    merge exactly with ``merge_flash_partials``. Not differentiable on
+    the card (as the reference's is not): the ring path takes its
+    gradients from ``flash_block_grads``."""
+    if q.device.type == "cuda" and torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad
+    ):
+        raise NotImplementedError(
+            "flash_attention_block records no autograd graph on the card; "
+            "take per-block gradients with flash_block_grads"
+        )
     return _forward(q, k, v, q_offset, kv_offset, causal, window, blk_q, blk_k)
+
+
+def flash_block_grads(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    q_offset: int,
+    kv_offset: int,
+    *,
+    causal: bool = True,
+    blk_q: "int | None" = None,
+    blk_k: "int | None" = None,
+    grad_dtype=None,
+    delta: "torch.Tensor | None" = None,
+    window: "int | None" = None,
+):
+    """Per-block gradients matching ``flash_attention_block``: the
+    contribution of THIS K/V block to (dq [B, Sq, Hq, hd], dk, dv
+    [B, Skv, Hkv, hd]), given the MERGED (out, lse) of the full
+    attention. ``grad_dtype`` (f32 for the ring path, which sums the
+    contributions across hops) overrides the input dtypes; ``delta``
+    ([B, Hq, Sq, 1] f32) lets a caller precompute rowsum(do * out) once.
+    On the card it runs the dQ and dK/dV kernels; on the CPU their
+    plain version, over key tiles of ``blk_k``."""
+    _check_inputs(q, k, v)
+    validate_window(causal, window)
+    if q.device.type == "cuda":
+        _check_tiles(blk_q, blk_k)
+    return _backward(q, k, v, out, lse, do, q_offset, kv_offset, causal,
+                     window, blk_k, grad_dtype, delta)
 
 
 def merge_flash_partials(out_a, lse_a, out_b, lse_b):

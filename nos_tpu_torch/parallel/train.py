@@ -1,0 +1,131 @@
+"""The training step on one device.
+
+Counterpart of ``nos_tpu/parallel/train.py:make_train_step`` without a
+mesh: loss → gradients → optimizer update. There is no ``jit`` and no
+sharding; the step runs eagerly on one device, and ``attention="flash"``
+takes its gradients from the hand-written backward kernels.
+
+State is ``(params, velocity)`` for the built-in momentum SGD, whose
+velocity tree has the params' structure, or ``(params, optimizer)`` with
+a ``torch.optim.Optimizer`` in the place of the optax state.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import torch
+
+from nos_tpu_torch import _resolve_device
+from nos_tpu_torch.models.llama import (
+    LlamaConfig,
+    Params,
+    llama_loss,
+    tree_leaves,
+    tree_map,
+)
+
+
+def make_train_step(
+    mesh,
+    config: LlamaConfig,
+    learning_rate: float = 1e-3,
+    momentum: float = 0.9,
+    optimizer: Optional[Callable[[List[torch.Tensor]], torch.optim.Optimizer]] = None,
+    accum_steps: int = 1,
+    device=None,
+):
+    """Returns ``(train_step, shard_state)`` where
+    ``train_step(state, tokens) -> (state, loss)``, ``loss`` a 0-d tensor
+    on the device (no host sync).
+
+    Built-in update (``optimizer=None``, state ``(params, velocity)``):
+    ``v = momentum * v + g``, ``p -= learning_rate * v``, each rounded to
+    the param dtype as the reference rounds it. The update runs IN PLACE
+    under ``torch.no_grad()``, in the place of the reference's buffer
+    donation: the state passed in is the state returned, updated.
+
+    ``optimizer``: a factory ``params_list -> torch.optim.Optimizer`` in
+    the place of an optax transformation, e.g.
+    ``functools.partial(torch.optim.AdamW, lr=..., weight_decay=...)``.
+    The optimizer then owns the hyperparameters, so non-default
+    ``learning_rate`` / ``momentum`` beside it raise.
+
+    ``accum_steps`` > 1: ``tokens`` [accum * B, S] runs as ``accum_steps``
+    micro-batches in turn (one backward's activations live at a time),
+    gradients summed in f32, scaled by 1 / accum_steps and cast back to
+    the param dtype before one update; the loss is the micro-batch mean.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh / sharded training is not ported yet "
+            "(ROADMAP Queue 1 item 9: multi-device)"
+        )
+    if optimizer is not None and (learning_rate != 1e-3 or momentum != 0.9):
+        raise ValueError(
+            "learning_rate/momentum configure the built-in SGD update; an "
+            "optimizer factory carries its own hyperparameters — set them "
+            "there instead"
+        )
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    dev = _resolve_device(device)
+
+    def grads_of(params: Params, leaves, tokens):
+        if accum_steps == 1:
+            loss = llama_loss(params, tokens, config)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+        total_b = tokens.shape[0]
+        if total_b % accum_steps:
+            raise ValueError(
+                f"batch {total_b} is not divisible by accum_steps {accum_steps}"
+            )
+        micro = tokens.reshape(accum_steps, total_b // accum_steps, -1)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in leaves]
+        for batch in micro:
+            loss = llama_loss(params, batch, config)
+            for acc, g in zip(g_sum, torch.autograd.grad(loss, leaves)):
+                acc += g.float()
+            loss_sum += loss.detach()
+        scale = 1.0 / accum_steps
+        grads = [(g * scale).to(p.dtype) for g, p in zip(g_sum, leaves)]
+        return loss_sum * scale, grads
+
+    def train_step(state, tokens):
+        params, opt = state
+        tokens = torch.as_tensor(tokens, device=dev)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, grads = grads_of(params, leaves, tokens)
+        if optimizer is not None:
+            for p, g in zip(leaves, grads):
+                p.grad = g
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            return (params, opt), loss
+        with torch.no_grad():
+            for p, v, g in zip(leaves, tree_leaves(opt), grads):
+                v.mul_(momentum).add_(g.to(v.dtype))
+                p.sub_(v * learning_rate)
+        return (params, opt), loss
+
+    def shard_state(params: Params, donate: bool = False):
+        """Place (params, optimizer state) on the device: zero velocity
+        for the built-in SGD, ``optimizer(params_list)`` otherwise. By
+        default the params are copied, so the caller's tensors stay valid
+        and untouched by the in-place updates; ``donate=True`` hands them
+        over instead (no copy when they already lie on the device), which
+        halves peak memory for freshly initialised params."""
+        if donate:
+            params = tree_map(lambda p: p.detach().to(dev), params)
+        else:
+            params = tree_map(lambda p: p.detach().to(dev, copy=True), params)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        if optimizer is not None:
+            return params, optimizer(leaves)
+        return params, tree_map(torch.zeros_like, params)
+
+    return train_step, shard_state

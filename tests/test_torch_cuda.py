@@ -11,6 +11,11 @@ has only the port's dependencies:
 Tolerance (bf16 inputs, f32 softmax in both versions): O within 2e-2
 (about one bf16 ulp of values of order 1, accumulation order differs),
 LSE within 1e-3, and rows with no visible key (-inf LSE, O = 0) exactly.
+Backward (dQ, dK, dV against ``flash_attention_bwd_reference`` on the
+same out / lse): |err| <= 1e-2 + 1e-2 * |want| elementwise. Both round p
+and dS to bf16 at the same points, but on f32 values that differ in the
+last bits (summation order, expf), so a value on a bf16 rounding edge
+can round the other way, and the bf16 outputs round once more.
 """
 import math
 
@@ -77,6 +82,101 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         z = torch.zeros((1, 16, 2, 96), device=cuda_device, dtype=torch.bfloat16)
         fa.flash_attention(z, z, z)
     assert math.isfinite(float(fa.flash_attention(q, q, q).float().sum()))
+
+
+_BWD_CASES = [
+    (2, 128, 128, 4, 2, 128, True, None, 0, 0),
+    (1, 100, 100, 8, 2, 128, True, None, 0, 0),    # ragged S
+    (1, 200, 200, 4, 1, 64, True, 37, 0, 0),       # window, MQA, hd 64
+    (2, 77, 77, 4, 4, 128, False, None, 0, 0),     # non-causal ragged
+    (1, 64, 96, 4, 2, 128, True, None, 96, 0),     # offsets: all past
+    (1, 64, 96, 4, 2, 128, True, 50, 40, 20),      # offsets + window
+    (1, 64, 64, 4, 2, 128, True, None, 0, 1000),   # fully future
+]
+
+
+def _close(got, want):
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= 1e-2 + 1e-2 * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_dtype", [None, torch.float32])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,causal,window,q_off,kv_off", _BWD_CASES)
+def test_backward_kernels_match_plain_on_card(cuda_device, b, sq, skv, hq, hkv,
+                                              hd, causal, window, q_off, kv_off,
+                                              grad_dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+
+    q, k, v = randn(b, sq, hq, hd), randn(b, skv, hkv, hd), randn(b, skv, hkv, hd)
+    do = randn(b, sq, hq, hd)
+    out, lse = fa.flash_attention_block(q, k, v, q_off, kv_off, causal=causal,
+                                        window=window)
+    # a non-contiguous dO, as autograd's reshapes hand it over
+    do_t = do.transpose(1, 2).contiguous().transpose(1, 2)
+    delta = fa.flash_delta(do, out)
+    before = (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    got = fa.flash_block_grads(q, k, v, out, lse, do_t, q_off, kv_off,
+                               causal=causal, window=window,
+                               grad_dtype=grad_dtype, delta=delta)
+    torch.cuda.synchronize()
+    assert (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, q_off, kv_off,
+                                            causal=causal, window=window,
+                                            grad_dtype=grad_dtype)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == (grad_dtype or torch.bfloat16), name
+        assert g.shape == w.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert _close(g, w), (name, float((g.float() - w.float()).abs().max()))
+    if bool(torch.isneginf(lse).all()):
+        assert all(bool((g == 0).all()) for g in got)
+
+
+@pytest.mark.cuda
+def test_autograd_launches_each_backward_kernel_once(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(torch.bfloat16).requires_grad_(True)
+               for shape in ((2, 130, 8, 128), (2, 130, 2, 128), (2, 130, 2, 128)))
+    counts = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    out = fa.flash_attention(q, k, v)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
+    lse = fa.flash_attention_block(q.detach(), k.detach(), v.detach(), 0, 0)[1]
+    want = fa.flash_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse,
+        (2 * out.float()).to(torch.bfloat16))
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        assert _close(g, w)
+    # only q asks for a gradient: the dK/dV kernel is not launched
+    q2 = q.detach().requires_grad_(True)
+    counts = (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    fa.flash_attention(q2, k.detach(), v.detach()).float().sum().backward()
+    assert (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (counts[0] + 1, counts[1])
+    with pytest.raises(NotImplementedError, match="flash_block_grads"):
+        fa.flash_attention_block(q, k, v, 0, 0)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_reject_what_they_do_not_take(cuda_device):
+    q = torch.zeros((1, 16, 2, 128), device=cuda_device, dtype=torch.bfloat16)
+    out, lse = fa.flash_attention_block(q, q, q, 0, 0)
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_block_grads(q, q, q.float(), out, lse, q, 0, 0)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fa.flash_block_grads(q, q, q, out, lse, q, 0, 0, grad_dtype=torch.float16)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_block_grads(q, q, q, out, lse.cpu(), q, 0, 0)
+    z = torch.zeros((1, 16, 2, 96), device=cuda_device, dtype=torch.bfloat16)
+    z_out, z_lse = fa.flash_attention_reference(z, z, z)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_block_grads(z, z, z, z_out, z_lse, z, 0, 0)
 
 
 def _tiny_f32(device):

@@ -2,8 +2,8 @@
 
 - No module of nos_tpu_torch/, and not chip_smoke.py, imports jax or
   anything of nos_tpu (an AST scan of every import statement).
-- Importing the port's serving stack leaves jax and nos_tpu.* out of
-  sys.modules (a fresh interpreter).
+- Importing the port's serving and training stacks leaves jax and
+  nos_tpu.* out of sys.modules (a fresh interpreter).
 - With no CUDA device, an entry point called without ``device`` raises;
   it never falls back to the CPU on its own.
 """
@@ -54,6 +54,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import nos_tpu_torch.serve, nos_tpu_torch.bridge\n"
         "import nos_tpu_torch.models.generate, nos_tpu_torch.ops.flash_attention\n"
+        "import nos_tpu_torch.parallel.train, nos_tpu_torch.data\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'nos_tpu' or m.startswith('nos_tpu.'))\n"
         "print(bad)\n"
@@ -73,8 +74,10 @@ def no_cuda(monkeypatch):
 def test_entry_points_without_device_raise_when_there_is_no_gpu(no_cuda):
     from nos_tpu_torch import _resolve_device
     from nos_tpu_torch.bridge import params_from_numpy
+    from nos_tpu_torch.data import prefetch_to_device
     from nos_tpu_torch.models.generate import init_kv_cache
     from nos_tpu_torch.models.llama import init_llama_params, tiny_config
+    from nos_tpu_torch.parallel import make_train_step
 
     cfg = tiny_config()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -83,6 +86,10 @@ def test_entry_points_without_device_raise_when_there_is_no_gpu(no_cuda):
         init_kv_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy({"embed": None, "final_norm": None, "layers": []}, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(None, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(prefetch_to_device(iter([])))
     # asked for by name, the CPU is fine
     assert _resolve_device("cpu") == torch.device("cpu")
     params = init_llama_params(cfg, 0, device="cpu")
