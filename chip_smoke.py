@@ -11,9 +11,17 @@ Phases, each fatal on failure (exit code != 0):
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
    PyTorch library call (SDPA, a yardstick the port never calls) and the
-   card's bound for the same work. kernel_bwd: the dQ and dK/dV kernels
-   against their plain version at seven cases and at the training shape
-   (B 4, S 2048, causal), where each is timed beside its bound, the plain
+   card's bound for the same work, the kernel's and SDPA's device time
+   from torch.profiler (CUDA events around one call measure the host
+   where it is the slower side, as at [2, 512]), plus untimed cases at
+   the forward kernel's 128 x 128 tile edges (S 127 / 129 / 255, a
+   window with offsets off the tile grid, Skv 1, hd 64, q as a
+   transposed view, no GQA); the summary line carries the forward's
+   time and TFLOP/s at the training shape, ptxas's registers and spills
+   of both head_dim instantiations and the build seconds. kernel_bwd:
+   the dQ and dK/dV kernels against their plain version at seven cases
+   and at the training shape (B 4, S 2048, causal), where each is timed
+   beside its bound, the plain
    version and SDPA's backward (its forward+backward minus its forward);
 3. model: Llama-3-8B at full width (random weights from a seed),
    attention="flash": llama_forward flash against dense on [1, 1024],
@@ -86,25 +94,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
 def visible_pairs(sq, skv, q_off, kv_off, causal, window) -> int:
     """(query, key) pairs this call's masks leave visible, per (b, h)."""
     if not causal:
@@ -130,20 +119,27 @@ def attention_bound_ms(b, sq, skv, hq, hkv, hd, pairs):
 
 
 def check_attention(card, name, b, sq, skv, q_off=0, kv_off=0, causal=True,
-                    window=None, timed=True):
-    """One kernel-vs-plain case at the 8B attention shapes."""
+                    window=None, timed=True, hq=32, hkv=8, hd=128,
+                    q_transposed=False):
+    """One kernel-vs-plain case, by default at the 8B attention shapes.
+    ``q_transposed`` hands q over as a [B, S, H, hd] view of [B, H, S, hd]
+    storage (the kernel reads it through its strides, no copy)."""
     import torch
     import torch.nn.functional as F
 
     import nos_tpu_torch.ops.flash_attention as fa
+    from nos_tpu_torch.util.cuda_timing import device_ms, event_ms
 
-    hq, hkv, hd = 32, 8, 128
     gen = torch.Generator(device="cuda").manual_seed(sq * 7 + skv)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    q, k, v = randn(b, sq, hq, hd), randn(b, skv, hkv, hd), randn(b, skv, hkv, hd)
+    if q_transposed:
+        q = randn(b, hq, sq, hd).transpose(1, 2)
+    else:
+        q = randn(b, sq, hq, hd)
+    k, v = randn(b, skv, hkv, hd), randn(b, skv, hkv, hd)
 
     def kernel():
         return fa.flash_attention_block(q, k, v, q_off, kv_off, causal=causal,
@@ -161,11 +157,14 @@ def check_attention(card, name, b, sq, skv, q_off=0, kv_off=0, causal=True,
     fin = torch.isfinite(want_lse)
     lse_err = float((lse[fin] - want_lse[fin]).abs().max()) if fin.any() else 0.0
     finite = bool(torch.isfinite(out.float()).all())
-    ok = o_err <= O_ATOL and lse_err <= LSE_ATOL and neg_same and finite
+    empty_rows_zero = bool((out[torch.isneginf(lse).transpose(1, 2)[..., 0]] == 0).all())
+    ok = (o_err <= O_ATOL and lse_err <= LSE_ATOL and neg_same and finite
+          and empty_rows_zero)
     row = {
         "phase": "kernel", "case": name, "b": b, "sq": sq, "skv": skv,
         "hq": hq, "hkv": hkv, "hd": hd, "causal": causal, "window": window,
-        "q_off": q_off, "kv_off": kv_off, "o_max_abs_err": o_err,
+        "q_off": q_off, "kv_off": kv_off, "q_transposed": q_transposed,
+        "empty_rows_zero": empty_rows_zero, "o_max_abs_err": o_err,
         "lse_max_abs_err": lse_err, "neg_inf_rows_match": neg_same,
         "o_atol": O_ATOL, "lse_atol": LSE_ATOL, "ok": ok, "card": card,
     }
@@ -189,8 +188,10 @@ def check_attention(card, name, b, sq, skv, q_off=0, kv_off=0, causal=True,
             )
 
         row.update(
-            kernel_ms=time_ms(kernel), plain_ms=time_ms(plain, reps=10),
-            library_ms=time_ms(library), bound_ms=bound, bound_by=bound_by,
+            kernel_ms=event_ms(kernel), plain_ms=event_ms(plain, reps=10),
+            library_ms=event_ms(library), bound_ms=bound, bound_by=bound_by,
+            kernel_device_ms=device_ms(kernel),
+            library_device_ms=device_ms(library),
             visible_pairs_per_head=pairs,
         )
         row["kernel_tflops"] = 4.0 * hd * pairs * b * hq / row["kernel_ms"] / 1e9
@@ -237,6 +238,7 @@ def check_backward(card, name, b, sq, skv, hq=32, hkv=8, hd=128, q_off=0,
     import torch.nn.functional as F
 
     import nos_tpu_torch.ops.flash_attention as fa
+    from nos_tpu_torch.util.cuda_timing import event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(sq * 13 + skv + hd)
 
@@ -270,13 +272,13 @@ def check_backward(card, name, b, sq, skv, hq=32, hkv=8, hd=128, q_off=0,
     if timed:
         pairs = visible_pairs(sq, skv, q_off, kv_off, causal, window)
         args = (q, k, v, lse, do, delta, q_off, kv_off, causal, window, None)
-        row["dq_ms"] = time_ms(lambda: fa._flash_bwd_cuda(*args, True, False))
-        row["dkv_ms"] = time_ms(lambda: fa._flash_bwd_cuda(*args, False, True))
+        row["dq_ms"] = event_ms(lambda: fa._flash_bwd_cuda(*args, True, False))
+        row["dkv_ms"] = event_ms(lambda: fa._flash_bwd_cuda(*args, False, True))
         row["dq_bound_ms"], row["dq_bound_by"] = bwd_bound_ms(
             b, sq, skv, hq, hkv, hd, pairs, 6, 0)
         row["dkv_bound_ms"], row["dkv_bound_by"] = bwd_bound_ms(
             b, sq, skv, hq, hkv, hd, pairs, 8, 2)
-        row["plain_ms"] = time_ms(
+        row["plain_ms"] = event_ms(
             lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, q_off,
                                                      kv_off, **kw),
             reps=3, warmup=1)
@@ -293,8 +295,8 @@ def check_backward(card, name, b, sq, skv, hq=32, hkv=8, hd=128, q_off=0,
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
 
-        row["sdpa_fwd_ms"] = time_ms(sdpa)
-        row["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
+        row["sdpa_fwd_ms"] = event_ms(sdpa)
+        row["sdpa_fwd_bwd_ms"] = event_ms(sdpa_fwd_bwd)
         row["library_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
         row["visible_pairs"] = pairs * b * hq
         for kname, ops in (("dq", 6), ("dkv", 8)):
@@ -524,7 +526,7 @@ def profile_steps(run_steps, card, step_ms: float, steps: int = 8,
         "kernel_launches_per_step": sum(n for _, n, _ in kernels) / steps,
         "top_kernels": [{"name": k[:80], "ms_per_step": us / steps / 1e3,
                          "launches_per_step": n / steps}
-                        for us, n, k in kernels[:8]],
+                        for us, n, k in kernels[:12]],
         "card": card,
     }
 
@@ -552,8 +554,12 @@ def main() -> int:
 
     t0 = time.time()
     libs = _build.build(_build.KERNELS)
+    fwd_ptxas = {f"hd{hd}": figures
+                 for entry, figures in _build.ptxas_report("flash_fwd").items()
+                 for hd in (64, 128) if f"ILi{hd}E" in entry}
     emit({"phase": "build", "kernels": sorted(libs), "seconds": time.time() - t0,
-          "card": card})
+          "seconds_per_kernel": dict(_build.BUILD_SECONDS),
+          "flash_fwd_ptxas": fwd_ptxas, "card": card})
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa
@@ -566,7 +572,19 @@ def main() -> int:
     check_attention(card, "block_kv_offset", 1, 512, 512, q_off=1024, kv_off=512)
     check_attention(card, "block_fully_future", 1, 256, 256, q_off=0,
                     kv_off=4096, timed=False)
-    check_attention(card, "train_shape_b4_s2048", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ)
+    # the tile edges of the 128 x 128 kernel, untimed
+    for n in (127, 129, 255):
+        check_attention(card, f"ragged_s{n}", 1, n, n, timed=False)
+    check_attention(card, "window200_offsets_off_tile", 1, 300, 400, q_off=333,
+                    kv_off=45, window=200, timed=False)
+    check_attention(card, "skv_1", 2, 50, 1, timed=False)
+    check_attention(card, "hd64_s1024", 1, 1024, 1024, hq=8, hkv=2, hd=64,
+                    timed=False)
+    check_attention(card, "q_transposed_view", 2, 200, 200, q_transposed=True,
+                    timed=False)
+    check_attention(card, "no_gqa_hq_eq_hkv", 1, 256, 256, hq=8, hkv=8, timed=False)
+    train_case = check_attention(card, "train_shape_b4_s2048", TRAIN_BATCH,
+                                 TRAIN_SEQ, TRAIN_SEQ)
 
     # the seven backward cases of tests/test_torch_cuda.py, then the
     # training shape, timed
@@ -753,6 +771,15 @@ def main() -> int:
         "library_ms": main_case["library_ms"],
         "shape": "q [2,512,32,128], k/v [2,512,8,128] bf16 causal",
         "launches_train": train["launches_total_fwd_dq_dkv"][0],
+        "device_ms": main_case["kernel_device_ms"],
+        "library_device_ms": main_case["library_device_ms"],
+        "ms_train": train_case["kernel_ms"],
+        "tflops_train": train_case["kernel_tflops"],
+        "bound_ms_train": train_case["bound_ms"],
+        "library_ms_train": train_case["library_ms"],
+        "shape_train": "q [4,2048,32,128], k/v [4,2048,8,128] bf16 causal",
+        "ptxas": fwd_ptxas,
+        "build_seconds": _build.BUILD_SECONDS.get("flash_fwd"),
         "check": "pass",
     }] + [{
         "name": name,

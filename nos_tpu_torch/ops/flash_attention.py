@@ -38,9 +38,10 @@ LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 
-# The CUDA kernel's tile: 64 query rows per block, 64 keys per K/V tile.
-BLOCK_M = 64
-BLOCK_N = 64
+# The forward kernel's tile: 128 query rows per block (64 per consumer
+# warpgroup), 128 keys per K/V tile.
+BLOCK_M = 128
+BLOCK_N = 128
 KERNEL_HEAD_DIMS = (64, 128)
 
 
@@ -56,12 +57,14 @@ def validate_window(causal: bool, window) -> None:
 
 
 def default_blocks(window: "int | None") -> "tuple[int, int]":
-    """(blk_q, blk_k) of the Hopper kernel: 64 x 64 with or without a
-    window. Sixteen query rows per warp keeps the f32 accumulator of a
-    128-wide head in registers (64 floats a thread), and 64-key tiles
-    keep Q plus one K and one V tile inside 52 KB of shared memory, so
-    several blocks share an SM. Windowed bands skip tiles outside the
-    band at the same granularity."""
+    """(blk_q, blk_k) of the Hopper forward kernel: 128 x 128 with or
+    without a window. Each of its two consumer warpgroups owns 64 query
+    rows, the M of one wgmma, and keeps a 64 x 128 f32 score tile and
+    the 64 x hd output accumulator in registers (64 floats a thread
+    each at hd 128); 128-key tiles fill the tensor cores' N. Q plus a
+    three-stage K/V ring takes 224 KB of shared memory at hd 128, one
+    block per SM. Windowed bands skip tiles outside the band at the
+    same granularity."""
     return BLOCK_M, BLOCK_N
 
 
@@ -97,7 +100,7 @@ def flash_attention_reference(
     blk_k: "int | None" = None,
 ):
     """The plain version: online softmax over key tiles of ``blk_k``
-    (default the kernel's 64), all query rows at once → (out
+    (default the kernel's ``BLOCK_N``), all query rows at once → (out
     ``[B, Sq, Hq, hd]`` in q's dtype, lse ``[B, Hq, Sq, 1]`` f32)."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -148,6 +151,16 @@ def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
         and all(st % 8 == 0 for st in x.stride()[:3])
     )
     return x if ok else x.contiguous()
+
+
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """The forward kernel reads q, k, v through TMA tensor maps, which
+    take the strides ``_kernel_ready`` allows except a 0 stride on a
+    dimension longer than 1 (an expanded tensor): that one is copied."""
+    x = _kernel_ready(x)
+    if any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
+        x = x.contiguous()
+    return x
 
 
 def _typed(fn, argtypes):
@@ -207,7 +220,7 @@ def _flash_fwd_cuda(q, k, v, q_offset, kv_offset, causal, window):
     global LAUNCHES
     hd = q.shape[3]
     _check_kernel_operands(hd, q=q, k=k, v=v)
-    q, k, v = (_kernel_ready(x) for x in (q, k, v))
+    q, k, v = (_tma_ready(x) for x in (q, k, v))
     b, sq, hq, _ = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, hq, hd), dtype=q.dtype, device=q.device)
@@ -285,12 +298,12 @@ def flash_attention_bwd_reference(
     is -inf or the pair is masked, p and dS rounded to q's dtype before
     the dV / dK / dQ products, f32 sums (dK/dV over the GQA group too),
     one cast to ``grad_dtype`` (else q's / k's dtype) at the end. Key
-    tiles of ``blk_k`` (default four kernel tiles) bound the memory of
+    tiles of ``blk_k`` (default 256 keys) bound the memory of
     its f32 score tiles; they change no result."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
-    blk = blk_k or 4 * BLOCK_N
+    blk = blk_k or 256
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
     if delta is None:
@@ -447,7 +460,7 @@ def flash_attention(
     ragged edge itself. ``window`` (requires causal): query i attends
     keys (i - window, i]; tiles outside the band are skipped.
     ``blk_q``/``blk_k`` set the plain version's key tiling on the CPU;
-    on the card they must be None or the kernel's own 64 x 64.
+    on the card they must be None or the forward kernel's own 128 x 128.
     Differentiable: the backward runs the dQ and dK/dV kernels."""
     return _FlashAttention.apply(q, k, v, causal, window, blk_q, blk_k)
 

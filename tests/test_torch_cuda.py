@@ -32,27 +32,47 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The forward kernel's cases: its tiles are 128 query rows x 128 keys, so
+# the ragged lengths sit around one and two tiles; q_transposed hands q
+# over as a [B, S, H, hd] view of [B, H, S, hd] storage, which the
+# kernel's TMA maps read through its strides without a copy.
+_FWD_CASES = [
+    (2, 128, 128, 4, 2, 128, True, None, 0, 0, False),
+    (1, 100, 100, 8, 2, 128, True, None, 0, 0, False),    # ragged S
+    (1, 200, 200, 4, 1, 64, True, 37, 0, 0, False),       # window, MQA, hd 64
+    (2, 77, 77, 4, 4, 128, False, None, 0, 0, False),     # non-causal ragged
+    (1, 64, 96, 4, 2, 128, True, None, 96, 0, False),     # offsets: all past
+    (1, 64, 96, 4, 2, 128, True, 50, 40, 20, False),      # offsets + window
+    (1, 64, 64, 4, 2, 128, True, None, 0, 1000, False),   # fully future
+    (1, 127, 127, 4, 2, 128, True, None, 0, 0, False),    # one key short of a tile
+    (1, 129, 129, 4, 2, 128, True, None, 0, 0, False),    # one key past a tile
+    (2, 255, 255, 4, 2, 128, True, None, 0, 0, False),    # one short of two tiles
+    (1, 300, 400, 4, 2, 128, True, 200, 333, 45, False),  # window 200, offsets off-tile
+    (2, 50, 1, 4, 2, 128, True, None, 0, 0, False),       # Skv = 1
+    (1, 1024, 1024, 8, 2, 64, True, None, 0, 0, False),   # hd 64 at S 1024
+    (2, 200, 200, 4, 2, 128, True, None, 0, 0, True),     # q a transposed view
+    (1, 256, 256, 4, 4, 128, True, None, 0, 0, False),    # Hq = Hkv, no GQA
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "b,sq,skv,hq,hkv,hd,causal,window,q_off,kv_off",
-    [
-        (2, 128, 128, 4, 2, 128, True, None, 0, 0),
-        (1, 100, 100, 8, 2, 128, True, None, 0, 0),    # ragged S
-        (1, 200, 200, 4, 1, 64, True, 37, 0, 0),       # window, MQA, hd 64
-        (2, 77, 77, 4, 4, 128, False, None, 0, 0),     # non-causal ragged
-        (1, 64, 96, 4, 2, 128, True, None, 96, 0),     # offsets: all past
-        (1, 64, 96, 4, 2, 128, True, 50, 40, 20),      # offsets + window
-        (1, 64, 64, 4, 2, 128, True, None, 0, 1000),   # fully future
-    ],
+    "b,sq,skv,hq,hkv,hd,causal,window,q_off,kv_off,q_transposed", _FWD_CASES
 )
 def test_kernel_matches_plain_on_card(cuda_device, b, sq, skv, hq, hkv, hd,
-                                      causal, window, q_off, kv_off):
+                                      causal, window, q_off, kv_off,
+                                      q_transposed):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
 
-    q, k, v = randn(b, sq, hq, hd), randn(b, skv, hkv, hd), randn(b, skv, hkv, hd)
+    if q_transposed:
+        q = randn(b, hq, sq, hd).transpose(1, 2)
+        assert not q.is_contiguous() and fa._tma_ready(q) is q  # read in place
+    else:
+        q = randn(b, sq, hq, hd)
+    k, v = randn(b, skv, hkv, hd), randn(b, skv, hkv, hd)
     before = fa.LAUNCHES
     out, lse = fa.flash_attention_block(q, k, v, q_off, kv_off, causal=causal,
                                         window=window)

@@ -112,6 +112,30 @@ class TestForwardParity:
         assert fa.default_blocks(512) == (fa.BLOCK_M, fa.BLOCK_N)
 
 
+class TestKernelOperands:
+    """What the forward kernel's TMA maps are handed (decided on the CPU
+    by the wrapper, before any launch)."""
+
+    def test_strided_views_reach_the_kernel_without_a_copy(self):
+        q = torch.zeros((2, 4, 40, 64), dtype=torch.bfloat16).transpose(1, 2)
+        assert not q.is_contiguous()
+        assert fa._tma_ready(q) is q
+
+    def test_expanded_and_unaligned_operands_are_copied(self):
+        k = torch.zeros((1, 40, 1, 64), dtype=torch.bfloat16).expand(3, 40, 1, 64)
+        got = fa._tma_ready(k)
+        assert got is not k and got.is_contiguous()
+        odd = torch.zeros((1, 40, 2, 68), dtype=torch.bfloat16)[..., :64]
+        assert fa._tma_ready(odd).is_contiguous()
+
+    def test_tiles_follow_the_kernel(self):
+        assert (fa.BLOCK_M, fa.BLOCK_N) == (128, 128)
+        fa._check_tiles(None, None)
+        fa._check_tiles(128, 128)
+        with pytest.raises(ValueError, match="tiles"):
+            fa._check_tiles(64, 64)
+
+
 class TestBlockPartials:
     def test_partials_at_offsets_match_jax(self):
         arrs = qkv_np(20, b=2, s=32, hq=4, hkv=2, hd=16)
