@@ -16,13 +16,15 @@ Phases, each fatal on failure (exit code != 0):
    where it is the slower side, as at [2, 512]), plus untimed cases at
    the forward kernel's 128 x 128 tile edges (S 127 / 129 / 255, a
    window with offsets off the tile grid, Skv 1, hd 64, q as a
-   transposed view, no GQA); the summary line carries the forward's
+   transposed view, no GQA); the summary line carries each kernel's
    time and TFLOP/s at the training shape, ptxas's registers and spills
-   of both head_dim instantiations and the build seconds. kernel_bwd:
-   the dQ and dK/dV kernels against their plain version at seven cases
-   and at the training shape (B 4, S 2048, causal), where each is timed
-   beside its bound, the plain
-   version and SDPA's backward (its forward+backward minus its forward);
+   of every instantiation and the build seconds. kernel_bwd: the dQ and
+   dK/dV kernels against their plain version at the sixteen cases of
+   tests/test_torch_cuda.py (among them the edges of their 64-row and
+   128-key tiles, offsets off the tile grid with a window, hd 64, no
+   GQA, Skv 1) and at the training shape (B 4, S 2048, causal), where
+   each is timed beside its bound, the plain version and SDPA's
+   backward (its forward+backward minus its forward);
 3. model: Llama-3-8B at full width (random weights from a seed),
    attention="flash": llama_forward flash against dense on [1, 1024],
    generate() greedy on [2, 512] prompts (the kernel's launch count is
@@ -199,6 +201,22 @@ def check_attention(card, name, b, sq, skv, q_off=0, kv_off=0, causal=True,
     if not ok:
         raise SystemExit(f"kernel case {name} disagrees with its plain version: {row}")
     return row
+
+
+def bwd_ptxas() -> dict:
+    """ptxas's registers and spills of flash_bwd.cu's eight
+    instantiations, keyed "<dq|dkv>_hd<64|128>_<bf16|f32>"."""
+    from nos_tpu_torch.ops import _build
+
+    report = {}
+    for entry, figures in _build.ptxas_report("flash_bwd").items():
+        kind = ("dkv" if "flash_dkv_kernel" in entry
+                else "dq" if "flash_dq_kernel" in entry else None)
+        for hd in (64, 128):
+            if kind and f"ILi{hd}E" in entry:
+                out = "f32" if f"ILi{hd}EfE" in entry else "bf16"
+                report[f"{kind}_hd{hd}_{out}"] = figures
+    return report
 
 
 def counts():
@@ -557,9 +575,11 @@ def main() -> int:
     fwd_ptxas = {f"hd{hd}": figures
                  for entry, figures in _build.ptxas_report("flash_fwd").items()
                  for hd in (64, 128) if f"ILi{hd}E" in entry}
+    bwd_figures = bwd_ptxas()
     emit({"phase": "build", "kernels": sorted(libs), "seconds": time.time() - t0,
           "seconds_per_kernel": dict(_build.BUILD_SECONDS),
-          "flash_fwd_ptxas": fwd_ptxas, "card": card})
+          "flash_fwd_ptxas": fwd_ptxas, "flash_bwd_ptxas": bwd_figures,
+          "card": card})
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa
@@ -586,7 +606,7 @@ def main() -> int:
     train_case = check_attention(card, "train_shape_b4_s2048", TRAIN_BATCH,
                                  TRAIN_SEQ, TRAIN_SEQ)
 
-    # the seven backward cases of tests/test_torch_cuda.py, then the
+    # the sixteen backward cases of tests/test_torch_cuda.py, then the
     # training shape, timed
     check_backward(card, "causal_b2_s128_hq4", 2, 128, 128, hq=4, hkv=2)
     check_backward(card, "causal_ragged_s100", 1, 100, 100, hq=8, hkv=2)
@@ -599,6 +619,14 @@ def main() -> int:
                    q_off=40, kv_off=20, window=50)
     check_backward(card, "block_fully_future", 1, 64, 64, hq=4, hkv=2,
                    kv_off=1000)
+    # the edges of the 64-row query tiles and 128-key blocks
+    for n in (63, 65, 127, 129, 255):
+        check_backward(card, f"ragged_s{n}", 2 if n == 255 else 1, n, n, hq=4, hkv=2)
+    check_backward(card, "window200_offsets_off_tile", 1, 300, 400, hq=4, hkv=2,
+                   q_off=333, kv_off=45, window=200)
+    check_backward(card, "hd64_s1024", 1, 1024, 1024, hq=8, hkv=2, hd=64)
+    check_backward(card, "no_gqa_hq_eq_hkv", 1, 256, 256, hq=4, hkv=4)
+    check_backward(card, "skv_1", 2, 50, 1, hq=4, hkv=2)
     bwd_case = check_backward(card, "train_shape_b4_s2048", TRAIN_BATCH,
                               TRAIN_SEQ, TRAIN_SEQ, timed=True)
 
@@ -795,6 +823,9 @@ def main() -> int:
         "library_ms": bwd_case["library_ms"],
         "shape": "q/dO [4,2048,32,128], k/v [4,2048,8,128] bf16 causal",
         "plain_and_library_cover": "dq, dk and dv together",
+        "tflops_train": bwd_case[f"{key}_tflops"],
+        "ptxas": {k: v for k, v in bwd_figures.items() if k.startswith(f"{key}_")},
+        "build_seconds": _build.BUILD_SECONDS.get("flash_bwd"),
         "check": "pass",
     } for name, replaces, index, key, grads in (
         ("flash_dq", "nos_tpu/ops/flash_attention.py:326", 1, "dq", ("dq",)),

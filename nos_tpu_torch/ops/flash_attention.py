@@ -154,13 +154,22 @@ def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
 
 
 def _tma_ready(x: torch.Tensor) -> torch.Tensor:
-    """The forward kernel reads q, k, v through TMA tensor maps, which
-    take the strides ``_kernel_ready`` allows except a 0 stride on a
-    dimension longer than 1 (an expanded tensor): that one is copied."""
+    """The kernels read q, k, v (and the backward's dO) through TMA
+    tensor maps, which take the strides ``_kernel_ready`` allows except a
+    0 stride on a dimension longer than 1 (an expanded tensor, such as a
+    cotangent from autograd): that one is copied."""
     x = _kernel_ready(x)
     if any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
         x = x.contiguous()
     return x
+
+
+def _stats_ready(x: torch.Tensor) -> torch.Tensor:
+    """The dK/dV kernel reads lse and delta through 1-D TMA tensor maps:
+    contiguous f32 with a 16-byte aligned base (a view at an odd offset
+    is copied)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _typed(fn, argtypes):
@@ -186,11 +195,13 @@ def _kernel_symbol():
     )
 
 
-def _bwd_symbols():
-    """The dQ and dK/dV launchers of csrc/flash_bwd.cu."""
+def _bwd_symbols(lib=None):
+    """The dQ and dK/dV launchers of csrc/flash_bwd.cu, or of ``lib``, a
+    loaded library exporting the same two (``ops/flash_bwd_bench.py``'s
+    variants)."""
     from nos_tpu_torch.ops import _build
 
-    lib = _build.load("flash_bwd")
+    lib = lib or _build.load("flash_bwd")
     tail = [ctypes.c_int] * 6 + [_STRIDES] + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
@@ -363,8 +374,8 @@ def _flash_bwd_cuda(q, k, v, lse, do, delta, q_offset, kv_offset, causal,
         raise ValueError(f"delta must be [B, Hq, Sq, 1], got {tuple(delta.shape)}")
     out_dtype = grad_dtype or torch.bfloat16
     out_f32 = int(out_dtype == torch.float32)
-    q, k, v, do = (_kernel_ready(x) for x in (q, k, v, do))
-    lse, delta = lse.contiguous(), delta.contiguous()
+    q, k, v, do = (_tma_ready(x) for x in (q, k, v, do))
+    lse, delta = _stats_ready(lse), _stats_ready(delta)
     b, sq, hq, _ = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     args = (int(q_offset), int(kv_offset), int(bool(causal)),

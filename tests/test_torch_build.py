@@ -1,5 +1,5 @@
-"""The port's kernel build (nos_tpu_torch/ops/_build.py) and the forward
-kernel's timing tool (ops/flash_fwd_bench.py) on the CPU.
+"""The port's kernel build (nos_tpu_torch/ops/_build.py) and the kernels'
+timing tools (ops/flash_fwd_bench.py, ops/flash_bwd_bench.py) on the CPU.
 
 No nvcc here: these tests exercise what needs none. A library's cache
 key hashes its source, every ``csrc/*.cuh`` header and the nvcc flags,
@@ -61,9 +61,9 @@ def test_editing_the_source_or_the_flags_changes_the_library_path(csrc, monkeypa
 def test_every_port_kernel_is_keyed_on_the_shared_hopper_header():
     headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
     assert "sm90.cuh" in headers
-    assert '#include "sm90.cuh"' in (_build.CSRC / "flash_fwd.cu").read_text()
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").is_file()
+        assert '#include "sm90.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
         assert _build.library_path(name).name.startswith(f"lib{name}-")
 
 
@@ -103,3 +103,25 @@ def test_flash_fwd_bench_refuses_without_a_card(capsys):
         pytest.skip("this machine has a card; the refusal is what is tested")
     assert flash_fwd_bench.main(["--shapes", "1x128xc"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_flash_bwd_bench_refuses_without_a_card(capsys):
+    import torch
+
+    from nos_tpu_torch.ops import flash_bwd_bench
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the refusal is what is tested")
+    assert flash_bwd_bench.main(["--shapes", "1x128xc"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_flash_bwd_source_has_no_mma_sync_and_no_atomics():
+    """The backward kernels run every product on wgmma and give each
+    output element one owner (no atomics); the header's forms check
+    builds beside them but is not a kernel of the port's paths."""
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    assert "mma.sync" not in code and "atomic" not in code
+    assert "wgmma" in code and "tma_load" in code
+    assert "sm90_check" not in _build.KERNELS

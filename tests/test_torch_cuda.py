@@ -104,6 +104,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     assert math.isfinite(float(fa.flash_attention(q, q, q).float().sum()))
 
 
+# The backward kernels' cases. dK/dV blocks own 128 keys (64 per consumer
+# warpgroup) and stream 64-row query tiles; dQ blocks own 128 query rows
+# and stream 128-key tiles: the ragged lengths sit around those edges.
 _BWD_CASES = [
     (2, 128, 128, 4, 2, 128, True, None, 0, 0),
     (1, 100, 100, 8, 2, 128, True, None, 0, 0),    # ragged S
@@ -112,6 +115,15 @@ _BWD_CASES = [
     (1, 64, 96, 4, 2, 128, True, None, 96, 0),     # offsets: all past
     (1, 64, 96, 4, 2, 128, True, 50, 40, 20),      # offsets + window
     (1, 64, 64, 4, 2, 128, True, None, 0, 1000),   # fully future
+    (1, 63, 63, 4, 2, 128, True, None, 0, 0),      # one short of a query tile
+    (1, 65, 65, 4, 2, 128, True, None, 0, 0),      # one past a query tile
+    (1, 127, 127, 4, 2, 128, True, None, 0, 0),    # one short of a key block
+    (1, 129, 129, 4, 2, 128, True, None, 0, 0),    # one past a key block
+    (2, 255, 255, 4, 2, 128, True, None, 0, 0),    # one short of two blocks
+    (1, 300, 400, 4, 2, 128, True, 200, 333, 45),  # window 200, offsets off-tile
+    (1, 1024, 1024, 8, 2, 64, True, None, 0, 0),   # hd 64 at S 1024
+    (1, 256, 256, 4, 4, 128, True, None, 0, 0),    # Hq = Hkv, no GQA
+    (2, 50, 1, 4, 2, 128, True, None, 0, 0),       # Skv = 1
 ]
 
 
@@ -154,6 +166,89 @@ def test_backward_kernels_match_plain_on_card(cuda_device, b, sq, skv, hq, hkv,
         assert _close(g, w), (name, float((g.float() - w.float()).abs().max()))
     if bool(torch.isneginf(lse).all()):
         assert all(bool((g == 0).all()) for g in got)
+
+
+def _bwd_inputs(device, seed, b, sq, skv, hq, hkv, hd=128):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    return randn(b, sq, hq, hd), randn(b, skv, hkv, hd), randn(b, skv, hkv, hd)
+
+
+@pytest.mark.cuda
+def test_backward_reads_an_expanded_cotangent(cuda_device):
+    """A 0-stride dO (autograd hands one over for ``out.sum()``) gives the
+    same gradients, bit for bit, as its contiguous copy."""
+    q, k, v = _bwd_inputs(cuda_device, 3, 2, 130, 130, 8, 2)
+    out, lse = fa.flash_attention_block(q, k, v, 0, 0)
+    row = torch.randn((2, 1, 8, 128), device=cuda_device).to(torch.bfloat16)
+    do = row.expand(2, 130, 8, 128)
+    assert do.stride(1) == 0
+    got = fa.flash_block_grads(q, k, v, out, lse, do, 0, 0)
+    want = fa.flash_block_grads(q, k, v, out, lse, do.contiguous(), 0, 0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # through autograd: out.sum() makes the cotangent an expanded 1
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fa.flash_attention(*leaves).sum().backward()
+    ones = torch.ones_like(q)
+    want = fa.flash_block_grads(q, k, v, *fa.flash_attention_block(q, k, v, 0, 0), ones,
+                                0, 0)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_dtype", [None, torch.float32])
+def test_backward_kernels_are_bit_identical_run_to_run(cuda_device, grad_dtype):
+    """Each dQ / dK / dV element has one owner and a fixed summation order
+    (no atomics), so two launches on the same inputs agree bit for bit."""
+    q, k, v = _bwd_inputs(cuda_device, 4, 2, 300, 300, 8, 2)
+    do = torch.randn_like(q.float()).to(torch.bfloat16)
+    out, lse = fa.flash_attention_block(q, k, v, 0, 0)
+    first = fa.flash_block_grads(q, k, v, out, lse, do, 0, 0, grad_dtype=grad_dtype)
+    second = fa.flash_block_grads(q, k, v, out, lse, do, 0, 0, grad_dtype=grad_dtype)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sm90_header_forms_match_torch(cuda_device):
+    """sm90.cuh's forms in isolation (csrc/sm90_check.cu, one warpgroup):
+    the SS m64n64k16 product of two K-major [64 x 128] TMA tiles against
+    a torch matmul, the RS m64n128k16 transpose-B product reading a
+    64-row tile MN-major (its boxes 8 KB apart), and the 1-D f32 tensor
+    map at an odd element offset, zeros past the end. Tolerances: f32
+    sums in another order (1e-4 of the largest value); bf16 rounding of
+    the first product's f32 values, which may differ in their last bits
+    (1e-2 of the largest value); the copy exactly."""
+    import ctypes
+
+    from nos_tpu_torch.ops import _build
+
+    fn = ctypes.CDLL(str(_build.build(["sm90_check"])["sm90_check"])).nos_sm90_forms_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_void_p])
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    a, b = (torch.randn((64, 128), generator=gen, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    x = torch.randn(100, generator=gen, device=cuda_device)
+    d1 = torch.empty((64, 64), device=cuda_device)
+    d2 = torch.empty((64, 128), device=cuda_device)
+    x_out = torch.empty(64, device=cuda_device)
+    err = fn(a.data_ptr(), b.data_ptr(), x.data_ptr(), x.numel(), d1.data_ptr(),
+             d2.data_ptr(), x_out.data_ptr(), 61, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    want1 = a.float() @ b.float().T
+    assert float((d1 - want1).abs().max()) <= 1e-4 * float(want1.abs().max())
+    want2 = d1.to(torch.bfloat16).float() @ b.float()
+    assert float((d2 - want2).abs().max()) <= 1e-2 * float(want2.abs().max())
+    assert torch.equal(x_out, torch.cat([x[61:], x.new_zeros(25)]))
 
 
 @pytest.mark.cuda

@@ -113,8 +113,8 @@ class TestForwardParity:
 
 
 class TestKernelOperands:
-    """What the forward kernel's TMA maps are handed (decided on the CPU
-    by the wrapper, before any launch)."""
+    """What the kernels' TMA maps are handed (decided on the CPU by the
+    wrapper, before any launch)."""
 
     def test_strided_views_reach_the_kernel_without_a_copy(self):
         q = torch.zeros((2, 4, 40, 64), dtype=torch.bfloat16).transpose(1, 2)
@@ -127,6 +127,18 @@ class TestKernelOperands:
         assert got is not k and got.is_contiguous()
         odd = torch.zeros((1, 40, 2, 68), dtype=torch.bfloat16)[..., :64]
         assert fa._tma_ready(odd).is_contiguous()
+
+    def test_backward_statistics_get_an_aligned_base(self):
+        """The dK/dV kernel reads lse and delta through 1-D TMA maps,
+        whose base must be 16-byte aligned: an aligned contiguous tensor
+        is handed over as it is, a view at an odd offset is copied."""
+        lse = torch.zeros((2, 4, 37, 1))
+        assert fa._stats_ready(lse) is lse
+        odd = torch.zeros(2 * 4 * 37 + 1)[1:].reshape(2, 4, 37, 1)
+        assert odd.data_ptr() % 16 != 0
+        got = fa._stats_ready(odd)
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+        assert torch.equal(got, odd)
 
     def test_tiles_follow_the_kernel(self):
         assert (fa.BLOCK_M, fa.BLOCK_N) == (128, 128)

@@ -176,6 +176,55 @@ class TestBlockGrads:
         assert all(np.all(np.asarray(g) == 0) for g in jgrads)
 
 
+# Scaled-down versions of the card's backward edge cases
+# (tests/test_torch_cuda.py), whose plain version is what the card
+# compares the kernels against: S around a 16-row tile, Sq != Skv with
+# offsets off the tile grid and a window, Hq = Hkv, Skv = 1.
+_EDGE_CASES = [
+    ("ragged_s15", dict(s=15), 0, 0, None),
+    ("ragged_s17", dict(s=17), 0, 0, None),
+    ("ragged_s33", dict(s=33), 0, 0, None),
+    ("offsets_off_tile_window", dict(s=24, skv=40), 29, 5, 13),
+    ("no_gqa", dict(s=32, hq=4, hkv=4), 0, 0, None),
+    ("skv_1", dict(s=12, skv=1), 0, 0, None),
+]
+
+
+class TestBlockGradsAtKernelEdges:
+    @pytest.mark.parametrize("name,shape,q_off,kv_off,window", _EDGE_CASES)
+    def test_f32(self, name, shape, q_off, kv_off, window):
+        q, k, v, do = arrays(sum(map(ord, name)), hd=8, **shape)
+        out, lse = block_forward(q, k, v, q_off, kv_off, window)
+        want = jax_block_grads(
+            *(jnp.asarray(x) for x in (q, k, v, out, lse, do)), q_off, kv_off,
+            interpret=True, grad_dtype=jnp.float32, window=window,
+        )
+        got = fa.flash_block_grads(
+            *(torch.from_numpy(x) for x in (q, k, v, out, lse, do)), q_off, kv_off,
+            grad_dtype=torch.float32, window=window,
+        )
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            close(g, w, F32_ATOL)
+
+    @pytest.mark.parametrize("name,shape,q_off,kv_off,window", _EDGE_CASES)
+    def test_bf16_inputs(self, name, shape, q_off, kv_off, window):
+        q, k, v, do = arrays(sum(map(ord, name)) + 1, hd=16, **shape)
+        tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+        out, lse = fa.flash_attention_block(tq, tk, tv, q_off, kv_off, window=window)
+        got = fa.flash_block_grads(tq, tk, tv, out, lse, tdo, q_off, kv_off,
+                                   grad_dtype=torch.float32, window=window)
+        to_j = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)  # noqa: E731
+        want = jax_block_grads(
+            to_j(tq), to_j(tk), to_j(tv), to_j(out), jnp.asarray(lse.numpy()),
+            to_j(tdo), q_off, kv_off, interpret=True, grad_dtype=jnp.float32,
+            window=window,
+        )
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            close(g, w, BF16_ATOL)
+
+
 class TestPlainBackward:
     @pytest.mark.parametrize("window", [None, 6])
     def test_matches_autograd_through_dense_attention(self, window):
