@@ -45,6 +45,38 @@ Phases, each fatal on failure (exit code != 0):
 7. train_adamw: 4 layers at full width, the AdamW factory with
    accum_steps=2, two steps.
 
+The serving extensions (after the engine phase, before training):
+
+8. quantize: the full-width Llama-3-8B to int8 and to int4 (group 128)
+   on the card: weight bytes, conversion seconds, peak memory; at 2
+   layers, llama_forward on [1, 1024] with flash against the fake-quant
+   oracle (dequantize_params, then the bf16 forward): max abs error,
+   relative Frobenius error (limits 3e-2 int8, 5e-2 int4), top-1
+   agreement;
+9. generate_quant: full depth, generate() greedy on [2, 512] + 32 over
+   int8 weights, int8 + kv_quant, int4 + kv_quant (forward launches
+   zeroed before each and 32 after);
+10. decode_quant: one decode step at batch 2, cache 544, for bf16 /
+    int8 / int4 weights with kv_quant off and on, beside each format's
+    weight-read bound; torch.profiler passes over the int8 and int4
+    steps; KV bytes and one step at batch 4, max_len 4096, bf16 against
+    int8 cache;
+11. engine_quant_lora: the engine workload over int8 weights with
+    kv_quant; a multi-LoRA Engine (two rank-8 adapters on wq / wv,
+    seeded non-zero b) whose adapter-0 request must equal the bare
+    base's tokens, token for token, in the same batch;
+12. spec_engine: SpecEngine over the full-depth target and a 2-layer
+    draft sharing its embedding and lm_head, and with the target as
+    its own draft, k = 4, 4 requests x 32 tokens: rounds, mean accepted,
+    tokens/s, agreement with the base Engine;
+
+and after training:
+
+13. lora_train: make_lora_train_step on the full-depth bf16 base, rank 8
+    on wq / wv, flash + remat, [4, 2048]: one warm-up and three timed
+    steps (launches 64 / 32 / 32 a step), then merge_lora,
+    quantize_params and generate() of 16 tokens.
+
 Every line but the last two is a JSON object; the card's name and power
 limit (nvidia-smi) come second to last, and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -82,6 +114,11 @@ BWD_RTOL = 1e-2
 GRAD_REL_LIMIT = 5e-2
 LOSS_LIMIT = 2e-2
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+# Quantized forward against its fake-quant oracle (the same quantized
+# weights, dequantized to bf16), relative Frobenius error of the logits:
+# the two round the bf16 products at other points (widen-multiply-scale
+# against multiply-by-dequantized), and int4 also sums its groups in f32.
+QUANT_REL_LIMIT = {"int8": 3e-2, "int4": 5e-2}
 
 
 def emit(obj) -> None:
@@ -514,6 +551,394 @@ def train_adamw_phase(card) -> dict:
     return row
 
 
+def quantize_phase(card, params, cfg) -> dict:
+    """int8 and int4 trees of the full model, and their 2-layer parity
+    against the fake-quant oracle."""
+    import torch
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.models import quantize as tq
+
+    trees = {"bf16": params}
+    seconds = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fmt, fn in (("int8", tq.quantize_params),
+                    ("int4", lambda p: tq.quantize_params_int4(p, group=128))):
+        t0 = time.time()
+        trees[fmt] = fn(params)
+        torch.cuda.synchronize()
+        seconds[fmt] = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    row = {"phase": "quantize", "config": "llama_3_8b",
+           "weight_bytes": {k: tq.weight_bytes(v) for k, v in trees.items()},
+           "seconds": seconds, "conversion_peak_gib": peak, "int4_group": 128,
+           "parity_layers": 2, "parity_tokens": [1, 1024],
+           "rel_limit": QUANT_REL_LIMIT, "card": card}
+    two = dataclasses.replace(cfg, n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen, device="cuda")
+    ok = True
+    with torch.no_grad():
+        for fmt in ("int8", "int4"):
+            sliced = dict(trees[fmt], layers=trees[fmt]["layers"][:2])
+            got = llama.llama_forward(sliced, tokens, two)
+            want = llama.llama_forward(tq.dequantize_params(sliced, cfg.dtype), tokens, two)
+            rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+            row[fmt] = {
+                "max_abs_err": float((got - want).abs().max()),
+                "rel_frobenius_err": rel,
+                "top1_agreement": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+                "finite": bool(torch.isfinite(got).all()),
+            }
+            ok = ok and row[fmt]["finite"] and rel <= QUANT_REL_LIMIT[fmt]
+            del got, want
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        raise SystemExit(f"quantized forward disagrees with its oracle: {row}")
+    return trees
+
+
+def generate_quant_phase(card, trees, cfg, prompt) -> list:
+    """generate() on [2, 512] + 32 over quantized weights, forward
+    launches counted around each run."""
+    import torch
+
+    from nos_tpu_torch.models import generate as gen_mod
+
+    rows = []
+    for fmt, kv_quant in (("int8", False), ("int8", True), ("int4", True)):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.time()
+            out = gen_mod.generate(trees[fmt], prompt, cfg, max_new_tokens=32,
+                                   kv_quant=kv_quant)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = counts()[0]
+            peak = torch.cuda.max_memory_allocated()
+        # peak_gib includes every resident tree (bf16, int8, int4);
+        # above_resident_gib is what this generate() itself allocated at
+        # its peak (the prefill's activations, the int4 [rows, G, out]
+        # partials, the cache)
+        row = {"phase": "generate_quant", "weights": fmt, "kv_quant": kv_quant,
+               "prompt": list(prompt.shape), "new_tokens": 32,
+               "flash_launches": launches, "seconds": wall,
+               "tokens_per_s": prompt.shape[0] * 32 / wall,
+               "peak_gib": peak / 2**30, "above_resident_gib": (peak - resident) / 2**30,
+               "card": card}
+        row["ok"] = (tuple(out.shape) == (prompt.shape[0], 32)
+                     and launches == cfg.n_layers
+                     and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+        emit(row)
+        if not row["ok"]:
+            raise SystemExit(f"quantized generate() failed: {row}")
+        rows.append(row)
+    return rows
+
+
+def decode_quant_phase(card, trees, cfg, prompt, first) -> list:
+    """One decode step per weight format and cache kind, beside the
+    weight-read bound; the int8 step under torch.profiler; a large cache."""
+    import torch
+
+    from nos_tpu_torch.models import generate as gen_mod
+    from nos_tpu_torch.models import quantize as tq
+    from nos_tpu_torch.models.decode_bench import time_decode
+
+    rows = []
+    with torch.no_grad():
+        for fmt in ("bf16", "int8", "int4"):
+            wbytes = tq.weight_bytes(trees[fmt])
+            for kv_quant in (False, True):
+                ms, run = time_decode(trees[fmt], cfg, prompt, first, kv_quant,
+                                      max_len=prompt.shape[1] + 32)
+                row = {"phase": "decode_quant", "weights": fmt, "kv_quant": kv_quant,
+                       "batch": prompt.shape[0], "cache_len": prompt.shape[1] + 32,
+                       "ms_per_step": ms, "weight_bytes": wbytes,
+                       "weight_read_bound_ms": wbytes / PEAK_HBM_BYTES_S * 1e3,
+                       "card": card}
+                emit(row)
+                rows.append(row)
+                if fmt != "bf16" and not kv_quant:
+                    row = profile_steps(run, card, ms, phase="decode_quant_profile")
+                    emit(dict(row, weights=fmt))
+                del run
+        # a long cache: batch 4, max_len 4096, random contents (the port's
+        # cache attention reads every slot whatever the frontier)
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        token = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda")
+        for kv_quant in (False, True):
+            cache = gen_mod.init_kv_cache(cfg, 4, 4096, quant=kv_quant)
+            for layer in cache:
+                for key, buf in layer.items():
+                    if buf.dtype == torch.int8:
+                        buf.random_(-127, 128, generator=gen)
+                    elif key.endswith("scale"):
+                        buf.uniform_(0.005, 0.02, generator=gen)
+                    else:
+                        buf.normal_(generator=gen)
+            kv_bytes = sum(b.numel() * b.element_size() for layer in cache
+                           for b in layer.values())
+            pos = torch.full((4,), 4000, device="cuda")
+
+            def step():
+                gen_mod.decode_step(trees["bf16"], cache, pos, token, cfg)
+
+            step()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(4):
+                step()
+            torch.cuda.synchronize()
+            row = {"phase": "decode_long_cache", "weights": "bf16",
+                   "kv_quant": kv_quant, "batch": 4, "max_len": 4096,
+                   "kv_bytes": kv_bytes, "ms_per_step": (time.time() - t0) / 4 * 1e3,
+                   "kv_read_bound_ms": kv_bytes / PEAK_HBM_BYTES_S * 1e3, "card": card}
+            emit(row)
+            rows.append(row)
+            del cache
+    return rows
+
+
+def engine_quant_lora_phase(card, trees, cfg, prompts) -> None:
+    """(a) the engine workload over int8 weights and an int8 cache; (b) a
+    multi-LoRA Engine against the bare base in the same batch shape."""
+    import torch
+
+    from nos_tpu_torch.models import lora as tlora
+    from nos_tpu_torch.serve import Engine, GenRequest
+    from nos_tpu_torch.util import metrics
+
+    hits0 = metrics.SERVE_PREFIX_HITS.value
+    eng = Engine(trees["int8"], cfg, max_slots=4, max_len=1024, prefill_chunk=256,
+                 prefix_cache_entries=2, kv_quant=True)
+    with torch.no_grad():
+        t0 = time.time()
+        ids = [eng.submit(GenRequest(prompt=p, max_new_tokens=32)) for p in prompts]
+        results = eng.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    hits = metrics.SERVE_PREFIX_HITS.value - hits0
+    row = {"phase": "engine_quant", "weights": "int8", "kv_quant": True,
+           "requests": len(ids), "prompt_tokens": [len(p) for p in prompts],
+           "new_tokens": 32, "prefix_hits": hits, "seconds": wall,
+           "tokens_per_s": 32 * len(ids) / wall, "card": card}
+    row["ok"] = hits >= 1 and all(
+        len(results[i]) == 32 and all(0 <= t < cfg.vocab_size for t in results[i])
+        for i in ids)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"int8 engine failed: {row}")
+    del eng
+
+    lora = tlora.LoraConfig(rank=8, targets=("wq", "wv"))
+    adapters = []
+    for seed in (21, 22):
+        ad = tlora.init_lora_params(cfg, lora, seed=seed)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for layer in ad["layers"]:
+            for ab in layer.values():
+                ab["b"].normal_(0.0, 0.05, generator=gen)
+        adapters.append(ad)
+    stacked = tlora.stack_lora_adapters(trees["bf16"], adapters, lora, rows=3)
+    lora_prompts = [prompts[0], prompts[4], prompts[5]]
+    out = {}
+    for name, params, adapter_ids in (("lora", stacked, (0, 1, 2)),
+                                      ("base", trees["bf16"], (0, 0, 0))):
+        eng = Engine(params, cfg, max_slots=3, max_len=512)
+        with torch.no_grad():
+            t0 = time.time()
+            ids = [eng.submit(GenRequest(prompt=p, max_new_tokens=32, adapter=a))
+                   for p, a in zip(lora_prompts, adapter_ids)]
+            got = eng.run()
+            torch.cuda.synchronize()
+            out[name] = ([got[i] for i in ids], time.time() - t0)
+    (lora_toks, lora_s), (base_toks, base_s) = out["lora"], out["base"]
+    row = {"phase": "engine_multi_lora", "adapters": 2, "rank": 8,
+           "targets": list(lora.targets), "requests_adapters": [0, 1, 2],
+           "prompt_tokens": [len(p) for p in lora_prompts], "new_tokens": 32,
+           "seconds": lora_s, "tokens_per_s": 96 / lora_s,
+           "base_engine_tokens_per_s": 96 / base_s,
+           "adapter0_equals_base": lora_toks[0] == base_toks[0],
+           "adapter_differs_from_base": [lora_toks[i] != base_toks[i] for i in (1, 2)],
+           "card": card}
+    row["ok"] = (row["adapter0_equals_base"] and all(row["adapter_differs_from_base"])
+                 and all(len(x) == 32 for x in lora_toks))
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"multi-LoRA engine failed: {row}")
+
+
+def spec_engine_phase(card, params, cfg, prompts, k=4, chunk=16) -> None:
+    """SpecEngine over the full-depth target with two drafts: its first
+    two layers (sharing the embedding and lm_head), and the target
+    itself (every draft should be accepted, up to chunk-vs-step drift).
+    Two base Engines serve the same requests for comparison: one admits
+    through padded dense prefill (every prompt here fits one bucket),
+    the other through the same ``chunk``-token pieces as SpecEngine, so
+    that its agreement leaves only the verify-vs-step drift."""
+    import torch
+
+    from nos_tpu_torch.serve import Engine, GenRequest, SpecEngine
+
+    def serve(eng):
+        with torch.no_grad():
+            t0 = time.time()
+            ids = [eng.submit(GenRequest(prompt=p, max_new_tokens=32)) for p in prompts]
+            got = eng.run()
+            torch.cuda.synchronize()
+        return [got[i] for i in ids], time.time() - t0
+
+    def agreement(toks, ref):
+        same = sum(a == b for s_, r_ in zip(toks, ref) for a, b in zip(s_, r_))
+        # tokens up to each request's first divergence
+        prefix = [next((i for i, (a, b) in enumerate(zip(s_, r_)) if a != b), 32)
+                  for s_, r_ in zip(toks, ref)]
+        return same / (32 * len(prompts)), prefix
+
+    assert all(len(p) > chunk for p in prompts), "every prompt must span pieces"
+    base_toks, base_s = serve(Engine(params, cfg, max_slots=4, max_len=512))
+    chunked_toks, _ = serve(Engine(params, cfg, max_slots=4, max_len=512,
+                                   prefill_chunk=chunk))
+    share, prefix = agreement(chunked_toks, base_toks)
+    emit({"phase": "spec_engine_witness", "prefill_chunk": chunk,
+          "chunked_base_share_equal_to_padded_base": share,
+          "tokens_before_first_divergence": prefix, "card": card})
+    drafts = (("first_2_layers", dict(params, layers=params["layers"][:2]),
+               dataclasses.replace(cfg, n_layers=2)),
+              ("target_itself", params, cfg))
+    for name, draft, draft_cfg in drafts:
+        spec = SpecEngine(params, cfg, draft, draft_cfg, k=k, max_slots=4, max_len=512,
+                          prefill_chunk=chunk)
+        spec_toks, spec_s = serve(spec)
+        stats = spec.stats()
+        share, prefix = agreement(spec_toks, base_toks)
+        share_chunked, prefix_chunked = agreement(spec_toks, chunked_toks)
+        row = {"phase": "spec_engine", "draft": name, "draft_layers": draft_cfg.n_layers,
+               "k": k, "prefill_chunk": chunk, "requests": len(prompts),
+               "prompt_tokens": [len(p) for p in prompts],
+               "new_tokens": 32, "rounds": stats["rounds"],
+               "mean_accepted": stats["mean_accepted"], "seconds": spec_s,
+               "tokens_per_s": 32 * len(prompts) / spec_s,
+               "base_engine_tokens_per_s": 32 * len(prompts) / base_s,
+               "share_equal_to_base_engine": share,
+               "tokens_before_first_divergence": prefix,
+               "share_equal_to_chunked_base_engine": share_chunked,
+               "tokens_before_first_divergence_chunked": prefix_chunked,
+               "card": card}
+        row["ok"] = (all(len(x) == 32 for x in spec_toks)
+                     and all(0 <= t < cfg.vocab_size for x in spec_toks for t in x)
+                     and 0.0 <= stats["mean_accepted"] <= k)
+        emit(row)
+        if not row["ok"]:
+            raise SystemExit(f"spec engine failed: {row}")
+        del spec
+
+
+def base_checksums(params) -> list:
+    """Two integers per leaf of a bf16 params tree: the sums of its bits
+    read as int16 and of their squares (a cheap witness that no frozen
+    leaf was written, without a second copy of the weights)."""
+    import torch
+
+    from nos_tpu_torch.models.llama import tree_leaves
+
+    sums = []
+    for leaf in tree_leaves(params):
+        bits = leaf.view(torch.int16).int()
+        sums += [bits.sum(dtype=torch.int64), (bits * bits).sum(dtype=torch.int64)]
+        del bits
+    return torch.stack(sums).tolist()
+
+
+def lora_train_phase(card) -> dict:
+    """LoRA fine-tuning at full width and depth, then finetune_lora.py's
+    serving path: merge, int8, generate."""
+    import numpy as np
+    import torch
+
+    from nos_tpu_torch.data import BatchLoader, prefetch_to_device
+    from nos_tpu_torch.models import generate as gen_mod
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.models import lora as tlora
+    from nos_tpu_torch.models.quantize import quantize_params
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash", remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    base = llama.init_llama_params(cfg, seed=17, device="cuda")
+    lora = tlora.LoraConfig(rank=8, targets=("wq", "wv"))
+    step, shard = tlora.make_lora_train_step(None, cfg, lora, learning_rate=1e-3)
+    state = shard(tlora.init_lora_params(cfg, lora, seed=17))
+    b_before = [state[0]["layers"][i]["wq"]["b"].detach().clone() for i in (0, -1)]
+    base_before = base_checksums(base)
+    corpus = np.random.default_rng(17).integers(
+        0, cfg.vocab_size, size=1 << 22).astype(np.int32)
+    stream = prefetch_to_device(iter(BatchLoader(corpus, batch=TRAIN_BATCH,
+                                                 seq_len=TRAIN_SEQ, seed=17)))
+    torch.cuda.synchronize()
+    zero_counts()
+    step_ms, losses, per_step = [], [], []
+    for _ in range(4):  # one warm-up, three timed
+        at_start = counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, base, next(stream))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        per_step.append(tuple(a - b for a, b in zip(counts(), at_start)))
+    stream.close()
+    timed_ms = statistics.median(step_ms[1:])
+    b_moved = all(not torch.equal(state[0]["layers"][i]["wq"]["b"].detach(), before)
+                  for i, before in zip((0, -1), b_before))
+    base_same = base_checksums(base) == base_before
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    expect = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    row = {"phase": "lora_train", "config": "llama_3_8b", "layers": cfg.n_layers,
+           "rank": 8, "targets": list(lora.targets), "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "optimizer": "torch.optim.Adam(lr=1e-3)", "remat": True,
+           "step_ms": step_ms, "ms_per_step": timed_ms,
+           "tokens_per_s": tokens / timed_ms * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step_fwd_dq_dkv": [list(x) for x in per_step],
+           "losses": losses, "adapter_b_moved": b_moved,
+           "base_leaves_checked": len(base_before) // 2,
+           "base_bit_identical": base_same, "card": card}
+    row["ok"] = (all(x == expect for x in per_step) and b_moved and base_same
+                 and all(np.isfinite(losses)))
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"lora_train phase failed: {row}")
+    # finetune_lora.py's serving path: merge, quantize, generate
+    with torch.no_grad():
+        adapters = {"layers": [{t: {k: v.detach() for k, v in ab.items()}
+                                for t, ab in layer.items()}
+                               for layer in state[0]["layers"]]}
+        del state
+        merged = tlora.merge_lora(base, adapters, lora)
+        served = quantize_params(merged)
+        del merged, base
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        prompt = torch.randint(1, cfg.vocab_size, (2, 128), generator=gen, device="cuda")
+        zero_counts()
+        t0 = time.time()
+        out = gen_mod.generate(served, prompt, cfg, max_new_tokens=16)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    serve = {"phase": "lora_merge_int8_generate", "prompt": [2, 128], "new_tokens": 16,
+             "seconds": wall, "flash_launches": counts()[0], "card": card}
+    serve["ok"] = (tuple(out.shape) == (2, 16) and serve["flash_launches"] == cfg.n_layers
+                   and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+    emit(serve)
+    if not serve["ok"]:
+        raise SystemExit(f"merged int8 serving failed: {serve}")
+    return row
+
+
 def profile_steps(run_steps, card, step_ms: float, steps: int = 8,
                   phase: str = "decode_profile") -> dict:
     """torch.profiler over ``run_steps(steps)``: device-busy time, the
@@ -773,16 +1198,28 @@ def main() -> int:
           "flash_launches": fa.LAUNCHES, "ok": eng_ok, "card": card})
     if not eng_ok:
         raise SystemExit(f"engine failed: lengths ok {lens_ok}, prefix hits {hits}")
+    del eng
+
+    # ------------------------------------------------ serving extensions
+    trees = quantize_phase(card, params, cfg)
+    generate_quant_phase(card, trees, cfg, prompt)
+    decode_quant_phase(card, trees, cfg, prompt, out[:, 0])
+    engine_quant_lora_phase(card, trees, cfg, prompts)
+    spec_prompts = [rng_tokens[1460:1480], rng_tokens[1480:1580],
+                    rng_tokens[1580:1780], rng_tokens[1780:1990]]
+    spec_engine_phase(card, params, cfg, spec_prompts)
 
     # ---------------------------------------------------------- training
     # the serving weights and caches go first: the trainer needs ~51 GB
-    del eng, params, prompt, out, tiny_gpu, tiny_cpu
+    del params, prompt, out, tiny_gpu, tiny_cpu, trees
     torch.cuda.empty_cache()
     train_grads_phase(card)
     torch.cuda.empty_cache()
     train = train_phase(card)
     torch.cuda.empty_cache()
     train_adamw_phase(card)
+    torch.cuda.empty_cache()
+    lora = lora_train_phase(card)
 
     # ----------------------------------------------------------- summary
     emit({"kernels": [{
@@ -799,6 +1236,7 @@ def main() -> int:
         "library_ms": main_case["library_ms"],
         "shape": "q [2,512,32,128], k/v [2,512,8,128] bf16 causal",
         "launches_train": train["launches_total_fwd_dq_dkv"][0],
+        "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][0],
         "device_ms": main_case["kernel_device_ms"],
         "library_device_ms": main_case["library_device_ms"],
         "ms_train": train_case["kernel_ms"],
@@ -815,6 +1253,7 @@ def main() -> int:
         "source": "nos_tpu_torch/ops/csrc/flash_bwd.cu",
         "replaces": replaces,
         "launches": train["launches_total_fwd_dq_dkv"][index],
+        "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][index],
         "max_abs_err": max(bwd_case[f"{g}_max_abs_err"] for g in grads),
         "ms": bwd_case[f"{key}_ms"],
         "plain_ms": bwd_case["plain_ms"],

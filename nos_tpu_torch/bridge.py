@@ -3,15 +3,28 @@
 ``params_from_numpy`` takes a ``nos_tpu`` Llama parameter tree whose
 leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, params)`` on
 the caller's side; this module never imports jax) and returns the port's
-dict with the same keys and the same ``[in, out]`` layout. bf16 leaves
-arrive as ``ml_dtypes`` arrays that torch cannot read: they are widened
-to f32 (exact) and cast to ``config.dtype``.
+dict with the same keys and the same ``[in, out]`` layout. Dense leaves
+are cast to ``config.dtype``; bf16 leaves arrive as ``ml_dtypes`` arrays
+that torch cannot read and are widened to f32 (exact) first.
+
+The reference's weight nodes arrive as its own classes with numpy
+fields. They are recognised by their fields, never by importing their
+classes, and each field keeps its own dtype (int8 ``q``, uint8 packed
+nibbles, f32 scales and adapters, an int row selector):
+
+- ``q``, ``scale``, ``group`` → ``QuantizedLinear4``;
+- ``q``, ``scale`` → ``QuantizedEmbedding`` at ``embed``, else
+  ``QuantizedLinear``;
+- ``w``, ``a``, ``b``, ``idx``, ``scale`` → ``MultiLoraLinear``;
+- ``w``, ``a``, ``b``, ``scale`` → ``LoraLinear``.
 
 ``params_to_numpy`` goes the other way, so a caller can hold the port's
 params against the reference's after a training step: f32 leaves come
 back as f32 arrays and bf16 leaves as ``ml_dtypes.bfloat16`` arrays
 (jax's own bf16 numpy type), bit for bit. A velocity tree has the
 params' structure and crosses through ``params_from_numpy`` as it is.
+``lora_from_numpy`` / ``lora_to_numpy`` carry adapter trees
+(``{"layers": [{target: {"a", "b"}}]}``) both ways in their own dtypes.
 """
 from __future__ import annotations
 
@@ -22,6 +35,12 @@ import torch
 
 from nos_tpu_torch import _resolve_device
 from nos_tpu_torch.models.llama import LlamaConfig, _check_slice, tree_map
+from nos_tpu_torch.models.lora import LoraLinear, MultiLoraLinear
+from nos_tpu_torch.models.quantize import (
+    QuantizedEmbedding,
+    QuantizedLinear,
+    QuantizedLinear4,
+)
 
 _LAYER_KEYS = (
     "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down",
@@ -33,17 +52,37 @@ _TORCH_READS = {np.dtype(t) for t in (
 )}
 
 
-def _tensor(leaf, name: str, config: LlamaConfig, device) -> torch.Tensor:
-    if not isinstance(leaf, np.ndarray):
-        raise NotImplementedError(
-            f"{name}: leaf of type {type(leaf).__name__}; quantized / LoRA "
-            "leaves are not ported yet (ROADMAP Queue 1 item 8)"
-        )
-    if leaf.dtype not in _TORCH_READS:
-        leaf = leaf.astype(np.float32)
-    # torch.tensor copies: the port's weights never alias the caller's
-    # (possibly read-only) arrays
-    return torch.tensor(leaf, dtype=config.dtype, device=device)
+def _exact(leaf: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype (ml_dtypes bf16 as
+    torch bf16), copied: the port never aliases the caller's arrays."""
+    leaf = np.asarray(leaf)
+    if leaf.dtype in _TORCH_READS:
+        return torch.tensor(leaf, device=device)
+    if leaf.dtype.name == "bfloat16":
+        return torch.tensor(leaf.view(np.int16), device=device).view(torch.bfloat16)
+    raise TypeError(f"leaf of numpy dtype {leaf.dtype} has no torch twin")
+
+
+def _tensor(leaf, name: str, config: LlamaConfig, device):
+    if isinstance(leaf, np.ndarray):
+        if leaf.dtype not in _TORCH_READS:
+            leaf = leaf.astype(np.float32)
+        return torch.tensor(leaf, dtype=config.dtype, device=device)
+    fields = set(vars(leaf)) if hasattr(leaf, "__dict__") else set()
+    if {"q", "scale", "group"} <= fields:
+        return QuantizedLinear4(q=_exact(leaf.q, device), scale=_exact(leaf.scale, device),
+                                group=int(leaf.group))
+    if {"q", "scale"} <= fields:
+        node = QuantizedEmbedding if name == "embed" else QuantizedLinear
+        return node(q=_exact(leaf.q, device), scale=_exact(leaf.scale, device))
+    if {"w", "a", "b", "scale"} <= fields:
+        parts = dict(w=_tensor(leaf.w, f"{name}.w", config, device),
+                     a=_exact(leaf.a, device), b=_exact(leaf.b, device),
+                     scale=float(leaf.scale))
+        if "idx" in fields:
+            return MultiLoraLinear(idx=_exact(leaf.idx, device), **parts)
+        return LoraLinear(**parts)
+    raise TypeError(f"{name}: unrecognised params leaf of type {type(leaf).__name__}")
 
 
 def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig, device=None):
@@ -83,3 +122,18 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's params (or a tree of their shape) → the same tree with
     numpy leaves on the host, each leaf's bits unchanged."""
     return tree_map(_array, params)
+
+
+def lora_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """An adapter tree with numpy leaves → tensors on ``device``, each in
+    its own dtype (the reference's adapters are f32)."""
+    dev = _resolve_device(device)
+    return {"layers": [
+        {t: {ab: _exact(arr, dev) for ab, arr in target.items()}
+         for t, target in layer.items()}
+        for layer in tree["layers"]
+    ]}
+
+
+# an adapter tree walks like a params tree
+lora_to_numpy = params_to_numpy

@@ -17,7 +17,11 @@ Differences from the reference, all deliberate:
 - Sampling draws from ``torch.Generator``s, not ``jax.random`` keys:
   reproducible per seed, never bitwise equal to the reference.
 
-Not in this slice: the int8 KV cache (``quant`` / ``kv_quant`` raise).
+The int8 KV cache (``quant`` / ``kv_quant``) keeps the reference's
+rounding order: the prompt's own attention runs on the exact fresh K/V,
+``k_scale`` multiplies the f32 scores before the 1/sqrt(hd), ``v_scale``
+is cast to the model dtype and folded into the probabilities after their
+cast, and int8 widens to the model dtype (exact) before the f32 products.
 """
 from __future__ import annotations
 
@@ -50,33 +54,66 @@ from nos_tpu_torch.models.llama import (
 
 Cache = List[Dict[str, torch.Tensor]]
 
-_KV_QUANT_TODO = (
-    "the int8 KV cache is not ported yet (ROADMAP Queue 1 item 7: int8 KV cache)"
-)
-
 
 def init_kv_cache(
     config: LlamaConfig, batch: int, max_len: int, quant: bool = False,
     device=None,
 ) -> Cache:
-    """Per-layer K/V buffers [B, max_len, Hkv, hd] in the model dtype."""
-    if quant:
-        raise NotImplementedError(_KV_QUANT_TODO)
+    """Per-layer K/V buffers [B, max_len, Hkv, hd] in the model dtype.
+
+    ``quant``: int8 K/V with per-(row, slot, head) f32 absmax scales
+    ``k_scale`` / ``v_scale`` [B, max_len, Hkv]: half the cache bytes of
+    bf16. Lossy on every decode read; the prompt's own prefill attention
+    stays exact."""
     c = config
     dev = _resolve_device(device)
     shape = (batch, max_len, c.n_kv_heads, c.head_dim)
+    if not quant:
+        return [
+            {
+                "k": torch.zeros(shape, dtype=c.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=c.dtype, device=dev),
+            }
+            for _ in range(c.n_layers)
+        ]
     return [
         {
-            "k": torch.zeros(shape, dtype=c.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=c.dtype, device=dev),
+            "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
         }
         for _ in range(c.n_layers)
     ]
 
 
+def _kv_quantized(cache: Cache) -> bool:
+    return bool(cache) and "k_scale" in cache[0]
+
+
+def _quantize_kv(vec: torch.Tensor):
+    """[..., hd] → (int8 [..., hd], f32 scale [...]): symmetric absmax
+    over the head dim, one scale per written K/V vector."""
+    v32 = vec.float()
+    absmax = v32.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0, 1.0)
+    q = torch.clamp(torch.round(v32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _cache_kv(k, v, dtype, quant: bool) -> Dict[str, torch.Tensor]:
+    """The values one write stores: K/V in the model dtype, or int8 K/V
+    with their scales."""
+    if not quant:
+        return {"k": k.to(dtype), "v": v.to(dtype)}
+    k8, ks = _quantize_kv(k)
+    v8, vs = _quantize_kv(v)
+    return {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
+
+
 def _cache_attention(
     q, cache_k, cache_v, n_valid, config: LlamaConfig, key_valid=None,
-    rolling: int = 0,
+    rolling: int = 0, k_scale=None, v_scale=None,
 ):
     """q [B, S, Hq, hd] against cache [B, T, Hkv, hd], masked to the first
     ``n_valid`` positions: a scalar (one shared frontier), [B] (per-row
@@ -85,12 +122,21 @@ def _cache_attention(
 
     ``rolling`` = C > 0: physical slot s holds logical position
     l_s = (f-1) - ((f-1-s) mod C) for frontier f; valid when l_s >= 0
-    and inside the window. Slots >= C are never valid."""
+    and inside the window. Slots >= C are never valid.
+
+    ``k_scale`` / ``v_scale`` [B, T, Hkv]: an int8 cache. K widens to
+    q's dtype and its scales multiply the f32 scores; the V scales fold
+    into the probabilities (in q's dtype) before the value product."""
     c = config
     b, s, hq, hd = q.shape
     t = cache_k.shape[1]
     dev = q.device
-    scores = _grouped_scores(q, cache_k, c.n_kv_heads) / math.sqrt(hd)
+    if k_scale is not None:
+        cache_k = cache_k.to(q.dtype)
+    scores = _grouped_scores(q, cache_k, c.n_kv_heads)
+    if k_scale is not None:
+        scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :]
+    scores = scores / math.sqrt(hd)
     iota = torch.arange(t, device=dev).reshape(1, 1, 1, 1, t)
     nv = torch.as_tensor(n_valid, device=dev)
     if nv.dim() == 2:
@@ -114,6 +160,10 @@ def _cache_attention(
         valid = valid & kv_mask[:, None, None, None, :]
     scores = torch.where(valid, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if v_scale is not None:
+        # sum_t p * (v8 * s) = sum_t (p * s) * v8: no widened-and-scaled V
+        probs = probs * v_scale.transpose(1, 2).to(probs.dtype)[:, :, None, None, :]
+        cache_v = cache_v.to(q.dtype)
     return _grouped_values(probs, cache_v)
 
 
@@ -127,11 +177,10 @@ def prefill(
     ``pad_id`` enables LEFT-padded batches: pads are masked out of
     attention and RoPE counts only real tokens. Unpadded prompts run the
     flash kernel when the config asks for it; padded ones need per-key
-    masks the kernel does not take and stay dense."""
+    masks the kernel does not take and stay dense. ``quant``: an int8
+    cache; the prompt's own attention still runs on the exact K/V."""
     c = config
     _check_slice(c)
-    if quant:
-        raise NotImplementedError(_KV_QUANT_TODO)
     dev = params_device(params)
     tokens = torch.as_tensor(tokens, device=dev)
     b, s = tokens.shape
@@ -143,7 +192,7 @@ def prefill(
             "via the engine's chunked admission instead"
         )
     hd = c.head_dim
-    x = _embed_rows(params["embed"], tokens, c.embed_scale)
+    x = _embed_rows(params["embed"], tokens, c.dtype, c.embed_scale)
     if pad_id is None:
         cos, sin = _rope(s, hd, c.rope_theta, c.dtype, c.rope_scaling, device=dev)
         token_valid = None
@@ -155,14 +204,14 @@ def prefill(
         )
         cos = cos.reshape(b, s, 1, -1)  # per-row tables
         sin = sin.reshape(b, s, 1, -1)
-    cache = init_kv_cache(c, b, max_len, device=dev)
+    cache = init_kv_cache(c, b, max_len, quant=quant, device=dev)
     for i, layer in enumerate(params["layers"]):
         h = _rms_norm(x, layer["attn_norm"], c.norm_eps, c.norm_offset)
         q, k, v = _qkv(h, layer, c)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
-        cache[i]["k"][:, :s] = k.to(c.dtype)
-        cache[i]["v"][:, :s] = v.to(c.dtype)
+        for key, val in _cache_kv(k, v, c.dtype, quant).items():
+            cache[i][key][:, :s] = val
         if c.attention == "flash" and pad_id is None:
             from nos_tpu_torch.ops.flash_attention import flash_attention
 
@@ -190,10 +239,12 @@ def _write_rows(buf: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
                 keep: torch.Tensor) -> None:
     """buf[r, slot[r]] = vals[r] where keep[r]; rows with keep False
     leave the (clamped) slot as it was — the reference's dropped scatter
-    write. Rows are distinct, so no two writes collide."""
+    write. Rows are distinct, so no two writes collide. ``vals`` is
+    [B, ...] of any rank (a K/V row [B, Hkv, hd], a scale row [B, Hkv])."""
     rows = torch.arange(buf.shape[0], device=buf.device)
     old = buf[rows, slot]
-    buf[rows, slot] = torch.where(keep[:, None, None], vals.to(buf.dtype), old)
+    mask = keep.reshape(-1, *([1] * (old.dim() - 1)))
+    buf[rows, slot] = torch.where(mask, vals.to(buf.dtype), old)
 
 
 def decode_step(
@@ -232,7 +283,8 @@ def decode_step(
     cap = t_cache - 1 if rolling else 0
     if rolling and not per_row:
         raise ValueError("rolling decode needs per-row positions")
-    x = _embed_rows(params["embed"], token, c.embed_scale)[:, None, :]
+    quant = _kv_quantized(cache)
+    x = _embed_rows(params["embed"], token, c.dtype, c.embed_scale)[:, None, :]
     if rope_pos is None and per_row:
         rope_pos = pos_t
     if rope_pos is None:
@@ -256,14 +308,14 @@ def decode_step(
         q, k, v = _qkv(h, layer, c)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
-        if per_row:
-            _write_rows(kv["k"], wslot, k[:, 0], in_cache)
-            _write_rows(kv["v"], wslot, v[:, 0], in_cache)
-        else:
-            kv["k"].index_copy_(1, wslot, k.to(c.dtype))
-            kv["v"].index_copy_(1, wslot, v.to(c.dtype))
+        for key, val in _cache_kv(k, v, c.dtype, quant).items():
+            if per_row:
+                _write_rows(kv[key], wslot, val[:, 0], in_cache)
+            else:
+                kv[key].index_copy_(1, wslot, val)
         attn = _cache_attention(
-            q, kv["k"], kv["v"], pos_t + 1, c, key_valid=key_valid, rolling=cap
+            q, kv["k"], kv["v"], pos_t + 1, c, key_valid=key_valid, rolling=cap,
+            k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"),
         )
         x = x + _mm(attn, layer["wo"])
         x = x + _mlp(
@@ -298,7 +350,8 @@ def decode_chunk(
     pos = torch.as_tensor(pos, device=dev)
     b, m = tokens.shape
     hd = c.head_dim
-    x = _embed_rows(params["embed"], tokens, c.embed_scale)  # [B, m, D]
+    quant = _kv_quantized(cache)
+    x = _embed_rows(params["embed"], tokens, c.dtype, c.embed_scale)  # [B, m, D]
     posmat = pos[:, None] + torch.arange(m, device=dev, dtype=pos.dtype)[None, :]
     cos, sin = _rope_at(posmat.reshape(-1), hd, c.rope_theta, c.dtype, c.rope_scaling)
     cos = cos.reshape(b, m, 1, -1)
@@ -320,9 +373,10 @@ def decode_chunk(
         q, k, v = _qkv(h, layer, c)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
-        kv["k"][rows, write_pos] = k.to(c.dtype)
-        kv["v"][rows, write_pos] = v.to(c.dtype)
-        attn = _cache_attention(q, kv["k"], kv["v"], frontier, c, rolling=cap)
+        for key, val in _cache_kv(k, v, c.dtype, quant).items():
+            kv[key][rows, write_pos] = val
+        attn = _cache_attention(q, kv["k"], kv["v"], frontier, c, rolling=cap,
+                                k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"))
         x = x + _mm(attn, layer["wo"])
         x = x + _mlp(
             _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset),
@@ -422,14 +476,13 @@ def generate(
     variable-length prompts. ``eos_id``: a row that emits it keeps
     emitting it. The reference scans max_new_tokens decode steps and
     discards the last one's output; this loop runs only the steps whose
-    tokens it returns."""
+    tokens it returns. ``kv_quant``: an int8 cache (see init_kv_cache)."""
     c = config
-    if kv_quant:
-        raise NotImplementedError(_KV_QUANT_TODO)
     dev = params_device(params)
     prompt = torch.as_tensor(prompt, device=dev)
     b, s = prompt.shape
-    logits, cache = prefill(params, prompt, c, s + max_new_tokens, pad_id=pad_id)
+    logits, cache = prefill(params, prompt, c, s + max_new_tokens, pad_id=pad_id,
+                            quant=kv_quant)
     if rng is None and temperature > 0.0:
         rng = torch.Generator(device=dev)
         rng.manual_seed(0)

@@ -16,14 +16,19 @@ tensor and its plain version on a CPU one (``nos_tpu_torch.ops``).
 ``llama_loss`` is the training objective; gradients of the flash branch
 run the hand-written backward kernels (``nos_tpu_torch.ops``).
 
+A weight leaf is a dense tensor or a ``WeightNode``: a quantized weight
+(``models/quantize.py``) or an adapted one (``models/lora.py``). ``_mm``
+and ``_embed_rows`` dispatch on it, so no model code forks.
+
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): a ``mesh``, ``n_experts > 0``, quantized / LoRA weight leaves.
+item): a ``mesh``, ``n_experts > 0``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -187,11 +192,46 @@ def init_llama_params(config: LlamaConfig, seed: int = 0, device=None) -> Params
     return params
 
 
+class WeightNode:
+    """A params leaf holding several tensors: a quantized weight
+    (``models/quantize.py``) or an adapted one (``models/lora.py``), the
+    port's form of the reference's pytree node classes. Subclasses are
+    dataclasses naming their tensor fields in ``TENSORS``; every other
+    field (an int4 group, a LoRA scale) is static."""
+
+    TENSORS: Tuple[str, ...] = ()
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [getattr(self, name) for name in self.TENSORS]
+
+    def replace(self, tensors) -> "WeightNode":
+        """The same node over new tensors, in ``TENSORS`` order."""
+        return dataclasses.replace(self, **dict(zip(self.TENSORS, tensors)))
+
+    def to(self, device) -> "WeightNode":
+        return self.replace([t.to(device) for t in self.tensors()])
+
+
+def map_leaves(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` on every leaf of a params-shaped tree, where a leaf is a
+    tensor or a whole ``WeightNode``; same structure."""
+    if isinstance(tree, (torch.Tensor, WeightNode)):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {key: map_leaves(fn, value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, item) for item in tree)
+    raise TypeError(f"params tree holds a {type(tree).__name__}")
+
+
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
     """The tensors of a params-shaped tree (dicts in key order, lists in
-    order): one fixed order for params, gradients and velocity."""
+    order, a node's tensors in its ``TENSORS`` order): one fixed order
+    for params, gradients and velocity."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, WeightNode):
+        return tree.tensors()
     if isinstance(tree, dict):
         return [leaf for key in tree for leaf in tree_leaves(tree[key])]
     if isinstance(tree, (list, tuple)):
@@ -200,37 +240,37 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
-    """``fn`` on every tensor of a params-shaped tree, same structure."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {key: tree_map(fn, value) for key, value in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, item) for item in tree)
-    raise TypeError(f"params tree holds a {type(tree).__name__}")
+    """``fn`` on every tensor of a params-shaped tree, same structure
+    (a node is rebuilt over the mapped tensors)."""
+    def leaf(x):
+        return fn(x) if isinstance(x, torch.Tensor) else x.replace(map(fn, x.tensors()))
+
+    return map_leaves(leaf, tree)
 
 
 def params_device(params: Params) -> torch.device:
-    return params["embed"].device
+    return tree_leaves(params["embed"])[0].device
 
 
 # ---------------------------------------------------------------- forward
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a dense weight leaf."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"weight leaf {type(w).__name__}: quantized / LoRA / MultiLoRA "
-            "leaves are not ported yet (ROADMAP Queue 1 item 8)"
-        )
-    return x @ w
+    """x @ w, dispatching on the weight leaf: a dense tensor, or a node
+    with its own ``matmul`` (QuantizedLinear, QuantizedLinear4,
+    LoraLinear, MultiLoraLinear)."""
+    if isinstance(w, torch.Tensor):
+        return x @ w
+    return w.matmul(x)
 
 
-def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor, scale=None) -> torch.Tensor:
+def _embed_rows(embed, tokens: torch.Tensor, dtype, scale=None) -> torch.Tensor:
     # Advanced indexing wraps negative ids (the engine's pad id -1) the
     # way the reference's gather does; those rows are masked everywhere.
-    rows = embed[tokens]
+    if isinstance(embed, torch.Tensor):
+        rows = embed[tokens]
+    else:  # QuantizedEmbedding: only the looked-up rows widen
+        rows = embed.lookup(tokens, dtype)
     if scale is not None:
         rows = rows * scale.to(rows.device)
     return rows
@@ -245,11 +285,22 @@ def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, offset: bool = 
     return (x32 * rms).to(x.dtype) * weight
 
 
+def _unembed_weight(params: Params):
+    """The [d_model, vocab] unembedding operand for ``_mm``; tied models
+    reuse the embedding. A quantized tied embedding transposes into the
+    QuantizedLinear layout (per-vocab-row scales become per-output-column
+    scales), so int8 logits never materialize a dequantized table."""
+    if "lm_head" in params:
+        return params["lm_head"]
+    embed = params["embed"]
+    if isinstance(embed, torch.Tensor):
+        return embed.T
+    return embed.as_unembedding()
+
+
 def _unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Vocab logits in the model dtype; tied models reuse the embedding."""
-    if "lm_head" in params:
-        return _mm(x, params["lm_head"])
-    return _mm(x, params["embed"].T)
+    return _mm(x, _unembed_weight(params))
 
 
 def _llama3_scaled_freqs(freqs: torch.Tensor, scaling) -> torch.Tensor:
@@ -382,7 +433,7 @@ def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     c = config
     _check_slice(c, mesh)
     tokens = tokens.to(params_device(params))
-    x = _embed_rows(params["embed"], tokens, c.embed_scale)
+    x = _embed_rows(params["embed"], tokens, c.dtype, c.embed_scale)
     cos, sin = _rope(tokens.shape[1], c.head_dim, c.rope_theta, c.dtype,
                      c.rope_scaling, device=x.device)
 

@@ -27,9 +27,14 @@ Python loops over device tensors):
   seed, request id) only, so a sampled stream is reproducible per seed
   and independent of co-tenants (not bitwise equal to the reference's
   ``jax.random`` streams).
+- ``kv_quant``: every cache (batch, padded prefill, chunked row) is int8
+  with its scale buffers, which ride every splice, snapshot and restore.
+- Multi-tenant LoRA: over ``stack_lora_adapters`` params each request
+  names its adapter; decode runs the tree re-pointed at the slots' ids
+  and admission at the one row's (``with_adapter_rows``: the row
+  selector changes, no weight is copied).
 
-Not in this slice (NotImplementedError): ``mesh``, ``kv_quant``,
-``adapter != 0``.
+Not in this slice (NotImplementedError): ``mesh``.
 """
 from __future__ import annotations
 
@@ -42,7 +47,6 @@ import numpy as np
 import torch
 
 from nos_tpu_torch.models.generate import (
-    _KV_QUANT_TODO,
     decode_chunk,
     decode_step,
     init_kv_cache,
@@ -50,6 +54,7 @@ from nos_tpu_torch.models.generate import (
     prefill,
 )
 from nos_tpu_torch.models.llama import LlamaConfig, _check_slice, params_device
+from nos_tpu_torch.models.lora import n_adapters, with_adapter_rows
 from nos_tpu_torch.serve.telemetry import ServeClock, ServeTelemetry
 from nos_tpu_torch.util import metrics
 
@@ -70,7 +75,8 @@ class GenRequest:
     # Streaming: on_token(request_id, token) for each emitted token, from
     # the host at sync points. A streaming slot bounds the sync horizon.
     on_token: Optional[Callable[[int, int], None]] = None
-    # Multi-tenant LoRA adapter id; only 0 (the bare base) in this slice.
+    # Multi-tenant LoRA (engine built over stack_lora_adapters): which
+    # stacked adapter this request's rows apply; 0 = the bare base.
     adapter: int = 0
     id: int = -1
 
@@ -113,8 +119,6 @@ class Engine:
         clock: Optional[ServeClock] = None,
     ) -> None:
         _check_slice(config, mesh)
-        if kv_quant:
-            raise NotImplementedError(_KV_QUANT_TODO)
         self.params = params
         self.config = config
         self.device = params_device(params)
@@ -123,6 +127,8 @@ class Engine:
         # mod C (C = max_len - 1; the last slot stays the ingest's pad
         # target), so prompt + budget are unbounded.
         self.rolling = rolling
+        # int8 KV cache: half the cache bytes; lossy decode reads.
+        self.kv_quant = kv_quant
         if rolling:
             if config.sliding_window is None:
                 raise ValueError("rolling cache requires a sliding_window config")
@@ -142,12 +148,16 @@ class Engine:
         self.slots_n = max_slots
         self.max_len = max_len
         self.ticks_per_sync = max(1, ticks_per_sync)
+        # Tokens a slot is guaranteed per decode chunk: what _sync_horizon
+        # divides budgets by (SpecEngine: k + 1 per speculative round).
+        self._tokens_per_sync = self.ticks_per_sync
         self.prefill_chunk = max(8, prefill_chunk)
         # LRU over completed chunk-boundary prompt prefixes (chunked path
         # only); 0 disables.
         self.prefix_cache_entries = prefix_cache_entries
         self._prefix_cache: "OrderedDict[tuple, list]" = OrderedDict()
-        self._cache = init_kv_cache(config, max_slots, max_len, device=self.device)
+        self._cache = init_kv_cache(config, max_slots, max_len, quant=kv_quant,
+                                    device=self.device)
         # Host-side control state, copied to the device once per round.
         self._pos = np.zeros(max_slots, np.int64)  # next physical write slot
         self._rope = np.zeros(max_slots, np.int64)  # logical position (no pads)
@@ -158,6 +168,9 @@ class Engine:
         self._topp = np.ones(max_slots, np.float32)
         self._seed = int(seed)
         self._row_gens: List[Optional[torch.Generator]] = [None] * max_slots
+        # Multi-tenant LoRA: each slot's adapter id (0 without adapters).
+        self._n_adapters = n_adapters(params)
+        self._adapter_rows = np.zeros(max_slots, np.int64)
         self._slots: List[Optional[_Slot]] = [None] * max_slots
         self._queue: List[GenRequest] = []
         self._done: List[Completion] = []
@@ -176,11 +189,10 @@ class Engine:
             raise ValueError("prompt must contain at least one token")
         if request.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if request.adapter:
-            raise NotImplementedError(
-                f"adapter {request.adapter}: multi-tenant LoRA adapters are "
-                "not ported yet (ROADMAP Queue 1 item 8: serving extensions, "
-                "lora.py)"
+        if request.adapter and not (0 <= request.adapter < max(1, self._n_adapters)):
+            raise ValueError(
+                f"adapter {request.adapter} out of range: the tree stacks "
+                f"{self._n_adapters} adapters (0 = base)"
             )
         if self.rolling:
             return
@@ -219,6 +231,19 @@ class Engine:
         """Anything queued or occupying a slot (the drain condition)."""
         return bool(self._queue) or any(s is not None for s in self._slots)
 
+    def _decode_params(self):
+        """The params decode runs: with stacked LoRA adapters, re-pointed
+        at the slots' adapter ids (weights shared, not copied)."""
+        if not self._n_adapters:
+            return self.params
+        return with_adapter_rows(self.params, self._adapter_rows)
+
+    def _admission_params(self, adapter: int):
+        """Single-row variant for prefill and ingest (B = 1)."""
+        if not self._n_adapters:
+            return self.params
+        return with_adapter_rows(self.params, [adapter])
+
     def run(self) -> Dict[int, List[int]]:
         """Drain queue + slots; returns {request id: generated tokens},
         chaining decode chunks between host syncs (see _sync_horizon)."""
@@ -232,7 +257,7 @@ class Engine:
         """Decode chunks until the next host decision point: a slot that
         can free while requests wait, or the drain's end. ``pending``:
         slots whose admission first token rides this round's pull."""
-        t = self.ticks_per_sync
+        t = self._tokens_per_sync
         horizons = []
         for b, s in enumerate(self._slots):
             if s is None or s.done:
@@ -289,11 +314,13 @@ class Engine:
         )
         with self.telemetry.prefill_span(request, bucket, "padded"):
             logits, row_cache = prefill(
-                self.params, padded, self.config, bucket, pad_id=PAD_ID
+                self._admission_params(request.adapter), padded, self.config,
+                bucket, pad_id=PAD_ID, quant=self.kv_quant,
             )
             first_logits = logits[:, -1]
             first = first_logits.argmax(dim=-1)
         self._splice(row_cache, b)
+        self._adapter_rows[b] = request.adapter
         self._slots[b] = _Slot(request=request)
         self._pos[b] = bucket
         self._rope[b] = len(request.prompt)
@@ -318,7 +345,7 @@ class Engine:
         # layout keeps its sacrificial slot OUTSIDE max_len instead
         row_cache = init_kv_cache(
             self.config, 1, self.max_len if self.rolling else self.max_len + 1,
-            device=self.device,
+            quant=self.kv_quant, device=self.device,
         )
         # Longest cached prefix at one of this request's chunk boundaries;
         # the final piece always recomputes (its logits seed generation).
@@ -340,7 +367,10 @@ class Engine:
                     break
                 boundary -= n
         with self.telemetry.prefill_span(request, length - resume, "chunked"):
-            logits = self._ingest_pieces(row_cache, prompt, n, resume)
+            logits = self._ingest_pieces(
+                self._admission_params(request.adapter), self.config,
+                row_cache, prompt, n, resume,
+            )
         if self.prefix_cache_entries > 0:
             store_at = ((length - 1) // n) * n
             if store_at > 0:
@@ -356,6 +386,7 @@ class Engine:
         last_idx = (length - 1) % n
         first = logits[0, last_idx].argmax()
         self._splice(row_cache, b)
+        self._adapter_rows[b] = request.adapter
         self._slots[b] = _Slot(request=request)
         self._pos[b] = length
         self._rope[b] = length
@@ -366,11 +397,13 @@ class Engine:
                                   raw=logits[0, last_idx][None]))
         )
 
-    def _ingest_pieces(self, row_cache, prompt, n: int, resume: int = 0):
+    def _ingest_pieces(self, params, config, row_cache, prompt, n: int,
+                       resume: int = 0):
         """THE prompt-chunking loop: n-token pieces from ``resume``, the
         final piece RIGHT-padded with its pad writes masked to the row
         cache's sacrificial trailing slot. Returns the last piece's
-        logits [1, n, vocab]."""
+        logits [1, n, vocab]. Target and draft (SpecEngine) ingestion
+        share it, so their piece math cannot diverge."""
         logits = None
         for start in range(resume, len(prompt), n):
             piece = prompt[start:start + n]
@@ -379,10 +412,10 @@ class Engine:
             mask = torch.tensor([[True] * real + [False] * (n - real)],
                                 device=self.device)
             logits, _ = decode_chunk(
-                self.params, row_cache,
+                params, row_cache,
                 torch.tensor([start], dtype=torch.long, device=self.device),
                 torch.tensor([piece], dtype=torch.long, device=self.device),
-                self.config, write_mask=mask, rolling=self.rolling,
+                config, write_mask=mask, rolling=self.rolling,
             )
         return logits
 
@@ -451,13 +484,13 @@ class Engine:
 
     # ------------------------------------------------------------- tick
 
-    def _decode_chunk(self, pos, last, rope, key_valid, sampling=None):
+    def _decode_chunk(self, params, pos, last, rope, key_valid, sampling=None):
         """``ticks_per_sync`` decode ticks for every slot → (tokens
         [ticks, B], pos, last, rope), all on the device."""
         toks = []
         for _ in range(self.ticks_per_sync):
             logits, _ = decode_step(
-                self.params, self._cache, pos, last, self.config,
+                params, self._cache, pos, last, self.config,
                 rope_pos=rope, key_valid=key_valid, rolling=self.rolling,
             )
             if sampling is None:
@@ -514,9 +547,10 @@ class Engine:
                      for b, g in enumerate(self._row_gens)],
                 )
             tok_chunks = []
+            params = self._decode_params()
             for _ in range(chunks):
                 toks, pos, last, rope = self._decode_chunk(
-                    pos, last, rope, key_valid, sampling
+                    params, pos, last, rope, key_valid, sampling
                 )
                 tok_chunks.append(toks)
             # ONE transfer for the whole round
@@ -566,3 +600,4 @@ class Engine:
             self._pos[b] = 0
             self._rope[b] = 0
             self._key_valid[b, :] = False
+            self._adapter_rows[b] = 0

@@ -254,3 +254,21 @@ SERVE_GOODPUT_TOKENS = REGISTRY.counter(
     "nos_tpu_serve_goodput_tokens_total",
     "Tokens from requests that met their latency targets (by model)",
 )
+
+# Speculative decoding (serve/spec_engine.py): acceptance telemetry. The
+# accept rate is accepted / draft; accepted / rounds over active
+# row-rounds is stats()['mean_accepted'].
+SERVE_SPEC_ROUNDS = REGISTRY.counter(
+    "nos_tpu_serve_spec_rounds_total",
+    "Speculative rounds executed per active row (row-rounds): each drafts "
+    "k tokens and commits 1..k+1",
+)
+SERVE_SPEC_DRAFT_TOKENS = REGISTRY.counter(
+    "nos_tpu_serve_spec_draft_tokens_total",
+    "Draft tokens proposed to the target verifier (k per active row-round)",
+)
+SERVE_SPEC_ACCEPTED_TOKENS = REGISTRY.counter(
+    "nos_tpu_serve_spec_accepted_tokens_total",
+    "Draft tokens the target accepted (committed - 1 per active row-round; "
+    "the bonus token is not a draft acceptance)",
+)

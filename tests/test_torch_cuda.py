@@ -340,3 +340,100 @@ def test_sampled_streams_on_card(cuda_device):
 
     assert run_once(1) == run_once(1)
     assert run_once(1) != run_once(2)
+
+
+def _to(tree, device):
+    from nos_tpu_torch.models.llama import tree_map
+
+    return tree_map(lambda x: x.to(device), tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_quantized_generate_on_card_matches_cpu(cuda_device, fmt, kv_quant):
+    """The same quantized f32 tiny model on the card and on the CPU: the
+    prefill logits within 1e-4 (f32 products, TF32 off, other summation
+    order) and greedy tokens identical."""
+    from nos_tpu_torch.models import generate as tg
+    from nos_tpu_torch.models import quantize as tq
+
+    cfg, params = _tiny_f32("cpu")
+    q = tq.quantize_params(params) if fmt == "int8" else tq.quantize_params_int4(params, 32)
+    q_card = _to(q, cuda_device)
+    assert isinstance(q_card["layers"][0]["wq"].q, torch.Tensor)
+    assert q_card["embed"].q.device.type == "cuda"
+    prompt = torch.randint(1, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(3))
+    cpu_logits, _ = tg.prefill(q, prompt, cfg, 24, quant=kv_quant)
+    card_logits, card_cache = tg.prefill(q_card, prompt, cfg, 24, quant=kv_quant)
+    assert float((card_logits.cpu() - cpu_logits).abs().max()) <= 1e-4
+    assert card_cache[0]["k"].dtype == (torch.int8 if kv_quant else torch.float32)
+    want = tg.generate(q, prompt, cfg, 10, kv_quant=kv_quant)
+    got = tg.generate(q_card, prompt, cfg, 10, kv_quant=kv_quant)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_lora_gradients_through_flash_match_dense_on_card(cuda_device):
+    """LoRA on wq / wv over a frozen bf16 base, 2 layers at head_dim 128:
+    the adapters' gradients through the flash kernels (forward, dQ,
+    dK/dV) against autograd of the dense einsums, within 5e-2 of each
+    gradient's largest value (the full-width flash-vs-dense bar of
+    chip_smoke.py). In layer 0 k takes no gradient; dK/dV still runs for
+    v. With remat the forward runs twice a layer."""
+    import dataclasses
+
+    from nos_tpu_torch.models import llama as tl
+    from nos_tpu_torch.models import lora as tlora
+
+    cfg = tl.tiny_config(d_model=256, n_heads=2, n_kv_heads=1, d_ff=512,
+                         attention="flash", remat=True)
+    params = tl.init_llama_params(cfg, 4, device=cuda_device)
+    lora = tlora.LoraConfig(rank=8)
+    adapters = tlora.init_lora_params(cfg, lora, seed=5, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    for layer in adapters["layers"]:
+        for ab in layer.values():
+            ab["b"].normal_(0.0, 0.05, generator=gen)
+    leaves = [x.requires_grad_(True) for x in tl.tree_leaves(adapters)]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=gen, device=cuda_device)
+
+    def grads(c):
+        loss = tl.llama_loss(tlora.attach_lora(params, adapters, lora), tokens, c)
+        return torch.autograd.grad(loss, leaves)
+
+    counts = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    flash = grads(cfg)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - counts[0], fa.DQ_LAUNCHES - counts[1],
+            fa.DKV_LAUNCHES - counts[2]) == (4, 2, 2)
+    dense = grads(dataclasses.replace(cfg, attention="dense"))
+    for g, w in zip(flash, dense):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 5e-2 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_write_rows_scale_buffers_at_out_of_range_slots_on_card(cuda_device):
+    """A per-row decode_step write past the cache on an int8 cache: the
+    row's K, V and both scale rows keep their old values (masked, no
+    device-side assert), and the in-range row writes all four."""
+    from nos_tpu_torch.models import generate as tg
+
+    cfg, params = _tiny_f32(cuda_device)
+    prompt = torch.randint(1, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(7))
+    _, cache = tg.prefill(params, prompt, cfg, 16, quant=True)
+    before = [{k: v.clone() for k, v in layer.items()} for layer in cache]
+    pos = torch.tensor([8, 40], device=cuda_device)
+    logits, _ = tg.decode_step(params, cache, pos, torch.tensor([3, 4]), cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    for layer, old in zip(cache, before):
+        for key in ("k", "v", "k_scale", "v_scale"):
+            assert torch.equal(layer[key][1], old[key][1]), key
+        assert float(layer["k_scale"][0, 8].abs().min()) > 0
+    buf = torch.zeros((3, 4, 2), device=cuda_device)
+    tg._write_rows(buf, torch.tensor([1, 3, 0], device=cuda_device),
+                   torch.ones((3, 2), device=cuda_device),
+                   torch.tensor([True, False, True], device=cuda_device))
+    assert buf.sum().item() == 4 and buf[1].sum().item() == 0

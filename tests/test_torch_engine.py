@@ -222,10 +222,10 @@ class TestEnginePortOnly:
             eng.submit(GenRequest(prompt=[], max_new_tokens=4))
         with pytest.raises(ValueError):
             eng.submit(GenRequest(prompt=[1, 2], max_new_tokens=0))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # a tree without stacked adapters serves adapter 0 only
+        with pytest.raises(ValueError, match="adapter"):
             eng.submit(GenRequest(prompt=[1, 2], max_new_tokens=2, adapter=1))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(tp, tc, kv_quant=True)
+        assert Engine(tp, tc, max_len=32, kv_quant=True)._cache[0]["k"].dtype == torch.int8
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(tp, tc, mesh=object())
         with pytest.raises(ValueError, match="sliding_window"):

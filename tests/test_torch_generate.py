@@ -64,10 +64,12 @@ class TestPrefill:
             tg.prefill(tp, t(tokens_np(3, s=12)), tc, 8)
         with pytest.raises(ValueError, match="sliding_window"):
             tg.prefill(tp, t(tokens_np(3, s=8)), tc, 16, pad_id=-1)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tg.prefill(tp, t(tokens_np(3, s=8)), tc, 16, quant=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tg.init_kv_cache(tc, 1, 8, quant=True, device="cpu")
+        # the int8 cache keeps the same contract
+        with pytest.raises(ValueError, match="sliding_window"):
+            tg.prefill(tp, t(tokens_np(3, s=8)), tc, 16, pad_id=-1, quant=True)
+        _, cache = tg.prefill(tp, t(tokens_np(3, s=8)), tc, 16, quant=True)
+        with pytest.raises(ValueError, match="per-row"):
+            tg.decode_step(tp, cache, 8, t([1, 2]), tc, rolling=True)
 
 
 class TestDecode:
@@ -191,9 +193,18 @@ class TestGenerate:
         assert not torch.equal(run(1), run(2))
 
     def test_kv_quant_raises(self):
-        jc, jp, tc, tp = bridged(12)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tg.generate(tp, t(tokens_np(12, s=4)), tc, 2, kv_quant=True)
+        """kv_quant generation raises where the reference raises (a left-
+        padded prompt on a sliding-window config) and otherwise runs:
+        token parity is tests/test_torch_kv_quant.py's."""
+        jc, jp, tc, tp = bridged(12, sliding_window=4)
+        toks = tokens_np(12, s=6)
+        toks[0, :2] = 0
+        with pytest.raises(ValueError, match="sliding_window"):
+            jg.generate(jp, jnp.asarray(toks), jc, 2, pad_id=0, kv_quant=True)
+        with pytest.raises(ValueError, match="sliding_window"):
+            tg.generate(tp, t(toks), tc, 2, pad_id=0, kv_quant=True)
+        want = np.asarray(jg.generate(jp, jnp.asarray(toks), jc, 4, kv_quant=True))
+        assert np.array_equal(tg.generate(tp, t(toks), tc, 4, kv_quant=True).numpy(), want)
 
 
 class TestSamplingFilters:

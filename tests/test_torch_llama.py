@@ -178,10 +178,18 @@ class TestBridge:
         assert set(tp) == set(jp) and set(tp["layers"][0]) == set(jp["layers"][0])
 
     def test_quantized_leaves_raise(self):
+        """Quantized leaves cross the bridge (tests/test_torch_quantize.py
+        holds them bit for bit); what the port does not know still
+        raises: an unrecognised leaf, and MoE expert stacks."""
         from nos_tpu.models.quantize import quantize_params
 
         jc, jp, tc, _ = bridged(11)
         tree = jax.tree.map(np.asarray, quantize_params(jp))
+        assert params_from_numpy(tree, tc, device="cpu")["embed"].q.dtype == torch.int8
+        tree["layers"][0]["wq"] = object()
+        with pytest.raises(TypeError, match="layers\\[0\\].wq"):
+            params_from_numpy(tree, tc, device="cpu")
+        tree["layers"][0]["moe"] = {}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             params_from_numpy(tree, tc, device="cpu")
 
