@@ -70,9 +70,34 @@ The serving extensions (after the engine phase, before training):
     its own draft, k = 4, 4 requests x 32 tokens: rounds, mean accepted,
     tokens/s, agreement with the base Engine;
 
+the MoE phases (after the serving extensions, once the Llama trees are
+freed), on Mixtral-8x7B's shape with random weights from seeds:
+
+13. moe_check: moe_mlp at full width (bf16, [1, 1024] hidden states,
+    two layers of experts) at capacity factor 8 against a dense
+    per-token oracle (relative Frobenius error <= 2e-2), the pairs
+    dropped at the default factor 1.25, a zero router's ties picking
+    experts [0, 1] on the card, a tiny f32 MoE on the card against the
+    CPU (identical routing, outputs within 1e-5);
+14. moe_train_grads: 2 layers at full width, [1, 1024]: llama_loss
+    gradients (router, expert stacks, attention, embeddings, the aux
+    term) flash against dense under the train_grads limits, launches
+    2 / 2 / 2, held with tied (zero) routers; a random router's run is
+    reported beside it (near-tied tokens can route differently on the
+    two paths);
+15. mixtral_int8: full depth in int8, built one layer at a time (weight
+    bytes, conversion seconds, peak memory); at 2 layers the int8
+    forward against the fake-quant oracle, and at full depth flash
+    against dense, both held with tied routers and reported with the
+    random ones; generate() greedy on [2, 512] + 32 (forward launches
+    zeroed before and 32 after); one decode step at batch 2, cache 544,
+    beside the weight-read bound, with a torch.profiler pass; an Engine
+    with 4 slots serving 4 requests (padded and chunked admission), and
+    a lone request in it against a solo generate() (reported);
+
 and after training:
 
-13. lora_train: make_lora_train_step on the full-depth bf16 base, rank 8
+16. lora_train: make_lora_train_step on the full-depth bf16 base, rank 8
     on wq / wv, flash + remat, [4, 2048]: one warm-up and three timed
     steps (launches 64 / 32 / 32 a step), then merge_lora,
     quantize_params and generate() of 16 tokens.
@@ -369,28 +394,29 @@ def changed_fraction(before, after) -> float:
 
 
 def named_leaves(params):
-    """(kind, tensor) in the order of nos_tpu_torch.parallel.train.tree_leaves."""
+    """(kind, tensor) in the order of nos_tpu_torch.parallel.train.tree_leaves;
+    a MoE layer's leaves are "moe.router", "moe.w_gate", ..."""
     for key, value in params.items():
         if key == "layers":
             for layer in value:
-                yield from layer.items()
+                for name, leaf in layer.items():
+                    if isinstance(leaf, dict):
+                        yield from ((f"{name}.{k}", v) for k, v in leaf.items())
+                    else:
+                        yield name, leaf
         else:
             yield key, value
 
 
-def train_grads_phase(card) -> dict:
-    """llama_loss gradients at full width, 2 layers, [1, 1024]: the flash
-    path (kernels) against the dense path (autograd of the einsums)."""
+def flash_dense_grads(params, tokens, cfg) -> dict:
+    """llama_loss and its gradients on the flash path (the kernels)
+    against the dense path (autograd of the einsums): the losses, each
+    leaf kind's max |g_flash - g_dense| over its largest dense gradient,
+    and the kernel launches of the flash pass alone."""
     import torch
 
     from nos_tpu_torch.models import llama
 
-    cfg = dataclasses.replace(llama.llama_3_8b_config(), n_layers=2,
-                              attention="flash")
-    dense_cfg = dataclasses.replace(cfg, attention="dense")
-    params = llama.init_llama_params(cfg, seed=5, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen, device="cuda")
     named = list(named_leaves(params))
     leaves = [t.requires_grad_(True) for _, t in named]
 
@@ -403,22 +429,40 @@ def train_grads_phase(card) -> dict:
     loss_f, grads_f = loss_and_grads(cfg)
     torch.cuda.synchronize()
     launches = counts()
-    loss_d, grads_d = loss_and_grads(dense_cfg)
+    loss_d, grads_d = loss_and_grads(dataclasses.replace(cfg, attention="dense"))
     diff, ref = {}, {}
     for (kind, _), gf, gd in zip(named, grads_f, grads_d):
         diff[kind] = max(diff.get(kind, 0.0), float((gf.float() - gd.float()).abs().max()))
         ref[kind] = max(ref.get(kind, 0.0), float(gd.float().abs().max()))
-    rel = {kind: diff[kind] / ref[kind] for kind in diff}
-    finite = all(bool(torch.isfinite(g.float()).all()) for g in grads_f)
-    loss_diff = abs(float(loss_f) - float(loss_d))
+    return {"loss_flash": float(loss_f), "loss_dense": float(loss_d),
+            "loss_abs_diff": abs(float(loss_f) - float(loss_d)),
+            "grad_rel_err": {kind: diff[kind] / ref[kind] for kind in diff},
+            "launches_fwd_dq_dkv": list(launches),
+            "finite": all(bool(torch.isfinite(g.float()).all()) for g in grads_f)}
+
+
+def grads_hold(res, n_layers) -> bool:
+    return (res["finite"] and res["loss_abs_diff"] <= LOSS_LIMIT
+            and max(res["grad_rel_err"].values()) <= GRAD_REL_LIMIT
+            and res["launches_fwd_dq_dkv"] == [n_layers] * 3)
+
+
+def train_grads_phase(card) -> dict:
+    """llama_loss gradients at full width, 2 layers, [1, 1024]: the flash
+    path (kernels) against the dense path (autograd of the einsums)."""
+    import torch
+
+    from nos_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), n_layers=2,
+                              attention="flash")
+    params = llama.init_llama_params(cfg, seed=5, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen, device="cuda")
     row = {"phase": "train_grads", "layers": 2, "tokens": [1, 1024],
-           "loss_flash": float(loss_f), "loss_dense": float(loss_d),
-           "loss_abs_diff": loss_diff, "loss_limit": LOSS_LIMIT,
-           "grad_rel_err": rel, "grad_rel_limit": GRAD_REL_LIMIT,
-           "launches_fwd_dq_dkv": list(launches), "finite": finite, "card": card}
-    row["ok"] = (finite and loss_diff <= LOSS_LIMIT
-                 and max(rel.values()) <= GRAD_REL_LIMIT
-                 and launches == (cfg.n_layers,) * 3)
+           **flash_dense_grads(params, tokens, cfg),
+           "loss_limit": LOSS_LIMIT, "grad_rel_limit": GRAD_REL_LIMIT, "card": card}
+    row["ok"] = grads_hold(row, cfg.n_layers)
     emit(row)
     if not row["ok"]:
         raise SystemExit(f"flash gradients disagree with dense: {row}")
@@ -939,6 +983,297 @@ def lora_train_phase(card) -> dict:
     return row
 
 
+def mixtral_config(**overrides):
+    """Mixtral-8x7B's shape (mistralai/Mixtral-8x7B-v0.1, config.json):
+    vocab 32000, d 4096, 32 layers, 32 / 8 heads, d_ff 14336, 8 experts,
+    top-2, rope_theta 1e6, rms eps 1e-5, no sliding window, untied; the
+    reference's default capacity factor 1.25; the flash kernel."""
+    from nos_tpu_torch.models.llama import LlamaConfig
+
+    shape = dict(vocab_size=32000, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                 d_ff=14336, n_experts=8, moe_top_k=2, rope_theta=1e6, norm_eps=1e-5,
+                 attention="flash")
+    return LlamaConfig(**{**shape, **overrides})
+
+
+def tied_routers(params):
+    """The same tree with every router zero: each token's experts tie,
+    so routing is [0, 1] for every token whatever the rounding upstream.
+    Shares every other tensor with ``params``."""
+    import torch
+
+    return dict(params, layers=[
+        dict(layer, moe=dict(layer["moe"], router=torch.zeros_like(layer["moe"]["router"])))
+        for layer in params["layers"]])
+
+
+def dense_moe_oracle(params, x, top_k):
+    """A plain per-token MoE: each token's top-k experts by f32 router
+    probability (renormalised), every expert applied densely to the
+    tokens that chose it, no capacity."""
+    import torch
+    import torch.nn.functional as F
+
+    flat = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(flat.float() @ params["router"], dim=-1)
+    weight, expert = torch.topk(probs, top_k, dim=-1)
+    weight = weight / weight.sum(dim=-1, keepdim=True)
+    out = torch.zeros(flat.shape, dtype=torch.float32, device=x.device)
+    for e in range(params["router"].shape[1]):
+        rows, slot = (expert == e).nonzero(as_tuple=True)
+        h = flat[rows]
+        y = (F.silu(h @ params["w_gate"][e]) * (h @ params["w_up"][e])) @ params["w_down"][e]
+        out.index_add_(0, rows, y.float() * weight[rows, slot, None])
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def rel_frobenius(got, want) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm((got - want).float())
+                 / torch.linalg.vector_norm(want.float()))
+
+
+def moe_check_phase(card) -> None:
+    """moe_mlp at Mixtral width (bf16, [1, 1024] hidden states, two
+    layers of random experts) against the dense per-token oracle at
+    capacity factor 8 (nothing dropped); the pairs dropped at the
+    default factor; a zero router's ties on the card; a tiny f32 MoE on
+    the card against the CPU."""
+    import torch
+
+    from nos_tpu_torch.models import moe as tm
+
+    cfg = mixtral_config()
+    mc = cfg.moe_config()
+    wide = dataclasses.replace(mc, capacity_factor=8.0)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn((1, 1024, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
+    flat = x.reshape(1024, cfg.d_model)
+    layers = []
+    with torch.no_grad():
+        for _ in range(2):
+            params = tm.init_moe_params(gen, mc)
+            got = tm.moe_mlp(params, x, wide)
+            want = dense_moe_oracle(params, x, cfg.moe_top_k)
+            keep = tm._route(flat, params["router"], mc)[4]
+            layers.append({"rel_frobenius_err": rel_frobenius(got, want),
+                           "max_abs_err": float((got - want).abs().max()),
+                           "dropped_pairs_default_factor": int((~keep).sum()),
+                           "finite": bool(torch.isfinite(got).all())})
+            del params, got, want
+        tie_experts = tm._route(flat, torch.zeros((cfg.d_model, mc.n_experts), device="cuda"),
+                                mc)[1]
+        ties_ok = bool((tie_experts == torch.tensor([0, 1], device="cuda")).all())
+        # tiny f32 MoE: the card against the CPU
+        tiny = tm.MoeConfig(d_model=64, d_ff=128, n_experts=8, top_k=2, dtype=torch.float32)
+        cpu_gen = torch.Generator().manual_seed(32)
+        cpu_p = tm.init_moe_params(cpu_gen, tiny)
+        cpu_x = torch.randn((2, 48, 64), generator=cpu_gen)
+        card_p = {k: v.cuda() for k, v in cpu_p.items()}
+        want_route = tm._route(cpu_x.reshape(96, 64), cpu_p["router"], tiny)
+        got_route = tm._route(cpu_x.reshape(96, 64).cuda(), card_p["router"], tiny)
+        same_routing = all(torch.equal(got_route[i].cpu(), want_route[i]) for i in (1, 3, 4))
+        tiny_err = float((tm.moe_mlp(card_p, cpu_x.cuda(), tiny).cpu()
+                          - tm.moe_mlp(cpu_p, cpu_x, tiny)).abs().max())
+    row = {"phase": "moe_check", "config": "mixtral_8x7b", "hidden": [1, 1024],
+           "capacity_factor_checked": 8.0, "capacity_factor_default": mc.capacity_factor,
+           "capacity_default": tm.capacity_per_expert(1024, mc),
+           "layers": layers, "rel_limit": 2e-2,
+           "zero_router_experts_0_1": ties_ok, "tiny_same_routing": same_routing,
+           "tiny_max_abs_err": tiny_err, "tiny_atol": 1e-5, "card": card}
+    row["ok"] = (all(r["finite"] and r["rel_frobenius_err"] <= 2e-2 for r in layers)
+                 and ties_ok and same_routing and tiny_err <= 1e-5)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"moe_mlp disagrees on the card: {row}")
+
+
+def moe_train_grads_phase(card) -> dict:
+    """llama_loss gradients of a 2-layer Mixtral-width model, [1, 1024],
+    bf16: flash (the three kernels) against dense, held with tied
+    routers. A random router's near-ties can route a token to another
+    expert on the two paths (their bf16 attention rounds differently),
+    which moves one token's share of the stacks' gradients: that run is
+    reported beside it, not held."""
+    import torch
+
+    from nos_tpu_torch.models import llama
+
+    cfg = mixtral_config(n_layers=2)
+    params = llama.init_llama_params(cfg, seed=41, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen, device="cuda")
+    held = flash_dense_grads(tied_routers(params), tokens, cfg)
+    random_router = flash_dense_grads(params, tokens, cfg)
+    with torch.no_grad():
+        _, aux = llama.llama_forward(params, tokens, cfg, with_aux=True)
+    row = {"phase": "moe_train_grads", "config": "mixtral_8x7b", "layers": 2,
+           "tokens": [1, 1024], **held, "random_router": random_router,
+           "aux_random_router": float(aux), "loss_limit": LOSS_LIMIT,
+           "grad_rel_limit": GRAD_REL_LIMIT, "card": card}
+    row["ok"] = grads_hold(held, cfg.n_layers) and bool(torch.isfinite(aux))
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"MoE flash gradients disagree with dense: {row}")
+    return row
+
+
+def mixtral_int8_tree(cfg, seed=51):
+    """The int8 serving tree of a random Mixtral, built one layer at a
+    time (the bf16 tree, 93 GB, does not fit on the card): a one-layer
+    model drawn from its own seed, quantized, its layer kept; embedding,
+    lm_head and final norm come from the first draw."""
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.models.quantize import quantize_params
+
+    one = dataclasses.replace(cfg, n_layers=1)
+    tree = None
+    for i in range(cfg.n_layers):
+        q = quantize_params(llama.init_llama_params(one, seed=seed + i, device="cuda"))
+        if tree is None:
+            tree = q
+        else:
+            tree["layers"].append(q["layers"][0])
+    return tree
+
+
+def mixtral_int8_phase(card) -> dict:
+    """Mixtral-8x7B at full width and depth in int8: conversion, the
+    2-layer oracle check, flash against dense, generate(), one decode
+    step beside its weight-read bound, the Engine, a lone request."""
+    import torch
+
+    from nos_tpu_torch.models import generate as gen_mod
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.models import quantize as tq
+    from nos_tpu_torch.models.decode_bench import time_decode
+    from nos_tpu_torch.serve import Engine, GenRequest
+
+    cfg = mixtral_config()
+    t_start = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tree = mixtral_int8_tree(cfg)
+    torch.cuda.synchronize()
+    wbytes = tq.weight_bytes(tree)
+    emit({"phase": "mixtral_int8_convert", "config": "mixtral_8x7b", "weights": "int8",
+          "layers": cfg.n_layers, "weight_bytes": wbytes, "seconds": time.time() - t0,
+          "conversion_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "resident_gib": torch.cuda.memory_allocated() / 2**30, "card": card})
+    tied = tied_routers(tree)
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen, device="cuda")
+    checks = {}
+    with torch.no_grad():
+        # 2 layers: int8 against the fake-quant oracle (held tied, as above)
+        two = dataclasses.replace(cfg, n_layers=2)
+        for name, params in (("tied", tied), ("random_router", tree)):
+            sliced = dict(params, layers=params["layers"][:2])
+            got = llama.llama_forward(sliced, tokens, two)
+            want = llama.llama_forward(tq.dequantize_params(sliced, cfg.dtype), tokens, two)
+            checks[f"oracle_{name}"] = {
+                "rel_frobenius_err": rel_frobenius(got, want),
+                "top1_agreement": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+                "finite": bool(torch.isfinite(got).all())}
+            del got, want
+        # full depth: flash against dense (held tied, the Llama phase's limits)
+        for name, params in (("tied", tied), ("random_router", tree)):
+            flash = llama.llama_forward(params, tokens, cfg)
+            dense = llama.llama_forward(params, tokens, dataclasses.replace(cfg, attention="dense"))
+            checks[f"flash_dense_{name}"] = {
+                "logits_max_rel_diff": float((flash - dense).abs().max() / dense.abs().max()),
+                "probs_max_abs_diff": float((torch.softmax(flash, -1)
+                                             - torch.softmax(dense, -1)).abs().max()),
+                "argmax_agreement": float((flash.argmax(-1) == dense.argmax(-1)).float().mean()),
+                "finite": bool(torch.isfinite(flash).all())}
+            del flash, dense
+    oracle, fd = checks["oracle_tied"], checks["flash_dense_tied"]
+    row = {"phase": "mixtral_int8_checks", "tokens": [1, 1024], **checks,
+           "rel_limit": QUANT_REL_LIMIT["int8"], "card": card}
+    row["ok"] = (oracle["finite"] and oracle["rel_frobenius_err"] <= QUANT_REL_LIMIT["int8"]
+                 and fd["finite"] and fd["logits_max_rel_diff"] <= 5e-2
+                 and fd["probs_max_abs_diff"] <= 1e-2 and fd["argmax_agreement"] >= 0.8)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"Mixtral int8 checks failed: {row}")
+    del tied
+
+    # the main path: generate() with the launch counts zeroed just before
+    with torch.no_grad():
+        prompt = torch.randint(1, cfg.vocab_size, (2, 512), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.time()
+        out = gen_mod.generate(tree, prompt, cfg, max_new_tokens=32)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = counts()[0]
+    row = {"phase": "mixtral_generate", "weights": "int8", "prompt": [2, 512],
+           "new_tokens": 32, "flash_launches": launches, "seconds": wall,
+           "tokens_per_s": 2 * 32 / wall, "card": card}
+    row["ok"] = (tuple(out.shape) == (2, 32) and launches == cfg.n_layers
+                 and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"Mixtral generate() failed: {row}")
+
+    # the prefill alone, and one decode step at the generate shapes beside
+    # the weight-read bound
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        gen_mod.prefill(tree, prompt, cfg, 544)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        ms, run = time_decode(tree, cfg, prompt, out[:, 0], False, steps=4, max_len=544)
+        emit({"phase": "mixtral_decode_step", "weights": "int8", "batch": 2,
+              "prefill_ms": prefill_ms, "cache_len": 544, "ms_per_step": ms,
+              "weight_bytes": wbytes,
+              "weight_read_bound_ms": wbytes / PEAK_HBM_BYTES_S * 1e3, "card": card})
+        emit(profile_steps(run, card, ms, steps=2, phase="mixtral_decode_profile"))
+        del run
+
+    # the Engine: padded (20, 100) and chunked (300, 600) admission
+    rng_tokens = torch.randint(1, cfg.vocab_size, (1020,), generator=gen,
+                               device="cuda").tolist()
+    prompts = [rng_tokens[:20], rng_tokens[20:120], rng_tokens[120:420], rng_tokens[420:]]
+
+    def serve(reqs):
+        eng = Engine(tree, cfg, max_slots=4, max_len=1024, prefill_chunk=256)
+        with torch.no_grad():
+            t0 = time.time()
+            ids = [eng.submit(GenRequest(prompt=p, max_new_tokens=32)) for p in reqs]
+            got = eng.run()
+            torch.cuda.synchronize()
+        return [got[i] for i in ids], time.time() - t0
+
+    results, wall = serve(prompts)
+    row = {"phase": "mixtral_engine", "weights": "int8", "slots": 4,
+           "requests": len(prompts), "prompt_tokens": [len(p) for p in prompts],
+           "new_tokens": 32, "seconds": wall, "tokens_per_s": 32 * len(prompts) / wall,
+           "card": card}
+    row["ok"] = all(len(r) == 32 and all(0 <= t < cfg.vocab_size for t in r)
+                    for r in results)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"Mixtral engine failed: {row}")
+    # a lone request in the 4-slot engine against a solo generate(): bf16
+    # in other batch shapes and admission paths drifts, so only reported
+    (lone,), lone_s = serve(prompts[1:2])
+    with torch.no_grad():
+        solo = gen_mod.generate(tree, torch.tensor([prompts[1]], device="cuda"), cfg,
+                                max_new_tokens=32)[0].tolist()
+    first_diff = next((i for i, (a, b) in enumerate(zip(lone, solo)) if a != b), 32)
+    emit({"phase": "mixtral_engine_lone", "prompt_tokens": len(prompts[1]),
+          "seconds": lone_s, "tokens_per_s": 32 / lone_s,
+          "share_equal_to_solo_generate": sum(a == b for a, b in zip(lone, solo)) / 32,
+          "tokens_before_first_divergence": first_diff,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "phase_seconds": time.time() - t_start, "card": card})
+    return {"launches_generate": launches}
+
+
 def profile_steps(run_steps, card, step_ms: float, steps: int = 8,
                   phase: str = "decode_profile") -> dict:
     """torch.profiler over ``run_steps(steps)``: device-busy time, the
@@ -960,10 +1295,13 @@ def profile_steps(run_steps, card, step_ms: float, steps: int = 8,
             us = ev.self_cuda_time_total
         kernels.append((us, ev.count, ev.key))
     busy_us = sum(us for us, _, _ in kernels)
+    copy_us = sum(us for us, _, key in kernels if "copy" in key.lower())
     kernels.sort(reverse=True)
     return {
         "phase": phase, "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
+        # dtype conversions and copies (the int8 -> bf16 widening among them)
+        "copy_kernels_ms_per_step": copy_us / steps / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,
         "device_idle_share_unprofiled": 1.0 - busy_us / steps / 1e3 / step_ms,
         "kernel_launches_per_step": sum(n for _, n, _ in kernels) / steps,
@@ -1209,10 +1547,19 @@ def main() -> int:
                     rng_tokens[1580:1780], rng_tokens[1780:1990]]
     spec_engine_phase(card, params, cfg, spec_prompts)
 
-    # ---------------------------------------------------------- training
-    # the serving weights and caches go first: the trainer needs ~51 GB
+    # --------------------------------------------------------------- MoE
+    # the Llama trees and caches go first: the int8 Mixtral holds ~47 GB
     del params, prompt, out, tiny_gpu, tiny_cpu, trees
     torch.cuda.empty_cache()
+    t0 = time.time()
+    moe_check_phase(card)
+    moe_grads = moe_train_grads_phase(card)
+    torch.cuda.empty_cache()
+    mixtral = mixtral_int8_phase(card)
+    torch.cuda.empty_cache()  # the Mixtral tree goes before training (~51 GB)
+    emit({"phase": "moe_phases", "seconds": time.time() - t0, "card": card})
+
+    # ---------------------------------------------------------- training
     train_grads_phase(card)
     torch.cuda.empty_cache()
     train = train_phase(card)
@@ -1228,6 +1575,8 @@ def main() -> int:
         "source": "nos_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "nos_tpu/ops/flash_attention.py:175",
         "launches": main_launches,
+        "launches_mixtral_generate": mixtral["launches_generate"],
+        "launches_moe_train_grads": moe_grads["launches_fwd_dq_dkv"][0],
         "max_abs_err": main_case["o_max_abs_err"],
         "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1254,6 +1603,7 @@ def main() -> int:
         "replaces": replaces,
         "launches": train["launches_total_fwd_dq_dkv"][index],
         "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][index],
+        "launches_moe_train_grads": moe_grads["launches_fwd_dq_dkv"][index],
         "max_abs_err": max(bwd_case[f"{g}_max_abs_err"] for g in grads),
         "ms": bwd_case[f"{key}_ms"],
         "plain_ms": bwd_case["plain_ms"],

@@ -4,8 +4,9 @@
 leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, params)`` on
 the caller's side; this module never imports jax) and returns the port's
 dict with the same keys and the same ``[in, out]`` layout. Dense leaves
-are cast to ``config.dtype``; bf16 leaves arrive as ``ml_dtypes`` arrays
-that torch cannot read and are widened to f32 (exact) first.
+are cast to ``config.dtype``, except a MoE layer's router, which keeps
+its own (f32) dtype; bf16 leaves arrive as ``ml_dtypes`` arrays that
+torch cannot read and are widened to f32 (exact) first.
 
 The reference's weight nodes arrive as its own classes with numpy
 fields. They are recognised by their fields, never by importing their
@@ -13,8 +14,8 @@ classes, and each field keeps its own dtype (int8 ``q``, uint8 packed
 nibbles, f32 scales and adapters, an int row selector):
 
 - ``q``, ``scale``, ``group`` → ``QuantizedLinear4``;
-- ``q``, ``scale`` → ``QuantizedEmbedding`` at ``embed``, else
-  ``QuantizedLinear``;
+- ``q``, ``scale`` → ``QuantizedEmbedding`` at ``embed``,
+  ``QuantizedExpertStack`` in a ``moe`` node, else ``QuantizedLinear``;
 - ``w``, ``a``, ``b``, ``idx``, ``scale`` → ``MultiLoraLinear``;
 - ``w``, ``a``, ``b``, ``scale`` → ``LoraLinear``.
 
@@ -34,17 +35,18 @@ import numpy as np
 import torch
 
 from nos_tpu_torch import _resolve_device
-from nos_tpu_torch.models.llama import LlamaConfig, _check_slice, tree_map
+from nos_tpu_torch.models.llama import LlamaConfig, tree_map
 from nos_tpu_torch.models.lora import LoraLinear, MultiLoraLinear
 from nos_tpu_torch.models.quantize import (
     QuantizedEmbedding,
+    QuantizedExpertStack,
     QuantizedLinear,
     QuantizedLinear4,
 )
 
-_LAYER_KEYS = (
-    "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down",
-)
+_ATTN_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
+# a dense layer's MLP, or the expert stacks of a ``moe`` node
+_MLP_KEYS = ("w_gate", "w_up", "w_down")
 # numpy dtypes torch.from_numpy reads as they are
 _TORCH_READS = {np.dtype(t) for t in (
     np.float16, np.float32, np.float64, np.int8, np.int16, np.int32,
@@ -73,7 +75,12 @@ def _tensor(leaf, name: str, config: LlamaConfig, device):
         return QuantizedLinear4(q=_exact(leaf.q, device), scale=_exact(leaf.scale, device),
                                 group=int(leaf.group))
     if {"q", "scale"} <= fields:
-        node = QuantizedEmbedding if name == "embed" else QuantizedLinear
+        if name == "embed":
+            node = QuantizedEmbedding
+        elif ".moe." in name:  # the same fields, over [E, in, out]
+            node = QuantizedExpertStack
+        else:
+            node = QuantizedLinear
         return node(q=_exact(leaf.q, device), scale=_exact(leaf.scale, device))
     if {"w", "a", "b", "scale"} <= fields:
         parts = dict(w=_tensor(leaf.w, f"{name}.w", config, device),
@@ -87,7 +94,6 @@ def _tensor(leaf, name: str, config: LlamaConfig, device):
 
 def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig, device=None):
     """nos_tpu params (numpy leaves) → the port's params on ``device``."""
-    _check_slice(config)
     dev = _resolve_device(device)
     out: Dict[str, Any] = {
         "embed": _tensor(tree["embed"], "embed", config, dev),
@@ -97,15 +103,20 @@ def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig, device=None):
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"], "lm_head", config, dev)
     for i, layer in enumerate(tree["layers"]):
+        name = f"layers[{i}]"
+        ported = {key: _tensor(layer[key], f"{name}.{key}", config, dev)
+                  for key in _ATTN_KEYS}
         if "moe" in layer:
-            raise NotImplementedError(
-                f"layers[{i}].moe: routed MoE is not ported yet "
-                "(ROADMAP Queue 1 item 8: serving extensions, moe.py)"
-            )
-        out["layers"].append({
-            key: _tensor(layer[key], f"layers[{i}].{key}", config, dev)
-            for key in _LAYER_KEYS
-        })
+            moe = layer["moe"]
+            ported["moe"] = {"router": _exact(moe["router"], dev)}
+            ported["moe"].update({
+                key: _tensor(moe[key], f"{name}.moe.{key}", config, dev)
+                for key in _MLP_KEYS
+            })
+        else:
+            ported.update({key: _tensor(layer[key], f"{name}.{key}", config, dev)
+                           for key in _MLP_KEYS})
+        out["layers"].append(ported)
     return out
 
 

@@ -36,7 +36,6 @@ from nos_tpu_torch.models.llama import (
     LlamaConfig,
     Params,
     _apply_rope,
-    _check_slice,
     _embed_rows,
     _grouped_scores,
     _grouped_values,
@@ -51,6 +50,7 @@ from nos_tpu_torch.models.llama import (
     llama_forward,
     params_device,
 )
+from nos_tpu_torch.models.moe import moe_mlp
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -109,6 +109,15 @@ def _cache_kv(k, v, dtype, quant: bool) -> Dict[str, torch.Tensor]:
     k8, ks = _quantize_kv(k)
     v8, vs = _quantize_kv(v)
     return {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
+
+
+def _ffn(h: torch.Tensor, layer: Params, config: LlamaConfig, token_mask=None):
+    """The block's MLP: dense, or the routed mixture for a ``moe`` layer.
+    ``token_mask`` [B, S] keeps pads and dead rows out of the MoE
+    capacity race (a dense MLP is per token, so it needs none)."""
+    if "moe" in layer:
+        return moe_mlp(layer["moe"], h, config.moe_config(), token_mask=token_mask)
+    return _mlp(h, layer, config.hidden_act)
 
 
 def _cache_attention(
@@ -175,12 +184,12 @@ def prefill(
     holding the prompt's K/V in positions [0, S)).
 
     ``pad_id`` enables LEFT-padded batches: pads are masked out of
-    attention and RoPE counts only real tokens. Unpadded prompts run the
-    flash kernel when the config asks for it; padded ones need per-key
-    masks the kernel does not take and stay dense. ``quant``: an int8
-    cache; the prompt's own attention still runs on the exact K/V."""
+    attention and RoPE counts only real tokens, and on MoE models pads
+    claim no expert capacity. Unpadded prompts run the flash kernel when
+    the config asks for it; padded ones need per-key masks the kernel
+    does not take and stay dense. ``quant``: an int8 cache; the prompt's
+    own attention still runs on the exact K/V."""
     c = config
-    _check_slice(c)
     dev = params_device(params)
     tokens = torch.as_tensor(tokens, device=dev)
     b, s = tokens.shape
@@ -227,9 +236,9 @@ def prefill(
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
             attn = _grouped_values(probs, v)
         x = x + _mm(attn, layer["wo"])
-        x = x + _mlp(
+        x = x + _ffn(
             _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset),
-            layer, c.hidden_act,
+            layer, c, token_mask=token_valid,
         )
     x = _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset)
     return _unembed(params, x).float(), cache
@@ -265,14 +274,12 @@ def decode_step(
     carries each row's logical position under left padding) or [B]
     (per-row depths, continuous batching; rope defaults to pos).
     ``key_valid`` [B, T] masks pad slots. ``row_valid`` [B] marks rows
-    carrying a real token; the reference uses it only to keep dead rows
-    out of MoE expert capacity, and a dense MLP is per token, so here it
-    changes nothing (MoE arrives with ROADMAP Queue 1 item 8).
-    ``rolling``: physical slot = pos mod C, C = cache_len - 1 (per-row
-    pos only)."""
-    del row_valid  # dense MLP: see the docstring
+    carrying a real token: the others stay out of the MoE expert-capacity
+    race, so an idle slot never displaces a live one. It defaults to "has
+    any valid key" when ``key_valid`` is given (the engine clears a
+    retired row's). ``rolling``: physical slot = pos mod C, C =
+    cache_len - 1 (per-row pos only)."""
     c = config
-    _check_slice(c)
     dev = params_device(params)
     token = torch.as_tensor(token, device=dev)
     b = token.shape[0]
@@ -284,6 +291,11 @@ def decode_step(
     if rolling and not per_row:
         raise ValueError("rolling decode needs per-row positions")
     quant = _kv_quantized(cache)
+    if key_valid is not None:
+        key_valid = torch.as_tensor(key_valid, device=dev)
+        if row_valid is None:
+            row_valid = key_valid.any(dim=1)
+    ffn_mask = None if row_valid is None else torch.as_tensor(row_valid, device=dev)[:, None]
     x = _embed_rows(params["embed"], token, c.dtype, c.embed_scale)[:, None, :]
     if rope_pos is None and per_row:
         rope_pos = pos_t
@@ -318,9 +330,9 @@ def decode_step(
             k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"),
         )
         x = x + _mm(attn, layer["wo"])
-        x = x + _mlp(
+        x = x + _ffn(
             _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset),
-            layer, c.hidden_act,
+            layer, c, token_mask=ffn_mask,
         )
     x = _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset)
     return _unembed(params, x[:, 0]).float(), cache
@@ -333,6 +345,7 @@ def decode_chunk(
     tokens: torch.Tensor,
     config: LlamaConfig,
     write_mask=None,
+    row_valid=None,
     rolling: bool = False,
 ) -> Tuple[torch.Tensor, Cache]:
     """``m`` tokens at per-row slots ``pos``..``pos+m-1`` → (logits
@@ -341,10 +354,12 @@ def decode_chunk(
     Query i attends the cache frontier [0, pos+i+1). ``write_mask``
     [B, m] marks REAL positions: pads write to the cache's LAST slot,
     which callers reserve (a frontier never reaches it) — and so does
-    any write that would land outside the cache. ``rolling``: modular
+    any write that would land outside the cache — and on MoE models they
+    claim no expert capacity and emit zero from the mixture.
+    ``row_valid`` [B] also keeps WHOLE rows out of the capacity race
+    (finished slots riding a speculative round). ``rolling``: modular
     layout over C = cache_len - 1 slots; needs C >= window + m."""
     c = config
-    _check_slice(c)
     dev = params_device(params)
     tokens = torch.as_tensor(tokens, device=dev)
     pos = torch.as_tensor(pos, device=dev)
@@ -359,10 +374,13 @@ def decode_chunk(
     t_cache = cache[0]["k"].shape[1]
     cap = t_cache - 1 if rolling else 0
     write_pos = torch.remainder(posmat, cap) if rolling else posmat
+    ffn_mask = None
     if write_mask is not None:
-        write_pos = torch.where(
-            torch.as_tensor(write_mask, device=dev), write_pos, t_cache - 1
-        )
+        ffn_mask = torch.as_tensor(write_mask, device=dev)
+        write_pos = torch.where(ffn_mask, write_pos, t_cache - 1)
+    if row_valid is not None:
+        row_col = torch.as_tensor(row_valid, device=dev)[:, None].expand(b, m)
+        ffn_mask = row_col if ffn_mask is None else ffn_mask & row_col
     write_pos = torch.where(
         (write_pos >= 0) & (write_pos < t_cache), write_pos, t_cache - 1
     )
@@ -378,9 +396,9 @@ def decode_chunk(
         attn = _cache_attention(q, kv["k"], kv["v"], frontier, c, rolling=cap,
                                 k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"))
         x = x + _mm(attn, layer["wo"])
-        x = x + _mlp(
+        x = x + _ffn(
             _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset),
-            layer, c.hidden_act,
+            layer, c, token_mask=ffn_mask,
         )
     x = _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset)
     return _unembed(params, x).float(), cache

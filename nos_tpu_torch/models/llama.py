@@ -20,8 +20,13 @@ A weight leaf is a dense tensor or a ``WeightNode``: a quantized weight
 (``models/quantize.py``) or an adapted one (``models/lora.py``). ``_mm``
 and ``_embed_rows`` dispatch on it, so no model code forks.
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): a ``mesh``, ``n_experts > 0``.
+``n_experts > 0`` swaps every MLP for a routed mixture-of-experts
+(``models/moe.py``): the layer holds a ``moe`` dict (f32 router, stacked
+expert weights), the block returns its balance loss beside x, and
+``llama_loss`` adds ``moe_aux_coef`` times its mean over the layers.
+
+Not in this slice (NotImplementedError naming ROADMAP Queue 1 item 9):
+a ``mesh``.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from nos_tpu_torch import _resolve_device
+from nos_tpu_torch.models.moe import MoeConfig, init_moe_params, moe_mlp
 
 Params = Dict[str, Any]
 
@@ -71,11 +77,22 @@ class LlamaConfig:
     tie_embeddings: bool = False
     # Explicit head dim when it differs from d_model / n_heads.
     qk_head_dim: Any = None
-    # Routed mixture-of-experts (not in this slice).
+    # n_experts > 0: every MLP is a routed mixture-of-experts (moe.py).
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
+    # Weight of the Switch load-balancing loss in llama_loss.
     moe_aux_coef: float = 0.01
+
+    def moe_config(self) -> MoeConfig:
+        return MoeConfig(
+            d_model=self.d_model,
+            d_ff=self.d_ff,
+            n_experts=self.n_experts,
+            top_k=self.moe_top_k,
+            capacity_factor=self.moe_capacity_factor,
+            dtype=self.dtype,
+        )
 
     @property
     def head_dim(self) -> int:
@@ -132,17 +149,12 @@ def gemma_2b_config() -> LlamaConfig:
     )
 
 
-def _check_slice(config: LlamaConfig, mesh=None) -> None:
-    """Loud errors for what this slice of the port does not cover."""
+def _check_mesh(mesh) -> None:
+    """A loud error for sharded execution, which this port lacks yet."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh / sharded execution is not ported yet "
             "(ROADMAP Queue 1 item 9: multi-device)"
-        )
-    if config.n_experts > 0:
-        raise NotImplementedError(
-            "n_experts > 0 (routed MoE) is not ported yet "
-            "(ROADMAP Queue 1 item 8: serving extensions, moe.py)"
         )
 
 
@@ -156,7 +168,6 @@ def init_llama_params(config: LlamaConfig, seed: int = 0, device=None) -> Params
     the reference's numbers (``jax.random`` has no torch twin): to hold
     the port against the reference, bridge its weights instead."""
     c = config
-    _check_slice(c)
     dev = _resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -178,17 +189,21 @@ def init_llama_params(config: LlamaConfig, seed: int = 0, device=None) -> Params
     if not c.tie_embeddings:
         params["lm_head"] = dense((c.d_model, c.vocab_size), c.d_model)
     for _ in range(c.n_layers):
-        params["layers"].append({
+        layer = {
             "attn_norm": norm(),
             "wq": dense((c.d_model, c.n_heads * hd), c.d_model),
             "wk": dense((c.d_model, c.n_kv_heads * hd), c.d_model),
             "wv": dense((c.d_model, c.n_kv_heads * hd), c.d_model),
             "wo": dense((c.n_heads * hd, c.d_model), c.n_heads * hd),
             "mlp_norm": norm(),
-            "w_gate": dense((c.d_model, c.d_ff), c.d_model),
-            "w_up": dense((c.d_model, c.d_ff), c.d_model),
-            "w_down": dense((c.d_ff, c.d_model), c.d_ff),
-        })
+        }
+        if c.n_experts > 0:
+            layer["moe"] = init_moe_params(gen, c.moe_config())
+        else:
+            layer["w_gate"] = dense((c.d_model, c.d_ff), c.d_model)
+            layer["w_up"] = dense((c.d_model, c.d_ff), c.d_model)
+            layer["w_down"] = dense((c.d_ff, c.d_model), c.d_ff)
+        params["layers"].append(layer)
     return params
 
 
@@ -426,12 +441,12 @@ def _mlp(x: torch.Tensor, layer: Params, act: str = "silu") -> torch.Tensor:
 def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
                   mesh=None, with_aux: bool = False):
     """tokens [B, S] int → logits [B, S, vocab] (float32). ``with_aux``
-    also returns the summed MoE load-balancing loss: a 0-d f32 zero, as
-    every model of this slice is dense. With ``remat`` and gradients on,
-    each block is checkpointed and recomputed (flash kernel included) in
-    the backward."""
+    also returns the MoE load-balancing loss summed over the layers (a
+    0-d f32 tensor, zero for a dense model). With ``remat`` and gradients
+    on, each block is checkpointed and recomputed (flash kernel included)
+    in the backward."""
     c = config
-    _check_slice(c, mesh)
+    _check_mesh(mesh)
     tokens = tokens.to(params_device(params))
     x = _embed_rows(params["embed"], tokens, c.dtype, c.embed_scale)
     cos, sin = _rope(tokens.shape[1], c.head_dim, c.rope_theta, c.dtype,
@@ -443,19 +458,27 @@ def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
             layer, c, cos, sin,
         )
         h = _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset)
-        return x + _mlp(h, layer, c.hidden_act)
+        if "moe" not in layer:
+            return x + _mlp(h, layer, c.hidden_act), None
+        if with_aux:
+            delta, aux = moe_mlp(layer["moe"], h, c.moe_config(), return_aux=True)
+            return x + delta, aux
+        return x + moe_mlp(layer["moe"], h, c.moe_config()), None
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
         if c.remat and torch.is_grad_enabled():
             from torch.utils.checkpoint import checkpoint
 
-            x = checkpoint(block, x, layer, use_reentrant=False)
+            x, aux = checkpoint(block, x, layer, use_reentrant=False)
         else:
-            x = block(x, layer)
+            x, aux = block(x, layer)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset)
     logits = _unembed(params, x).float()
     if with_aux:
-        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+        return logits, aux_total
     return logits
 
 
@@ -471,8 +494,11 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def llama_loss(params: Params, tokens: torch.Tensor, config: LlamaConfig,
                mesh=None) -> torch.Tensor:
     """Next-token cross entropy over shifted tokens: the forward runs on
-    the full sequence and the last position's logits are dropped. The
-    reference adds the MoE balance loss for ``n_experts > 0``, which
-    this slice refuses (``_check_slice``), so the loss is the NLL."""
-    logits, _ = llama_forward(params, tokens, config, mesh, with_aux=True)
-    return next_token_nll(logits, tokens)
+    the full sequence and the last position's logits are dropped. MoE
+    models add ``moe_aux_coef`` times the per-layer balance loss averaged
+    over the layers."""
+    logits, aux = llama_forward(params, tokens, config, mesh, with_aux=True)
+    loss = next_token_nll(logits, tokens)
+    if config.n_experts > 0:
+        loss = loss + config.moe_aux_coef * aux / max(1, config.n_layers)
+    return loss

@@ -2,8 +2,9 @@
 
 Counterpart of ``nos_tpu/models/quantize.py``: int8 weights with one f32
 scale per output channel, int4 weights packed two per byte with one f32
-scale per (group, output channel), and an int8 embedding with one scale
-per vocab row. The nodes are ``WeightNode`` leaves of the params dict (as
+scale per (group, output channel), an int8 embedding with one scale per
+vocab row, and int8 MoE expert stacks with one scale per (expert, output
+channel). The nodes are ``WeightNode`` leaves of the params dict (as
 the reference's are pytree nodes), so ``llama_forward``, ``prefill``,
 ``decode_step`` and the engine run quantized weights unchanged.
 
@@ -15,10 +16,11 @@ dtype and the scale applies after it.
 
 Eager PyTorch materializes the widened weight (XLA fuses the widening
 into the dot's operand load), so every int8 product reads 1 byte, writes
-2 and reads 2 again per weight; no kernel here changes that.
+2 and reads 2 again per weight; no kernel here changes that. For an
+expert stack that is the whole stack per product, whichever experts the
+tokens reach.
 
-Serving only: quantized weights take no gradient. ``QuantizedExpertStack``
-(MoE) waits for ROADMAP Queue 1 item 8's MoE part.
+Serving only: quantized weights take no gradient.
 """
 from __future__ import annotations
 
@@ -106,6 +108,20 @@ class QuantizedEmbedding(WeightNode):
         return QuantizedLinear(q=self.q.T, scale=self.scale)
 
 
+@dataclass
+class QuantizedExpertStack(WeightNode):
+    """Stacked MoE expert weights [E, in, out] in int8 with per-(expert,
+    output-channel) scales [E, out] (f32)."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    TENSORS = ("q", "scale")
+
+    def expert_matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """x [E, C, in] → [E, C, out]."""
+        return torch.bmm(x, self.q.to(x.dtype)) * self.scale[:, None, :].to(x.dtype)
+
+
 def _absmax_quantize(w: torch.Tensor, axis: int):
     """Symmetric absmax int8 along ``axis`` (the contraction axis): returns
     (q int8, scale f32 with ``axis`` dropped)."""
@@ -151,17 +167,18 @@ def quantize_embedding(w: torch.Tensor) -> QuantizedEmbedding:
     return QuantizedEmbedding(q=q, scale=scale)
 
 
+def quantize_expert_stack(w: torch.Tensor) -> QuantizedExpertStack:
+    """[E, in, out] stacked experts → int8 along the contraction axis."""
+    q, scale = _absmax_quantize(w, axis=1)
+    return QuantizedExpertStack(q=q, scale=scale)
+
+
 def _quantize_tree(params: Params, linear_fn) -> Params:
     """THE param-tree walk for weight-only quantization, parameterized by
     the dense-linear quantizer (int8 or int4): the embedding stays
-    row-gatherable int8, norms keep the model dtype (shared with the
-    input tree, not copied)."""
-    if any("moe" in layer for layer in params["layers"]):
-        raise NotImplementedError(
-            "quantizing routed-MoE expert stacks (QuantizedExpertStack) is "
-            "not ported yet (ROADMAP Queue 1 item 8: serving extensions, "
-            "moe.py)"
-        )
+    row-gatherable int8, norms keep the model dtype and the MoE router
+    f32 (both shared with the input tree, not copied), and expert stacks
+    go int8 in either format."""
     out: Params = {
         "embed": quantize_embedding(params["embed"]),
         "final_norm": params["final_norm"],
@@ -170,10 +187,17 @@ def _quantize_tree(params: Params, linear_fn) -> Params:
     if "lm_head" in params:  # absent for tied-unembedding models
         out["lm_head"] = linear_fn(params["lm_head"])
     for layer in params["layers"]:
-        out["layers"].append({
-            key: linear_fn(value) if key in _LINEAR_KEYS else value
-            for key, value in layer.items()
-        })
+        q_layer: Params = {}
+        for key, value in layer.items():
+            if key in _LINEAR_KEYS:
+                q_layer[key] = linear_fn(value)
+            elif key == "moe":
+                q_layer[key] = {"router": value["router"],
+                                **{k: quantize_expert_stack(value[k])
+                                   for k in ("w_gate", "w_up", "w_down")}}
+            else:
+                q_layer[key] = value
+        out["layers"].append(q_layer)
     return out
 
 
@@ -185,7 +209,8 @@ def quantize_params(params: Params) -> Params:
 def quantize_params_int4(params: Params, group: int = 128) -> Params:
     """Llama param tree → int4 serving tree: dense matmul weights as
     packed group-quantized nibbles; the embedding stays int8 (gathered
-    rows cannot read packed pairs cheaply)."""
+    rows cannot read packed pairs cheaply), and so do MoE expert
+    stacks."""
     return _quantize_tree(params, lambda w: quantize_linear4(w, group))
 
 
@@ -201,6 +226,8 @@ def dequantize_params(params: Params, dtype=torch.bfloat16) -> Params:
             return (leaf.q.float() * leaf.scale[None, :]).to(dtype)
         if isinstance(leaf, QuantizedEmbedding):
             return (leaf.q.float() * leaf.scale[:, None]).to(dtype)
+        if isinstance(leaf, QuantizedExpertStack):
+            return (leaf.q.float() * leaf.scale[:, None, :]).to(dtype)
         return leaf
 
     return map_leaves(expand, params)

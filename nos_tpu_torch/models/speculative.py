@@ -55,7 +55,8 @@ def _spec_round(t_params, d_params, t_config: LlamaConfig, d_config: LlamaConfig
 
         # 2. the target verifies the whole chain in one chunk
         chunk = torch.cat([last[:, None], drafts], dim=1)  # [B, k+1]
-        logits, _ = decode_chunk(t_params, t_cache, pos, chunk, t_config)
+        logits, _ = decode_chunk(t_params, t_cache, pos, chunk, t_config,
+                                 row_valid=row_valid)
         targets = logits.argmax(dim=-1)  # [B, k+1]
 
         # 3. longest matching prefix: accept while d_{i+1} == t_i
@@ -94,8 +95,9 @@ def speculative_generate(
     Greedy speculative decoding; the output matches ``generate(
     target_params, ...)`` up to the chunk-vs-step drift above. ``stats``:
     rounds, and the mean accepted drafts per active row-round (finished
-    rows count in neither). Finished rows keep riding the batch and their
-    surplus is trimmed on the host; with ``eos_id`` a row is padded with
+    rows count in neither). Finished rows keep riding the batch, out of
+    the MoE expert-capacity race (``row_valid``), and their surplus is
+    trimmed on the host; with ``eos_id`` a row is padded with
     it after its first EOS. One device→host pull per round."""
     dev = params_device(target_params)
     prompt = torch.as_tensor(prompt, device=dev)

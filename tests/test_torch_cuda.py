@@ -437,3 +437,82 @@ def test_write_rows_scale_buffers_at_out_of_range_slots_on_card(cuda_device):
                    torch.ones((3, 2), device=cuda_device),
                    torch.tensor([True, False, True], device=cuda_device))
     assert buf.sum().item() == 4 and buf[1].sum().item() == 0
+
+
+def _moe_case(device, seed, factor=1.25, zero_router=False):
+    """A tiny f32 MoE (d 64, d_ff 128, 8 experts, top-2) drawn on the CPU
+    and copied to ``device``, and tokens x [2, 48, 64]."""
+    from nos_tpu_torch.models import moe as tm
+
+    cfg = tm.MoeConfig(d_model=64, d_ff=128, n_experts=8, top_k=2,
+                       capacity_factor=factor, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(seed)
+    params = tm.init_moe_params(gen, cfg)
+    if zero_router:
+        params["router"].zero_()
+    x = torch.randn((2, 48, 64), generator=gen)
+    return cfg, params, {k: v.to(device) for k, v in params.items()}, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_router", [False, True])
+@pytest.mark.parametrize("factor", [1.0, 8.0])
+def test_moe_routing_on_card_equals_cpu(cuda_device, zero_router, factor):
+    """The same f32 MoE on the card and on the CPU: identical routing
+    (experts, slots, kept pairs: the card's sort breaks a zero router's
+    ties to experts [0, 1] as the CPU's and jax.lax.top_k do) and outputs
+    and aux within 1e-5 (TF32 off, other summation order)."""
+    from nos_tpu_torch.models import moe as tm
+
+    cfg, cpu_p, card_p, x = _moe_case(cuda_device, 1, factor, zero_router)
+    mask = torch.rand((2, 48), generator=torch.Generator().manual_seed(2)) < 0.8
+    want = tm._route(x.reshape(96, 64), cpu_p["router"], cfg, mask.reshape(96))
+    got = tm._route(x.reshape(96, 64).to(cuda_device), card_p["router"], cfg,
+                    mask.reshape(96).to(cuda_device))
+    for i, name in ((1, "top_e"), (3, "pos"), (4, "keep")):
+        assert torch.equal(got[i].cpu(), want[i]), name
+    if zero_router:
+        assert got[1].cpu().tolist() == [[0, 1]] * 96
+    out, aux = tm.moe_mlp(card_p, x.to(cuda_device), cfg, return_aux=True,
+                          token_mask=mask.to(cuda_device))
+    want_out, want_aux = tm.moe_mlp(cpu_p, x, cfg, return_aux=True, token_mask=mask)
+    assert float((out.cpu() - want_out).abs().max()) <= 1e-5
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_moe_dispatch_collisions_keep_the_kept_token_on_card(cuda_device):
+    """Capacity 1, a zero router: every token picks experts 0 and 1, the
+    first wins slot 0 of both, and every other pair is dropped onto that
+    same slot with a zero contribution. On the card the scatter's order
+    is unspecified; accumulating keeps the first token's row intact."""
+    from nos_tpu_torch.models import moe as tm
+
+    cfg, _, card_p, x = _moe_case(cuda_device, 3, factor=0.005, zero_router=True)
+    x = x.to(cuda_device)
+    assert tm.capacity_per_expert(96, cfg) == 1
+    out = tm.moe_mlp(card_p, x, cfg)
+    h = x[0, :1]
+    solo = sum(0.5 * ((torch.nn.functional.silu(h @ card_p["w_gate"][e])
+                      * (h @ card_p["w_up"][e])) @ card_p["w_down"][e]) for e in (0, 1))
+    assert float((out[0, 0] - solo[0]).abs().max()) <= 1e-5
+    assert bool((out.reshape(96, 64)[1:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_int8_expert_product_matches_fake_quant_on_card(cuda_device):
+    """QuantizedExpertStack.expert_matmul against the product with the
+    dequantized stack, bf16 at a Mixtral-like aspect: relative Frobenius
+    error within 1e-2 (the scale rounds to bf16 before it multiplies, the
+    oracle's weight rounds once to bf16 instead)."""
+    from nos_tpu_torch.models import quantize as tq
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    w = torch.randn((8, 512, 1792), generator=gen, device=cuda_device) / 512 ** 0.5
+    stack = tq.quantize_expert_stack(w.to(torch.bfloat16))
+    x = torch.randn((8, 24, 512), generator=gen, device=cuda_device).to(torch.bfloat16)
+    got = stack.expert_matmul(x).float()
+    oracle = tq.dequantize_params({"s": stack}, torch.bfloat16)["s"]
+    want = torch.bmm(x, oracle).float()
+    assert got.shape == (8, 24, 1792)
+    assert float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)) <= 1e-2

@@ -179,18 +179,26 @@ class TestBridge:
 
     def test_quantized_leaves_raise(self):
         """Quantized leaves cross the bridge (tests/test_torch_quantize.py
-        holds them bit for bit); what the port does not know still
-        raises: an unrecognised leaf, and MoE expert stacks."""
+        holds them bit for bit), a ``moe`` node among them: its router
+        stays f32 and its int8 expert stacks become QuantizedExpertStack
+        (the reference's node has QuantizedLinear's fields, over a 3-D
+        q). An unrecognised leaf still raises."""
         from nos_tpu.models.quantize import quantize_params
+        from nos_tpu_torch.models.quantize import QuantizedExpertStack
 
-        jc, jp, tc, _ = bridged(11)
+        jc, jp, tc, _ = bridged(11, n_experts=4)
         tree = jax.tree.map(np.asarray, quantize_params(jp))
-        assert params_from_numpy(tree, tc, device="cpu")["embed"].q.dtype == torch.int8
+        ported = params_from_numpy(tree, tc, device="cpu")
+        assert ported["embed"].q.dtype == torch.int8
+        node = ported["layers"][0]["moe"]
+        assert node["router"].dtype == torch.float32
+        assert np.array_equal(node["router"].numpy(), tree["layers"][0]["moe"]["router"])
+        stack = node["w_up"]
+        assert isinstance(stack, QuantizedExpertStack)
+        assert stack.q.dtype == torch.int8 and stack.q.shape == (4, 64, 128)
+        assert stack.scale.dtype == torch.float32 and stack.scale.shape == (4, 128)
         tree["layers"][0]["wq"] = object()
         with pytest.raises(TypeError, match="layers\\[0\\].wq"):
-            params_from_numpy(tree, tc, device="cpu")
-        tree["layers"][0]["moe"] = {}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
             params_from_numpy(tree, tc, device="cpu")
 
     def test_out_of_slice_options_raise(self):
@@ -198,8 +206,11 @@ class TestBridge:
         toks = torch.zeros((1, 4), dtype=torch.long)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tl.llama_forward(tp, toks, tc, mesh=object())
-        moe = tl.tiny_config(n_experts=4)
+        # routed MoE is in the slice: init and forward run
+        moe = tl.tiny_config(n_experts=4, dtype=torch.float32)
+        moe_params = tl.init_llama_params(moe, 0, device="cpu")
+        assert "moe" in moe_params["layers"][0] and "w_up" not in moe_params["layers"][0]
+        logits = tl.llama_forward(moe_params, toks, moe)
+        assert logits.shape == (1, 4, moe.vocab_size) and bool(torch.isfinite(logits).all())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.llama_forward(tp, toks, moe)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.init_llama_params(moe, 0, device="cpu")
+            tl.llama_forward(moe_params, toks, moe, mesh=object())

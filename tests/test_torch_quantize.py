@@ -106,10 +106,19 @@ class TestQuantizerBits:
             jq.quantize_linear4(jnp.asarray(w))
         with pytest.raises(ValueError, match="even"):
             tq.quantize_linear4(torch.from_numpy(w))
+        # MoE expert stacks quantize (int8 in both formats), the router
+        # stays the f32 tensor it was
+        router = torch.randn(2, 4)
+        stacks = {k: torch.randn(4, 2, 2) for k in ("w_gate", "w_up", "w_down")}
         tree = {"embed": torch.ones(4, 2), "final_norm": torch.ones(2),
-                "layers": [{"moe": {}}]}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tq.quantize_params(tree)
+                "layers": [{"moe": dict(router=router, **stacks)}]}
+        for fn in (tq.quantize_params, lambda p: tq.quantize_params_int4(p, 2)):
+            node = fn(tree)["layers"][0]["moe"]
+            assert node["router"] is router
+            for key, w in stacks.items():
+                want = jq.quantize_expert_stack(jnp.asarray(w.numpy()))
+                assert isinstance(node[key], tq.QuantizedExpertStack)
+                assert same_bits(node[key].q, want.q) and same_bits(node[key].scale, want.scale)
 
 
 class TestProducts:
