@@ -24,7 +24,12 @@ Phases, each fatal on failure (exit code != 0):
    128-key tiles, offsets off the tile grid with a window, hd 64, no
    GQA, Skv 1) and at the training shape (B 4, S 2048, causal), where
    each is timed beside its bound, the plain version and SDPA's
-   backward (its forward+backward minus its forward);
+   backward (its forward+backward minus its forward). Then the three
+   kernels at head_dim 256 (Gemma-2B's Hq 8, Hkv 1) against their plain
+   versions at the edges of their tiles (S 63 / 64 / 65 / 127 / 129),
+   Skv 1, offsets off the grid with a window, MQA and GQA, q as a
+   transposed view and f32 gradient outputs, and timed at the prefill
+   shape [2, 512] and the training shape [4, 2048];
 3. model: Llama-3-8B at full width (random weights from a seed),
    attention="flash": llama_forward flash against dense on [1, 1024],
    generate() greedy on [2, 512] prompts (the kernel's launch count is
@@ -100,7 +105,22 @@ and after training:
 16. lora_train: make_lora_train_step on the full-depth bf16 base, rank 8
     on wq / wv, flash + remat, [4, 2048]: one warm-up and three timed
     steps (launches 64 / 32 / 32 a step), then merge_lora,
-    quantize_params and generate() of 16 tokens.
+    quantize_params and generate() of 16 tokens;
+
+and last the Gemma phases, Gemma-2B (gemma_2b_config: head_dim 256, one
+kv head, tied embedding; random weights from seeds, bf16, flash) through
+the hd-256 kernels:
+
+17. gemma_model: full depth, llama_forward flash against dense on
+    [1, 1024] under the model phase's limits, generate() greedy on
+    [2, 512] + 32 (18 forward launches), one decode step beside the
+    weight-read bound with a torch.profiler pass, and a tiny hd-256
+    Gemma on the card against the CPU;
+18. gemma_train_grads: 2 layers, [1, 1024], llama_loss gradients flash
+    against dense under the train_grads limits (launches 2 / 2 / 2);
+19. gemma_train: full depth, [4, 2048], flash + remat, momentum SGD, as
+    the train phase: step time, tokens/s, MFU, peak memory, launches
+    36 / 18 / 18 a step.
 
 Every line but the last two is a JSON object; the card's name and power
 limit (nvidia-smi) come second to last, and the last line is
@@ -113,6 +133,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -266,15 +287,15 @@ def check_attention(card, name, b, sq, skv, q_off=0, kv_off=0, causal=True,
 
 
 def bwd_ptxas() -> dict:
-    """ptxas's registers and spills of flash_bwd.cu's eight
-    instantiations, keyed "<dq|dkv>_hd<64|128>_<bf16|f32>"."""
+    """ptxas's registers and spills of flash_bwd.cu's twelve
+    instantiations, keyed "<dq|dkv>_hd<64|128|256>_<bf16|f32>"."""
     from nos_tpu_torch.ops import _build
 
     report = {}
     for entry, figures in _build.ptxas_report("flash_bwd").items():
         kind = ("dkv" if "flash_dkv_kernel" in entry
                 else "dq" if "flash_dq_kernel" in entry else None)
-        for hd in (64, 128):
+        for hd in (64, 128, 256):
             if kind and f"ILi{hd}E" in entry:
                 out = "f32" if f"ILi{hd}EfE" in entry else "bf16"
                 report[f"{kind}_hd{hd}_{out}"] = figures
@@ -310,15 +331,16 @@ def bwd_bound_ms(b, sq, skv, hq, hkv, hd, pairs, ops_per_pair, n_out_kv):
 
 
 def check_backward(card, name, b, sq, skv, hq=32, hkv=8, hd=128, q_off=0,
-                   kv_off=0, causal=True, window=None, timed=False):
-    """dQ and dK/dV kernels against their plain version on one case; at
-    ``timed``, each kernel's time beside its bound, the plain version and
-    SDPA's backward."""
+                   kv_off=0, causal=True, window=None, timed=False, grad_dtype=None):
+    """dQ and dK/dV kernels against their plain version on one case, the
+    gradients written in bf16 or in ``grad_dtype`` (f32); at ``timed``,
+    each kernel's time beside its bound, its profiler device time, the
+    plain version and SDPA's backward."""
     import torch
     import torch.nn.functional as F
 
     import nos_tpu_torch.ops.flash_attention as fa
-    from nos_tpu_torch.util.cuda_timing import event_ms
+    from nos_tpu_torch.util.cuda_timing import device_ms, event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(sq * 13 + skv + hd)
 
@@ -330,12 +352,13 @@ def check_backward(card, name, b, sq, skv, hq=32, hkv=8, hd=128, q_off=0,
     out, lse = fa.flash_attention_block(q, k, v, q_off, kv_off, causal=causal,
                                         window=window)
     delta = fa.flash_delta(do, out)
-    kw = dict(causal=causal, window=window, delta=delta)
+    kw = dict(causal=causal, window=window, delta=delta, grad_dtype=grad_dtype)
     got = fa.flash_block_grads(q, k, v, out, lse, do, q_off, kv_off, **kw)
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, q_off, kv_off, **kw)
     torch.cuda.synchronize()
     errs, ok = {}, True
     for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        ok = ok and g.dtype == (grad_dtype or torch.bfloat16)
         g, w = g.float(), w.float()
         errs[gname] = float((g - w).abs().max())
         ok = ok and bool(((g - w).abs() <= BWD_ATOL + BWD_RTOL * w.abs()).all())
@@ -346,14 +369,16 @@ def check_backward(card, name, b, sq, skv, hq=32, hkv=8, hd=128, q_off=0,
         "phase": "kernel_bwd", "case": name, "b": b, "sq": sq, "skv": skv,
         "hq": hq, "hkv": hkv, "hd": hd, "causal": causal, "window": window,
         "q_off": q_off, "kv_off": kv_off,
+        "grad_dtype": "f32" if grad_dtype == torch.float32 else "bf16",
         **{f"{g}_max_abs_err": e for g, e in errs.items()},
         "atol": BWD_ATOL, "rtol": BWD_RTOL, "ok": ok, "card": card,
     }
     if timed:
         pairs = visible_pairs(sq, skv, q_off, kv_off, causal, window)
-        args = (q, k, v, lse, do, delta, q_off, kv_off, causal, window, None)
-        row["dq_ms"] = event_ms(lambda: fa._flash_bwd_cuda(*args, True, False))
-        row["dkv_ms"] = event_ms(lambda: fa._flash_bwd_cuda(*args, False, True))
+        args = (q, k, v, lse, do, delta, q_off, kv_off, causal, window, grad_dtype)
+        for kname, which in (("dq", (True, False)), ("dkv", (False, True))):
+            row[f"{kname}_ms"] = event_ms(lambda: fa._flash_bwd_cuda(*args, *which))
+            row[f"{kname}_device_ms"] = device_ms(lambda: fa._flash_bwd_cuda(*args, *which))
         row["dq_bound_ms"], row["dq_bound_by"] = bwd_bound_ms(
             b, sq, skv, hq, hkv, hd, pairs, 6, 0)
         row["dkv_bound_ms"], row["dkv_bound_by"] = bwd_bound_ms(
@@ -385,6 +410,210 @@ def check_backward(card, name, b, sq, skv, hq=32, hkv=8, hd=128, q_off=0,
     if not ok:
         raise SystemExit(f"backward case {name} disagrees with its plain version: {row}")
     return row
+
+
+def forward_check(card, phase, params, cfg, tokens, scale_prob_limit=False) -> dict:
+    """llama_forward on ``tokens`` with flash (its launches counted, one a
+    layer) against dense: the largest logit difference relative to the
+    largest logit (<= 5e-2), probabilities (<= 1e-2) and argmax agreement
+    (>= 0.8). Both paths round their logits to bf16, whose spacing u at
+    the largest logit grows with it; one spacing on each logit can move a
+    probability by up to u / 2 (|dp_i| <= 2 p_i (1 - p_i) u). With
+    ``scale_prob_limit`` (Gemma: its scaled, tied embedding gives logits
+    near 17, where u = 2^-3) the probability limit is max(1e-2, u / 2)."""
+    import torch
+
+    import nos_tpu_torch.ops.flash_attention as fa
+    from nos_tpu_torch.models import llama
+
+    with torch.no_grad():
+        fa.LAUNCHES = 0
+        flash_logits = llama.llama_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        forward_launches = fa.LAUNCHES
+        dense_logits = llama.llama_forward(
+            params, tokens, dataclasses.replace(cfg, attention="dense"))
+        diff = (flash_logits - dense_logits).abs()
+        rel = float(diff.max() / dense_logits.abs().max())
+        p_diff = float((torch.softmax(flash_logits, -1)
+                        - torch.softmax(dense_logits, -1)).abs().max())
+        agree = float((flash_logits.argmax(-1) == dense_logits.argmax(-1))
+                      .float().mean())
+        finite = bool(torch.isfinite(flash_logits).all())
+        spacing = 2.0 ** (math.floor(math.log2(float(dense_logits.abs().max()))) - 7)
+    p_limit = max(1e-2, spacing / 2) if scale_prob_limit else 1e-2
+    row = {"phase": phase, "tokens": list(tokens.shape),
+           "flash_launches": forward_launches,
+           "logits_max_abs_diff": float(diff.max()), "logits_max_rel_diff": rel,
+           "logits_bf16_spacing": spacing, "probs_max_abs_diff": p_diff,
+           "probs_limit": p_limit, "argmax_agreement": agree,
+           "finite": finite, "card": card}
+    row["ok"] = (finite and forward_launches == cfg.n_layers and rel <= 5e-2
+                 and p_diff <= p_limit and agree >= 0.8)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"flash forward disagrees with dense: {row}")
+    return row
+
+
+def generate_check(card, phase, params, cfg, prompt, new_tokens=32):
+    """The serving main path: greedy generate() with the forward kernel's
+    count zeroed just before and read just after (one launch a layer, in
+    the unpadded prefill). Returns (launches, tokens)."""
+    import torch
+
+    import nos_tpu_torch.ops.flash_attention as fa
+    from nos_tpu_torch.models import generate as gen_mod
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        fa.LAUNCHES = 0
+        t0 = time.time()
+        out = gen_mod.generate(params, prompt, cfg, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = fa.LAUNCHES
+    ok = (tuple(out.shape) == (prompt.shape[0], new_tokens) and launches == cfg.n_layers
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+    emit({"phase": phase, "prompt": list(prompt.shape), "new_tokens": new_tokens,
+          "flash_launches": launches, "seconds": wall,
+          "tokens_per_s": prompt.shape[0] * new_tokens / wall, "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit(f"generate() failed: shape {tuple(out.shape)}, "
+                         f"launches {launches}")
+    return launches, out
+
+
+def decode_check(card, phase, profile_phase, params, cfg, prompt, first,
+                 n_params, new_tokens=32) -> dict:
+    """One decode step at the generate shapes, beside the weight-read bound
+    (bf16 weights read once), then a torch.profiler pass over eight."""
+    import torch
+
+    from nos_tpu_torch.models import generate as gen_mod
+
+    b, s = prompt.shape
+    with torch.no_grad():
+        _, cache = gen_mod.prefill(params, prompt, cfg, s + new_tokens)
+
+        def decode_steps(n, token=first):
+            for i in range(n):
+                logits, _ = gen_mod.decode_step(params, cache, s + i, token, cfg)
+                token = logits.argmax(dim=-1)
+            torch.cuda.synchronize()
+
+        decode_steps(2)
+        t0 = time.time()
+        decode_steps(16)
+        step_ms = (time.time() - t0) / 16 * 1e3
+        row = {"phase": phase, "batch": b, "cache_len": s + new_tokens,
+               "ms_per_step": step_ms,
+               "weight_read_bound_ms": 2 * n_params / PEAK_HBM_BYTES_S * 1e3,
+               "card": card}
+        emit(row)
+        row["profile"] = profile_steps(decode_steps, card, step_ms, phase=profile_phase)
+        emit(row["profile"])
+    return row
+
+
+def tiny_check(card, phase, tiny, gen) -> dict:
+    """A small input against a reference: the same tiny model (bf16,
+    flash) on the card and on the CPU, logits within 1e-1."""
+    import torch
+
+    from nos_tpu_torch.models import llama
+
+    tiny_gpu = llama.init_llama_params(tiny, seed=3, device="cuda")
+    tiny_cpu = llama.tree_map(lambda x: x.cpu(), tiny_gpu)
+    small = torch.randint(0, tiny.vocab_size, (2, 96), generator=gen, device="cuda")
+    with torch.no_grad():
+        a = llama.llama_forward(tiny_gpu, small, tiny).cpu()
+        b = llama.llama_forward(tiny_cpu, small.cpu(), tiny)
+    err = float((a - b).abs().max())
+    row = {"phase": phase, "head_dim": tiny.head_dim, "logits_max_abs_diff": err,
+           "atol": 1e-1, "ok": err <= 1e-1 and bool(torch.isfinite(a).all()),
+           "card": card}
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"tiny model on the card disagrees with the CPU: {row}")
+    return row
+
+
+def gemma_kernel_phases(card) -> dict:
+    """The three kernels at head_dim 256 (Gemma-2B's attention: Hq 8,
+    Hkv 1) against their plain versions: the edges of the forward's
+    64-key tiles, the backward's 64-row query tiles, 64-key dK/dV blocks
+    and 32-key dQ tiles (S 63 / 64 / 65 / 127 / 129), Skv 1, offsets off
+    the grid with a window, MQA and GQA, q as a transposed view, f32
+    gradient outputs; timed at the generate() prefill shape [2, 512] and
+    the training shape [4, 2048] (causal)."""
+    g = dict(hd=256, hq=8, hkv=1)
+    rows = {}
+    for n in (63, 64, 65, 127, 129):
+        check_attention(card, f"hd256_ragged_s{n}", 1, n, n, timed=False, **g)
+    check_attention(card, "hd256_skv_1", 2, 50, 1, timed=False, **g)
+    check_attention(card, "hd256_window200_offsets_off_tile", 1, 300, 400, q_off=333,
+                    kv_off=45, window=200, timed=False, hd=256, hq=4, hkv=2)
+    check_attention(card, "hd256_q_transposed_view", 2, 200, 200, q_transposed=True,
+                    timed=False, **g)
+    check_attention(card, "hd256_gqa_noncausal", 2, 77, 77, causal=False, timed=False,
+                    hd=256, hq=8, hkv=2)
+    rows["fwd_prefill"] = check_attention(card, "hd256_gemma_prefill_b2_s512", 2, 512,
+                                          512, **g)
+    rows["fwd_train"] = check_attention(card, "hd256_gemma_train_b4_s2048", TRAIN_BATCH,
+                                        TRAIN_SEQ, TRAIN_SEQ, **g)
+    for n in (63, 64, 65, 127, 129):
+        check_backward(card, f"hd256_ragged_s{n}", 1, n, n, **g)
+    check_backward(card, "hd256_skv_1", 2, 50, 1, **g)
+    check_backward(card, "hd256_window200_offsets_off_tile", 1, 300, 400, q_off=333,
+                   kv_off=45, window=200, hd=256, hq=4, hkv=2)
+    check_backward(card, "hd256_gqa_s300", 2, 300, 300, hd=256, hq=8, hkv=2)
+    check_backward(card, "hd256_gqa_noncausal", 2, 77, 77, causal=False, hd=256, hq=8,
+                   hkv=2)
+    import torch
+
+    check_backward(card, "hd256_f32_grads_window37", 1, 200, 200, window=37,
+                   grad_dtype=torch.float32, **g)
+    check_backward(card, "hd256_f32_grads_offsets", 1, 64, 96, q_off=40, kv_off=20,
+                   window=50, grad_dtype=torch.float32, **g)
+    rows["bwd_train"] = check_backward(card, "hd256_gemma_train_b4_s2048", TRAIN_BATCH,
+                                       TRAIN_SEQ, TRAIN_SEQ, timed=True, **g)
+    return rows
+
+
+def gemma_model_phase(card) -> dict:
+    """Gemma-2B at full width and depth (random weights from a seed, bf16,
+    attention="flash", the tied embedding as its unembedding):
+    llama_forward flash against dense on [1, 1024], greedy generate() on
+    [2, 512] + 32 (18 forward launches), one decode step beside the
+    weight-read bound with a profile, and a tiny head_dim-256 Gemma on the
+    card against the CPU."""
+    import torch
+
+    from nos_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.gemma_2b_config(), attention="flash")
+    t0 = time.time()
+    params = llama.init_llama_params(cfg, seed=21, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in llama.tree_leaves(params))
+    emit({"phase": "gemma_init", "config": "gemma_2b", "params": n_params,
+          "seconds": time.time() - t0, "gib": torch.cuda.memory_allocated() / 2**30,
+          "card": card})
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen, device="cuda")
+    forward = forward_check(card, "gemma_forward", params, cfg, tokens,
+                            scale_prob_limit=True)
+    prompt = torch.randint(1, cfg.vocab_size, (2, 512), generator=gen, device="cuda")
+    launches, out = generate_check(card, "gemma_generate", params, cfg, prompt)
+    decode = decode_check(card, "gemma_decode_step", "gemma_decode_profile", params, cfg,
+                          prompt, out[:, 0], n_params)
+    tiny_check(card, "gemma_tiny_card_vs_cpu", llama.tiny_config(
+        d_model=256, n_heads=2, n_kv_heads=1, d_ff=512, qk_head_dim=256,
+        hidden_act="gelu", norm_offset=True, scale_embeddings=True,
+        tie_embeddings=True, attention="flash"), gen)
+    return {"params": n_params, "forward": forward, "generate_launches": launches,
+            "decode": decode}
 
 
 def changed_fraction(before, after) -> float:
@@ -447,19 +676,20 @@ def grads_hold(res, n_layers) -> bool:
             and res["launches_fwd_dq_dkv"] == [n_layers] * 3)
 
 
-def train_grads_phase(card) -> dict:
-    """llama_loss gradients at full width, 2 layers, [1, 1024]: the flash
-    path (kernels) against the dense path (autograd of the einsums)."""
+def train_grads_phase(card, base=None, phase="train_grads", seed=5) -> dict:
+    """llama_loss gradients at full width (``base``, by default
+    Llama-3-8B), 2 layers, [1, 1024]: the flash path (kernels) against the
+    dense path (autograd of the einsums)."""
     import torch
 
     from nos_tpu_torch.models import llama
 
-    cfg = dataclasses.replace(llama.llama_3_8b_config(), n_layers=2,
+    cfg = dataclasses.replace(base or llama.llama_3_8b_config(), n_layers=2,
                               attention="flash")
-    params = llama.init_llama_params(cfg, seed=5, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = llama.init_llama_params(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen, device="cuda")
-    row = {"phase": "train_grads", "layers": 2, "tokens": [1, 1024],
+    row = {"phase": phase, "layers": 2, "tokens": [1, 1024],
            **flash_dense_grads(params, tokens, cfg),
            "loss_limit": LOSS_LIMIT, "grad_rel_limit": GRAD_REL_LIMIT, "card": card}
     row["ok"] = grads_hold(row, cfg.n_layers)
@@ -469,10 +699,10 @@ def train_grads_phase(card) -> dict:
     return row
 
 
-def train_phase(card) -> dict:
-    """The trainer's main path: Llama-3-8B, full width and depth, flash +
-    remat, built-in momentum SGD, batches from BatchLoader through
-    prefetch_to_device."""
+def train_phase(card, base=None, config="llama_3_8b", phase="train", seed=7) -> dict:
+    """The trainer's main path: ``base`` (by default Llama-3-8B) at full
+    width and depth, flash + remat, built-in momentum SGD, batches from
+    BatchLoader through prefetch_to_device."""
     import numpy as np
     import torch
 
@@ -480,7 +710,7 @@ def train_phase(card) -> dict:
     from nos_tpu_torch.models import llama
     from nos_tpu_torch.parallel import make_train_step
 
-    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash",
+    cfg = dataclasses.replace(base or llama.llama_3_8b_config(), attention="flash",
                               remat=True)
     torch.cuda.reset_peak_memory_stats()
     # bf16 weights of order 2^-6 have a half-ulp of 6e-5: an SGD update
@@ -488,18 +718,19 @@ def train_phase(card) -> dict:
     # moved in three steps from the random init. lr 1.0 makes the update
     # visible; the step's work is the same at any lr.
     step, shard_state = make_train_step(None, cfg, learning_rate=1.0)
-    state = shard_state(llama.init_llama_params(cfg, seed=7, device="cuda"),
+    state = shard_state(llama.init_llama_params(cfg, seed=seed, device="cuda"),
                         donate=True)
     params = state[0]
-    probes = [params["lm_head"], params["layers"][0]["wq"],
-              params["layers"][-1]["w_down"]]
+    # a tied model's unembedding is its embedding
+    unembed = params.get("lm_head", params["embed"])
+    probes = [unembed, params["layers"][0]["wq"], params["layers"][-1]["w_down"]]
     before = [t.detach().clone() for t in probes]
     layer_mm = sum(params["layers"][0][key].numel() for key in
                    ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
-    matmul_params = layer_mm * cfg.n_layers + params["lm_head"].numel()
-    corpus = np.random.default_rng(7).integers(
+    matmul_params = layer_mm * cfg.n_layers + unembed.numel()
+    corpus = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, size=1 << 22).astype(np.int32)
-    loader = BatchLoader(corpus, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=7)
+    loader = BatchLoader(corpus, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
     stream = prefetch_to_device(iter(loader))
     torch.cuda.synchronize()
     zero_counts()  # the main path: every launch from here on is the trainer's
@@ -522,7 +753,7 @@ def train_phase(card) -> dict:
         torch.cuda.synchronize()
 
     # one more step under torch.profiler, after the counts were read
-    emit(profile_steps(more_steps, card, timed_ms, steps=1, phase="train_profile"))
+    emit(profile_steps(more_steps, card, timed_ms, steps=1, phase=f"{phase}_profile"))
     stream.close()
     losses = [float(x) for x in losses]
     changed = changed_fraction(before, probes)
@@ -531,7 +762,7 @@ def train_phase(card) -> dict:
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2 * TRAIN_BATCH * cfg.n_heads
     flops = 6.0 * matmul_params * tokens + 3 * 4.0 * cfg.head_dim * pairs * cfg.n_layers
     expect = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
-    row = {"phase": "train", "config": "llama_3_8b", "layers": cfg.n_layers,
+    row = {"phase": phase, "config": config, "layers": cfg.n_layers,
            "batch": [TRAIN_BATCH, TRAIN_SEQ],
            "optimizer": "momentum_sgd(lr=1.0, momentum=0.9)",
            "remat": True, "step_ms": step_ms, "ms_per_step": timed_ms,
@@ -1337,7 +1568,7 @@ def main() -> int:
     libs = _build.build(_build.KERNELS)
     fwd_ptxas = {f"hd{hd}": figures
                  for entry, figures in _build.ptxas_report("flash_fwd").items()
-                 for hd in (64, 128) if f"ILi{hd}E" in entry}
+                 for hd in (64, 128, 256) if f"ILi{hd}E" in entry}
     bwd_figures = bwd_ptxas()
     emit({"phase": "build", "kernels": sorted(libs), "seconds": time.time() - t0,
           "seconds_per_kernel": dict(_build.BUILD_SECONDS),
@@ -1392,13 +1623,12 @@ def main() -> int:
     check_backward(card, "skv_1", 2, 50, 1, hq=4, hkv=2)
     bwd_case = check_backward(card, "train_shape_b4_s2048", TRAIN_BATCH,
                               TRAIN_SEQ, TRAIN_SEQ, timed=True)
+    hd256 = gemma_kernel_phases(card)
 
     # ------------------------------------------------------------- model
-    from nos_tpu_torch.models import generate as gen_mod
     from nos_tpu_torch.models import llama
 
     cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash")
-    dense_cfg = dataclasses.replace(cfg, attention="dense")
     t0 = time.time()
     params = llama.init_llama_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1410,92 +1640,18 @@ def main() -> int:
           "gib": torch.cuda.memory_allocated() / 2**30, "card": card})
 
     tok_gen = torch.Generator(device="cuda").manual_seed(1)
-    with torch.no_grad():
-        tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=tok_gen,
-                               device="cuda")
-        fa.LAUNCHES = 0
-        flash_logits = llama.llama_forward(params, tokens, cfg)
-        torch.cuda.synchronize()
-        forward_launches = fa.LAUNCHES
-        dense_logits = llama.llama_forward(params, tokens, dense_cfg)
-        diff = (flash_logits - dense_logits).abs()
-        rel = float(diff.max() / dense_logits.abs().max())
-        p_diff = float((torch.softmax(flash_logits, -1)
-                        - torch.softmax(dense_logits, -1)).abs().max())
-        agree = float((flash_logits.argmax(-1) == dense_logits.argmax(-1))
-                      .float().mean())
-        finite = bool(torch.isfinite(flash_logits).all())
-    fwd = {"phase": "llama_forward", "tokens": [1, 1024],
-           "flash_launches": forward_launches,
-           "logits_max_abs_diff": float(diff.max()), "logits_max_rel_diff": rel,
-           "probs_max_abs_diff": p_diff, "argmax_agreement": agree,
-           "finite": finite, "card": card}
-    fwd["ok"] = (finite and forward_launches == cfg.n_layers and rel <= 5e-2
-                 and p_diff <= 1e-2 and agree >= 0.8)
-    emit(fwd)
-    if not fwd["ok"]:
-        raise SystemExit(f"flash forward disagrees with dense: {fwd}")
-    del flash_logits, dense_logits, diff
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=tok_gen,
+                           device="cuda")
+    forward_check(card, "llama_forward", params, cfg, tokens)
 
     # the main path: generate() with the launch counts zeroed just before
-    with torch.no_grad():
-        prompt = torch.randint(1, cfg.vocab_size, (2, 512), generator=tok_gen,
-                               device="cuda")
-        torch.cuda.synchronize()
-        fa.LAUNCHES = 0
-        t0 = time.time()
-        out = gen_mod.generate(params, prompt, cfg, max_new_tokens=32)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        main_launches = fa.LAUNCHES
-    gen_ok = (tuple(out.shape) == (2, 32) and main_launches == cfg.n_layers
-              and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
-    emit({"phase": "generate", "prompt": [2, 512], "new_tokens": 32,
-          "flash_launches": main_launches, "seconds": wall,
-          "tokens_per_s": 2 * 32 / wall, "ok": gen_ok, "card": card})
-    if not gen_ok:
-        raise SystemExit(f"generate() failed: shape {tuple(out.shape)}, "
-                         f"launches {main_launches}")
-
-    # one decode step at the generate shapes, beside the weight-read bound
-    with torch.no_grad():
-        _, cache = gen_mod.prefill(params, prompt, cfg, 512 + 32)
-
-        def decode_steps(n, token=out[:, 0]):
-            for i in range(n):
-                logits, _ = gen_mod.decode_step(params, cache, 512 + i, token, cfg)
-                token = logits.argmax(dim=-1)
-            torch.cuda.synchronize()
-
-        decode_steps(2)
-        t0 = time.time()
-        decode_steps(16)
-        step_ms = (time.time() - t0) / 16 * 1e3
-        emit({"phase": "decode_step", "batch": 2, "cache_len": 544,
-              "ms_per_step": step_ms,
-              "weight_read_bound_ms": 2 * n_params / PEAK_HBM_BYTES_S * 1e3,
-              "card": card})
-        emit(profile_steps(decode_steps, card, step_ms))
-    del cache
-
-    # a small input against a reference: the same tiny model on the CPU
-    tiny = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
-                             attention="flash")
-    tiny_gpu = llama.init_llama_params(tiny, seed=3, device="cuda")
-    tiny_cpu = {k: (v.cpu() if torch.is_tensor(v) else [
-        {kk: vv.cpu() for kk, vv in layer.items()} for layer in v
-    ]) for k, v in tiny_gpu.items()}
-    small = torch.randint(0, tiny.vocab_size, (2, 96), generator=tok_gen,
-                          device="cuda")
-    with torch.no_grad():
-        a = llama.llama_forward(tiny_gpu, small, tiny).cpu()
-        b = llama.llama_forward(tiny_cpu, small.cpu(), tiny)
-    tiny_err = float((a - b).abs().max())
-    tiny_ok = tiny_err <= 1e-1 and bool(torch.isfinite(a).all())
-    emit({"phase": "tiny_card_vs_cpu", "logits_max_abs_diff": tiny_err,
-          "atol": 1e-1, "ok": tiny_ok, "card": card})
-    if not tiny_ok:
-        raise SystemExit(f"tiny model on the card disagrees with the CPU: {tiny_err}")
+    prompt = torch.randint(1, cfg.vocab_size, (2, 512), generator=tok_gen,
+                           device="cuda")
+    main_launches, out = generate_check(card, "generate", params, cfg, prompt)
+    decode_check(card, "decode_step", "decode_profile", params, cfg, prompt,
+                 out[:, 0], n_params)
+    tiny_check(card, "tiny_card_vs_cpu", llama.tiny_config(
+        d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, attention="flash"), tok_gen)
 
     # ------------------------------------------------------------ engine
     from nos_tpu_torch.serve import Engine, GenRequest
@@ -1549,7 +1705,7 @@ def main() -> int:
 
     # --------------------------------------------------------------- MoE
     # the Llama trees and caches go first: the int8 Mixtral holds ~47 GB
-    del params, prompt, out, tiny_gpu, tiny_cpu, trees
+    del params, prompt, out, trees
     torch.cuda.empty_cache()
     t0 = time.time()
     moe_check_phase(card)
@@ -1567,6 +1723,19 @@ def main() -> int:
     train_adamw_phase(card)
     torch.cuda.empty_cache()
     lora = lora_train_phase(card)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- Gemma
+    # Gemma-2B (head_dim 256, one kv head) through the hd-256 kernels
+    t0 = time.time()
+    gemma = gemma_model_phase(card)
+    torch.cuda.empty_cache()
+    gemma_grads = train_grads_phase(card, llama.gemma_2b_config(),
+                                    phase="gemma_train_grads", seed=23)
+    torch.cuda.empty_cache()
+    gemma_train = train_phase(card, llama.gemma_2b_config(), config="gemma_2b",
+                              phase="gemma_train", seed=25)
+    emit({"phase": "gemma_phases", "seconds": time.time() - t0, "card": card})
 
     # ----------------------------------------------------------- summary
     emit({"kernels": [{
@@ -1615,6 +1784,55 @@ def main() -> int:
         "tflops_train": bwd_case[f"{key}_tflops"],
         "ptxas": {k: v for k, v in bwd_figures.items() if k.startswith(f"{key}_")},
         "build_seconds": _build.BUILD_SECONDS.get("flash_bwd"),
+        "check": "pass",
+    } for name, replaces, index, key, grads in (
+        ("flash_dq", "nos_tpu/ops/flash_attention.py:326", 1, "dq", ("dq",)),
+        ("flash_dkv", "nos_tpu/ops/flash_attention.py:368", 2, "dkv", ("dk", "dv")),
+    )] + [{
+        "name": "flash_fwd_hd256",
+        "route": "cuda",
+        "source": "nos_tpu_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "nos_tpu/ops/flash_attention.py:175",
+        "launches": gemma["generate_launches"],
+        "launches_gemma_train": gemma_train["launches_total_fwd_dq_dkv"][0],
+        "launches_gemma_train_grads": gemma_grads["launches_fwd_dq_dkv"][0],
+        "max_abs_err": hd256["fwd_prefill"]["o_max_abs_err"],
+        "ms": hd256["fwd_prefill"]["kernel_ms"],
+        "plain_ms": hd256["fwd_prefill"]["plain_ms"],
+        "bound_ms": hd256["fwd_prefill"]["bound_ms"],
+        "bound_by": hd256["fwd_prefill"]["bound_by"],
+        "library_ms": hd256["fwd_prefill"]["library_ms"],
+        "shape": "q [2,512,8,256], k/v [2,512,1,256] bf16 causal",
+        "device_ms": hd256["fwd_prefill"]["kernel_device_ms"],
+        "library_device_ms": hd256["fwd_prefill"]["library_device_ms"],
+        "ms_train": hd256["fwd_train"]["kernel_ms"],
+        "tflops_train": hd256["fwd_train"]["kernel_tflops"],
+        "bound_ms_train": hd256["fwd_train"]["bound_ms"],
+        "plain_ms_train": hd256["fwd_train"]["plain_ms"],
+        "library_ms_train": hd256["fwd_train"]["library_ms"],
+        "device_ms_train": hd256["fwd_train"]["kernel_device_ms"],
+        "shape_train": "q [4,2048,8,256], k/v [4,2048,1,256] bf16 causal",
+        "ptxas": fwd_ptxas.get("hd256"),
+        "check": "pass",
+    }] + [{
+        "name": f"{name}_hd256",
+        "route": "cuda",
+        "source": "nos_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": replaces,
+        "launches": gemma_train["launches_total_fwd_dq_dkv"][index],
+        "launches_gemma_train_grads": gemma_grads["launches_fwd_dq_dkv"][index],
+        "max_abs_err": max(hd256["bwd_train"][f"{g}_max_abs_err"] for g in grads),
+        "ms": hd256["bwd_train"][f"{key}_ms"],
+        "device_ms": hd256["bwd_train"][f"{key}_device_ms"],
+        "plain_ms": hd256["bwd_train"]["plain_ms"],
+        "bound_ms": hd256["bwd_train"][f"{key}_bound_ms"],
+        "bound_by": hd256["bwd_train"][f"{key}_bound_by"],
+        "library_ms": hd256["bwd_train"]["library_ms"],
+        "shape": "q/dO [4,2048,8,256], k/v [4,2048,1,256] bf16 causal",
+        "plain_and_library_cover": "dq, dk and dv together",
+        "tflops_train": hd256["bwd_train"][f"{key}_tflops"],
+        "ptxas": {k: v for k, v in bwd_figures.items()
+                  if k.startswith(f"{key}_hd256")},
         "check": "pass",
     } for name, replaces, index, key, grads in (
         ("flash_dq", "nos_tpu/ops/flash_attention.py:326", 1, "dq", ("dq",)),

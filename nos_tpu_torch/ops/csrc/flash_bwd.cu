@@ -53,6 +53,18 @@
 //   dP = dO V^T (SS, N = 128), then dQ += dS K (RS, K read MN-major);
 //   each thread keeps its two rows' lse and delta in registers. Causal
 //   grids start the query tiles with the most visible keys first.
+// - hd 256 (Gemma). dK/dV: a consumer cannot hold f32 dK and dV for its
+//   64 keys (128 + 128 floats a thread, against 240 registers), so the
+//   block owns 64 keys and splits the work by output: warpgroup 1
+//   computes S^T, P^T and dV += P^T dO, warpgroup 2 dP^T, dS^T and
+//   dK += dS^T Q, two products each per tile. P^T crosses in f32 (the
+//   reference's dS uses the unrounded p) through a 16 KB shared buffer in
+//   the accumulator's own register order, thread for thread, guarded by
+//   two named barriers (ready, free). K and V take 64 KB, two 64-row
+//   Q / dO stages 128 KB. dQ: Q and dO stay resident (128 KB), so the
+//   ring streams 32-key K/V tiles, three stages (96 KB); S and dP are
+//   m64n32k16, dQ += dS K one m64n256k16 per 16 keys. Every product
+//   keeps its hd 64/128 operand layouts; outputs are single-owner.
 // - exp2 with scale * log2(e) folded into one FMA per score; a -inf lse
 //   becomes a -inf exponent bias, so its row contributes exact zeros.
 // - Tiles outside the causal / window band are never loaded; a
@@ -89,13 +101,18 @@ constexpr int CHUNK = 64;           // bf16 in a 128-byte swizzled row (one TMA 
 constexpr int ROW_BYTES = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// dK/dV: 128 keys per block (64 per consumer), 64-row query tiles streamed.
-constexpr int KV_BLOCK = 128;
+// dK/dV: 64-row query tiles streamed past a block of keys: 128 keys, 64
+// per consumer; at hd 256 64 keys, both consumers on all of them (one
+// owns dV, the other dK).
 constexpr int Q_TILE = 64;
+constexpr int P_READY = 1;  // named barriers of the hd-256 P^T hand-over
+constexpr int P_FREE = 2;
 
 template <int HD>
 struct DkvTiles {
-  static constexpr int STAGES = 4;
+  static constexpr bool SPLIT_ROLES = HD == 256;
+  static constexpr int KV_BLOCK = SPLIT_ROLES ? 64 : 128;
+  static constexpr int STAGES = SPLIT_ROLES ? 2 : 4;
   static constexpr int CHUNKS = HD / CHUNK;
   static constexpr int KV_BYTES = KV_BLOCK * HD * 2;  // K or V
   static constexpr int Q_BYTES = Q_TILE * HD * 2;     // a Q or dO tile
@@ -106,9 +123,12 @@ struct DkvTiles {
   static constexpr int STAT_SLOT = 96;
   static constexpr int STAT_FLOATS = 2 * STAT_SLOT;
   static constexpr int STAGE_TX = 2 * Q_BYTES + 2 * STAT_BOX * 4;
+  // the P^T hand-over: a 64 x 64 f32 tile
+  static constexpr int P_BYTES = SPLIT_ROLES ? Q_TILE * Q_TILE * 4 : 0;
   // 1024 bytes of slack to align the swizzle atoms, then the barriers
   static constexpr int SMEM_BYTES = 1024 + 2 * KV_BYTES + STAGES * 2 * Q_BYTES +
-                                    STAGES * STAT_FLOATS * 4 + (2 * STAGES + 1) * 8;
+                                    STAGES * STAT_FLOATS * 4 + P_BYTES +
+                                    (2 * STAGES + 1) * 8;
 };
 
 // dQ: 128 query rows per block (64 per consumer), K/V tiles streamed.
@@ -116,8 +136,8 @@ constexpr int DQ_ROWS = 128;
 
 template <int HD>
 struct DqTiles {
-  static constexpr int BN = 128;  // keys per K/V tile
-  static constexpr int STAGES = HD == 128 ? 2 : 4;
+  static constexpr int BN = HD == 256 ? 32 : 128;  // keys per K/V tile
+  static constexpr int STAGES = HD == 256 ? 3 : HD == 128 ? 2 : 4;
   static constexpr int CHUNKS = HD / CHUNK;
   static constexpr int Q_BYTES = DQ_ROWS * HD * 2;  // Q or dO
   static constexpr int KV_BYTES = BN * HD * 2;      // one K or one V tile
@@ -190,8 +210,10 @@ __device__ __forceinline__ void issue_abt(float (&d)[N / 2], uint32_t a_base,
         sm90::make_desc_sw128(b_base + (kk / 4) * N * ROW_BYTES + (kk % 4) * 32, 16, 1024);
     if constexpr (N == 128) {
       sm90::wgmma_ss_m64n128k16(d, da, db, kk > 0);
-    } else {
+    } else if constexpr (N == 64) {
       sm90::wgmma_ss_m64n64k16(d, da, db, kk > 0);
+    } else {
+      sm90::wgmma_ss_m64n32k16(d, da, db, kk > 0);
     }
   }
   sm90::wgmma_commit();
@@ -207,7 +229,9 @@ __device__ __forceinline__ void issue_ax(float (&d)[HD / 2], const uint32_t (&a)
   for (int kk = 0; kk < KSTEPS; ++kk) {
     const uint64_t dx =
         sm90::make_desc_sw128(x_base + kk * 16 * ROW_BYTES, X_ROWS * ROW_BYTES, 1024);
-    if constexpr (HD == 128) {
+    if constexpr (HD == 256) {
+      sm90::wgmma_rs_m64n256k16_tb(d, a[kk], dx, 1);
+    } else if constexpr (HD == 128) {
       sm90::wgmma_rs_m64n128k16_tb(d, a[kk], dx, 1);
     } else {
       sm90::wgmma_rs_m64n64k16_tb(d, a[kk], dx, 1);
@@ -235,6 +259,146 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
 
 // ----------------------------------------------------------------- dK/dV
 
+// The hd-256 consumers of one dK/dV block: both warpgroups on the same
+// 64 keys, cw 0 owning dV (S^T, P^T, dV += P^T dO), cw 1 owning dK (dP^T,
+// dS^T, dK += dS^T Q). cw 0 hands P^T over in f32 through p_s, element e
+// of thread t at p_s[e * 128 + t] (conflict-free: a warp reads 32
+// consecutive floats), on the named barriers P_READY (written) and P_FREE
+// (read, so the next tile may overwrite it); cw 1 arrives on P_FREE once
+// before the first tile and cw 0 syncs on it once after the last, so both
+// barriers end with every phase complete. Both warpgroups see the same
+// tiles as empty (`none` depends only on the keys and the tile), so they
+// meet at every barrier.
+template <int HD, typename OutT>
+__device__ __forceinline__ void dkv_split_consumer(
+    uint8_t* k_s, uint8_t* v_s, uint8_t* qd_s, const float* stat_s, float* p_s,
+    uint64_t* full, uint64_t* empty, uint64_t* kv_full, OutT* __restrict__ dk,
+    OutT* __restrict__ dv, Strides dks, Strides dvs, int n0, int m_lo, int n_m, int total,
+    int b, int hk, int Sq, int Skv, int Hq, int group, int q_off, int kv_off, int causal,
+    int window, float scale, float scale_log2, int cw) {
+  using T = DkvTiles<HD>;
+  constexpr int KV_BLOCK = T::KV_BLOCK;
+  const int tid = threadIdx.x % WG_THREADS;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int kr_a = warp * 16 + g;  // this thread's keys: n0 + kr_a and 8 below
+  const int kmin = kv_off + n0;
+  const int kmax = kv_off + min(n0 + KV_BLOCK, Skv) - 1;
+  // cw 0 multiplies K (S^T = K Q^T), cw 1 V (dP^T = V dO^T)
+  const uint32_t a_base = sm90::smem_addr(cw == 0 ? k_s : v_s);
+
+  float acc[HD / 2];  // dV (cw 0) or dK (cw 1)
+  zero(acc);
+  if (cw == 1) sm90::named_barrier_arrive(P_FREE, 2 * WG_THREADS);
+  if (total > 0) sm90::mbar_wait(kv_full, 0);
+
+  int gi = 0;
+  int mt = 0;
+  for (int i = 0; i < total; ++i) {
+    const int st = i % T::STAGES;
+    const int m0 = m_lo + mt * Q_TILE;
+    const int shift = ((b * Hq + hk * group + gi) * Sq) & 3;
+    if (++mt == n_m) {
+      mt = 0;
+      ++gi;
+    }
+    sm90::mbar_wait(&full[st], (i / T::STAGES) & 1);
+    const int qmin = q_off + m0;
+    const int qmax = q_off + min(m0 + Q_TILE, Sq) - 1;
+    const bool none =
+        n0 >= Skv || (causal && (kmin > qmax || (window > 0 && qmin - kmax >= window)));
+    if (!none) {
+      const bool inside =
+          m0 + Q_TILE <= Sq && n0 + KV_BLOCK <= Skv &&
+          (!causal || (kv_off + n0 + KV_BLOCK - 1 <= qmin &&
+                       (window <= 0 || qmin + Q_TILE - 1 - kmin < window)));
+      const uint32_t q_addr = sm90::smem_addr(qd_s + st * 2 * T::Q_BYTES);
+      const uint32_t do_addr = q_addr + T::Q_BYTES;
+      const float* lse_s = stat_s + st * T::STAT_FLOATS + shift;
+      const float* dlt_s = lse_s + T::STAT_SLOT;
+
+      float s[Q_TILE / 2];  // cw 0: S^T, then P^T; cw 1: dP^T, then dS^T
+      sm90::fence_regs(s);
+      sm90::wgmma_fence();
+      issue_abt<HD, Q_TILE, KV_BLOCK>(s, a_base, cw == 0 ? q_addr : do_addr);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+
+      uint32_t a[Q_TILE / 16][4];
+      if (cw == 0) {
+        // P^T = 2^(S^T * scale * log2e - lse[col] * log2e)
+#pragma unroll
+        for (int j = 0; j < Q_TILE / 8; ++j) {
+          const int c0 = 8 * j + 2 * t;
+          const float bias[2] = {row_bias(lse_s[c0]), row_bias(lse_s[c0 + 1])};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int idx = 4 * j + e;
+            float p = fast_exp2(fmaf(s[idx], scale_log2, bias[e & 1]));
+            if (!inside) {
+              const int col = m0 + c0 + (e & 1);
+              const int key = n0 + kr_a + ((e < 2) ? 0 : 8);
+              const int qpos = q_off + col;
+              const int kpos = kv_off + key;
+              bool ok = col < Sq && key < Skv;
+              if (causal) {
+                ok = ok && kpos <= qpos;
+                if (window > 0) ok = ok && qpos - kpos < window;
+              }
+              if (!ok) p = 0.f;
+            }
+            s[idx] = p;
+          }
+        }
+        sm90::named_barrier_sync(P_FREE, 2 * WG_THREADS);
+#pragma unroll
+        for (int e = 0; e < Q_TILE / 2; ++e) p_s[e * WG_THREADS + tid] = s[e];
+        sm90::named_barrier_arrive(P_READY, 2 * WG_THREADS);
+      } else {
+        // dS^T = P^T * (dP^T - delta[col]) * scale
+        sm90::named_barrier_sync(P_READY, 2 * WG_THREADS);
+#pragma unroll
+        for (int j = 0; j < Q_TILE / 8; ++j) {
+          const float d[2] = {dlt_s[8 * j + 2 * t], dlt_s[8 * j + 2 * t + 1]};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int idx = 4 * j + e;
+            s[idx] = p_s[idx * WG_THREADS + tid] * (s[idx] - d[e & 1]) * scale;
+          }
+        }
+        sm90::named_barrier_arrive(P_FREE, 2 * WG_THREADS);
+      }
+      pack_a<Q_TILE>(s, a);
+      fence_frags(a);
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+      // dV += P^T dO (cw 0) or dK += dS^T Q (cw 1)
+      issue_ax<HD, Q_TILE / 16, Q_TILE>(acc, a, cw == 0 ? do_addr : q_addr);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      fence_frags(a);
+    }
+    release(&empty[st], lane);
+  }
+  if (cw == 0) sm90::named_barrier_sync(P_FREE, 2 * WG_THREADS);
+
+  OutT* out = cw == 0 ? dv : dk;
+  const Strides os = cw == 0 ? dvs : dks;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = n0 + kr_a + 8 * r;
+    if (key >= Skv) continue;
+    OutT* orow = out + b * os.b + key * os.s + hk * os.h;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      store_pair(orow + 8 * j + 2 * t, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+
 template <int HD, typename OutT>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -247,12 +411,14 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                  int Hq, int group, int q_off, int kv_off, int causal, int window,
                  float scale, float scale_log2) {
   using T = DkvTiles<HD>;
+  constexpr int KV_BLOCK = T::KV_BLOCK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* k_s = align_1024(smem_raw);
   uint8_t* v_s = k_s + T::KV_BYTES;
   uint8_t* qd_s = v_s + T::KV_BYTES;  // stage s: Q at s * 2 * Q_BYTES, dO after it
   float* stat_s = reinterpret_cast<float*>(qd_s + T::STAGES * 2 * T::Q_BYTES);
-  uint64_t* full = reinterpret_cast<uint64_t*>(stat_s + T::STAGES * T::STAT_FLOATS);
+  float* p_s = stat_s + T::STAGES * T::STAT_FLOATS;  // hd 256: P^T, [e][thread]
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(p_s) + T::P_BYTES);
   uint64_t* empty = full + T::STAGES;
   uint64_t* kv_full = empty + T::STAGES;
 
@@ -332,6 +498,11 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
     }
+  } else if constexpr (T::SPLIT_ROLES) {
+    sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    dkv_split_consumer<HD, OutT>(k_s, v_s, qd_s, stat_s, p_s, full, empty, kv_full, dk, dv,
+                                 dks, dvs, n0, m_lo, n_m, total, b, hk, Sq, Skv, Hq, group,
+                                 q_off, kv_off, causal, window, scale, scale_log2, wg - 1);
   } else {
     // ------------------------------------------------------ consumers
     sm90::setmaxnreg_inc<CONSUMER_REGS>();
@@ -712,6 +883,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        int kv_off, int causal, int window, float scale,
                        cudaStream_t stream) {
   using T = DkvTiles<HD>;
+  constexpr int KV_BLOCK = T::KV_BLOCK;
   const int n_ktiles = (Skv + KV_BLOCK - 1) / KV_BLOCK;
   const long long n_stats = static_cast<long long>(B) * Hq * Sq;
   if (n_ktiles > 65535 || B > 65535 || n_stats > INT32_MAX) return cudaErrorInvalidValue;
@@ -769,6 +941,8 @@ extern "C" int nos_flash_bwd_dq(const void* q, const void* k, const void* v,
       return static_cast<int>(out_f32 ? NOS_DQ(64, float) : NOS_DQ(64, bf16));
     case 128:
       return static_cast<int>(out_f32 ? NOS_DQ(128, float) : NOS_DQ(128, bf16));
+    case 256:
+      return static_cast<int>(out_f32 ? NOS_DQ(256, float) : NOS_DQ(256, bf16));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -797,6 +971,9 @@ extern "C" int nos_flash_bwd_dkv(const void* q, const void* k, const void* v,
     case 128:
       return static_cast<int>(out_f32 ? NOS_DKV(128, float)
                                       : NOS_DKV(128, bf16));
+    case 256:
+      return static_cast<int>(out_f32 ? NOS_DKV(256, float)
+                                      : NOS_DKV(256, bf16));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

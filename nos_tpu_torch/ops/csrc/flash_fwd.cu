@@ -23,6 +23,15 @@
 //   a full and an empty mbarrier per stage; it runs up to the ring's depth
 //   ahead. Warpgroups 1 and 2 are consumers (setmaxnreg.inc), 64 query
 //   rows each.
+// - hd 256 (Gemma) keeps the design on smaller key tiles: Q takes 64 KB
+//   and a 128-key K+V stage 128 KB of the 227 KB, so the tiles hold 64
+//   keys and the ring two stages (192 KB with Q). A consumer holds K_i
+//   and V_{i-1} at once (the pipeline below), so on one K+V barrier pair
+//   a two-stage ring could load nothing ahead; K and V get a full and an
+//   empty barrier each instead: K_i is released as soon as S_i retires,
+//   V_{i-1} once PV_{i-1} has, and the producer loads each a tile ahead.
+//   PV is one m64n256k16 per 16 keys (the O accumulator, 128 floats a
+//   thread, beside a 32-float score tile).
 // - Both products are wgmma. S = Q K^T is the SS form with both operands
 //   K-major in 128-byte-swizzled shared memory; O += P V is the RS form:
 //   P comes from the S accumulator in registers (its layout is the A
@@ -58,7 +67,6 @@
 namespace {
 
 constexpr int BM = 128;  // query rows per block: 64 per consumer warpgroup
-constexpr int BN = 128;  // keys per K/V tile
 constexpr int WG_ROWS = 64;
 constexpr int WG_THREADS = 128;
 constexpr int THREADS = 3 * WG_THREADS;  // producer + two consumers
@@ -74,14 +82,17 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct Tiles {
-  static constexpr int STAGES = HD == 128 ? 3 : 4;
+  static constexpr int BN = HD == 256 ? 64 : 128;  // keys per K/V tile
+  // K and V on barrier rings of their own (hd 256), else one pair a stage
+  static constexpr bool SPLIT_KV = HD == 256;
+  static constexpr int STAGES = HD == 256 ? 2 : HD == 128 ? 3 : 4;
   static constexpr int CHUNKS = HD / CHUNK;
   static constexpr int Q_BYTES = BM * HD * 2;
   static constexpr int KV_BYTES = BN * HD * 2;  // one K or one V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BARRIERS = (SPLIT_KV ? 4 : 2) * STAGES + 1;
   // 1024 bytes of slack to align the swizzle atoms, then the barriers
-  static constexpr int SMEM_BYTES =
-      1024 + Q_BYTES + STAGES * STAGE_BYTES + (2 * STAGES + 1) * 8;
+  static constexpr int SMEM_BYTES = 1024 + Q_BYTES + STAGES * STAGE_BYTES + BARRIERS * 8;
 };
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -110,24 +121,29 @@ struct Band {
   float scale_log2;
 };
 
-// Issue S = Q K^T for one 64-row x 128-key block: hd / 16 k-steps of 32
+// Issue S = Q K^T for one 64-row x BN-key block: hd / 16 k-steps of 32
 // bytes, four per 64-wide chunk of head_dim, both operands K-major.
-template <int HD>
+template <int HD, int BN>
 __device__ __forceinline__ void issue_qk(float (&s)[BN / 2], uint32_t q_base,
                                          uint32_t k_base) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t koff = (kk / 4) * BN * ROW_BYTES + (kk % 4) * 32;
     const uint32_t qoff = (kk / 4) * BM * ROW_BYTES + (kk % 4) * 32;
-    sm90::wgmma_ss_m64n128k16(s, sm90::make_desc_sw128(q_base + qoff, 16, 1024),
-                              sm90::make_desc_sw128(k_base + koff, 16, 1024), kk > 0);
+    const uint64_t dq = sm90::make_desc_sw128(q_base + qoff, 16, 1024);
+    const uint64_t dk = sm90::make_desc_sw128(k_base + koff, 16, 1024);
+    if constexpr (BN == 128) {
+      sm90::wgmma_ss_m64n128k16(s, dq, dk, kk > 0);
+    } else {
+      sm90::wgmma_ss_m64n64k16(s, dq, dk, kk > 0);
+    }
   }
   sm90::wgmma_commit();
 }
 
-// Issue O += P V: 8 k-steps of 16 keys (2048 bytes of the V tile each);
-// V is MN-major, its 64-wide head_dim chunks BN * 128 bytes apart.
-template <int HD>
+// Issue O += P V: BN / 16 k-steps of 16 keys (2048 bytes of the V tile
+// each); V is MN-major, its 64-wide head_dim chunks BN * 128 bytes apart.
+template <int HD, int BN>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
                                          const uint32_t (&pa)[BN / 16][4],
                                          uint32_t v_base) {
@@ -135,7 +151,9 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
   for (int kk = 0; kk < BN / 16; ++kk) {
     const uint64_t dv =
         sm90::make_desc_sw128(v_base + kk * 16 * ROW_BYTES, BN * ROW_BYTES, 1024);
-    if constexpr (HD == 128) {
+    if constexpr (HD == 256) {
+      sm90::wgmma_rs_m64n256k16_tb(o, pa[kk], dv, 1);
+    } else if constexpr (HD == 128) {
       sm90::wgmma_rs_m64n128k16_tb(o, pa[kk], dv, 1);
     } else {
       sm90::wgmma_rs_m64n64k16_tb(o, pa[kk], dv, 1);
@@ -145,10 +163,11 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
 }
 
 // Mask (only where the band or the ragged edge cuts the warpgroup's
-// 64 x 128 block), then the online-softmax step in log2 units:
+// 64 x BN block), then the online-softmax step in log2 units:
 // p = 2^(s * scale * log2e - m). Leaves p in s, updates the running max
 // and this thread's share of the row sums, and returns the factor that
 // rescales the rows' earlier output.
+template <int BN>
 __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], int n0, const Band& bd,
                                              float (&m_run)[2], float (&l_run)[2],
                                              float (&corr)[2]) {
@@ -216,6 +235,7 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
 
 // P as the A operand: the S accumulator of keys 16kk .. 16kk + 15 is the
 // m16n8k16 A fragment, rounded to bf16.
+template <int BN>
 __device__ __forceinline__ void pack_p(const float (&s)[BN / 2], uint32_t (&pa)[BN / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
@@ -242,13 +262,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  int Sq, int Skv, int Hq, int group, int q_off, int kv_off,
                  int causal, int window, float scale_log2) {
   using T = Tiles<HD>;
+  constexpr int BN = T::BN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s =
       smem_raw + ((1024u - (sm90::smem_addr(smem_raw) & 1023u)) & 1023u);
   uint8_t* kv_s = q_s + T::Q_BYTES;  // stage s: K at s * STAGE_BYTES, V after it
+  // full / empty guard a stage's K and V, or only its K under SPLIT_KV,
+  // where v_full / v_empty guard its V
   uint64_t* full = reinterpret_cast<uint64_t*>(kv_s + T::STAGES * T::STAGE_BYTES);
   uint64_t* empty = full + T::STAGES;
   uint64_t* q_full = empty + T::STAGES;
+  uint64_t* v_full = q_full + 1;
+  uint64_t* v_empty = v_full + T::STAGES;
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -273,6 +298,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < T::STAGES; ++s) {
       sm90::mbar_init(&full[s], 1);
       sm90::mbar_init(&empty[s], CONSUMER_WARPS);
+      if constexpr (T::SPLIT_KV) {
+        sm90::mbar_init(&v_full[s], 1);
+        sm90::mbar_init(&v_empty[s], CONSUMER_WARPS);
+      }
     }
     sm90::mbar_init(q_full, 1);
     sm90::fence_barrier_init();
@@ -298,15 +327,25 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         uint8_t* k_dst = kv_s + st * T::STAGE_BYTES;
         uint8_t* v_dst = k_dst + T::KV_BYTES;
         const int n0 = n_lo + i * BN;
-        sm90::mbar_arrive_expect_tx(&full[st], T::STAGE_BYTES);
+        uint64_t* v_bar = &full[st];
+        if constexpr (T::SPLIT_KV) {
+          sm90::mbar_arrive_expect_tx(&full[st], T::KV_BYTES);
+        } else {
+          sm90::mbar_arrive_expect_tx(&full[st], T::STAGE_BYTES);
+        }
 #pragma unroll
         for (int c = 0; c < T::CHUNKS; ++c) {
           sm90::tma_load_4d(k_dst + c * BN * ROW_BYTES, &tm_k, &full[st], c * CHUNK, hk,
                             n0, b);
         }
+        if constexpr (T::SPLIT_KV) {
+          if (i >= T::STAGES) sm90::mbar_wait(&v_empty[st], ((i / T::STAGES) - 1) & 1);
+          v_bar = &v_full[st];
+          sm90::mbar_arrive_expect_tx(v_bar, T::KV_BYTES);
+        }
 #pragma unroll
         for (int c = 0; c < T::CHUNKS; ++c) {
-          sm90::tma_load_4d(v_dst + c * BN * ROW_BYTES, &tm_v, &full[st], c * CHUNK, hk,
+          sm90::tma_load_4d(v_dst + c * BN * ROW_BYTES, &tm_v, v_bar, c * CHUNK, hk,
                             n0, b);
         }
       }
@@ -353,43 +392,49 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::named_barrier_sync(my_turn, 2 * WG_THREADS);
       sm90::fence_regs(s);
       sm90::wgmma_fence();
-      issue_qk<HD>(s, q_base, kv_base);
+      issue_qk<HD, BN>(s, q_base, kv_base);
       sm90::named_barrier_arrive(their_turn, 2 * WG_THREADS);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(s);
-      softmax_tile(s, n_lo, band, m_run, l_run, corr);  // corr unused: O is 0
-      pack_p(s, pa);
+      if constexpr (T::SPLIT_KV) release(&empty[0], lane);  // K_0 is read
+      softmax_tile<BN>(s, n_lo, band, m_run, l_run, corr);  // corr unused: O is 0
+      pack_p<BN>(s, pa);
     }
     for (int i = 1; i < n_tiles; ++i) {
       const int st = i % T::STAGES;
       const int prev = (i - 1) % T::STAGES;
       sm90::mbar_wait(&full[st], (i / T::STAGES) & 1);
+      if constexpr (T::SPLIT_KV) sm90::mbar_wait(&v_full[prev], ((i - 1) / T::STAGES) & 1);
       sm90::named_barrier_sync(my_turn, 2 * WG_THREADS);
       sm90::fence_regs(s);
       sm90::fence_regs(o);
       sm90::wgmma_fence();
-      issue_qk<HD>(s, q_base, kv_base + st * T::STAGE_BYTES);
-      issue_pv<HD>(o, pa, kv_base + prev * T::STAGE_BYTES + T::KV_BYTES);
+      issue_qk<HD, BN>(s, q_base, kv_base + st * T::STAGE_BYTES);
+      issue_pv<HD, BN>(o, pa, kv_base + prev * T::STAGE_BYTES + T::KV_BYTES);
       sm90::named_barrier_arrive(their_turn, 2 * WG_THREADS);
       sm90::wgmma_wait<1>();  // S_i has retired; PV_{i-1} may still run
       sm90::fence_regs(s);
-      softmax_tile(s, n_lo + i * BN, band, m_run, l_run, corr);
+      if constexpr (T::SPLIT_KV) release(&empty[st], lane);  // K_i is read
+      softmax_tile<BN>(s, n_lo + i * BN, band, m_run, l_run, corr);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
-      release(&empty[prev], lane);
+      release(T::SPLIT_KV ? &v_empty[prev] : &empty[prev], lane);
       rescale(o, corr);
-      pack_p(s, pa);
+      pack_p<BN>(s, pa);
     }
     if (n_tiles > 0) {
       const int last = (n_tiles - 1) % T::STAGES;
+      if constexpr (T::SPLIT_KV) {
+        sm90::mbar_wait(&v_full[last], ((n_tiles - 1) / T::STAGES) & 1);
+      }
       sm90::named_barrier_sync(my_turn, 2 * WG_THREADS);
       sm90::fence_regs(o);
       sm90::wgmma_fence();
-      issue_pv<HD>(o, pa, kv_base + last * T::STAGE_BYTES + T::KV_BYTES);
+      issue_pv<HD, BN>(o, pa, kv_base + last * T::STAGE_BYTES + T::KV_BYTES);
       sm90::named_barrier_arrive(their_turn, 2 * WG_THREADS);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
-      release(&empty[last], lane);
+      release(T::SPLIT_KV ? &v_empty[last] : &empty[last], lane);
     }
     if (cw == 0) sm90::named_barrier_sync(my_turn, 2 * WG_THREADS);
 
@@ -436,6 +481,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
                    int B, int Sq, int Skv, int Hq, int Hkv, const long long* st,
                    int q_off, int kv_off, int causal, int window, float scale,
                    cudaStream_t stream) {
+  constexpr int BN = Tiles<HD>::BN;
   const int n_qtiles = (Sq + BM - 1) / BM;
   if (n_qtiles > 65535 || B > 65535) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
@@ -482,6 +528,9 @@ extern "C" int nos_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                          q_off, kv_off, causal, window, scale, s));
     case 128:
       return static_cast<int>(launch<128>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, strides,
+                                          q_off, kv_off, causal, window, scale, s));
+    case 256:
+      return static_cast<int>(launch<256>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, strides,
                                           q_off, kv_off, causal, window, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -39,10 +39,12 @@ DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 
 # The forward kernel's tile: 128 query rows per block (64 per consumer
-# warpgroup), 128 keys per K/V tile.
+# warpgroup), 128 keys per K/V tile at head_dim 64 and 128, 64 at 256
+# (``block_n``).
 BLOCK_M = 128
 BLOCK_N = 128
-KERNEL_HEAD_DIMS = (64, 128)
+BLOCK_N_HD256 = 64
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def validate_window(causal: bool, window) -> None:
@@ -56,16 +58,23 @@ def validate_window(causal: bool, window) -> None:
             raise ValueError(f"window must be >= 1, got {window}")
 
 
-def default_blocks(window: "int | None") -> "tuple[int, int]":
-    """(blk_q, blk_k) of the Hopper forward kernel: 128 x 128 with or
-    without a window. Each of its two consumer warpgroups owns 64 query
-    rows, the M of one wgmma, and keeps a 64 x 128 f32 score tile and
-    the 64 x hd output accumulator in registers (64 floats a thread
-    each at hd 128); 128-key tiles fill the tensor cores' N. Q plus a
+def block_n(head_dim: int) -> int:
+    """Keys per K/V tile of the forward kernel at ``head_dim``."""
+    return BLOCK_N_HD256 if head_dim == 256 else BLOCK_N
+
+
+def default_blocks(window: "int | None", head_dim: int = 128) -> "tuple[int, int]":
+    """(blk_q, blk_k) of the Hopper forward kernel, with or without a
+    window: 128 x 128 at head_dim 64 and 128, 128 x 64 at 256. Each of
+    its two consumer warpgroups owns 64 query rows, the M of one wgmma,
+    and keeps a 64 x blk_k f32 score tile and the 64 x hd output
+    accumulator in registers (64 floats a thread each at hd 128; 32 and
+    128 at hd 256); 128-key tiles fill the tensor cores' N. Q plus a
     three-stage K/V ring takes 224 KB of shared memory at hd 128, one
-    block per SM. Windowed bands skip tiles outside the band at the
-    same granularity."""
-    return BLOCK_M, BLOCK_N
+    block per SM; at hd 256 Q takes 64 KB and a 128-key stage 128 KB, so
+    the tiles hold 64 keys and the ring two stages (192 KB). Windowed
+    bands skip tiles outside the band at the same granularity."""
+    return BLOCK_M, block_n(head_dim)
 
 
 def _check_inputs(q, k, v) -> None:
@@ -100,12 +109,14 @@ def flash_attention_reference(
     blk_k: "int | None" = None,
 ):
     """The plain version: online softmax over key tiles of ``blk_k``
-    (default the kernel's ``BLOCK_N``), all query rows at once → (out
-    ``[B, Sq, Hq, hd]`` in q's dtype, lse ``[B, Hq, Sq, 1]`` f32)."""
+    (default the kernel's own, ``block_n(hd)``, so the probabilities
+    round to bf16 against the same running max), all query rows at once
+    → (out ``[B, Sq, Hq, hd]`` in q's dtype, lse ``[B, Hq, Sq, 1]``
+    f32)."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
-    blk = blk_k or BLOCK_N
+    blk = blk_k or block_n(hd)
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
     qf = q.float().reshape(b, sq, hkv, group, hd)
@@ -212,8 +223,8 @@ def _bwd_symbols(lib=None):
 
 
 def _check_kernel_operands(hd: int, **tensors) -> None:
-    """What the kernels take: bf16 operands, head_dim 64 or 128, one
-    device. Anything else raises; nothing falls back."""
+    """What the kernels take: bf16 operands, head_dim 64, 128 or 256,
+    one device. Anything else raises; nothing falls back."""
     for name, x in tensors.items():
         if x.dtype != torch.bfloat16:
             raise TypeError(f"the CUDA flash kernel takes bf16; {name} is {x.dtype}")
@@ -254,11 +265,13 @@ def _flash_fwd_cuda(q, k, v, q_offset, kv_offset, causal, window):
     return out, lse
 
 
-def _check_tiles(blk_q, blk_k) -> None:
-    if blk_q not in (None, BLOCK_M) or blk_k not in (None, BLOCK_N):
+def _check_tiles(blk_q, blk_k, head_dim: int = 128) -> None:
+    """On the card the tiles are the kernel's own at this head_dim."""
+    bn = block_n(head_dim)
+    if blk_q not in (None, BLOCK_M) or blk_k not in (None, bn):
         raise ValueError(
-            f"the CUDA kernel's tiles are fixed at {BLOCK_M}x{BLOCK_N}; "
-            f"got blk_q={blk_q}, blk_k={blk_k}"
+            f"the CUDA kernel's tiles are fixed at {BLOCK_M}x{bn} at head_dim "
+            f"{head_dim}; got blk_q={blk_q}, blk_k={blk_k}"
         )
 
 
@@ -266,7 +279,7 @@ def _forward(q, k, v, q_offset, kv_offset, causal, window, blk_q, blk_k):
     _check_inputs(q, k, v)
     validate_window(causal, window)
     if q.device.type == "cuda":
-        _check_tiles(blk_q, blk_k)
+        _check_tiles(blk_q, blk_k, q.shape[3])
         return _flash_fwd_cuda(q, k, v, q_offset, kv_offset, causal, window)
     if q.device.type == "cpu":
         return flash_attention_reference(
@@ -471,7 +484,8 @@ def flash_attention(
     ragged edge itself. ``window`` (requires causal): query i attends
     keys (i - window, i]; tiles outside the band are skipped.
     ``blk_q``/``blk_k`` set the plain version's key tiling on the CPU;
-    on the card they must be None or the forward kernel's own 128 x 128.
+    on the card they must be None or the forward kernel's own
+    (``default_blocks``: 128 x 128, or 128 x 64 at head_dim 256).
     Differentiable: the backward runs the dQ and dK/dV kernels."""
     return _FlashAttention.apply(q, k, v, causal, window, blk_q, blk_k)
 
@@ -533,7 +547,7 @@ def flash_block_grads(
     _check_inputs(q, k, v)
     validate_window(causal, window)
     if q.device.type == "cuda":
-        _check_tiles(blk_q, blk_k)
+        _check_tiles(blk_q, blk_k, q.shape[3])
     return _backward(q, k, v, out, lse, do, q_offset, kv_offset, causal,
                      window, blk_k, grad_dtype, delta)
 

@@ -1,9 +1,10 @@
 """Time the flash-attention backward kernels (dQ and dK/dV) on the card
 beside variants of them and SDPA's backward, at the Llama-3-8B attention
-shapes (Hq 32, Hkv 8, hd 128, bf16).
+shapes (Hq 32, Hkv 8, hd 128, bf16) or, with ``--heads 8x1x256``,
+Gemma-2B's (Hq 8, Hkv 1, hd 256).
 
     python3 -m nos_tpu_torch.ops.flash_bwd_bench \\
-        [--variant NAME=PATH.cu ...] [--shapes 4x2048xc]
+        [--variant NAME=PATH.cu ...] [--shapes 4x2048xc] [--heads HQxHKVxHD]
 
 A variant is any CUDA source that exports the backward's C launchers
 ``nos_flash_bwd_dq`` and ``nos_flash_bwd_dkv`` with the signatures of
@@ -30,7 +31,7 @@ import subprocess
 import sys
 
 from nos_tpu_torch.ops.flash_fwd_bench import (
-    HD, HKV, HQ, PEAK_BF16_FLOPS, build_variants, emit,
+    HD, HKV, HQ, PEAK_BF16_FLOPS, build_variants, emit, parse_heads,
 )
 
 # operations per visible (query, key) pair per unit of head_dim
@@ -81,7 +82,7 @@ def variant_calls(lib_path):
     return {"dq": dq_call, "dkv": dkv_call}
 
 
-def time_shape(b, s, causal, variants) -> dict:
+def time_shape(b, s, causal, variants, heads=(HQ, HKV, HD)) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -93,8 +94,9 @@ def time_shape(b, s, causal, variants) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    q, k, v = randn(b, s, HQ, HD), randn(b, s, HKV, HD), randn(b, s, HKV, HD)
-    do = randn(b, s, HQ, HD)
+    hq, hkv, hd = heads
+    q, k, v = randn(b, s, hq, hd), randn(b, s, hkv, hd), randn(b, s, hkv, hd)
+    do = randn(b, s, hq, hd)
     out, lse = fa.flash_attention_block(q, k, v, 0, 0, causal=causal)
     delta = fa.flash_delta(do, out)
     args = (q, k, v, lse, do, delta, 0, 0, causal, None, None)
@@ -130,9 +132,9 @@ def time_shape(b, s, causal, variants) -> dict:
         times.setdefault(name, []).append(event_ms(fns[name]))
     best = {name: min(t) for name, t in times.items()}
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = {kind: ops * HD * pairs * b * HQ for kind, ops in OPS_PER_PAIR.items()}
+    flops = {kind: ops * hd * pairs * b * hq for kind, ops in OPS_PER_PAIR.items()}
     return {
-        "shape": [b, s, HQ, HKV, HD], "causal": causal, "event_ms": times,
+        "shape": [b, s, hq, hkv, hd], "causal": causal, "event_ms": times,
         "device_ms": {n: device_ms(fns[n]) for n in names},
         "tflops": {n: flops[n.split(".")[1]] / best[n] / 1e9 for n in names
                    if not n.startswith("sdpa.")},
@@ -147,6 +149,8 @@ def main(argv=None) -> int:
     parser.add_argument("--variant", action="append", default=[],
                         help="NAME=PATH.cu, a source exporting nos_flash_bwd_dq/_dkv")
     parser.add_argument("--shapes", default="4x2048xc")
+    parser.add_argument("--heads", default=f"{HQ}x{HKV}x{HD}",
+                        help="HQxHKVxHD of the timed shapes; 8x1x256 is Gemma-2B's")
     args = parser.parse_args(argv)
     import torch
 
@@ -165,7 +169,8 @@ def main(argv=None) -> int:
     variants = {n: variant_calls(lib) for n, (lib, _) in built.items()}
     for spec in args.shapes.split(","):
         b, s, mode = spec.split("x")
-        emit({**time_shape(int(b), int(s), mode == "c", variants), "card": card})
+        emit({**time_shape(int(b), int(s), mode == "c", variants,
+                           parse_heads(args.heads)), "card": card})
     return 0
 
 

@@ -1,9 +1,10 @@
 """Time the flash-attention forward kernel on the card beside variants of
 it and SDPA, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
-bf16).
+bf16) or, with ``--heads 8x1x256``, Gemma-2B's (Hq 8, Hkv 1, hd 256).
 
     python3 -m nos_tpu_torch.ops.flash_fwd_bench \\
         [--variant NAME=PATH.cu ...] [--shapes 4x2048xc,2x512xc] [--host]
+        [--heads HQxHKVxHD]
 
 A variant is any CUDA source that exports the forward's C launcher
 ``nos_flash_fwd_bf16`` with the signature of ``csrc/flash_fwd.cu`` (an
@@ -89,7 +90,13 @@ def launcher(lib_path):
     return call
 
 
-def time_shape(b, s, causal, variants) -> dict:
+def parse_heads(spec: str):
+    """``HQxHKVxHD`` -> (Hq, Hkv, head_dim)."""
+    hq, hkv, hd = (int(x) for x in spec.split("x"))
+    return hq, hkv, hd
+
+
+def time_shape(b, s, causal, variants, heads=(HQ, HKV, HD)) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -101,7 +108,8 @@ def time_shape(b, s, causal, variants) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    q, k, v = randn(b, s, HQ, HD), randn(b, s, HKV, HD), randn(b, s, HKV, HD)
+    hq, hkv, hd = heads
+    q, k, v = randn(b, s, hq, hd), randn(b, s, hkv, hd), randn(b, s, hkv, hd)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     fns = {"kernel": lambda: fa.flash_attention_block(q, k, v, 0, 0, causal=causal)}
     for name, call in variants.items():
@@ -115,8 +123,8 @@ def time_shape(b, s, causal, variants) -> dict:
     for name in names + names[::-1]:
         times.setdefault(name, []).append(event_ms(fns[name]))
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4.0 * HD * pairs * b * HQ
-    return {"shape": [b, s, HQ, HKV, HD], "causal": causal, "event_ms": times,
+    flops = 4.0 * hd * pairs * b * hq
+    return {"shape": [b, s, hq, hkv, hd], "causal": causal, "event_ms": times,
             "device_ms": {n: device_ms(fns[n]) for n in names},
             "tflops": {n: flops / min(t) / 1e9 for n, t in times.items()},
             "bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
@@ -169,6 +177,8 @@ def main(argv=None) -> int:
                         help="NAME=PATH.cu, a source exporting nos_flash_fwd_bf16")
     parser.add_argument("--shapes", default="4x2048xc,2x512xc")
     parser.add_argument("--host", action="store_true")
+    parser.add_argument("--heads", default=f"{HQ}x{HKV}x{HD}",
+                        help="HQxHKVxHD of the timed shapes; 8x1x256 is Gemma-2B's")
     args = parser.parse_args(argv)
     import torch
 
@@ -187,7 +197,8 @@ def main(argv=None) -> int:
     variants = {n: launcher(lib) for n, (lib, _) in built.items()}
     for spec in args.shapes.split(","):
         b, s, mode = spec.split("x")
-        emit({**time_shape(int(b), int(s), mode == "c", variants), "card": card})
+        emit({**time_shape(int(b), int(s), mode == "c", variants,
+                           parse_heads(args.heads)), "card": card})
     if args.host:
         emit({"host_us_per_call": host_breakdown(), "card": card})
     return 0

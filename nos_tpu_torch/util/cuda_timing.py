@@ -30,20 +30,26 @@ def event_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def device_ms(fn, reps: int = 10) -> float:
-    """Mean device time per call of the kernels ``fn`` launches."""
+def device_ms(fn, reps: int = 10) -> "float | None":
+    """Mean device time per call of the kernels ``fn`` launches. A
+    profile that recorded no device event at all (the tracer dropped the
+    window) is taken again, three times in all; then None (not measured,
+    null in JSON), never 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(ev, "self_device_time_total", None)
-            total_us += ev.self_cuda_time_total if us is None else us
-    return total_us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(ev, "self_device_time_total", None)
+                total_us += ev.self_cuda_time_total if us is None else us
+        if total_us > 0:
+            return total_us / reps / 1e3
+    return None

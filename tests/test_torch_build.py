@@ -125,3 +125,53 @@ def test_flash_bwd_source_has_no_mma_sync_and_no_atomics():
     assert "mma.sync" not in code and "atomic" not in code
     assert "wgmma" in code and "tma_load" in code
     assert "sm90_check" not in _build.KERNELS
+
+
+@pytest.mark.parametrize("spec,heads", [("32x8x128", (32, 8, 128)), ("8x1x256", (8, 1, 256))])
+def test_bench_heads_option(spec, heads):
+    """Both benches time Llama-3-8B's heads by default and any
+    ``HQxHKVxHD`` (Gemma-2B's is 8x1x256) with ``--heads``."""
+    from nos_tpu_torch.ops import flash_bwd_bench, flash_fwd_bench
+
+    assert flash_fwd_bench.parse_heads(spec) == heads
+    assert flash_bwd_bench.parse_heads is flash_fwd_bench.parse_heads
+    assert flash_fwd_bench.parse_heads(f"{flash_fwd_bench.HQ}x{flash_fwd_bench.HKV}x"
+                                       f"{flash_fwd_bench.HD}") == (32, 8, 128)
+
+
+def test_device_ms_retakes_a_profile_that_recorded_nothing(monkeypatch):
+    """torch.profiler now and then drops a window and records no device
+    event: device_ms takes the profile again, and reports None (not
+    measured), never 0, if every attempt came back empty."""
+    import types
+
+    import torch
+    import torch.profiler
+
+    from nos_tpu_torch.util import cuda_timing
+
+    cuda = torch.autograd.DeviceType.CUDA
+    windows = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.events = windows.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [types.SimpleNamespace(device_type=cuda, self_device_time_total=us)
+                    for us in self.events]
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    calls = []
+    windows[:] = [[], [300.0, 100.0]]
+    assert cuda_timing.device_ms(lambda: calls.append(1), reps=4) == 0.1
+    assert len(calls) == 1 + 2 * 4 and windows == []
+    windows[:] = [[], [], []]
+    assert cuda_timing.device_ms(lambda: None, reps=4) is None

@@ -32,8 +32,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# The forward kernel's cases: its tiles are 128 query rows x 128 keys, so
-# the ragged lengths sit around one and two tiles; q_transposed hands q
+# The forward kernel's cases: its tiles are 128 query rows x 128 keys (64
+# keys at head_dim 256), so the ragged lengths sit around one and two tiles; q_transposed hands q
 # over as a [B, S, H, hd] view of [B, H, S, hd] storage, which the
 # kernel's TMA maps read through its strides without a copy.
 _FWD_CASES = [
@@ -52,6 +52,15 @@ _FWD_CASES = [
     (1, 1024, 1024, 8, 2, 64, True, None, 0, 0, False),   # hd 64 at S 1024
     (2, 200, 200, 4, 2, 128, True, None, 0, 0, True),     # q a transposed view
     (1, 256, 256, 4, 4, 128, True, None, 0, 0, False),    # Hq = Hkv, no GQA
+    # head_dim 256 (Gemma): 128 query rows x 64-key tiles
+    (2, 128, 128, 8, 1, 256, True, None, 0, 0, False),    # MQA, as Gemma-2B
+    (1, 63, 63, 4, 1, 256, True, None, 0, 0, False),      # one key short of a tile
+    (1, 65, 65, 4, 1, 256, True, None, 0, 0, False),      # one key past a tile
+    (1, 129, 129, 8, 2, 256, True, None, 0, 0, False),    # GQA, past a query tile
+    (1, 300, 400, 4, 2, 256, True, 200, 333, 45, False),  # window 200, offsets off-tile
+    (2, 50, 1, 4, 1, 256, True, None, 0, 0, False),       # Skv = 1
+    (2, 77, 77, 4, 4, 256, False, None, 0, 0, False),     # non-causal, no GQA
+    (2, 200, 200, 8, 1, 256, True, None, 0, 0, True),     # q a transposed view
 ]
 
 
@@ -106,7 +115,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 
 # The backward kernels' cases. dK/dV blocks own 128 keys (64 per consumer
 # warpgroup) and stream 64-row query tiles; dQ blocks own 128 query rows
-# and stream 128-key tiles: the ragged lengths sit around those edges.
+# and stream 128-key tiles: the ragged lengths sit around those edges. At
+# head_dim 256 dK/dV blocks own 64 keys and dQ streams 32-key tiles.
 _BWD_CASES = [
     (2, 128, 128, 4, 2, 128, True, None, 0, 0),
     (1, 100, 100, 8, 2, 128, True, None, 0, 0),    # ragged S
@@ -124,6 +134,15 @@ _BWD_CASES = [
     (1, 1024, 1024, 8, 2, 64, True, None, 0, 0),   # hd 64 at S 1024
     (1, 256, 256, 4, 4, 128, True, None, 0, 0),    # Hq = Hkv, no GQA
     (2, 50, 1, 4, 2, 128, True, None, 0, 0),       # Skv = 1
+    # head_dim 256 (Gemma): dK/dV blocks of 64 keys, dQ tiles of 32 keys
+    (2, 128, 128, 8, 1, 256, True, None, 0, 0),    # MQA, as Gemma-2B
+    (1, 63, 63, 4, 1, 256, True, None, 0, 0),      # one short of a query tile
+    (1, 65, 65, 4, 1, 256, True, None, 0, 0),      # one past a key block
+    (1, 129, 129, 8, 2, 256, True, None, 0, 0),    # GQA, past a dQ row block
+    (1, 300, 400, 4, 2, 256, True, 200, 333, 45),  # window 200, offsets off-tile
+    (1, 64, 96, 4, 1, 256, True, 50, 40, 20),      # offsets + window, MQA
+    (2, 50, 1, 4, 1, 256, True, None, 0, 0),       # Skv = 1
+    (2, 77, 77, 4, 4, 256, False, None, 0, 0),     # non-causal, no GQA
 ]
 
 
@@ -292,6 +311,39 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda_device):
     z_out, z_lse = fa.flash_attention_reference(z, z, z)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_block_grads(z, z, z, z_out, z_lse, z, 0, 0)
+
+
+@pytest.mark.cuda
+def test_gemma_train_step_launches_the_hd256_kernels(cuda_device):
+    """A tiny Gemma (head_dim 256, one kv head, 2 layers, bf16, flash +
+    remat) takes one make_train_step step on the card: 4 forward
+    launches (remat runs each layer's forward twice), 2 dQ and 2 dK/dV;
+    the loss matches the dense path's within 2e-2 (chip_smoke.py's
+    flash-vs-dense loss bar) and the weights move."""
+    import dataclasses
+
+    from nos_tpu_torch.models import llama as tl
+    from nos_tpu_torch.parallel import make_train_step
+
+    cfg = tl.tiny_config(d_model=256, n_heads=2, n_kv_heads=1, d_ff=512,
+                         qk_head_dim=256, hidden_act="gelu", norm_offset=True,
+                         scale_embeddings=True, tie_embeddings=True,
+                         attention="flash", remat=True)
+    params = tl.init_llama_params(cfg, 8, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen, device=cuda_device)
+    dense_loss = tl.llama_loss(params, tokens, dataclasses.replace(cfg, attention="dense"))
+    step, shard_state = make_train_step(None, cfg, learning_rate=1.0)
+    state = shard_state(params)
+    before = state[0]["layers"][0]["wq"].detach().clone()
+    counts = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    state, loss = step(state, tokens)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - counts[0], fa.DQ_LAUNCHES - counts[1],
+            fa.DKV_LAUNCHES - counts[2]) == (4, 2, 2)
+    assert math.isfinite(float(loss))
+    assert abs(float(loss) - float(dense_loss)) <= 2e-2
+    assert not torch.equal(state[0]["layers"][0]["wq"], before)
 
 
 def _tiny_f32(device):

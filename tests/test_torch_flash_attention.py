@@ -112,6 +112,51 @@ class TestForwardParity:
         assert fa.default_blocks(512) == (fa.BLOCK_M, fa.BLOCK_N)
 
 
+
+class TestHeadDim256:
+    """Gemma's head_dim: the card runs it on 64-key tiles, so the plain
+    version's default tiling follows (its probabilities round to bf16
+    against the running max of the same tiles). Same tolerances."""
+
+    @pytest.mark.parametrize("hq,hkv", [(4, 1), (4, 2), (2, 2)])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_matches_jax_kernel(self, hq, hkv, causal):
+        arrs = qkv_np(70 + hq + hkv, s=40, hq=hq, hkv=hkv, hd=256)
+        want = jax_flash(*to_jax(arrs), causal=causal, blk_q=8, blk_k=8,
+                         interpret=True)
+        close(fa.flash_attention(*to_torch(arrs), causal=causal), want, F32_ATOL)
+
+    def test_bfloat16_inputs(self):
+        arrs = qkv_np(74, s=96, hq=4, hkv=1, hd=256)
+        want = jax_flash(*to_jax(arrs, jnp.bfloat16), blk_q=32, blk_k=32,
+                         interpret=True)
+        got = fa.flash_attention(*to_torch(arrs, torch.bfloat16))
+        assert got.dtype == torch.bfloat16
+        close(got, want, BF16_ATOL)
+
+    @pytest.mark.parametrize("window", [None, 9])
+    def test_partials_at_offsets_match_jax(self, window):
+        arrs = qkv_np(75, s=24, hq=4, hkv=1, hd=256, skv=40)
+        want_o, want_l = jax_block(*to_jax(arrs), 30, 4, window=window,
+                                   interpret=True)
+        got_o, got_l = fa.flash_attention_block(*to_torch(arrs), 30, 4,
+                                                window=window)
+        close(got_o, want_o, F32_ATOL)
+        want_l = torch.from_numpy(np.array(want_l))
+        assert torch.equal(torch.isneginf(got_l), torch.isneginf(want_l))
+        fin = torch.isfinite(got_l)
+        assert float((got_l[fin] - want_l[fin]).abs().max()) <= F32_ATOL
+
+    def test_plain_version_tiles_like_the_kernel(self):
+        q, k, v = to_torch(qkv_np(76, s=150, hq=2, hkv=1, hd=256), torch.bfloat16)
+        got = fa.flash_attention_reference(q, k, v)
+        want = fa.flash_attention_reference(q, k, v, blk_k=64)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        # 128-key tiles round p against other running maxima
+        other = fa.flash_attention_reference(q, k, v, blk_k=128)[0]
+        assert not torch.equal(got[0], other)
+
+
 class TestKernelOperands:
     """What the kernels' TMA maps are handed (decided on the CPU by the
     wrapper, before any launch)."""
@@ -146,6 +191,33 @@ class TestKernelOperands:
         fa._check_tiles(128, 128)
         with pytest.raises(ValueError, match="tiles"):
             fa._check_tiles(64, 64)
+
+    @pytest.mark.parametrize("hd,tile", [(64, (128, 128)), (128, (128, 128)),
+                                         (256, (128, 64))])
+    def test_tiles_per_head_dim(self, hd, tile):
+        assert fa.default_blocks(None, hd) == tile
+        assert fa.default_blocks(512, hd) == tile
+        assert fa.block_n(hd) == tile[1]
+        fa._check_tiles(None, None, hd)
+        fa._check_tiles(*tile, hd)
+        other = 128 if tile[1] == 64 else 64
+        with pytest.raises(ValueError, match=f"{tile[0]}x{tile[1]} at head_dim {hd}"):
+            fa._check_tiles(tile[0], other, hd)
+
+    @pytest.mark.parametrize("hd", [64, 128, 256])
+    def test_kernel_head_dims(self, hd):
+        assert hd in fa.KERNEL_HEAD_DIMS
+        x = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16)
+        fa._check_kernel_operands(hd, q=x, k=x, v=x)
+
+    @pytest.mark.parametrize("hd", [32, 96, 192, 512])
+    def test_other_head_dims_are_refused(self, hd):
+        """hd 96 (and any head_dim without an instantiation) raises before
+        a launch; the CPU's plain version still takes it."""
+        x = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._check_kernel_operands(hd, q=x, k=x, v=x)
+        assert fa.flash_attention(x, x, x).shape == x.shape
 
 
 class TestBlockPartials:

@@ -225,6 +225,68 @@ class TestBlockGradsAtKernelEdges:
             close(g, w, BF16_ATOL)
 
 
+
+class TestHeadDim256:
+    """Gemma's head_dim through the plain version of the dQ and dK/dV
+    kernels, against the Pallas backward in interpret mode: MQA and GQA
+    (the dK/dV group sum), a window, partials at offsets, bf16 inputs
+    with f32 and bf16 gradients. Same tolerances."""
+
+    @pytest.mark.parametrize(
+        "name,shape,kw",
+        [
+            ("mqa", dict(s=40, hq=4, hkv=1, hd=256), {}),
+            ("gqa_window", dict(s=48, hq=4, hkv=2, hd=256), dict(window=7)),
+            ("noncausal", dict(s=24, hq=2, hkv=2, hd=256), dict(causal=False)),
+        ],
+    )
+    def test_f32(self, name, shape, kw):
+        q, k, v, do = arrays(sum(map(ord, name)) + 256, **shape)
+        want = jax_grads(q, k, v, do, blk_q=8, blk_k=8, **kw)
+        got = port_grads(q, k, v, do, **kw)
+        for g, w in zip(got, want):
+            close(g, w, F32_ATOL)
+
+    def test_bf16(self):
+        q, k, v, do = arrays(257, s=32, hq=4, hkv=1, hd=256)
+        want = jax_grads(q, k, v, do, jnp.bfloat16, blk_q=16, blk_k=16)
+        got = port_grads(q, k, v, do, torch.bfloat16)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16
+            close(g, w, BF16_ATOL)
+
+    @pytest.mark.parametrize("window", [None, 9])
+    def test_block_grads_at_offsets_f32(self, window):
+        q, k, v, do = arrays(258, s=24, hq=4, hkv=1, hd=256, skv=40)
+        out, lse = block_forward(q, k, v, 30, 4, window)
+        want = jax_block_grads(
+            *(jnp.asarray(x) for x in (q, k, v, out, lse, do)), 30, 4,
+            interpret=True, grad_dtype=jnp.float32, window=window,
+        )
+        got = fa.flash_block_grads(
+            *(torch.from_numpy(x) for x in (q, k, v, out, lse, do)), 30, 4,
+            grad_dtype=torch.float32, window=window,
+        )
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            close(g, w, F32_ATOL)
+
+    def test_bf16_inputs_with_f32_grads(self):
+        q, k, v, do = arrays(259, s=40, hq=4, hkv=1, hd=256)
+        tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+        out, lse = fa.flash_attention_block(tq, tk, tv, 0, 0)
+        got = fa.flash_block_grads(tq, tk, tv, out, lse, tdo, 0, 0,
+                                   grad_dtype=torch.float32)
+        to_j = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)  # noqa: E731
+        want = jax_block_grads(
+            to_j(tq), to_j(tk), to_j(tv), to_j(out), jnp.asarray(lse.numpy()),
+            to_j(tdo), 0, 0, interpret=True, grad_dtype=jnp.float32,
+        )
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            close(g, w, BF16_ATOL)
+
+
 class TestPlainBackward:
     @pytest.mark.parametrize("window", [None, 6])
     def test_matches_autograd_through_dense_attention(self, window):
