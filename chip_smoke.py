@@ -120,7 +120,44 @@ the hd-256 kernels:
     against dense under the train_grads limits (launches 2 / 2 / 2);
 19. gemma_train: full depth, [4, 2048], flash + remat, momentum SGD, as
     the train phase: step time, tokens/s, MFU, peak memory, launches
-    36 / 18 / 18 a step.
+    36 / 18 / 18 a step;
+
+and after them the sequence- and data-parallel paths, on ranks spawned
+as processes on the one card in a gloo group (NCCL refuses two ranks on
+one device, so the ranks' collectives stage device tensors through
+pinned host memory: every time that crosses a hop is labelled
+gloo_host_staged and measures that staging, with the ranks
+time-sharing the card, never a ring on NVLink). The parent has built
+the kernels (the ranks only load them) and holds no card memory; a rank
+that fails a check raises, and the spawn fails the script:
+
+20. sp_ring_kernels: ring_flash_attention at Llama-3-8B's heads, B 1,
+    S 16384, bf16, at sp 2 and sp 4, causal and with a 4096 window, and
+    at Gemma-2B's heads (hd 256, one kv head), S 8192, sp 2; Ulysses
+    (flash) at sp 4. Each rank's output and dQ/dK/dV against the
+    one-process flash_attention forward and backward on the whole
+    sequence (O_ATOL, BWD_ATOL + BWD_RTOL |want|); its launches of each
+    kernel counted around the sp call alone (r + 1 on rank r, causal;
+    1 for Ulysses); its transport; then, one rank at a time, each hop's
+    kernels timed alone at the ring's shapes and offsets (f32 gradient
+    outputs) beside the whole-sequence kernels (rank 0), the last rank's
+    diagonal block and nearest other block held against their plain
+    versions (forward, and the backward with f32 outputs and delta
+    passed in, as the ring calls them), and a hop's host staging timed
+    alone; then one shift of every rank at once, with no kernel running;
+21. sp_forward: Llama-3-8B at full width and depth, llama_forward over
+    sp 2 on [1, 8192] (4096 a rank) against the one-device flash forward
+    under forward_check's limits, 32 (rank 0) and 64 (rank 1) forward
+    launches;
+22. sp_train: Llama-3-8B at full width, SP_TRAIN_LAYERS deep, one
+    momentum-SGD step from zero velocity at dp 1 x sp 4 and at dp 2 x
+    sp 2 with remat, on [2, 4096], against the one-device
+    make_train_step(None) step on the same tokens and initial params:
+    the loss within 2e-3, each leaf kind's gradient, read from the
+    velocity and recovered from the parameter delta (lr 1e4), within 3%
+    of the kind's largest, the replicas' agreement, launches L·(s + 1)
+    of each kernel on sp index s (the forward's twice under remat), and
+    the host-staged gradient sum timed apart from the rest of the step.
 
 Every line but the last two is a JSON object; the card's name and power
 limit (nvidia-smi) come second to last, and the last line is
@@ -153,11 +190,18 @@ LSE_ATOL = 1e-3    # f32 row statistics, different summation order
 # bf16 gradients round once more.
 BWD_ATOL = 1e-2
 BWD_RTOL = 1e-2
+# Two forwards of one bf16 model that differ only in how attention runs
+# (flash against dense, the sp mesh against one device): the largest
+# logit difference over the largest logit, the largest probability
+# difference and the share of positions whose argmax agrees.
+FWD_REL_LIMIT = 5e-2
+FWD_PROB_LIMIT = 1e-2
+FWD_ARGMAX_LIMIT = 0.8
 # Flash against dense gradients of llama_loss (bf16 model), per leaf kind:
 # max |g_flash - g_dense| over the kind's largest dense gradient, the
-# forward check's own 5e-2 relative bar; the loss within 2e-2, the
+# forward check's own relative bar; the loss within 2e-2, the
 # reference's flash-vs-dense loss bar (tests/ops/test_flash_attention.py).
-GRAD_REL_LIMIT = 5e-2
+GRAD_REL_LIMIT = FWD_REL_LIMIT
 LOSS_LIMIT = 2e-2
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 # Quantized forward against its fake-quant oracle (the same quantized
@@ -412,15 +456,34 @@ def check_backward(card, name, b, sq, skv, hq=32, hkv=8, hd=128, q_off=0,
     return row
 
 
+def logits_agreement(got, want) -> dict:
+    """The statistics of ``got`` logits against ``want``'s that the FWD_*
+    limits bound."""
+    import torch
+
+    diff = (got - want).abs()
+    return {"logits_max_abs_diff": float(diff.max()),
+            "logits_max_rel_diff": float(diff.max() / want.abs().max()),
+            "probs_max_abs_diff": float((torch.softmax(got, -1)
+                                         - torch.softmax(want, -1)).abs().max()),
+            "argmax_agreement": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def logits_hold(stats, probs_limit: float = FWD_PROB_LIMIT) -> bool:
+    return (stats["finite"] and stats["logits_max_rel_diff"] <= FWD_REL_LIMIT
+            and stats["probs_max_abs_diff"] <= probs_limit
+            and stats["argmax_agreement"] >= FWD_ARGMAX_LIMIT)
+
+
 def forward_check(card, phase, params, cfg, tokens, scale_prob_limit=False) -> dict:
     """llama_forward on ``tokens`` with flash (its launches counted, one a
-    layer) against dense: the largest logit difference relative to the
-    largest logit (<= 5e-2), probabilities (<= 1e-2) and argmax agreement
-    (>= 0.8). Both paths round their logits to bf16, whose spacing u at
-    the largest logit grows with it; one spacing on each logit can move a
-    probability by up to u / 2 (|dp_i| <= 2 p_i (1 - p_i) u). With
-    ``scale_prob_limit`` (Gemma: its scaled, tied embedding gives logits
-    near 17, where u = 2^-3) the probability limit is max(1e-2, u / 2)."""
+    layer) against dense, held to the FWD_* limits. Both paths round their
+    logits to bf16, whose spacing u at the largest logit grows with it;
+    one spacing on each logit can move a probability by up to u / 2
+    (|dp_i| <= 2 p_i (1 - p_i) u). With ``scale_prob_limit`` (Gemma: its
+    scaled, tied embedding gives logits near 17, where u = 2^-3) the
+    probability limit is max(FWD_PROB_LIMIT, u / 2)."""
     import torch
 
     import nos_tpu_torch.ops.flash_attention as fa
@@ -433,23 +496,13 @@ def forward_check(card, phase, params, cfg, tokens, scale_prob_limit=False) -> d
         forward_launches = fa.LAUNCHES
         dense_logits = llama.llama_forward(
             params, tokens, dataclasses.replace(cfg, attention="dense"))
-        diff = (flash_logits - dense_logits).abs()
-        rel = float(diff.max() / dense_logits.abs().max())
-        p_diff = float((torch.softmax(flash_logits, -1)
-                        - torch.softmax(dense_logits, -1)).abs().max())
-        agree = float((flash_logits.argmax(-1) == dense_logits.argmax(-1))
-                      .float().mean())
-        finite = bool(torch.isfinite(flash_logits).all())
+        stats = logits_agreement(flash_logits, dense_logits)
         spacing = 2.0 ** (math.floor(math.log2(float(dense_logits.abs().max()))) - 7)
-    p_limit = max(1e-2, spacing / 2) if scale_prob_limit else 1e-2
+    p_limit = max(FWD_PROB_LIMIT, spacing / 2) if scale_prob_limit else FWD_PROB_LIMIT
     row = {"phase": phase, "tokens": list(tokens.shape),
-           "flash_launches": forward_launches,
-           "logits_max_abs_diff": float(diff.max()), "logits_max_rel_diff": rel,
-           "logits_bf16_spacing": spacing, "probs_max_abs_diff": p_diff,
-           "probs_limit": p_limit, "argmax_agreement": agree,
-           "finite": finite, "card": card}
-    row["ok"] = (finite and forward_launches == cfg.n_layers and rel <= 5e-2
-                 and p_diff <= p_limit and agree >= 0.8)
+           "flash_launches": forward_launches, **stats,
+           "logits_bf16_spacing": spacing, "probs_limit": p_limit, "card": card}
+    row["ok"] = forward_launches == cfg.n_layers and logits_hold(stats, p_limit)
     emit(row)
     if not row["ok"]:
         raise SystemExit(f"flash forward disagrees with dense: {row}")
@@ -1413,19 +1466,13 @@ def mixtral_int8_phase(card) -> dict:
         for name, params in (("tied", tied), ("random_router", tree)):
             flash = llama.llama_forward(params, tokens, cfg)
             dense = llama.llama_forward(params, tokens, dataclasses.replace(cfg, attention="dense"))
-            checks[f"flash_dense_{name}"] = {
-                "logits_max_rel_diff": float((flash - dense).abs().max() / dense.abs().max()),
-                "probs_max_abs_diff": float((torch.softmax(flash, -1)
-                                             - torch.softmax(dense, -1)).abs().max()),
-                "argmax_agreement": float((flash.argmax(-1) == dense.argmax(-1)).float().mean()),
-                "finite": bool(torch.isfinite(flash).all())}
+            checks[f"flash_dense_{name}"] = logits_agreement(flash, dense)
             del flash, dense
     oracle, fd = checks["oracle_tied"], checks["flash_dense_tied"]
     row = {"phase": "mixtral_int8_checks", "tokens": [1, 1024], **checks,
            "rel_limit": QUANT_REL_LIMIT["int8"], "card": card}
     row["ok"] = (oracle["finite"] and oracle["rel_frobenius_err"] <= QUANT_REL_LIMIT["int8"]
-                 and fd["finite"] and fd["logits_max_rel_diff"] <= 5e-2
-                 and fd["probs_max_abs_diff"] <= 1e-2 and fd["argmax_agreement"] >= 0.8)
+                 and logits_hold(fd))
     emit(row)
     if not row["ok"]:
         raise SystemExit(f"Mixtral int8 checks failed: {row}")
@@ -1541,6 +1588,539 @@ def profile_steps(run_steps, card, step_ms: float, steps: int = 8,
                         for us, n, k in kernels[:12]],
         "card": card,
     }
+
+
+# ---------------------------------------------------------------- sp paths
+# Sequence- and data-parallel ranks run as processes on the one card, in a
+# gloo group: NCCL refuses two ranks on one device. Their collectives
+# stage device tensors through pinned host memory, so any time that
+# crosses a hop measures that staging (and the ranks time-share the
+# card), never a ring on NVLink.
+SP_RING_SEQ = 16384      # Llama-3-8B's attention heads, sp 2 and 4
+SP_GEMMA_SEQ = 8192      # Gemma-2B's heads (hd 256, one kv head), sp 2
+SP_WINDOW = 4096
+SP_FORWARD_SEQ = 8192    # Llama-3-8B at full depth, sp 2
+# Four replicas of weights, gradients and velocity (6 bytes a parameter)
+# plus each rank's activations: at 8 layers (2.01 B parameters) a rank
+# peaks at 15.75 GiB and the card kept 6.3 and 1.6 GiB free after the
+# step in two runs of this phase (NVIDIA H100 80GB HBM3, 700 W); 6 layers
+# (1.57 B) keep about 10 GiB of margin.
+SP_TRAIN_LAYERS = 6
+SP_TRAIN_TOKENS = (2, 4096)
+# One step from zero velocity moves each weight by lr * g. At lr 1e4 every
+# update outgrows the weight it moves, so the bf16 parameter delta carries
+# the gradient to bf16's relative precision (2^-8) and not to the weight's
+# spacing, which at lr 1.0 swamps it (4-36% apart per leaf kind where the
+# velocities stood 2% apart, 8 layers on an NVIDIA H100 80GB HBM3, 700 W).
+# The step's work is the same at any lr; the loss is taken before the
+# update.
+SP_TRAIN_LR = 1e4
+# the sp train step against the one-device step: the loss, and each leaf
+# kind's gradient, read from the velocity (v = g after one step from zero)
+# and recovered from the parameter delta, as max |g_mesh - g_one| over the
+# kind's largest |g_one|
+SP_LOSS_LIMIT = 2e-3
+SP_GRAD_REL_LIMIT = 3e-2
+
+
+def sp_spawn(world: int, plan, card) -> list:
+    """Run ``plan``, a list of (function name, kwargs), on ``world`` ranks
+    spawned on cuda:0 in one gloo group; each rank's list of rows, in
+    plan order. A rank that raises fails the call (and the script)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    work = tempfile.mkdtemp(prefix="nos-sp-")
+    try:
+        mp.spawn(sp_rank, args=(world, work, card, plan), nprocs=world)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return ranks
+
+
+def sp_rank(rank, world, work, card, plan) -> None:
+    """One spawned rank: joins the gloo group, runs the plan, writes its
+    rows for the parent."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/rendezvous", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        rows = []
+        for name, kwargs in plan:
+            rows.append(globals()[name](rank, world, card, **kwargs))
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(rows, f)
+
+
+def sp_fail(row, what: str):
+    raise RuntimeError(f"{what} failed on rank {row.get('rank')}: {json.dumps(row)}")
+
+
+def grads_close(got, want) -> bool:
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= BWD_ATOL + BWD_RTOL * want.abs()).all()
+                and torch_isfinite(got))
+
+
+def torch_isfinite(x) -> bool:
+    import torch
+
+    return bool(torch.isfinite(x).all())
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host wall time of ``fn`` (the card synchronized after each
+    call) over ``reps`` runs after one warm-up: for calls that block the
+    host, such as a gloo exchange. Every rank of a collective calls it the
+    same number of times."""
+    import statistics
+
+    import torch
+
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def block_against_plain(q, k, v, do, q_off, kv_off, window) -> dict:
+    """One ring block's kernels against their plain versions on the same
+    inputs, as the ring calls them: flash_attention_block against
+    flash_attention_reference (O_ATOL, LSE_ATOL), and flash_block_grads
+    with f32 outputs and ``delta`` passed in against
+    flash_attention_bwd_reference (BWD_ATOL + BWD_RTOL |want|)."""
+    import torch
+
+    import nos_tpu_torch.ops.flash_attention as fa
+
+    out, lse = fa.flash_attention_block(q, k, v, q_off, kv_off, window=window)
+    want, want_lse = fa.flash_attention_reference(q, k, v, q_off, kv_off, window=window)
+    kw = dict(window=window, grad_dtype=torch.float32, delta=fa.flash_delta(do, out))
+    got = fa.flash_block_grads(q, k, v, out, lse, do, q_off, kv_off, **kw)
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, q_off, kv_off, **kw)
+    fin = torch.isfinite(want_lse)
+    row = {"q_off": q_off, "kv_off": kv_off,
+           "o_max_abs_err": float((out.float() - want.float()).abs().max()),
+           "lse_max_abs_err": float((lse[fin] - want_lse[fin]).abs().max()) if fin.any()
+           else 0.0,
+           "neg_inf_rows_match": bool(torch.equal(torch.isneginf(lse),
+                                                  torch.isneginf(want_lse))),
+           "grad_dtype": "f32",
+           **{f"{g}_max_abs_err": float((a - b).abs().max())
+              for g, a, b in zip(("dq", "dk", "dv"), got, ref)}}
+    row["ok"] = (row["o_max_abs_err"] <= O_ATOL and row["lse_max_abs_err"] <= LSE_ATOL
+                 and row["neg_inf_rows_match"] and torch_isfinite(out.float())
+                 and all(a.dtype == torch.float32 and grads_close(a, b)
+                         for a, b in zip(got, ref)))
+    return row
+
+
+def sp_ring_case(rank, world, card, case, s, hq, hkv, hd, window=None,
+                 strategy="ring") -> dict:
+    """This rank's ring_flash_attention (or Ulysses through flash_attention)
+    over ``world`` sp ranks, output and dQ/dK/dV against the one-process
+    flash_attention forward and backward on the whole sequence; launches
+    counted around the sp call alone; then, one rank at a time while the
+    others wait, each of its hops' kernels timed at the ring's shapes and
+    offsets (rank 0 also times the whole-sequence kernels); on the ring,
+    the last rank also holds its diagonal block's kernels and its nearest
+    other block's against their plain versions (``block_against_plain``),
+    each rank times the host staging of one hop's K/V alone, and then all
+    ranks time one shift together with no kernel running."""
+    import torch
+    import torch.distributed as dist
+
+    import nos_tpu_torch.ops.flash_attention as fa
+    from nos_tpu_torch.parallel import comm, mesh as pm
+    from nos_tpu_torch.parallel.ring_attention import ring_flash_attention
+    from nos_tpu_torch.parallel.ulysses import ulysses_attention
+    from nos_tpu_torch.util.cuda_timing import event_ms
+
+    mesh = pm.mesh_from_devices((1, world), ("dp", "sp"))
+    gen = torch.Generator(device="cuda").manual_seed(s + hd + (window or 0))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = randn(1, s, hq, hd), randn(1, s, hkv, hd), randn(1, s, hkv, hd), \
+        randn(1, s, hq, hd)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = fa.flash_attention(*leaves, window=window)
+    wdq, wdk, wdv = torch.autograd.grad(want, leaves, do)
+    n = s // world
+    rows = slice(rank * n, (rank + 1) * n)
+    local = [x[:, rows].contiguous().requires_grad_(True) for x in (q, k, v)]
+    d_local = do[:, rows].contiguous()
+    if strategy == "ring":
+        fn = ring_flash_attention
+        blocks = [(rank - i) % world for i in range(world)
+                  if visible_pairs(n, n, rank * n, ((rank - i) % world) * n, True, window)]
+        expect = [len(blocks)] * 3
+    else:
+        fn = functools.partial(ulysses_attention, attention="flash")
+        blocks, expect = [], [1, 1, 1]
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero_counts()  # the sp path: every launch from here to the read is its own
+    t0 = time.perf_counter()
+    out = fn(*local, mesh, window=window)
+    torch.cuda.synchronize()
+    fwd_wall = (time.perf_counter() - t0) * 1e3
+    fwd_launches = counts()
+    zero_counts()
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(out, local, d_local.reshape(out.shape))
+    torch.cuda.synchronize()
+    bwd_wall = (time.perf_counter() - t0) * 1e3
+    bwd_launches = counts()
+    got, want = out.detach().reshape(1, n, hq, hd), want.detach()
+    o_err = float((got.float() - want[:, rows].float()).abs().max())
+    errs = {g: float((a.float() - b[:, rows].float()).abs().max())
+            for g, a, b in zip(("dq", "dk", "dv"), grads, (wdq, wdk, wdv))}
+    close = all(grads_close(a, b[:, rows]) for a, b in zip(grads, (wdq, wdk, wdv)))
+    launches = [fwd_launches[0], bwd_launches[1], bwd_launches[2]]
+    row = {"phase": "sp_ring_kernels", "case": case, "strategy": strategy, "rank": rank,
+           "sp": world, "shape": {"b": 1, "s": s, "s_rank": n, "hq": hq, "hkv": hkv,
+                                  "hd": hd},
+           "window": window, "transport": comm.transport(mesh.get_group("sp"), "cuda"),
+           "kv_blocks_run": blocks, "launches_fwd_dq_dkv": launches,
+           "expected_launches": expect,
+           "stray_launches": [fwd_launches[1], fwd_launches[2], bwd_launches[0]],
+           "o_max_abs_err": o_err, **{f"{g}_max_abs_err": e for g, e in errs.items()},
+           "o_atol": O_ATOL, "atol": BWD_ATOL, "rtol": BWD_RTOL,
+           "fwd_wall_ms_gloo_host_staged": fwd_wall,
+           "bwd_wall_ms_gloo_host_staged": bwd_wall, "card": card}
+    row["ok"] = (o_err <= O_ATOL and close and torch_isfinite(got)
+                 and launches == expect and row["stray_launches"] == [0, 0, 0])
+    if not row["ok"]:
+        sp_fail(row, f"sp ring case {case}")
+    # each hop's kernels alone, one rank at a time (the others wait)
+    hops, whole, plain, staging = [], None, [], None
+    for turn in range(world):
+        dist.barrier()
+        if turn != rank:
+            continue
+        q_loc = local[0].detach()
+        for j in blocks:
+            kb, vb = k[:, j * n:(j + 1) * n].contiguous(), v[:, j * n:(j + 1) * n].contiguous()
+            offs = (rank * n, j * n)
+            o_b, lse_b = fa.flash_attention_block(q_loc, kb, vb, *offs, window=window)
+            args = (q_loc, kb, vb, lse_b, d_local, fa.flash_delta(d_local, o_b), *offs,
+                    True, window, torch.float32)
+            pairs = visible_pairs(n, n, *offs, True, window)
+            hops.append({
+                "kv_block": j, "q_off": offs[0], "kv_off": offs[1],
+                "pairs_per_head": pairs,
+                "fwd_ms": event_ms(lambda: fa.flash_attention_block(
+                    q_loc, kb, vb, *offs, window=window)),
+                "dq_f32_ms": event_ms(lambda: fa._flash_bwd_cuda(*args, True, False)),
+                "dkv_f32_ms": event_ms(lambda: fa._flash_bwd_cuda(*args, False, True)),
+                "fwd_bound_ms": attention_bound_ms(1, n, n, hq, hkv, hd, pairs)[0],
+            })
+            if rank == world - 1 and j in blocks[:2]:  # the diagonal, the nearest other
+                plain.append(block_against_plain(q_loc, kb, vb, d_local, *offs, window))
+        if blocks:
+            staging = hop_staging_ms(local[1].detach(), local[2].detach())
+        if rank == 0 and strategy == "ring":
+            qd, kd, vd = (x.detach() for x in (q, k, v))
+            o_w, lse_w = fa.flash_attention_block(qd, kd, vd, 0, 0, window=window)
+            args = (qd, kd, vd, lse_w, do, fa.flash_delta(do, o_w), 0, 0, True, window, None)
+            whole = {"pairs_per_head": visible_pairs(s, s, 0, 0, True, window),
+                     "fwd_ms": event_ms(lambda: fa.flash_attention_block(
+                         qd, kd, vd, 0, 0, window=window), reps=5),
+                     "dq_ms": event_ms(lambda: fa._flash_bwd_cuda(*args, True, False), reps=5),
+                     "dkv_ms": event_ms(lambda: fa._flash_bwd_cuda(*args, False, True), reps=5)}
+    dist.barrier()
+    row["hops_alone"] = hops
+    if whole is not None:
+        row["whole_sequence_one_process"] = whole
+    if strategy == "ring":
+        group = mesh.get_group("sp")
+        kv = [local[1].detach(), local[2].detach()]
+        row["hop_staging_alone_ms"] = staging
+        # every rank shifts at once, as in the ring, with no kernel running
+        row["shift_all_ranks_no_kernels_ms_gloo_host_staged"] = wall_ms(
+            lambda: comm.ring_shift(kv, group))
+        row["blocks_against_plain"] = plain
+        if rank == world - 1 and (len(plain) != min(2, len(blocks))
+                                  or not all(p["ok"] for p in plain)):
+            sp_fail(row, f"sp ring case {case}: a block's kernels against plain")
+    return row
+
+
+def hop_staging_ms(k, v) -> dict:
+    """What one forward hop's K/V costs a rank before and after gloo moves
+    it, timed with no other rank using the card: packing both into one
+    buffer on the card, its copy into pinned host memory and the copy
+    back (comm.ring_shift's staging)."""
+    import torch
+
+    from nos_tpu_torch.parallel import comm
+
+    packed = comm._pack([k, v])
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    return {"bytes": packed.numel(),
+            "pack_ms": wall_ms(lambda: comm._pack([k, v])),
+            "to_pinned_host_ms": wall_ms(lambda: host.copy_(packed)),
+            "from_pinned_host_ms": wall_ms(lambda: host.to(k.device))}
+
+
+def sp_forward_case(rank, world, card, seq) -> dict:
+    """Llama-3-8B at full width and depth (random weights from a seed,
+    bf16, flash): llama_forward over an sp mesh on this rank's [1, seq/sp]
+    block against the one-device flash forward on the whole [1, seq]."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import mesh as pm
+    from nos_tpu_torch.parallel.sharding import llama_data_sharding
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash")
+    params = llama.init_llama_params(cfg, seed=31, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen, device="cuda")
+    mesh = pm.mesh_from_devices((1, world), ("dp", "sp"))
+    n = seq // world
+    blocks = sum(1 for j in range(world) if visible_pairs(n, n, rank * n, j * n, True, None))
+    with torch.no_grad():
+        want = llama.llama_forward(params, tokens, cfg)[:, rank * n:(rank + 1) * n].clone()
+        torch.cuda.synchronize()
+        dist.barrier()
+        zero_counts()  # the sp path
+        t0 = time.perf_counter()
+        got = llama.llama_forward(params, llama_data_sharding(mesh, tokens), cfg, mesh)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = counts()
+        stats = logits_agreement(got, want)
+    from nos_tpu_torch.parallel.comm import transport
+
+    row = {"phase": "sp_forward", "config": "llama_3_8b", "rank": rank, "sp": world,
+           "transport": transport(mesh.get_group("sp"), "cuda"),
+           "tokens": [1, seq], "tokens_rank": [1, n], "layers": cfg.n_layers,
+           "launches_fwd_dq_dkv": list(launches),
+           "expected_launches": [blocks * cfg.n_layers, 0, 0], **stats,
+           "rel_limit": FWD_REL_LIMIT, "probs_limit": FWD_PROB_LIMIT,
+           "argmax_limit": FWD_ARGMAX_LIMIT, "wall_ms_gloo_host_staged": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card}
+    row["ok"] = list(launches) == row["expected_launches"] and logits_hold(stats)
+    if not row["ok"]:
+        sp_fail(row, "sp_forward")
+    return row
+
+
+def sp_train_against_one_device(state, loss: float, ref) -> dict:
+    """The sp step's state against the one-device step's (``ref``: its
+    loss, and host copies of the initial params, the updated params and
+    the velocity): each leaf kind's gradient read from the velocity and
+    recovered from the parameter delta, as max |g_mesh - g_one| over the
+    kind's largest |g_one|. A function of its own, so its device
+    temporaries are gone before the next mesh's step."""
+    import torch
+
+    from nos_tpu_torch.models.llama import tree_leaves
+
+    g_diff, g_ref, d_diff, d_ref = {}, {}, {}, {}
+    velocity = tree_leaves(state[1])
+    for (kind, p1), v, v_ref, p1_ref, p0 in zip(named_leaves(state[0]), velocity,
+                                               ref["v"], ref["p1"], ref["p0"]):
+        v_ref = v_ref.cuda().float()
+        g_diff[kind] = max(g_diff.get(kind, 0.0), float((v.float() - v_ref).abs().max()))
+        g_ref[kind] = max(g_ref.get(kind, 0.0), float(v_ref.abs().max()))
+        p0 = p0.cuda().float()
+        delta = (p0 - p1.detach().float()) / SP_TRAIN_LR
+        delta_ref = (p0 - p1_ref.cuda().float()) / SP_TRAIN_LR
+        d_diff[kind] = max(d_diff.get(kind, 0.0), float((delta - delta_ref).abs().max()))
+        d_ref[kind] = max(d_ref.get(kind, 0.0), float(delta_ref.abs().max()))
+    return {"one_device_loss": ref["loss"], "one_device_step_ms": ref["ms"],
+            "loss_abs_diff": abs(loss - ref["loss"]), "loss_limit": SP_LOSS_LIMIT,
+            "grad_rel_err": {k: g_diff[k] / g_ref[k] for k in g_diff},
+            "grad_from_param_delta_rel_err": {k: d_diff[k] / d_ref[k] if d_ref[k] else None
+                                              for k in d_diff},
+            "grad_rel_limit": SP_GRAD_REL_LIMIT,
+            "finite": all(bool(torch.isfinite(x).all()) for x in velocity)}
+
+
+def sp_train_case(rank, world, card, layers, tokens_shape, meshes) -> list:
+    """Llama-3-8B at full width and ``layers`` deep (bf16, flash), one
+    momentum-SGD step from zero velocity on each ``(dp, sp, remat)`` of
+    ``meshes`` against the one-device make_train_step(None) step (no
+    remat) on the same tokens and initial params (rank 0 runs it first,
+    alone): the loss, each leaf kind's gradient read from the velocity
+    (v = g after one step from zero) and the one recovered from the
+    parameter delta, the launches of the sp step, the replicas' agreement.
+    With remat each block's backward first replays its forward, ring
+    shifts and ring kernels included, so the forward kernel runs twice.
+    The gradient sum over the mesh (host-staged) is timed apart from the
+    rest of the step."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import comm, make_train_step, mesh as pm
+    from nos_tpu_torch.parallel.sharding import llama_data_sharding
+    from nos_tpu_torch.parallel.sp_bench import timed_grad_sum
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), n_layers=layers,
+                              attention="flash")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    tokens = torch.randint(0, cfg.vocab_size, tokens_shape, generator=gen, device="cuda")
+    ref = None
+    if rank == 0:
+        step, shard = make_train_step(None, cfg, learning_rate=SP_TRAIN_LR)
+        state = shard(llama.init_llama_params(cfg, seed=41, device="cuda"), donate=True)
+        p0 = [p.detach().to("cpu", copy=True) for p in llama.tree_leaves(state[0])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        torch.cuda.synchronize()
+        ref = {"loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3, "p0": p0,
+               "p1": [p.detach().cpu() for p in llama.tree_leaves(state[0])],
+               "v": [x.cpu() for x in llama.tree_leaves(state[1])]}
+        del state
+        torch.cuda.empty_cache()
+    dist.barrier()
+    rows = []
+    for *dims, remat in meshes:
+        mesh = pm.mesh_from_devices(tuple(dims), ("dp", "sp"))
+        sp_idx = pm.axis_index(mesh, "sp")
+        n = tokens_shape[1] // dims[1]
+        blocks = sum(1 for j in range(dims[1])
+                     if visible_pairs(n, n, sp_idx * n, j * n, True, None))
+        step, shard = make_train_step(mesh, dataclasses.replace(cfg, remat=remat),
+                                      learning_rate=SP_TRAIN_LR)
+        state = shard(llama.init_llama_params(cfg, seed=41, device="cuda"), donate=True)
+        block = llama_data_sharding(mesh, tokens).contiguous()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        zero_counts()  # the sp path
+        with timed_grad_sum() as sum_ms:
+            t0 = time.perf_counter()
+            state, loss = step(state, block)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = counts()
+        velocity = llama.tree_leaves(state[1])
+        checksum = float(sum(x.double().sum() for x in velocity))
+        sums = [None] * world
+        dist.all_gather_object(sums, checksum)
+        row = {"phase": "sp_train", "config": "llama_3_8b", "layers": layers,
+               "mesh": {"dp": dims[0], "sp": dims[1]}, "remat": remat, "rank": rank,
+               "transport": comm.transport(mesh.get_group("sp"), "cuda"),
+               "tokens": list(tokens_shape), "tokens_rank": list(block.shape),
+               "optimizer": f"momentum_sgd(lr={SP_TRAIN_LR}, momentum=0.9)",
+               "loss": float(loss), "launches_fwd_dq_dkv": list(launches),
+               "expected_launches": [(2 if remat else 1) * blocks * layers,
+                                     blocks * layers, blocks * layers],
+               "replicas_agree": len(set(sums)) == 1,
+               "step_wall_ms_gloo_host_staged": wall,
+               "grad_sum_ms_gloo_host_staged": sum(sum_ms),
+               "step_without_grad_sum_ms": wall - sum(sum_ms),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "card_free_gib_after_step": torch.cuda.mem_get_info()[0] / 2**30,
+               "card": card}
+        ok = row["replicas_agree"] and list(launches) == row["expected_launches"]
+        if rank == 0:
+            row.update(sp_train_against_one_device(state, float(loss), ref))
+            from_delta = list(row["grad_from_param_delta_rel_err"].values())
+            ok = (ok and row["finite"] and row["loss_abs_diff"] <= SP_LOSS_LIMIT
+                  and max(row["grad_rel_err"].values()) <= SP_GRAD_REL_LIMIT
+                  and None not in from_delta and max(from_delta) <= SP_GRAD_REL_LIMIT)
+        row["ok"] = ok
+        if not ok:
+            sp_fail(row, f"sp_train {dims}")
+        rows.append(row)
+        del state, velocity
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return rows
+
+
+def sp_phases(card) -> dict:
+    """The three sp phases on spawned ranks: sp_ring_kernels (Llama-3-8B's
+    attention at S 16384, sp 2 and 4, causal and a 4096 window; Gemma-2B's
+    heads at S 8192, sp 2; Ulysses at sp 4), sp_forward (Llama-3-8B at full
+    depth, sp 2, [1, 8192]) and sp_train (SP_TRAIN_LAYERS layers at full
+    width, dp 1 x sp 4, and dp 2 x sp 2 with remat). Two spawns: the sp-2 work on two
+    ranks, the sp-4 work on four. The kernels are built already (the ranks
+    load them), and the parent holds no card memory of its own."""
+    import torch
+
+    torch.cuda.empty_cache()
+    emit({"phase": "sp_spawn", "parent_gib_allocated": torch.cuda.memory_allocated() / 2**30,
+          "parent_gib_reserved": torch.cuda.memory_reserved() / 2**30, "card": card})
+    llama_heads = dict(hq=32, hkv=8, hd=128)
+    t0 = time.time()
+    two = sp_spawn(2, [
+        ("sp_ring_case", dict(case="llama_causal_sp2", s=SP_RING_SEQ, **llama_heads)),
+        ("sp_ring_case", dict(case="llama_window4096_sp2", s=SP_RING_SEQ,
+                              window=SP_WINDOW, **llama_heads)),
+        ("sp_ring_case", dict(case="gemma_hd256_causal_sp2", s=SP_GEMMA_SEQ, hq=8, hkv=1,
+                              hd=256)),
+        ("sp_forward_case", dict(seq=SP_FORWARD_SEQ)),
+    ], card)
+    t_two = time.time() - t0
+    t0 = time.time()
+    four = sp_spawn(4, [
+        ("sp_ring_case", dict(case="llama_causal_sp4", s=SP_RING_SEQ, **llama_heads)),
+        ("sp_ring_case", dict(case="llama_window4096_sp4", s=SP_RING_SEQ,
+                              window=SP_WINDOW, **llama_heads)),
+        ("sp_ring_case", dict(case="ulysses_llama_causal_sp4", s=SP_RING_SEQ,
+                              strategy="ulysses", **llama_heads)),
+        ("sp_train_case", dict(layers=SP_TRAIN_LAYERS, tokens_shape=SP_TRAIN_TOKENS,
+                               meshes=[(1, 4, False), (2, 2, True)])),
+    ], card)
+    t_four = time.time() - t0
+    ring_rows = [rows[i] for i in range(3) for rows in two] + \
+        [rows[i] for i in range(3) for rows in four]
+    for row in ring_rows:
+        emit(row)
+    forward_rows = [rows[3] for rows in two]
+    for row in forward_rows:
+        emit(row)
+    train_rows = [rows[3][i] for i in range(2) for rows in four]
+    for row in train_rows:
+        emit(row)
+    emit({"phase": "sp_phases", "seconds_two_ranks": t_two, "seconds_four_ranks": t_four,
+          "card": card})
+    launches = {f"sp_ring_kernels.{row['case']}": [] for row in ring_rows}
+    for row in ring_rows:
+        launches[f"sp_ring_kernels.{row['case']}"].append(row["launches_fwd_dq_dkv"])
+    launches["sp_forward"] = [row["launches_fwd_dq_dkv"] for row in forward_rows]
+    for row in train_rows:
+        key = f"sp_train.dp{row['mesh']['dp']}_sp{row['mesh']['sp']}" + (
+            "_remat" if row["remat"] else "")
+        launches.setdefault(key, []).append(row["launches_fwd_dq_dkv"])
+    return {"launches": launches, "ring": ring_rows}
+
+
+def sp_launches(sp, index: int, hd256: bool) -> dict:
+    """Per-rank launches of kernel ``index`` (0 forward, 1 dQ, 2 dK/dV) on
+    each sp path, at head_dim 256 or at 128."""
+    return {path: [r[index] for r in per_rank] for path, per_rank in sp["launches"].items()
+            if ("gemma" in path) == hd256}
 
 
 def main() -> int:
@@ -1736,6 +2316,10 @@ def main() -> int:
     gemma_train = train_phase(card, llama.gemma_2b_config(), config="gemma_2b",
                               phase="gemma_train", seed=25)
     emit({"phase": "gemma_phases", "seconds": time.time() - t0, "card": card})
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- sp paths
+    sp = sp_phases(card)
 
     # ----------------------------------------------------------- summary
     emit({"kernels": [{
@@ -1755,6 +2339,7 @@ def main() -> int:
         "shape": "q [2,512,32,128], k/v [2,512,8,128] bf16 causal",
         "launches_train": train["launches_total_fwd_dq_dkv"][0],
         "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][0],
+        "launches_sp_per_rank": sp_launches(sp, 0, False),
         "device_ms": main_case["kernel_device_ms"],
         "library_device_ms": main_case["library_device_ms"],
         "ms_train": train_case["kernel_ms"],
@@ -1773,6 +2358,7 @@ def main() -> int:
         "launches": train["launches_total_fwd_dq_dkv"][index],
         "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][index],
         "launches_moe_train_grads": moe_grads["launches_fwd_dq_dkv"][index],
+        "launches_sp_per_rank": sp_launches(sp, index, False),
         "max_abs_err": max(bwd_case[f"{g}_max_abs_err"] for g in grads),
         "ms": bwd_case[f"{key}_ms"],
         "plain_ms": bwd_case["plain_ms"],
@@ -1796,6 +2382,7 @@ def main() -> int:
         "launches": gemma["generate_launches"],
         "launches_gemma_train": gemma_train["launches_total_fwd_dq_dkv"][0],
         "launches_gemma_train_grads": gemma_grads["launches_fwd_dq_dkv"][0],
+        "launches_sp_per_rank": sp_launches(sp, 0, True),
         "max_abs_err": hd256["fwd_prefill"]["o_max_abs_err"],
         "ms": hd256["fwd_prefill"]["kernel_ms"],
         "plain_ms": hd256["fwd_prefill"]["plain_ms"],
@@ -1821,6 +2408,7 @@ def main() -> int:
         "replaces": replaces,
         "launches": gemma_train["launches_total_fwd_dq_dkv"][index],
         "launches_gemma_train_grads": gemma_grads["launches_fwd_dq_dkv"][index],
+        "launches_sp_per_rank": sp_launches(sp, index, True),
         "max_abs_err": max(hd256["bwd_train"][f"{g}_max_abs_err"] for g in grads),
         "ms": hd256["bwd_train"][f"{key}_ms"],
         "device_ms": hd256["bwd_train"][f"{key}_device_ms"],

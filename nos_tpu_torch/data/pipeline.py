@@ -10,7 +10,10 @@ Counterpart of ``nos_tpu/data/pipeline.py``:
   host-to-device copy overlaps the current step's compute;
 - with ``torch.distributed`` initialised, each process feeds only its
   share of the global batch: the loader strides the sample stream by
-  rank, the standard per-host data-parallel feed.
+  rank, the standard per-host data-parallel feed. Under a ``dp`` /
+  ``sp`` mesh it strides by the **dp** index instead, so every sp rank
+  of one dp group draws the same rows, and ``prefetch_to_device(mesh=)``
+  hands each rank its ``S/sp`` columns of them.
 
 Deterministic: one integer seed fixes the sample order; ``skip(n)``
 replays the stream past n batches for a resume.
@@ -45,9 +48,15 @@ def pack_documents(
             del buffer[:seq_len]
 
 
-def _process_grid() -> "tuple[int, int]":
-    """(rank, world size) of ``torch.distributed`` when initialised, else
-    (0, 1)."""
+def _process_grid(mesh=None) -> "tuple[int, int]":
+    """The loader's (stride index, stride count): the dp coordinate and
+    dp size under a mesh (all sp ranks of a dp group read the same rows),
+    else the rank and world size of ``torch.distributed`` when
+    initialised, else (0, 1)."""
+    if mesh is not None:
+        from nos_tpu_torch.parallel.mesh import axis_index, axis_size
+
+        return axis_index(mesh, "dp"), axis_size(mesh, "dp")
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
@@ -60,7 +69,8 @@ class BatchLoader:
     ``corpus``: one long int32 token array (memory-mapped files work —
     anything ndarray-like with __getitem__ slicing). Samples are random
     seq_len windows drawn by a seeded generator; ``skip(n)`` fast-forwards
-    past n batches for checkpoint-resume replay.
+    past n batches for checkpoint-resume replay. ``mesh``: stride by the
+    rank's dp index over the dp size (see ``_process_grid``).
     """
 
     def __init__(
@@ -71,6 +81,7 @@ class BatchLoader:
         seed: int = 0,
         process_index: Optional[int] = None,
         process_count: Optional[int] = None,
+        mesh=None,
     ) -> None:
         if len(corpus) < seq_len + 1:
             raise ValueError(
@@ -81,7 +92,7 @@ class BatchLoader:
         self.seq_len = seq_len
         self.seed = seed
         if process_index is None or process_count is None:
-            process_index, process_count = _process_grid()
+            process_index, process_count = _process_grid(mesh)
         if batch % process_count:
             raise ValueError(
                 f"global batch {batch} does not divide {process_count} processes"
@@ -120,6 +131,7 @@ def prefetch_to_device(
     host_batches: Iterable[np.ndarray],
     device=None,
     depth: int = 2,
+    mesh=None,
 ) -> Iterator[torch.Tensor]:
     """Wrap a host batch iterator so the copies to ``device`` (``cuda``
     unless the caller names another) run ``depth`` batches ahead on a
@@ -127,7 +139,11 @@ def prefetch_to_device(
     on a copy stream; the consumer's stream waits for that copy before
     the batch is handed over, so no host sync is needed. A feeder error
     is raised on the consumer's side; a consumer that stops early
-    releases the feeder."""
+    releases the feeder.
+
+    ``mesh``: each host batch is this rank's dp group's rows [B/dp, S]
+    (``BatchLoader(mesh=...)``), and the rank receives its block
+    [B/dp, S/sp] of them; only the block is copied."""
     dev = _resolve_device(device)
     done = object()
     q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -149,6 +165,10 @@ def prefetch_to_device(
 
     def to_device(host_batch):
         host = torch.from_numpy(np.ascontiguousarray(host_batch))
+        if mesh is not None:
+            from nos_tpu_torch.parallel.sharding import sequence_block
+
+            host = sequence_block(mesh, host).contiguous()
         if copy_stream is None:
             return host.to(dev, copy=True), None
         with torch.cuda.stream(copy_stream):

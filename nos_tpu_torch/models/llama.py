@@ -25,8 +25,18 @@ and ``_embed_rows`` dispatch on it, so no model code forks.
 expert weights), the block returns its balance loss beside x, and
 ``llama_loss`` adds ``moe_aux_coef`` times its mean over the layers.
 
-Not in this slice (NotImplementedError naming ROADMAP Queue 1 item 9):
-a ``mesh``.
+A ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` with axes among
+``dp``, ``sp`` and ``tp`` (``tp`` of size 1): explicit SPMD, each rank
+running the model on its own ``[B/dp, S/sp]`` block of tokens
+(``parallel/sharding.py:llama_data_sharding``) with the whole params
+tree. RoPE takes global positions (the rank's offset is ``sp index ·
+S/sp``); with ``sp`` > 1 attention runs sequence-parallel per
+``sp_strategy`` and ``attention`` (``parallel/ring_attention.py``,
+``parallel/ulysses.py``); ``llama_loss`` passes each shard's next token
+across the ring and averages over the global token count. Still raising
+(NotImplementedError naming ROADMAP Queue 1 item 9): ``tp`` > 1, other
+axes (``ep``, ``pp``), a mesh that is not a ``DeviceMesh``, and a MoE
+model under a mesh.
 """
 from __future__ import annotations
 
@@ -65,7 +75,9 @@ class LlamaConfig:
     # Mistral-style sliding window: each query attends only the last
     # `sliding_window` positions. None = full causal attention.
     sliding_window: Any = None
-    # Sequence-parallel strategy under a mesh (not in this slice).
+    # Sequence-parallel strategy under a mesh with sp > 1: "ring" (K/V
+    # blocks passed around the sp ranks) or "ulysses" (all-to-all head
+    # scatter / sequence gather; head counts must divide by sp).
     sp_strategy: str = "ring"
     # Gemma dialect: "silu" or "gelu" (tanh form) gated MLP.
     hidden_act: str = "silu"
@@ -149,11 +161,36 @@ def gemma_2b_config() -> LlamaConfig:
     )
 
 
-def _check_mesh(mesh) -> None:
-    """A loud error for sharded execution, which this port lacks yet."""
-    if mesh is not None:
+def _check_mesh(mesh, config: "LlamaConfig") -> None:
+    """None, or a mesh this slice runs: a ``DeviceMesh`` whose axes are
+    among ``dp``, ``sp`` and ``tp``, with ``tp`` of size 1, under a dense
+    model. Anything else is a loud error."""
+    if mesh is None:
+        return
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from nos_tpu_torch.parallel.mesh import AXES, axis_size
+
+    if not isinstance(mesh, DeviceMesh):
         raise NotImplementedError(
-            "mesh / sharded execution is not ported yet "
+            f"a mesh is a torch DeviceMesh over dp / sp; {type(mesh).__name__} "
+            "is not (ROADMAP Queue 1 item 9: multi-device)"
+        )
+    names = tuple(mesh.mesh_dim_names or ())
+    other = [name for name in names if name not in AXES]
+    if other or len(names) != mesh.ndim:
+        raise NotImplementedError(
+            f"mesh axes {names}: only dp, sp and tp are ported "
+            "(ROADMAP Queue 1 item 9: multi-device)"
+        )
+    if axis_size(mesh, "tp") > 1:
+        raise NotImplementedError(
+            "tensor parallelism (tp > 1) is not ported yet "
+            "(ROADMAP Queue 1 item 9: multi-device)"
+        )
+    if config.n_experts > 0:
+        raise NotImplementedError(
+            "a MoE model under a mesh (expert parallelism) is not ported yet "
             "(ROADMAP Queue 1 item 9: multi-device)"
         )
 
@@ -408,12 +445,38 @@ def _qkv(h: torch.Tensor, layer: Params, c: LlamaConfig):
     return q, k, v
 
 
-def _attention(x, layer: Params, config: LlamaConfig, cos, sin) -> torch.Tensor:
+def _sp_attention(q, k, v, c: LlamaConfig, mesh) -> torch.Tensor:
+    """Sequence-parallel attention of the rank's blocks → [B, S/sp,
+    Hq*hd]: the ring (flash kernels in block mode, or the plain ring) or
+    Ulysses (the kernels or the einsum on the gathered sequence)."""
+    if c.sp_strategy == "ulysses":
+        from nos_tpu_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, mesh, causal=True, attention=c.attention,
+                                 window=c.sliding_window)
+    if c.sp_strategy != "ring":
+        raise ValueError(
+            f"unknown sp_strategy {c.sp_strategy!r}; expected 'ring' or 'ulysses'"
+        )
+    from nos_tpu_torch.parallel.ring_attention import (
+        ring_attention,
+        ring_flash_attention,
+    )
+
+    ring = ring_flash_attention if c.attention == "flash" else ring_attention
+    return ring(q, k, v, mesh, causal=True, window=c.sliding_window)
+
+
+def _attention(x, layer: Params, config: LlamaConfig, cos, sin, mesh=None) -> torch.Tensor:
     c = config
     b, s, _ = x.shape
     q, k, v = _qkv(x, layer, c)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
+    from nos_tpu_torch.parallel.mesh import axis_size
+
+    if axis_size(mesh, "sp") > 1:
+        return _mm(_sp_attention(q, k, v, c, mesh), layer["wo"])
     if c.attention == "flash":
         from nos_tpu_torch.ops.flash_attention import flash_attention
 
@@ -444,18 +507,26 @@ def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     also returns the MoE load-balancing loss summed over the layers (a
     0-d f32 tensor, zero for a dense model). With ``remat`` and gradients
     on, each block is checkpointed and recomputed (flash kernel included)
-    in the backward."""
+    in the backward.
+
+    Under a ``mesh`` (see the module docstring) ``tokens`` is this rank's
+    ``[B/dp, S/sp]`` block and the logits are the block's; every rank of
+    the mesh calls it together."""
     c = config
-    _check_mesh(mesh)
+    _check_mesh(mesh, c)
+    from nos_tpu_torch.parallel.mesh import axis_index
+
     tokens = tokens.to(params_device(params))
     x = _embed_rows(params["embed"], tokens, c.dtype, c.embed_scale)
-    cos, sin = _rope(tokens.shape[1], c.head_dim, c.rope_theta, c.dtype,
-                     c.rope_scaling, device=x.device)
+    s = tokens.shape[1]
+    start = axis_index(mesh, "sp") * s  # global positions of the block
+    cos, sin = _rope_at(torch.arange(start, start + s, device=x.device),
+                        c.head_dim, c.rope_theta, c.dtype, c.rope_scaling)
 
     def block(x, layer):
         x = x + _attention(
             _rms_norm(x, layer["attn_norm"], c.norm_eps, c.norm_offset),
-            layer, c, cos, sin,
+            layer, c, cos, sin, mesh,
         )
         h = _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset)
         if "moe" not in layer:
@@ -491,13 +562,51 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return (lse - picked).mean()
 
 
+def _sharded_next_token_nll(logits: torch.Tensor, tokens: torch.Tensor,
+                            mesh) -> torch.Tensor:
+    """``next_token_nll`` of the global batch from this rank's block: the
+    target of the block's last position is the next sp shard's first
+    token (one reverse ring shift of a [B, 1] column), the last shard's
+    last position drops, and the sum divides by the global count
+    B·(S − 1). The value is the global mean on every rank; its gradient
+    is that of this rank's own share (the trainer sums the shares over
+    the mesh)."""
+    from nos_tpu_torch.parallel.comm import all_reduce, ring_shift
+    from nos_tpu_torch.parallel.mesh import axis_index, axis_size, mesh_groups
+
+    tokens = tokens.to(logits.device).long()
+    b, s = tokens.shape
+    n_sp = axis_size(mesh, "sp")
+    last = axis_index(mesh, "sp") == n_sp - 1
+    (nxt,) = ring_shift([tokens[:, :1]], mesh.get_group("sp"), step=-1) \
+        if n_sp > 1 else (tokens[:, :1],)
+    targets = torch.cat([tokens[:, 1:], nxt], dim=1)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = lse - picked
+    if last:
+        nll = nll[:, :-1]
+    count = b * axis_size(mesh, "dp") * (s * n_sp - 1)
+    local = nll.sum() / count
+    total = all_reduce(local.detach(), mesh_groups(mesh))
+    # the value is exactly the total on every rank, the gradient local's
+    return total + (local - local.detach())
+
+
 def llama_loss(params: Params, tokens: torch.Tensor, config: LlamaConfig,
                mesh=None) -> torch.Tensor:
     """Next-token cross entropy over shifted tokens: the forward runs on
     the full sequence and the last position's logits are dropped. MoE
     models add ``moe_aux_coef`` times the per-layer balance loss averaged
-    over the layers."""
+    over the layers.
+
+    Under a ``mesh``, ``tokens`` is this rank's ``[B/dp, S/sp]`` block;
+    the value is the global batch's loss on every rank, and its gradient
+    is this rank's share of the global gradient (summed over the mesh by
+    ``make_train_step``)."""
     logits, aux = llama_forward(params, tokens, config, mesh, with_aux=True)
+    if mesh is not None:
+        return _sharded_next_token_nll(logits, tokens, mesh)
     loss = next_token_nll(logits, tokens)
     if config.n_experts > 0:
         loss = loss + config.moe_aux_coef * aux / max(1, config.n_layers)

@@ -58,6 +58,19 @@ def validate_window(causal: bool, window) -> None:
             raise ValueError(f"window must be >= 1, got {window}")
 
 
+def _block_needed(blk_q: int, blk_k: int, q_start, k_start, causal, window) -> bool:
+    """Whether a (q block, k block) pair at these global starts can
+    contribute any unmasked entry (the reference's ``_block_needed``).
+    The kernels' tile walk and the ring's hop skip both follow it, so the
+    ring never skips a block a kernel would have attended."""
+    if not causal:
+        return True
+    needed = k_start <= q_start + blk_q - 1  # not wholly in the future
+    if window is not None:
+        needed = needed and k_start + blk_k - 1 >= q_start - window + 1
+    return bool(needed)
+
+
 def block_n(head_dim: int) -> int:
     """Keys per K/V tile of the forward kernel at ``head_dim``."""
     return BLOCK_N_HD256 if head_dim == 256 else BLOCK_N

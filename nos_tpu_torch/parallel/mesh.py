@@ -1,0 +1,87 @@
+"""Device meshes over ``torch.distributed`` ranks.
+
+Counterpart of ``nos_tpu/parallel/mesh.py``. The reference's ``Mesh``
+is a grid of JAX devices seen by one program; here a mesh is a
+``DeviceMesh`` over the processes of the default group, one rank a
+process, with the reference's axis names and order (``dp``, ``sp``,
+``tp``). Each rank runs the same program on its own block (explicit
+SPMD), so the helpers below give a rank its coordinate, the size of an
+axis and the process group along it.
+
+``partition_spec`` has no counterpart: nothing here annotates a global
+array for a compiler to shard; a rank holds its block and the
+collectives are written out (``parallel/comm.py``). ``mesh_for_slice``
+builds the reference's ``('dp', 'tp')`` mesh from a slice topology and
+waits for tensor parallelism (ROADMAP Queue 1 item 9).
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence
+
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from nos_tpu_torch import _resolve_device
+
+AXES = ("dp", "sp", "tp")
+
+
+def mesh_from_devices(
+    axis_shapes: Sequence[int],
+    axis_names: Sequence[str],
+    device=None,
+) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``axis_shapes`` over the ranks of the default
+    group (initialised first: ``parallel/distributed.py:initialize``),
+    on ``cuda`` unless the caller names another device type."""
+    need = math.prod(axis_shapes)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have < need:
+        raise ValueError(
+            f"need {need} devices for mesh {tuple(axis_shapes)}, have {have}"
+        )
+    return init_device_mesh(_resolve_device(device).type, tuple(axis_shapes),
+                            mesh_dim_names=tuple(axis_names))
+
+
+def default_training_mesh(device=None) -> DeviceMesh:
+    """``('dp', 'sp', 'tp')`` over every rank: sp takes 2 where the rank
+    count is even and the rest folds into dp. The reference also gives tp
+    2; here tp stays 1 until tensor parallelism is ported (ROADMAP Queue 1
+    item 9)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    sp = 2 if n % 2 == 0 else 1
+    return mesh_from_devices((n // sp, sp, 1), AXES, device)
+
+
+def mesh_for_slice(topology: str, dp: Optional[int] = None, devices=None):
+    """The reference's ``('dp', 'tp')`` mesh over one slice: not yet."""
+    raise NotImplementedError(
+        "mesh_for_slice builds a tensor-parallel mesh, which is not ported "
+        "yet (ROADMAP Queue 1 item 9: multi-device)"
+    )
+
+
+def axis_size(mesh: Optional[DeviceMesh], name: str) -> int:
+    """The size of axis ``name``; 1 when the mesh is None or lacks it."""
+    if mesh is None or name not in (mesh.mesh_dim_names or ()):
+        return 1
+    return mesh.shape[mesh.mesh_dim_names.index(name)]
+
+
+def axis_index(mesh: Optional[DeviceMesh], name: str) -> int:
+    """This rank's coordinate along ``name`` (``lax.axis_index``); 0 when
+    the mesh is None or lacks the axis."""
+    if axis_size(mesh, name) == 1:
+        return 0
+    return mesh.get_local_rank(name)
+
+
+def mesh_groups(mesh: Optional[DeviceMesh]) -> List:
+    """The groups of the mesh's axes longer than 1: an all-reduce over
+    each in turn reduces over the whole mesh."""
+    if mesh is None:
+        return []
+    return [mesh.get_group(name) for name in mesh.mesh_dim_names
+            if axis_size(mesh, name) > 1]

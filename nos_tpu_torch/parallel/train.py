@@ -1,9 +1,17 @@
-"""The training step on one device.
+"""The training step, on one device or over a ``dp`` × ``sp`` mesh.
 
-Counterpart of ``nos_tpu/parallel/train.py:make_train_step`` without a
-mesh: loss → gradients → optimizer update. There is no ``jit`` and no
-sharding; the step runs eagerly on one device, and ``attention="flash"``
-takes its gradients from the hand-written backward kernels.
+Counterpart of ``nos_tpu/parallel/train.py:make_train_step``: loss →
+gradients → optimizer update. There is no ``jit``; the step runs
+eagerly, and ``attention="flash"`` takes its gradients from the
+hand-written backward kernels (in block mode on the ring).
+
+Under a ``DeviceMesh`` with axes ``dp`` and ``sp`` (``tp`` of size 1)
+every rank holds the whole params tree and its optimizer state
+(replicated), runs ``llama_loss`` on its ``[B/dp, S/sp]`` token block,
+and sums its share of the global-mean gradient over the whole mesh in
+f32 (``comm.all_reduce``) before the one update every rank applies
+alike. Still raising (ROADMAP Queue 1 item 9): FSDP and tensor
+parallelism, so ``optimizer_state_sharding`` too.
 
 State is ``(params, velocity)`` for the built-in momentum SGD, whose
 velocity tree has the params' structure, or ``(params, optimizer)`` with
@@ -19,10 +27,54 @@ from nos_tpu_torch import _resolve_device
 from nos_tpu_torch.models.llama import (
     LlamaConfig,
     Params,
+    _check_mesh,
     llama_loss,
     tree_leaves,
     tree_map,
 )
+from nos_tpu_torch.parallel.comm import all_reduce
+from nos_tpu_torch.parallel.mesh import mesh_groups
+
+# Gradients cross the mesh in f32 buckets of about this many elements
+# (256 MB), so the f32 copy never holds the whole tree at once.
+BUCKET_ELEMENTS = 1 << 26
+
+
+def optimizer_state_sharding(opt_state, param_sharding, mesh):
+    """The reference shards optimizer state like the params (FSDP); not
+    yet: under a dp / sp mesh the state is replicated."""
+    raise NotImplementedError(
+        "optimizer state sharding (FSDP) is not ported yet "
+        "(ROADMAP Queue 1 item 9: multi-device)"
+    )
+
+
+def _sum_over_mesh(grads, params, groups):
+    """Each gradient summed over ``groups`` in f32, in buckets of about
+    BUCKET_ELEMENTS, then rounded once to its param's dtype."""
+    out = [None] * len(grads)
+    bucket: list = []
+
+    def flush():
+        flat = torch.cat([grads[i].float().reshape(-1) for i in bucket])
+        flat = all_reduce(flat, groups)
+        at = 0
+        for i in bucket:
+            n = grads[i].numel()
+            out[i] = flat[at:at + n].view(grads[i].shape).to(params[i].dtype)
+            at += n
+        bucket.clear()
+
+    size = 0
+    for i, g in enumerate(grads):
+        bucket.append(i)
+        size += g.numel()
+        if size >= BUCKET_ELEMENTS:
+            flush()
+            size = 0
+    if bucket:
+        flush()
+    return out
 
 
 def make_train_step(
@@ -37,6 +89,14 @@ def make_train_step(
     """Returns ``(train_step, shard_state)`` where
     ``train_step(state, tokens) -> (state, loss)``, ``loss`` a 0-d tensor
     on the device (no host sync).
+
+    ``mesh``: None for one device, or a ``DeviceMesh`` over ``dp`` /
+    ``sp`` (see the module docstring). Under a mesh ``tokens`` is this
+    rank's block of the global batch, ``[accum_steps * B/dp, S/sp]``
+    (``sharding.llama_data_sharding``, or ``BatchLoader(mesh=...)``
+    through ``prefetch_to_device(mesh=...)``), the loss is the global
+    batch's on every rank, and the params given to ``shard_state`` must
+    be the same on every rank (one seed, one checkpoint).
 
     Built-in update (``optimizer=None``, state ``(params, velocity)``):
     ``v = momentum * v + g``, ``p -= learning_rate * v``, each rounded to
@@ -55,11 +115,8 @@ def make_train_step(
     gradients summed in f32, scaled by 1 / accum_steps and cast back to
     the param dtype before one update; the loss is the micro-batch mean.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh / sharded training is not ported yet "
-            "(ROADMAP Queue 1 item 9: multi-device)"
-        )
+    _check_mesh(mesh, config)
+    groups = mesh_groups(mesh)
     if optimizer is not None and (learning_rate != 1e-3 or momentum != 0.9):
         raise ValueError(
             "learning_rate/momentum configure the built-in SGD update; an "
@@ -72,8 +129,11 @@ def make_train_step(
 
     def grads_of(params: Params, leaves, tokens):
         if accum_steps == 1:
-            loss = llama_loss(params, tokens, config)
-            return loss.detach(), torch.autograd.grad(loss, leaves)
+            loss = llama_loss(params, tokens, config, mesh)
+            grads = torch.autograd.grad(loss, leaves)
+            if groups:
+                grads = _sum_over_mesh(grads, leaves, groups)
+            return loss.detach(), grads
         total_b = tokens.shape[0]
         if total_b % accum_steps:
             raise ValueError(
@@ -83,13 +143,15 @@ def make_train_step(
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in leaves]
         for batch in micro:
-            loss = llama_loss(params, batch, config)
+            loss = llama_loss(params, batch, config, mesh)
             for acc, g in zip(g_sum, torch.autograd.grad(loss, leaves)):
                 acc += g.float()
             loss_sum += loss.detach()
         scale = 1.0 / accum_steps
-        grads = [(g * scale).to(p.dtype) for g, p in zip(g_sum, leaves)]
-        return loss_sum * scale, grads
+        g_sum = [g.mul_(scale) for g in g_sum]
+        if groups:
+            return loss_sum * scale, _sum_over_mesh(g_sum, leaves, groups)
+        return loss_sum * scale, [g.to(p.dtype) for g, p in zip(g_sum, leaves)]
 
     def train_step(state, tokens):
         params, opt = state

@@ -53,7 +53,7 @@ from nos_tpu_torch.models.generate import (
     pick_tokens_per_row,
     prefill,
 )
-from nos_tpu_torch.models.llama import LlamaConfig, _check_mesh, params_device
+from nos_tpu_torch.models.llama import LlamaConfig, params_device
 from nos_tpu_torch.models.lora import n_adapters, with_adapter_rows
 from nos_tpu_torch.serve.telemetry import ServeClock, ServeTelemetry
 from nos_tpu_torch.util import metrics
@@ -118,7 +118,11 @@ class Engine:
         telemetry: Optional[ServeTelemetry] = None,
         clock: Optional[ServeClock] = None,
     ) -> None:
-        _check_mesh(mesh)
+        if mesh is not None:
+            raise NotImplementedError(
+                "serving under a mesh (tensor-parallel serving) is not ported yet "
+                "(ROADMAP Queue 1 item 9: multi-device)"
+            )
         self.params = params
         self.config = config
         self.device = params_device(params)

@@ -346,6 +346,85 @@ def test_gemma_train_step_launches_the_hd256_kernels(cuda_device):
     assert not torch.equal(state[0]["layers"][0]["wq"], before)
 
 
+# The ring's block calls at the card's shapes, in one process: rank r of
+# sp holds queries [r·L, (r+1)·L); its forward runs the block kernel
+# against every K/V block the mask does not hide (``_block_skippable``)
+# at q_offset r·L, kv_offset j·L, own block first, and merges the f32
+# partials; its backward runs the dQ and dK/dV kernels per block with f32
+# outputs and the one delta, dK/dV summed per block over the ranks. Over
+# all ranks that is the whole-sequence kernel path. Each block call is
+# also held against its plain version on the same inputs (the merged out
+# and lse, the one delta), so the kernels are checked against more than
+# each other.
+_RING_CASES = [
+    (4, 2048, 32, 8, 128, None),  # Llama-3-8B's heads
+    (4, 2048, 32, 8, 128, 512),   # a band: rank 3 skips blocks 0 and 1
+    (2, 1024, 8, 1, 256, None),   # Gemma-2B's heads, MQA at head_dim 256
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp,s,hq,hkv,hd,window", _RING_CASES)
+def test_ring_block_calls_compose_to_the_whole_sequence_on_card(
+        cuda_device, sp, s, hq, hkv, hd, window):
+    from nos_tpu_torch.parallel.ring_attention import _block_skippable
+
+    gen = torch.Generator(device=cuda_device).manual_seed(sp + hd)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+                   for shape in ((1, s, hq, hd), (1, s, hkv, hd), (1, s, hkv, hd),
+                                 (1, s, hq, hd)))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = fa.flash_attention(*leaves, window=window)
+    wdq, wdk, wdv = torch.autograd.grad(want, leaves, do)
+    want = want.detach()
+    n = s // sp
+    dk = torch.zeros(k.shape, device=cuda_device)
+    dv = torch.zeros(v.shape, device=cuda_device)
+    counts = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    n_blocks = 0
+    for r in range(sp):
+        rows = slice(r * n, (r + 1) * n)
+        blocks = [(r - i) % sp for i in range(sp)
+                  if not _block_skippable((r - i) % sp, r, n, n, True, window)]
+        n_blocks += len(blocks)
+        out = lse = None
+        for j in blocks:
+            args = (q[:, rows], k[:, j * n:(j + 1) * n], v[:, j * n:(j + 1) * n],
+                    r * n, j * n)
+            o, l = fa.flash_attention_block(*args, window=window)
+            o_ref, l_ref = fa.flash_attention_reference(*args, window=window)
+            assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
+            assert torch.equal(torch.isneginf(l), torch.isneginf(l_ref))
+            fin = torch.isfinite(l_ref)
+            assert float((l[fin] - l_ref[fin]).abs().max()) <= 1e-3
+            out, lse = (o.float(), l) if out is None else fa.merge_flash_partials(
+                out, lse, o, l)
+        out = out.to(torch.bfloat16)
+        assert float((out.float() - want[:, rows].float()).abs().max()) <= 2e-2
+        delta = fa.flash_delta(do[:, rows], out)
+        dq = torch.zeros(q[:, rows].shape, device=cuda_device)
+        for j in blocks:
+            cols = slice(j * n, (j + 1) * n)
+            args = (q[:, rows], k[:, cols], v[:, cols], out, lse, do[:, rows],
+                    r * n, j * n)
+            kw = dict(window=window, grad_dtype=torch.float32, delta=delta)
+            g = fa.flash_block_grads(*args, **kw)
+            assert all(t.dtype == torch.float32 for t in g)
+            assert all(_close(a, b) for a, b in
+                       zip(g, fa.flash_attention_bwd_reference(*args, **kw)))
+            dq += g[0]
+            dk[:, cols] += g[1]
+            dv[:, cols] += g[2]
+        assert _close(dq.to(torch.bfloat16), wdq[:, rows])
+    assert _close(dk.to(torch.bfloat16), wdk) and _close(dv.to(torch.bfloat16), wdv)
+    torch.cuda.synchronize()
+    # causal: rank r runs r + 1 blocks unbanded
+    if window is None:
+        assert n_blocks == sp * (sp + 1) // 2
+    assert (fa.LAUNCHES - counts[0], fa.DQ_LAUNCHES - counts[1],
+            fa.DKV_LAUNCHES - counts[2]) == (n_blocks,) * 3
+
+
 def _tiny_f32(device):
     from nos_tpu_torch.models.llama import init_llama_params, tiny_config
 
