@@ -157,7 +157,33 @@ that fails a check raises, and the spawn fails the script:
     velocity and recovered from the parameter delta (lr 1e4), within 3%
     of the kind's largest, the replicas' agreement, launches L·(s + 1)
     of each kernel on sp index s (the forward's twice under remat), and
-    the host-staged gradient sum timed apart from the rest of the step.
+    the host-staged gradient sum timed apart from the rest of the step
+    (at dp 2 the params are FSDP shards, gathered leaf by leaf for the
+    comparison);
+
+and last the tensor-parallel paths, on ranks spawned the same way:
+
+23. tp_forward: Llama-3-8B's llama_forward over tp 2 at full depth on
+    [1, 2048] (each rank at its Hq 16, Hkv 4) and over tp 4 at
+    TP4_FORWARD_LAYERS layers (Hq 8, Hkv 2), against the one-device
+    flash forward under forward_check's limits, one forward launch a
+    layer on each rank, the gathered logits the same on every rank;
+24. tp_generate / tp_engine: at full depth over tp 2, greedy generate()
+    on [2, 512] + 16 (32 forward launches a rank in its prefill) and an
+    Engine over the head-sharded cache answering four requests (padded
+    and chunked admission), then the int8 tree through
+    shard_for_serving: the same tokens on every rank, each request's
+    first token held to the one-device Engine's (or a near tie), the
+    share of equal tokens reported, each rank's weight and cache bytes;
+25. tp_train: TP_TRAIN_LAYERS layers at full width on [4, 2048], dp 2 x
+    tp 2 with FSDP and remat, one momentum-SGD step against the
+    one-device step under the sp_train bars (loss within TP_LOSS_LIMIT),
+    launches 2L / L / L a rank, a rank's params a quarter of the whole
+    plus its norms, the step's host time split by collective kind
+    (comm.timed_collectives) and a second step without the split;
+26. checkpoint: that state saved as DTensor shards and restored onto a
+    ('tp',) mesh of 4 and onto one device, every gathered leaf
+    bit-identical to the saved one; save and restore seconds and bytes.
 
 Every line but the last two is a JSON object; the card's name and power
 limit (nvidia-smi) come second to last, and the last line is
@@ -1930,36 +1956,79 @@ def sp_forward_case(rank, world, card, seq) -> dict:
     return row
 
 
-def sp_train_against_one_device(state, loss: float, ref) -> dict:
-    """The sp step's state against the one-device step's (``ref``: its
-    loss, and host copies of the initial params, the updated params and
-    the velocity): each leaf kind's gradient read from the velocity and
-    recovered from the parameter delta, as max |g_mesh - g_one| over the
-    kind's largest |g_one|. A function of its own, so its device
-    temporaries are gone before the next mesh's step."""
+def mesh_against_one_device(state, loss: float, ref, mesh, lr: float) -> dict:
+    """A mesh step's state against the one-device step's (``ref``, on rank
+    0: its loss, and host copies of the initial params, the updated params
+    and the velocity), leaf by leaf: each shard gathered whole over the
+    mesh (a collective: every rank calls this), then on rank 0 each leaf
+    kind's gradient read from the velocity and recovered from the
+    parameter delta, as max |g_mesh - g_one| over the kind's largest
+    |g_one|. The gathered velocity's checksum, the same on every rank,
+    shows the ranks' shards make one state. A function of its own, so its
+    device temporaries are gone before the next mesh's step."""
     import torch
 
     from nos_tpu_torch.models.llama import tree_leaves
+    from nos_tpu_torch.parallel.sharding import gather_shard, rule_leaves, tree_rules
 
     g_diff, g_ref, d_diff, d_ref = {}, {}, {}, {}
-    velocity = tree_leaves(state[1])
-    for (kind, p1), v, v_ref, p1_ref, p0 in zip(named_leaves(state[0]), velocity,
-                                               ref["v"], ref["p1"], ref["p0"]):
-        v_ref = v_ref.cuda().float()
+    specs = rule_leaves(tree_rules(state[0], mesh))
+    checksum, finite = 0.0, True
+    for i, ((kind, p1), v, spec) in enumerate(zip(named_leaves(state[0]),
+                                                  tree_leaves(state[1]), specs)):
+        v = gather_shard(v, spec, mesh)
+        p1 = gather_shard(p1.detach(), spec, mesh)
+        checksum += float(v.double().sum())
+        finite = finite and bool(torch.isfinite(v).all())
+        if ref is None:
+            continue
+        v_ref = ref["v"][i].cuda().float()
         g_diff[kind] = max(g_diff.get(kind, 0.0), float((v.float() - v_ref).abs().max()))
         g_ref[kind] = max(g_ref.get(kind, 0.0), float(v_ref.abs().max()))
-        p0 = p0.cuda().float()
-        delta = (p0 - p1.detach().float()) / SP_TRAIN_LR
-        delta_ref = (p0 - p1_ref.cuda().float()) / SP_TRAIN_LR
+        p0 = ref["p0"][i].cuda().float()
+        delta = (p0 - p1.float()) / lr
+        delta_ref = (p0 - ref["p1"][i].cuda().float()) / lr
         d_diff[kind] = max(d_diff.get(kind, 0.0), float((delta - delta_ref).abs().max()))
         d_ref[kind] = max(d_ref.get(kind, 0.0), float(delta_ref.abs().max()))
-    return {"one_device_loss": ref["loss"], "one_device_step_ms": ref["ms"],
-            "loss_abs_diff": abs(loss - ref["loss"]), "loss_limit": SP_LOSS_LIMIT,
-            "grad_rel_err": {k: g_diff[k] / g_ref[k] for k in g_diff},
-            "grad_from_param_delta_rel_err": {k: d_diff[k] / d_ref[k] if d_ref[k] else None
-                                              for k in d_diff},
-            "grad_rel_limit": SP_GRAD_REL_LIMIT,
-            "finite": all(bool(torch.isfinite(x).all()) for x in velocity)}
+    out = {"velocity_checksum": checksum, "finite": finite}
+    if ref is not None:
+        out.update({"one_device_loss": ref["loss"], "one_device_step_ms": ref["ms"],
+                    "loss_abs_diff": abs(loss - ref["loss"]),
+                    "grad_rel_err": {k: g_diff[k] / g_ref[k] for k in g_diff},
+                    "grad_from_param_delta_rel_err": {
+                        k: d_diff[k] / d_ref[k] if d_ref[k] else None for k in d_diff}})
+    return out
+
+
+def one_device_step(cfg, tokens, seed, lr) -> dict:
+    """The one-device make_train_step(None) step (no remat) from the
+    params of ``seed``: its loss and ms, and host copies of the initial
+    params, the updated params and the velocity."""
+    import torch
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import make_train_step
+
+    step, shard = make_train_step(None, cfg, learning_rate=lr)
+    state = shard(llama.init_llama_params(cfg, seed=seed, device="cuda"), donate=True)
+    p0 = [p.detach().to("cpu", copy=True) for p in llama.tree_leaves(state[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, tokens)
+    torch.cuda.synchronize()
+    ref = {"loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3, "p0": p0,
+           "p1": [p.detach().cpu() for p in llama.tree_leaves(state[0])],
+           "v": [x.cpu() for x in llama.tree_leaves(state[1])]}
+    del state
+    torch.cuda.empty_cache()
+    return ref
+
+
+def held_to_one_device(row, limit_loss: float) -> bool:
+    from_delta = list(row["grad_from_param_delta_rel_err"].values())
+    return (row["finite"] and row["loss_abs_diff"] <= limit_loss
+            and max(row["grad_rel_err"].values()) <= SP_GRAD_REL_LIMIT
+            and None not in from_delta and max(from_delta) <= SP_GRAD_REL_LIMIT)
 
 
 def sp_train_case(rank, world, card, layers, tokens_shape, meshes) -> list:
@@ -1986,20 +2055,7 @@ def sp_train_case(rank, world, card, layers, tokens_shape, meshes) -> list:
                               attention="flash")
     gen = torch.Generator(device="cuda").manual_seed(41)
     tokens = torch.randint(0, cfg.vocab_size, tokens_shape, generator=gen, device="cuda")
-    ref = None
-    if rank == 0:
-        step, shard = make_train_step(None, cfg, learning_rate=SP_TRAIN_LR)
-        state = shard(llama.init_llama_params(cfg, seed=41, device="cuda"), donate=True)
-        p0 = [p.detach().to("cpu", copy=True) for p in llama.tree_leaves(state[0])]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, loss = step(state, tokens)
-        torch.cuda.synchronize()
-        ref = {"loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3, "p0": p0,
-               "p1": [p.detach().cpu() for p in llama.tree_leaves(state[0])],
-               "v": [x.cpu() for x in llama.tree_leaves(state[1])]}
-        del state
-        torch.cuda.empty_cache()
+    ref = one_device_step(cfg, tokens, 41, SP_TRAIN_LR) if rank == 0 else None
     dist.barrier()
     rows = []
     for *dims, remat in meshes:
@@ -2022,10 +2078,9 @@ def sp_train_case(rank, world, card, layers, tokens_shape, meshes) -> list:
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         launches = counts()
-        velocity = llama.tree_leaves(state[1])
-        checksum = float(sum(x.double().sum() for x in velocity))
+        compared = mesh_against_one_device(state, float(loss), ref, mesh, SP_TRAIN_LR)
         sums = [None] * world
-        dist.all_gather_object(sums, checksum)
+        dist.all_gather_object(sums, compared.pop("velocity_checksum"))
         row = {"phase": "sp_train", "config": "llama_3_8b", "layers": layers,
                "mesh": {"dp": dims[0], "sp": dims[1]}, "remat": remat, "rank": rank,
                "transport": comm.transport(mesh.get_group("sp"), "cuda"),
@@ -2041,18 +2096,17 @@ def sp_train_case(rank, world, card, layers, tokens_shape, meshes) -> list:
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "card_free_gib_after_step": torch.cuda.mem_get_info()[0] / 2**30,
                "card": card}
+        row.update(compared)
         ok = row["replicas_agree"] and list(launches) == row["expected_launches"]
         if rank == 0:
-            row.update(sp_train_against_one_device(state, float(loss), ref))
-            from_delta = list(row["grad_from_param_delta_rel_err"].values())
-            ok = (ok and row["finite"] and row["loss_abs_diff"] <= SP_LOSS_LIMIT
-                  and max(row["grad_rel_err"].values()) <= SP_GRAD_REL_LIMIT
-                  and None not in from_delta and max(from_delta) <= SP_GRAD_REL_LIMIT)
+            row["grad_rel_limit"] = SP_GRAD_REL_LIMIT
+            row["loss_limit"] = SP_LOSS_LIMIT
+            ok = ok and held_to_one_device(row, SP_LOSS_LIMIT)
         row["ok"] = ok
         if not ok:
             sp_fail(row, f"sp_train {dims}")
         rows.append(row)
-        del state, velocity
+        del state
         torch.cuda.empty_cache()
         dist.barrier()
     return rows
@@ -2114,6 +2168,427 @@ def sp_phases(card) -> dict:
             "_remat" if row["remat"] else "")
         launches.setdefault(key, []).append(row["launches_fwd_dq_dkv"])
     return {"launches": launches, "ring": ring_rows}
+
+
+# Tensor parallelism and FSDP, on ranks sharing the card over gloo
+TP_FORWARD_SEQ = 2048    # Llama-3-8B at full depth, tp 2 (Hq 16, Hkv 4 a rank)
+TP4_FORWARD_LAYERS = 8   # tp 4 (Hq 8, Hkv 2): four ranks each init the whole tree
+TP_ENGINE_NEW = 16       # tokens a request, four requests
+TP_TRAIN_LAYERS = 4
+TP_TRAIN_TOKENS = (4, 2048)
+TP_LOSS_LIMIT = 1e-3
+
+
+def local_heads(shards, cfg) -> list:
+    """The rank's (query, kv) heads, read off its wq / wk shards."""
+    layer = shards["layers"][0]
+
+    def columns(leaf):
+        return (leaf if hasattr(leaf, "shape") else leaf.q).shape[-1]
+
+    return [columns(layer["wq"]) // cfg.head_dim, columns(layer["wk"]) // cfg.head_dim]
+
+
+def same_on_every_rank(value, world: int) -> bool:
+    import torch.distributed as dist
+
+    got = [None] * world
+    dist.all_gather_object(got, value)
+    return all(g == got[0] for g in got)
+
+
+def tp_forward_case(rank, world, card, seq, layers=None) -> dict:
+    """Llama-3-8B at full width (``layers`` deep; all 32 by default,
+    random weights from a seed, bf16, flash): llama_forward over a
+    ``('tp',)`` mesh of ``world`` ranks on [1, seq], each rank on its
+    shards (its n_heads/tp and n_kv_heads/tp heads), against the
+    one-device flash forward of the whole tree (rank 0) under
+    forward_check's limits; the forward kernel's launches on each rank
+    (one a layer at the local heads), the gathered logits the same bytes
+    on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.models.quantize import weight_bytes
+    from nos_tpu_torch.parallel import comm, mesh as pm
+    from nos_tpu_torch.parallel.sharding import shard_params
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash",
+                              **({"n_layers": layers} if layers else {}))
+    params = llama.init_llama_params(cfg, seed=61, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen, device="cuda")
+    mesh = pm.mesh_from_devices((world,), ("tp",))
+    with torch.no_grad():
+        want = llama.llama_forward(params, tokens, cfg) if rank == 0 else None
+        shards = shard_params(params, mesh, cfg)
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        dist.barrier()
+        zero_counts()  # the tp path
+        t0 = time.perf_counter()
+        got = llama.llama_forward(shards, tokens, cfg, mesh)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = counts()
+    row = {"phase": "tp_forward", "config": "llama_3_8b", "rank": rank, "tp": world,
+           "layers": cfg.n_layers, "tokens": [1, seq],
+           "transport": comm.transport(mesh.get_group("tp"), "cuda"),
+           "local_heads_q_kv": local_heads(shards, cfg),
+           "launches_fwd_dq_dkv": list(launches),
+           "expected_launches": [cfg.n_layers, 0, 0],
+           "same_logits_every_rank": same_on_every_rank(float(got.double().sum()), world),
+           "weight_bytes_rank": weight_bytes(shards),
+           "wall_ms_gloo_host_staged": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card}
+    ok = (list(launches) == row["expected_launches"] and row["same_logits_every_rank"]
+          and row["local_heads_q_kv"] == [cfg.n_heads // world, cfg.n_kv_heads // world])
+    if rank == 0:
+        stats = logits_agreement(got, want)
+        row.update(stats, rel_limit=FWD_REL_LIMIT, probs_limit=FWD_PROB_LIMIT,
+                   argmax_limit=FWD_ARGMAX_LIMIT)
+        ok = ok and logits_hold(stats)
+    row["ok"] = ok
+    if not ok:
+        sp_fail(row, f"tp_forward tp {world}")
+    return row
+
+
+def serve_requests(tree, cfg, prompts, new_tokens, mesh=None) -> dict:
+    """An Engine (4 slots, max_len 512, 256-token pieces) over ``tree``
+    answering ``prompts``: completions in submit order, seconds, and the
+    engine's weight and cache bytes on this rank."""
+    import torch
+
+    from nos_tpu_torch.models.quantize import weight_bytes
+    from nos_tpu_torch.serve import Engine, GenRequest
+
+    eng = Engine(tree, cfg, max_slots=4, max_len=512, prefill_chunk=256, mesh=mesh)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.submit(GenRequest(prompt=p, max_new_tokens=new_tokens)) for p in prompts]
+        got = eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    cache = sum(t.numel() * t.element_size() for layer in eng._cache for t in layer.values())
+    return {"tokens": [got[i] for i in ids], "seconds": seconds,
+            "weight_bytes": weight_bytes(tree), "cache_bytes": cache,
+            "cache_heads": eng._cache[0]["k"].shape[2]}
+
+
+def first_token_held(tokens, first_probs) -> list:
+    """Per request: its first token is the one-device argmax, or within
+    FWD_PROB_LIMIT of the argmax's probability there (a near tie that
+    bf16 summation order may break either way)."""
+    return [bool(p[t[0]] >= p.max() - FWD_PROB_LIMIT) for t, p in zip(tokens, first_probs)]
+
+
+def agreement(got, want) -> float:
+    pairs = [(a, b) for x, y in zip(got, want) for a, b in zip(x, y)]
+    return sum(a == b for a, b in pairs) / len(pairs)
+
+
+def tp_engine_case(rank, world, card, new_tokens) -> list:
+    """Llama-3-8B at full width and depth (bf16, flash) served over a
+    ``('tp',)`` mesh of ``world`` ranks: greedy generate() on [2, 512]
+    (its unpadded prefill launches the forward kernel once a layer at the
+    local heads) and an Engine over the head-sharded cache answering four
+    requests (padded and chunked admission), then the same Engine over
+    the int8 tree through shard_for_serving. Every rank's completions are
+    the same; against the one-device Engine (rank 0) the share of equal
+    tokens is reported, bf16 summation order differing, and each
+    request's first token is held (the one-device argmax or a near tie)."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import generate as gen_mod
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.models.quantize import quantize_params
+    from nos_tpu_torch.parallel import mesh as pm
+    from nos_tpu_torch.serve import shard_for_serving
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash")
+    params = llama.init_llama_params(cfg, seed=63, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(63)
+    pool = torch.randint(1, cfg.vocab_size, (700,), generator=gen, device="cuda").tolist()
+    prompts = [pool[:20], pool[20:120], pool[120:320], pool[320:620]]
+    prompt = torch.randint(1, cfg.vocab_size, (2, 512), generator=gen, device="cuda")
+    mesh = pm.mesh_from_devices((world,), ("tp",))
+    one, first_probs = {}, None
+    if rank == 0:
+        with torch.no_grad():
+            one["generate"] = gen_mod.generate(params, prompt, cfg, new_tokens).tolist()
+            first_probs = [torch.softmax(gen_mod.prefill(
+                params, torch.tensor([p], device="cuda"), cfg, len(p))[0][0, -1], -1).cpu()
+                for p in prompts]
+        one["bf16"] = serve_requests(params, cfg, prompts, new_tokens)
+    dist.barrier()
+    q8 = quantize_params(params)
+    if rank == 0:
+        one["int8"] = serve_requests(q8, cfg, prompts, new_tokens)
+    dist.barrier()
+    trees = {"int8": shard_for_serving(q8, mesh, cfg)}
+    del q8
+    trees["bf16"] = shard_for_serving(params, mesh, cfg)
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    with torch.no_grad():
+        zero_counts()  # the tp serving path
+        t0 = time.perf_counter()
+        out = gen_mod.generate(trees["bf16"], prompt, cfg, new_tokens, mesh=mesh).tolist()
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = counts()
+    rows = [{"phase": "tp_generate", "config": "llama_3_8b", "rank": rank, "tp": world,
+             "prompt": [2, 512], "new_tokens": new_tokens,
+             "local_heads_q_kv": local_heads(trees["bf16"], cfg),
+             "launches_fwd_dq_dkv": list(launches),
+             "expected_launches": [cfg.n_layers, 0, 0],
+             "same_tokens_every_rank": same_on_every_rank(out, world),
+             "seconds_gloo_host_staged": gen_s, "card": card}]
+    for fmt in ("bf16", "int8"):
+        dist.barrier()
+        got = serve_requests(trees[fmt], cfg, prompts, new_tokens, mesh)
+        rows.append({"phase": "tp_engine", "config": "llama_3_8b", "format": fmt,
+                     "rank": rank, "tp": world, "requests": len(prompts),
+                     "prompt_tokens": [len(p) for p in prompts], "new_tokens": new_tokens,
+                     "same_tokens_every_rank": same_on_every_rank(got["tokens"], world),
+                     "seconds_gloo_host_staged": got["seconds"],
+                     "weight_bytes_rank": got["weight_bytes"],
+                     "cache_bytes_rank": got["cache_bytes"],
+                     "cache_heads_rank": got["cache_heads"], "card": card})
+        if rank == 0:
+            rows[-1].update(
+                one_device_seconds=one[fmt]["seconds"],
+                one_device_weight_bytes=one[fmt]["weight_bytes"],
+                one_device_cache_bytes=one[fmt]["cache_bytes"],
+                token_agreement_with_one_device=agreement(got["tokens"], one[fmt]["tokens"]),
+                first_token_equal=[a[0] == b[0] for a, b in
+                                   zip(got["tokens"], one[fmt]["tokens"])])
+            if fmt == "bf16":
+                rows[-1]["first_token_held"] = first_token_held(got["tokens"], first_probs)
+        rows[-1]["tokens_ok"] = all(len(seq) == new_tokens and all(
+            0 <= t < cfg.vocab_size for t in seq) for seq in got["tokens"])
+    if rank == 0:
+        rows[0]["token_agreement_with_one_device"] = agreement(out, one["generate"])
+    ok = (list(launches) == rows[0]["expected_launches"]
+          and rows[0]["same_tokens_every_rank"]
+          and rows[0]["local_heads_q_kv"] == [cfg.n_heads // world, cfg.n_kv_heads // world]
+          and all(r["same_tokens_every_rank"] and r["tokens_ok"]
+                  and r["cache_heads_rank"] == cfg.n_kv_heads // world
+                  and all(r.get("first_token_held", [True])) for r in rows[1:]))
+    for r in rows:
+        r["ok"] = ok
+    if not ok:
+        sp_fail(rows[0], f"tp_engine: {json.dumps(rows)}")
+    return rows
+
+
+def tp_train_case(rank, world, card, layers, tokens_shape, ckpt_dir) -> list:
+    """Llama-3-8B at full width and ``layers`` deep (bf16, flash): one
+    momentum-SGD step from zero velocity on a ``('dp', 'tp')`` 2 x 2 mesh
+    with FSDP and remat, against the one-device make_train_step(None) step
+    (rank 0 runs it first, alone) under the sp_train bars (the loss within
+    TP_LOSS_LIMIT); the launches of each kernel (forward 2·L with the
+    replay, dQ L, dK/dV L); the rank's param bytes and peak; the step's
+    host wall time split by the collectives' kinds (timed_collectives: tp
+    all-reduces and gathers, FSDP gathers and reduce-scatters, the
+    gradient sum) and a second step without the split. Then the
+    checkpoint: the state saved (DTensor shards staged on the host),
+    restored onto a ('tp',) mesh of 4 and onto one device (rank 0), every
+    leaf gathered whole and held bit-identical to the saved one; save and
+    restore seconds and bytes."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import comm, make_train_step, mesh as pm
+    from nos_tpu_torch.parallel.sharding import llama_data_sharding
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), n_layers=layers,
+                              attention="flash")
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    tokens = torch.randint(0, cfg.vocab_size, tokens_shape, generator=gen, device="cuda")
+    ref = one_device_step(cfg, tokens, 71, SP_TRAIN_LR) if rank == 0 else None
+    dist.barrier()
+    mesh = pm.mesh_from_devices((2, 2), ("dp", "tp"))
+    remat_cfg = dataclasses.replace(cfg, remat=True)
+    step, shard = make_train_step(mesh, remat_cfg, learning_rate=SP_TRAIN_LR)
+    state = shard(llama.init_llama_params(cfg, seed=71, device="cuda"), donate=True)
+    torch.cuda.empty_cache()
+    leaves = llama.tree_leaves(state[0])
+    param_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    replicated = sum(p.numel() * p.element_size() for p in leaves if p.dim() == 1)
+    block = llama_data_sharding(mesh, tokens).contiguous()
+    import torch._dynamo  # noqa: F401  (the first checkpointed step imports it)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    zero_counts()  # the tp x FSDP training path
+    with comm.timed_collectives() as times:
+        t0 = time.perf_counter()
+        state, loss = step(state, block)
+        torch.cuda.synchronize()
+        wall_split = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    compared = mesh_against_one_device(state, float(loss), ref, mesh, SP_TRAIN_LR)
+    agree = same_on_every_rank(compared.pop("velocity_checksum"), world)
+    collective_ms = {k: sum(v) for k, v in times.items()}
+    row = {"phase": "tp_train", "config": "llama_3_8b", "layers": layers,
+           "mesh": {"dp": 2, "tp": 2}, "fsdp": True, "remat": True, "rank": rank,
+           "transport": comm.transport(mesh.get_group("tp"), "cuda"),
+           "tokens": list(tokens_shape), "tokens_rank": list(block.shape),
+           "local_heads_q_kv": local_heads(state[0], cfg),
+           "optimizer": f"momentum_sgd(lr={SP_TRAIN_LR}, momentum=0.9)",
+           "loss": float(loss), "launches_fwd_dq_dkv": list(launches),
+           "expected_launches": [2 * layers, layers, layers],
+           "replicas_agree": agree, "param_bytes_rank": param_bytes,
+           "replicated_bytes_rank": replicated, "peak_gib": peak,
+           "step_ms_with_split_gloo_host_staged": wall_split,
+           "collective_ms_gloo_host_staged": collective_ms,
+           "collective_calls": {k: len(v) for k, v in times.items()},
+           "rest_ms": wall_split - sum(collective_ms.values()), **compared,
+           "card_free_gib_after_step": torch.cuda.mem_get_info()[0] / 2**30, "card": card}
+    dist.barrier()
+    t0 = time.perf_counter()
+    state, loss2 = step(state, block)
+    torch.cuda.synchronize()
+    row["second_step_ms_gloo_host_staged"] = (time.perf_counter() - t0) * 1e3
+    row["second_step_loss"] = float(loss2)
+    ok = (agree and list(launches) == row["expected_launches"]
+          and row["local_heads_q_kv"] == [cfg.n_heads // 2, cfg.n_kv_heads // 2])
+    if rank == 0:
+        whole = sum(2 * math.prod(p.shape) for p in ref["p0"])
+        row.update(param_bytes_whole=whole, grad_rel_limit=SP_GRAD_REL_LIMIT,
+                   loss_limit=TP_LOSS_LIMIT)
+        ok = ok and held_to_one_device(row, TP_LOSS_LIMIT) and \
+            param_bytes <= whole / 4 + replicated
+        del ref
+    row["ok"] = ok
+    if not ok:
+        sp_fail(row, "tp_train")
+    rows = [row, tp_checkpoint(rank, world, card, state, mesh, remat_cfg, ckpt_dir)]
+    return rows
+
+
+def tp_checkpoint(rank, world, card, state, mesh, cfg, ckpt_dir) -> dict:
+    """Save ``state`` (the dp x tp shards), restore it onto a ('tp',)
+    mesh of 4 and onto one device, and hold every gathered leaf
+    bit-identical to the saved one."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import checkpoint as ck
+    from nos_tpu_torch.parallel import make_train_step, mesh as pm
+    from nos_tpu_torch.parallel.sharding import gather_shard, rule_leaves, tree_rules
+
+    path = os.path.join(ckpt_dir, "state")
+    dist.barrier()
+    t0 = time.perf_counter()
+    ck.save_checkpoint(path, state, 1, mesh=mesh)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for root, _, files in os.walk(path) for f in files)
+    tp4 = pm.mesh_from_devices((world,), ("tp",))
+    _, shard_b = make_train_step(tp4, cfg, learning_rate=SP_TRAIN_LR)
+    target = shard_b(llama.init_llama_params(cfg, seed=72, device="cuda"), donate=True)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    t0 = time.perf_counter()
+    onto, step_b = ck.restore_checkpoint(path, target, mesh=tp4)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    single, one_s = None, None
+    if rank == 0:
+        _, shard_1 = make_train_step(None, cfg, learning_rate=SP_TRAIN_LR)
+        single = shard_1(llama.init_llama_params(cfg, seed=73, device="cuda"), donate=True)
+        t0 = time.perf_counter()
+        single, _ = ck.restore_checkpoint(path, single)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+    dist.barrier()
+    specs_a = rule_leaves(tree_rules(state[0], mesh))
+    specs_b = rule_leaves(tree_rules(onto[0], tp4))
+    trees_a = [state[0], state[1]]
+    trees_b = [onto[0], onto[1]]
+    mismatched_tp4, mismatched_one, n = 0, 0, 0
+    for t, (ta, tb) in enumerate(zip(trees_a, trees_b)):
+        ones = llama.tree_leaves(single[t]) if single is not None else None
+        for i, (a, b, sa, sb) in enumerate(zip(llama.tree_leaves(ta), llama.tree_leaves(tb),
+                                               specs_a, specs_b)):
+            wa = gather_shard(a.detach(), sa, mesh)
+            wb = gather_shard(b.detach(), sb, tp4)
+            mismatched_tp4 += int(not torch.equal(wa, wb))
+            if ones is not None:
+                mismatched_one += int(not torch.equal(wa, ones[i].detach()))
+            n += 1
+            del wa, wb
+    row = {"phase": "checkpoint", "config": "llama_3_8b", "rank": rank,
+           "saved_mesh": {"dp": 2, "tp": 2}, "restored_mesh": {"tp": world},
+           "leaves": n, "bytes_on_disk": nbytes, "save_s": save_s,
+           "restore_tp4_s": restore_s, "restored_step": step_b,
+           "leaves_differing_tp4": mismatched_tp4, "card": card}
+    ok = mismatched_tp4 == 0 and step_b == 1
+    if rank == 0:
+        row.update(restore_one_device_s=one_s, leaves_differing_one_device=mismatched_one)
+        ok = ok and mismatched_one == 0
+    row["ok"] = ok
+    if not ok:
+        sp_fail(row, "checkpoint")
+    return row
+
+
+def tp_phases(card) -> dict:
+    """The tensor-parallel phases on spawned ranks: tp_forward at tp 2
+    (full depth) and tp_generate / tp_engine (bf16 and int8) on two ranks;
+    tp_forward at tp 4 (TP4_FORWARD_LAYERS deep), tp_train (dp 2 x tp 2,
+    FSDP, remat) and checkpoint (saved, restored onto tp 4 and onto one
+    device) on four. The parent holds no card memory."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    two = sp_spawn(2, [
+        ("tp_forward_case", dict(seq=TP_FORWARD_SEQ)),
+        ("tp_engine_case", dict(new_tokens=TP_ENGINE_NEW)),
+    ], card)
+    t_two = time.time() - t0
+    ckpt_dir = tempfile.mkdtemp(prefix="nos-ckpt-")
+    try:
+        t0 = time.time()
+        four = sp_spawn(4, [
+            ("tp_forward_case", dict(seq=TP_FORWARD_SEQ, layers=TP4_FORWARD_LAYERS)),
+            ("tp_train_case", dict(layers=TP_TRAIN_LAYERS, tokens_shape=TP_TRAIN_TOKENS,
+                                   ckpt_dir=ckpt_dir)),
+        ], card)
+        t_four = time.time() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    forward = [rows[0] for rows in two] + [rows[0] for rows in four]
+    serving = [row for i in range(3) for rows in two for row in [rows[1][i]]]
+    train = [rows[1][0] for rows in four]
+    checkpoint = [rows[1][1] for rows in four]
+    for row in forward + serving + train + checkpoint:
+        emit(row)
+    emit({"phase": "tp_phases", "seconds_two_ranks": t_two, "seconds_four_ranks": t_four,
+          "card": card})
+    launches = {f"tp_forward.tp{row['tp']}": [] for row in forward}
+    for row in forward:
+        launches[f"tp_forward.tp{row['tp']}"].append(row["launches_fwd_dq_dkv"])
+    launches["tp_generate.tp2"] = [row["launches_fwd_dq_dkv"] for row in serving
+                                   if row["phase"] == "tp_generate"]
+    launches["tp_train.dp2_tp2_fsdp_remat"] = [row["launches_fwd_dq_dkv"] for row in train]
+    return {"launches": launches}
 
 
 def sp_launches(sp, index: int, hd256: bool) -> dict:
@@ -2321,6 +2796,9 @@ def main() -> int:
     # -------------------------------------------------------- sp paths
     sp = sp_phases(card)
 
+    # ------------------------------------------------------ tp and FSDP
+    tp = tp_phases(card)
+
     # ----------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "flash_fwd",
@@ -2340,6 +2818,7 @@ def main() -> int:
         "launches_train": train["launches_total_fwd_dq_dkv"][0],
         "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][0],
         "launches_sp_per_rank": sp_launches(sp, 0, False),
+        "launches_tp_per_rank": sp_launches(tp, 0, False),
         "device_ms": main_case["kernel_device_ms"],
         "library_device_ms": main_case["library_device_ms"],
         "ms_train": train_case["kernel_ms"],
@@ -2359,6 +2838,7 @@ def main() -> int:
         "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][index],
         "launches_moe_train_grads": moe_grads["launches_fwd_dq_dkv"][index],
         "launches_sp_per_rank": sp_launches(sp, index, False),
+        "launches_tp_per_rank": sp_launches(tp, index, False),
         "max_abs_err": max(bwd_case[f"{g}_max_abs_err"] for g in grads),
         "ms": bwd_case[f"{key}_ms"],
         "plain_ms": bwd_case["plain_ms"],

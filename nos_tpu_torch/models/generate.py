@@ -16,6 +16,13 @@ Differences from the reference, all deliberate:
   goes, like a pad's, to the sacrificial last slot its contract reserves.
 - Sampling draws from ``torch.Generator``s, not ``jax.random`` keys:
   reproducible per seed, never bitwise equal to the reference.
+- Tensor parallelism: ``prefill`` / ``decode_step`` / ``decode_chunk`` /
+  ``generate`` take ``mesh`` (a ``DeviceMesh`` with a ``tp`` axis; the
+  reference's functions need none, its arrays carry their layout). The
+  params are the rank's shards (``serve/sharded.py:shard_for_serving``),
+  the cache holds the rank's ``n_kv_heads/tp`` heads (``init_kv_cache(...,
+  mesh=)``) and the logits are gathered over tp, so every rank picks the
+  same token from the same bytes; every rank of the mesh calls together.
 
 The int8 KV cache (``quant`` / ``kv_quant``) keeps the reference's
 rounding order: the prompt's own attention runs on the exact fresh K/V,
@@ -36,16 +43,17 @@ from nos_tpu_torch.models.llama import (
     LlamaConfig,
     Params,
     _apply_rope,
-    _embed_rows,
+    _attn_out,
+    _check_mesh,
+    _embed,
     _grouped_scores,
     _grouped_values,
+    _logits,
     _mlp,
-    _mm,
     _qkv,
     _rms_norm,
     _rope,
     _rope_at,
-    _unembed,
     _window_causal_mask,
     llama_forward,
     params_device,
@@ -57,17 +65,27 @@ Cache = List[Dict[str, torch.Tensor]]
 
 def init_kv_cache(
     config: LlamaConfig, batch: int, max_len: int, quant: bool = False,
-    device=None,
+    device=None, mesh=None,
 ) -> Cache:
-    """Per-layer K/V buffers [B, max_len, Hkv, hd] in the model dtype.
+    """Per-layer K/V buffers [B, max_len, Hkv, hd] in the model dtype;
+    under a ``mesh`` with tp the rank's ``Hkv/tp`` heads only (the
+    head-sharded cache: attention is head-local, so cache reads and
+    writes never cross ranks).
 
     ``quant``: int8 K/V with per-(row, slot, head) f32 absmax scales
     ``k_scale`` / ``v_scale`` [B, max_len, Hkv]: half the cache bytes of
     bf16. Lossy on every decode read; the prompt's own prefill attention
     stays exact."""
+    from nos_tpu_torch.parallel.mesh import axis_size
+
     c = config
     dev = _resolve_device(device)
-    shape = (batch, max_len, c.n_kv_heads, c.head_dim)
+    tp = axis_size(mesh, "tp")
+    if c.n_kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide n_kv_heads={c.n_kv_heads} (head-sharded KV cache)"
+        )
+    shape = (batch, max_len, c.n_kv_heads // tp, c.head_dim)
     if not quant:
         return [
             {
@@ -111,13 +129,15 @@ def _cache_kv(k, v, dtype, quant: bool) -> Dict[str, torch.Tensor]:
     return {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
 
 
-def _ffn(h: torch.Tensor, layer: Params, config: LlamaConfig, token_mask=None):
-    """The block's MLP: dense, or the routed mixture for a ``moe`` layer.
-    ``token_mask`` [B, S] keeps pads and dead rows out of the MoE
-    capacity race (a dense MLP is per token, so it needs none)."""
+def _ffn(h: torch.Tensor, layer: Params, config: LlamaConfig, token_mask=None,
+         mesh=None):
+    """The block's MLP: dense (tensor-parallel under a mesh), or the
+    routed mixture for a ``moe`` layer. ``token_mask`` [B, S] keeps pads
+    and dead rows out of the MoE capacity race (a dense MLP is per token,
+    so it needs none)."""
     if "moe" in layer:
         return moe_mlp(layer["moe"], h, config.moe_config(), token_mask=token_mask)
-    return _mlp(h, layer, config.hidden_act)
+    return _mlp(h, layer, config.hidden_act, mesh)
 
 
 def _cache_attention(
@@ -142,7 +162,7 @@ def _cache_attention(
     dev = q.device
     if k_scale is not None:
         cache_k = cache_k.to(q.dtype)
-    scores = _grouped_scores(q, cache_k, c.n_kv_heads)
+    scores = _grouped_scores(q, cache_k, cache_k.shape[2])
     if k_scale is not None:
         scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :]
     scores = scores / math.sqrt(hd)
@@ -178,7 +198,7 @@ def _cache_attention(
 
 def prefill(
     params: Params, tokens: torch.Tensor, config: LlamaConfig, max_len: int,
-    pad_id: Optional[int] = None, quant: bool = False,
+    pad_id: Optional[int] = None, quant: bool = False, *, mesh=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Full forward over the prompt → (logits [B, S, vocab] f32, cache
     holding the prompt's K/V in positions [0, S)).
@@ -188,8 +208,10 @@ def prefill(
     claim no expert capacity. Unpadded prompts run the flash kernel when
     the config asks for it; padded ones need per-key masks the kernel
     does not take and stay dense. ``quant``: an int8 cache; the prompt's
-    own attention still runs on the exact K/V."""
+    own attention still runs on the exact K/V. ``mesh``: tensor-parallel
+    (see the module docstring)."""
     c = config
+    _check_mesh(mesh, c)
     dev = params_device(params)
     tokens = torch.as_tensor(tokens, device=dev)
     b, s = tokens.shape
@@ -201,7 +223,7 @@ def prefill(
             "via the engine's chunked admission instead"
         )
     hd = c.head_dim
-    x = _embed_rows(params["embed"], tokens, c.dtype, c.embed_scale)
+    x = _embed(params, tokens, c, mesh)
     if pad_id is None:
         cos, sin = _rope(s, hd, c.rope_theta, c.dtype, c.rope_scaling, device=dev)
         token_valid = None
@@ -213,10 +235,10 @@ def prefill(
         )
         cos = cos.reshape(b, s, 1, -1)  # per-row tables
         sin = sin.reshape(b, s, 1, -1)
-    cache = init_kv_cache(c, b, max_len, quant=quant, device=dev)
+    cache = init_kv_cache(c, b, max_len, quant=quant, device=dev, mesh=mesh)
     for i, layer in enumerate(params["layers"]):
         h = _rms_norm(x, layer["attn_norm"], c.norm_eps, c.norm_offset)
-        q, k, v = _qkv(h, layer, c)
+        q, k, v = _qkv(h, layer, c, mesh)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
         for key, val in _cache_kv(k, v, c.dtype, quant).items():
@@ -226,22 +248,22 @@ def prefill(
 
             attn = flash_attention(
                 q, k, v, causal=True, window=c.sliding_window
-            ).reshape(b, s, c.n_heads * hd)
+            ).reshape(b, s, -1)
         else:
-            scores = _grouped_scores(q, k, c.n_kv_heads) / math.sqrt(hd)
+            scores = _grouped_scores(q, k, k.shape[2]) / math.sqrt(hd)
             mask = _window_causal_mask(s, c.sliding_window, dev)[None, None, None]
             if token_valid is not None:
                 mask = mask & token_valid[:, None, None, None, :]
             scores = torch.where(mask, scores, -1e30)
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
             attn = _grouped_values(probs, v)
-        x = x + _mm(attn, layer["wo"])
+        x = x + _attn_out(attn, layer, mesh)
         x = x + _ffn(
             _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset),
-            layer, c, token_mask=token_valid,
+            layer, c, token_mask=token_valid, mesh=mesh,
         )
     x = _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset)
-    return _unembed(params, x).float(), cache
+    return _logits(params, x, mesh), cache
 
 
 def _write_rows(buf: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
@@ -266,6 +288,8 @@ def decode_step(
     key_valid=None,
     row_valid=None,
     rolling: bool = False,
+    *,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One token at cache slot ``pos`` → (logits [B, vocab] f32, the
     cache with K/V written at pos, in place).
@@ -278,8 +302,9 @@ def decode_step(
     race, so an idle slot never displaces a live one. It defaults to "has
     any valid key" when ``key_valid`` is given (the engine clears a
     retired row's). ``rolling``: physical slot = pos mod C, C =
-    cache_len - 1 (per-row pos only)."""
+    cache_len - 1 (per-row pos only). ``mesh``: tensor-parallel."""
     c = config
+    _check_mesh(mesh, c)
     dev = params_device(params)
     token = torch.as_tensor(token, device=dev)
     b = token.shape[0]
@@ -296,7 +321,7 @@ def decode_step(
         if row_valid is None:
             row_valid = key_valid.any(dim=1)
     ffn_mask = None if row_valid is None else torch.as_tensor(row_valid, device=dev)[:, None]
-    x = _embed_rows(params["embed"], token, c.dtype, c.embed_scale)[:, None, :]
+    x = _embed(params, token, c, mesh)[:, None, :]
     if rope_pos is None and per_row:
         rope_pos = pos_t
     if rope_pos is None:
@@ -317,7 +342,7 @@ def decode_step(
         wslot = pos_t.clamp(0, t_cache - 1).reshape(1)
     for layer, kv in zip(params["layers"], cache):
         h = _rms_norm(x, layer["attn_norm"], c.norm_eps, c.norm_offset)
-        q, k, v = _qkv(h, layer, c)
+        q, k, v = _qkv(h, layer, c, mesh)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
         for key, val in _cache_kv(k, v, c.dtype, quant).items():
@@ -329,13 +354,13 @@ def decode_step(
             q, kv["k"], kv["v"], pos_t + 1, c, key_valid=key_valid, rolling=cap,
             k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"),
         )
-        x = x + _mm(attn, layer["wo"])
+        x = x + _attn_out(attn, layer, mesh)
         x = x + _ffn(
             _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset),
-            layer, c, token_mask=ffn_mask,
+            layer, c, token_mask=ffn_mask, mesh=mesh,
         )
     x = _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset)
-    return _unembed(params, x[:, 0]).float(), cache
+    return _logits(params, x[:, 0], mesh), cache
 
 
 def decode_chunk(
@@ -347,6 +372,8 @@ def decode_chunk(
     write_mask=None,
     row_valid=None,
     rolling: bool = False,
+    *,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """``m`` tokens at per-row slots ``pos``..``pos+m-1`` → (logits
     [B, m, vocab] f32, the cache with the chunk's K/V written in place).
@@ -358,15 +385,17 @@ def decode_chunk(
     claim no expert capacity and emit zero from the mixture.
     ``row_valid`` [B] also keeps WHOLE rows out of the capacity race
     (finished slots riding a speculative round). ``rolling``: modular
-    layout over C = cache_len - 1 slots; needs C >= window + m."""
+    layout over C = cache_len - 1 slots; needs C >= window + m.
+    ``mesh``: tensor-parallel."""
     c = config
+    _check_mesh(mesh, c)
     dev = params_device(params)
     tokens = torch.as_tensor(tokens, device=dev)
     pos = torch.as_tensor(pos, device=dev)
     b, m = tokens.shape
     hd = c.head_dim
     quant = _kv_quantized(cache)
-    x = _embed_rows(params["embed"], tokens, c.dtype, c.embed_scale)  # [B, m, D]
+    x = _embed(params, tokens, c, mesh)  # [B, m, D]
     posmat = pos[:, None] + torch.arange(m, device=dev, dtype=pos.dtype)[None, :]
     cos, sin = _rope_at(posmat.reshape(-1), hd, c.rope_theta, c.dtype, c.rope_scaling)
     cos = cos.reshape(b, m, 1, -1)
@@ -388,20 +417,20 @@ def decode_chunk(
     frontier = posmat + 1  # [B, m]: query i sees keys < pos+i+1
     for layer, kv in zip(params["layers"], cache):
         h = _rms_norm(x, layer["attn_norm"], c.norm_eps, c.norm_offset)
-        q, k, v = _qkv(h, layer, c)
+        q, k, v = _qkv(h, layer, c, mesh)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
         for key, val in _cache_kv(k, v, c.dtype, quant).items():
             kv[key][rows, write_pos] = val
         attn = _cache_attention(q, kv["k"], kv["v"], frontier, c, rolling=cap,
                                 k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"))
-        x = x + _mm(attn, layer["wo"])
+        x = x + _attn_out(attn, layer, mesh)
         x = x + _ffn(
             _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset),
-            layer, c, token_mask=ffn_mask,
+            layer, c, token_mask=ffn_mask, mesh=mesh,
         )
     x = _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset)
-    return _unembed(params, x).float(), cache
+    return _logits(params, x, mesh), cache
 
 
 # ---------------------------------------------------------------- sampling
@@ -485,6 +514,7 @@ def generate(
     pad_id: Optional[int] = None,
     eos_id: Optional[int] = None,
     kv_quant: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """prompt [B, S] → generated tokens [B, max_new_tokens].
 
@@ -494,13 +524,15 @@ def generate(
     variable-length prompts. ``eos_id``: a row that emits it keeps
     emitting it. The reference scans max_new_tokens decode steps and
     discards the last one's output; this loop runs only the steps whose
-    tokens it returns. ``kv_quant``: an int8 cache (see init_kv_cache)."""
+    tokens it returns. ``kv_quant``: an int8 cache (see init_kv_cache).
+    ``mesh``: tensor-parallel (every rank gets the same tokens; a sampling
+    ``rng`` must be seeded alike on every rank)."""
     c = config
     dev = params_device(params)
     prompt = torch.as_tensor(prompt, device=dev)
     b, s = prompt.shape
     logits, cache = prefill(params, prompt, c, s + max_new_tokens, pad_id=pad_id,
-                            quant=kv_quant)
+                            quant=kv_quant, mesh=mesh)
     if rng is None and temperature > 0.0:
         rng = torch.Generator(device=dev)
         rng.manual_seed(0)
@@ -526,7 +558,7 @@ def generate(
     for step in range(1, max_new_tokens):
         logits, cache = decode_step(
             params, cache, s + step - 1, token, c, rope_pos=rope_pos,
-            key_valid=key_valid,
+            key_valid=key_valid, mesh=mesh,
         )
         token = pick(logits)
         if eos_id is not None:

@@ -26,17 +26,36 @@ expert weights), the block returns its balance loss beside x, and
 ``llama_loss`` adds ``moe_aux_coef`` times its mean over the layers.
 
 A ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` with axes among
-``dp``, ``sp`` and ``tp`` (``tp`` of size 1): explicit SPMD, each rank
-running the model on its own ``[B/dp, S/sp]`` block of tokens
-(``parallel/sharding.py:llama_data_sharding``) with the whole params
-tree. RoPE takes global positions (the rank's offset is ``sp index ·
-S/sp``); with ``sp`` > 1 attention runs sequence-parallel per
-``sp_strategy`` and ``attention`` (``parallel/ring_attention.py``,
-``parallel/ulysses.py``); ``llama_loss`` passes each shard's next token
-across the ring and averages over the global token count. Still raising
-(NotImplementedError naming ROADMAP Queue 1 item 9): ``tp`` > 1, other
-axes (``ep``, ``pp``), a mesh that is not a ``DeviceMesh``, and a MoE
-model under a mesh.
+``dp``, ``sp`` and ``tp``: explicit SPMD, each rank running the model
+on its own ``[B/dp, S/sp]`` block of tokens
+(``parallel/sharding.py:llama_data_sharding``) with its own shards of
+the params (``parallel/sharding.py:shard_params``; under a mesh whose
+``dp`` and ``tp`` are 1 that is the whole tree).
+
+- ``tp``: Megatron-style. A rank holds ``n_heads/tp`` query and
+  ``n_kv_heads/tp`` kv heads' columns of ``wq`` / ``wk`` / ``wv`` and
+  ``d_ff/tp`` of ``w_gate`` / ``w_up``, and the matching rows of ``wo``
+  / ``w_down``; ``copy_to_group`` goes before the column-parallel
+  products and one ``reduce_from_group`` after ``wo`` and after
+  ``w_down`` (``parallel/comm.py``). The embedding is vocab-parallel (a
+  masked lookup in the rank's rows, then an all-reduce) and so is the
+  unembedding: ``llama_forward`` gathers the logits whole,
+  ``llama_loss`` reduces the max, the sum of exponentials and the
+  target logit over ``tp`` instead.
+- ``dp``: FSDP. The 2-D weights are also sharded over dp; each layer's
+  are gathered on use and their gradients reduce-scattered
+  (``sharding.unshard_dp``), so under remat a rank holds one layer's
+  gathered weights at a time.
+- ``sp``: RoPE takes global positions (the rank's offset is ``sp index
+  · S/sp``); attention runs sequence-parallel on the rank's heads per
+  ``sp_strategy`` and ``attention`` (``parallel/ring_attention.py``,
+  ``parallel/ulysses.py``); ``llama_loss`` passes each shard's next
+  token across the ring and averages over the global token count.
+
+tp must divide both head counts (``ValueError``; Gemma-2B's one kv head
+rules tp > 1 out). Still raising (NotImplementedError naming ROADMAP
+Queue 1 item 9): other axes (``ep``, ``pp``), a mesh that is not a
+``DeviceMesh``, and a MoE model under a mesh.
 """
 from __future__ import annotations
 
@@ -162,9 +181,9 @@ def gemma_2b_config() -> LlamaConfig:
 
 
 def _check_mesh(mesh, config: "LlamaConfig") -> None:
-    """None, or a mesh this slice runs: a ``DeviceMesh`` whose axes are
-    among ``dp``, ``sp`` and ``tp``, with ``tp`` of size 1, under a dense
-    model. Anything else is a loud error."""
+    """None, or a mesh the port runs: a ``DeviceMesh`` whose axes are
+    among ``dp``, ``sp`` and ``tp``, under a dense model, with tp
+    dividing both head counts. Anything else is a loud error."""
     if mesh is None:
         return
     from torch.distributed.device_mesh import DeviceMesh
@@ -173,7 +192,7 @@ def _check_mesh(mesh, config: "LlamaConfig") -> None:
 
     if not isinstance(mesh, DeviceMesh):
         raise NotImplementedError(
-            f"a mesh is a torch DeviceMesh over dp / sp; {type(mesh).__name__} "
+            f"a mesh is a torch DeviceMesh over dp / sp / tp; {type(mesh).__name__} "
             "is not (ROADMAP Queue 1 item 9: multi-device)"
         )
     names = tuple(mesh.mesh_dim_names or ())
@@ -183,16 +202,15 @@ def _check_mesh(mesh, config: "LlamaConfig") -> None:
             f"mesh axes {names}: only dp, sp and tp are ported "
             "(ROADMAP Queue 1 item 9: multi-device)"
         )
-    if axis_size(mesh, "tp") > 1:
-        raise NotImplementedError(
-            "tensor parallelism (tp > 1) is not ported yet "
-            "(ROADMAP Queue 1 item 9: multi-device)"
-        )
     if config.n_experts > 0:
         raise NotImplementedError(
             "a MoE model under a mesh (expert parallelism) is not ported yet "
             "(ROADMAP Queue 1 item 9: multi-device)"
         )
+    if axis_size(mesh, "tp") > 1:
+        from nos_tpu_torch.parallel.sharding import check_tp_heads
+
+        check_tp_heads(config, axis_size(mesh, "tp"))
 
 
 # ------------------------------------------------------------------- init
@@ -307,6 +325,46 @@ def params_device(params: Params) -> torch.device:
 # ---------------------------------------------------------------- forward
 
 
+def _tp_group(mesh):
+    """The rank's tp group, or None (no mesh, or tp of size 1)."""
+    if mesh is None:
+        return None
+    from nos_tpu_torch.parallel.mesh import axis_group
+
+    return axis_group(mesh, "tp")
+
+
+def _copy_in(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``comm.copy_to_group`` over the rank's tp group, before a
+    column-parallel product (``x`` itself without a mesh)."""
+    if mesh is None:
+        return x
+    from nos_tpu_torch.parallel.comm import copy_to_group
+
+    return copy_to_group(x, _tp_group(mesh))
+
+
+def _reduce_out(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``comm.reduce_from_group`` over the rank's tp group, after a
+    row-parallel product (``x`` itself without a mesh)."""
+    if mesh is None:
+        return x
+    from nos_tpu_torch.parallel.comm import reduce_from_group
+
+    return reduce_from_group(x, _tp_group(mesh))
+
+
+def _w(tree: Params, key: str, mesh=None):
+    """Weight ``key`` of a layer (or of the params' top level) as this
+    rank multiplies by it: whole along ``dp`` (FSDP's gather on use),
+    still sharded over ``tp``."""
+    if mesh is None:
+        return tree[key]
+    from nos_tpu_torch.parallel.sharding import unshard_dp
+
+    return unshard_dp(tree[key], key, mesh)
+
+
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w, dispatching on the weight leaf: a dense tensor, or a node
     with its own ``matmul`` (QuantizedLinear, QuantizedLinear4,
@@ -328,6 +386,24 @@ def _embed_rows(embed, tokens: torch.Tensor, dtype, scale=None) -> torch.Tensor:
     return rows
 
 
+def _embed(params: Params, tokens: torch.Tensor, c: "LlamaConfig", mesh=None) -> torch.Tensor:
+    """Embedding rows of ``tokens``. Under tp the table's vocab rows are
+    sharded: each rank looks up the ids inside its rows (zero rows
+    elsewhere) and the ranks' rows sum over tp. Negative ids wrap as the
+    single-device lookup wraps them."""
+    embed = _w(params, "embed", mesh)
+    if _tp_group(mesh) is None:
+        return _embed_rows(embed, tokens, c.dtype, c.embed_scale)
+    from nos_tpu_torch.parallel.mesh import axis_index
+
+    rows = tree_leaves(embed)[0].shape[0]
+    local = torch.remainder(tokens, c.vocab_size) - axis_index(mesh, "tp") * rows
+    inside = (local >= 0) & (local < rows)
+    x = _embed_rows(embed, torch.where(inside, local, 0), c.dtype, c.embed_scale)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return _reduce_out(x, mesh)
+
+
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, offset: bool = False):
     x32 = x.float()
     rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
@@ -337,22 +413,35 @@ def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, offset: bool = 
     return (x32 * rms).to(x.dtype) * weight
 
 
-def _unembed_weight(params: Params):
-    """The [d_model, vocab] unembedding operand for ``_mm``; tied models
-    reuse the embedding. A quantized tied embedding transposes into the
-    QuantizedLinear layout (per-vocab-row scales become per-output-column
-    scales), so int8 logits never materialize a dequantized table."""
+def _unembed_weight(params: Params, mesh=None):
+    """The [d_model, vocab] unembedding operand for ``_mm`` (the rank's
+    vocab columns under tp); tied models reuse the embedding. A
+    quantized tied embedding transposes into the QuantizedLinear layout
+    (per-vocab-row scales become per-output-column scales), so int8
+    logits never materialize a dequantized table."""
     if "lm_head" in params:
-        return params["lm_head"]
-    embed = params["embed"]
+        return _w(params, "lm_head", mesh)
+    embed = _w(params, "embed", mesh)
     if isinstance(embed, torch.Tensor):
         return embed.T
     return embed.as_unembedding()
 
 
-def _unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Vocab logits in the model dtype; tied models reuse the embedding."""
-    return _mm(x, _unembed_weight(params))
+def _unembed(params: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Vocab logits in the model dtype, the rank's vocab shard under tp;
+    tied models reuse the embedding."""
+    return _mm(_copy_in(x, mesh), _unembed_weight(params, mesh))
+
+
+def _logits(params: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Whole-vocab f32 logits: under tp the ranks' shards gathered, so
+    every rank holds the same bytes."""
+    logits = _unembed(params, x, mesh)
+    if mesh is not None:
+        from nos_tpu_torch.parallel.comm import gather_from_group
+
+        logits = gather_from_group(logits, _tp_group(mesh))
+    return logits.float()
 
 
 def _llama3_scaled_freqs(freqs: torch.Tensor, scaling) -> torch.Tensor:
@@ -436,13 +525,22 @@ def gqa_dense_attention(q, k, v, mask=None) -> torch.Tensor:
     return _grouped_values(probs, v).reshape(b, s, hq, hd)
 
 
-def _qkv(h: torch.Tensor, layer: Params, c: LlamaConfig):
+def _qkv(h: torch.Tensor, layer: Params, c: LlamaConfig, mesh=None):
+    """q [B, S, Hq, hd], k / v [B, S, Hkv, hd]: the rank's Hq/tp and
+    Hkv/tp heads under tp (the column-parallel products)."""
     b, s, _ = h.shape
     hd = c.head_dim
-    q = _mm(h, layer["wq"]).reshape(b, s, c.n_heads, hd)
-    k = _mm(h, layer["wk"]).reshape(b, s, c.n_kv_heads, hd)
-    v = _mm(h, layer["wv"]).reshape(b, s, c.n_kv_heads, hd)
+    h = _copy_in(h, mesh)
+    q = _mm(h, _w(layer, "wq", mesh)).reshape(b, s, -1, hd)
+    k = _mm(h, _w(layer, "wk", mesh)).reshape(b, s, -1, hd)
+    v = _mm(h, _w(layer, "wv", mesh)).reshape(b, s, -1, hd)
     return q, k, v
+
+
+def _attn_out(attn: torch.Tensor, layer: Params, mesh=None) -> torch.Tensor:
+    """attn [B, S, Hq·hd] (the rank's heads) @ wo, summed over tp (the
+    row-parallel product)."""
+    return _reduce_out(_mm(attn, _w(layer, "wo", mesh)), mesh)
 
 
 def _sp_attention(q, k, v, c: LlamaConfig, mesh) -> torch.Tensor:
@@ -470,13 +568,13 @@ def _sp_attention(q, k, v, c: LlamaConfig, mesh) -> torch.Tensor:
 def _attention(x, layer: Params, config: LlamaConfig, cos, sin, mesh=None) -> torch.Tensor:
     c = config
     b, s, _ = x.shape
-    q, k, v = _qkv(x, layer, c)
+    q, k, v = _qkv(x, layer, c, mesh)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
     from nos_tpu_torch.parallel.mesh import axis_size
 
     if axis_size(mesh, "sp") > 1:
-        return _mm(_sp_attention(q, k, v, c, mesh), layer["wo"])
+        return _attn_out(_sp_attention(q, k, v, c, mesh), layer, mesh)
     if c.attention == "flash":
         from nos_tpu_torch.ops.flash_attention import flash_attention
 
@@ -485,7 +583,7 @@ def _attention(x, layer: Params, config: LlamaConfig, cos, sin, mesh=None) -> to
         out = gqa_dense_attention(
             q, k, v, _window_causal_mask(s, c.sliding_window, x.device)
         )
-    return _mm(out.reshape(b, s, c.n_heads * c.head_dim), layer["wo"])
+    return _attn_out(out.reshape(b, s, -1), layer, mesh)
 
 
 def _act(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -496,9 +594,13 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown hidden_act {act!r}")
 
 
-def _mlp(x: torch.Tensor, layer: Params, act: str = "silu") -> torch.Tensor:
-    gate = _act(_mm(x, layer["w_gate"]), act)
-    return _mm(gate * _mm(x, layer["w_up"]), layer["w_down"])
+def _mlp(x: torch.Tensor, layer: Params, act: str = "silu", mesh=None) -> torch.Tensor:
+    """The gated MLP: column-parallel gate / up, row-parallel down,
+    summed over tp."""
+    x = _copy_in(x, mesh)
+    gate = _act(_mm(x, _w(layer, "w_gate", mesh)), act)
+    return _reduce_out(_mm(gate * _mm(x, _w(layer, "w_up", mesh)), _w(layer, "w_down", mesh)),
+                       mesh)
 
 
 def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
@@ -506,18 +608,29 @@ def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     """tokens [B, S] int → logits [B, S, vocab] (float32). ``with_aux``
     also returns the MoE load-balancing loss summed over the layers (a
     0-d f32 tensor, zero for a dense model). With ``remat`` and gradients
-    on, each block is checkpointed and recomputed (flash kernel included)
-    in the backward.
+    on, each block is checkpointed and recomputed (flash kernel and
+    collectives included) in the backward.
 
-    Under a ``mesh`` (see the module docstring) ``tokens`` is this rank's
-    ``[B/dp, S/sp]`` block and the logits are the block's; every rank of
-    the mesh calls it together."""
+    Under a ``mesh`` (see the module docstring) ``params`` are the rank's
+    shards, ``tokens`` is this rank's ``[B/dp, S/sp]`` block and the
+    logits are the block's, whole over the vocabulary; every rank of the
+    mesh calls it together."""
+    x, aux = _decoder(params, tokens, config, mesh, with_aux)
+    logits = _logits(params, x, mesh)
+    if with_aux:
+        return logits, aux
+    return logits
+
+
+def _decoder(params: Params, tokens: torch.Tensor, config: LlamaConfig, mesh,
+             with_aux: bool):
+    """The blocks and the final norm → (x [B, S, D], the summed MoE aux)."""
     c = config
     _check_mesh(mesh, c)
     from nos_tpu_torch.parallel.mesh import axis_index
 
     tokens = tokens.to(params_device(params))
-    x = _embed_rows(params["embed"], tokens, c.dtype, c.embed_scale)
+    x = _embed(params, tokens, c, mesh)
     s = tokens.shape[1]
     start = axis_index(mesh, "sp") * s  # global positions of the block
     cos, sin = _rope_at(torch.arange(start, start + s, device=x.device),
@@ -530,7 +643,7 @@ def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
         )
         h = _rms_norm(x, layer["mlp_norm"], c.norm_eps, c.norm_offset)
         if "moe" not in layer:
-            return x + _mlp(h, layer, c.hidden_act), None
+            return x + _mlp(h, layer, c.hidden_act, mesh), None
         if with_aux:
             delta, aux = moe_mlp(layer["moe"], h, c.moe_config(), return_aux=True)
             return x + delta, aux
@@ -546,11 +659,7 @@ def llama_forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
             x, aux = block(x, layer)
         if aux is not None:
             aux_total = aux_total + aux
-    x = _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset)
-    logits = _unembed(params, x).float()
-    if with_aux:
-        return logits, aux_total
-    return logits
+    return _rms_norm(x, params["final_norm"], c.norm_eps, c.norm_offset), aux_total
 
 
 def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -562,15 +671,38 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return (lse - picked).mean()
 
 
+def _vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
+                        mesh) -> torch.Tensor:
+    """logsumexp(logits) − logits[target] per position, from the rank's
+    vocab shard of the logits [B, S, V/tp] under tp: the max, the sum of
+    exponentials and the target logit reduce over tp, so the whole
+    [B, S, V] never forms. The same on every tp rank."""
+    group = _tp_group(mesh)
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - torch.gather(logits, -1, targets[..., None])[..., 0]
+    from nos_tpu_torch.parallel.comm import all_reduce_max, reduce_from_group
+    from nos_tpu_torch.parallel.mesh import axis_index
+
+    v = logits.shape[-1]
+    m = all_reduce_max(logits.detach().amax(dim=-1), group)
+    sum_exp = reduce_from_group(torch.exp(logits - m[..., None]).sum(dim=-1), group)
+    local = targets - axis_index(mesh, "tp") * v
+    inside = (local >= 0) & (local < v)
+    picked = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    picked = reduce_from_group(torch.where(inside, picked, 0.0), group)
+    return torch.log(sum_exp) + m - picked
+
+
 def _sharded_next_token_nll(logits: torch.Tensor, tokens: torch.Tensor,
                             mesh) -> torch.Tensor:
-    """``next_token_nll`` of the global batch from this rank's block: the
-    target of the block's last position is the next sp shard's first
-    token (one reverse ring shift of a [B, 1] column), the last shard's
-    last position drops, and the sum divides by the global count
-    B·(S − 1). The value is the global mean on every rank; its gradient
-    is that of this rank's own share (the trainer sums the shares over
-    the mesh)."""
+    """``next_token_nll`` of the global batch from this rank's block (its
+    vocab shard of the logits under tp): the target of the block's last
+    position is the next sp shard's first token (one reverse ring shift
+    of a [B, 1] column), the last shard's last position drops, and the
+    sum divides by the global count B·(S − 1). The value is the global
+    mean on every rank; its gradient is that of this rank's own share
+    (the trainer sums the shares over dp and sp)."""
     from nos_tpu_torch.parallel.comm import all_reduce, ring_shift
     from nos_tpu_torch.parallel.mesh import axis_index, axis_size, mesh_groups
 
@@ -581,14 +713,12 @@ def _sharded_next_token_nll(logits: torch.Tensor, tokens: torch.Tensor,
     (nxt,) = ring_shift([tokens[:, :1]], mesh.get_group("sp"), step=-1) \
         if n_sp > 1 else (tokens[:, :1],)
     targets = torch.cat([tokens[:, 1:], nxt], dim=1)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = lse - picked
+    nll = _vocab_parallel_nll(logits, targets, mesh)
     if last:
         nll = nll[:, :-1]
     count = b * axis_size(mesh, "dp") * (s * n_sp - 1)
     local = nll.sum() / count
-    total = all_reduce(local.detach(), mesh_groups(mesh))
+    total = all_reduce(local.detach(), mesh_groups(mesh, ("dp", "sp")))
     # the value is exactly the total on every rank, the gradient local's
     return total + (local - local.detach())
 
@@ -600,13 +730,15 @@ def llama_loss(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     models add ``moe_aux_coef`` times the per-layer balance loss averaged
     over the layers.
 
-    Under a ``mesh``, ``tokens`` is this rank's ``[B/dp, S/sp]`` block;
-    the value is the global batch's loss on every rank, and its gradient
-    is this rank's share of the global gradient (summed over the mesh by
-    ``make_train_step``)."""
-    logits, aux = llama_forward(params, tokens, config, mesh, with_aux=True)
+    Under a ``mesh``, ``params`` are the rank's shards and ``tokens`` is
+    its ``[B/dp, S/sp]`` block; the value is the global batch's loss on
+    every rank, and its gradient is this rank's share of the global
+    gradient (summed over dp and sp by ``make_train_step``). Under tp the
+    cross entropy is vocab-parallel (``_vocab_parallel_nll``)."""
     if mesh is not None:
-        return _sharded_next_token_nll(logits, tokens, mesh)
+        x, _ = _decoder(params, tokens, config, mesh, with_aux=False)
+        return _sharded_next_token_nll(_unembed(params, x, mesh).float(), tokens, mesh)
+    logits, aux = llama_forward(params, tokens, config, with_aux=True)
     loss = next_token_nll(logits, tokens)
     if config.n_experts > 0:
         loss = loss + config.moe_aux_coef * aux / max(1, config.n_layers)

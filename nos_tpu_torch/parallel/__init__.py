@@ -1,30 +1,60 @@
-"""Training and sequence / data parallelism over ``torch.distributed``.
+"""Training and multi-device execution over ``torch.distributed``.
 
 What runs: ``make_train_step`` on one device or over a ``DeviceMesh``
-with axes ``dp`` and ``sp`` (``tp`` of size 1); ring attention (the
+with axes ``dp``, ``sp`` and ``tp`` (FSDP over dp, Megatron-style
+tensor parallelism over tp, the sequence over sp); ring attention (the
 flash kernels in block mode, or the plain ring) and Ulysses attention
-over ``sp``; the gang bootstrap (``distributed.py``), the mesh builders
-(``mesh.py``), the collectives (``comm.py``) and the token layout
-(``sharding.py:llama_data_sharding``). The attention functions are
-imported from their modules (``parallel.ring_attention``,
+over ``sp``, on the rank's heads under tp; the gang bootstrap
+(``distributed.py``), the mesh constructors (``mesh.py``:
+``default_training_mesh``, ``mesh_for_slice``), the collectives and the
+tensor-parallel autograd pieces (``comm.py``), the sharding rules and
+the rank's shards (``sharding.py``: ``llama_param_sharding``,
+``llama_quantized_sharding``, ``shard_params``, ``gather_params``,
+``llama_data_sharding``), ``train.optimizer_state_sharding``, and
+checkpoints that reshard on restore (``checkpoint.py``). The attention
+functions are imported from their modules (``parallel.ring_attention``,
 ``parallel.ulysses``), whose names they share.
 
 Still missing, each raising NotImplementedError naming ROADMAP Queue 1
-item 9 where the reference has an entry point: tensor parallelism and
-FSDP (``sharding.llama_param_sharding`` / ``llama_quantized_sharding``,
-``train.optimizer_state_sharding``, ``mesh.mesh_for_slice``), expert
-parallelism (``moe_mlp``'s ``mesh``), LoRA training and
-the ``Engine`` under a mesh; ``serve/sharded.py``, ``parallel/pipeline.py``
-and ``parallel/checkpoint.py`` have no counterpart yet.
+item 9 where the reference has an entry point: expert parallelism
+(``moe_mlp``'s ``mesh``, a MoE model under a mesh), LoRA training under
+a mesh, ``SpecEngine`` under a mesh; ``parallel/pipeline.py`` has no
+counterpart yet.
 """
 
-from nos_tpu_torch.parallel.mesh import default_training_mesh, mesh_from_devices
-from nos_tpu_torch.parallel.sharding import llama_data_sharding
-from nos_tpu_torch.parallel.train import make_train_step
+from nos_tpu_torch.parallel.checkpoint import (
+    Checkpointer,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from nos_tpu_torch.parallel.mesh import (
+    default_training_mesh,
+    mesh_for_slice,
+    mesh_from_devices,
+)
+from nos_tpu_torch.parallel.sharding import (
+    gather_params,
+    llama_data_sharding,
+    llama_param_sharding,
+    llama_quantized_sharding,
+    shard_params,
+)
+from nos_tpu_torch.parallel.train import make_train_step, optimizer_state_sharding
 
 __all__ = [
+    "Checkpointer",
     "default_training_mesh",
+    "gather_params",
+    "latest_step",
     "llama_data_sharding",
+    "llama_param_sharding",
+    "llama_quantized_sharding",
     "make_train_step",
+    "mesh_for_slice",
     "mesh_from_devices",
+    "optimizer_state_sharding",
+    "restore_checkpoint",
+    "save_checkpoint",
+    "shard_params",
 ]

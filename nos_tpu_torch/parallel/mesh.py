@@ -11,8 +11,7 @@ axis and the process group along it.
 ``partition_spec`` has no counterpart: nothing here annotates a global
 array for a compiler to shard; a rank holds its block and the
 collectives are written out (``parallel/comm.py``). ``mesh_for_slice``
-builds the reference's ``('dp', 'tp')`` mesh from a slice topology and
-waits for tensor parallelism (ROADMAP Queue 1 item 9).
+builds the reference's ``('dp', 'tp')`` mesh from a slice topology.
 """
 from __future__ import annotations
 
@@ -23,6 +22,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from nos_tpu_torch import _resolve_device
+from nos_tpu_torch.util.topology import Topology
 
 AXES = ("dp", "sp", "tp")
 
@@ -46,21 +46,31 @@ def mesh_from_devices(
 
 
 def default_training_mesh(device=None) -> DeviceMesh:
-    """``('dp', 'sp', 'tp')`` over every rank: sp takes 2 where the rank
-    count is even and the rest folds into dp. The reference also gives tp
-    2; here tp stays 1 until tensor parallelism is ported (ROADMAP Queue 1
-    item 9)."""
+    """``('dp', 'sp', 'tp')`` over every rank: tp takes 2 where the rank
+    count is even, sp 2 where what is left is even, and the rest folds
+    into dp (the reference's order: tp innermost, on the fastest links).
+    An axis that does not divide the count collapses to 1."""
     n = dist.get_world_size() if dist.is_initialized() else 1
-    sp = 2 if n % 2 == 0 else 1
-    return mesh_from_devices((n // sp, sp, 1), AXES, device)
+    tp = 2 if n % 2 == 0 else 1
+    rest = n // tp
+    sp = 2 if rest % 2 == 0 else 1
+    return mesh_from_devices((rest // sp, sp, tp), AXES, device)
 
 
-def mesh_for_slice(topology: str, dp: Optional[int] = None, devices=None):
-    """The reference's ``('dp', 'tp')`` mesh over one slice: not yet."""
-    raise NotImplementedError(
-        "mesh_for_slice builds a tensor-parallel mesh, which is not ported "
-        "yet (ROADMAP Queue 1 item 9: multi-device)"
-    )
+def mesh_for_slice(topology: str, dp: Optional[int] = None, device=None) -> DeviceMesh:
+    """``('dp', 'tp')`` mesh covering one slice: tp takes the last
+    (contiguous) topology dimension and the rest folds into dp; an
+    explicit ``dp`` sets the split instead (dp·tp is the chip count)."""
+    t = Topology(topology)
+    chips = t.chips
+    if dp is None:
+        tp = t.dims[-1]
+        dp = chips // tp
+    else:
+        if chips % dp:
+            raise ValueError(f"dp={dp} does not divide {chips} chips")
+        tp = chips // dp
+    return mesh_from_devices((dp, tp), ("dp", "tp"), device)
 
 
 def axis_size(mesh: Optional[DeviceMesh], name: str) -> int:
@@ -78,10 +88,30 @@ def axis_index(mesh: Optional[DeviceMesh], name: str) -> int:
     return mesh.get_local_rank(name)
 
 
-def mesh_groups(mesh: Optional[DeviceMesh]) -> List:
-    """The groups of the mesh's axes longer than 1: an all-reduce over
-    each in turn reduces over the whole mesh."""
+def mesh_groups(mesh: Optional[DeviceMesh], axes: Sequence[str] = AXES) -> List:
+    """The groups of the mesh's axes among ``axes`` that are longer than
+    1: an all-reduce over each in turn reduces over those axes (over the
+    whole mesh by default)."""
     if mesh is None:
         return []
     return [mesh.get_group(name) for name in mesh.mesh_dim_names
-            if axis_size(mesh, name) > 1]
+            if name in axes and axis_size(mesh, name) > 1]
+
+
+def axis_group(mesh: Optional[DeviceMesh], name: str):
+    """The process group along ``name`` through this rank, or None when
+    the axis is absent or of size 1 (nothing to communicate)."""
+    if axis_size(mesh, name) == 1:
+        return None
+    return mesh.get_group(name)
+
+
+def axis_mesh(mesh: Optional[DeviceMesh], name: str) -> Optional[DeviceMesh]:
+    """The 1-D mesh along ``name`` through this rank, or None when the
+    axis is absent or of size 1: a serving replica on a ``('dp', 'tp')``
+    mesh runs on its tp line and replicates over the rest."""
+    if axis_size(mesh, name) == 1:
+        return None
+    if tuple(mesh.mesh_dim_names) == (name,):
+        return mesh
+    return mesh[name]

@@ -25,10 +25,11 @@ kernels' ``_block_needed``) skips its kernels but never its hop: the
 ranks stay in lockstep. Under causal masking rank r runs r + 1 blocks.
 
 Both take and return the rank's block: q/k/v ``[B, S/n, H, hd]`` in,
-``[B, S/n, Hq·hd]`` out. A mesh's ``tp`` must be 1 (heads over ``tp``
-wait for ROADMAP Queue 1 item 9). The reference's ``batch_axis`` and
-``head_axis`` arguments have no counterpart: the batch axis never enters
-the ring, and heads are not sharded.
+``[B, S/n, Hq·hd]`` out. Under tensor parallelism the heads are the
+rank's own (``H/tp``; the model's column-parallel products made them)
+and the ring math is unchanged: the ring runs within the rank's sp
+line. The reference's ``batch_axis`` and ``head_axis`` arguments have
+no counterpart: neither the batch nor the heads ever cross the ring.
 """
 from __future__ import annotations
 
@@ -86,16 +87,10 @@ def _online_block_update(q, k, v, m, l, acc, q_offset, kv_offset, causal, window
 
 
 def _sp_axis(mesh, axis_name: str):
-    """(group, n, rank) of the sequence axis; raises for a missing axis
-    and for heads sharded over ``tp``."""
+    """(group, n, rank) of the sequence axis; raises for a missing axis."""
     names = tuple(mesh.mesh_dim_names or ())
     if axis_name not in names:
         raise ValueError(f"mesh {names} has no sequence axis {axis_name!r}")
-    if axis_size(mesh, "tp") > 1:
-        raise NotImplementedError(
-            "heads sharded over 'tp' (tensor parallelism) are not ported "
-            "yet (ROADMAP Queue 1 item 9: multi-device)"
-        )
     return (mesh.get_group(axis_name), axis_size(mesh, axis_name),
             axis_index(mesh, axis_name))
 

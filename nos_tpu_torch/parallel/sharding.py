@@ -1,21 +1,47 @@
-"""Data layout over a ``('dp', 'sp')`` mesh.
+"""Sharding rules for the Llama model over a ``('dp', 'sp', 'tp')`` mesh.
 
-Counterpart of the data half of ``nos_tpu/parallel/sharding.py``
-(``llama_data_sharding``): tokens ``[B, S]`` lie batch over ``dp`` and
-sequence over ``sp``, the block distribution ring attention consumes.
-The reference returns a ``NamedSharding`` for ``jax.device_put``; a rank
-here takes its own block of the global batch.
+Counterpart of ``nos_tpu/parallel/sharding.py``. The reference returns
+``NamedSharding`` trees and XLA inserts the collectives; here a rule is
+a spec, one entry a tensor dim (an axis name or None), and each rank
+holds the block of every tensor its coordinates name (explicit SPMD).
+The model writes the collectives out (``models/llama.py`` with
+``parallel/comm.py``).
 
-The parameter rules (``llama_param_sharding``,
-``llama_quantized_sharding``: tensor parallelism over ``tp`` and FSDP
-over ``dp``) wait for ROADMAP Queue 1 item 9; under a ``dp`` / ``sp``
-mesh every rank holds the whole params tree.
+- Megatron-style tensor parallelism: ``wq`` / ``wk`` / ``wv`` /
+  ``w_gate`` / ``w_up`` shard their output columns over ``tp``, ``wo`` /
+  ``w_down`` their input rows, so each attention and MLP block needs one
+  all-reduce on the residual path. The embedding shards its vocabulary
+  rows over ``tp`` and ``lm_head`` its vocabulary columns.
+- FSDP: every 2-D weight also shards its other dim over ``dp``; the
+  model gathers a layer's weights on use and reduce-scatters their
+  gradients (``comm.fsdp_gather``). 1-D norm scales stay replicated.
+- An axis the mesh lacks, or has at size 1, degrades to replication, so
+  one rule tree serves every mesh shape.
+
+The tp split of ``wq``'s columns keeps whole heads and whole GQA groups
+(heads lie head-major in ``[d, H·hd]``) when tp divides both head
+counts; any other tp raises ``ValueError``. Tokens ``[B, S]`` lie batch
+over ``dp`` and sequence over ``sp`` (``llama_data_sharding``) and are
+the same on every tp rank.
 """
 from __future__ import annotations
 
+from typing import Any, Dict, Optional, Tuple
+
 import torch
 
-from nos_tpu_torch.parallel.mesh import axis_index, axis_size
+from nos_tpu_torch.parallel.comm import all_gather, fsdp_gather
+from nos_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
+
+Spec = Tuple[Optional[str], ...]
+
+# The dense rules by params key (the reference's, leaf for leaf).
+_COLUMN = ("dp", "tp")  # [in, out] with the output over tp
+_ROW = ("tp", "dp")     # [in, out] with the input over tp
+_DENSE_RULES = {
+    "wq": _COLUMN, "wk": _COLUMN, "wv": _COLUMN, "w_gate": _COLUMN, "w_up": _COLUMN,
+    "wo": _ROW, "w_down": _ROW, "embed": ("tp", "dp"), "lm_head": ("dp", "tp"),
+}
 
 
 def _block(x: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:
@@ -40,15 +66,231 @@ def llama_data_sharding(mesh, tokens: torch.Tensor) -> torch.Tensor:
     return sequence_block(mesh, rows)
 
 
-def llama_param_sharding(mesh, config):
+# ------------------------------------------------------------- the rules
+
+
+def check_tp_heads(config, tp: int) -> None:
+    """tp must divide both head counts, so a rank's ``wq`` columns hold
+    whole heads and whole GQA groups and its ``wk`` / ``wv`` columns the
+    groups' kv heads."""
+    if config.n_heads % tp or config.n_kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide n_heads={config.n_heads} and "
+            f"n_kv_heads={config.n_kv_heads} (whole heads and GQA groups a rank)"
+        )
+
+
+def _degrade(spec: Spec, mesh) -> Spec:
+    return tuple(a if a is not None and axis_size(mesh, a) > 1 else None for a in spec)
+
+
+def _degraded(rule, mesh):
+    """A rule (a spec, or a node of specs) with every axis the mesh lacks
+    or has at size 1 replaced by None."""
+    from nos_tpu_torch.models.llama import WeightNode
+
+    if isinstance(rule, WeightNode):
+        return rule.replace([_degrade(spec, mesh) for spec in rule.tensors()])
+    return _degrade(rule, mesh)
+
+
+def _quantized_rule(cls, in_axis, out_axis, group=None):
+    """The specs of a quantized node's tensors, as a node of class
+    ``cls`` holding specs: ``q`` shards like the dense weight, the scales
+    along the output axis (int4's also along its groups, which tile the
+    contraction axis; the embedding's along its vocabulary rows), so
+    dequantization stays local."""
+    from nos_tpu_torch.models.quantize import (
+        QuantizedEmbedding,
+        QuantizedLinear,
+        QuantizedLinear4,
+    )
+
+    if cls is QuantizedLinear4:
+        return QuantizedLinear4(q=(in_axis, None, out_axis), scale=(in_axis, out_axis),
+                                group=group)
+    if cls is QuantizedEmbedding:
+        return QuantizedEmbedding(q=(in_axis, out_axis), scale=(in_axis,))
+    if cls is QuantizedLinear:
+        return QuantizedLinear(q=(in_axis, out_axis), scale=(out_axis,))
     raise NotImplementedError(
-        "parameter sharding (tensor parallelism and FSDP) is not ported yet "
-        "(ROADMAP Queue 1 item 9: multi-device)"
+        f"a {cls.__name__} leaf under a mesh is not ported yet (LoRA training and "
+        "adapters over a mesh: ROADMAP Queue 1 item 9: multi-device)"
     )
 
 
-def llama_quantized_sharding(mesh, config, bits: int = 8, group: int = 128):
-    raise NotImplementedError(
-        "quantized parameter sharding is not ported yet "
-        "(ROADMAP Queue 1 item 9: multi-device)"
+def leaf_rule(key: str, leaf) -> Any:
+    """The undegraded rule of params leaf ``key`` (a dense tensor or a
+    quantized node): a spec, or a node of specs."""
+    if isinstance(leaf, torch.Tensor):
+        return (None,) if leaf.dim() == 1 else _DENSE_RULES[key]
+    return _quantized_rule(type(leaf), *_DENSE_RULES[key], getattr(leaf, "group", None))
+
+
+def _moe_raises(config) -> None:
+    if config.n_experts > 0:
+        raise NotImplementedError(
+            "parameter sharding of a MoE model (expert parallelism) is not ported yet "
+            "(ROADMAP Queue 1 item 9: multi-device)"
+        )
+
+
+def tree_rules(params, mesh) -> Dict[str, Any]:
+    """The degraded rule tree of ``params`` itself (dense, int8 or int4
+    leaves alike), structured like it."""
+    def walk(tree):
+        out = {}
+        for key, value in tree.items():
+            if key == "layers":
+                out[key] = [walk(layer) for layer in value]
+            elif isinstance(value, dict):  # a MoE layer's experts
+                raise NotImplementedError(
+                    "a MoE model under a mesh (expert parallelism) is not ported yet "
+                    "(ROADMAP Queue 1 item 9: multi-device)"
+                )
+            else:
+                out[key] = _degraded(leaf_rule(key, value), mesh)
+        return out
+
+    return walk(params)
+
+
+_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
+
+
+def _config_rules(mesh, config, weight_rule) -> Dict[str, Any]:
+    """The degraded rule tree of ``config``'s params: ``weight_rule(key)``
+    for every weight, replication for the norms."""
+    _moe_raises(config)
+
+    def rule(key):
+        return _degraded((None,) if key.endswith("norm") else weight_rule(key), mesh)
+
+    tree = {
+        "embed": rule("embed"),
+        "final_norm": rule("final_norm"),
+        "layers": [{key: rule(key) for key in _LAYER_KEYS} for _ in range(config.n_layers)],
+    }
+    if not config.tie_embeddings:
+        tree["lm_head"] = rule("lm_head")
+    return tree
+
+
+def llama_param_sharding(mesh, config) -> Dict[str, Any]:
+    """The rule tree of a dense params tree: the reference's
+    ``llama_param_sharding``, a spec in the place of each NamedSharding."""
+    return _config_rules(mesh, config, lambda key: _DENSE_RULES[key])
+
+
+def llama_quantized_sharding(mesh, config, bits: int = 8, group: int = 128) -> Dict[str, Any]:
+    """The rule tree of ``quantize_params`` (bits 8) or
+    ``quantize_params_int4`` (bits 4, the same ``group``) output: nodes
+    of the quantized classes holding specs, as the reference's hold
+    NamedShardings."""
+    from nos_tpu_torch.models.quantize import (
+        QuantizedEmbedding,
+        QuantizedLinear,
+        QuantizedLinear4,
     )
+
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    linear = QuantizedLinear if bits == 8 else QuantizedLinear4
+
+    def weight_rule(key):
+        cls = QuantizedEmbedding if key == "embed" else linear
+        return _quantized_rule(cls, *_DENSE_RULES[key], group)
+
+    return _config_rules(mesh, config, weight_rule)
+
+
+def rule_leaves(rules) -> list:
+    """The specs of a rule tree in ``tree_leaves`` order (a node's in its
+    ``TENSORS`` order), one a params tensor."""
+    from nos_tpu_torch.models.llama import WeightNode
+
+    if isinstance(rules, tuple):
+        return [rules]
+    if isinstance(rules, WeightNode):
+        return list(rules.tensors())
+    if isinstance(rules, dict):
+        return [spec for key in rules for spec in rule_leaves(rules[key])]
+    return [spec for item in rules for spec in rule_leaves(item)]
+
+
+# ------------------------------------------------- shards and their inverse
+
+
+def _zip_map(fn, tree, rules):
+    """``fn(tensor, spec)`` over a params tree and its rule tree."""
+    from nos_tpu_torch.models.llama import WeightNode
+
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, rules)
+    if isinstance(tree, WeightNode):
+        return tree.replace([fn(t, s) for t, s in zip(tree.tensors(), rules.tensors())])
+    if isinstance(tree, dict):
+        return {key: _zip_map(fn, tree[key], rules[key]) for key in tree}
+    return type(tree)(_zip_map(fn, t, r) for t, r in zip(tree, rules))
+
+
+def take_shard(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of a whole tensor ``x`` under ``spec`` (a copy,
+    so the whole tensor can go)."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            x = _block(x, dim, axis_index(mesh, axis), axis_size(mesh, axis))
+    return x.contiguous().clone()
+
+
+def gather_shard(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's block under ``spec`` (a
+    collective: every rank of the mesh calls it), bit-exact."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            x = all_gather(x, axis_group(mesh, axis), dim)
+    return x
+
+
+def param_rules(params, mesh, config) -> Dict[str, Any]:
+    """The degraded rule tree of ``params`` on ``mesh``: dense, int8 or
+    int4 (the group read off the tree), the shape ``shard_params`` and
+    ``gather_params`` walk."""
+    _moe_raises(config)
+    tp = axis_size(mesh, "tp")
+    if tp > 1:
+        check_tp_heads(config, tp)
+    return tree_rules(params, mesh)
+
+
+def shard_params(params, mesh, config):
+    """This rank's shards of a whole params tree (dense, int8 or int4),
+    each a copy: what the rank holds under the reference's
+    ``jax.device_put(params, llama_param_sharding(mesh, config))``."""
+    rules = param_rules(params, mesh, config)
+    return _zip_map(lambda x, spec: take_shard(x, spec, mesh), params, rules)
+
+
+def gather_params(shards, mesh, config):
+    """The whole tree from every rank's shards (the inverse of
+    ``shard_params``; a collective, every rank of the mesh calls it)."""
+    rules = param_rules(shards, mesh, config)
+    return _zip_map(lambda x, spec: gather_shard(x, spec, mesh), shards, rules)
+
+
+def unshard_dp(leaf, key: str, mesh):
+    """FSDP's gather on use: ``leaf`` (params key ``key``, a tensor or a
+    quantized node) whole along ``dp``, still sharded over ``tp``. The
+    gradient of a gathered tensor reduce-scatters back over ``dp``.
+    ``leaf`` itself when the mesh has no dp axis longer than 1."""
+    group = axis_group(mesh, "dp")
+    if group is None:
+        return leaf
+
+    def gather(x, spec):
+        return fsdp_gather(x, group, spec.index("dp")) if "dp" in spec else x
+
+    rule = leaf_rule(key, leaf)
+    if isinstance(leaf, torch.Tensor):
+        return gather(leaf, rule)
+    return leaf.replace([gather(t, s) for t, s in zip(leaf.tensors(), rule.tensors())])

@@ -10,8 +10,11 @@ full width and ``--layers`` deep, random weights from a seed, flash
 attention on the ring; without remat, then with it, ``--steps``
 momentum-SGD steps in a row on one state, each timed on the host
 clock, with the gradient sum over the mesh timed apart from the rest of
-the step. The first step of a setting carries the process's one-time
-costs; the later ones are its steady state. Rank 0 prints one JSON line
+the step. With dp > 1 the params are FSDP shards: the dp sum of a 2-D
+leaf's gradient is the reduce-scatter inside the backward, so the sum
+timed apart is the sp sum of those leaves and the norms' sum. The first
+step of a setting carries the process's one-time costs; the later ones
+are its steady state. Rank 0 prints one JSON line
 per step, with the card's name and power limit.
 """
 from __future__ import annotations

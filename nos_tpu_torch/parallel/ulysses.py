@@ -14,7 +14,8 @@ Function) on the gathered sequence, so both directions run the kernels;
 exchange's backward is the inverse exchange (``comm.AllToAll``).
 
 Takes and returns the rank's block: q/k/v ``[B, S/n, H, hd]`` in,
-``[B, S/n, Hq·hd]`` out.
+``[B, S/n, Hq·hd]`` out. Under tensor parallelism H is the rank's own
+``H/tp`` heads, so the head counts that must divide by sp are those.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ def ulysses_attention(
     over the sequence sharded on ``axis_name`` → ``[B, S/n, Hq·hd]``;
     the calling convention of ``ring_attention``.
 
-    Raises (never mis-groups): the Q and KV head counts must divide by
+    Raises (never mis-groups): the rank's Q and KV head counts must divide by
     the sp degree, which also keeps every head chunk on whole GQA groups
     (a single kv head, as Gemma-2B's, rules Ulysses out at sp > 1: use
     the ring); the mesh must have the sequence axis."""
@@ -59,11 +60,6 @@ def ulysses_attention(
     names = tuple(mesh.mesh_dim_names or ())
     if axis_name not in names:
         raise ValueError(f"mesh {names} has no sequence axis {axis_name!r}")
-    if axis_size(mesh, "tp") > 1:
-        raise NotImplementedError(
-            "heads sharded over 'tp' (tensor parallelism) are not ported "
-            "yet (ROADMAP Queue 1 item 9: multi-device)"
-        )
     n = axis_size(mesh, axis_name)
     hq, hkv = q.shape[2], k.shape[2]
     if hq % n or hkv % n:

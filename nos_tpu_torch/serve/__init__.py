@@ -1,4 +1,15 @@
+"""Serving: the continuous-batching ``Engine`` (bf16, int8 or int4
+weights, the int8 KV cache, multi-tenant LoRA), ``SpecEngine``, their
+telemetry, and tensor-parallel serving (``Engine(mesh=...)`` over the
+shards of ``shard_for_serving``, with the head-sharded KV cache of
+``kv_cache_sharding``).
+
+Still raising under a mesh (NotImplementedError naming ROADMAP Queue 1
+item 9): ``SpecEngine``, and a MoE model; ``kv_quant`` with a mesh
+raises ``ValueError``, as in the reference.
+"""
 from nos_tpu_torch.serve.engine import Completion, Engine, GenRequest  # noqa: F401
+from nos_tpu_torch.serve.sharded import kv_cache_sharding, shard_for_serving  # noqa: F401
 from nos_tpu_torch.serve.spec_engine import SpecEngine  # noqa: F401
 from nos_tpu_torch.serve.telemetry import (  # noqa: F401
     RequestRecord,

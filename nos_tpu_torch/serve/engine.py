@@ -34,7 +34,14 @@ Python loops over device tensors):
   and admission at the one row's (``with_adapter_rows``: the row
   selector changes, no weight is copied).
 
-Not in this slice (NotImplementedError): ``mesh``.
+- Tensor-parallel serving (``mesh``; ``serve/sharded.py``): the params
+  are the rank's shards (``shard_for_serving``), the cache holds the
+  rank's ``n_kv_heads/tp`` heads and is allocated in shards, never
+  whole; prefill, ingest and decode run on the rank's tp line with the
+  logits gathered, so every rank emits the same tokens. Every rank runs
+  this same host loop on the same submissions, with still one host sync
+  per ``step()``. Other mesh axes replicate. ``kv_quant`` with a mesh
+  raises ``ValueError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -118,11 +125,20 @@ class Engine:
         telemetry: Optional[ServeTelemetry] = None,
         clock: Optional[ServeClock] = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving under a mesh (tensor-parallel serving) is not ported yet "
-                "(ROADMAP Queue 1 item 9: multi-device)"
+        if kv_quant and mesh is not None:
+            raise ValueError(
+                "kv_quant + mesh is not wired (the scale arrays need "
+                "their own head-sharding rules); pick one"
             )
+        # tensor-parallel serving: the rank's tp line (None: one device,
+        # or a mesh whose tp is 1, which replicates)
+        self.mesh = None
+        if mesh is not None:
+            from nos_tpu_torch.models.llama import _check_mesh
+            from nos_tpu_torch.serve.sharded import serving_mesh
+
+            _check_mesh(mesh, config)
+            self.mesh = serving_mesh(mesh)
         self.params = params
         self.config = config
         self.device = params_device(params)
@@ -161,7 +177,7 @@ class Engine:
         self.prefix_cache_entries = prefix_cache_entries
         self._prefix_cache: "OrderedDict[tuple, list]" = OrderedDict()
         self._cache = init_kv_cache(config, max_slots, max_len, quant=kv_quant,
-                                    device=self.device)
+                                    device=self.device, mesh=self.mesh)
         # Host-side control state, copied to the device once per round.
         self._pos = np.zeros(max_slots, np.int64)  # next physical write slot
         self._rope = np.zeros(max_slots, np.int64)  # logical position (no pads)
@@ -319,7 +335,7 @@ class Engine:
         with self.telemetry.prefill_span(request, bucket, "padded"):
             logits, row_cache = prefill(
                 self._admission_params(request.adapter), padded, self.config,
-                bucket, pad_id=PAD_ID, quant=self.kv_quant,
+                bucket, pad_id=PAD_ID, quant=self.kv_quant, mesh=self.mesh,
             )
             first_logits = logits[:, -1]
             first = first_logits.argmax(dim=-1)
@@ -349,7 +365,7 @@ class Engine:
         # layout keeps its sacrificial slot OUTSIDE max_len instead
         row_cache = init_kv_cache(
             self.config, 1, self.max_len if self.rolling else self.max_len + 1,
-            quant=self.kv_quant, device=self.device,
+            quant=self.kv_quant, device=self.device, mesh=self.mesh,
         )
         # Longest cached prefix at one of this request's chunk boundaries;
         # the final piece always recomputes (its logits seed generation).
@@ -419,7 +435,7 @@ class Engine:
                 params, row_cache,
                 torch.tensor([start], dtype=torch.long, device=self.device),
                 torch.tensor([piece], dtype=torch.long, device=self.device),
-                config, write_mask=mask, rolling=self.rolling,
+                config, write_mask=mask, rolling=self.rolling, mesh=self.mesh,
             )
         return logits
 
@@ -496,6 +512,7 @@ class Engine:
             logits, _ = decode_step(
                 params, self._cache, pos, last, self.config,
                 rope_pos=rope, key_valid=key_valid, rolling=self.rolling,
+                mesh=self.mesh,
             )
             if sampling is None:
                 last = logits.argmax(dim=-1)

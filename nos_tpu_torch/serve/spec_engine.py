@@ -44,6 +44,11 @@ class SpecEngine(Engine):
 
     def __init__(self, params, config: LlamaConfig, draft_params,
                  draft_config: LlamaConfig, k: int = 4, **kwargs) -> None:
+        if kwargs.get("mesh") is not None:
+            raise NotImplementedError(
+                "speculative serving under a mesh is not ported yet "
+                "(ROADMAP Queue 1 item 9: multi-device)"
+            )
         if kwargs.get("rolling"):
             raise ValueError(
                 "rolling cache is not supported with speculation (the "

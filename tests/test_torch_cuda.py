@@ -647,3 +647,81 @@ def test_int8_expert_product_matches_fake_quant_on_card(cuda_device):
     want = torch.bmm(x, oracle).float()
     assert got.shape == (8, 24, 1792)
     assert float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)) <= 1e-2
+
+
+
+def _tp_rank(rank, out) -> None:
+    """One of two ranks on the card in a gloo group (NCCL refuses two
+    ranks on one device), a tiny bf16 flash model over a tp 2 mesh: the
+    forward kernel's launches and the q heads each launch saw, the
+    vocab-parallel loss beside the mean NLL of the gathered logits, and
+    the backward kernels' launches. Module-level so that spawn can pickle
+    it (this file imports no JAX)."""
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel.mesh import mesh_from_devices
+    from nos_tpu_torch.parallel.sharding import shard_params
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out}/rendezvous", rank=rank,
+                            world_size=2)
+    forward = fa._flash_fwd_cuda
+    heads = []
+
+    def seen(q, *args):
+        heads.append(q.shape[2])
+        return forward(q, *args)
+
+    try:
+        cfg = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                                vocab_size=512, attention="flash", dtype=torch.bfloat16)
+        mesh = mesh_from_devices((2,), ("tp",), device="cuda")
+        shards = shard_params(llama.init_llama_params(cfg, 5, device="cuda"), mesh, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen, device="cuda")
+        fa._flash_fwd_cuda = seen
+        fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+        with torch.no_grad():
+            logits = llama.llama_forward(shards, tokens, cfg, mesh)
+        forward_launches = fa.LAUNCHES
+        leaves = [p.requires_grad_(True) for p in llama.tree_leaves(shards)]
+        fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+        loss = llama.llama_loss(shards, tokens, cfg, mesh)
+        torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        np.savez(os.path.join(str(out), f"tp_r{rank}.npz"),
+                 forward_launches=forward_launches, heads=np.array(heads),
+                 train_launches=np.array([fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES]),
+                 loss=float(loss), gathered_loss=float(llama.next_token_nll(logits, tokens)),
+                 logits_shape=np.array(logits.shape), n_layers=cfg.n_layers)
+        dist.barrier()
+    finally:
+        fa._flash_fwd_cuda = forward
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tp_ranks_launch_the_kernels_at_local_heads_on_card(cuda_device, tmp_path):
+    """Two ranks on the card, a tiny bf16 flash model over a tp 2 mesh
+    (``_tp_rank``): the forward kernel runs once a layer on each rank at
+    the rank's 2 of 4 q heads; the vocab-parallel loss (max, sum of
+    exponentials and target logit reduced over tp) equals the mean NLL of
+    the gathered logits within 1e-5 relative (the same bf16 logits, two
+    f32 reductions); one backward launches dQ and dK/dV once a layer."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    mp.spawn(_tp_rank, args=(tmp_path,), nprocs=2)
+    for r in range(2):
+        with np.load(tmp_path / f"tp_r{r}.npz") as got:
+            layers = int(got["n_layers"])
+            assert int(got["forward_launches"]) == layers
+            assert list(got["heads"][:layers]) == [2] * layers
+            assert list(got["logits_shape"]) == [2, 256, 512]
+            assert list(got["train_launches"]) == [layers, layers, layers]
+            loss, gathered = float(got["loss"]), float(got["gathered_loss"])
+            assert abs(loss - gathered) <= 1e-5 * abs(gathered), (loss, gathered)

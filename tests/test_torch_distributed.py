@@ -82,18 +82,31 @@ def test_initialize_starts_a_gloo_group_from_gang_coordinates(tmp_path):
 
 
 def test_mesh_builders(tmp_path):
+    """The default training mesh and the slice meshes have the
+    reference's axis names and sizes on four devices."""
+    from nos_tpu.parallel import mesh as jm
+
+    devices = jax.devices()[:4]
+    want_default = jm.default_training_mesh(devices)
+    want_slices = {"slice_2x2": jm.mesh_for_slice("2x2", devices=devices),
+                   "slice_1x4": jm.mesh_for_slice("1x4", devices=devices),
+                   "slice_2x2_dp4": jm.mesh_for_slice("2x2", dp=4, devices=devices)}
     ranks.spawn(ranks.mesh_builders, 4, tmp_path, tmp_path)
     for rank in range(4):
         got = ranks.load(tmp_path, "mesh", rank)
-        # the reference's axis order; tp stays 1 until tensor parallelism
-        assert list(got["default_names"]) == ["dp", "sp", "tp"]
-        assert list(got["default_shape"]) == [2, 2, 1]
-        assert list(got["sizes"]) == [2, 2, 1]
-        assert list(got["coords"]) == [rank // 2, rank % 2, 0]
+        # the reference's axis order and sizes: tp 2 innermost, then sp
+        assert list(got["default_names"]) == list(want_default.axis_names)
+        assert list(got["default_shape"]) == [want_default.shape[a] for a in want_default.axis_names]
+        assert list(got["sizes"]) == [1, 2, 2]
+        assert list(got["coords"]) == [0, rank // 2, rank % 2]
+        for key, want in want_slices.items():
+            assert list(got[f"{key}_names"]) == list(want.axis_names), key
+            assert list(got[f"{key}_shape"]) == [want.shape[a] for a in want.axis_names], key
         assert int(got["global_sp"]) == rank
         assert list(got["absent"]) == [0, 1]
         assert "need 8 devices" in str(got["too_big"])
-        assert "Queue 1 item 9" in str(got["for_slice"])
+        assert str(got["slice_dp3"]).startswith("ValueError") and "does not divide" in str(got["slice_dp3"])
+        assert str(got["slice_bad"]).startswith("ValueError") and "invalid topology" in str(got["slice_bad"])
 
 
 def test_collectives(tmp_path):

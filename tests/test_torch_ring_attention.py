@@ -83,9 +83,10 @@ def test_ring_flash_and_dense_match_reference(dims, tmp_path):
 
 def test_contracts_raise_as_the_reference_does(tmp_path):
     """Missing sp axis, heads not a multiple of kv heads, a window without
-    causal or of width 0 (ValueError, as the reference), and heads over
-    tp (NotImplementedError naming Queue 1 item 9); Ulysses' three raises
-    are held in tests/test_torch_ulysses.py."""
+    causal or of width 0 (ValueError, as the reference); a mesh with tp
+    runs (the heads are the rank's own), as the reference's ring runs
+    under a head axis; Ulysses' three raises are held in
+    tests/test_torch_ulysses.py."""
     ranks.spawn(ranks.attention_contracts, 4, tmp_path, tmp_path)
     for rank in range(4):
         errors = {k: str(v) for k, v in ranks.load(tmp_path, "contracts", rank).items()}
@@ -95,8 +96,7 @@ def test_contracts_raise_as_the_reference_does(tmp_path):
             assert "causal" in errors[f"{fn}_attention_window_noncausal"], errors
             assert ">= 1" in errors[f"{fn}_attention_window_zero"], errors
         assert "not a multiple of kv heads" in errors["ring_flash_gqa"], errors
-        assert errors["ring_tp"].startswith("NotImplementedError"), errors
-        assert "Queue 1 item 9" in errors["ring_tp"], errors
+        assert errors["ring_tp"] == "no error", errors
 
 
 @pytest.mark.parametrize("causal,window", [

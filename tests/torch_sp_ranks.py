@@ -156,22 +156,35 @@ def port_model(params_np, overrides):
     return cfg, params_from_numpy(params_np, cfg, device="cpu")
 
 
+def mesh_loss_grads(params, tokens, cfg, mesh):
+    """``llama_loss`` of the rank's shards of ``params`` (whole) on its
+    block of ``tokens`` (global, numpy), and the whole gradient: the
+    ranks' shares summed as the trainer sums them, gathered. Every rank
+    of the mesh calls it."""
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel.sharding import gather_params, shard_params
+    from nos_tpu_torch.parallel.train import sum_gradients
+
+    shards = shard_params(params, mesh, cfg)
+    leaves = [p.requires_grad_(True) for p in llama.tree_leaves(shards)]
+    loss = llama.llama_loss(shards, block(mesh, tokens), cfg, mesh)
+    grads = iter(sum_gradients(torch.autograd.grad(loss, leaves), leaves, mesh))
+    whole = gather_params(llama.tree_map(lambda _: next(grads), shards), mesh, cfg)
+    return loss.detach(), llama.tree_leaves(whole)
+
+
 def model_loss(rank, out, mesh, params_np, tokens, cases) -> None:
     """Each case ``(name, overrides)``: ``llama_loss`` on this rank's token
-    block and its gradient summed over the mesh, beside the one-device
-    loss and gradient of the whole batch (rank 0)."""
+    block and shards and its gradient summed over the mesh, beside the
+    one-device loss and gradient of the whole batch (rank 0)."""
     from nos_tpu_torch.models import llama
-    from nos_tpu_torch.parallel.comm import all_reduce
-    from nos_tpu_torch.parallel.mesh import mesh_groups
 
     for name, overrides in cases:
         cfg, params = port_model(params_np, overrides)
-        leaves = [p.requires_grad_(True) for p in llama.tree_leaves(params)]
-        loss = llama.llama_loss(params, block(mesh, tokens), cfg, mesh)
-        grads = [all_reduce(g, mesh_groups(mesh))
-                 for g in torch.autograd.grad(loss, leaves)]
-        arrays = {"loss": loss.detach().numpy()}
+        loss, grads = mesh_loss_grads(params, tokens, cfg, mesh)
+        arrays = {"loss": loss.numpy()}
         if rank == 0:
+            leaves = [p.requires_grad_(True) for p in llama.tree_leaves(params)]
             one = llama.llama_loss(params, torch.from_numpy(tokens), cfg)
             arrays["one_loss"] = one.detach().numpy()
             for i, (g, w) in enumerate(zip(grads, torch.autograd.grad(one, leaves))):
@@ -184,10 +197,12 @@ def train(rank, out, mesh, name, params_np, overrides, batches, step_kwargs,
           adamw=None) -> None:
     """``make_train_step`` over the mesh on this rank's blocks of
     ``batches``: the losses, then the params (and the velocity of the
-    built-in SGD) after the last step, in ``tree_leaves`` order.
-    ``adamw``: torch.optim.AdamW's keyword arguments for the factory."""
+    built-in SGD) after the last step, gathered whole from the ranks'
+    shards, in ``tree_leaves`` order. ``adamw``: torch.optim.AdamW's
+    keyword arguments for the factory."""
     from nos_tpu_torch.models import llama
     from nos_tpu_torch.parallel import make_train_step
+    from nos_tpu_torch.parallel.sharding import gather_params
 
     cfg, params = port_model(params_np, overrides)
     kwargs = dict(step_kwargs)
@@ -200,10 +215,11 @@ def train(rank, out, mesh, name, params_np, overrides, batches, step_kwargs,
         state, loss = step(state, block(mesh, tokens))
         losses.append(float(loss))
     arrays = {"losses": np.array(losses)}
-    for i, p in enumerate(llama.tree_leaves(state[0])):
-        arrays[f"p{i}"] = p.detach().numpy()
+    whole = gather_params(llama.tree_map(lambda p: p.detach(), state[0]), mesh, cfg)
+    for i, p in enumerate(llama.tree_leaves(whole)):
+        arrays[f"p{i}"] = p.numpy()
     if adamw is None:
-        for i, v in enumerate(llama.tree_leaves(state[1])):
+        for i, v in enumerate(llama.tree_leaves(gather_params(state[1], mesh, cfg))):
             arrays[f"v{i}"] = v.numpy()
     save(out, name, rank, **arrays)
 
@@ -260,10 +276,14 @@ def mesh_builders(rank, out) -> None:
 
     default = pm.default_training_mesh(device="cpu")
     glob = distributed.global_mesh((1, 4), ("dp", "sp"), device="cpu")
+    slices = {"slice_2x2": pm.mesh_for_slice("2x2", device="cpu"),
+              "slice_1x4": pm.mesh_for_slice("1x4", device="cpu"),
+              "slice_2x2_dp4": pm.mesh_for_slice("2x2", dp=4, device="cpu")}
     errors = {}
     for key, fn in {
         "too_big": lambda: pm.mesh_from_devices((8,), ("sp",), device="cpu"),
-        "for_slice": lambda: pm.mesh_for_slice("2x2"),
+        "slice_dp3": lambda: pm.mesh_for_slice("2x2", dp=3, device="cpu"),
+        "slice_bad": lambda: pm.mesh_for_slice("2xq", device="cpu"),
     }.items():
         try:
             fn()
@@ -276,6 +296,8 @@ def mesh_builders(rank, out) -> None:
          sizes=np.array([pm.axis_size(default, a) for a in pm.AXES]),
          global_sp=np.array(pm.axis_index(glob, "sp")),
          absent=np.array([pm.axis_index(glob, "tp"), pm.axis_size(glob, "tp")]),
+         **{f"{k}_names": np.array(m.mesh_dim_names) for k, m in slices.items()},
+         **{f"{k}_shape": np.array(m.shape) for k, m in slices.items()},
          **{k: np.array(v) for k, v in errors.items()})
 
 
@@ -321,8 +343,7 @@ def out_of_slice(rank, out, params_np) -> None:
     """What still raises under a mesh; a rank writes each error's text."""
     from nos_tpu_torch.models import llama, lora, moe
     from nos_tpu_torch.parallel import make_train_step, sharding
-    from nos_tpu_torch.parallel.train import optimizer_state_sharding
-    from nos_tpu_torch.serve import Engine
+    from nos_tpu_torch.serve import SpecEngine
 
     dp_tp = cpu_mesh((2, 2), ("dp", "tp"))
     ep = cpu_mesh((4,), ("ep",))
@@ -330,22 +351,24 @@ def out_of_slice(rank, out, params_np) -> None:
     cfg, params = port_model(params_np, {})
     moe_cfg = llama.tiny_config(dtype=torch.float32, n_experts=4)
     moe_params = llama.init_llama_params(moe_cfg, 0, device="cpu")
+    lc = lora.LoraConfig()
+    adapted = lora.attach_lora(params, lora.init_lora_params(cfg, lc, 0, device="cpu"), lc)
     toks = torch.zeros((1, 4), dtype=torch.long)
     cases = {
-        "forward_tp": lambda: llama.llama_forward(params, toks, cfg, dp_tp),
         "forward_ep": lambda: llama.llama_forward(params, toks, cfg, ep),
         "forward_not_a_mesh": lambda: llama.llama_forward(params, toks, cfg, object()),
         "forward_moe": lambda: llama.llama_forward(moe_params, toks, moe_cfg, dp_sp),
-        "train_tp": lambda: make_train_step(dp_tp, cfg, device="cpu"),
+        "forward_moe_tp": lambda: llama.llama_forward(moe_params, toks, moe_cfg, dp_tp),
         "train_moe": lambda: make_train_step(dp_sp, moe_cfg, device="cpu"),
         "moe_mlp": lambda: moe.moe_mlp(moe_params["layers"][0]["moe"],
                                        torch.zeros(1, 2, 64), moe_cfg.moe_config(), dp_sp),
-        "engine": lambda: Engine(params, cfg, mesh=dp_sp),
+        "spec_engine": lambda: SpecEngine(params, cfg, params, cfg, mesh=dp_tp),
         "lora": lambda: lora.make_lora_train_step(dp_sp, cfg, lora.LoraConfig(),
                                                   device="cpu"),
-        "param_sharding": lambda: sharding.llama_param_sharding(dp_sp, cfg),
-        "quantized_sharding": lambda: sharding.llama_quantized_sharding(dp_sp, cfg),
-        "optimizer_state": lambda: optimizer_state_sharding(None, None, dp_sp),
+        "lora_shards": lambda: sharding.shard_params(adapted, dp_tp, cfg),
+        "param_sharding_moe": lambda: sharding.llama_param_sharding(dp_tp, moe_cfg),
+        "quantized_sharding_moe": lambda: sharding.llama_quantized_sharding(dp_tp, moe_cfg),
+        "shard_moe": lambda: sharding.shard_params(moe_params, dp_tp, moe_cfg),
     }
     errors = {}
     for key, fn in cases.items():
