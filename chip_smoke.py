@@ -183,7 +183,46 @@ and last the tensor-parallel paths, on ranks spawned the same way:
     (comm.timed_collectives) and a second step without the split;
 26. checkpoint: that state saved as DTensor shards and restored onto a
     ('tp',) mesh of 4 and onto one device, every gathered leaf
-    bit-identical to the saved one; save and restore seconds and bytes.
+    bit-identical to the saved one; save and restore seconds and bytes;
+27. tp_lora_train (on the two tp ranks): make_lora_train_step over tp 2,
+    Llama-3-8B at TP_LORA_LAYERS layers, rank 8 on wq / wv, flash +
+    remat, three Adam steps on [4, 2048] against the one-device LoRA
+    step: losses within TP_LOSS_LIMIT, the adapters' first moments
+    within 3%, launches 2L / L / L a step;
+28. tp_spec_engine: SpecEngine over tp 2, the full-depth target on its
+    shards and a 2-layer draft whole on each rank, four requests x 16:
+    the same tokens on both ranks, agreement with one device reported;
+
+and last the expert- and pipeline-parallel paths, on four ranks spawned
+the same way (the mixtral_int8 phase leaves the one-device logits and
+tokens they are held against, and the parent frees its tree first):
+
+29. ep_layer: one full-width bf16 Mixtral MoE layer (seeded router and
+    experts, 2048 seeded hidden states sharing one component so that
+    capacity 640 binds) over ep 4 on [1,
+    2048] and over dp 2 x ep 2 on [2, 1024], against one device's
+    moe_mlp: the kept-pair set exactly (the global capacity race), the
+    output within EP_REL_LIMIT, the bytes each collective received;
+30. ep_forward / ep_generate: Mixtral-8x7B in int8 at full depth over ep
+    4, each rank drawing the one-device tree's layers from the same
+    per-layer seeds and keeping its 2 experts of each (about 12.7 GB a
+    rank): llama_forward on [1, 2048] (32 forward launches a rank, the
+    same logits on every rank, held to forward_check's bars against one
+    device's) and generate() on [2, 512] + 16 (the same tokens on every
+    rank, agreement reported);
+31. ep_train: Mixtral at 2 layers, [4, 2048], dp 2 x ep 2, FSDP and
+    remat, one momentum-SGD step against the one-device step under the
+    tp_train bars; launches 4 / 2 / 2, param bytes, peak, the step split
+    by collective kind;
+32. pp_forward: Llama-3-8B at full depth through pipeline_llama_forward
+    over pp 4 (8 layers a stage, drawn layer by layer), [4, 2048] in 4
+    microbatches, against the one-device forward under forward_check's
+    bars; 32 forward launches a rank (the bubble ticks skip their
+    compute), the hops' and the broadcast's times;
+33. pp_train: 8 layers, dp 2 x pp 2 with FSDP and remat, 2
+    microbatches: pipeline_loss_and_grads against one device's llama_loss
+    and gradients under the tp_train bars; launches 16 / 8 / 8 a rank,
+    the bubble share, the step split by collective kind.
 
 Every line but the last two is a JSON object; the card's name and power
 limit (nvidia-smi) come second to last, and the last line is
@@ -1448,10 +1487,13 @@ def mixtral_int8_tree(cfg, seed=51):
     return tree
 
 
-def mixtral_int8_phase(card) -> dict:
+def mixtral_int8_phase(card, ep_ref=None) -> dict:
     """Mixtral-8x7B at full width and depth in int8: conversion, the
     2-layer oracle check, flash against dense, generate(), one decode
-    step beside its weight-read bound, the Engine, a lone request."""
+    step beside its weight-read bound, the Engine, a lone request. With
+    ``ep_ref`` (a directory) it also leaves there what the ep phases are
+    held against: the flash logits of [1, EP_FORWARD_SEQ] seeded tokens
+    (``logits.pt``) and generate()'s prompt and tokens (``serve.pt``)."""
     import torch
 
     from nos_tpu_torch.models import generate as gen_mod
@@ -1494,6 +1536,13 @@ def mixtral_int8_phase(card) -> dict:
             dense = llama.llama_forward(params, tokens, dataclasses.replace(cfg, attention="dense"))
             checks[f"flash_dense_{name}"] = logits_agreement(flash, dense)
             del flash, dense
+        if ep_ref is not None:
+            ep_tokens = torch.randint(0, cfg.vocab_size, (1, EP_FORWARD_SEQ),
+                                      generator=torch.Generator(device="cuda").manual_seed(53),
+                                      device="cuda")
+            torch.save(llama.llama_forward(tree, ep_tokens, cfg).cpu(),
+                       os.path.join(ep_ref, "logits.pt"))
+            del ep_tokens
     oracle, fd = checks["oracle_tied"], checks["flash_dense_tied"]
     row = {"phase": "mixtral_int8_checks", "tokens": [1, 1024], **checks,
            "rel_limit": QUANT_REL_LIMIT["int8"], "card": card}
@@ -1522,6 +1571,9 @@ def mixtral_int8_phase(card) -> dict:
     emit(row)
     if not row["ok"]:
         raise SystemExit(f"Mixtral generate() failed: {row}")
+    if ep_ref is not None:
+        torch.save({"prompt": prompt.cpu(), "generated": out.cpu()},
+                   os.path.join(ep_ref, "serve.pt"))
 
     # the prefill alone, and one decode step at the generate shapes beside
     # the weight-read bound
@@ -1629,9 +1681,10 @@ SP_FORWARD_SEQ = 8192    # Llama-3-8B at full depth, sp 2
 # Four replicas of weights, gradients and velocity (6 bytes a parameter)
 # plus each rank's activations: at 8 layers (2.01 B parameters) a rank
 # peaks at 15.75 GiB and the card kept 6.3 and 1.6 GiB free after the
-# step in two runs of this phase (NVIDIA H100 80GB HBM3, 700 W); 6 layers
-# (1.57 B) keep about 10 GiB of margin.
-SP_TRAIN_LAYERS = 6
+# step in two runs of this phase (NVIDIA H100 80GB HBM3, 700 W). 4 layers
+# (6 until the expert and pipeline phases joined the script) keep the
+# script inside its time budget.
+SP_TRAIN_LAYERS = 4
 SP_TRAIN_TOKENS = (2, 4096)
 # One step from zero velocity moves each weight by lr * g. At lr 1e4 every
 # update outgrows the weight it moves, so the bf16 parameter delta carries
@@ -2172,7 +2225,7 @@ def sp_phases(card) -> dict:
 
 # Tensor parallelism and FSDP, on ranks sharing the card over gloo
 TP_FORWARD_SEQ = 2048    # Llama-3-8B at full depth, tp 2 (Hq 16, Hkv 4 a rank)
-TP4_FORWARD_LAYERS = 8   # tp 4 (Hq 8, Hkv 2): four ranks each init the whole tree
+TP4_FORWARD_LAYERS = 4   # tp 4 (Hq 8, Hkv 2): four ranks each init the whole tree
 TP_ENGINE_NEW = 16       # tokens a request, four requests
 TP_TRAIN_LAYERS = 4
 TP_TRAIN_TOKENS = (4, 2048)
@@ -2561,6 +2614,8 @@ def tp_phases(card) -> dict:
     two = sp_spawn(2, [
         ("tp_forward_case", dict(seq=TP_FORWARD_SEQ)),
         ("tp_engine_case", dict(new_tokens=TP_ENGINE_NEW)),
+        ("tp_lora_train_case", {}),
+        ("tp_spec_engine_case", {}),
     ], card)
     t_two = time.time() - t0
     ckpt_dir = tempfile.mkdtemp(prefix="nos-ckpt-")
@@ -2578,7 +2633,9 @@ def tp_phases(card) -> dict:
     serving = [row for i in range(3) for rows in two for row in [rows[1][i]]]
     train = [rows[1][0] for rows in four]
     checkpoint = [rows[1][1] for rows in four]
-    for row in forward + serving + train + checkpoint:
+    lora = [rows[2] for rows in two]
+    spec = [rows[3] for rows in two]
+    for row in forward + serving + train + checkpoint + lora + spec:
         emit(row)
     emit({"phase": "tp_phases", "seconds_two_ranks": t_two, "seconds_four_ranks": t_four,
           "card": card})
@@ -2588,7 +2645,708 @@ def tp_phases(card) -> dict:
     launches["tp_generate.tp2"] = [row["launches_fwd_dq_dkv"] for row in serving
                                    if row["phase"] == "tp_generate"]
     launches["tp_train.dp2_tp2_fsdp_remat"] = [row["launches_fwd_dq_dkv"] for row in train]
+    launches["tp_lora_train.tp2_remat_per_step"] = [row["launches_per_step_fwd_dq_dkv"][-1]
+                                                    for row in lora]
     return {"launches": launches}
+
+
+# Expert and pipeline parallelism, LoRA and SpecEngine under a mesh, on
+# ranks sharing the card over gloo
+EP_LAYER_TOKENS = 2048   # one Mixtral MoE layer: [1, 2048] over ep 4, [2, 1024] over dp 2 x ep 2
+EP_FORWARD_SEQ = 2048    # Mixtral-8x7B int8 at full depth over ep 4
+EP_GENERATE_NEW = 16     # the first 16 of the one-device generate()'s 32 tokens
+EP_TRAIN_TOKENS = (4, 2048)  # Mixtral at 2 layers, dp 2 x ep 2
+PP_FORWARD_TOKENS = (4, 2048)  # Llama-3-8B at full depth over pp 4, M 4
+PP_TRAIN_LAYERS = 8
+PP_TRAIN_TOKENS = (4, 2048)  # dp 2 x pp 2, M 2
+EP_REL_LIMIT = 1e-2      # one MoE layer over ep against one device, rel. Frobenius
+EP_LAYER_SKEW = 0.5      # scale of the hidden states' shared component (load skew)
+TP_LORA_LAYERS = 4
+TP_LORA_TOKENS = (4, 2048)
+TP_SPEC_NEW = 16
+
+
+def layered_params(cfg, seed, layers=None, top_fn=None):
+    """A random model of ``cfg`` drawn one layer at a time: layer i is the
+    layer of a one-layer model drawn from ``seed + i``, the embedding,
+    final norm and head those of the draw of ``seed``. Only ``layers``
+    (all by default) are drawn and kept, each draw through ``top_fn``
+    first (optional), so a rank draws just its own layers and experts and
+    every rank's share of one model is the same whatever the split."""
+    from nos_tpu_torch.models import llama
+
+    one = dataclasses.replace(cfg, n_layers=1)
+    keep = list(range(cfg.n_layers)) if layers is None else list(layers)
+    tree = None
+    for i in sorted(set(keep) | {0}):
+        draw = llama.init_llama_params(one, seed=seed + i, device="cuda")
+        if top_fn is not None:
+            draw = top_fn(draw)
+        if tree is None:
+            tree = dict(draw, layers=[])
+        if i in keep:
+            tree["layers"].append(draw["layers"][0])
+        del draw
+    return tree
+
+
+def moe_slice(mesh):
+    """A layer's ``moe`` node cut to this rank's experts (and d_ff /
+    d_model shards) by the sharding rules."""
+    from nos_tpu_torch.parallel.sharding import _zip_map, take_shard, tree_rules
+
+    def cut(layer):
+        rules = tree_rules({"moe": layer["moe"]}, mesh)["moe"]
+        return dict(layer, moe=_zip_map(lambda x, s: take_shard(x, s, mesh),
+                                        layer["moe"], rules))
+
+    return cut
+
+
+def mixtral_int8_rank_tree(cfg, mesh, seed=51):
+    """The rank's share over ``mesh`` of ``mixtral_int8_tree(cfg, seed)``,
+    drawn layer by layer: its E/ep experts of every layer (cut from the
+    bf16 draw before quantizing: an int8 stack's scales are per expert
+    and output column, so cutting first gives the same bytes), the rest
+    whole."""
+    from nos_tpu_torch.models.quantize import quantize_params
+
+    cut = moe_slice(mesh)
+
+    def rank_share(draw):
+        return quantize_params(dict(draw, layers=[cut(draw["layers"][0])]))
+
+    return layered_params(cfg, seed, top_fn=rank_share)
+
+
+def ep_layer_case(rank, world, card) -> dict:
+    """One full-width bf16 Mixtral MoE layer (seeded random router and
+    experts, seeded hidden states of 2048 tokens sharing one component,
+    so that at the default capacity factor capacity binds: held) over ep
+    4 on [1, 2048] and over dp 2 x
+    ep 2 on [2, 1024] (the same 2048 tokens), against the one-device
+    moe_mlp on the same input: the kept-pair set exactly, the output
+    within EP_REL_LIMIT (relative Frobenius); the bytes each collective
+    received on this rank, and its host-staged time."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import moe as tm
+    from nos_tpu_torch.parallel import comm, mesh as pm
+    from nos_tpu_torch.parallel.sharding import llama_data_sharding
+
+    cfg = mixtral_config()
+    mc = cfg.moe_config()
+    d, k, e = cfg.d_model, mc.top_k, mc.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    params = tm.init_moe_params(gen, mc)
+    # a component shared by every token skews the router's load, so the
+    # default capacity binds (about 18% of the pairs dropped)
+    shared = EP_LAYER_SKEW * torch.randn((d,), generator=gen, device="cuda")
+    x = (torch.randn((1, EP_LAYER_TOKENS, d), generator=gen, device="cuda")
+         + shared).to(cfg.dtype)
+    cap = tm.capacity_per_expert(EP_LAYER_TOKENS, mc)
+    with torch.no_grad():
+        want = tm.moe_mlp(params, x, mc)
+        keep_one = tm._route(x.reshape(-1, d), params["router"], mc)[4]
+    dropped = int((~keep_one).sum())
+    rows = []
+    for dims, names, shape in (((4,), ("ep",), (1, EP_LAYER_TOKENS)),
+                               ((2, 2), ("dp", "ep"), (2, EP_LAYER_TOKENS // 2))):
+        mesh = pm.mesh_from_devices(dims, names)
+        ep, dp = pm.axis_size(mesh, "ep"), pm.axis_size(mesh, "dp")
+        block = llama_data_sharding(mesh, x.reshape(*shape, d)).contiguous()
+        shards = moe_slice(mesh)({"moe": params})["moe"]
+        want_block = llama_data_sharding(mesh, want.reshape(*shape, d))
+        keep_want = llama_data_sharding(mesh, keep_one.reshape(*shape, k)).reshape(-1)
+        torch.cuda.synchronize()
+        dist.barrier()
+        with torch.no_grad(), comm.timed_collectives() as times:
+            t0 = time.perf_counter()
+            got = tm.moe_mlp(shards, block, mc, mesh)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            keep = tm._route(block.reshape(-1, d), shards["router"], mc, None, mesh,
+                             block.shape[0])[4]
+        row = {"phase": "ep_layer", "config": "mixtral_8x7b", "rank": rank,
+               "mesh": dict(zip(names, dims)), "hidden": list(shape),
+               "hidden_rank": list(block.shape[:2]), "capacity": cap,
+               "capacity_factor": mc.capacity_factor,
+               "kept_pairs_rank": int(keep.sum()), "pairs_rank": int(keep.numel()),
+               "dropped_pairs_one_device": dropped,
+               "kept_set_equal": bool(torch.equal(keep, keep_want)),
+               "rel_frobenius_err": rel_frobenius(got, want_block),
+               "rel_limit": EP_REL_LIMIT,
+               "experts_rank": int(shards["w_gate"].shape[0]),
+               # received on this rank: the other ep ranks' expert outputs
+               # [E/ep, C, d] bf16, and the per-row routing counts [B/dp, E]
+               # int64 of the other dp ranks
+               "bytes_received": {
+                   "ep_gather_out_e": (ep - 1) * (e // ep) * cap * d * 2,
+                   "ep_race_counts": (dp - 1) * block.shape[0] * e * 8},
+               "collective_calls": {kk: len(v) for kk, v in times.items()},
+               "collective_ms_gloo_host_staged": {kk: sum(v) for kk, v in times.items()},
+               "wall_ms_gloo_host_staged": wall, "card": card}
+        row["ok"] = row["kept_set_equal"] and row["rel_frobenius_err"] <= EP_REL_LIMIT \
+            and row["experts_rank"] == e // ep and dropped > 0
+        if not row["ok"]:
+            sp_fail(row, "ep_layer")
+        rows.append(row)
+    return rows
+
+
+def ep_serve_case(rank, world, card, ref_path) -> list:
+    """Mixtral-8x7B in int8 at full depth over ep 4: each rank draws the
+    one-device tree's layers from the same per-layer seeds and keeps its 2
+    experts of each, one rank after another. ep_forward: llama_forward on
+    [1, EP_FORWARD_SEQ]
+    (one forward launch a layer), the same logits on every rank, against
+    the one-device logits (random routers, reported and held to the
+    forward_check bars). ep_generate: generate() on [2, 512] +
+    EP_GENERATE_NEW, the same tokens on every rank, against the
+    one-device tokens (reported)."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import generate as gen_mod
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.models.quantize import weight_bytes
+    from nos_tpu_torch.parallel import comm, mesh as pm
+
+    cfg = mixtral_config()
+    mesh = pm.mesh_from_devices((world,), ("ep",))
+    torch.cuda.reset_peak_memory_stats()
+    # one rank draws at a time: a draw holds a whole bf16 layer (2.8 GB)
+    # beside the shares already built
+    for r in range(world):
+        if r == rank:
+            t0 = time.perf_counter()
+            tree = mixtral_int8_rank_tree(cfg, mesh)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        dist.barrier()
+    ref = torch.load(os.path.join(ref_path, "serve.pt"))
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    tokens = torch.randint(0, cfg.vocab_size, (1, EP_FORWARD_SEQ), generator=gen, device="cuda")
+    dist.barrier()
+    with torch.no_grad(), comm.timed_collectives() as times:
+        zero_counts()  # the ep forward path
+        t0 = time.perf_counter()
+        got = llama.llama_forward(tree, tokens, cfg, mesh)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = counts()
+    row = {"phase": "ep_forward", "config": "mixtral_8x7b", "weights": "int8",
+           "rank": rank, "ep": world, "tokens": [1, EP_FORWARD_SEQ],
+           "experts_rank": int(tree["layers"][0]["moe"]["w_gate"].q.shape[0]),
+           "weight_bytes_rank": weight_bytes(tree), "build_s": build_s,
+           "transport": comm.transport(mesh.get_group("ep"), "cuda"),
+           "launches_fwd_dq_dkv": list(launches), "expected_launches": [cfg.n_layers, 0, 0],
+           "same_logits_every_rank": same_on_every_rank(float(got.double().sum()), world),
+           "collective_calls": {k: len(v) for k, v in times.items()},
+           "collective_ms_gloo_host_staged": {k: sum(v) for k, v in times.items()},
+           "wall_ms_gloo_host_staged": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card}
+    ok = list(launches) == row["expected_launches"] and row["same_logits_every_rank"] \
+        and row["experts_rank"] == cfg.n_experts // world
+    if rank == 0:
+        want = torch.load(os.path.join(ref_path, "logits.pt")).cuda()
+        stats = logits_agreement(got, want)
+        row.update(stats, bit_identical_to_one_device=bool(torch.equal(got, want)),
+                   rel_limit=FWD_REL_LIMIT, probs_limit=FWD_PROB_LIMIT,
+                   argmax_limit=FWD_ARGMAX_LIMIT)
+        ok = ok and logits_hold(stats)
+        del want
+    row["ok"] = ok
+    if not ok:
+        sp_fail(row, "ep_forward")
+    del got
+    torch.cuda.empty_cache()
+    prompt = ref["prompt"].cuda()
+    dist.barrier()
+    with torch.no_grad():
+        zero_counts()
+        t0 = time.perf_counter()
+        out = gen_mod.generate(tree, prompt, cfg, EP_GENERATE_NEW, mesh=mesh).tolist()
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        g_launches = counts()
+    grow = {"phase": "ep_generate", "config": "mixtral_8x7b", "weights": "int8",
+            "rank": rank, "ep": world, "prompt": [2, 512], "new_tokens": EP_GENERATE_NEW,
+            "launches_fwd_dq_dkv": list(g_launches),
+            "expected_launches": [cfg.n_layers, 0, 0],
+            "same_tokens_every_rank": same_on_every_rank(out, world),
+            "seconds_gloo_host_staged": gen_s,
+            "tokens_per_s": 2 * EP_GENERATE_NEW / gen_s, "card": card}
+    if rank == 0:
+        one = ref["generated"][:, :EP_GENERATE_NEW].tolist()
+        grow.update(token_agreement_with_one_device=agreement(out, one),
+                    first_token_equal=[a[0] == b[0] for a, b in zip(out, one)])
+    grow["ok"] = (grow["same_tokens_every_rank"] and list(g_launches) ==
+                  grow["expected_launches"] and all(len(r) == EP_GENERATE_NEW for r in out))
+    if not grow["ok"]:
+        sp_fail(grow, "ep_generate")
+    return [row, grow]
+
+
+def ep_train_case(rank, world, card) -> dict:
+    """Mixtral-8x7B at full width, 2 layers (bf16, flash, random routers):
+    one momentum-SGD step from zero velocity over dp 2 x ep 2 with FSDP and
+    remat on [4, 2048], against the one-device make_train_step(None) step
+    (rank 0 runs it first, alone) under the tp_train bars; the launches
+    of each kernel (forward 2·L with the replay, dQ L, dK/dV L), the
+    rank's param bytes (a quarter of the experts, half of the FSDP-sharded
+    rest, the replicated norms and routers), its peak, and the step's
+    host time split by collective kind."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import comm, make_train_step, mesh as pm
+    from nos_tpu_torch.parallel.sharding import llama_data_sharding
+
+    cfg = mixtral_config(n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    tokens = torch.randint(0, cfg.vocab_size, EP_TRAIN_TOKENS, generator=gen, device="cuda")
+    ref = one_device_step(cfg, tokens, 83, SP_TRAIN_LR) if rank == 0 else None
+    dist.barrier()
+    mesh = pm.mesh_from_devices((2, 2), ("dp", "ep"))
+    step, shard = make_train_step(mesh, dataclasses.replace(cfg, remat=True),
+                                  learning_rate=SP_TRAIN_LR)
+    state = shard(llama.init_llama_params(cfg, seed=83, device="cuda"), donate=True)
+    torch.cuda.empty_cache()
+    leaves = llama.tree_leaves(state[0])
+    param_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    block = llama_data_sharding(mesh, tokens).contiguous()
+    import torch._dynamo  # noqa: F401  (the first checkpointed step imports it)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    zero_counts()  # the ep x FSDP training path
+    with comm.timed_collectives() as times:
+        t0 = time.perf_counter()
+        state, loss = step(state, block)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    compared = mesh_against_one_device(state, float(loss), ref, mesh, SP_TRAIN_LR)
+    agree = same_on_every_rank(compared.pop("velocity_checksum"), world)
+    collective_ms = {k: sum(v) for k, v in times.items()}
+    layers = cfg.n_layers
+    row = {"phase": "ep_train", "config": "mixtral_8x7b", "layers": layers,
+           "mesh": {"dp": 2, "ep": 2}, "fsdp": True, "remat": True, "rank": rank,
+           "tokens": list(EP_TRAIN_TOKENS), "tokens_rank": list(block.shape),
+           "optimizer": f"momentum_sgd(lr={SP_TRAIN_LR}, momentum=0.9)",
+           "loss": float(loss), "launches_fwd_dq_dkv": list(launches),
+           "expected_launches": [2 * layers, layers, layers], "replicas_agree": agree,
+           "experts_rank": int(state[0]["layers"][0]["moe"]["w_gate"].shape[0]),
+           "param_bytes_rank": param_bytes, "peak_gib": peak,
+           "step_ms_with_split_gloo_host_staged": wall,
+           "collective_ms_gloo_host_staged": collective_ms,
+           "collective_calls": {k: len(v) for k, v in times.items()},
+           "rest_ms": wall - sum(collective_ms.values()), **compared, "card": card}
+    ok = agree and list(launches) == row["expected_launches"] and row["experts_rank"] == 4
+    if rank == 0:
+        whole = sum(2 * math.prod(p.shape) for p in ref["p0"])
+        row.update(param_bytes_whole=whole, grad_rel_limit=SP_GRAD_REL_LIMIT,
+                   loss_limit=TP_LOSS_LIMIT)
+        ok = ok and held_to_one_device(row, TP_LOSS_LIMIT)
+        del ref
+    row["ok"] = ok
+    if not ok:
+        sp_fail(row, "ep_train")
+    return row
+
+
+def stage_shards(stage_tree, mesh, cfg):
+    """This rank's shards of a stacked tree that holds only its stage's
+    layers: the pipeline rules with pp taken as already applied."""
+    from nos_tpu_torch.parallel.pipeline import pipeline_param_sharding
+    from nos_tpu_torch.parallel.sharding import _zip_map, take_shard
+
+    def no_pp(rule):
+        if isinstance(rule, tuple):
+            return tuple(None if a == "pp" else a for a in rule)
+        return {k: no_pp(v) for k, v in rule.items()}
+
+    rules = no_pp(pipeline_param_sharding(mesh, cfg))
+    return _zip_map(lambda x, s: take_shard(x, s, mesh), stage_tree, rules)
+
+
+def pp_forward_case(rank, world, card) -> dict:
+    """Llama-3-8B at full width and depth (bf16, flash, random weights
+    drawn layer by layer) through pipeline_llama_forward over pp 4 (8
+    layers a stage), [4, 2048] in 4 microbatches, against the one-device
+    flash forward (rank 0 runs it first, alone) under forward_check's
+    limits; M · L/pp forward launches a rank (the bubble ticks skip their
+    compute), the same logits on every rank, the hops' and the
+    broadcast's host-staged time."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import comm, mesh as pm
+    from nos_tpu_torch.parallel import pipeline as pl
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash")
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    tokens = torch.randint(0, cfg.vocab_size, PP_FORWARD_TOKENS, generator=gen, device="cuda")
+    want = None
+    if rank == 0:
+        whole = layered_params(cfg, 91)
+        with torch.no_grad():
+            want = llama.llama_forward(whole, tokens, cfg)
+        del whole
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = pm.mesh_from_devices((world,), ("pp",))
+    per = cfg.n_layers // world
+    stage = pl.stack_layer_params(layered_params(cfg, 91, range(rank * per, (rank + 1) * per)))
+    m = world
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    with torch.no_grad(), comm.timed_collectives() as times:
+        zero_counts()  # the pipeline forward path
+        t0 = time.perf_counter()
+        got = pl.pipeline_llama_forward(stage, tokens, cfg, mesh, m)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = counts()
+    row = {"phase": "pp_forward", "config": "llama_3_8b", "rank": rank, "pp": world,
+           "microbatches": m, "tokens": list(PP_FORWARD_TOKENS), "layers_rank": per,
+           "launches_fwd_dq_dkv": list(launches), "expected_launches": [m * per, 0, 0],
+           "ticks": m + world - 1, "bubble_share": (world - 1) / (m + world - 1),
+           "hop_bytes": 2 * (PP_FORWARD_TOKENS[0] // m) * PP_FORWARD_TOKENS[1] * cfg.d_model,
+           "same_logits_every_rank": same_on_every_rank(float(got.double().sum()), world),
+           "collective_calls": {k: len(v) for k, v in times.items()},
+           "collective_ms_gloo_host_staged": {k: sum(v) for k, v in times.items()},
+           "wall_ms_gloo_host_staged": wall,
+           "param_bytes_rank": sum(p.numel() * p.element_size()
+                                   for p in llama.tree_leaves(stage)),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card}
+    ok = list(launches) == row["expected_launches"] and row["same_logits_every_rank"]
+    if rank == 0:
+        stats = logits_agreement(got, want)
+        row.update(stats, rel_limit=FWD_REL_LIMIT, probs_limit=FWD_PROB_LIMIT,
+                   argmax_limit=FWD_ARGMAX_LIMIT)
+        ok = ok and logits_hold(stats)
+    row["ok"] = ok
+    if not ok:
+        sp_fail(row, "pp_forward")
+    return row
+
+
+def pp_train_case(rank, world, card) -> dict:
+    """Llama-3-8B at full width, PP_TRAIN_LAYERS deep (bf16, flash, drawn
+    layer by layer), pipeline_loss_and_grads over dp 2 x pp 2 with FSDP
+    and remat, [4, 2048] in 2 microbatches, against the one-device
+    llama_loss and its gradients (rank 0, first, alone) under the
+    tp_train bars (each leaf kind's gradient within 3% of its largest);
+    the launches of each kernel a rank (forward 2 · M · L/pp with the
+    replay, dQ and dK/dV M · L/pp), the bubble share, and the step's
+    host time split by collective kind (the hops under "pp")."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import comm, mesh as pm
+    from nos_tpu_torch.parallel import pipeline as pl
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash",
+                              n_layers=PP_TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(93)
+    tokens = torch.randint(0, cfg.vocab_size, PP_TRAIN_TOKENS, generator=gen, device="cuda")
+    ref = None
+    if rank == 0:
+        whole = layered_params(cfg, 93)
+        leaves = [p.requires_grad_(True) for p in llama.tree_leaves(whole)]
+        loss_one = llama.llama_loss(whole, tokens, cfg)
+        grads = torch.autograd.grad(loss_one, leaves)
+        it = iter(grads)
+        g_tree = llama.tree_map(lambda _: next(it), whole)
+        ref = {"loss": float(loss_one),
+               "g": [g.cpu() for g in llama.tree_leaves(pl.stack_layer_params(g_tree))]}
+        del whole, leaves, grads, g_tree, loss_one
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = pm.mesh_from_devices((2, 2), ("dp", "pp"))
+    pp, s = pm.axis_size(mesh, "pp"), pm.axis_index(mesh, "pp")
+    per = cfg.n_layers // pp
+    m = 2
+    remat = dataclasses.replace(cfg, remat=True)
+    stage = pl.stack_layer_params(layered_params(cfg, 93, range(s * per, (s + 1) * per)))
+    shards = stage_shards(stage, mesh, remat)
+    del stage
+    torch.cuda.empty_cache()
+    rows = pl.pipeline_data_sharding(mesh, tokens, m).contiguous()
+    import torch._dynamo  # noqa: F401  (the first checkpointed step imports it)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    zero_counts()  # the pipeline training path
+    with comm.timed_collectives() as times:
+        t0 = time.perf_counter()
+        loss, grads = pl.pipeline_loss_and_grads(shards, rows, remat, mesh, m)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    it = iter(grads)
+    whole = pl.gather_pipeline_params(llama.tree_map(lambda _: next(it), shards), mesh, remat)
+    g_whole = llama.tree_leaves(whole)
+    checksum = sum(float(g.double().sum()) for g in g_whole)
+    agree = same_on_every_rank(checksum, world)
+    collective_ms = {k: sum(v) for k, v in times.items()}
+    row = {"phase": "pp_train", "config": "llama_3_8b", "layers": cfg.n_layers,
+           "mesh": {"dp": 2, "pp": 2}, "fsdp": True, "remat": True, "rank": rank,
+           "microbatches": m, "tokens": list(PP_TRAIN_TOKENS), "tokens_rank": list(rows.shape),
+           "layers_rank": per, "loss": float(loss),
+           "launches_fwd_dq_dkv": list(launches),
+           "expected_launches": [2 * m * per, m * per, m * per],
+           "ticks": m + pp - 1, "bubble_share": (pp - 1) / (m + pp - 1),
+           "replicas_agree": agree,
+           "param_bytes_rank": sum(p.numel() * p.element_size()
+                                   for p in llama.tree_leaves(shards)),
+           "peak_gib": peak, "step_ms_with_split_gloo_host_staged": wall,
+           "collective_ms_gloo_host_staged": collective_ms,
+           "collective_calls": {k: len(v) for k, v in times.items()},
+           "rest_ms": wall - sum(collective_ms.values()), "card": card}
+    ok = agree and list(launches) == row["expected_launches"] and \
+        bool(all(torch.isfinite(g).all() for g in g_whole))
+    if rank == 0:
+        diff, top = {}, {}
+        for (kind, _), g, w in zip(named_stacked(whole), g_whole, ref["g"]):
+            w = w.cuda().float()
+            diff[kind] = max(diff.get(kind, 0.0), float((g.float() - w).abs().max()))
+            top[kind] = max(top.get(kind, 0.0), float(w.abs().max()))
+        row.update(one_device_loss=ref["loss"], loss_abs_diff=abs(float(loss) - ref["loss"]),
+                   grad_rel_err={k: diff[k] / top[k] for k in diff},
+                   loss_limit=TP_LOSS_LIMIT, grad_rel_limit=SP_GRAD_REL_LIMIT)
+        ok = ok and row["loss_abs_diff"] <= TP_LOSS_LIMIT and \
+            max(row["grad_rel_err"].values()) <= SP_GRAD_REL_LIMIT
+    row["ok"] = ok
+    if not ok:
+        sp_fail(row, "pp_train")
+    return row
+
+
+def named_stacked(tree):
+    """(kind, tensor) of a stacked tree in tree_leaves order."""
+    for key, value in tree.items():
+        if key == "layers":
+            for name, leaf in value.items():
+                if isinstance(leaf, dict):
+                    yield from ((f"{name}.{k}", v) for k, v in leaf.items())
+                else:
+                    yield name, leaf
+        else:
+            yield key, value
+
+
+def tp_lora_train_case(rank, world, card) -> dict:
+    """make_lora_train_step over tp 2: Llama-3-8B at full width,
+    TP_LORA_LAYERS deep (bf16, flash, remat), rank 8 on wq / wv, three
+    Adam steps on [4, 2048], against the one-device LoRA step (rank 0,
+    first, alone): the losses within TP_LOSS_LIMIT, and each adapter's
+    first moment after the three steps (Adam's exp_avg, a weighted sum of
+    the steps' whole gradients: a tp x or 1/tp gradient would miss by
+    50-100%) within SP_GRAD_REL_LIMIT (relative Frobenius; the largest
+    elementwise error over the leaf's largest reported). B starts from a
+    seeded 0.01-scale draw, not zeros, so A's gradient is live and well
+    conditioned from the first step. The adapters' change over the steps
+    is reported beside it, not held: Adam's first steps move each element
+    by about lr whatever its gradient's size, so bf16 rounding flips the
+    step of elements whose gradient is near zero. The launches a step,
+    the step's host time split by collective kind."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.models import lora as tlora
+    from nos_tpu_torch.parallel import comm, mesh as pm
+    from nos_tpu_torch.parallel.sharding import shard_params
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash", remat=True,
+                              n_layers=TP_LORA_LAYERS)
+    lc = tlora.LoraConfig(rank=8, targets=("wq", "wv"))
+    gen = torch.Generator(device="cuda").manual_seed(101)
+    tokens = torch.randint(0, cfg.vocab_size, TP_LORA_TOKENS, generator=gen, device="cuda")
+
+    def adapters():
+        tree = tlora.init_lora_params(cfg, lc, seed=101)
+        b_gen = torch.Generator(device="cuda").manual_seed(102)
+        for layer in tree["layers"]:
+            for ab in layer.values():
+                ab["b"] = 0.01 * torch.randn(ab["b"].shape, generator=b_gen, device="cuda")
+        return tree
+
+    def three_steps(mesh, base):
+        step, shard = tlora.make_lora_train_step(mesh, cfg, lc, learning_rate=1e-3)
+        state = shard(adapters())
+        start = [t.detach().clone() for t in llama.tree_leaves(state[0])]
+        losses, ms, per_step = [], [], []
+        for _ in range(3):
+            at = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, base, tokens)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            per_step.append([a - b for a, b in zip(counts(), at)])
+        leaves = llama.tree_leaves(state[0])
+        moved = [(t.detach() - s).float() for t, s in zip(leaves, start)]
+        moments = [state[1].state[p]["exp_avg"].float() for p in leaves]
+        return losses, ms, per_step, moved, moments
+
+    one = None
+    if rank == 0:
+        base = llama.init_llama_params(cfg, seed=101, device="cuda")
+        one = three_steps(None, base)
+        del base
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = pm.mesh_from_devices((world,), ("tp",))
+    base = shard_params(llama.init_llama_params(cfg, seed=101, device="cuda"), mesh, cfg)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    zero_counts()  # the tp LoRA training path
+    with comm.timed_collectives() as times:
+        losses, ms, per_step, moved, moments = three_steps(mesh, base)
+    checksum = sum(float(t.double().sum()) for t in moved + moments)
+    row = {"phase": "tp_lora_train", "config": "llama_3_8b", "layers": cfg.n_layers,
+           "rank": rank, "tp": world, "lora_rank": 8, "targets": list(lc.targets),
+           "tokens": list(TP_LORA_TOKENS), "optimizer": "torch.optim.Adam(lr=1e-3)",
+           "remat": True, "losses": losses, "step_ms_gloo_host_staged": ms,
+           "launches_per_step_fwd_dq_dkv": per_step,
+           "expected_launches": [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers],
+           "adapters_agree_every_rank": same_on_every_rank(checksum, world),
+           "collective_ms_gloo_host_staged": {k: sum(v) for k, v in times.items()},
+           "collective_calls": {k: len(v) for k, v in times.items()}, "card": card}
+    ok = row["adapters_agree_every_rank"] and \
+        all(s == row["expected_launches"] for s in per_step)
+    if rank == 0:
+        w_losses, w_ms, _, w_moved, w_moments = one
+        frob = [float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+                for g, w in zip(moved, w_moved)]
+        first = [float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+                 for g, w in zip(moments, w_moments)]
+        first_max = [float((g - w).abs().max() / w.abs().max())
+                     for g, w in zip(moments, w_moments)]
+        row.update(one_device_losses=w_losses, one_device_step_ms=w_ms,
+                   loss_abs_diff=max(abs(a - b) for a, b in zip(losses, w_losses)),
+                   first_moment_rel_frobenius_max=max(first),
+                   first_moment_rel_elementwise_max=max(first_max),
+                   adapter_change_rel_frobenius_max=max(frob),
+                   loss_limit=TP_LOSS_LIMIT, first_moment_limit=SP_GRAD_REL_LIMIT)
+        ok = ok and row["loss_abs_diff"] <= TP_LOSS_LIMIT and max(first) <= SP_GRAD_REL_LIMIT
+    row["ok"] = ok
+    if not ok:
+        sp_fail(row, "tp_lora_train")
+    return row
+
+
+def tp_spec_engine_case(rank, world, card) -> dict:
+    """SpecEngine over tp 2: the Llama-3-8B target at full depth (bf16,
+    flash) on the rank's shard_for_serving shards and head-sharded cache,
+    a 2-layer draft (its first layers, sharing the embedding and head)
+    whole on every rank, k = 4, four requests of TP_SPEC_NEW tokens
+    admitted in 16-token pieces: the same tokens on every rank; against
+    the one-device SpecEngine (rank 0, first) the share of equal tokens
+    is reported."""
+    import torch
+    import torch.distributed as dist
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import mesh as pm
+    from nos_tpu_torch.serve import GenRequest, SpecEngine, shard_for_serving
+
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash")
+    params = llama.init_llama_params(cfg, seed=103, device="cuda")
+    draft = dict(params, layers=params["layers"][:2])
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(103)
+    pool = torch.randint(1, cfg.vocab_size, (600,), generator=gen, device="cuda").tolist()
+    prompts = [pool[:20], pool[20:120], pool[120:320], pool[320:530]]
+
+    def serve(tree, mesh):
+        eng = SpecEngine(tree, cfg, draft, dcfg, k=4, max_slots=4, max_len=512,
+                         prefill_chunk=16, mesh=mesh)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = [eng.submit(GenRequest(prompt=p, max_new_tokens=TP_SPEC_NEW))
+                   for p in prompts]
+            got = eng.run()
+            torch.cuda.synchronize()
+        return [got[i] for i in ids], time.perf_counter() - t0, eng.stats()
+
+    one = serve(params, None) if rank == 0 else None
+    dist.barrier()
+    mesh = pm.mesh_from_devices((world,), ("tp",))
+    shards = shard_for_serving(params, mesh, cfg)
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    zero_counts()
+    toks, seconds, stats = serve(shards, mesh)
+    row = {"phase": "tp_spec_engine", "config": "llama_3_8b", "rank": rank, "tp": world,
+           # admission is chunked (decode_chunk's einsum attention): no kernel
+           "launches_fwd_dq_dkv": list(counts()),
+           "draft_layers": 2, "k": 4, "prefill_chunk": 16, "requests": len(prompts),
+           "prompt_tokens": [len(p) for p in prompts], "new_tokens": TP_SPEC_NEW,
+           "rounds": stats["rounds"], "mean_accepted": stats["mean_accepted"],
+           "same_tokens_every_rank": same_on_every_rank(toks, world),
+           "seconds_gloo_host_staged": seconds,
+           "tokens_per_s": TP_SPEC_NEW * len(prompts) / seconds, "card": card}
+    ok = row["same_tokens_every_rank"] and all(
+        len(t) == TP_SPEC_NEW and all(0 <= x < cfg.vocab_size for x in t) for t in toks)
+    if rank == 0:
+        row.update(one_device_seconds=one[1], one_device_mean_accepted=one[2]["mean_accepted"],
+                   token_agreement_with_one_device=agreement(toks, one[0]),
+                   first_token_equal=[a[0] == b[0] for a, b in zip(toks, one[0])])
+    row["ok"] = ok
+    if not ok:
+        sp_fail(row, "tp_spec_engine")
+    return row
+
+
+def ep_pp_phases(card, ref_path) -> dict:
+    """The expert- and pipeline-parallel phases on four spawned ranks, one
+    spawn: ep_layer, ep_forward and ep_generate (Mixtral int8 over ep 4,
+    against the one-device results the mixtral_int8 phase left in
+    ``ref_path``), ep_train (dp 2 x ep 2), pp_forward and pp_train. Each
+    case frees its card memory before the next. The parent holds no card
+    memory."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = sp_spawn(4, [("ep_layer_case", {}), ("ep_serve_case", dict(ref_path=ref_path)),
+                         ("ep_train_case", {}), ("pp_forward_case", {}),
+                         ("pp_train_case", {})], card)
+    seconds = time.time() - t0
+    layer = [r for rows in ranks for r in rows[0]]
+    forward = [rows[1][0] for rows in ranks]
+    generate = [rows[1][1] for rows in ranks]
+    train = [rows[2] for rows in ranks]
+    pp_forward = [rows[3] for rows in ranks]
+    pp_train = [rows[4] for rows in ranks]
+    for row in layer + forward + generate + train + pp_forward + pp_train:
+        emit(row)
+    emit({"phase": "ep_pp_phases", "seconds_four_ranks": seconds, "card": card})
+    return {"launches": {
+        "ep_forward.ep4": [r["launches_fwd_dq_dkv"] for r in forward],
+        "ep_generate.ep4": [r["launches_fwd_dq_dkv"] for r in generate],
+        "ep_train.dp2_ep2_fsdp_remat": [r["launches_fwd_dq_dkv"] for r in train],
+        "pp_forward.pp4": [r["launches_fwd_dq_dkv"] for r in pp_forward],
+        "pp_train.dp2_pp2_fsdp_remat": [r["launches_fwd_dq_dkv"] for r in pp_train]}}
 
 
 def sp_launches(sp, index: int, hd256: bool) -> dict:
@@ -2766,7 +3524,10 @@ def main() -> int:
     moe_check_phase(card)
     moe_grads = moe_train_grads_phase(card)
     torch.cuda.empty_cache()
-    mixtral = mixtral_int8_phase(card)
+    import tempfile
+
+    ep_ref = tempfile.mkdtemp(prefix="nos-ep-ref-")
+    mixtral = mixtral_int8_phase(card, ep_ref)
     torch.cuda.empty_cache()  # the Mixtral tree goes before training (~51 GB)
     emit({"phase": "moe_phases", "seconds": time.time() - t0, "card": card})
 
@@ -2799,6 +3560,14 @@ def main() -> int:
     # ------------------------------------------------------ tp and FSDP
     tp = tp_phases(card)
 
+    # ------------------------------------------- expert and pipeline
+    import shutil
+
+    try:
+        ep_pp = ep_pp_phases(card, ep_ref)
+    finally:
+        shutil.rmtree(ep_ref, ignore_errors=True)
+
     # ----------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "flash_fwd",
@@ -2819,6 +3588,7 @@ def main() -> int:
         "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][0],
         "launches_sp_per_rank": sp_launches(sp, 0, False),
         "launches_tp_per_rank": sp_launches(tp, 0, False),
+        "launches_ep_pp_per_rank": sp_launches(ep_pp, 0, False),
         "device_ms": main_case["kernel_device_ms"],
         "library_device_ms": main_case["library_device_ms"],
         "ms_train": train_case["kernel_ms"],
@@ -2839,6 +3609,7 @@ def main() -> int:
         "launches_moe_train_grads": moe_grads["launches_fwd_dq_dkv"][index],
         "launches_sp_per_rank": sp_launches(sp, index, False),
         "launches_tp_per_rank": sp_launches(tp, index, False),
+        "launches_ep_pp_per_rank": sp_launches(ep_pp, index, False),
         "max_abs_err": max(bwd_case[f"{g}_max_abs_err"] for g in grads),
         "ms": bwd_case[f"{key}_ms"],
         "plain_ms": bwd_case["plain_ms"],

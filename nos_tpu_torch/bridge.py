@@ -19,6 +19,10 @@ nibbles, f32 scales and adapters, an int row selector):
 - ``w``, ``a``, ``b``, ``idx``, ``scale`` → ``MultiLoraLinear``;
 - ``w``, ``a``, ``b``, ``scale`` → ``LoraLinear``.
 
+The pipeline's stacked layout (``parallel/pipeline.py:stack_layer_params``,
+the reference's own, ``layers`` a dict of ``[L, ...]`` leaves) converts
+the same way, leaf for leaf.
+
 ``params_to_numpy`` goes the other way, so a caller can hold the port's
 params against the reference's after a training step: f32 leaves come
 back as f32 arrays and bf16 leaves as ``ml_dtypes.bfloat16`` arrays
@@ -102,22 +106,27 @@ def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig, device=None):
     }
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"], "lm_head", config, dev)
+    if isinstance(tree["layers"], dict):  # the stacked layout
+        out["layers"] = _layer(tree["layers"], "layers", config, dev)
+        return out
     for i, layer in enumerate(tree["layers"]):
-        name = f"layers[{i}]"
-        ported = {key: _tensor(layer[key], f"{name}.{key}", config, dev)
-                  for key in _ATTN_KEYS}
-        if "moe" in layer:
-            moe = layer["moe"]
-            ported["moe"] = {"router": _exact(moe["router"], dev)}
-            ported["moe"].update({
-                key: _tensor(moe[key], f"{name}.moe.{key}", config, dev)
-                for key in _MLP_KEYS
-            })
-        else:
-            ported.update({key: _tensor(layer[key], f"{name}.{key}", config, dev)
-                           for key in _MLP_KEYS})
-        out["layers"].append(ported)
+        out["layers"].append(_layer(layer, f"layers[{i}]", config, dev))
     return out
+
+
+def _layer(layer, name: str, config: LlamaConfig, dev) -> Dict[str, Any]:
+    """One layer's leaves (or the stacked layers', each [L, ...])."""
+    ported = {key: _tensor(layer[key], f"{name}.{key}", config, dev) for key in _ATTN_KEYS}
+    if "moe" in layer:
+        moe = layer["moe"]
+        ported["moe"] = {"router": _exact(moe["router"], dev)}
+        ported["moe"].update({
+            key: _tensor(moe[key], f"{name}.moe.{key}", config, dev) for key in _MLP_KEYS
+        })
+    else:
+        ported.update({key: _tensor(layer[key], f"{name}.{key}", config, dev)
+                       for key in _MLP_KEYS})
+    return ported
 
 
 def _array(t: torch.Tensor) -> np.ndarray:

@@ -16,13 +16,16 @@ Differences from the reference, all deliberate:
   goes, like a pad's, to the sacrificial last slot its contract reserves.
 - Sampling draws from ``torch.Generator``s, not ``jax.random`` keys:
   reproducible per seed, never bitwise equal to the reference.
-- Tensor parallelism: ``prefill`` / ``decode_step`` / ``decode_chunk`` /
-  ``generate`` take ``mesh`` (a ``DeviceMesh`` with a ``tp`` axis; the
-  reference's functions need none, its arrays carry their layout). The
-  params are the rank's shards (``serve/sharded.py:shard_for_serving``),
-  the cache holds the rank's ``n_kv_heads/tp`` heads (``init_kv_cache(...,
-  mesh=)``) and the logits are gathered over tp, so every rank picks the
-  same token from the same bytes; every rank of the mesh calls together.
+- Tensor and expert parallelism: ``prefill`` / ``decode_step`` /
+  ``decode_chunk`` / ``generate`` take ``mesh`` (a ``DeviceMesh`` with
+  ``tp`` and / or ``ep`` axes; the reference's functions need none, its
+  arrays carry their layout). The params are the rank's shards
+  (``serve/sharded.py:shard_for_serving``), the cache holds the rank's
+  ``n_kv_heads/tp`` heads (``init_kv_cache(..., mesh=)``; replicated
+  over ep), a MoE layer runs the rank's experts and gathers their
+  outputs over ep, and the logits are gathered over tp, so every rank
+  picks the same token from the same bytes; every rank of the mesh
+  calls together.
 
 The int8 KV cache (``quant`` / ``kv_quant``) keeps the reference's
 rounding order: the prompt's own attention runs on the exact fresh K/V,
@@ -132,11 +135,11 @@ def _cache_kv(k, v, dtype, quant: bool) -> Dict[str, torch.Tensor]:
 def _ffn(h: torch.Tensor, layer: Params, config: LlamaConfig, token_mask=None,
          mesh=None):
     """The block's MLP: dense (tensor-parallel under a mesh), or the
-    routed mixture for a ``moe`` layer. ``token_mask`` [B, S] keeps pads
-    and dead rows out of the MoE capacity race (a dense MLP is per token,
-    so it needs none)."""
+    routed mixture for a ``moe`` layer (over tp and ep under a mesh).
+    ``token_mask`` [B, S] keeps pads and dead rows out of the MoE
+    capacity race (a dense MLP is per token, so it needs none)."""
     if "moe" in layer:
-        return moe_mlp(layer["moe"], h, config.moe_config(), token_mask=token_mask)
+        return moe_mlp(layer["moe"], h, config.moe_config(), mesh, token_mask=token_mask)
     return _mlp(h, layer, config.hidden_act, mesh)
 
 

@@ -26,7 +26,7 @@ expert weights), the block returns its balance loss beside x, and
 ``llama_loss`` adds ``moe_aux_coef`` times its mean over the layers.
 
 A ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` with axes among
-``dp``, ``sp`` and ``tp``: explicit SPMD, each rank running the model
+``dp``, ``sp``, ``tp`` and ``ep``: explicit SPMD, each rank running the model
 on its own ``[B/dp, S/sp]`` block of tokens
 (``parallel/sharding.py:llama_data_sharding``) with its own shards of
 the params (``parallel/sharding.py:shard_params``; under a mesh whose
@@ -52,10 +52,16 @@ the params (``parallel/sharding.py:shard_params``; under a mesh whose
   ``parallel/ulysses.py``); ``llama_loss`` passes each shard's next
   token across the ring and averages over the global token count.
 
-tp must divide both head counts (``ValueError``; Gemma-2B's one kv head
-rules tp > 1 out). Still raising (NotImplementedError naming ROADMAP
-Queue 1 item 9): other axes (``ep``, ``pp``), a mesh that is not a
-``DeviceMesh``, and a MoE model under a mesh.
+- ``ep``: the tokens and every leaf but the expert stacks are
+  replicated over ep; a MoE layer runs ``moe_mlp`` over the mesh
+  (``models/moe.py``: the global capacity race over dp and sp, the
+  rank's experts, their outputs gathered over ep). A dense model
+  replicates over ep.
+
+tp must divide both head counts and ep the expert count
+(``ValueError``; Gemma-2B's one kv head rules tp > 1 out). A ``pp``
+axis longer than 1 belongs to ``parallel/pipeline.py`` (``ValueError``
+here); a mesh that is not a ``DeviceMesh`` raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -181,36 +187,28 @@ def gemma_2b_config() -> LlamaConfig:
 
 
 def _check_mesh(mesh, config: "LlamaConfig") -> None:
-    """None, or a mesh the port runs: a ``DeviceMesh`` whose axes are
-    among ``dp``, ``sp`` and ``tp``, under a dense model, with tp
-    dividing both head counts. Anything else is a loud error."""
+    """None, or a mesh the model runs: a ``DeviceMesh`` whose axes are
+    among ``dp``, ``sp``, ``tp``, ``ep`` and ``pp``, with tp dividing both
+    head counts and ep the expert count. A ``pp`` axis longer than 1
+    belongs to the pipeline's entry points (``parallel/pipeline.py``):
+    the reference would replicate over it under XLA, a global view the
+    port's ranks do not have. Anything else is a loud error."""
     if mesh is None:
         return
-    from torch.distributed.device_mesh import DeviceMesh
+    from nos_tpu_torch.parallel.mesh import axis_size, check_mesh_axes
 
-    from nos_tpu_torch.parallel.mesh import AXES, axis_size
+    check_mesh_axes(mesh)
+    if axis_size(mesh, "pp") > 1:
+        raise ValueError(
+            "a mesh with pp > 1 runs the pipeline: call "
+            "parallel.pipeline.pipeline_llama_forward / pipeline_llama_loss"
+        )
+    from nos_tpu_torch.parallel.sharding import check_ep_experts, check_tp_heads
 
-    if not isinstance(mesh, DeviceMesh):
-        raise NotImplementedError(
-            f"a mesh is a torch DeviceMesh over dp / sp / tp; {type(mesh).__name__} "
-            "is not (ROADMAP Queue 1 item 9: multi-device)"
-        )
-    names = tuple(mesh.mesh_dim_names or ())
-    other = [name for name in names if name not in AXES]
-    if other or len(names) != mesh.ndim:
-        raise NotImplementedError(
-            f"mesh axes {names}: only dp, sp and tp are ported "
-            "(ROADMAP Queue 1 item 9: multi-device)"
-        )
-    if config.n_experts > 0:
-        raise NotImplementedError(
-            "a MoE model under a mesh (expert parallelism) is not ported yet "
-            "(ROADMAP Queue 1 item 9: multi-device)"
-        )
     if axis_size(mesh, "tp") > 1:
-        from nos_tpu_torch.parallel.sharding import check_tp_heads
-
         check_tp_heads(config, axis_size(mesh, "tp"))
+    if config.n_experts > 0 and axis_size(mesh, "ep") > 1:
+        check_ep_experts(config, axis_size(mesh, "ep"))
 
 
 # ------------------------------------------------------------------- init
@@ -645,9 +643,9 @@ def _decoder(params: Params, tokens: torch.Tensor, config: LlamaConfig, mesh,
         if "moe" not in layer:
             return x + _mlp(h, layer, c.hidden_act, mesh), None
         if with_aux:
-            delta, aux = moe_mlp(layer["moe"], h, c.moe_config(), return_aux=True)
+            delta, aux = moe_mlp(layer["moe"], h, c.moe_config(), mesh, return_aux=True)
             return x + delta, aux
-        return x + moe_mlp(layer["moe"], h, c.moe_config()), None
+        return x + moe_mlp(layer["moe"], h, c.moe_config(), mesh), None
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
@@ -733,13 +731,15 @@ def llama_loss(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     Under a ``mesh``, ``params`` are the rank's shards and ``tokens`` is
     its ``[B/dp, S/sp]`` block; the value is the global batch's loss on
     every rank, and its gradient is this rank's share of the global
-    gradient (summed over dp and sp by ``make_train_step``). Under tp the
+    gradient (summed over dp and sp by ``make_train_step``); a MoE
+    model's aux term is the global batch's in the same way. Under tp the
     cross entropy is vocab-parallel (``_vocab_parallel_nll``)."""
     if mesh is not None:
-        x, _ = _decoder(params, tokens, config, mesh, with_aux=False)
-        return _sharded_next_token_nll(_unembed(params, x, mesh).float(), tokens, mesh)
-    logits, aux = llama_forward(params, tokens, config, with_aux=True)
-    loss = next_token_nll(logits, tokens)
+        x, aux = _decoder(params, tokens, config, mesh, with_aux=config.n_experts > 0)
+        loss = _sharded_next_token_nll(_unembed(params, x, mesh).float(), tokens, mesh)
+    else:
+        logits, aux = llama_forward(params, tokens, config, with_aux=True)
+        loss = next_token_nll(logits, tokens)
     if config.n_experts > 0:
         loss = loss + config.moe_aux_coef * aux / max(1, config.n_layers)
     return loss

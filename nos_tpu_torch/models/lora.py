@@ -7,10 +7,27 @@ model's ``_mm`` dispatch already understands, so ``llama_forward``,
 The adapter product ``(x @ A) @ B`` keeps the low-rank structure and
 never materializes the [in, out] delta.
 
-``make_lora_train_step`` trains only the adapters, on one device, with a
-``torch.optim`` optimizer in the place of optax (``torch.optim.Adam`` by
-default: the same update as ``optax.adam``, eps outside the square
-root); the base is read, never written.
+``make_lora_train_step`` trains only the adapters, on one device or over
+a mesh, with a ``torch.optim`` optimizer in the place of optax
+(``torch.optim.Adam`` by default: the same update as ``optax.adam``, eps
+outside the square root); the base is read, never written.
+
+Under a mesh (the reference's ``make_lora_train_step(mesh, ...)``) the
+base is the rank's shards (``sharding.shard_params``, dense rules, FSDP
+over dp), the tokens its ``[B/dp, S/sp]`` block, and the adapters and
+their Adam state are replicated. Under tp a column-parallel target
+(``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``) multiplies by the rank's
+columns of B, a row-parallel one (``wo``, ``w_down``) by the rank's rows
+of A, whose partial product joins the tp reduce after the base product
+(B is linear: ``Σ_r (x_r A_r) B = (x A) B``). Each adapter leaf then
+takes its whole gradient on every rank: summed over dp and sp as any
+replicated leaf; over tp summed where each rank gives a part of it (A of
+a column target, B of a row target) and gathered where each rank gives
+a disjoint slice (B of a column target, A of a row target). Either
+mistake would give tp x or 1/tp of a gradient, which a one-step loss
+check can miss and three Adam steps do not. Multi-LoRA serving under a
+mesh raises (``serve/engine.py``): the reference's ``shard_for_serving``
+has no rule for adapter nodes either.
 
 An adapter over a quantized base is not supported, as in the reference
 (whose ``x @ w`` fails on a quantized node): merge, then quantize.
@@ -255,6 +272,64 @@ def merge_lora(params: Params, lora_params: Params, lora: LoraConfig) -> Params:
     return out
 
 
+def _tp_split(target: str):
+    """(adapter factor, dim) that a tp rank slices for ``target``: the
+    rows of A for a row-parallel product, the columns of B for a
+    column-parallel one."""
+    from nos_tpu_torch.parallel.sharding import leaf_rule
+
+    return ("a", 0) if leaf_rule(target, torch.empty(0, 0))[0] == "tp" else ("b", 1)
+
+
+def _rank_adapters(adapters: Params, mesh) -> Params:
+    """The adapters as this tp rank multiplies by them: each target's
+    sliced factor narrowed to the rank's block (views, so a gradient
+    lands in the whole leaf's block); the adapters themselves without
+    tp."""
+    from nos_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    tp = axis_size(mesh, "tp")
+    if tp == 1:
+        return adapters
+    r = axis_index(mesh, "tp")
+    layers = []
+    for layer in adapters["layers"]:
+        out = {}
+        for t, ab in layer.items():
+            key, dim = _tp_split(t)
+            size = ab[key].shape[dim] // tp
+            out[t] = dict(ab, **{key: ab[key].narrow(dim, r * size, size)})
+        layers.append(out)
+    return {"layers": layers}
+
+
+def _whole_adapter_grads(grads, adapters: Params, mesh) -> list:
+    """Each adapter leaf's gradient share (in ``tree_leaves`` order) made
+    whole on every rank: summed over dp and sp, then over tp a sum of the
+    ranks' parts or a gather of their disjoint slices."""
+    from nos_tpu_torch.parallel.comm import all_gather, all_reduce
+    from nos_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size, mesh_groups
+
+    data = mesh_groups(mesh, ("dp", "sp"))
+    tp, group = axis_size(mesh, "tp"), axis_group(mesh, "tp")
+    out, grads = [], iter(grads)
+    for layer in adapters["layers"]:
+        for t, ab in layer.items():
+            sliced = _tp_split(t)
+            for key in ab:
+                g = next(grads)
+                if data:
+                    g = all_reduce(g, data, kind="grad_sum")
+                if tp > 1 and key == sliced[0]:
+                    size = g.shape[sliced[1]] // tp
+                    g = all_gather(g.narrow(sliced[1], axis_index(mesh, "tp") * size, size),
+                                   group, sliced[1], kind="grad_sum")
+                elif tp > 1:
+                    g = all_reduce(g, [group], kind="grad_sum")
+                out.append(g)
+    return out
+
+
 def make_lora_train_step(mesh, config, lora: LoraConfig, learning_rate: float = 1e-3,
                          optimizer=None, device=None):
     """Returns ``(train_step, shard_adapters)`` where
@@ -265,14 +340,18 @@ def make_lora_train_step(mesh, config, lora: LoraConfig, learning_rate: float = 
     through as a constant and is never written. ``optimizer``: a factory
     ``params_list -> torch.optim.Optimizer`` (default ``torch.optim.Adam``
     at ``learning_rate``, the reference's ``optax.adam``), which then owns
-    the hyperparameters. The step runs eagerly on one device; with
-    ``remat`` the per-layer checkpoint is non-reentrant, so adapter
-    gradients survive a frozen embedding."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh / sharded LoRA training is not ported yet "
-            "(ROADMAP Queue 1 item 9: multi-device)"
-        )
+    the hyperparameters. The step runs eagerly; with ``remat`` the
+    per-layer checkpoint is non-reentrant, so adapter gradients survive a
+    frozen embedding.
+
+    ``mesh``: None for one device, or a ``DeviceMesh`` over ``dp`` /
+    ``sp`` / ``tp`` (see the module note): ``base_params`` are the rank's
+    shards (``sharding.shard_params``), ``tokens`` its ``[B/dp, S/sp]``
+    block; the adapters and the optimizer state are whole on every rank
+    and stay equal; every rank of the mesh calls together."""
+    from nos_tpu_torch.models.llama import _check_mesh
+
+    _check_mesh(mesh, config)
     if optimizer is not None and learning_rate != 1e-3:
         raise ValueError(
             "learning_rate configures the built-in Adam; an optimizer factory "
@@ -285,8 +364,11 @@ def make_lora_train_step(mesh, config, lora: LoraConfig, learning_rate: float = 
         adapters, opt = adapter_state
         tokens = torch.as_tensor(tokens, device=dev)
         leaves = tree_leaves(adapters)
-        loss = llama_loss(attach_lora(base_params, adapters, lora), tokens, config)
+        attached = attach_lora(base_params, _rank_adapters(adapters, mesh), lora)
+        loss = llama_loss(attached, tokens, config, mesh)
         grads = torch.autograd.grad(loss, leaves)
+        if mesh is not None:
+            grads = _whole_adapter_grads(grads, adapters, mesh)
         for p, g in zip(leaves, grads):
             p.grad = g
         opt.step()
@@ -295,7 +377,8 @@ def make_lora_train_step(mesh, config, lora: LoraConfig, learning_rate: float = 
 
     def shard_adapters(adapters: Params):
         """(adapters copied onto the device, taking gradients, and their
-        optimizer); the caller's tensors stay untouched."""
+        optimizer); the caller's tensors stay untouched. Under a mesh
+        every rank holds them whole (the same tree on every rank)."""
         adapters = tree_map(
             lambda p: p.detach().to(dev, copy=True).requires_grad_(True), adapters
         )

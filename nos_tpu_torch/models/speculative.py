@@ -35,12 +35,13 @@ Params = Dict[str, object]
 
 
 def _spec_round(t_params, d_params, t_config: LlamaConfig, d_config: LlamaConfig,
-                k: int):
+                k: int, t_mesh=None):
     """The one-round function over fixed params and configs:
     ``round_fn(t_cache, d_cache, pos [B], last [B], row_valid=None)`` →
     (new pos, bonus, drafts [B, k], committed tokens [B, k+1] valid
     through ``count``, count [B]), all on the device; both caches are
-    written in place."""
+    written in place. ``t_mesh``: the target's serving mesh (its params
+    and cache the rank's shards); the draft runs whole."""
 
     def round_fn(t_cache, d_cache, pos, last, row_valid=None):
         # 1. draft k tokens (writes K/V for [last, d_1..d_{k-1}])
@@ -56,7 +57,7 @@ def _spec_round(t_params, d_params, t_config: LlamaConfig, d_config: LlamaConfig
         # 2. the target verifies the whole chain in one chunk
         chunk = torch.cat([last[:, None], drafts], dim=1)  # [B, k+1]
         logits, _ = decode_chunk(t_params, t_cache, pos, chunk, t_config,
-                                 row_valid=row_valid)
+                                 row_valid=row_valid, mesh=t_mesh)
         targets = logits.argmax(dim=-1)  # [B, k+1]
 
         # 3. longest matching prefix: accept while d_{i+1} == t_i

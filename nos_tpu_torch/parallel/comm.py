@@ -15,7 +15,9 @@ reduce-scatter of the gradient):
   concatenated along ``concat_axis`` in rank order;
 - ``all_reduce``: a sum or mean over one or more groups; ``all_reduce_max``;
 - ``all_gather`` / ``reduce_scatter``: along one dim of a tensor, rank
-  order along the group.
+  order along the group;
+- ``broadcast``: one group rank's tensor to every rank of the group
+  (the pipeline's hand-off of the last stage's activations).
 
 The group's backend picks the transport (``dist.get_backend``): NCCL
 moves device tensors; gloo moves host tensors, so a device tensor goes
@@ -67,8 +69,11 @@ def timed_collectives():
     alone) is appended to the yielded dict under its kind: "tp" (the
     tensor-parallel all-reduces and gathers), "fsdp_gather",
     "fsdp_reduce_scatter", "grad_sum" (the trainer's sum over the mesh),
-    "ring" (shifts and all-to-alls) and "other". Costs two card syncs a
-    collective while on; nothing when off."""
+    "ring" (shifts and all-to-alls), "ep" (the expert-parallel gather and
+    the global routing counts and aux sums), "pp" (the pipeline's hops
+    and its loss scalar), "pp_broadcast" (its last stage's activations)
+    and "other". Costs two card syncs a collective while on; nothing when
+    off."""
     global _TIMES
     outer, _TIMES = _TIMES, {}
     try:
@@ -145,7 +150,8 @@ def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tenso
     return out
 
 
-def ring_shift(tensors: Sequence[torch.Tensor], group, step: int = 1) -> List[torch.Tensor]:
+def ring_shift(tensors: Sequence[torch.Tensor], group, step: int = 1,
+               kind: str = "ring") -> List[torch.Tensor]:
     """Send ``tensors`` to group rank (r + step) mod n and return what
     rank (r - step) mod n sent, same shapes and dtypes, on the same
     device. One message a call; a group of one returns its input."""
@@ -155,7 +161,7 @@ def ring_shift(tensors: Sequence[torch.Tensor], group, step: int = 1) -> List[to
         return tensors
     r = dist.get_rank(group)
     dev = tensors[0].device
-    with _clock("ring"):
+    with _clock(kind):
         send = _to_wire(_pack(tensors), group)
         recv = _empty_wire(send)
         works = dist.batch_isend_irecv([
@@ -242,6 +248,19 @@ def all_gather(x: torch.Tensor, group, dim: int, kind: str = "other") -> torch.T
         return torch.cat(parts, dim=dim)
 
 
+def broadcast(x: torch.Tensor, group, src: int, kind: str = "other") -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank of ``group`` (the others'
+    ``x`` give only the shape and dtype), bit-exact, a new tensor."""
+    if dist.get_world_size(group) == 1:
+        return x
+    with _clock(kind):
+        wire = _to_wire(x.contiguous(), group)
+        if wire is x:
+            wire = x.clone()
+        dist.broadcast(wire, dist.get_global_rank(group, src), group=group)
+        return wire.to(x.device)
+
+
 def reduce_scatter(x: torch.Tensor, group, dim: int, kind: str = "other") -> torch.Tensor:
     """The sum of the ranks' ``x`` (one shape on every rank), and of it
     this rank's chunk along ``dim`` (chunk r for group rank r), in x's
@@ -280,6 +299,21 @@ class RingShift(torch.autograd.Function):
         return (None, None, *ring_shift(grads, ctx.group, -ctx.step))
 
 
+class StageShift(torch.autograd.Function):
+    """One pipeline hop: ``x`` to the next stage of ``group`` (rank + 1),
+    the previous stage's in return; the backward sends the gradient back
+    one stage. Timed as "pp"."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return ring_shift([x], group, 1, kind="pp")[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ring_shift([grad], ctx.group, -1, kind="pp")[0], None
+
+
 class AllToAll(torch.autograd.Function):
     """``all_to_all`` with the inverse exchange as its backward."""
 
@@ -300,13 +334,13 @@ class CopyToGroup(torch.autograd.Function):
     give a part of its gradient."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce(grad, [ctx.group], kind="tp"), None
+        return all_reduce(grad, [ctx.group], kind=ctx.kind), None, None
 
 
 class ReduceFromGroup(torch.autograd.Function):
@@ -314,12 +348,12 @@ class ReduceFromGroup(torch.autograd.Function):
     row-parallel product, each rank holding a partial sum."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        return all_reduce(x, [group], kind="tp")
+    def forward(ctx, x, group, kind):
+        return all_reduce(x, [group], kind=kind)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
 class GatherFromGroup(torch.autograd.Function):
@@ -327,14 +361,14 @@ class GatherFromGroup(torch.autograd.Function):
     gradient backward."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
+    def forward(ctx, x, group, dim, kind):
         ctx.dim, ctx.size = dim, x.shape[dim]
         ctx.rank = dist.get_rank(group)
-        return all_gather(x, group, dim, kind="tp")
+        return all_gather(x, group, dim, kind=kind)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+        return grad.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None, None
 
 
 class FsdpGather(torch.autograd.Function):
@@ -352,19 +386,20 @@ class FsdpGather(torch.autograd.Function):
         return reduce_scatter(grad, ctx.group, ctx.dim, kind="fsdp_reduce_scatter"), None, None
 
 
-def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
-    """``CopyToGroup`` over ``group``; ``x`` itself for no group."""
-    return x if group is None else CopyToGroup.apply(x, group)
+def copy_to_group(x: torch.Tensor, group, kind: str = "tp") -> torch.Tensor:
+    """``CopyToGroup`` over ``group``; ``x`` itself for no group. ``kind``
+    names the timing bucket of its collective (``timed_collectives``)."""
+    return x if group is None else CopyToGroup.apply(x, group, kind)
 
 
-def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+def reduce_from_group(x: torch.Tensor, group, kind: str = "tp") -> torch.Tensor:
     """``ReduceFromGroup`` over ``group``; ``x`` itself for no group."""
-    return x if group is None else ReduceFromGroup.apply(x, group)
+    return x if group is None else ReduceFromGroup.apply(x, group, kind)
 
 
-def gather_from_group(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+def gather_from_group(x: torch.Tensor, group, dim: int = -1, kind: str = "tp") -> torch.Tensor:
     """``GatherFromGroup`` over ``group``; ``x`` itself for no group."""
-    return x if group is None else GatherFromGroup.apply(x, group, dim % x.dim())
+    return x if group is None else GatherFromGroup.apply(x, group, dim % x.dim(), kind)
 
 
 def fsdp_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:

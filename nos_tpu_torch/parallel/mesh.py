@@ -3,15 +3,18 @@
 Counterpart of ``nos_tpu/parallel/mesh.py``. The reference's ``Mesh``
 is a grid of JAX devices seen by one program; here a mesh is a
 ``DeviceMesh`` over the processes of the default group, one rank a
-process, with the reference's axis names and order (``dp``, ``sp``,
-``tp``). Each rank runs the same program on its own block (explicit
-SPMD), so the helpers below give a rank its coordinate, the size of an
-axis and the process group along it.
+process, with the reference's axis names (``dp``, ``sp``, ``tp``, and
+``ep`` for experts and ``pp`` for pipeline stages). Each rank runs the
+same program on its own block (explicit SPMD), so the helpers below give
+a rank its coordinate, the size of an axis and the process group along
+it.
 
 ``partition_spec`` has no counterpart: nothing here annotates a global
 array for a compiler to shard; a rank holds its block and the
 collectives are written out (``parallel/comm.py``). ``mesh_for_slice``
 builds the reference's ``('dp', 'tp')`` mesh from a slice topology.
+Neither it nor ``default_training_mesh`` places ``ep`` or ``pp``, as
+the reference's do not: a caller names those axes itself.
 """
 from __future__ import annotations
 
@@ -24,7 +27,10 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from nos_tpu_torch import _resolve_device
 from nos_tpu_torch.util.topology import Topology
 
-AXES = ("dp", "sp", "tp")
+# The axes the port runs, in the reference's order.
+AXES = ("dp", "sp", "tp", "ep", "pp")
+# The axes default_training_mesh lays out.
+TRAINING_AXES = ("dp", "sp", "tp")
 
 
 def mesh_from_devices(
@@ -54,7 +60,7 @@ def default_training_mesh(device=None) -> DeviceMesh:
     tp = 2 if n % 2 == 0 else 1
     rest = n // tp
     sp = 2 if rest % 2 == 0 else 1
-    return mesh_from_devices((rest // sp, sp, tp), AXES, device)
+    return mesh_from_devices((rest // sp, sp, tp), TRAINING_AXES, device)
 
 
 def mesh_for_slice(topology: str, dp: Optional[int] = None, device=None) -> DeviceMesh:
@@ -71,6 +77,21 @@ def mesh_for_slice(topology: str, dp: Optional[int] = None, device=None) -> Devi
             raise ValueError(f"dp={dp} does not divide {chips} chips")
         tp = chips // dp
     return mesh_from_devices((dp, tp), ("dp", "tp"), device)
+
+
+def check_mesh_axes(mesh, allowed: Sequence[str] = AXES) -> None:
+    """A loud error unless ``mesh`` is a ``DeviceMesh`` whose dims are all
+    named, each among ``allowed``: TypeError for anything else in the
+    place of a mesh, ValueError for an axis the caller does not run."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"a mesh is a torch DeviceMesh with named axes among {tuple(allowed)}; "
+            f"{type(mesh).__name__} is not"
+        )
+    names = tuple(mesh.mesh_dim_names or ())
+    other = [name for name in names if name not in allowed]
+    if other or len(names) != mesh.ndim:
+        raise ValueError(f"mesh axes {names}: this path runs over {tuple(allowed)} only")
 
 
 def axis_size(mesh: Optional[DeviceMesh], name: str) -> int:
@@ -106,12 +127,16 @@ def axis_group(mesh: Optional[DeviceMesh], name: str):
     return mesh.get_group(name)
 
 
-def axis_mesh(mesh: Optional[DeviceMesh], name: str) -> Optional[DeviceMesh]:
-    """The 1-D mesh along ``name`` through this rank, or None when the
-    axis is absent or of size 1: a serving replica on a ``('dp', 'tp')``
-    mesh runs on its tp line and replicates over the rest."""
-    if axis_size(mesh, name) == 1:
+def sub_mesh(mesh: Optional[DeviceMesh], names: Sequence[str]) -> Optional[DeviceMesh]:
+    """The mesh over this rank's line or plane along those of ``names``
+    that ``mesh`` has longer than 1, in the mesh's order; None when
+    there is none. A MoE serving replica on a ``('dp', 'tp', 'ep')``
+    mesh runs on its ``('tp', 'ep')`` plane."""
+    if mesh is None:
         return None
-    if tuple(mesh.mesh_dim_names) == (name,):
+    keep = tuple(n for n in mesh.mesh_dim_names if n in names and axis_size(mesh, n) > 1)
+    if not keep:
+        return None
+    if keep == tuple(mesh.mesh_dim_names):
         return mesh
-    return mesh[name]
+    return mesh[keep[0]] if len(keep) == 1 else mesh[keep]

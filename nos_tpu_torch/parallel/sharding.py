@@ -1,11 +1,13 @@
-"""Sharding rules for the Llama model over a ``('dp', 'sp', 'tp')`` mesh.
+"""Sharding rules for the Llama model over a mesh of ``dp``, ``sp``,
+``tp``, ``ep`` and ``pp``.
 
-Counterpart of ``nos_tpu/parallel/sharding.py``. The reference returns
+Counterpart of ``nos_tpu/parallel/sharding.py`` and of
+``nos_tpu/models/moe.py:moe_param_sharding``. The reference returns
 ``NamedSharding`` trees and XLA inserts the collectives; here a rule is
 a spec, one entry a tensor dim (an axis name or None), and each rank
 holds the block of every tensor its coordinates name (explicit SPMD).
-The model writes the collectives out (``models/llama.py`` with
-``parallel/comm.py``).
+The model writes the collectives out (``models/llama.py`` and
+``models/moe.py`` with ``parallel/comm.py``).
 
 - Megatron-style tensor parallelism: ``wq`` / ``wk`` / ``wv`` /
   ``w_gate`` / ``w_up`` shard their output columns over ``tp``, ``wo`` /
@@ -15,17 +17,26 @@ The model writes the collectives out (``models/llama.py`` with
 - FSDP: every 2-D weight also shards its other dim over ``dp``; the
   model gathers a layer's weights on use and reduce-scatters their
   gradients (``comm.fsdp_gather``). 1-D norm scales stay replicated.
+- Experts (a MoE layer's ``moe`` node): the stacks [E, in, out] shard
+  their expert dim over ``ep``, ``d_ff`` over ``tp`` and ``d_model``
+  over ``dp`` (``w_gate`` / ``w_up`` ``(ep, dp, tp)``, ``w_down``
+  ``(ep, tp, dp)``); an int8 stack's scales [E, out] follow its output
+  dim. The f32 router is replicated.
 - An axis the mesh lacks, or has at size 1, degrades to replication, so
-  one rule tree serves every mesh shape.
+  one rule tree serves every mesh shape. Every leaf outside the expert
+  stacks is replicated over ``ep``; the pipeline's stacked layout
+  prepends ``pp`` (``parallel/pipeline.py``).
 
 The tp split of ``wq``'s columns keeps whole heads and whole GQA groups
 (heads lie head-major in ``[d, H·hd]``) when tp divides both head
-counts; any other tp raises ``ValueError``. Tokens ``[B, S]`` lie batch
-over ``dp`` and sequence over ``sp`` (``llama_data_sharding``) and are
-the same on every tp rank.
+counts; any other tp raises ``ValueError``, as does an ep that does not
+divide the expert count. Tokens ``[B, S]`` lie batch over ``dp`` and
+sequence over ``sp`` (``llama_data_sharding``) and are the same on every
+tp and ep rank.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -42,6 +53,9 @@ _DENSE_RULES = {
     "wq": _COLUMN, "wk": _COLUMN, "wv": _COLUMN, "w_gate": _COLUMN, "w_up": _COLUMN,
     "wo": _ROW, "w_down": _ROW, "embed": ("tp", "dp"), "lm_head": ("dp", "tp"),
 }
+# A MoE layer's expert stacks [E, in, out] (the reference's moe_param_sharding).
+_MOE_RULES = {"router": (None, None), "w_gate": ("ep", "dp", "tp"),
+              "w_up": ("ep", "dp", "tp"), "w_down": ("ep", "tp", "dp")}
 
 
 def _block(x: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:
@@ -80,6 +94,14 @@ def check_tp_heads(config, tp: int) -> None:
         )
 
 
+def check_ep_experts(config, ep: int) -> None:
+    """ep must divide the expert count, so a rank holds whole experts."""
+    if config.n_experts % ep:
+        raise ValueError(
+            f"ep={ep} must divide n_experts={config.n_experts} (whole experts a rank)"
+        )
+
+
 def _degrade(spec: Spec, mesh) -> Spec:
     return tuple(a if a is not None and axis_size(mesh, a) > 1 else None for a in spec)
 
@@ -114,8 +136,8 @@ def _quantized_rule(cls, in_axis, out_axis, group=None):
     if cls is QuantizedLinear:
         return QuantizedLinear(q=(in_axis, out_axis), scale=(out_axis,))
     raise NotImplementedError(
-        f"a {cls.__name__} leaf under a mesh is not ported yet (LoRA training and "
-        "adapters over a mesh: ROADMAP Queue 1 item 9: multi-device)"
+        f"a {cls.__name__} leaf has no sharding rule (the reference's rule trees "
+        "have none for adapter nodes): shard the base, then attach the adapters"
     )
 
 
@@ -127,27 +149,39 @@ def leaf_rule(key: str, leaf) -> Any:
     return _quantized_rule(type(leaf), *_DENSE_RULES[key], getattr(leaf, "group", None))
 
 
-def _moe_raises(config) -> None:
-    if config.n_experts > 0:
-        raise NotImplementedError(
-            "parameter sharding of a MoE model (expert parallelism) is not ported yet "
-            "(ROADMAP Queue 1 item 9: multi-device)"
-        )
+def moe_leaf_rule(key: str, leaf) -> Any:
+    """The undegraded rule of a ``moe`` node's leaf ``key``: the router's
+    replication, a dense stack's spec, or an int8 stack's node of specs
+    (``q`` like the dense stack, ``scale`` [E, out] along its experts and
+    output dim)."""
+    from nos_tpu_torch.models.quantize import QuantizedExpertStack
+
+    rule = _MOE_RULES[key]
+    if isinstance(leaf, torch.Tensor):
+        return rule
+    if isinstance(leaf, QuantizedExpertStack):
+        return QuantizedExpertStack(q=rule, scale=(rule[0], rule[2]))
+    raise NotImplementedError(f"a {type(leaf).__name__} expert stack has no sharding rule")
+
+
+def moe_param_sharding(mesh, config) -> Dict[str, Any]:
+    """The rule tree of a ``moe`` node (the reference's
+    ``moe_param_sharding``): experts over ep, d_ff over tp, d_model over
+    dp, the router replicated. ``config`` is a ``MoeConfig`` or a
+    ``LlamaConfig``."""
+    return {key: _degraded(rule, mesh) for key, rule in _MOE_RULES.items()}
 
 
 def tree_rules(params, mesh) -> Dict[str, Any]:
     """The degraded rule tree of ``params`` itself (dense, int8 or int4
-    leaves alike), structured like it."""
+    leaves, MoE nodes alike), structured like it."""
     def walk(tree):
         out = {}
         for key, value in tree.items():
             if key == "layers":
                 out[key] = [walk(layer) for layer in value]
-            elif isinstance(value, dict):  # a MoE layer's experts
-                raise NotImplementedError(
-                    "a MoE model under a mesh (expert parallelism) is not ported yet "
-                    "(ROADMAP Queue 1 item 9: multi-device)"
-                )
+            elif key == "moe":
+                out[key] = {k: _degraded(moe_leaf_rule(k, v), mesh) for k, v in value.items()}
             else:
                 out[key] = _degraded(leaf_rule(key, value), mesh)
         return out
@@ -155,21 +189,32 @@ def tree_rules(params, mesh) -> Dict[str, Any]:
     return walk(params)
 
 
-_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
+_ATTN_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
+_MLP_KEYS = ("w_gate", "w_up", "w_down")
 
 
-def _config_rules(mesh, config, weight_rule) -> Dict[str, Any]:
+def _config_rules(mesh, config, weight_rule, stack_rule=None) -> Dict[str, Any]:
     """The degraded rule tree of ``config``'s params: ``weight_rule(key)``
-    for every weight, replication for the norms."""
-    _moe_raises(config)
+    for every weight, replication for the norms, and for a MoE model
+    ``stack_rule(key)`` for every expert stack."""
 
     def rule(key):
         return _degraded((None,) if key.endswith("norm") else weight_rule(key), mesh)
 
+    def layer():
+        out = {key: rule(key) for key in _ATTN_KEYS}
+        if config.n_experts > 0:
+            out["moe"] = {"router": _degraded(_MOE_RULES["router"], mesh)}
+            out["moe"].update({key: _degraded((stack_rule or _MOE_RULES.get)(key), mesh)
+                               for key in _MLP_KEYS})
+        else:
+            out.update({key: rule(key) for key in _MLP_KEYS})
+        return out
+
     tree = {
         "embed": rule("embed"),
         "final_norm": rule("final_norm"),
-        "layers": [{key: rule(key) for key in _LAYER_KEYS} for _ in range(config.n_layers)],
+        "layers": [layer() for _ in range(config.n_layers)],
     }
     if not config.tie_embeddings:
         tree["lm_head"] = rule("lm_head")
@@ -178,7 +223,8 @@ def _config_rules(mesh, config, weight_rule) -> Dict[str, Any]:
 
 def llama_param_sharding(mesh, config) -> Dict[str, Any]:
     """The rule tree of a dense params tree: the reference's
-    ``llama_param_sharding``, a spec in the place of each NamedSharding."""
+    ``llama_param_sharding``, a spec in the place of each NamedSharding
+    (a MoE layer's ``moe`` node by ``moe_param_sharding``)."""
     return _config_rules(mesh, config, lambda key: _DENSE_RULES[key])
 
 
@@ -186,9 +232,11 @@ def llama_quantized_sharding(mesh, config, bits: int = 8, group: int = 128) -> D
     """The rule tree of ``quantize_params`` (bits 8) or
     ``quantize_params_int4`` (bits 4, the same ``group``) output: nodes
     of the quantized classes holding specs, as the reference's hold
-    NamedShardings."""
+    NamedShardings; expert stacks are int8 ``QuantizedExpertStack``
+    nodes under either."""
     from nos_tpu_torch.models.quantize import (
         QuantizedEmbedding,
+        QuantizedExpertStack,
         QuantizedLinear,
         QuantizedLinear4,
     )
@@ -201,7 +249,11 @@ def llama_quantized_sharding(mesh, config, bits: int = 8, group: int = 128) -> D
         cls = QuantizedEmbedding if key == "embed" else linear
         return _quantized_rule(cls, *_DENSE_RULES[key], group)
 
-    return _config_rules(mesh, config, weight_rule)
+    def stack_rule(key):
+        rule = _MOE_RULES[key]
+        return QuantizedExpertStack(q=rule, scale=(rule[0], rule[2]))
+
+    return _config_rules(mesh, config, weight_rule, stack_rule)
 
 
 def rule_leaves(rules) -> list:
@@ -256,10 +308,11 @@ def param_rules(params, mesh, config) -> Dict[str, Any]:
     """The degraded rule tree of ``params`` on ``mesh``: dense, int8 or
     int4 (the group read off the tree), the shape ``shard_params`` and
     ``gather_params`` walk."""
-    _moe_raises(config)
     tp = axis_size(mesh, "tp")
     if tp > 1:
         check_tp_heads(config, tp)
+    if config.n_experts > 0 and axis_size(mesh, "ep") > 1:
+        check_ep_experts(config, axis_size(mesh, "ep"))
     return tree_rules(params, mesh)
 
 
@@ -278,11 +331,16 @@ def gather_params(shards, mesh, config):
     return _zip_map(lambda x, spec: gather_shard(x, spec, mesh), shards, rules)
 
 
-def unshard_dp(leaf, key: str, mesh):
+def unshard_dp(leaf, key: str, mesh, rule=None):
     """FSDP's gather on use: ``leaf`` (params key ``key``, a tensor or a
-    quantized node) whole along ``dp``, still sharded over ``tp``. The
-    gradient of a gathered tensor reduce-scatters back over ``dp``.
-    ``leaf`` itself when the mesh has no dp axis longer than 1."""
+    quantized node; an adapted ``LoraLinear`` gathers its base) whole
+    along ``dp``, still sharded over ``tp`` and ``ep``. ``rule``: the
+    leaf's undegraded rule when it is not ``leaf_rule(key, leaf)`` (an
+    expert stack's). The gradient of a gathered tensor reduce-scatters
+    back over ``dp``. ``leaf`` itself when the mesh has no dp axis
+    longer than 1."""
+    from nos_tpu_torch.models.lora import LoraLinear
+
     group = axis_group(mesh, "dp")
     if group is None:
         return leaf
@@ -290,7 +348,9 @@ def unshard_dp(leaf, key: str, mesh):
     def gather(x, spec):
         return fsdp_gather(x, group, spec.index("dp")) if "dp" in spec else x
 
-    rule = leaf_rule(key, leaf)
+    if isinstance(leaf, LoraLinear):
+        return dataclasses.replace(leaf, w=unshard_dp(leaf.w, key, mesh))
+    rule = leaf_rule(key, leaf) if rule is None else rule
     if isinstance(leaf, torch.Tensor):
         return gather(leaf, rule)
     return leaf.replace([gather(t, s) for t, s in zip(leaf.tensors(), rule.tensors())])

@@ -1,24 +1,25 @@
-"""The training step, on one device or over a ``dp`` x ``sp`` x ``tp`` mesh.
+"""The training step, on one device or over a ``dp`` x ``sp`` x ``tp`` x ``ep`` mesh.
 
 Counterpart of ``nos_tpu/parallel/train.py:make_train_step``: loss →
 gradients → optimizer update. There is no ``jit``; the step runs
 eagerly, and ``attention="flash"`` takes its gradients from the
 hand-written backward kernels (in block mode on the ring).
 
-Under a ``DeviceMesh`` with axes among ``dp``, ``sp`` and ``tp`` each
-rank holds its shards of the params (``sharding.shard_params``: tp
-Megatron-style, FSDP over dp, norms replicated) and of the optimizer
-state, which is built on the shards and so sharded like them by
-construction; it runs ``llama_loss`` on its ``[B/dp, S/sp]`` token
-block. Its gradient is its share of the global-mean gradient, and the
-shares meet in one reduction a leaf: an FSDP leaf gets its dp sum from
-the reduce-scatter of its gathered weight's gradient in the backward
-and is summed over sp here; a replicated leaf (a norm) is summed over
-dp and sp here (its gradient is already whole across tp: the
-``copy_to_group`` before every product that reads it all-reduces it). No
-leaf is summed over an axis it is sharded on. Sums run in f32
-(``comm.all_reduce``) before the one update every rank applies to its
-shards.
+Under a ``DeviceMesh`` with axes among ``dp``, ``sp``, ``tp`` and
+``ep`` each rank holds its shards of the params (``sharding.shard_params``:
+tp Megatron-style, FSDP over dp, experts over ep, norms and routers
+replicated) and of the optimizer state, which is built on the shards and
+so sharded like them by construction; it runs ``llama_loss`` on its
+``[B/dp, S/sp]`` token block. Its gradient is its share of the
+global-mean gradient, and the shares meet in one reduction a leaf, read
+off its spec: a leaf sharded over dp (FSDP) gets its dp sum from the
+reduce-scatter of its gathered weight's gradient in the backward and is
+summed over sp here; a leaf replicated over dp (a norm, a router) is
+summed over dp and sp here. Nothing is summed over tp or ep: a leaf's
+gradient is already whole across tp (the ``copy_to_group`` before every
+product that reads it all-reduces it) and across ep (replicated compute,
+or the rank's own experts). Sums run in f32 (``comm.all_reduce``) before
+the one update every rank applies to its shards.
 
 State is ``(params, velocity)`` for the built-in momentum SGD, whose
 velocity tree has the params' structure, or ``(params, optimizer)`` with
@@ -41,8 +42,8 @@ from nos_tpu_torch.models.llama import (
     tree_map,
 )
 from nos_tpu_torch.parallel.comm import all_reduce
-from nos_tpu_torch.parallel.mesh import axis_size, mesh_groups
-from nos_tpu_torch.parallel.sharding import rule_leaves, shard_params
+from nos_tpu_torch.parallel.mesh import mesh_groups
+from nos_tpu_torch.parallel.sharding import param_rules, rule_leaves, shard_params
 
 # Gradients cross the mesh in f32 buckets of about this many elements
 # (256 MB), so the f32 copy never holds the whole tree at once.
@@ -124,18 +125,17 @@ def _sum_over_mesh(grads, params, groups):
     return out
 
 
-def sum_gradients(grads, leaves, mesh, cast: bool = False) -> list:
+def sum_gradients(grads, leaves, mesh, specs, cast: bool = False) -> list:
     """Each rank's gradient shares (of ``leaves``, its param shards, in
-    order) summed over the mesh axes each leaf is not sharded on and has
-    not been summed over yet: an FSDP leaf (2-D, under dp > 1; the
-    reduce-scatter in the backward summed it over dp) over sp, any other
-    over dp and sp; never over tp. In f32, rounded once to the param
-    dtype; ``cast``: a leaf with nothing to sum still rounds (f32
-    accumulators)."""
-    fsdp = axis_size(mesh, "dp") > 1
+    order, with their degraded ``specs``) summed over the data axes each
+    leaf is not sharded on and has not been summed over yet: a leaf whose
+    spec names dp (the reduce-scatter in the backward summed it over dp)
+    over sp, any other over dp and sp; never over tp or ep. In f32,
+    rounded once to the param dtype; ``cast``: a leaf with nothing to sum
+    still rounds (f32 accumulators)."""
     out = list(grads)
     for axes, sharded in ((("sp",), True), (("dp", "sp"), False)):
-        idx = [i for i, p in enumerate(leaves) if (fsdp and p.dim() >= 2) == sharded]
+        idx = [i for i, spec in enumerate(specs) if ("dp" in spec) == sharded]
         groups = mesh_groups(mesh, axes)
         if not idx:
             continue
@@ -200,11 +200,12 @@ def make_train_step(
     dev = _resolve_device(device)
 
     def grads_of(params: Params, leaves, tokens):
+        specs = None if mesh is None else rule_leaves(param_rules(params, mesh, config))
         if accum_steps == 1:
             loss = llama_loss(params, tokens, config, mesh)
             grads = torch.autograd.grad(loss, leaves)
             if mesh is not None:
-                grads = sum_gradients(grads, leaves, mesh)
+                grads = sum_gradients(grads, leaves, mesh, specs)
             return loss.detach(), grads
         total_b = tokens.shape[0]
         if total_b % accum_steps:
@@ -221,7 +222,9 @@ def make_train_step(
             loss_sum += loss.detach()
         scale = 1.0 / accum_steps
         g_sum = [g.mul_(scale) for g in g_sum]
-        return loss_sum * scale, sum_gradients(g_sum, leaves, mesh, cast=True)
+        if mesh is None:
+            return loss_sum * scale, [g.to(p.dtype) for g, p in zip(g_sum, leaves)]
+        return loss_sum * scale, sum_gradients(g_sum, leaves, mesh, specs, cast=True)
 
     def train_step(state, tokens):
         params, opt = state

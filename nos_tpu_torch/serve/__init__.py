@@ -1,12 +1,12 @@
 """Serving: the continuous-batching ``Engine`` (bf16, int8 or int4
 weights, the int8 KV cache, multi-tenant LoRA), ``SpecEngine``, their
-telemetry, and tensor-parallel serving (``Engine(mesh=...)`` over the
-shards of ``shard_for_serving``, with the head-sharded KV cache of
-``kv_cache_sharding``).
+telemetry, and tensor- and expert-parallel serving (``Engine(mesh=...)``
+and ``SpecEngine(mesh=...)`` over the shards of ``shard_for_serving``,
+with the head-sharded KV cache of ``kv_cache_sharding``).
 
-Still raising under a mesh (NotImplementedError naming ROADMAP Queue 1
-item 9): ``SpecEngine``, and a MoE model; ``kv_quant`` with a mesh
-raises ``ValueError``, as in the reference.
+Under a mesh, ``kv_quant`` raises ``ValueError``, as in the reference,
+and multi-LoRA serving ``NotImplementedError`` (the reference has no
+sharding rule for adapter nodes).
 """
 from nos_tpu_torch.serve.engine import Completion, Engine, GenRequest  # noqa: F401
 from nos_tpu_torch.serve.sharded import kv_cache_sharding, shard_for_serving  # noqa: F401

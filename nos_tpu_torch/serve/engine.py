@@ -34,14 +34,16 @@ Python loops over device tensors):
   and admission at the one row's (``with_adapter_rows``: the row
   selector changes, no weight is copied).
 
-- Tensor-parallel serving (``mesh``; ``serve/sharded.py``): the params
-  are the rank's shards (``shard_for_serving``), the cache holds the
-  rank's ``n_kv_heads/tp`` heads and is allocated in shards, never
-  whole; prefill, ingest and decode run on the rank's tp line with the
-  logits gathered, so every rank emits the same tokens. Every rank runs
-  this same host loop on the same submissions, with still one host sync
-  per ``step()``. Other mesh axes replicate. ``kv_quant`` with a mesh
-  raises ``ValueError``, as in the reference.
+- Tensor- and expert-parallel serving (``mesh``; ``serve/sharded.py``):
+  the params are the rank's shards (``shard_for_serving``), the cache
+  holds the rank's ``n_kv_heads/tp`` heads and is allocated in shards,
+  never whole; prefill, ingest and decode run on the rank's ``('tp',
+  'ep')`` plane with the logits gathered (a MoE layer on the rank's
+  experts, their outputs gathered over ep), so every rank emits the
+  same tokens. Every rank runs this same host loop on the same
+  submissions, with still one host sync per ``step()``. Other mesh axes
+  replicate. ``kv_quant`` with a mesh raises ``ValueError``, as in the
+  reference; multi-LoRA under a mesh raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -129,6 +131,12 @@ class Engine:
             raise ValueError(
                 "kv_quant + mesh is not wired (the scale arrays need "
                 "their own head-sharding rules); pick one"
+            )
+        if mesh is not None and n_adapters(params):
+            raise NotImplementedError(
+                "multi-LoRA serving under a mesh is not supported (the "
+                "reference's shard_for_serving has no rule for adapter nodes): "
+                "merge the adapters, or serve them on one device"
             )
         # tensor-parallel serving: the rank's tp line (None: one device,
         # or a mesh whose tp is 1, which replicates)
@@ -389,7 +397,7 @@ class Engine:
         with self.telemetry.prefill_span(request, length - resume, "chunked"):
             logits = self._ingest_pieces(
                 self._admission_params(request.adapter), self.config,
-                row_cache, prompt, n, resume,
+                row_cache, prompt, n, resume, mesh=self.mesh,
             )
         if self.prefix_cache_entries > 0:
             store_at = ((length - 1) // n) * n
@@ -418,7 +426,7 @@ class Engine:
         )
 
     def _ingest_pieces(self, params, config, row_cache, prompt, n: int,
-                       resume: int = 0):
+                       resume: int = 0, mesh=None):
         """THE prompt-chunking loop: n-token pieces from ``resume``, the
         final piece RIGHT-padded with its pad writes masked to the row
         cache's sacrificial trailing slot. Returns the last piece's
@@ -435,7 +443,7 @@ class Engine:
                 params, row_cache,
                 torch.tensor([start], dtype=torch.long, device=self.device),
                 torch.tensor([piece], dtype=torch.long, device=self.device),
-                config, write_mask=mask, rolling=self.rolling, mesh=self.mesh,
+                config, write_mask=mask, rolling=self.rolling, mesh=mesh,
             )
         return logits
 

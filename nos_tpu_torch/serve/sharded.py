@@ -1,4 +1,4 @@
-"""Tensor-parallel serving: one Engine spanning a tp mesh of ranks.
+"""Tensor- and expert-parallel serving: one Engine spanning a mesh of ranks.
 
 Counterpart of ``nos_tpu/serve/sharded.py``. A multi-device slice
 serves one model replica larger or faster than one device allows. The
@@ -16,16 +16,21 @@ Usage, on every rank of the group::
     params = shard_for_serving(params, mesh, config)
     eng = Engine(params, config, mesh=mesh, ...)
 
-A ``('dp', 'tp')`` mesh replicates over dp: each rank keeps its tp
-shards and serves on its tp line. Works with dense trees and with int8
-/ int4 trees (``quantize_params`` / ``quantize_params_int4``) alike.
+A MoE model also spreads its experts over an ``ep`` axis (``(ep,)`` or
+``(tp, ep)`` meshes): each rank holds ``E/ep`` experts of every layer,
+routes every token itself and gathers the experts' outputs over ep
+(``models/moe.py``); everything else is replicated over ep, the KV cache
+included. A mesh's other axes (``dp``) replicate: each rank keeps its tp
+/ ep shards and serves on its ``('tp', 'ep')`` plane. Works with dense
+trees and with int8 / int4 trees (``quantize_params`` /
+``quantize_params_int4``; expert stacks int8) alike.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from nos_tpu_torch.models.llama import LlamaConfig
-from nos_tpu_torch.parallel.mesh import axis_mesh, axis_size
+from nos_tpu_torch.parallel.mesh import axis_size, sub_mesh
 from nos_tpu_torch.parallel.sharding import shard_params
 
 Spec = tuple
@@ -45,15 +50,16 @@ def kv_cache_sharding(mesh, config: LlamaConfig) -> Spec:
 
 
 def serving_mesh(mesh):
-    """The mesh a serving replica runs on: its tp line (None without a
-    tp axis longer than 1); every other axis replicates."""
-    return axis_mesh(mesh, "tp")
+    """The mesh a serving replica runs on: its ``('tp', 'ep')`` plane
+    (None without a tp or ep axis longer than 1); every other axis
+    replicates."""
+    return sub_mesh(mesh, ("tp", "ep"))
 
 
 def shard_for_serving(params: Dict[str, Any], mesh, config: LlamaConfig) -> Dict[str, Any]:
     """This rank's serving shards of a whole params tree: dense trees by
     the Megatron rules, quantized trees by the scale-aware ones (the int4
-    group read off the tree), over the tp axis only, replicated over the
-    mesh's other axes."""
+    group read off the tree), expert stacks over ep, over the tp and ep
+    axes only, replicated over the mesh's other axes."""
     kv_cache_sharding(mesh, config)
     return shard_params(params, serving_mesh(mesh), config)

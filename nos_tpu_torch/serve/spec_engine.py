@@ -21,6 +21,12 @@ Differences from the base Engine, all forced by the round:
 The accepted counts are data-dependent, so the host cannot mirror the
 positions arithmetically: each horizon's one pull returns the device
 positions with the committed tokens.
+
+Under a ``mesh`` (as the reference passes it through to ``Engine``) the
+target runs on the Engine's tp / ep path over the rank's shards and
+head-sharded cache; the draft's params and cache are whole on every
+rank. Every rank drafts, verifies and accepts the same tokens: the
+target's logits are gathered whole before each argmax.
 """
 from __future__ import annotations
 
@@ -40,15 +46,12 @@ class SpecEngine(Engine):
     ``run`` / ``submit`` / ``step`` keep the base contracts; completions
     are the TARGET's greedy tokens (up to chunk-vs-step drift on near-tied
     argmaxes, the speculative contract). ``stats()`` reports rounds and
-    mean accepted drafts per active row-round."""
+    mean accepted drafts per active row-round. ``mesh=``: ``params`` are
+    the rank's target shards (``shard_for_serving``), ``draft_params``
+    the whole draft."""
 
     def __init__(self, params, config: LlamaConfig, draft_params,
                  draft_config: LlamaConfig, k: int = 4, **kwargs) -> None:
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "speculative serving under a mesh is not ported yet "
-                "(ROADMAP Queue 1 item 9: multi-device)"
-            )
         if kwargs.get("rolling"):
             raise ValueError(
                 "rolling cache is not supported with speculation (the "
@@ -77,7 +80,8 @@ class SpecEngine(Engine):
         # max_len - 1: live rows by the submit check, riders by the clamp
         self._d_cache = init_kv_cache(draft_config, self.slots_n, self.max_len,
                                       device=self.device)
-        self._round = _spec_round(params, draft_params, config, draft_config, k)
+        self._round = _spec_round(params, draft_params, config, draft_config, k,
+                                  t_mesh=self.mesh)
         self.rounds = 0
         self._accepted_total = 0
         self._active_row_rounds = 0

@@ -725,3 +725,82 @@ def test_tp_ranks_launch_the_kernels_at_local_heads_on_card(cuda_device, tmp_pat
             assert list(got["train_launches"]) == [layers, layers, layers]
             loss, gathered = float(got["loss"]), float(got["gathered_loss"])
             assert abs(loss - gathered) <= 1e-5 * abs(gathered), (loss, gathered)
+
+
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A gloo process group of this process alone (world size 1), torn
+    down after the test: the mesh paths on one card with no peer."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_moe_mlp_on_a_one_rank_ep_mesh_on_card(cuda_device, one_rank_group):
+    """moe_mlp over a one-rank ('ep',) mesh on the card (the mesh path:
+    the rank's experts, its stacks through the FSDP gather on use, the
+    copy and gather pieces with no peer) is the one-device call, bit for
+    bit, forward and gradients, at a binding capacity."""
+    from nos_tpu_torch.models import moe as tm
+    from nos_tpu_torch.parallel.mesh import mesh_from_devices
+
+    mc = tm.MoeConfig(d_model=256, d_ff=512, n_experts=4, top_k=2, capacity_factor=1.0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = tm.init_moe_params(gen, mc)
+    x = torch.randn((2, 64, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    mesh = mesh_from_devices((1,), ("ep",), device="cuda")
+    results = []
+    for m in (None, mesh):
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        out, aux = tm.moe_mlp(leaves, x, mc, m, return_aux=True)
+        grads = torch.autograd.grad(out.float().square().sum() + aux, list(leaves.values()))
+        results.append((out, aux, grads))
+    (o1, a1, g1), (o2, a2, g2) = results
+    assert torch.equal(o1, o2) and torch.equal(a1, a2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    keep = tm._route(x.reshape(-1, 256), params["router"], mc)[4]
+    assert not bool(keep.all())  # capacity binds
+
+
+@pytest.mark.cuda
+def test_pipeline_one_rank_schedule_matches_llama_forward_on_card(cuda_device,
+                                                                  one_rank_group):
+    """The pipeline on a one-rank ('pp',) mesh on the card: its
+    microbatches run the forward kernel M · L times and its logits agree
+    with llama_forward's within 5% of the largest (bf16, other batch
+    shapes in the products); pipeline_loss_and_grads launches each
+    backward kernel M · L times and its loss is llama_loss's within
+    2e-2 (the reference's pipeline bar)."""
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.parallel import pipeline as pl
+    from nos_tpu_torch.parallel.mesh import mesh_from_devices
+
+    cfg = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                            vocab_size=512, attention="flash", dtype=torch.bfloat16)
+    params = llama.init_llama_params(cfg, 11, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen, device="cuda")
+    mesh = mesh_from_devices((1,), ("pp",), device="cuda")
+    stacked = pl.stack_layer_params(params)
+    m = 2
+    with torch.no_grad():
+        want = llama.llama_forward(params, tokens, cfg)
+        fa.LAUNCHES = 0
+        got = pl.pipeline_llama_forward(stacked, tokens, cfg, mesh, m)
+        assert fa.LAUNCHES == m * cfg.n_layers
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 5e-2, err
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    loss, grads = pl.pipeline_loss_and_grads(stacked, tokens, cfg, mesh, m)
+    torch.cuda.synchronize()
+    assert [fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES] == [m * cfg.n_layers] * 3
+    with torch.no_grad():
+        one = llama.llama_loss(params, tokens, cfg)
+    assert abs(float(loss) - float(one)) <= 2e-2
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

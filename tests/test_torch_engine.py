@@ -226,7 +226,7 @@ class TestEnginePortOnly:
         with pytest.raises(ValueError, match="adapter"):
             eng.submit(GenRequest(prompt=[1, 2], max_new_tokens=2, adapter=1))
         assert Engine(tp, tc, max_len=32, kv_quant=True)._cache[0]["k"].dtype == torch.int8
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             Engine(tp, tc, mesh=object())
         with pytest.raises(ValueError, match="sliding_window"):
             Engine(tp, tc, max_len=64, rolling=True)

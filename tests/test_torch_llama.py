@@ -204,7 +204,7 @@ class TestBridge:
     def test_out_of_slice_options_raise(self):
         jc, jp, tc, tp = bridged(12)
         toks = torch.zeros((1, 4), dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             tl.llama_forward(tp, toks, tc, mesh=object())
         # routed MoE is in the slice: init and forward run
         moe = tl.tiny_config(n_experts=4, dtype=torch.float32)
@@ -212,5 +212,5 @@ class TestBridge:
         assert "moe" in moe_params["layers"][0] and "w_up" not in moe_params["layers"][0]
         logits = tl.llama_forward(moe_params, toks, moe)
         assert logits.shape == (1, 4, moe.vocab_size) and bool(torch.isfinite(logits).all())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             tl.llama_forward(moe_params, toks, moe, mesh=object())

@@ -154,7 +154,7 @@ class TestAdapters:
         node = tlora.stack_lora_adapters(tp, [tad], tlc)["layers"][0]["wq"]
         with pytest.raises(ValueError, match=r"\[B, S, d\]"):
             node.matmul(torch.zeros((1, 64)))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             tlora.make_lora_train_step(object(), tc, tlc, device="cpu")
         with pytest.raises(ValueError, match="optimizer"):
             tlora.make_lora_train_step(None, tc, tlc, learning_rate=0.1, device="cpu",

@@ -154,7 +154,7 @@ class TestMoeMlp:
     def test_mesh_raises(self):
         _, tc = configs()
         _, npp = moe_params(0)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             tm.moe_mlp(port(npp), torch.zeros(1, 2, 16), tc, mesh=object())
 
     def test_init_is_seeded_with_an_f32_router(self):

@@ -203,7 +203,7 @@ class TestTrainStep:
                             optimizer=torch.optim.SGD)
         with pytest.raises(ValueError, match="accum_steps"):
             make_train_step(None, tc, accum_steps=0, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make_train_step(object(), tc, device="cpu")
         step, shard = make_train_step(None, tc, accum_steps=3, device="cpu")
         with pytest.raises(ValueError, match="divisible"):

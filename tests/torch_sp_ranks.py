@@ -162,13 +162,15 @@ def mesh_loss_grads(params, tokens, cfg, mesh):
     ranks' shares summed as the trainer sums them, gathered. Every rank
     of the mesh calls it."""
     from nos_tpu_torch.models import llama
-    from nos_tpu_torch.parallel.sharding import gather_params, shard_params
+    from nos_tpu_torch.parallel.sharding import gather_params, rule_leaves, shard_params, \
+        tree_rules
     from nos_tpu_torch.parallel.train import sum_gradients
 
     shards = shard_params(params, mesh, cfg)
     leaves = [p.requires_grad_(True) for p in llama.tree_leaves(shards)]
     loss = llama.llama_loss(shards, block(mesh, tokens), cfg, mesh)
-    grads = iter(sum_gradients(torch.autograd.grad(loss, leaves), leaves, mesh))
+    specs = rule_leaves(tree_rules(shards, mesh))
+    grads = iter(sum_gradients(torch.autograd.grad(loss, leaves), leaves, mesh, specs))
     whole = gather_params(llama.tree_map(lambda _: next(grads), shards), mesh, cfg)
     return loss.detach(), llama.tree_leaves(whole)
 
@@ -292,8 +294,8 @@ def mesh_builders(rank, out) -> None:
             errors[key] = f"{type(e).__name__}: {e}"
     save(out, "mesh", rank, default_names=np.array(default.mesh_dim_names),
          default_shape=np.array(default.shape),
-         coords=np.array([pm.axis_index(default, a) for a in pm.AXES]),
-         sizes=np.array([pm.axis_size(default, a) for a in pm.AXES]),
+         coords=np.array([pm.axis_index(default, a) for a in pm.TRAINING_AXES]),
+         sizes=np.array([pm.axis_size(default, a) for a in pm.TRAINING_AXES]),
          global_sp=np.array(pm.axis_index(glob, "sp")),
          absent=np.array([pm.axis_index(glob, "tp"), pm.axis_size(glob, "tp")]),
          **{f"{k}_names": np.array(m.mesh_dim_names) for k, m in slices.items()},
@@ -340,32 +342,46 @@ def loader_blocks(rank, out, corpus) -> None:
 
 
 def out_of_slice(rank, out, params_np) -> None:
-    """What still raises under a mesh; a rank writes each error's text."""
+    """The multi-device paths that once raised, run on real meshes (each
+    on the rank's shards), and what still raises: a rank writes each
+    case's error text (or "no error")."""
     from nos_tpu_torch.models import llama, lora, moe
     from nos_tpu_torch.parallel import make_train_step, sharding
-    from nos_tpu_torch.serve import SpecEngine
+    from nos_tpu_torch.serve import Engine, SpecEngine, shard_for_serving
 
     dp_tp = cpu_mesh((2, 2), ("dp", "tp"))
     ep = cpu_mesh((4,), ("ep",))
     dp_sp = cpu_mesh((2, 2))
+    odd = cpu_mesh((4,), ("xp",))
     cfg, params = port_model(params_np, {})
     moe_cfg = llama.tiny_config(dtype=torch.float32, n_experts=4)
     moe_params = llama.init_llama_params(moe_cfg, 0, device="cpu")
     lc = lora.LoraConfig()
-    adapted = lora.attach_lora(params, lora.init_lora_params(cfg, lc, 0, device="cpu"), lc)
+    adapters = lora.init_lora_params(cfg, lc, 0, device="cpu")
+    adapted = lora.attach_lora(params, adapters, lc)
     toks = torch.zeros((1, 4), dtype=torch.long)
+
+    def moe_shards(mesh):
+        return sharding.shard_params(moe_params, mesh, moe_cfg)
+
     cases = {
         "forward_ep": lambda: llama.llama_forward(params, toks, cfg, ep),
         "forward_not_a_mesh": lambda: llama.llama_forward(params, toks, cfg, object()),
-        "forward_moe": lambda: llama.llama_forward(moe_params, toks, moe_cfg, dp_sp),
-        "forward_moe_tp": lambda: llama.llama_forward(moe_params, toks, moe_cfg, dp_tp),
+        "forward_unknown_axis": lambda: llama.llama_forward(params, toks, cfg, odd),
+        "forward_moe": lambda: llama.llama_forward(moe_shards(dp_sp), toks, moe_cfg, dp_sp),
+        "forward_moe_tp": lambda: llama.llama_forward(moe_shards(dp_tp), toks, moe_cfg, dp_tp),
         "train_moe": lambda: make_train_step(dp_sp, moe_cfg, device="cpu"),
-        "moe_mlp": lambda: moe.moe_mlp(moe_params["layers"][0]["moe"],
+        "moe_mlp": lambda: moe.moe_mlp(moe_shards(dp_sp)["layers"][0]["moe"],
                                        torch.zeros(1, 2, 64), moe_cfg.moe_config(), dp_sp),
-        "spec_engine": lambda: SpecEngine(params, cfg, params, cfg, mesh=dp_tp),
+        "spec_engine": lambda: SpecEngine(shard_for_serving(params, dp_tp, cfg), cfg,
+                                          params, cfg, mesh=dp_tp),
         "lora": lambda: lora.make_lora_train_step(dp_sp, cfg, lora.LoraConfig(),
                                                   device="cpu"),
         "lora_shards": lambda: sharding.shard_params(adapted, dp_tp, cfg),
+        "engine_multi_lora": lambda: Engine(
+            lora.stack_lora_adapters(shard_for_serving(params, dp_tp, cfg), [adapters], lc,
+                                     rows=4), cfg, mesh=dp_tp),
+        "engine_kv_quant": lambda: Engine(params, cfg, mesh=dp_tp, kv_quant=True),
         "param_sharding_moe": lambda: sharding.llama_param_sharding(dp_tp, moe_cfg),
         "quantized_sharding_moe": lambda: sharding.llama_quantized_sharding(dp_tp, moe_cfg),
         "shard_moe": lambda: sharding.shard_params(moe_params, dp_tp, moe_cfg),
@@ -375,6 +391,6 @@ def out_of_slice(rank, out, params_np) -> None:
         try:
             fn()
             errors[key] = "no error"
-        except NotImplementedError as e:
-            errors[key] = f"NotImplementedError: {e}"
+        except (TypeError, ValueError, NotImplementedError) as e:
+            errors[key] = f"{type(e).__name__}: {e}"
     save(out, "out_of_slice", rank, **{k: np.array(v) for k, v in errors.items()})
