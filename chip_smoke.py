@@ -30,7 +30,26 @@ Phases, each fatal on failure (exit code != 0):
    Skv 1, offsets off the grid with a window, MQA and GQA, q as a
    transposed view and f32 gradient outputs, and timed at the prefill
    shape [2, 512] and the training shape [4, 2048];
-3. model: Llama-3-8B at full width (random weights from a seed),
+then ResNet and the checkpoint:
+
+2a. resnet: ResNet-50 (bf16, channels_last, random weights from a
+    seed) at B 128, 224 x 224: logits against an f32 forward of the
+    same weights on the card with TF32 off (relative Frobenius error
+    and top-1 agreement within RESNET_REL_LIMIT / RESNET_TOP1_LIMIT), a
+    tiny f32 config at 33 x 33 on the card against the CPU, forward and
+    forward + backward (cross-entropy on random labels) images/s from
+    CUDA-event medians beside the bound counted from the conv shapes,
+    training peak memory, the profiler's top kernels and any layout
+    transposes among them;
+2b. hf_checkpoint: Llama-3-8B (llama_3_8b_config, full width and
+    depth) drawn from seed 0 on the card, written as a transformers
+    checkpoint (config.json, safetensors shards of at most 5 GB, the
+    index) by this script's own writer, and loaded back with
+    load_hf_llama(path): every tensor bit-equal, the config
+    llama_3_8b_config(), write and load seconds and GB/s, the host's
+    peak RSS during the load. The model phases below run on the
+    loaded tree;
+3. model: Llama-3-8B at full width (loaded from the checkpoint),
    attention="flash": llama_forward flash against dense on [1, 1024],
    generate() greedy on [2, 512] prompts (the kernel's launch count is
    zeroed just before and read just after: one launch per layer), one
@@ -40,6 +59,16 @@ Phases, each fatal on failure (exit code != 0):
    the CPU;
 4. engine: the continuous-batching Engine serving six requests (padded
    and chunked admission, a shared-prefix cache hit), 32 tokens each;
+4a. slo_serve: nos_tpu_torch.slo.bench_serve --card on the loaded tree
+    (--duration 8 --rate 3): the virtual clock's tick and prefill-token
+    costs measured on the card, the hot / cold drive, the report and
+    its SLO verdicts (latencies virtual, from the calibrated clock), the
+    drive's wall seconds;
+4b. examples: serve_llama --real-weights <the checkpoint> (full width,
+    int8, the Engine and a sampled generate), train_llama at its card
+    config (head_dim 64, flash + remat, ClippedAdamW, 30 steps with
+    checkpoints: launches 2L / L / L a step) and its resume for 5 more,
+    finetune_lora at its tiny config;
 5. train_grads: full width, 2 layers, [1, 1024]: llama_loss gradients
    through the kernels (flash) against autograd of the einsums (dense);
 6. train: the trainer's main path, Llama-3-8B at full width and depth,
@@ -1666,6 +1695,399 @@ def profile_steps(run_steps, card, step_ms: float, steps: int = 8,
                         for us, n, k in kernels[:12]],
         "card": card,
     }
+
+
+# ----------------------------------------- ResNet, checkpoints, SLO, examples
+RESNET_BATCH, RESNET_SIZE = 128, 224
+# bf16 ResNet-50 against an f32 forward of the same weights (TF32 off):
+# relative Frobenius error of the logits and top-1 agreement. bf16 keeps
+# 8 mantissa bits (about 0.4% a rounding) and the error of ~50 rounded
+# layers averages down over each conv's sums (0.27% on the CPU at B 8).
+RESNET_REL_LIMIT = 2e-2
+RESNET_TOP1_LIMIT = 0.9
+# a tiny f32 ResNet on the card against the CPU: cuDNN may pick other
+# f32 algorithms (FFT, Winograd) than the CPU's direct sums
+RESNET_CPU_RTOL = 1e-4
+HF_SHARD_BYTES = 5 * 10**9  # transformers' default max_shard_size, 5 GB
+SLO_SMOKE_ARGS = ["--card", "--duration", "8", "--rate", "3"]
+
+
+def resnet_flops(cfg, size: int) -> tuple:
+    """(forward, forward + backward) operations of one image through ResNet
+    ``cfg`` at ``size`` x ``size``, counted from the conv shapes: 2 per
+    multiply-add of every conv and the head; the backward computes each
+    weight's gradient and each conv's input gradient but the stem's
+    (the images take none). Elementwise ops (norms, relu, adds, the
+    pool) are left out: under 1% of the total."""
+    def conv(n, k, cin, cout, stride):
+        out = -(-n // stride)
+        return out, 2 * out * out * k * k * cin * cout
+
+    n, stem = conv(size, 7, 3, cfg.width, 2)
+    n = -(-n // 2)  # the 3x3/2 max-pool
+    fwd, dgrad = stem, 0
+    cin = cfg.width
+    for stage, blocks in enumerate(cfg.stage_sizes):
+        width = cfg.width * 2 ** stage
+        for block in range(blocks):
+            stride = 2 if (stage > 0 and block == 0) else 1
+            _, f1 = conv(n, 1, cin, width, 1)
+            m, f2 = conv(n, 3, width, width, stride)
+            _, f3 = conv(m, 1, width, width * 4, 1)
+            fp = conv(n, 1, cin, width * 4, stride)[1] if block == 0 else 0
+            fwd += f1 + f2 + f3 + fp
+            dgrad += f1 + f2 + f3 + fp
+            n, cin = m, width * 4
+    head = 2 * cin * cfg.num_classes
+    fwd += head
+    # backward: every weight's gradient (the forward's operations again)
+    # and every input gradient but the stem's
+    return fwd, fwd + fwd + dgrad + head
+
+
+def resnet_phase(card) -> dict:
+    """ResNet-50 (bf16, channels_last) at B 128, 224 x 224: logits against
+    an f32 forward on the card, a tiny f32 config on the card against the
+    CPU at 33 x 33, forward and forward + backward images/s beside the
+    bound, peak memory, the profiler's top kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from nos_tpu_torch.models import resnet
+    from nos_tpu_torch.models.llama import tree_leaves, tree_map
+    from nos_tpu_torch.util.cuda_timing import event_ms
+
+    t_phase = time.time()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = resnet.ResNetConfig()
+    params = resnet.init_resnet_params(torch.Generator(device="cuda").manual_seed(11), cfg)
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    images = torch.randn((RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3), generator=gen,
+                         device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (RESNET_BATCH,), generator=gen, device="cuda")
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        got = resnet.resnet_forward(params, images, cfg)
+        want = resnet.resnet_forward(tree_map(torch.Tensor.float, params), images, cfg32)
+    rel = float((got - want).norm() / want.norm())
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(got).all())
+
+    tiny = dataclasses.replace(resnet.tiny_resnet_config(), dtype=torch.float32)
+    tiny_gpu = resnet.init_resnet_params(torch.Generator(device="cuda").manual_seed(13), tiny)
+    small = torch.randn((4, 33, 33, 3), generator=gen, device="cuda")
+    with torch.no_grad():
+        a = resnet.resnet_forward(tiny_gpu, small, tiny).cpu()
+        b = resnet.resnet_forward(tree_map(torch.Tensor.cpu, tiny_gpu), small.cpu(), tiny)
+    tiny_err = float((a - b).abs().max() / b.abs().max())
+
+    def forward():
+        with torch.no_grad():
+            resnet.resnet_forward(params, images, cfg)
+
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def forward_backward():
+        loss = F.cross_entropy(resnet.resnet_forward(params, images, cfg), labels)
+        torch.autograd.grad(loss, leaves)
+
+    fwd_ms = event_ms(forward, reps=10)
+    torch.cuda.reset_peak_memory_stats()
+    train_ms = event_ms(forward_backward, reps=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def run_steps(n):
+        for _ in range(n):
+            forward_backward()
+        torch.cuda.synchronize()
+
+    profile = profile_steps(run_steps, card, train_ms, steps=3, phase="resnet_profile")
+    transposes = [k for k in profile["top_kernels"]
+                  if any(s in k["name"].lower() for s in ("nchwtonhwc", "nhwctonchw", "transpose"))]
+    fwd_flops, train_flops = resnet_flops(cfg, RESNET_SIZE)
+    io_bytes = images.numel() * 4 + 2 * n_params + RESNET_BATCH * cfg.num_classes * 4
+    bound = {kind: max(flops * RESNET_BATCH / PEAK_BF16_FLOPS, io_bytes / PEAK_HBM_BYTES_S) * 1e3
+             for kind, flops in (("forward", fwd_flops), ("train", train_flops))}
+    row = {"phase": "resnet", "config": "resnet50", "params": n_params,
+           "batch": RESNET_BATCH, "size": RESNET_SIZE, "dtype": "bf16",
+           "memory_format": "channels_last",
+           "logits_rel_frobenius_vs_f32": rel, "rel_limit": RESNET_REL_LIMIT,
+           "top1_agreement_vs_f32": top1, "top1_limit": RESNET_TOP1_LIMIT,
+           "f32_reference": "the same weights in f32 on the card, cudnn.allow_tf32 False",
+           "tiny_card_vs_cpu_max_rel": tiny_err, "tiny_rtol": RESNET_CPU_RTOL,
+           "gflop_per_image_forward": fwd_flops / 1e9,
+           "gflop_per_image_train": train_flops / 1e9,
+           "forward_ms": fwd_ms, "forward_images_per_s": RESNET_BATCH / fwd_ms * 1e3,
+           "forward_bound_ms": bound["forward"], "forward_bound_by": "operations",
+           "forward_tflops": fwd_flops * RESNET_BATCH / fwd_ms / 1e9,
+           "train_ms": train_ms, "train_images_per_s": RESNET_BATCH / train_ms * 1e3,
+           "train_bound_ms": bound["train"], "train_bound_by": "operations",
+           "train_tflops": train_flops * RESNET_BATCH / train_ms / 1e9,
+           "train_peak_gib": peak, "layout_transpose_kernels": transposes,
+           "seconds": time.time() - t_phase, "card": card}
+    row["ok"] = (finite and rel <= RESNET_REL_LIMIT and top1 >= RESNET_TOP1_LIMIT
+                 and tiny_err <= RESNET_CPU_RTOL)
+    emit(row)
+    emit(profile)
+    if not row["ok"]:
+        raise SystemExit(f"resnet failed: {row}")
+    return row
+
+
+def hf_tensors(params, cfg):
+    """The transformers names of a Llama params tree, in checkpoint
+    order, each with a function giving its tensor ([out, in] for a
+    matrix) when the writer reaches it."""
+    out = [("model.embed_tokens.weight", lambda: params["embed"])]
+    for i, layer in enumerate(params["layers"]):
+        pre = f"model.layers.{i}."
+        out += [
+            (pre + "input_layernorm.weight", lambda l=layer: l["attn_norm"]),
+            (pre + "self_attn.q_proj.weight", lambda l=layer: l["wq"].T),
+            (pre + "self_attn.k_proj.weight", lambda l=layer: l["wk"].T),
+            (pre + "self_attn.v_proj.weight", lambda l=layer: l["wv"].T),
+            (pre + "self_attn.o_proj.weight", lambda l=layer: l["wo"].T),
+            (pre + "post_attention_layernorm.weight", lambda l=layer: l["mlp_norm"]),
+            (pre + "mlp.gate_proj.weight", lambda l=layer: l["w_gate"].T),
+            (pre + "mlp.up_proj.weight", lambda l=layer: l["w_up"].T),
+            (pre + "mlp.down_proj.weight", lambda l=layer: l["w_down"].T),
+        ]
+    out += [("model.norm.weight", lambda: params["final_norm"])]
+    if not cfg.tie_embeddings:
+        out += [("lm_head.weight", lambda: params["lm_head"].T)]
+    return out
+
+
+def write_hf_checkpoint(path, params, cfg, shard_bytes) -> dict:
+    """``params`` (bf16) as a transformers Llama checkpoint under ``path``:
+    ``config.json``, safetensors shards of at most ``shard_bytes`` and
+    ``model.safetensors.index.json``. The package has no writer (the
+    reference has none); this one writes only what ``save_pretrained``
+    would, tensor by tensor from the card."""
+    import struct
+
+    import torch
+
+    named = hf_tensors(params, cfg)
+    shapes = {name: tuple(fn().shape) for name, fn in named}
+    sizes = {name: 2 * math.prod(shape) for name, shape in shapes.items()}
+    shards, current, used = [], [], 0
+    for name, _ in named:
+        if current and used + sizes[name] > shard_bytes:
+            shards.append(current)
+            current, used = [], 0
+        current.append(name)
+        used += sizes[name]
+    shards.append(current)
+    fns = dict(named)
+    weight_map = {}
+    for k, names in enumerate(shards):
+        file = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, at = {"__metadata__": {"format": "pt"}}, 0
+        for name in names:
+            header[name] = {"dtype": "BF16", "shape": list(shapes[name]),
+                            "data_offsets": [at, at + sizes[name]]}
+            at += sizes[name]
+            weight_map[name] = file
+        blob = json.dumps(header).encode()
+        blob += b" " * (-len(blob) % 8)
+        with open(os.path.join(path, file), "wb") as f:
+            f.write(struct.pack("<Q", len(blob)) + blob)
+            for name in names:
+                t = fns[name]().contiguous().cpu()
+                f.write(t.view(torch.uint8).numpy().data)
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": sum(sizes.values())},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.d_model,
+            "intermediate_size": cfg.d_ff, "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "hidden_act": "silu", "rms_norm_eps": cfg.norm_eps,
+            "rope_theta": cfg.rope_theta, "rope_scaling": None,
+            "tie_word_embeddings": cfg.tie_embeddings, "torch_dtype": "bfloat16",
+        }, f)
+    return {"shards": len(shards), "bytes": sum(sizes.values()), "tensors": len(named)}
+
+
+class RssPeak:
+    """The process's peak resident set above its level at entry, sampled
+    from /proc every 20 ms on a thread of its own."""
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    @property
+    def above_base_gb(self) -> float:
+        return (self.peak - self.base) / 1e9
+
+
+def hf_checkpoint_phase(card, path) -> tuple:
+    """Llama-3-8B at full width and depth, drawn from seed 0 on the card,
+    written under ``path`` as a sharded transformers checkpoint and
+    loaded back with ``load_hf_llama(path)``: every tensor bit-equal to
+    what was written, the config ``llama_3_8b_config()``. Returns the
+    loaded (params, config): the model phases run on it."""
+    import torch
+
+    from nos_tpu_torch.models import llama
+    from nos_tpu_torch.models.convert import load_hf_llama
+
+    cfg = llama.llama_3_8b_config()
+    t0 = time.time()
+    drawn = llama.init_llama_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.time() - t0
+    t0 = time.time()
+    written = write_hf_checkpoint(path, drawn, cfg, HF_SHARD_BYTES)
+    write_s = time.time() - t0
+    with RssPeak() as rss:
+        t0 = time.time()
+        params, loaded_cfg = load_hf_llama(path, torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+    got, want = llama.tree_leaves(params), llama.tree_leaves(drawn)
+    bit_equal = len(got) == len(want) and all(
+        g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+        for g, w in zip(got, want))
+    del drawn, want
+    torch.cuda.empty_cache()
+    largest = max(t.numel() * 2 for t in got)
+    row = {"phase": "hf_checkpoint", "config": "llama_3_8b", "params": sum(t.numel() for t in got),
+           "layers": cfg.n_layers, **written, "shard_limit_bytes": HF_SHARD_BYTES,
+           "draw_s": draw_s, "write_s": write_s, "write_gb_per_s": written["bytes"] / write_s / 1e9,
+           "load_s": load_s, "load_gb_per_s": written["bytes"] / load_s / 1e9,
+           "write_goes_to": "the page cache (no sync; the machine has 100 GB of RAM)",
+           "load_reads": "the page cache, just after the write",
+           "host_peak_rss_above_start_gb": rss.above_base_gb,
+           "largest_tensor_gb": largest / 1e9, "bit_equal": bit_equal,
+           "config_equal": loaded_cfg == cfg, "card": card}
+    row["ok"] = bit_equal and loaded_cfg == cfg and written["shards"] >= 2
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"checkpoint round trip failed: {row}")
+    return params, loaded_cfg
+
+
+def slo_serve_phase(card, params, cfg) -> dict:
+    """The serving SLO bench (nos_tpu_torch.slo.bench_serve --card) on the
+    loaded Llama-3-8B: the virtual clock calibrated on the card, a short
+    workload; the report and the SLO verdicts."""
+    import nos_tpu_torch.ops.flash_attention as fa
+    from nos_tpu_torch.slo import bench_serve, build_arrivals
+
+    args = bench_serve.parse_args(SLO_SMOKE_ARGS)
+    fa.LAUNCHES = 0
+    report = bench_serve.run(args, params=params, model_config=cfg)
+    agg = report["aggregate"]
+    arrivals = len(build_arrivals(bench_serve.workload(args)))
+    numbers = [agg[k][p] for k in ("ttft_s", "tpot_s", "e2e_s", "queue_wait_s")
+               for p in ("p50", "p95", "p99")]
+    row = {"phase": "slo_serve", "args": SLO_SMOKE_ARGS, "arrivals": arrivals,
+           "clock": report["clock"], "wall": report["wall"],
+           "aggregate": agg, "models": report["models"], "slo": report["slo"],
+           "flash_launches": fa.LAUNCHES, "card": card}
+    row["ok"] = (agg["requests"] == arrivals and agg["tokens"] > 0
+                 and all(math.isfinite(x) and x >= 0 for x in numbers)
+                 and report["clock"]["tick_cost_s"] > 0)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"slo_serve failed: {row}")
+    return row
+
+
+def examples_phase(card, ckpt_path) -> dict:
+    """The three examples' main() on the card: serve_llama on the
+    checkpoint directory (full width, int8), train_llama at its card
+    config (flash + remat, launches of the three kernels a step) with its
+    checkpoints and a resume, finetune_lora at its small config."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nos_tpu_torch.examples import finetune_lora, serve_llama, train_llama
+
+    # the examples' own printed lines go to stderr: stdout stays JSON
+    quiet = functools.partial(contextlib.redirect_stdout, sys.stderr)
+    t0 = time.time()
+    with quiet():
+        serve = serve_llama.main(["--real-weights", ckpt_path])
+    torch.cuda.empty_cache()
+    serve_s = time.time() - t0
+    run_dir = tempfile.mkdtemp(prefix="nos-train-example-")
+    steps = train_llama.STEPS
+    try:
+        zero_counts()
+        t0 = time.time()
+        with quiet():
+            train = train_llama.main(["--ckpt-dir", run_dir])
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+        per_step = [n / steps for n in counts()]
+        with quiet():
+            resumed = train_llama.main(["--ckpt-dir", run_dir, "--steps", str(steps + 5)])
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.time()
+    with quiet():
+        tune = finetune_lora.main([])
+    tune_s = time.time() - t0
+    losses = list(train["losses"].values()) + list(resumed["losses"].values())
+    row = {"phase": "examples",
+           "serve_llama": {k: serve[k] for k in ("int8_bytes", "dense_bytes", "engine",
+                                                 "sampled")} | {"seconds": serve_s},
+           "train_llama": {k: train[k] for k in ("config", "mesh", "latest_checkpoint")}
+           | {"first_loss": train["losses"][1], "last_loss": train["losses"][steps],
+              "grad_norm_first": train["grad_norms"][1], "seconds": train_s,
+              "launches_per_step_fwd_dq_dkv": per_step,
+              "resumed_from": resumed["start_step"],
+              "resumed_last_loss": resumed["losses"][steps + 5]},
+           "finetune_lora": {"first_loss": tune["losses"][0], "last_loss": tune["losses"][-1],
+                             "trainable": tune["trainable"], "tokens": tune["tokens"],
+                             "seconds": tune_s},
+           "card": card}
+    n = train["config"]["n_layers"]
+    row["ok"] = (serve["engine"]["tokens"] == 8 * 16 and len(serve["sampled"]) == 12
+                 and per_step == [2 * n, n, n] and resumed["start_step"] == steps
+                 and all(math.isfinite(x) for x in losses + tune["losses"])
+                 and train["losses"][steps] < train["losses"][1]
+                 and tune["losses"][-1] < tune["losses"][0])
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"examples failed: {row}")
+    return row
 
 
 # ---------------------------------------------------------------- sp paths
@@ -3438,17 +3860,39 @@ def main() -> int:
                               TRAIN_SEQ, TRAIN_SEQ, timed=True)
     hd256 = gemma_kernel_phases(card)
 
-    # ------------------------------------------------------------- model
+    # ------------------------------------------------------------ ResNet
+    resnet_phase(card)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ checkpoint, model
+    # Llama-3-8B drawn from a seed, written as a transformers checkpoint
+    # and loaded back: the model phases run on the loaded tree
+    import shutil
+    import tempfile
+
+    ckpt_path = tempfile.mkdtemp(prefix="nos-hf-llama3-8b-")
+    try:
+        return _from_the_checkpoint(card, t_start, ckpt_path, main_kernels=(
+            main_case, train_case, bwd_case, hd256, fwd_ptxas, bwd_figures, _build))
+    finally:
+        shutil.rmtree(ckpt_path, ignore_errors=True)
+
+
+def _from_the_checkpoint(card, t_start, ckpt_path, main_kernels) -> int:
+    """Every phase from the checkpoint on (the directory lives as long
+    as this runs)."""
+    import torch
+
+    import nos_tpu_torch.ops.flash_attention as fa
     from nos_tpu_torch.models import llama
 
-    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash")
+    main_case, train_case, bwd_case, hd256, fwd_ptxas, bwd_figures, _build = main_kernels
     t0 = time.time()
-    params = llama.init_llama_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(
-        t.numel() for t in [params["embed"], params["final_norm"], params["lm_head"]]
-    ) + sum(t.numel() for layer in params["layers"] for t in layer.values())
+    params, loaded_cfg = hf_checkpoint_phase(card, ckpt_path)
+    cfg = dataclasses.replace(loaded_cfg, attention="flash")
+    n_params = sum(t.numel() for t in llama.tree_leaves(params))
     emit({"phase": "init", "config": "llama_3_8b", "params": n_params,
+          "source": "loaded from the checkpoint directory",
           "seconds": time.time() - t0,
           "gib": torch.cuda.memory_allocated() / 2**30, "card": card})
 
@@ -3506,6 +3950,13 @@ def main() -> int:
     if not eng_ok:
         raise SystemExit(f"engine failed: lengths ok {lens_ok}, prefix hits {hits}")
     del eng
+
+    # ---------------------------------------- SLO bench and the examples
+    t0 = time.time()
+    slo_serve_phase(card, params, cfg)
+    examples = examples_phase(card, ckpt_path)
+    torch.cuda.empty_cache()
+    emit({"phase": "slo_and_examples", "seconds": time.time() - t0, "card": card})
 
     # ------------------------------------------------ serving extensions
     trees = quantize_phase(card, params, cfg)
@@ -3586,6 +4037,8 @@ def main() -> int:
         "shape": "q [2,512,32,128], k/v [2,512,8,128] bf16 causal",
         "launches_train": train["launches_total_fwd_dq_dkv"][0],
         "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][0],
+        "launches_train_llama_example_step":
+            examples["train_llama"]["launches_per_step_fwd_dq_dkv"][0],
         "launches_sp_per_rank": sp_launches(sp, 0, False),
         "launches_tp_per_rank": sp_launches(tp, 0, False),
         "launches_ep_pp_per_rank": sp_launches(ep_pp, 0, False),
@@ -3606,6 +4059,8 @@ def main() -> int:
         "replaces": replaces,
         "launches": train["launches_total_fwd_dq_dkv"][index],
         "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][index],
+        "launches_train_llama_example_step":
+            examples["train_llama"]["launches_per_step_fwd_dq_dkv"][index],
         "launches_moe_train_grads": moe_grads["launches_fwd_dq_dkv"][index],
         "launches_sp_per_rank": sp_launches(sp, index, False),
         "launches_tp_per_rank": sp_launches(tp, index, False),

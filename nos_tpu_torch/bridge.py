@@ -30,6 +30,11 @@ back as f32 arrays and bf16 leaves as ``ml_dtypes.bfloat16`` arrays
 params' structure and crosses through ``params_from_numpy`` as it is.
 ``lora_from_numpy`` / ``lora_to_numpy`` carry adapter trees
 (``{"layers": [{target: {"a", "b"}}]}``) both ways in their own dtypes.
+
+``resnet_params_from_numpy`` carries a ``nos_tpu.models.resnet`` tree
+(stem, nested stage lists of block dicts, head): each HWIO conv kernel
+becomes the port's ``[O, I, kh, kw]`` in channels_last memory, every
+leaf in ``config.dtype``.
 """
 from __future__ import annotations
 
@@ -157,3 +162,27 @@ def lora_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
 
 # an adapter tree walks like a params tree
 lora_to_numpy = params_to_numpy
+
+
+def _resnet_leaf(leaf, config, device) -> torch.Tensor:
+    leaf = np.asarray(leaf)
+    if leaf.dtype not in _TORCH_READS:
+        leaf = leaf.astype(np.float32)
+    if leaf.ndim == 4:  # HWIO → [O, I, kh, kw], stored as [O, kh, kw, I]
+        leaf = np.ascontiguousarray(leaf.transpose(3, 0, 1, 2))
+        return torch.tensor(leaf, dtype=config.dtype, device=device).permute(0, 3, 1, 2)
+    return torch.tensor(leaf, dtype=config.dtype, device=device)
+
+
+def resnet_params_from_numpy(tree: Dict[str, Any], config, device=None):
+    """nos_tpu ResNet params (numpy leaves) → the port's on ``device``."""
+    dev = _resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {key: walk(value) for key, value in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(value) for value in node]
+        return _resnet_leaf(node, config, dev)
+
+    return walk(tree)

@@ -16,16 +16,26 @@ the host and reach the device in one copy each.
 
 Every tensor passes through f32 on its way to ``config.dtype``, as the
 reference casts, and is a new tensor: the tree never aliases the
-model's parameters. This module does not import ``transformers``: it
-reads a model instance the caller built.
+model's parameters. Each tensor reaches the device in its own dtype and
+is cast there, one at a time.
+
+``load_hf_llama`` takes a model instance the caller built, or a local
+checkpoint directory, which ``models/hf_files.py`` reads without
+``transformers`` (``config.json`` with the family's class defaults,
+safetensors shards or ``pytorch_model.bin``), streaming the weights
+tensor by tensor to the device: the host holds about one tensor, never
+the model. This module never imports ``transformers``.
 """
 from __future__ import annotations
 
+import os
+from collections.abc import Mapping
 from typing import Any, Dict, Tuple
 
 import torch
 
 from nos_tpu_torch import _resolve_device
+from nos_tpu_torch.models.hf_files import CheckpointTensors, read_config
 from nos_tpu_torch.models.llama import LlamaConfig
 
 Params = Dict[str, Any]
@@ -113,19 +123,23 @@ def config_from_hf(hf_config, dtype=torch.bfloat16) -> LlamaConfig:
 
 def _put(src: torch.Tensor, dtype, device) -> torch.Tensor:
     """A new tensor on ``device`` in ``dtype`` holding ``src`` cast
-    through f32."""
+    through f32 (on the device: ``src`` crosses in its own dtype)."""
+    # from pinned memory the copy runs asynchronously (the caching host
+    # allocator keeps the block until it is done)
+    src = src.detach().to(device, non_blocking=src.is_pinned())
     out = torch.empty(src.shape, dtype=dtype, device=device)
-    out.copy_(src.detach().float())
+    out.copy_(src.float())
     return out
 
 
 def params_from_hf_state_dict(state_dict, config: LlamaConfig, device=None) -> Params:
-    """``model.state_dict()`` of a transformers Llama-family model → the
-    port's parameter tree on ``device``, in ``config.dtype``."""
+    """``model.state_dict()`` of a transformers Llama-family model (or
+    any mapping of its names, such as a lazy ``CheckpointTensors``) →
+    the port's parameter tree on ``device``, in ``config.dtype``."""
     c = config
     dt = c.dtype
     dev = _resolve_device(device)
-    sd = dict(state_dict)
+    sd = state_dict if isinstance(state_dict, Mapping) else dict(state_dict)
     consumed = set()
 
     def vec(key, dtype=dt):
@@ -197,14 +211,16 @@ def params_from_hf_state_dict(state_dict, config: LlamaConfig, device=None) -> P
     return params
 
 
-def load_hf_llama(model, dtype=torch.bfloat16, device=None) -> Tuple[Params, LlamaConfig]:
-    """(params, config) from a transformers model instance. A checkpoint
-    path is not taken (ROADMAP Queue 1 item 10): build the model with
-    transformers and pass it."""
-    if isinstance(model, str):
-        raise NotImplementedError(
-            "loading a checkpoint path is not ported yet (ROADMAP Queue 1 "
-            "item 10); pass a transformers model instance"
-        )
-    config = config_from_hf(model.config, dtype)
-    return params_from_hf_state_dict(model.state_dict(), config, device), config
+def load_hf_llama(model_or_path, dtype=torch.bfloat16, device=None) -> Tuple[Params, LlamaConfig]:
+    """(params, config) from a transformers model instance or a local
+    checkpoint directory (``config.json`` and safetensors shards or
+    ``pytorch_model.bin``; no hub lookup: anything else raises
+    ``FileNotFoundError``)."""
+    if isinstance(model_or_path, (str, os.PathLike)):
+        path = os.fspath(model_or_path)
+        config = config_from_hf(read_config(path), dtype)
+        dev = _resolve_device(device)
+        tensors = CheckpointTensors(path, pin_memory=dev.type == "cuda")
+        return params_from_hf_state_dict(tensors, config, dev), config
+    config = config_from_hf(model_or_path.config, dtype)
+    return params_from_hf_state_dict(model_or_path.state_dict(), config, device), config

@@ -804,3 +804,67 @@ def test_pipeline_one_rank_schedule_matches_llama_forward_on_card(cuda_device,
         one = llama.llama_loss(params, tokens, cfg)
     assert abs(float(loss) - float(one)) <= 2e-2
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [32, 33])
+def test_resnet_on_card_matches_cpu_and_stays_channels_last(cuda_device, size):
+    """A tiny f32 ResNet on the card against the same weights on the
+    CPU (TF32 off), within 1e-4 of the largest logit: cuDNN may pick
+    other f32 algorithms than the CPU's direct sums. Every conv input on
+    the card is channels_last, the "SAME" pads' outputs included."""
+    from nos_tpu_torch.models import resnet
+    from nos_tpu_torch.models.llama import tree_map
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = resnet.ResNetConfig(num_classes=10, stage_sizes=(1, 2, 1), width=8,
+                              dtype=torch.float32)
+    params = resnet.init_resnet_params(torch.Generator(device="cuda").manual_seed(3), cfg)
+
+    images = torch.randn((4, size, size, 3), generator=torch.Generator().manual_seed(4))
+    seen = []
+    real = resnet.F.conv2d
+
+    def spy(x, w, *args, **kwargs):
+        seen.append(x.is_contiguous(memory_format=torch.channels_last))
+        return real(x, w, *args, **kwargs)
+
+    resnet.F.conv2d = spy
+    try:
+        with torch.no_grad():
+            got = resnet.resnet_forward(params, images.to(cuda_device), cfg).cpu()
+    finally:
+        resnet.F.conv2d = real
+    with torch.no_grad():
+        want = resnet.resnet_forward(tree_map(torch.Tensor.cpu, params), images, cfg)
+    assert all(seen) and len(seen) == 1 + 4 * 3 + 3  # stem, 4 blocks, 3 projections
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_load_hf_llama_streams_a_directory_to_the_card(cuda_device, tmp_path):
+    """A tiny Llama checkpoint directory (bf16 safetensors shards under an
+    index, written by ``chip_smoke.write_hf_checkpoint``) loads onto the
+    card bit-equal to its CPU load, and generate() on it launches the
+    forward kernel once a layer."""
+    import chip_smoke
+    from nos_tpu_torch.models import convert, llama
+    from nos_tpu_torch.models.generate import generate
+
+    cfg = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab_size=512)
+    params = llama.init_llama_params(cfg, 5, device="cpu")
+    written = chip_smoke.write_hf_checkpoint(str(tmp_path), params, cfg, 2**20)
+    assert written["shards"] >= 2
+    on_card, got_cfg = convert.load_hf_llama(str(tmp_path), device=cuda_device)
+    on_cpu, _ = convert.load_hf_llama(str(tmp_path), device="cpu")
+    assert got_cfg == cfg
+    for a, b, w in zip(llama.tree_leaves(on_card), llama.tree_leaves(on_cpu),
+                       llama.tree_leaves(params)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b) and torch.equal(b, w)
+    fcfg = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab_size=512,
+                             attention="flash")
+    prompt = torch.randint(1, 512, (2, 64), generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        fa.LAUNCHES = 0
+        out = generate(on_card, prompt.to(cuda_device), fcfg, 8)
+    assert fa.LAUNCHES == cfg.n_layers and out.shape == (2, 8)

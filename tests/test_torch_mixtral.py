@@ -349,9 +349,13 @@ class TestConvert:
         sd["model.layers.0.self_attn.q_proj.bias"] = torch.zeros(64)
         with pytest.raises(ValueError, match="unconverted"):
             tconv.params_from_hf_state_dict(sd, config, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tconv.load_hf_llama("some/checkpoint", device="cpu")
         bad = copy.deepcopy(hf_mixtral.config)
         bad.rope_scaling = {"rope_type": "yarn", "factor": 4.0}
         with pytest.raises(ValueError, match="rope_scaling"):
             tconv.config_from_hf(bad)
+
+    def test_a_path_that_is_no_local_directory_raises_file_not_found(self):
+        # a checkpoint path is read from a local directory only: no hub
+        # lookup, no network
+        with pytest.raises(FileNotFoundError, match="local checkpoint directory"):
+            tconv.load_hf_llama("some/checkpoint", device="cpu")

@@ -50,6 +50,9 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/models/quantize.py", "nos_tpu_torch/models/lora.py",
         "nos_tpu_torch/models/speculative.py", "nos_tpu_torch/serve/spec_engine.py",
         "nos_tpu_torch/models/moe.py", "nos_tpu_torch/models/convert.py",
+        "nos_tpu_torch/models/resnet.py", "nos_tpu_torch/models/hf_files.py",
+        "nos_tpu_torch/slo/engine.py", "nos_tpu_torch/slo/driver.py",
+        "nos_tpu_torch/slo/bench_serve.py", "nos_tpu_torch/examples/train_llama.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -68,6 +71,10 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.models.quantize, nos_tpu_torch.models.lora\n"
         "import nos_tpu_torch.models.speculative, nos_tpu_torch.serve.spec_engine\n"
         "import nos_tpu_torch.models.moe, nos_tpu_torch.models.convert\n"
+        "import nos_tpu_torch.models.resnet, nos_tpu_torch.models.hf_files\n"
+        "import nos_tpu_torch.slo, nos_tpu_torch.slo.bench_serve\n"
+        "import nos_tpu_torch.examples.serve_llama, nos_tpu_torch.examples.train_llama\n"
+        "import nos_tpu_torch.examples.finetune_lora\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'nos_tpu', 'transformers'))\n"
         "print(bad)\n"

@@ -275,3 +275,56 @@ def checkpoint_cases(rank, out, params_np, batches, adamw) -> None:
         np.array_equal(x, y) for x, y in zip(whole(forced, a), whole(state, a))))
     save(out, f"ckpt_{tag}", rank, **arrays)
 
+
+
+# ------------------------------------------------------------- examples
+
+
+def example_clip(rank, out, params_np, grads_np, meshes, hyper) -> None:
+    """One ``ClippedAdamW`` step (the train_llama example's optimizer) on
+    each ``(dp, tp)`` mesh: the rank's shards of ``params_np`` take their
+    shards of ``grads_np`` as gradients; the global norm, the clipped
+    gradients and the stepped params are gathered whole."""
+    from nos_tpu_torch.examples.train_llama import ClippedAdamW
+    from nos_tpu_torch.models.llama import tree_leaves
+    from nos_tpu_torch.parallel.sharding import (
+        gather_params, param_rules, rule_leaves, shard_params,
+    )
+
+    for dims in meshes:
+        mesh = cpu_mesh(dims, ("dp", "tp"))
+        cfg, params = port_model(params_np, {})
+        _, grads = port_model(grads_np, {})
+        specs = rule_leaves(param_rules(params, mesh, cfg))
+        shards, gshards = shard_params(params, mesh, cfg), shard_params(grads, mesh, cfg)
+        for p, g in zip(tree_leaves(shards), tree_leaves(gshards)):
+            p.requires_grad_(True)
+            p.grad = g
+        opt = ClippedAdamW(tree_leaves(shards), mesh=mesh, specs=specs, **hyper)
+        opt.step()
+        clipped = gather_params(gshards, mesh, cfg)
+        stepped = gather_params(tree_map_detach(shards), mesh, cfg)
+        save(out, f"clip_{dims[0]}x{dims[1]}", rank, norm=opt.last_norm.numpy(),
+             **{f"g{i}": g.numpy() for i, g in enumerate(tree_leaves(clipped))},
+             **{f"p{i}": p.numpy() for i, p in enumerate(tree_leaves(stepped))})
+
+
+def tree_map_detach(tree):
+    from nos_tpu_torch.models.llama import tree_map
+
+    return tree_map(lambda t: t.detach(), tree)
+
+
+def example_train(rank, out, steps) -> None:
+    """The train_llama example's ``main`` on this rank's group: the
+    examples lay their ("dp", "tp") mesh over the running ranks."""
+    from nos_tpu_torch.examples import train_llama
+
+    result = train_llama.main(["--device", "cpu", "--steps", str(steps),
+                               "--checkpoint-every", "2",
+                               "--ckpt-dir", os.path.join(str(out), "ckpt")])
+    save(out, "example_train", rank,
+         losses=np.array([result["losses"][k] for k in sorted(result["losses"])]),
+         norms=np.array([result["grad_norms"][k] for k in sorted(result["grad_norms"])]),
+         mesh=np.array(sorted(result["mesh"].items())),
+         latest=np.array(result["latest_checkpoint"]))
