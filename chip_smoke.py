@@ -30,8 +30,23 @@ Phases, each fatal on failure (exit code != 0):
    Skv 1, offsets off the grid with a window, MQA and GQA, q as a
    transposed view and f32 gradient outputs, and timed at the prefill
    shape [2, 512] and the training shape [4, 2048];
-then ResNet and the checkpoint:
+then the model bench, ResNet and the checkpoint:
 
+2m. model_bench: nos_tpu_torch.bench.run_model_bench at
+    BenchSizes.quick() (bench.py's ~1B Llama and shapes, iterations
+    cut: a train step at [8, 2048], dense and flash forwards, the
+    attention op at Hq 16 / Hkv 8, decode per weight and cache format,
+    three Engines, [1, 4096] dense / flash / 1024-window forwards, a
+    256 + 1100-token stream through the physical and the rolling
+    cache): finite train losses; flash against dense logits at
+    [8, 2048], at [1, 4096] and under the window there, the [8, 4096]
+    prefill and each decode step on the bf16 cache against a dense
+    forward over the same tokens (FWD_* limits); the attention op's O
+    and gradients against the dense path (BENCH_ATTN_REL_LIMIT); both
+    streams, the rolling cache's past its wrap, against a windowed
+    dense forward over their own tokens; every section's launches
+    equal to the counts its shapes imply; the share of tokens the two
+    streams share is reported;
 2a. resnet: ResNet-50 (bf16, channels_last, random weights from a
     seed) at B 128, 224 x 224: logits against an f32 forward of the
     same weights on the card with TF32 off (relative Frobenius error
@@ -1695,6 +1710,154 @@ def profile_steps(run_steps, card, step_ms: float, steps: int = 8,
                         for us, n, k in kernels[:12]],
         "card": card,
     }
+
+
+# ---------------------------------------------------------- the model bench
+# The attention op alone (bf16, one layer), flash against the model's
+# dense path: relative Frobenius error of O and of each gradient. Both
+# round the probabilities to bf16 (about 0.4% a rounding) at other
+# points, and the gradients round once more.
+BENCH_ATTN_REL_LIMIT = 2e-2
+
+
+def teacher_forced(params, cfg, context, fed):
+    """Dense ``llama_forward`` logits [B, ctx + n, vocab] over ``context``
+    [B, ctx] followed by ``fed`` [B, n]: what a prefill of the context
+    and n decode steps fed those tokens should give at each position."""
+    import torch
+
+    from nos_tpu_torch.models import llama
+
+    seq = torch.cat([context, fed], dim=1)
+    with torch.no_grad():
+        return llama.llama_forward(params, seq, dataclasses.replace(cfg, attention="dense"))
+
+
+def stream_against_forward(params, cfg, prompt, stream, wrap_at: int) -> dict:
+    """A greedy stream held against the dense forward over prompt +
+    stream: at each position the share of tokens that are the forward's
+    argmax, and the largest gap between the forward's top logit and the
+    stream token's, over max |logits|. Logits within FWD_REL_LIMIT of the
+    forward's (the bound a flash-against-dense forward holds) can only
+    choose a token within 2 x FWD_REL_LIMIT of the top; a cache that
+    served the wrong keys picks tokens the forward ranks anywhere. Also
+    the share among the tokens at positions > ``wrap_at`` (a rolling
+    cache's modulus: tokens from steps whose writes wrapped)."""
+    import torch
+
+    from nos_tpu_torch.models import llama
+
+    device = llama.params_device(params)
+    context = torch.tensor([list(prompt)], device=device)
+    fed = torch.tensor([list(stream[:-1])], device=device)
+    logits = teacher_forced(params, cfg, context, fed)[0, len(prompt) - 1:]
+    tok = torch.tensor(list(stream), device=device)
+    gap = (logits.max(-1).values - logits.gather(-1, tok[:, None])[:, 0]) / logits.abs().max()
+    hit = logits.argmax(-1) == tok
+    wrapped = hit[max(0, wrap_at + 1 - len(prompt)):]
+    return {"argmax_share": float(hit.float().mean()), "max_gap_rel": float(gap.max()),
+            "wrapped_tokens": int(wrapped.numel()),
+            "wrapped_argmax_share": float(wrapped.float().mean()) if wrapped.numel() else None,
+            "finite": bool(torch.isfinite(logits).all())}
+
+
+def stream_holds(stats) -> bool:
+    return (stats["finite"] and stats["argmax_share"] >= FWD_ARGMAX_LIMIT
+            and stats["max_gap_rel"] <= 2 * FWD_REL_LIMIT)
+
+
+def model_bench_phase(card) -> dict:
+    """``nos_tpu_torch.bench.run_model_bench`` at ``BenchSizes.quick()``:
+    every section once at bench.py's shapes, then its outputs checked:
+    the train losses finite; flash against dense logits (the FWD_*
+    limits) at the train batch, at [1, 4096] and under the 1024 window
+    there; the [8, 4096] flash prefill's last logits and each decode
+    step's on the bf16 cache against a dense forward over the context
+    and the tokens the steps were fed (FWD_*; the int8 cache's
+    reported); the
+    attention op's O and gradients (BENCH_ATTN_REL_LIMIT); both rolling
+    streams, physical and rolling cache, against a windowed dense
+    forward over their own tokens (``stream_holds``; the rolling cache's
+    writes wrap for the stream's last ~75 tokens); each section's
+    launches against the counts its shapes imply. The share of tokens
+    the two streams share is reported (bf16 drift parts them)."""
+    import torch
+
+    from nos_tpu_torch import bench
+    from nos_tpu_torch.models import llama
+
+    sizes = bench.BenchSizes.quick()
+    cfg = sizes.config
+    outs = {}
+    zero_counts()
+    t0 = time.time()
+    result = bench.run_model_bench("cuda", sizes, outputs=outs)
+    seconds = time.time() - t0
+    totals = counts()
+    t_check = time.time()
+    params = outs["params"]
+    losses = outs["train"]["losses"]
+    forward = logits_agreement(outs["forward_flash"]["logits"], outs["forward"]["logits"])
+    att = outs["attention"]
+    attn_errs = {"o": rel_frobenius(att["flash"], att["dense"])}
+    for name, got, want in zip(("dq", "dk", "dv"), att["flash_grads"], att["dense_grads"]):
+        attn_errs[name] = rel_frobenius(got, want)
+    ctx_tokens = outs["decode"]["ctx_tokens"]
+    ctx = {}
+    for kind, run in outs["decode"]["ctx"].items():
+        want = teacher_forced(params, cfg, ctx_tokens, run["fed"])[:, ctx_tokens.shape[1] - 1:]
+        ctx[kind] = {"prefill": logits_agreement(run["logits"][:, 0], want[:, 0]),
+                     "prefill_and_steps": logits_agreement(run["logits"], want)}
+        del want
+    seq = sizes.long_seqs[0]
+    long_ctx = outs["long_context"][seq]
+    long_flash = logits_agreement(long_ctx["flash"], long_ctx["dense"])
+    with torch.no_grad():
+        window_dense = llama.llama_forward(
+            params, long_ctx["tokens"], dataclasses.replace(cfg, sliding_window=sizes.window))
+    window = logits_agreement(long_ctx["window"], window_dense)
+    del window_dense
+    rolling = outs["rolling"]
+    prompt = rolling["prompt"]
+    modulus = sizes.window + len(prompt)  # the rolling cache's
+    wcfg = dataclasses.replace(cfg, sliding_window=sizes.window)
+    streams = {name: stream_against_forward(params, wcfg, prompt, rolling[name], modulus)
+               for name in ("physical", "rolling")}
+    lens_ok = len(rolling["physical"]) == len(rolling["rolling"]) == sizes.rolling_new
+    first_diff = next((i for i, (a, b) in enumerate(zip(rolling["physical"],
+                                                         rolling["rolling"])) if a != b),
+                      None)
+    row = {"phase": "model_bench", "sizes": "BenchSizes.quick()", "seconds": seconds,
+           "check_seconds": time.time() - t_check, "result": result,
+           "train_losses": losses, "flash_vs_dense_forward": forward,
+           "long_flash_vs_dense": long_flash, "window_flash_vs_dense": window,
+           "window": sizes.window, "long_seq": seq, "ctx_decode_vs_dense": ctx,
+           "attention_op_rel_err": attn_errs, "attention_op_limit": BENCH_ATTN_REL_LIMIT,
+           "streams_vs_windowed_dense": streams, "stream_gap_limit": 2 * FWD_REL_LIMIT,
+           "rolling_vs_physical_token_share": agreement([rolling["rolling"]],
+                                                        [rolling["physical"]]),
+           "rolling_first_differing_token": first_diff,
+           "launches": outs["launches"], "expected_launches": outs["expected_launches"],
+           "launches_total_fwd_dq_dkv": list(totals), "card": card}
+    row["ok"] = (all(math.isfinite(x) for x in losses)
+                 and logits_hold(forward) and logits_hold(long_flash) and logits_hold(window)
+                 and logits_hold(ctx["bf16"]["prefill_and_steps"])
+                 and ctx["int8"]["prefill_and_steps"]["finite"]
+                 and max(attn_errs.values()) <= BENCH_ATTN_REL_LIMIT
+                 and lens_ok and all(stream_holds(v) for v in streams.values())
+                 and streams["rolling"]["wrapped_tokens"] > 0
+                 and outs["launches"] == outs["expected_launches"])
+    del outs, params
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"model_bench failed: {row}")
+    return row
+
+
+def bench_launches(model_bench, index: int) -> dict:
+    """Launches of kernel ``index`` (0 forward, 1 dQ, 2 dK/dV) in each
+    section of the model bench that launched it."""
+    return {name: c[index] for name, c in model_bench["launches"].items() if c[index]}
 
 
 # ----------------------------------------- ResNet, checkpoints, SLO, examples
@@ -3860,6 +4023,10 @@ def main() -> int:
                               TRAIN_SEQ, TRAIN_SEQ, timed=True)
     hd256 = gemma_kernel_phases(card)
 
+    # ---------------------------------------------------- the model bench
+    model_bench = model_bench_phase(card)
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------ ResNet
     resnet_phase(card)
     torch.cuda.empty_cache()
@@ -3873,7 +4040,8 @@ def main() -> int:
     ckpt_path = tempfile.mkdtemp(prefix="nos-hf-llama3-8b-")
     try:
         return _from_the_checkpoint(card, t_start, ckpt_path, main_kernels=(
-            main_case, train_case, bwd_case, hd256, fwd_ptxas, bwd_figures, _build))
+            main_case, train_case, bwd_case, hd256, fwd_ptxas, bwd_figures, _build,
+            model_bench))
     finally:
         shutil.rmtree(ckpt_path, ignore_errors=True)
 
@@ -3886,7 +4054,8 @@ def _from_the_checkpoint(card, t_start, ckpt_path, main_kernels) -> int:
     import nos_tpu_torch.ops.flash_attention as fa
     from nos_tpu_torch.models import llama
 
-    main_case, train_case, bwd_case, hd256, fwd_ptxas, bwd_figures, _build = main_kernels
+    (main_case, train_case, bwd_case, hd256, fwd_ptxas, bwd_figures, _build,
+     model_bench) = main_kernels
     t0 = time.time()
     params, loaded_cfg = hf_checkpoint_phase(card, ckpt_path)
     cfg = dataclasses.replace(loaded_cfg, attention="flash")
@@ -4042,6 +4211,7 @@ def _from_the_checkpoint(card, t_start, ckpt_path, main_kernels) -> int:
         "launches_sp_per_rank": sp_launches(sp, 0, False),
         "launches_tp_per_rank": sp_launches(tp, 0, False),
         "launches_ep_pp_per_rank": sp_launches(ep_pp, 0, False),
+        "launches_model_bench": bench_launches(model_bench, 0),
         "device_ms": main_case["kernel_device_ms"],
         "library_device_ms": main_case["library_device_ms"],
         "ms_train": train_case["kernel_ms"],
@@ -4065,6 +4235,7 @@ def _from_the_checkpoint(card, t_start, ckpt_path, main_kernels) -> int:
         "launches_sp_per_rank": sp_launches(sp, index, False),
         "launches_tp_per_rank": sp_launches(tp, index, False),
         "launches_ep_pp_per_rank": sp_launches(ep_pp, index, False),
+        "launches_model_bench": bench_launches(model_bench, index),
         "max_abs_err": max(bwd_case[f"{g}_max_abs_err"] for g in grads),
         "ms": bwd_case[f"{key}_ms"],
         "plain_ms": bwd_case["plain_ms"],

@@ -868,3 +868,46 @@ def test_load_hf_llama_streams_a_directory_to_the_card(cuda_device, tmp_path):
         fa.LAUNCHES = 0
         out = generate(on_card, prompt.to(cuda_device), fcfg, 8)
     assert fa.LAUNCHES == cfg.n_layers and out.shape == (2, 8)
+
+
+@pytest.mark.cuda
+def test_model_bench_runs_every_section_at_tiny_sizes_on_card(cuda_device):
+    """``nos_tpu_torch.bench`` at its tiny sizes on a head_dim-64 config
+    (Hq 4, Hkv 2): every section once on the card, each section's kernel
+    launches equal to the counts its shapes imply (none in the Engines
+    and the rolling stream, whose attention is dense or over the cache),
+    the rolling cache's stream as long as the physical one's."""
+    from nos_tpu_torch import bench
+
+    sizes = bench.BenchSizes.tiny(d_model=256, n_heads=4, n_kv_heads=2, d_ff=512)
+    outputs = {}
+    result = bench.run_model_bench(cuda_device, sizes, outputs=outputs)
+    n = sizes.config.n_layers
+    assert outputs["launches"] == outputs["expected_launches"] == result["flash_launches"]
+    assert outputs["launches"]["train"] == [2 * n, 2 * n, 2 * n]
+    assert outputs["launches"]["engine"] == outputs["launches"]["rolling"] == [0, 0, 0]
+    assert result["train_attention"] == "flash" and result["train_mfu_pct"] > 0
+    assert result["serve_prefix_hits"] == sizes.engines[0][1]
+    rolling = outputs["rolling"]
+    assert len(rolling["rolling"]) == len(rolling["physical"]) == sizes.rolling_new
+
+
+@pytest.mark.cuda
+def test_rolling_cache_on_card_matches_the_physical_one_and_the_cpu(cuda_device):
+    """``bench.bench_rolling`` at the tiny sizes in f32 (window 16, an
+    8-token prompt, 40 new tokens: the rolling cache's writes, modulo
+    24, wrap for the last 24): the rolling stream equals the physical
+    one on the card, and both equal the CPU's on the same weights."""
+    from nos_tpu_torch import bench
+    from nos_tpu_torch.models.llama import init_llama_params
+
+    sizes = bench.BenchSizes.tiny(dtype=torch.float32)
+    cfg = sizes.config
+    params = init_llama_params(cfg, seed=0, device="cpu")
+    prompt = bench.draw_tokens((sizes.rolling_prompt,), cfg.vocab_size, 50, "cpu").tolist()
+    assert sizes.rolling_new > sizes.window
+    _, on_card = bench.bench_rolling(_to(params, cuda_device), cfg, sizes.window, prompt,
+                                     sizes.rolling_new)
+    _, on_cpu = bench.bench_rolling(params, cfg, sizes.window, prompt, sizes.rolling_new)
+    assert len(on_card["rolling"]) == sizes.rolling_new
+    assert on_card["rolling"] == on_card["physical"] == on_cpu["rolling"] == on_cpu["physical"]

@@ -53,6 +53,7 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/models/resnet.py", "nos_tpu_torch/models/hf_files.py",
         "nos_tpu_torch/slo/engine.py", "nos_tpu_torch/slo/driver.py",
         "nos_tpu_torch/slo/bench_serve.py", "nos_tpu_torch/examples/train_llama.py",
+        "nos_tpu_torch/bench.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -74,7 +75,7 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.models.resnet, nos_tpu_torch.models.hf_files\n"
         "import nos_tpu_torch.slo, nos_tpu_torch.slo.bench_serve\n"
         "import nos_tpu_torch.examples.serve_llama, nos_tpu_torch.examples.train_llama\n"
-        "import nos_tpu_torch.examples.finetune_lora\n"
+        "import nos_tpu_torch.examples.finetune_lora, nos_tpu_torch.bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'nos_tpu', 'transformers'))\n"
         "print(bad)\n"
