@@ -7,6 +7,25 @@ Phases, each fatal on failure (exit code != 0):
 
 1. build: every CUDA kernel of the port, compiled by nvcc from the
    checkout's sources, all at once (nos_tpu_torch/ops/_build.py);
+1a. sharing (before this process makes its first CUDA call):
+    nos_tpu_torch.demos.sharing at 1 and 3 clients, 3 s windows, each a
+    process running ResNet-50 (bf16, B 8, 224², channels_last, seed 0):
+    time-sliced rows; MPS rows under a private nvidia-cuda-mps-control
+    daemon, each client held to SharedGpu's slice of 80 GB for N equal
+    slices; MIG rows on MIG instances MigGpu carves, only if MIG mode is
+    already on. Each client's first-batch logits against the solo
+    client's (within 2e-2 of its largest); the mean and p50 latency a
+    client and the aggregate images/s beside the solo figures; a row the
+    machine forbids prints "not run: <reason>"; no MPS process may be
+    left alive;
+1b. nvml: nos_tpu_torch.device.nvml (ctypes over libnvidia-ml.so.1)
+    against torch: the device count, name and UUID equal, the memory
+    totals side by side, the MIG mode (current and pending); the H100
+    MIG table (nos_tpu_torch.gpu.known) against NVML's profile info and
+    placements field by field where NVML gives them ("not checked:
+    <NVML's error>" where it refuses); a 1g.10gb instance created, read
+    back and destroyed in a finally only if MIG mode is already on. The
+    MIG mode is never changed;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
@@ -207,8 +226,9 @@ that fails a check raises, and the spawn fails the script:
 
 and last the tensor-parallel paths, on ranks spawned the same way:
 
-23. tp_forward: Llama-3-8B's llama_forward over tp 2 at full depth on
-    [1, 2048] (each rank at its Hq 16, Hkv 4) and over tp 4 at
+23. tp_forward: Llama-3-8B's llama_forward over tp 2 at
+    TP2_FORWARD_LAYERS layers on [1, 2048] (each rank at its Hq 16,
+    Hkv 4) and over tp 4 at
     TP4_FORWARD_LAYERS layers (Hq 8, Hkv 2), against the one-device
     flash forward under forward_check's limits, one forward launch a
     layer on each rank, the gathered logits the same on every rank;
@@ -252,21 +272,23 @@ tokens they are held against, and the parent frees its tree first):
     per-layer seeds and keeping its 2 experts of each (about 12.7 GB a
     rank): llama_forward on [1, 2048] (32 forward launches a rank, the
     same logits on every rank, held to forward_check's bars against one
-    device's) and generate() on [2, 512] + 16 (the same tokens on every
-    rank, agreement reported);
-31. ep_train: Mixtral at 2 layers, [4, 2048], dp 2 x ep 2, FSDP and
-    remat, one momentum-SGD step against the one-device step under the
-    tp_train bars; launches 4 / 2 / 2, param bytes, peak, the step split
-    by collective kind;
-32. pp_forward: Llama-3-8B at full depth through pipeline_llama_forward
-    over pp 4 (8 layers a stage, drawn layer by layer), [4, 2048] in 4
-    microbatches, against the one-device forward under forward_check's
-    bars; 32 forward launches a rank (the bubble ticks skip their
-    compute), the hops' and the broadcast's times;
-33. pp_train: 8 layers, dp 2 x pp 2 with FSDP and remat, 2
+    device's) and generate() on [2, 512] + EP_GENERATE_NEW (the same
+    tokens on every rank, agreement reported);
+31. ep_train: Mixtral at EP_TRAIN_LAYERS layers, [4, 2048], dp 2 x ep 2,
+    FSDP and remat, one momentum-SGD step against the one-device step
+    under the tp_train bars; launches 2L / L / L, param bytes, peak, the
+    step split by collective kind;
+32. pp_forward: Llama-3-8B at PP_FORWARD_LAYERS layers through
+    pipeline_llama_forward over pp 4 (L/4 layers a stage, drawn layer by
+    layer), [4, 2048] in 4 microbatches, against the one-device forward
+    under forward_check's bars; M · L/pp forward launches a rank (the
+    bubble ticks skip their compute), the hops' and the broadcast's
+    times;
+33. pp_train: PP_TRAIN_LAYERS layers, dp 2 x pp 2 with FSDP and remat, 2
     microbatches: pipeline_loss_and_grads against one device's llama_loss
-    and gradients under the tp_train bars; launches 16 / 8 / 8 a rank,
-    the bubble share, the step split by collective kind.
+    and gradients under the tp_train bars; launches 2 · M · L/pp / M · L/pp
+    / M · L/pp a rank, the bubble share, the step split by collective
+    kind.
 
 Every line but the last two is a JSON object; the card's name and power
 limit (nvidia-smi) come second to last, and the last line is
@@ -2809,7 +2831,8 @@ def sp_phases(card) -> dict:
 
 
 # Tensor parallelism and FSDP, on ranks sharing the card over gloo
-TP_FORWARD_SEQ = 2048    # Llama-3-8B at full depth, tp 2 (Hq 16, Hkv 4 a rank)
+TP_FORWARD_SEQ = 2048    # Llama-3-8B, tp 2 (Hq 16, Hkv 4 a rank)
+TP2_FORWARD_LAYERS = 16  # half depth: each rank inits the whole tree first
 TP4_FORWARD_LAYERS = 4   # tp 4 (Hq 8, Hkv 2): four ranks each init the whole tree
 TP_ENGINE_NEW = 16       # tokens a request, four requests
 TP_TRAIN_LAYERS = 4
@@ -3185,10 +3208,11 @@ def tp_checkpoint(rank, world, card, state, mesh, cfg, ckpt_dir) -> dict:
 
 def tp_phases(card) -> dict:
     """The tensor-parallel phases on spawned ranks: tp_forward at tp 2
-    (full depth) and tp_generate / tp_engine (bf16 and int8) on two ranks;
-    tp_forward at tp 4 (TP4_FORWARD_LAYERS deep), tp_train (dp 2 x tp 2,
-    FSDP, remat) and checkpoint (saved, restored onto tp 4 and onto one
-    device) on four. The parent holds no card memory."""
+    (TP2_FORWARD_LAYERS deep) and tp_generate / tp_engine (bf16 and
+    int8) on two ranks; tp_forward at tp 4 (TP4_FORWARD_LAYERS deep),
+    tp_train (dp 2 x tp 2, FSDP, remat) and checkpoint (saved, restored
+    onto tp 4 and onto one device) on four. The parent holds no card
+    memory."""
     import shutil
     import tempfile
 
@@ -3197,7 +3221,7 @@ def tp_phases(card) -> dict:
     torch.cuda.empty_cache()
     t0 = time.time()
     two = sp_spawn(2, [
-        ("tp_forward_case", dict(seq=TP_FORWARD_SEQ)),
+        ("tp_forward_case", dict(seq=TP_FORWARD_SEQ, layers=TP2_FORWARD_LAYERS)),
         ("tp_engine_case", dict(new_tokens=TP_ENGINE_NEW)),
         ("tp_lora_train_case", {}),
         ("tp_spec_engine_case", {}),
@@ -3239,10 +3263,15 @@ def tp_phases(card) -> dict:
 # ranks sharing the card over gloo
 EP_LAYER_TOKENS = 2048   # one Mixtral MoE layer: [1, 2048] over ep 4, [2, 1024] over dp 2 x ep 2
 EP_FORWARD_SEQ = 2048    # Mixtral-8x7B int8 at full depth over ep 4
-EP_GENERATE_NEW = 16     # the first 16 of the one-device generate()'s 32 tokens
-EP_TRAIN_TOKENS = (4, 2048)  # Mixtral at 2 layers, dp 2 x ep 2
-PP_FORWARD_TOKENS = (4, 2048)  # Llama-3-8B at full depth over pp 4, M 4
-PP_TRAIN_LAYERS = 8
+# Depths and lengths below were cut to keep the script inside its time
+# budget: 16 new tokens, 32 and 8 Llama layers before the sharing phase
+# joined it
+EP_GENERATE_NEW = 8      # the first 8 of the one-device generate()'s 32 tokens
+EP_TRAIN_LAYERS = 2
+EP_TRAIN_TOKENS = (4, 2048)  # Mixtral at EP_TRAIN_LAYERS layers, dp 2 x ep 2
+PP_FORWARD_LAYERS = 16
+PP_FORWARD_TOKENS = (4, 2048)  # Llama-3-8B over pp 4, M 4
+PP_TRAIN_LAYERS = 4
 PP_TRAIN_TOKENS = (4, 2048)  # dp 2 x pp 2, M 2
 EP_REL_LIMIT = 1e-2      # one MoE layer over ep against one device, rel. Frobenius
 EP_LAYER_SKEW = 0.5      # scale of the hidden states' shared component (load skew)
@@ -3477,7 +3506,8 @@ def ep_serve_case(rank, world, card, ref_path) -> list:
 
 
 def ep_train_case(rank, world, card) -> dict:
-    """Mixtral-8x7B at full width, 2 layers (bf16, flash, random routers):
+    """Mixtral-8x7B at full width, EP_TRAIN_LAYERS deep (bf16, flash,
+    random routers):
     one momentum-SGD step from zero velocity over dp 2 x ep 2 with FSDP and
     remat on [4, 2048], against the one-device make_train_step(None) step
     (rank 0 runs it first, alone) under the tp_train bars; the launches
@@ -3492,7 +3522,7 @@ def ep_train_case(rank, world, card) -> dict:
     from nos_tpu_torch.parallel import comm, make_train_step, mesh as pm
     from nos_tpu_torch.parallel.sharding import llama_data_sharding
 
-    cfg = mixtral_config(n_layers=2)
+    cfg = mixtral_config(n_layers=EP_TRAIN_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(83)
     tokens = torch.randint(0, cfg.vocab_size, EP_TRAIN_TOKENS, generator=gen, device="cuda")
     ref = one_device_step(cfg, tokens, 83, SP_TRAIN_LR) if rank == 0 else None
@@ -3563,9 +3593,9 @@ def stage_shards(stage_tree, mesh, cfg):
 
 
 def pp_forward_case(rank, world, card) -> dict:
-    """Llama-3-8B at full width and depth (bf16, flash, random weights
-    drawn layer by layer) through pipeline_llama_forward over pp 4 (8
-    layers a stage), [4, 2048] in 4 microbatches, against the one-device
+    """Llama-3-8B at full width, PP_FORWARD_LAYERS deep (bf16, flash,
+    random weights drawn layer by layer) through pipeline_llama_forward
+    over pp 4 (PP_FORWARD_LAYERS / 4 layers a stage), [4, 2048] in 4 microbatches, against the one-device
     flash forward (rank 0 runs it first, alone) under forward_check's
     limits; M · L/pp forward launches a rank (the bubble ticks skip their
     compute), the same logits on every rank, the hops' and the
@@ -3577,7 +3607,8 @@ def pp_forward_case(rank, world, card) -> dict:
     from nos_tpu_torch.parallel import comm, mesh as pm
     from nos_tpu_torch.parallel import pipeline as pl
 
-    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash")
+    cfg = dataclasses.replace(llama.llama_3_8b_config(), attention="flash",
+                              n_layers=PP_FORWARD_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(91)
     tokens = torch.randint(0, cfg.vocab_size, PP_FORWARD_TOKENS, generator=gen, device="cuda")
     want = None
@@ -3941,6 +3972,124 @@ def sp_launches(sp, index: int, hd256: bool) -> dict:
             if ("gemma" in path) == hd256}
 
 
+# The device layer and the sharing comparison (run first, before this
+# process makes its first CUDA call, so an MPS server meets no other
+# context of the script)
+SHARING_PODS = (1, 3)
+SHARING_SECONDS = 3.0
+MIG_MEMORY_SLACK = 0.9   # NVML's MB of a profile against its nominal GB x 1024
+
+
+def sharing_phase(card) -> dict:
+    """nos_tpu_torch.demos.sharing at SHARING_PODS clients, SHARING_SECONDS
+    windows: time-sliced and MPS rows (MIG only if MIG mode is already
+    on), each client's first-batch logits held against the solo client's
+    (raises otherwise); a row the machine forbids says "not run: <reason>".
+    No MPS process the sweep started may outlive it."""
+    from nos_tpu_torch.demos import sharing
+
+    t0 = time.time()
+
+    def log(row):
+        status = f"not run: {row['not_run']}" if "not_run" in row else "ran"
+        emit({"phase": "sharing", **row, "status": status, "card": card})
+
+    result = sharing.run_sweep("cuda", SHARING_PODS, SHARING_SECONDS, log=log)
+    left = result["mps_left"]
+    ran = {(r["discipline"], r["pods"]) for r in result["rows"] if "not_run" not in r}
+    ok = all(("time-sliced", n) in ran for n in SHARING_PODS) and not left
+    emit({"phase": "sharing", "seconds": time.time() - t0, "sweep_s": result["sweep_s"],
+          "rows_run": sorted(f"{d} x{n}" for d, n in ran),
+          "not_run": sorted({f"{r['discipline']}: {r['not_run']}" for r in result["rows"]
+                             if "not_run" in r}),
+          "mps_processes_left": left, "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit(f"sharing failed: rows run {sorted(ran)}, MPS processes left {left}")
+    return result
+
+
+def nvml_phase(card) -> dict:
+    """NVML (nos_tpu_torch.device.nvml) against torch: the same count,
+    name and UUID, memory totals side by side; the MIG mode, current and
+    pending; the H100 table against NVML's profile info and placements
+    where NVML gives them (only "Not Supported" with MIG mode off may
+    leave it unchecked; any other NVML error fails the phase); the write
+    path (a 1g.10gb instance created, read back, destroyed in a finally)
+    only if MIG mode is already on. The MIG mode itself is never
+    changed."""
+    import torch
+
+    from nos_tpu_torch.device.nvml import (NVML_DEVICE_MIG_ENABLE, NVML_ERROR_NOT_SUPPORTED,
+                                           Nvml, NvmlError, NvmlMigClient)
+    from nos_tpu_torch.device.client import MigPlacementError
+    from nos_tpu_torch.gpu.known import H100_80GB, KNOWN_GPUS
+
+    props = torch.cuda.get_device_properties(0)
+    with Nvml() as nv:
+        row = {"phase": "nvml", "count": nv.device_count(),
+               "torch_count": torch.cuda.device_count(), "name": nv.name(0),
+               "torch_name": torch.cuda.get_device_name(0),
+               "torch_uuid": str(props.uuid), "memory_total": nv.memory_total(0),
+               "torch_total_memory": props.total_memory}
+        row["uuid_equal"] = nv.uuid(0) == f"GPU-{props.uuid}"
+        current, pending = nv.mig_mode(0)
+        row["mig_mode"] = {"current": current, "pending": pending}
+        identity = (row["count"] == row["torch_count"] and row["name"] == row["torch_name"]
+                    and row["uuid_equal"])
+        if not identity:
+            emit({**row, "ok": False, "card": card})
+            raise SystemExit("nvml: NVML's card is not torch's")
+        table, mismatches = [], []
+        try:
+            for p in KNOWN_GPUS[H100_80GB].profiles:
+                info = nv.profile_info(0, p.nvml_profile)
+                placements = nv.possible_placements(0, info["id"])
+                got = {"name": info["name"], "compute_slices": info["slice_count"],
+                       "max_instances": info["instance_count"], "placements": placements,
+                       "memory_mb": info["memory_mb"]}
+                want = {"name": f"MIG {p.name}", "compute_slices": p.compute_slices,
+                        "max_instances": p.max_instances,
+                        "placements": [(s, p.memory_slices) for s in p.starts]}
+                bad = [k for k in want if got[k] != want[k]]
+                if not MIG_MEMORY_SLACK <= got["memory_mb"] / (p.memory_gb * 1024) <= 1.0:
+                    bad.append("memory_mb")
+                table.append({"profile": p.name, "nvml": got, "mismatched": bad})
+                mismatches += [f"{p.name}.{k}" for k in bad]
+            row["table"] = "checked"
+        except NvmlError as e:
+            # a wrong struct layout or version gives another code: a failure
+            if current == NVML_DEVICE_MIG_ENABLE or e.code != NVML_ERROR_NOT_SUPPORTED:
+                emit({**row, "table_error": str(e), "ok": False, "card": card})
+                raise
+            row["table"] = f"not checked: {e.text}"
+        row["table_rows"] = table
+        if current == NVML_DEVICE_MIG_ENABLE:
+            client = NvmlMigClient(nv)
+            created = []
+            try:
+                created = client.create_mig_devices(0, {"1g.10gb": 1})
+                seen = {d.uuid for d in client.get_mig_devices()}
+                row["write_path"] = {"created": [d.profile for d in created],
+                                     "read_back": all(d.uuid in seen for d in created)}
+            except MigPlacementError as e:
+                row["write_path"] = f"not run: {e}"
+            finally:
+                for d in created:
+                    client.delete_mig_device(d.uuid)
+            if created:
+                seen = {d.uuid for d in client.get_mig_devices()}
+                row["write_path"]["destroyed"] = not any(d.uuid in seen for d in created)
+        else:
+            row["write_path"] = (f"not run: MIG mode disabled (current {current}, "
+                                 f"pending {pending})")
+    wrote = row["write_path"]
+    ok = not mismatches and (isinstance(wrote, str) or (wrote["read_back"] and wrote["destroyed"]))
+    emit({**row, "table_mismatches": mismatches, "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit(f"nvml failed: table mismatches {mismatches}, write path {wrote}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -3972,6 +4121,10 @@ def main() -> int:
           "seconds_per_kernel": dict(_build.BUILD_SECONDS),
           "flash_fwd_ptxas": fwd_ptxas, "flash_bwd_ptxas": bwd_figures,
           "card": card})
+
+    # --------------------------------------- sharing comparison, NVML
+    sharing_phase(card)
+    nvml_phase(card)
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa

@@ -911,3 +911,43 @@ def test_rolling_cache_on_card_matches_the_physical_one_and_the_cpu(cuda_device)
     _, on_cpu = bench.bench_rolling(params, cfg, sizes.window, prompt, sizes.rolling_new)
     assert len(on_card["rolling"]) == sizes.rolling_new
     assert on_card["rolling"] == on_card["physical"] == on_cpu["rolling"] == on_cpu["physical"]
+
+
+@pytest.mark.cuda
+def test_nvml_sees_the_card_torch_sees(cuda_device):
+    """nos_tpu_torch.device.nvml over NVIDIA's libnvidia-ml.so.1:
+    the device count, name and UUID equal torch's, and the memory total
+    is at least what torch reports as usable."""
+    from nos_tpu_torch.device.nvml import Nvml
+
+    props = torch.cuda.get_device_properties(cuda_device)
+    with Nvml() as nvml:
+        assert nvml.device_count() == torch.cuda.device_count()
+        assert nvml.name(0) == torch.cuda.get_device_name(0)
+        assert nvml.uuid(0) == f"GPU-{props.uuid}"
+        assert nvml.memory_total(0) >= props.total_memory
+
+
+@pytest.mark.cuda
+def test_nvml_reads_the_mig_mode_and_its_table_agrees(cuda_device):
+    """The MIG mode, current and pending, reads as disabled or enabled;
+    with MIG enabled the H100 table agrees with NVML's profile info,
+    with MIG disabled NVML refuses the profile info."""
+    from nos_tpu_torch.device.nvml import (NVML_DEVICE_MIG_ENABLE, NVML_ERROR_NOT_SUPPORTED,
+                                           Nvml, NvmlError)
+    from nos_tpu_torch.gpu.known import MIG_PROFILES
+
+    with Nvml() as nvml:
+        current, pending = nvml.mig_mode(0)
+        assert current in (0, 1) and pending in (0, 1)
+        profile = MIG_PROFILES["1g.10gb"]
+        if current == NVML_DEVICE_MIG_ENABLE:
+            info = nvml.profile_info(0, profile.nvml_profile)
+            assert info["slice_count"] == profile.compute_slices
+            assert info["instance_count"] == profile.max_instances
+            placements = nvml.possible_placements(0, info["id"])
+            assert placements == [(s, profile.memory_slices) for s in profile.starts]
+        else:
+            with pytest.raises(NvmlError, match="Not Supported") as refused:
+                nvml.profile_info(0, profile.nvml_profile)
+            assert refused.value.code == NVML_ERROR_NOT_SUPPORTED

@@ -54,6 +54,13 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/slo/engine.py", "nos_tpu_torch/slo/driver.py",
         "nos_tpu_torch/slo/bench_serve.py", "nos_tpu_torch/examples/train_llama.py",
         "nos_tpu_torch/bench.py",
+        "nos_tpu_torch/gpu/geometry.py", "nos_tpu_torch/gpu/known.py",
+        "nos_tpu_torch/gpu/mig.py", "nos_tpu_torch/gpu/slicing.py",
+        "nos_tpu_torch/gpu/annotations.py", "nos_tpu_torch/gpu/node.py",
+        "nos_tpu_torch/device/types.py", "nos_tpu_torch/device/client.py",
+        "nos_tpu_torch/device/nvml.py", "nos_tpu_torch/device/sim.py",
+        "nos_tpu_torch/device/plan.py", "nos_tpu_torch/demos/sharing_client.py",
+        "nos_tpu_torch/demos/sharing.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -76,6 +83,8 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.slo, nos_tpu_torch.slo.bench_serve\n"
         "import nos_tpu_torch.examples.serve_llama, nos_tpu_torch.examples.train_llama\n"
         "import nos_tpu_torch.examples.finetune_lora, nos_tpu_torch.bench\n"
+        "import nos_tpu_torch.gpu, nos_tpu_torch.device, nos_tpu_torch.device.nvml\n"
+        "import nos_tpu_torch.demos.sharing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'nos_tpu', 'transformers'))\n"
         "print(bad)\n"
