@@ -26,6 +26,15 @@ Phases, each fatal on failure (exit code != 0):
     <NVML's error>" where it refuses); a 1g.10gb instance created, read
     back and destroyed in a finally only if MIG mode is already on. The
     MIG mode is never changed;
+1c. migagent: nos_tpu_torch.controllers.migagent over NVML must refuse
+    a GPU whose MIG mode is off ("nvml_agent": "not run: MIG mode
+    disabled (current c, pending p)", the refusal's text checked); only
+    where MIG is on, the agent applies one more 1g.10gb on GPU 0, acks
+    it and removes it (what it made deleted in a finally). Then the
+    agent on its own thread over SimMigClient (an H100 80GB) through
+    the re-carve 7g.80gb -> 3g.40gb + 3g.40gb: milliseconds from spec to
+    ack, the instances, allocatable and status annotations; the
+    kubelet's pod-resources client only where its socket exists;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
@@ -97,12 +106,21 @@ then the model bench, ResNet and the checkpoint:
     (--duration 8 --rate 3): the virtual clock's tick and prefill-token
     costs measured on the card, the hot / cold drive, the report and
     its SLO verdicts (latencies virtual, from the calibrated clock), the
-    drive's wall seconds;
+    drive's wall seconds; then nos_tpu_torch.slo.routing's
+    ReplicaRouter on the calibrated clock, one model scaled from 0 to 2
+    replicas: the backlog while it had none, the cold-start TTFT p95;
 4b. examples: serve_llama --real-weights <the checkpoint> (full width,
     int8, the Engine and a sampled generate), train_llama at its card
     config (head_dim 64, flash + remat, ClippedAdamW, 30 steps with
     checkpoints: launches 2L / L / L a step) and its resume for 5 more,
     finetune_lora at its tiny config;
+4c. preempt_resume: the example's main() (the node re-carved on
+    SimMigClient from one 7g.80gb to two 3g.40gb, 3 steps of
+    card_config() with a checkpoint, the restore, 2 more steps):
+    launches 2L / L / L a step, the resumed step, finite losses, the
+    node's allocatable and status after the re-carve, and the resumed
+    losses equal bit for bit to the same steps run on without the
+    interruption;
 5. train_grads: full width, 2 layers, [1, 1024]: llama_loss gradients
    through the kernels (flash) against autograd of the einsums (dense);
 6. train: the trainer's main path, Llama-3-8B at full width and depth,
@@ -2184,10 +2202,53 @@ def hf_checkpoint_phase(card, path) -> tuple:
     return params, loaded_cfg
 
 
+ROUTER_EPOCH_S = 4.0
+ROUTER_COLD_START_S = 2.0
+
+
+def router_drive(clock) -> dict:
+    """nos_tpu_torch.slo.routing.ReplicaRouter on the calibrated clock's
+    costs: one model at 3 requests a second, no replica for the first
+    epoch (its arrivals wait in the backlog), then 2 replicas that come
+    up ROUTER_COLD_START_S into the second. The backlog and the queue
+    depth the signal registry saw, the cold-start TTFT p95 (the
+    requests that arrived with no replica) beside every request's, and
+    the wall seconds of the drive (virtual latencies, no device)."""
+    from nos_tpu_torch.slo import ModelProfile, WorkloadConfig, build_arrivals
+    from nos_tpu_torch.slo.driver import percentiles
+    from nos_tpu_torch.slo.routing import ReplicaRouter
+    from nos_tpu_torch.slo.signals import SignalRegistry
+
+    arrivals = build_arrivals(WorkloadConfig(seed=0, duration_s=2 * ROUTER_EPOCH_S,
+                                             rate_rps=3.0, models=(ModelProfile("llama"),)))
+    done, registry = [], SignalRegistry()
+    router = ReplicaRouter(registry, max_slots=4, tick_cost_s=clock["tick_cost_s"],
+                           prefill_token_cost_s=clock["prefill_token_cost_s"],
+                           on_complete={"llama": done.append})
+    t0 = time.perf_counter()
+    router.sync_replicas("llama", [], ready_t=0.0)
+    router.drive("llama", [a for a in arrivals if a.t < ROUTER_EPOCH_S], ROUTER_EPOCH_S)
+    backlog = len(router.backlog["llama"])
+    queue_depth = registry.get("llama").queue_depth
+    router.sync_replicas("llama", ["llama-0", "llama-1"],
+                         ready_t=ROUTER_EPOCH_S + ROUTER_COLD_START_S)
+    router.drive("llama", [a for a in arrivals if a.t >= ROUTER_EPOCH_S], 2 * ROUTER_EPOCH_S)
+    wall = time.perf_counter() - t0
+    cold = [r.ttft_s for r in done if r.submit_t < ROUTER_EPOCH_S]
+    row = {"replicas": "0 -> 2", "arrivals": len(arrivals), "backlog_with_no_replica": backlog,
+           "queue_depth_signal": queue_depth, "completed": len(done),
+           "cold_start_ttft_s": percentiles(cold),
+           "ttft_s": percentiles([r.ttft_s for r in done]), "wall_s": wall}
+    row["ok"] = (0 < backlog == queue_depth and len(done) == len(arrivals)
+                 and row["cold_start_ttft_s"]["p95"] >= ROUTER_COLD_START_S and wall < 1.0)
+    return row
+
+
 def slo_serve_phase(card, params, cfg) -> dict:
     """The serving SLO bench (nos_tpu_torch.slo.bench_serve --card) on the
     loaded Llama-3-8B: the virtual clock calibrated on the card, a short
-    workload; the report and the SLO verdicts."""
+    workload; the report and the SLO verdicts; then the replica router
+    on the calibrated clock (``router_drive``)."""
     import nos_tpu_torch.ops.flash_attention as fa
     from nos_tpu_torch.slo import bench_serve, build_arrivals
 
@@ -2198,13 +2259,14 @@ def slo_serve_phase(card, params, cfg) -> dict:
     arrivals = len(build_arrivals(bench_serve.workload(args)))
     numbers = [agg[k][p] for k in ("ttft_s", "tpot_s", "e2e_s", "queue_wait_s")
                for p in ("p50", "p95", "p99")]
+    router = router_drive(report["clock"])
     row = {"phase": "slo_serve", "args": SLO_SMOKE_ARGS, "arrivals": arrivals,
            "clock": report["clock"], "wall": report["wall"],
            "aggregate": agg, "models": report["models"], "slo": report["slo"],
-           "flash_launches": fa.LAUNCHES, "card": card}
+           "flash_launches": fa.LAUNCHES, "router": router, "card": card}
     row["ok"] = (agg["requests"] == arrivals and agg["tokens"] > 0
                  and all(math.isfinite(x) and x >= 0 for x in numbers)
-                 and report["clock"]["tick_cost_s"] > 0)
+                 and report["clock"]["tick_cost_s"] > 0 and router["ok"])
     emit(row)
     if not row["ok"]:
         raise SystemExit(f"slo_serve failed: {row}")
@@ -2272,6 +2334,71 @@ def examples_phase(card, ckpt_path) -> dict:
     emit(row)
     if not row["ok"]:
         raise SystemExit(f"examples failed: {row}")
+    return row
+
+
+def preempt_resume_phase(card) -> dict:
+    """The preempt_resume example's main() on the card (its printed lines
+    to stderr): the re-carve on the simulator, 3 steps, a checkpoint, 2
+    resumed steps of card_config() through the three kernels. Checks the
+    launches a step (2L / L / L), the resumed step, finite losses, the
+    node after the re-carve (two 3g.40gb instances, advertised in
+    allocatable, reported and acknowledged) and the resumed steps' losses
+    against the same steps run on without the interruption, bit for bit
+    (one process)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nos_tpu_torch.examples import preempt_resume as pr
+    from nos_tpu_torch.gpu.node import RESOURCE_GPU, mig_resource
+    from nos_tpu_torch.models.llama import init_llama_params
+
+    quiet = functools.partial(contextlib.redirect_stdout, sys.stderr)
+    run_dir = tempfile.mkdtemp(prefix="nos-preempt-resume-")
+    try:
+        zero_counts()
+        t0 = time.time()
+        with quiet():
+            out = pr.main(["--ckpt-dir", run_dir])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = counts()
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    steps = pr.STEPS_BEFORE + pr.STEPS_AFTER
+    cfg = pr.trainer_config(torch.device("cuda"))
+    straight = pr.uninterrupted_losses(cfg, init_llama_params(cfg, seed=0, device="cuda"),
+                                       pr.batch_tokens(cfg), torch.device("cuda"))
+    resumed = range(pr.STEPS_BEFORE + 1, steps + 1)
+    p2, p3 = out["node"]["phase2"], out["node"]["phase3"]
+    n = cfg.n_layers
+    per_step = [c / steps for c in launches]
+    row = {"phase": "preempt_resume", "config": out["config"], "steps": steps,
+           "launches_per_step_fwd_dq_dkv": per_step, "losses": out["losses"],
+           "saved_step": out["saved_step"], "resumed_from": out["resumed_from"],
+           "uninterrupted_losses": straight,
+           "resumed_bit_for_bit": all(out["losses"][s] == straight[s] for s in resumed),
+           "resumed_max_abs_diff": max(abs(out["losses"][s] - straight[s]) for s in resumed),
+           "recarve": {"before": out["node"]["phase1"]["instances"],
+                       "after": p2["instances"], "chosen": out["recarve_chosen"],
+                       "allocatable": p2["allocatable"], "status": p2["status"],
+                       "used_after_resume": p3["used"],
+                       "plan_acked": [out["node"][f"phase{i}"]["status_plan"] for i in (1, 2)]},
+           "spec_to_ack_ms": out["spec_to_ack_ms"], "seconds": seconds,
+           "mig": "simulated (SimMigClient): the card's MIG mode is off", "card": card}
+    row["ok"] = (per_step == [2 * n, n, n] and out["resumed_from"] == out["saved_step"]
+                 and sorted(out["losses"]) == list(range(1, steps + 1))
+                 and all(math.isfinite(v) for v in out["losses"].values())
+                 and p2["instances"] == out["recarve_chosen"] == {0: {"3g.40gb": 2}}
+                 and p2["allocatable"] == {RESOURCE_GPU: 0, mig_resource("3g.40gb"): 2}
+                 and p2["status"] == p2["instances"] and p2["status_plan"] == p2["spec_plan"]
+                 and p3["used"] == {0: {"3g.40gb": 2}} and row["resumed_bit_for_bit"])
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"preempt_resume failed: {row}")
     return row
 
 
@@ -4090,6 +4217,145 @@ def nvml_phase(card) -> dict:
     return row
 
 
+MIGAGENT_INTERVAL_S = 0.005
+MIGAGENT_ACK_TIMEOUT_S = 10.0
+
+
+def _await_ack(store, node, plan, step=None) -> float:
+    """Milliseconds until the node's status plan is ``plan``; ``step``
+    drives the agent in this thread, else its own loop does."""
+    from nos_tpu_torch.gpu import annotations as annot
+
+    t0 = time.perf_counter()
+    while store.get("Node", node).annotations.get(annot.STATUS_PARTITIONING_PLAN) != plan:
+        if time.perf_counter() - t0 > MIGAGENT_ACK_TIMEOUT_S:
+            raise SystemExit(f"migagent: plan {plan} not acknowledged in "
+                             f"{MIGAGENT_ACK_TIMEOUT_S} s")
+        if step is not None:
+            step()
+        else:
+            time.sleep(0.0002)
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def migagent_phase(card) -> dict:
+    """The MIG node agent. Over NVML (nos_tpu_torch.device.nvml),
+    build_migagent must refuse a GPU whose MIG mode is off, naming it and
+    both modes ("nvml_agent": "not run: MIG mode disabled ..."); where MIG
+    is on, the agent applies a spec of one more 1g.10gb on GPU 0, the
+    reporter acknowledges it, a spec without it removes it, and whatever
+    it created is deleted in a finally. Then the same loop, on its own
+    thread every MIGAGENT_INTERVAL_S, over SimMigClient (an H100 80GB)
+    through the re-carve 7g.80gb -> 3g.40gb + 3g.40gb: milliseconds from
+    each spec to its ack, the instances, allocatable and status. The
+    kubelet's pod-resources client runs only where its socket exists."""
+    from nos_tpu_torch.controllers.migagent import build_migagent
+    from nos_tpu_torch.device.client import GpuClient
+    from nos_tpu_torch.device.nvml import (NVML_DEVICE_MIG_ENABLE, MigModeDisabledError, Nvml,
+                                           NvmlMigClient)
+    from nos_tpu_torch.device.podresources import DEFAULT_SOCKET, KubeletPodResourcesClient
+    from nos_tpu_torch.device.sim import (DevicePluginAdvertiser, SimDevicePlugin,
+                                          SimMigClient, SimMigPool, SimPodResourcesClient)
+    from nos_tpu_torch.device.types import device_geometry
+    from nos_tpu_torch.gpu import annotations as annot
+    from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, H100_80GB
+    from nos_tpu_torch.gpu.node import RESOURCE_GPU, mig_resource
+    from nos_tpu_torch.kube.store import Node, NodeStore
+    from nos_tpu_torch.partitioning.mig import MigPartitioner
+
+    t0 = time.time()
+    row = {"phase": "migagent"}
+    checks = {}
+    with Nvml() as nv:
+        current, pending = nv.mig_mode(0)
+        store = NodeStore()
+        store.create(Node("card", labels={GPU_PRODUCT_LABEL: H100_80GB},
+                          capacity={RESOURCE_GPU: nv.device_count()}))
+        client = NvmlMigClient(nv)
+        gpu_client = GpuClient(client, SimPodResourcesClient(store, "card",
+                                                             client.get_mig_devices))
+        plugin = DevicePluginAdvertiser(
+            store, lambda node: device_geometry(client.get_mig_devices()))
+        try:
+            agent, refusal = build_migagent(store, "card", gpu_client, plugin), None
+        except MigModeDisabledError as e:
+            agent, refusal = None, str(e)
+        row["mig_mode"] = {"current": current, "pending": pending}
+        if current != NVML_DEVICE_MIG_ENABLE:
+            why = f"MIG mode disabled (current {current}, pending {pending})"
+            row["nvml_agent"] = f"not run: {why}"
+            row["refusal"] = refusal
+            checks["nvml_refused"] = refusal is not None and f"GPU 0: {why}" in refusal
+        else:
+            checks["nvml_built"] = refusal is None
+            before = {d.uuid for d in client.get_mig_devices()}
+            base = device_geometry(client.get_mig_devices())
+            more = {g: dict(p) for g, p in base.items()}
+            gpu0 = more.setdefault(0, {})
+            gpu0["1g.10gb"] = gpu0.get("1g.10gb", 0) + 1
+            partitioner = MigPartitioner(store)
+            try:
+                partitioner.apply_partitioning("card", "nvml-1", more)
+                ack_ms = [_await_ack(store, "card", "nvml-1", agent.step)]
+                added = [d.profile for d in client.get_mig_devices() if d.uuid not in before]
+                partitioner.apply_partitioning("card", "nvml-2", base)
+                ack_ms.append(_await_ack(store, "card", "nvml-2", agent.step))
+                left = [d.uuid for d in client.get_mig_devices() if d.uuid not in before]
+                row["nvml_agent"] = {"created": added, "left_after_removal": left,
+                                     "spec_to_ack_ms": ack_ms}
+                checks["nvml_write_path"] = added == ["1g.10gb"] and not left
+            finally:
+                for d in client.get_mig_devices():
+                    if d.uuid not in before:
+                        client.delete_mig_device(d.uuid)
+
+    store = NodeStore()
+    store.create(Node("h100-sim", labels={GPU_PRODUCT_LABEL: H100_80GB},
+                      capacity={RESOURCE_GPU: 1}, allocatable={RESOURCE_GPU: 1}))
+    pool = SimMigPool()
+    sim = SimMigClient(pool, "h100-sim")
+    agent = build_migagent(store, "h100-sim",
+                           GpuClient(sim, SimPodResourcesClient(store, "h100-sim",
+                                                                sim.get_mig_devices)),
+                           SimDevicePlugin(store, pool), interval=MIGAGENT_INTERVAL_S)
+    partitioner = MigPartitioner(store)
+    ack_ms = []
+    agent.start()
+    try:
+        for plan, geometry in (("1", {0: {"7g.80gb": 1}}), ("2", {0: {"3g.40gb": 2}})):
+            partitioner.apply_partitioning("h100-sim", plan, geometry)
+            ack_ms.append(_await_ack(store, "h100-sim", plan))
+    finally:
+        agent.stop()
+    node = store.get("Node", "h100-sim")
+    _, status = annot.parse_node_annotations(node.annotations)
+    row["sim"] = {"recarve": "7g.80gb -> 3g.40gb x 2", "interval_s": MIGAGENT_INTERVAL_S,
+                  "spec_to_ack_ms": ack_ms, "instances": pool.geometry("h100-sim"),
+                  "allocatable": node.allocatable,
+                  "status": annot.status_geometries(status)}
+    checks["sim_recarve"] = (agent.error is None
+                             and pool.geometry("h100-sim") == {0: {"3g.40gb": 2}}
+                             and row["sim"]["status"] == {0: {"3g.40gb": 2}}
+                             and node.allocatable == {RESOURCE_GPU: 0,
+                                                      mig_resource("3g.40gb"): 2})
+    if os.path.exists(DEFAULT_SOCKET):
+        try:
+            kubelet = KubeletPodResourcesClient(timeout_seconds=5)
+            try:
+                row["kubelet"] = {"used_device_ids": kubelet.get_used_device_ids()}
+            finally:
+                kubelet.close()
+        except ImportError as e:
+            row["kubelet"] = f"not run: {e}"
+    else:
+        row["kubelet"] = f"not run: no kubelet pod-resources socket at {DEFAULT_SOCKET}"
+    row.update(checks=checks, ok=all(checks.values()), seconds=time.time() - t0, card=card)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"migagent failed: {row}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -4125,6 +4391,7 @@ def main() -> int:
     # --------------------------------------- sharing comparison, NVML
     sharing_phase(card)
     nvml_phase(card)
+    migagent_phase(card)
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa
@@ -4278,6 +4545,8 @@ def _from_the_checkpoint(card, t_start, ckpt_path, main_kernels) -> int:
     slo_serve_phase(card, params, cfg)
     examples = examples_phase(card, ckpt_path)
     torch.cuda.empty_cache()
+    preempt = preempt_resume_phase(card)
+    torch.cuda.empty_cache()
     emit({"phase": "slo_and_examples", "seconds": time.time() - t0, "card": card})
 
     # ------------------------------------------------ serving extensions
@@ -4361,6 +4630,7 @@ def _from_the_checkpoint(card, t_start, ckpt_path, main_kernels) -> int:
         "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][0],
         "launches_train_llama_example_step":
             examples["train_llama"]["launches_per_step_fwd_dq_dkv"][0],
+        "launches_preempt_resume_step": preempt["launches_per_step_fwd_dq_dkv"][0],
         "launches_sp_per_rank": sp_launches(sp, 0, False),
         "launches_tp_per_rank": sp_launches(tp, 0, False),
         "launches_ep_pp_per_rank": sp_launches(ep_pp, 0, False),
@@ -4384,6 +4654,7 @@ def _from_the_checkpoint(card, t_start, ckpt_path, main_kernels) -> int:
         "launches_lora_step": lora["launches_per_step_fwd_dq_dkv"][-1][index],
         "launches_train_llama_example_step":
             examples["train_llama"]["launches_per_step_fwd_dq_dkv"][index],
+        "launches_preempt_resume_step": preempt["launches_per_step_fwd_dq_dkv"][index],
         "launches_moe_train_grads": moe_grads["launches_fwd_dq_dkv"][index],
         "launches_sp_per_rank": sp_launches(sp, index, False),
         "launches_tp_per_rank": sp_launches(tp, index, False),

@@ -6,8 +6,11 @@ pod-resources client into mig.Client (SURVEY §2.5, §2.8). Here the seam
 is ``MigDeviceClient`` (MIG devices listed, created and destroyed):
 ``nvml.NvmlMigClient`` over NVIDIA's NVML on a GPU, ``sim.SimMigClient``
 over an in-memory pool elsewhere; ``GpuClient`` composes one with a
-``PodResourcesClient``, and ``plan.compute_plan`` diffs devices against
-the spec the control plane wants.
+``PodResourcesClient`` (``podresources.KubeletPodResourcesClient`` over
+the kubelet's socket, ``sim.SimPodResourcesClient`` over the node
+store), and ``plan.compute_plan`` diffs devices against the spec the
+control plane wants. ``sim.DevicePluginAdvertiser`` plays the MIG device
+plugin's restart, ``sharing`` the MPS device plugin.
 """
 from nos_tpu_torch.device.client import (
     GpuClient,
@@ -16,11 +19,18 @@ from nos_tpu_torch.device.client import (
     create_in_some_order,
 )
 from nos_tpu_torch.device.plan import CreateOp, MigPlan, compute_plan
-from nos_tpu_torch.device.sim import SimMigClient, SimMigPool
-from nos_tpu_torch.device.types import DeviceStatus, MigDevice, group_geometries
+from nos_tpu_torch.device.sim import (
+    DevicePluginAdvertiser,
+    SimDevicePlugin,
+    SimMigClient,
+    SimMigPool,
+    SimPodResourcesClient,
+)
+from nos_tpu_torch.device.types import DeviceStatus, MigDevice, SharedSlice, group_geometries
 
 __all__ = [
-    "CreateOp", "DeviceStatus", "GpuClient", "MigDevice", "MigDeviceClient",
-    "MigPlacementError", "MigPlan", "SimMigClient", "SimMigPool", "compute_plan",
+    "CreateOp", "DevicePluginAdvertiser", "DeviceStatus", "GpuClient", "MigDevice",
+    "MigDeviceClient", "MigPlacementError", "MigPlan", "SharedSlice", "SimDevicePlugin",
+    "SimMigClient", "SimMigPool", "SimPodResourcesClient", "compute_plan",
     "create_in_some_order", "group_geometries",
 ]

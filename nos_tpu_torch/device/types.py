@@ -24,16 +24,37 @@ class MigDevice:
     status: str = DeviceStatus.FREE
 
 
+@dataclass(frozen=True)
+class SharedSlice:
+    """One MPS slice a device plugin advertises: a replica of a GPU
+    renamed ``nvidia.com/gpu-<N>gb`` (``device/sharing.py``)."""
+
+    uuid: str
+    gpu_index: int
+    profile: str        # "20gb"
+    status: str = DeviceStatus.FREE
+
+
 def group_geometries(
-    devices: Iterable[MigDevice],
+    devices: Iterable,
 ) -> Dict[str, Dict[int, Dict[str, int]]]:
-    """Devices → {status: {gpu: {profile: count}}} for the status
-    annotations (reference pkg/gpu/device.go:98-120)."""
+    """Devices (``MigDevice`` or ``SharedSlice``) → {status: {gpu:
+    {profile: count}}} for the status annotations (reference
+    pkg/gpu/device.go:98-120)."""
     out: Dict[str, Dict[int, Dict[str, int]]] = {
         DeviceStatus.FREE: {},
         DeviceStatus.USED: {},
     }
     for d in devices:
         gpu = out[d.status].setdefault(d.gpu_index, {})
+        gpu[d.profile] = gpu.get(d.profile, 0) + 1
+    return out
+
+
+def device_geometry(devices: Iterable) -> Dict[int, Dict[str, int]]:
+    """Devices → {gpu: {profile: count}}, free and used together."""
+    out: Dict[int, Dict[str, int]] = {}
+    for d in devices:
+        gpu = out.setdefault(d.gpu_index, {})
         gpu[d.profile] = gpu.get(d.profile, 0) + 1
     return out

@@ -3,6 +3,7 @@
     python -m nos_tpu_torch.examples.serve_llama  [--real-weights DIR]
     python -m nos_tpu_torch.examples.train_llama
     python -m nos_tpu_torch.examples.finetune_lora [--real-weights DIR]
+    python -m nos_tpu_torch.examples.preempt_resume
 
 Each ``main(argv=None)`` takes the reference's flags and ``--device``
 (``cuda`` unless ``--device cpu``), takes the reference's steps and

@@ -8,8 +8,13 @@ exists and whether it is free or used.
 
   nos.nebuly.com/spec-gpu-<index>-<profile> = "<quantity>"
   nos.nebuly.com/status-gpu-<index>-<profile>-<free|used> = "<quantity>"
+  nos.nebuly.com/spec-partitioning-plan   = "<plan-id>"
+  nos.nebuly.com/status-partitioning-plan = "<plan-id>"
 
-Profiles are MIG names ("3g.40gb") or MPS memory slices ("20gb").
+Profiles are MIG names ("3g.40gb") or MPS memory slices ("20gb"). The
+MIG agent's reporter and the MPS agent's share the status keys, so each
+owns only its own profiles' (``is_mig_status_key`` /
+``is_mps_status_key``, the counterpart of ``is_sharing_status_key``).
 """
 from __future__ import annotations
 
@@ -19,7 +24,11 @@ from dataclasses import dataclass
 from typing import Dict, List, Mapping, Tuple
 
 PREFIX = "nos.nebuly.com/"
+SPEC_PARTITIONING_PLAN = PREFIX + "spec-partitioning-plan"
+STATUS_PARTITIONING_PLAN = PREFIX + "status-partitioning-plan"
 
+MIG_PROFILE_RE = re.compile(r"^\d+g\.\d+gb$")
+MPS_PROFILE_RE = re.compile(r"^\d+gb$")
 _PROFILE = r"(\d+g\.\d+gb|\d+gb)"
 _SPEC_RE = re.compile(r"^nos\.nebuly\.com/spec-gpu-(\d+)-" + _PROFILE + r"$")
 _STATUS_RE = re.compile(r"^nos\.nebuly\.com/status-gpu-(\d+)-" + _PROFILE + r"-(free|used)$")
@@ -76,6 +85,23 @@ def parse_node_annotations(
     return spec, status
 
 
+def status_key_profile(key: str):
+    """The profile of a status annotation key ("3g.40gb", "20gb"), else
+    None."""
+    m = _STATUS_RE.match(key)
+    return m.group(2) if m else None
+
+
+def is_mig_status_key(key: str) -> bool:
+    profile = status_key_profile(key)
+    return profile is not None and bool(MIG_PROFILE_RE.match(profile))
+
+
+def is_mps_status_key(key: str) -> bool:
+    profile = status_key_profile(key)
+    return profile is not None and bool(MPS_PROFILE_RE.match(profile))
+
+
 def _parse_quantity(value: str):
     """Counts must be positive integers; anything else is malformed."""
     try:
@@ -122,3 +148,8 @@ def spec_geometries(spec: List[SpecAnnotation]) -> Dict[int, Dict[str, int]]:
 def status_geometries(status: List[StatusAnnotation]) -> Dict[int, Dict[str, int]]:
     """Total (free + used) geometry per GPU from status annotations."""
     return _aggregate(status)
+
+
+def strip_spec_annotations(annotations: Mapping[str, str]) -> Dict[str, None]:
+    """The patch that removes every spec geometry annotation."""
+    return {k: None for k in annotations if _SPEC_RE.match(k)}

@@ -28,8 +28,12 @@ from nos_tpu_torch.gpu.slicing import SharedGpu
 RESOURCE_GPU = "nvidia.com/gpu"
 MIG_RESOURCE_PREFIX = "nvidia.com/mig-"
 MPS_RESOURCE_PREFIX = "nvidia.com/gpu-"
-_MIG_PROFILE_RE = re.compile(r"^\d+g\.\d+gb$")
-_MPS_PROFILE_RE = re.compile(r"^\d+gb$")
+
+# How a node's GPUs are shared (nos_tpu/api/v1alpha1/labels.py:10); the
+# MPS agent refuses to report on a node labelled "mig"
+PARTITIONING_LABEL = "nos.nebuly.com/gpu-partitioning"
+PARTITIONING_MIG = "mig"
+PARTITIONING_MPS = "mps"
 
 
 def mig_resource(profile: str) -> str:
@@ -165,7 +169,7 @@ class _GpuNode:
 class MigNode(_GpuNode):
     """A node whose GPUs are carved into MIG instances."""
 
-    _profile_re = _MIG_PROFILE_RE
+    _profile_re = annot.MIG_PROFILE_RE
     _prefix = MIG_RESOURCE_PREFIX
 
     def _gpu(self, index, used, free) -> MigGpu:
@@ -175,7 +179,7 @@ class MigNode(_GpuNode):
 class MpsNode(_GpuNode):
     """A node whose GPUs are shared through MPS, in memory slices."""
 
-    _profile_re = _MPS_PROFILE_RE
+    _profile_re = annot.MPS_PROFILE_RE
     _prefix = MPS_RESOURCE_PREFIX
 
     def _gpu(self, index, used, free) -> SharedGpu:

@@ -192,7 +192,13 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def _rank0(mesh) -> bool:
-    return mesh is None or not dist.is_initialized() or dist.get_rank() == 0
+    """Whether this rank is the mesh's first (it commits a save)."""
+    return mesh is None or not dist.is_initialized() or \
+        dist.get_rank() == int(mesh.mesh.flatten()[0])
+
+
+def _mesh_ranks(mesh):
+    return sorted(int(r) for r in mesh.mesh.flatten())
 
 
 def _write(path: str, step: int, sd: Dict[str, Any], mesh, group, force: bool,
@@ -246,12 +252,14 @@ def save_checkpoint(path: str, state: TrainState, step: int, *, mesh=None,
 
 
 def restore_checkpoint(path: str, shard_like: TrainState, step: Optional[int] = None,
-                       *, mesh=None) -> Tuple[TrainState, int]:
+                       *, mesh=None, group=None) -> Tuple[TrainState, int]:
     """Restore ``(state, step)`` from ``path/<step>/`` (the latest by
     default) into ``shard_like``: a train state laid out on ``mesh``,
     e.g. ``make_train_step(mesh, ...)[1](params)``, whose tensors are
     overwritten in place and returned. Each rank reads only what its
-    shards overlap, whatever mesh saved them."""
+    shards overlap, whatever mesh saved them. Every rank of ``group``
+    (the default group unless given: a mesh over part of the ranks
+    passes a group of its own ranks) calls it."""
     import torch.distributed.checkpoint as dcp
 
     path = os.path.abspath(path)
@@ -267,7 +275,7 @@ def restore_checkpoint(path: str, shard_like: TrainState, step: Optional[int] = 
     with warnings.catch_warnings():
         # one device: DCP warns that it loads in one process, as asked
         warnings.filterwarnings("ignore", message="torch.distributed is disabled")
-        dcp.load(target, storage_reader=reader, no_dist=mesh is None)
+        dcp.load(target, storage_reader=reader, process_group=group, no_dist=mesh is None)
     return _fill(shard_like, target), step
 
 
@@ -277,7 +285,9 @@ class Checkpointer:
     own over a gloo group of its own (the step's collectives never meet
     it), one save at a time. The loop blocks only in ``wait()`` /
     ``close()``: call ``close()`` (or use a ``with`` block) at exit or on
-    the preemption signal. Every rank of the mesh makes the same calls."""
+    the preemption signal. Every rank of the mesh makes the same calls,
+    and only they: the group spans the mesh's ranks, which may be part
+    of the default group's (a trainer resumed on fewer ranks)."""
 
     def __init__(self, path: str, *, mesh=None, max_to_keep: Optional[int] = None) -> None:
         self.path = os.path.abspath(path)
@@ -285,7 +295,8 @@ class Checkpointer:
         self.max_to_keep = max_to_keep
         self._group = None
         if mesh is not None and dist.is_initialized():
-            self._group = dist.new_group(backend="gloo")
+            self._group = dist.new_group(ranks=_mesh_ranks(mesh), backend="gloo",
+                                         use_local_synchronization=True)
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="checkpoint")
         self._pending: Optional[Future] = None
         self._latest = latest_step(self.path)
@@ -305,7 +316,8 @@ class Checkpointer:
 
     def restore(self, shard_like: TrainState, step: Optional[int] = None):
         self.wait()
-        return restore_checkpoint(self.path, shard_like, step, mesh=self.mesh)
+        return restore_checkpoint(self.path, shard_like, step, mesh=self.mesh,
+                                  group=self._group)
 
     def wait(self) -> None:
         """Block until the save in flight (if any) is committed; its

@@ -3,8 +3,8 @@
 Keeps what the serving engine and its telemetry use from
 ``nos_tpu/util/metrics.py``: counters, gauges and histograms as label
 families (``counter.labels(model="m")`` returns a child series), a
-get-or-create registry with text exposition, and the ``SERVE_*``
-families. The reference's cardinality governor, child deletion,
+get-or-create registry with text exposition, the ``SERVE_*`` families
+and the MIG agent's instance counters. The reference's cardinality governor, child deletion,
 percentile windows and incremental snapshot cursors serve its control
 plane and are left out.
 """
@@ -271,4 +271,12 @@ SERVE_SPEC_ACCEPTED_TOKENS = REGISTRY.counter(
     "nos_tpu_serve_spec_accepted_tokens_total",
     "Draft tokens the target accepted (committed - 1 per active row-round; "
     "the bonus token is not a draft acceptance)",
+)
+
+# MIG node agent (controllers/migagent): instances it carved and destroyed.
+MIG_INSTANCES_CREATED = REGISTRY.counter(
+    "nos_tpu_mig_instances_created_total", "MIG instances created by node agents (by profile)"
+)
+MIG_INSTANCES_DELETED = REGISTRY.counter(
+    "nos_tpu_mig_instances_deleted_total", "MIG instances destroyed by node agents (by profile)"
 )

@@ -4,9 +4,11 @@ Keeps the tracer surface the serving telemetry uses from
 ``nos_tpu/util/tracing.py``: spans with trace/span/parent ids and
 attributes, implicit parenting through ``contextvars``, keyed *journeys*
 (a root span registered under a key that later stages parent onto), a
-bounded ring of finished traces, and the shared no-op span returned
-while tracing is disabled. The reference's retention policies, links,
-Chrome export and profiler phase registry are left out.
+bounded ring of finished traces, links (a span registered under a key
+for an out-of-context continuation to parent onto: a partitioner's apply
+and the node agent's re-carve) and the shared no-op span returned while
+tracing is disabled. The reference's retention policies, Chrome export
+and profiler phase registry are left out.
 """
 from __future__ import annotations
 
@@ -104,6 +106,7 @@ class Tracer:
     # leave tracing on without growing without bound.
     MAX_SPANS_PER_TRACE = 4096
     MAX_JOURNEYS = 512
+    MAX_LINKS = 1024
 
     def __init__(self, capacity: int = 256) -> None:
         self.enabled = True
@@ -111,6 +114,7 @@ class Tracer:
         self._lock = threading.Lock()
         self._active: Dict[str, List[Span]] = {}
         self._journeys: "OrderedDict[Any, Span]" = OrderedDict()
+        self._links: Dict[Any, Span] = {}
 
     def start_span(self, name: str, parent: Optional[Span] = None,
                    **attributes: Any) -> Span:
@@ -201,6 +205,21 @@ class Tracer:
         span.set_attributes(**attributes)
         self.end_span(span, status=status)
         return span
+
+    def link(self, key: Any, span: Optional[Span]) -> None:
+        """Register ``span`` as the parent of a later continuation that
+        runs out of its context (a node's spec annotation, then the
+        agent's re-carve), the oldest link dropped past MAX_LINKS."""
+        if span is None or span is NOOP_SPAN or not self.enabled:
+            return
+        with self._lock:
+            self._links[key] = span
+            while len(self._links) > self.MAX_LINKS:
+                self._links.pop(next(iter(self._links)))
+
+    def linked(self, key: Any, pop: bool = True) -> Optional[Span]:
+        with self._lock:
+            return self._links.pop(key, None) if pop else self._links.get(key)
 
 
 # The process-wide tracer of the port.

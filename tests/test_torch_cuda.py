@@ -951,3 +951,60 @@ def test_nvml_reads_the_mig_mode_and_its_table_agrees(cuda_device):
             with pytest.raises(NvmlError, match="Not Supported") as refused:
                 nvml.profile_info(0, profile.nvml_profile)
             assert refused.value.code == NVML_ERROR_NOT_SUPPORTED
+
+
+@pytest.mark.cuda
+def test_the_mig_agent_refuses_nvml_with_mig_off(cuda_device):
+    """``build_migagent`` over NVML: with MIG mode off it raises, naming
+    GPU 0 and both modes, and the reporter never reads NVML's refusal as
+    a GPU without instances; with MIG on it builds."""
+    from nos_tpu_torch.controllers.migagent import MigReporter, SharedState, build_migagent
+    from nos_tpu_torch.device.client import GpuClient
+    from nos_tpu_torch.device.nvml import (NVML_DEVICE_MIG_ENABLE, MigModeDisabledError, Nvml,
+                                           NvmlError, NvmlMigClient)
+    from nos_tpu_torch.device.sim import DevicePluginAdvertiser, SimPodResourcesClient
+    from nos_tpu_torch.kube.store import Node, NodeStore
+
+    store = NodeStore()
+    store.create(Node("card", capacity={"nvidia.com/gpu": torch.cuda.device_count()}))
+    with Nvml() as nvml:
+        current, pending = nvml.mig_mode(0)
+        client = GpuClient(NvmlMigClient(nvml), SimPodResourcesClient(store, "card", lambda: []))
+        plugin = DevicePluginAdvertiser(store, lambda node: {})
+        if current == NVML_DEVICE_MIG_ENABLE:
+            build_migagent(store, "card", client, plugin)
+            return
+        with pytest.raises(MigModeDisabledError,
+                           match=rf"GPU 0: MIG mode disabled \(current {current}, "
+                                 rf"pending {pending}\)"):
+            build_migagent(store, "card", client, plugin)
+        with pytest.raises(NvmlError, match="Not Supported"):
+            MigReporter(store, client, "card", SharedState()).reconcile()
+    assert store.get("Node", "card").annotations == {}
+
+
+@pytest.mark.cuda
+def test_preempt_resume_trains_through_the_kernels_on_card(cuda_device, tmp_path):
+    """The preempt_resume example on the card: the re-carve on the
+    simulator, five steps of ``card_config()`` (head_dim 64, flash +
+    remat) launching the forward kernel 2L times a step and each backward
+    kernel L times, the resumed steps bit for bit those of the same steps
+    run on without the interruption."""
+    from nos_tpu_torch.examples import preempt_resume
+    from nos_tpu_torch.models.llama import init_llama_params
+
+    counts = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    out = preempt_resume.main(["--ckpt-dir", str(tmp_path / "run")])
+    torch.cuda.synchronize()
+    steps = preempt_resume.STEPS_BEFORE + preempt_resume.STEPS_AFTER
+    n = out["config"]["n_layers"]
+    assert (fa.LAUNCHES - counts[0], fa.DQ_LAUNCHES - counts[1],
+            fa.DKV_LAUNCHES - counts[2]) == (2 * n * steps, n * steps, n * steps)
+    assert out["config"]["head_dim"] == 64 and out["config"]["attention"] == "flash"
+    assert out["resumed_from"] == preempt_resume.STEPS_BEFORE
+    assert out["node"]["phase2"]["instances"] == {0: {"3g.40gb": 2}}
+    cfg = preempt_resume.trainer_config(cuda_device)
+    straight = preempt_resume.uninterrupted_losses(
+        cfg, init_llama_params(cfg, seed=0, device=cuda_device),
+        preempt_resume.batch_tokens(cfg), cuda_device)
+    assert straight == out["losses"]

@@ -2,10 +2,12 @@
 
 - No module of nos_tpu_torch/, and not chip_smoke.py, imports jax or
   anything of nos_tpu (an AST scan of every import statement).
-- Importing the port's serving and training stacks leaves jax,
-  nos_tpu.* and transformers out of sys.modules (a fresh interpreter;
-  the card's machine may lack transformers, and models/convert.py
-  reads a model instance the caller built).
+- Importing the port's serving and training stacks, its node agents,
+  the kubelet client and the router leaves jax, nos_tpu.*,
+  transformers, grpc and google.protobuf out of sys.modules (a fresh
+  interpreter; the card's machine may lack transformers, grpc and
+  protobuf: models/convert.py reads a model instance the caller built,
+  and device/podresources.py imports grpc only when a client is made).
 - With no CUDA device, an entry point called without ``device`` raises;
   it never falls back to the CPU on its own.
 """
@@ -61,6 +63,15 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/device/nvml.py", "nos_tpu_torch/device/sim.py",
         "nos_tpu_torch/device/plan.py", "nos_tpu_torch/demos/sharing_client.py",
         "nos_tpu_torch/demos/sharing.py",
+        "nos_tpu_torch/kube/store.py", "nos_tpu_torch/device/podresources.py",
+        "nos_tpu_torch/device/sharing.py", "nos_tpu_torch/controllers/migagent/shared.py",
+        "nos_tpu_torch/controllers/migagent/reporter.py",
+        "nos_tpu_torch/controllers/migagent/actuator.py",
+        "nos_tpu_torch/controllers/migagent/__init__.py",
+        "nos_tpu_torch/controllers/mpsagent/reporter.py",
+        "nos_tpu_torch/partitioning/mig.py", "nos_tpu_torch/partitioning/mps.py",
+        "nos_tpu_torch/examples/preempt_resume.py", "nos_tpu_torch/slo/signals.py",
+        "nos_tpu_torch/slo/routing.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -85,8 +96,12 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.examples.finetune_lora, nos_tpu_torch.bench\n"
         "import nos_tpu_torch.gpu, nos_tpu_torch.device, nos_tpu_torch.device.nvml\n"
         "import nos_tpu_torch.demos.sharing\n"
+        "import nos_tpu_torch.kube, nos_tpu_torch.device.podresources\n"
+        "import nos_tpu_torch.device.sharing, nos_tpu_torch.partitioning\n"
+        "import nos_tpu_torch.controllers.migagent, nos_tpu_torch.controllers.mpsagent\n"
+        "import nos_tpu_torch.examples.preempt_resume, nos_tpu_torch.slo.routing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'nos_tpu', 'transformers'))\n"
+        " ('jax', 'nos_tpu', 'transformers', 'grpc') or m.startswith('google.protobuf'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
