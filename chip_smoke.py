@@ -35,6 +35,20 @@ Phases, each fatal on failure (exit code != 0):
     the re-carve 7g.80gb -> 3g.40gb + 3g.40gb: milliseconds from spec to
     ack, the instances, allocatable and status annotations; the
     kubelet's pod-resources client only where its socket exists;
+1d. partitioner: the dynamic-partitioning loop (nos_tpu_torch.cluster)
+    on two MIG nodes, the first with the card's own NVML identity (its
+    product must be gpu/known.py's H100 row, its GPU count torch's; its
+    instances live on the sim pool, MIG mode being off), the second of
+    8 H100s, and an MPS node of 8: 40 seeded pending pods across
+    1g.10gb ... 7g.80gb and gpu-10gb / gpu-20gb, run until idle, then
+    every pod Running or unserved with a reason, every reported
+    geometry allowed, every plan acknowledged, no GPU over-committed
+    (pods placed, plans applied, steps, seconds); then cold plans at 64
+    nodes x 8 H100s with 200 pending pods (bench_planner, 3 repeats,
+    verdict cache on and off: p50 / p95 ms, forks a second, the hit
+    rate, the host's CPU count) on a busy, fragmented cluster whose
+    demand exceeds its free supply, the cache-on plan equal to the
+    cache-off one and the cache answering some of its trials;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
@@ -4356,6 +4370,82 @@ def migagent_phase(card) -> dict:
     return row
 
 
+PARTITIONER_PODS = 40
+PARTITIONER_MAX_STEPS = 500
+PARTITIONER_PLAN_SIZE = (64, 200)  # nodes x pending pods, 8 H100s a node
+PARTITIONER_PLAN_REPEATS = 3
+
+
+def partitioner_phase(card) -> dict:
+    """The control loop on the card's machine: a SimCluster whose first
+    MIG node is the card itself as NVML names it, pending pods around
+    scheduler -> partitioner -> agent -> scheduler -> kubelet until
+    idle, held to the loop's invariants; then the planner's cold plans
+    at 512 GPUs, cache on and off, which must agree, with the cache
+    answering some trials and some pods left unserved."""
+    import random
+
+    import torch
+
+    from nos_tpu_torch.cluster import SimCluster
+    from nos_tpu_torch.device.nvml import Nvml
+    from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, H100_80GB
+    from nos_tpu_torch.gpu.node import RESOURCE_GPU, mig_resource, mps_resource
+    from nos_tpu_torch.kube.store import Pod, PodPhase
+    from nos_tpu_torch.partitioning import bench_planner
+
+    t0 = time.time()
+    row = {"phase": "partitioner", "host_cpus": os.cpu_count()}
+    checks = {}
+    cluster = SimCluster()
+    with Nvml() as nv:
+        node = cluster.add_mig_node("mig-card", nvml=nv)
+        row["nvml"] = {"name": nv.name(0), "power_limit_w": nv.power_limit_w(0),
+                       "product": node.labels[GPU_PRODUCT_LABEL],
+                       "gpus": node.capacity[RESOURCE_GPU]}
+    checks["nvml_identity"] = (row["nvml"]["product"] == H100_80GB
+                               and row["nvml"]["gpus"] == torch.cuda.device_count())
+    cluster.add_mig_node("mig-1", gpus=8)
+    cluster.add_mps_node("mps-0", gpus=8)
+    mix = ([mig_resource(p) for p in ("1g.10gb", "2g.20gb", "3g.40gb", "4g.40gb", "7g.80gb")]
+           + [mps_resource(p) for p in ("10gb", "20gb")])
+    rng = random.Random(15)
+    for i in range(PARTITIONER_PODS):
+        cluster.store.create(Pod(f"job-{i:02d}", "smoke", request={rng.choice(mix): 1}))
+    t1 = time.perf_counter()
+    idle = cluster.run_until_idle(PARTITIONER_MAX_STEPS)
+    wall = time.perf_counter() - t1
+    pods = cluster.store.list("Pod")
+    checks["idle"] = idle
+    checks.update(cluster.check())
+    unserved = cluster.unserved()
+    row["loop"] = {
+        "gpus": {"mig": row["nvml"]["gpus"] + 8, "mps": 8}, "pods": len(pods),
+        "placed": sum(p.phase == PodPhase.RUNNING for p in pods),
+        "unserved": len(unserved), "plans_applied": {c.kind: c.plans_applied
+                                                     for c in cluster.controllers},
+        "plans": {c.kind: c.plans_processed for c in cluster.controllers},
+        "steps": cluster.steps, "wall_s": wall,
+        "admission_rejects": cluster.kubelet.admission_rejects,
+        "instances": {n: cluster.pool.geometry(n) for n in ("mig-card", "mig-1")},
+        "unserved_reasons": sorted(set(unserved.values()))}
+    checks["pods_placed"] = row["loop"]["placed"] > 0
+    n_nodes, n_pods = PARTITIONER_PLAN_SIZE
+    rows = bench_planner.run([(n_nodes, n_pods)], 8, PARTITIONER_PLAN_REPEATS)
+    row["plans_at_size"] = rows
+    checks["plan_cache_on_equals_off"] = rows[0]["plan_equals_cache_off"]
+    # the comparison means something only where the cache decided trials
+    checks["plan_cache_hits"] = rows[0]["cache_hits"] > 0
+    # demand exceeds the free supply: the carve loop ran to exhaustion
+    checks["plan_demand_exceeds_supply"] = rows[0]["pods_unserved"] > 0
+    checks["plans_deterministic"] = all(r["deterministic"] for r in rows)
+    row.update(checks=checks, ok=all(checks.values()), seconds=time.time() - t0, card=card)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"partitioner failed: {checks}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -4392,6 +4482,7 @@ def main() -> int:
     sharing_phase(card)
     nvml_phase(card)
     migagent_phase(card)
+    partitioner_phase(card)
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa

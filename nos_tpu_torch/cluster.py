@@ -1,0 +1,325 @@
+"""SimCluster: the dynamic-partitioning loop running in-process on one store.
+
+Counterpart of ``nos_tpu/cmd/cluster.py:44-275`` (``SimCluster``,
+``build_cluster``), trimmed to one ``NodeStore`` and the vanilla
+scheduler, the MIG and MPS partitioner controllers, one ``MigAgent`` per
+MIG node on a shared ``SimMigPool``, the MPS device plugin's sim and
+reporter per MPS node, and a trimmed sim kubelet (``nos_tpu/sim/kubelet.py``:
+a bound pod is admitted against the devices that exist, then Running).
+
+A pending pod asking for ``nvidia.com/mig-3g.40gb`` goes around the
+loop: the scheduler marks it Unschedulable, the MIG controller batches
+it, snapshots, plans and actuates (spec annotations), the node's agent
+re-carves the GPU and acknowledges, the device plugin advertises the
+instance, the scheduler binds, the kubelet admits. An MPS pod's plan is
+the device plugin's config map and label instead.
+
+Nothing here reads a wall clock: ``step()`` advances every component
+once and moves the cluster's clock (the batch windows' and the
+planners' aging clock) by ``TICK_S``, so a run plans the same however
+fast its host is; ``run_until_idle(max_steps)`` steps until a step
+changes nothing and each controller with pods it could help has just
+planned without applying anything, i.e. no pending pod can be helped.
+A MIG node's product and GPU count come from NVML when the caller
+passes an ``Nvml`` (the card's own identity; its instances stay on the
+sim pool), else from the caller's arguments. ``check()`` holds the
+idle cluster to the loop's invariants.
+"""
+from __future__ import annotations
+
+import itertools
+import logging
+from typing import Callable, Dict, List
+
+from nos_tpu_torch.controllers.migagent import MigAgent, build_migagent
+from nos_tpu_torch.controllers.mpsagent import MpsReporter
+from nos_tpu_torch.controllers.partitioner import PartitionerController, could_help
+from nos_tpu_torch.device.client import GpuClient
+from nos_tpu_torch.device.sharing import (
+    DEFAULT_CONFIG_MAP,
+    SharedSliceClient,
+    SimSharedDevicePlugin,
+    is_mps_resource,
+    load_plugin_config,
+)
+from nos_tpu_torch.device.sim import SimDevicePlugin, SimMigClient, SimMigPool, SimPodResourcesClient
+from nos_tpu_torch.gpu import annotations as annot
+from nos_tpu_torch.gpu.geometry import geometry_fits, geometry_slices
+from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, H100_80GB, KNOWN_GPUS, allowed_geometries
+from nos_tpu_torch.gpu.node import (
+    MIG_RESOURCE_PREFIX,
+    MPS_RESOURCE_PREFIX,
+    PARTITIONING_LABEL,
+    PARTITIONING_MIG,
+    PARTITIONING_MPS,
+    RESOURCE_GPU,
+)
+from nos_tpu_torch.gpu.slicing import profile_gb
+from nos_tpu_torch.kube.store import Node, NodeStore, NotFoundError, Pod, PodPhase
+from nos_tpu_torch.partitioning.core import Actuator, ClusterState, Planner
+from nos_tpu_torch.partitioning.core.codec import is_mig_resource
+from nos_tpu_torch.partitioning.mig import MigNodeInitializer, MigPartitioner, MigSnapshotTaker
+from nos_tpu_torch.partitioning.mps import MpsPartitioner, MpsSnapshotTaker
+from nos_tpu_torch.scheduler import Scheduler, new_framework
+
+log = logging.getLogger("nos_tpu_torch.cluster")
+
+# a DGX H100's host: two 56-core CPUs, 2 TiB (in GiB)
+NODE_CPU = 112
+NODE_MEMORY_GIB = 2048
+# the batch windows of the reference's in-process cluster (build_cluster),
+# and the clock's step: a batch is planned the step after its last pod
+BATCH_TIMEOUT_S = 1.0
+BATCH_IDLE_S = 0.05
+TICK_S = 0.05
+
+
+def product_label(nvml_name: str) -> str:
+    """NVML's product name as GPU feature discovery labels it:
+    'NVIDIA H100 80GB HBM3' → 'NVIDIA-H100-80GB-HBM3'."""
+    return nvml_name.strip().replace(" ", "-")
+
+
+def _mig_demand(request) -> Dict[str, int]:
+    return {name[len(MIG_RESOURCE_PREFIX):]: int(qty) for name, qty in request.items()
+            if is_mig_resource(name)}
+
+
+class SimKubelet:
+    """Admits bound pods against the devices that exist, then runs them:
+    a pod whose MIG demand, with that of the pods already running on its
+    node, exceeds the node's instances fails (the last line against a
+    bind racing a re-carve); anything else becomes Running."""
+
+    def __init__(self, store: NodeStore, geometry_fn: Callable[[str], Dict[int, Dict[str, int]]]
+                 ) -> None:
+        self.store = store
+        self.geometry_fn = geometry_fn
+        self.admission_rejects = 0
+
+    def step(self) -> int:
+        """Admit every bound pending pod; the pods whose phase changed."""
+        pods = self.store.list("Pod")
+        changed = 0
+        for pod in pods:
+            if not pod.node or pod.phase != PodPhase.PENDING:
+                continue
+            admitted = self._admit(pod, pods)
+            phase = PodPhase.RUNNING if admitted else PodPhase.FAILED
+            if not admitted:
+                self.admission_rejects += 1
+                log.warning("kubelet: rejecting %s on %s: MIG demand exceeds the instances",
+                            pod.namespaced_name, pod.node)
+            try:
+                self.store.patch_merge("Pod", pod.name, pod.namespace,
+                                       lambda p, phase=phase: setattr(p, "phase", phase))
+            except NotFoundError:
+                continue
+            pod.phase = phase
+            changed += 1
+        return changed
+
+    def _admit(self, pod: Pod, pods: List[Pod]) -> bool:
+        node = self.store.try_get("Node", pod.node)
+        if node is None or node.labels.get(PARTITIONING_LABEL) != PARTITIONING_MIG:
+            return True
+        demand = _mig_demand(pod.request)
+        if not demand:
+            return True
+        for other in pods:
+            if other.node == pod.node and other.phase == PodPhase.RUNNING \
+                    and other.namespaced_name != pod.namespaced_name:
+                for profile, qty in _mig_demand(other.request).items():
+                    demand[profile] = demand.get(profile, 0) + qty
+        inventory: Dict[str, int] = {}
+        for gpu in self.geometry_fn(pod.node).values():
+            for profile, qty in gpu.items():
+                inventory[profile] = inventory.get(profile, 0) + qty
+        return all(inventory.get(p, 0) >= q for p, q in demand.items())
+
+
+class SimCluster:
+    def __init__(self, config_map_name: str = DEFAULT_CONFIG_MAP) -> None:
+        self.store = NodeStore()
+        self.now = 0.0
+        self.steps = 0
+        self.pool = SimMigPool()
+        self.scheduler = Scheduler(self.store)
+        self.config_map_name = config_map_name
+        plan_ids = itertools.count(1)
+
+        def plan_id() -> str:
+            return f"plan-{next(plan_ids)}"
+
+        clock = self.clock
+        mig_partitioner = MigPartitioner(self.store)
+        self.mig = PartitionerController(
+            self.store, ClusterState(), MigSnapshotTaker(),
+            Planner(new_framework(), clock=clock), Actuator(mig_partitioner), PARTITIONING_MIG,
+            is_mig_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
+            initializer=MigNodeInitializer(mig_partitioner, plan_id), clock=clock)
+        self.mps = PartitionerController(
+            self.store, ClusterState(), MpsSnapshotTaker(),
+            Planner(new_framework(), clock=clock),
+            Actuator(MpsPartitioner(self.store, config_map_name)),
+            PARTITIONING_MPS, is_mps_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
+            clock=clock)
+        self.controllers = (self.mig, self.mps)
+        self.mps_plugin = SimSharedDevicePlugin(self.store, config_map_name)
+        self.agents: Dict[str, MigAgent] = {}
+        self.mps_reporters: Dict[str, MpsReporter] = {}
+        self.kubelet = SimKubelet(self.store, self.pool.geometry)
+
+    def clock(self) -> float:
+        return self.now
+
+    # ------------------------------------------------------------ nodes
+
+    def add_mig_node(self, name: str, gpus: int = 8, product: str = H100_80GB,
+                     nvml=None) -> Node:
+        """A MIG node and its agent on the sim pool. With ``nvml`` (an
+        ``Nvml``) the product and GPU count are NVML's."""
+        if nvml is not None:
+            product, gpus = product_label(nvml.name(0)), nvml.device_count()
+        if product not in KNOWN_GPUS:
+            raise ValueError(f"{name}: GPU product {product!r} is not in gpu/known.py")
+        node = self._create_node(name, gpus, product, PARTITIONING_MIG)
+        sim = SimMigClient(self.pool, name)
+        client = GpuClient(sim, SimPodResourcesClient(self.store, name, sim.get_mig_devices))
+        self.agents[name] = build_migagent(self.store, name, client,
+                                           SimDevicePlugin(self.store, self.pool))
+        return node
+
+    def add_mps_node(self, name: str, gpus: int = 8, product: str = H100_80GB) -> Node:
+        """An MPS node, its device plugin's sim and its reporter."""
+        node = self._create_node(name, gpus, product, PARTITIONING_MPS)
+        self.mps_reporters[name] = MpsReporter(
+            self.store, SharedSliceClient(self.store, self.config_map_name), name)
+        return node
+
+    def _create_node(self, name: str, gpus: int, product: str, kind: str) -> Node:
+        resources = {RESOURCE_GPU: gpus, "cpu": NODE_CPU, "memory": NODE_MEMORY_GIB}
+        return self.store.create(Node(name, labels={GPU_PRODUCT_LABEL: product,
+                                                    PARTITIONING_LABEL: kind},
+                                      capacity=dict(resources), allocatable=dict(resources)))
+
+    # ------------------------------------------------------------- loop
+
+    def step(self) -> None:
+        """Every component once, in the loop's order."""
+        self.now += TICK_S
+        for controller in self.controllers:
+            controller.step()
+        for agent in self.agents.values():
+            agent.step()
+        for name, reporter in self.mps_reporters.items():
+            self.mps_plugin.reconcile(name)
+            reporter.reconcile()
+        self.scheduler.step()
+        self.kubelet.step()
+        self.steps += 1
+
+    def fingerprint(self) -> tuple:
+        """The store's observable state."""
+        nodes = tuple((n.name, tuple(sorted(n.annotations.items())),
+                       tuple(sorted(n.labels.items())), tuple(sorted(n.allocatable.items())))
+                      for n in self.store.list("Node"))
+        pods = tuple((p.namespaced_name, p.node, p.phase, p.unschedulable)
+                     for p in self.store.list("Pod"))
+        maps = tuple((c.name, tuple(sorted(c.data.items())))
+                     for c in self.store.list("ConfigMap"))
+        return nodes, pods, maps
+
+    def helpable(self, controller: PartitionerController) -> List[Pod]:
+        """The pending pods ``controller`` could plan for."""
+        return [p for p in controller.fetch_pending_pods()
+                if could_help(p) and controller.requests_tracked_resources(p)]
+
+    def run_until_idle(self, max_steps: int = 1000) -> bool:
+        """Step until no pending pod can be helped; False when
+        ``max_steps`` ran out first."""
+        settled = {c.kind: False for c in self.controllers}
+        for _ in range(max_steps):
+            before = self.fingerprint()
+            processed = {c.kind: c.plans_processed for c in self.controllers}
+            self.step()
+            if self.fingerprint() != before:
+                settled = {kind: False for kind in settled}
+                continue
+            for c in self.controllers:
+                if not self.helpable(c) or (c.plans_processed > processed[c.kind]
+                                            and c.last_applied == 0):
+                    settled[c.kind] = True
+            if all(settled.values()):
+                return True
+        return False
+
+    # ----------------------------------------------------------- checks
+
+    def unserved(self) -> Dict[str, str]:
+        """Pending pod → the reason the last plan of its mode gave."""
+        out: Dict[str, str] = {}
+        for c in self.controllers:
+            out.update(c.planner.last_unserved)
+        return out
+
+    def check(self) -> Dict[str, bool]:
+        """The idle cluster against the loop's invariants: every pod
+        Running (or finished) or unserved with a reason, none failed; every reported MIG geometry
+        allowed on its GPU; every spec plan acknowledged; no GPU
+        over-committed (instances within its slices, MPS slices within
+        its memory, running pods within what exists)."""
+        pods = self.store.list("Pod")
+        nodes = {n.name: n for n in self.store.list("Node")}
+        unserved = self.unserved()
+        running = [p for p in pods if p.phase == PodPhase.RUNNING]
+        checks = {"pods_running_or_unserved": all(
+            p.phase in (PodPhase.RUNNING, PodPhase.SUCCEEDED)
+            or (p.phase == PodPhase.PENDING and bool(unserved.get(p.namespaced_name)))
+            for p in pods)}
+        allowed = committed = acked = True
+        for node in nodes.values():
+            kind = node.labels.get(PARTITIONING_LABEL)
+            spec_plan = node.annotations.get(annot.SPEC_PARTITIONING_PLAN)
+            acked &= not spec_plan or spec_plan == node.annotations.get(
+                annot.STATUS_PARTITIONING_PLAN)
+            _, status = annot.parse_node_annotations(node.annotations)
+            reported = annot.status_geometries(status)
+            product = node.labels.get(GPU_PRODUCT_LABEL, "")
+            if kind == PARTITIONING_MIG:
+                table = allowed_geometries(product)
+                spec = KNOWN_GPUS[product]
+                for geometry in reported.values():
+                    allowed &= any(geometry_fits(g, geometry) for g in table)
+                for geometry in self.pool.geometry(node.name).values():
+                    memory, compute = geometry_slices(geometry)
+                    committed &= memory <= spec.memory_slices and compute <= spec.compute_slices
+                demand: Dict[str, int] = {}
+                for p in running:
+                    if p.node == node.name:
+                        for profile, qty in _mig_demand(p.request).items():
+                            demand[profile] = demand.get(profile, 0) + qty
+                have: Dict[str, int] = {}
+                for geometry in self.pool.geometry(node.name).values():
+                    for profile, qty in geometry.items():
+                        have[profile] = have.get(profile, 0) + qty
+                committed &= all(have.get(p, 0) >= q for p, q in demand.items())
+            elif kind == PARTITIONING_MPS:
+                memory = KNOWN_GPUS[product].memory_gb
+                for geometry in reported.values():
+                    committed &= sum(profile_gb(p) * q for p, q in geometry.items()) <= memory
+                config = load_plugin_config(self.store, node.name, self.config_map_name) or {}
+                replicas: Dict[str, int] = {}
+                for entry in config.get("sharing", {}).get("resources", []):
+                    replicas[entry["rename"]] = (replicas.get(entry["rename"], 0)
+                                                 + int(entry["replicas"]))
+                wanted: Dict[str, int] = {}
+                for p in running:
+                    if p.node == node.name:
+                        for name, qty in p.request.items():
+                            if name.startswith(MPS_RESOURCE_PREFIX) and is_mps_resource(name):
+                                wanted[name] = wanted.get(name, 0) + int(qty)
+                committed &= all(replicas.get(n, 0) >= q for n, q in wanted.items())
+        checks.update(geometries_allowed=allowed, plans_acknowledged=acked,
+                      no_gpu_overcommitted=committed)
+        return checks

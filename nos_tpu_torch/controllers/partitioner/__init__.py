@@ -1,0 +1,5 @@
+"""The partitioner controller: counterpart of
+``nos_tpu/controllers/partitioner`` (the cold path, polled)."""
+from nos_tpu_torch.controllers.partitioner.controller import PartitionerController, could_help
+
+__all__ = ["PartitionerController", "could_help"]

@@ -1,0 +1,202 @@
+"""PartitionerController: pending pods → batch → snapshot → plan → actuate.
+
+Counterpart of ``nos_tpu/controllers/partitioner/controller.py``
+(reference internal/controllers/gpupartitioner/partitioner_controller.go:81-239),
+on the cold path only: ``fetch_pending_pods`` (``:399``),
+``process_pending_pods`` (``:427``: snapshot, plan, actuate) and
+``_record_plan`` (``:1016``), with the batcher's windows (60 s and 10 s
+by default) and the plan-id gate.
+
+The port has no watches: ``step()`` polls. It syncs ``ClusterState``
+from the store (the reference's node and pod state controllers,
+``node_controller.py`` and ``pod_controller.py``, folded into ``sync``,
+which also gives a MIG node with no geometry yet its first one through
+``MigNodeInitializer``; the gate, the mode check and the snapshot all
+read that state), adds every pending pod that re-partitioning
+could help and that asks for this mode's resources to the batch, and
+processes the batch once a window has passed. The gate: no plan while a
+node of this mode has not acknowledged its last one (its
+``status-partitioning-plan``, written by the node's MIG agent or MPS
+reporter, differs from its ``spec-partitioning-plan``);
+a released batch waits for the gate, so the loop never re-carves a GPU
+mid-change. After each plan the pods still pending go back into the
+batch (the reference's level-triggered retry). Spans:
+``partitioner.process``, ``snapshot.take``, ``partitioner.plan`` and
+``plan.trial`` (the planner's), ``partitioner.actuate``. Counters:
+``PLANS_APPLIED`` here, ``PLAN_DURATION`` / ``PLAN_VERDICT_CACHE`` in
+the planner, ``SNAPSHOT_FORKS`` / ``COMMITS`` / ``REVERTS`` in the
+snapshot. Out (ROADMAP.md): pool sharding, the process backend and the
+warm-state codec (``:583-1015``), ``incremental.py``, the divergence
+reconcile (``:228``), ``multihost.py`` and the flight recorder (a
+bounded ``plans`` record stands in for it).
+"""
+from __future__ import annotations
+
+import logging
+import time
+from collections import deque
+from typing import Callable, Deque, Dict, List
+
+from nos_tpu_torch.gpu import annotations as annot
+from nos_tpu_torch.kube.store import NodeStore, Pod, PodPhase
+from nos_tpu_torch.partitioning.core import (
+    Actuator,
+    ClusterState,
+    PartitioningPlan,
+    Planner,
+)
+from nos_tpu_torch.partitioning.core.partition_state import partitioning_state_to_dict
+from nos_tpu_torch.partitioning.core.state import partitioning_kind
+from nos_tpu_torch.util import metrics
+from nos_tpu_torch.util import resources as res
+from nos_tpu_torch.util.batcher import DEFAULT_IDLE_SECONDS, DEFAULT_TIMEOUT_SECONDS, Batcher
+from nos_tpu_torch.util.tracing import TRACER
+
+log = logging.getLogger("nos_tpu_torch.partitioner")
+
+PLAN_RECORDS = 64
+
+
+def could_help(pod: Pod) -> bool:
+    """Re-partitioning could make the pod schedulable: it is pending,
+    unbound and marked Unschedulable (reference pkg/util/pod/pod.go:25-33)."""
+    return pod.phase == PodPhase.PENDING and not pod.node and pod.unschedulable
+
+
+def _default_plan_id() -> str:
+    return str(int(time.time() * 1000))
+
+
+class PartitionerController:
+    def __init__(self, store: NodeStore, cluster_state: ClusterState, snapshot_taker,
+                 planner: Planner, actuator: Actuator, kind: str,
+                 tracked_resource_fn: Callable[[str], bool],
+                 batch_timeout_seconds: float = DEFAULT_TIMEOUT_SECONDS,
+                 batch_idle_seconds: float = DEFAULT_IDLE_SECONDS,
+                 plan_id_fn: Callable[[], str] = _default_plan_id,
+                 initializer=None, clock: Callable[[], float] = time.monotonic) -> None:
+        self.store = store
+        self.cluster_state = cluster_state
+        self.snapshot_taker = snapshot_taker
+        self.planner = planner
+        self.actuator = actuator
+        self.kind = kind
+        self.tracked_resource_fn = tracked_resource_fn
+        self.plan_id_fn = plan_id_fn
+        self.initializer = initializer
+        self.batcher: Batcher[str] = Batcher(batch_timeout_seconds, batch_idle_seconds, clock)
+        self._batched: set = set()
+        self._released = False  # a released batch waiting for the gate
+        self.plans_applied = 0
+        self.plans_processed = 0
+        self.last_applied = 0
+        self.plans: Deque[dict] = deque(maxlen=PLAN_RECORDS)
+
+    # ------------------------------------------------------------ sync
+
+    def sync(self) -> None:
+        """ClusterState := the store (the node and pod state controllers);
+        a MIG node with no geometry gets its first."""
+        nodes = self.store.list("Node")
+        pods = self.store.list("Pod")
+        by_node: Dict[str, List[Pod]] = {}
+        for pod in pods:
+            if pod.node and pod.phase in (PodPhase.PENDING, PodPhase.RUNNING):
+                by_node.setdefault(pod.node, []).append(pod)
+        seen = set()
+        for node in nodes:
+            if (self.initializer is not None and partitioning_kind(node) == self.kind
+                    and not self.initializer.is_initialized(node)
+                    and self.initializer.init_node_partitioning(node)):
+                node = self.store.get("Node", node.name)
+            self.cluster_state.update_node(node, by_node.get(node.name, []))
+            seen.add(node.name)
+        for name in self.cluster_state.node_names():
+            if name not in seen:
+                self.cluster_state.delete_node(name)
+
+    def gate_open(self) -> bool:
+        """Every node of this mode has acknowledged its last plan."""
+        for info in self.cluster_state.read_view().values():
+            if partitioning_kind(info.node) != self.kind:
+                continue
+            spec = info.node.annotations.get(annot.SPEC_PARTITIONING_PLAN)
+            if spec and spec != info.node.annotations.get(annot.STATUS_PARTITIONING_PLAN):
+                return False
+        return True
+
+    # ------------------------------------------------------------ step
+
+    def requests_tracked_resources(self, pod: Pod) -> bool:
+        return any(self.tracked_resource_fn(name) for name in res.compute_pod_request(pod))
+
+    def _enqueue(self) -> None:
+        if not self.cluster_state.is_partitioning_enabled(self.kind):
+            return
+        for pod in self.fetch_pending_pods():
+            key = pod.namespaced_name
+            if key not in self._batched and could_help(pod) \
+                    and self.requests_tracked_resources(pod):
+                self._batched.add(key)
+                self.batcher.add(key)
+
+    def step(self) -> int:
+        """One poll: sync, batch, and process a due batch when the gate is
+        open. The nodes re-partitioned."""
+        self.sync()
+        self._enqueue()
+        if self.batcher.poll() is not None:
+            self._released = True
+            self._batched.clear()
+        if not self._released or not self.gate_open():
+            return 0
+        self._released = False
+        applied = self.process_pending_pods()
+        self._enqueue()  # the pods still pending start the next window
+        return applied
+
+    # ------------------------------------------------------ processing
+
+    def fetch_pending_pods(self) -> List[Pod]:
+        """Every pending unbound pod (reference :202-210)."""
+        return [p for p in self.store.list("Pod") if p.phase == PodPhase.PENDING and not p.node]
+
+    def process_pending_pods(self) -> int:
+        """Snapshot, plan, actuate; the nodes re-partitioned (0: a no-op
+        plan)."""
+        pending = self.fetch_pending_pods()
+        if not pending:
+            return 0
+        with TRACER.span("partitioner.process", kind=self.kind,
+                         pending=len(pending)) as proc:
+            with TRACER.span("snapshot.take"):
+                snapshot = self.snapshot_taker.take_snapshot(self.cluster_state)
+            current = snapshot.partitioning_state()
+            desired = self.planner.plan(snapshot, pending)
+            plan = PartitioningPlan(desired_state=desired, id=self.plan_id_fn())
+            proc.set_attributes(plan_id=plan.id)
+            with TRACER.span("partitioner.actuate", plan_id=plan.id):
+                applied = self.actuator.apply(current, plan)
+            proc.set_attributes(nodes_repartitioned=applied)
+            self._record_plan(pending, plan, applied)
+        self.plans_processed += 1
+        self.last_applied = applied
+        if applied:
+            self.plans_applied += 1
+            metrics.PLANS_APPLIED.inc()
+            log.info("partitioner %s: plan %s applied to %d nodes for %d pending pods",
+                     self.kind, plan.id, applied, len(pending))
+        return applied
+
+    def _record_plan(self, pending: List[Pod], plan: PartitioningPlan, applied: int) -> None:
+        """The plan's record (the reference writes it to its flight
+        recorder): pending pods, plan id, desired state, unserved pods."""
+        self.plans.append({
+            "kind": self.kind,
+            "pending": [p.namespaced_name for p in pending],
+            "pending_ages": dict(self.planner.last_pending_ages),
+            "plan_id": plan.id,
+            "desired": partitioning_state_to_dict(plan.desired_state),
+            "unserved": dict(self.planner.last_unserved),
+            "applied": applied,
+        })

@@ -41,6 +41,20 @@ class MigGpu:
     def geometry(self) -> Geometry:
         return geometry_add(self.used, self.free)
 
+    def has_free_capacity(self) -> bool:
+        """Free instances exist, or memory slices no used instance holds
+        could be carved into some (TpuBoard's chips, counted in memory
+        slices)."""
+        if self.free:
+            return True
+        used = sum(mig_profile(p).memory_slices * n for p, n in self.used.items())
+        return used < KNOWN_GPUS[self.product].memory_slices
+
+    def plan_clone(self) -> "MigGpu":
+        """A planning trial mutates only used / free: copying them (the
+        constructor does) is a whole clone."""
+        return MigGpu(self.index, self.product, used=self.used, free=self.free)
+
     # ---------------------------------------------------------- mutation
 
     def init_geometry(self) -> bool:

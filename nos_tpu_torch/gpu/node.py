@@ -13,11 +13,20 @@ MPS slices ``nvidia.com/gpu-<N>gb``.
 Unlike TpuNode, a plain ``nvidia.com/gpu`` request is not rewritten into
 a slice: a pod asking for whole GPUs does not fit a node's MIG instances
 or MPS slices, and ``add_pod`` refuses it.
+
+For the planner (``partitioning/core``) a node also answers
+``has_free_capacity``, makes a ``plan_clone`` for the snapshot's fork
+journal (the GPUs' used / free copied, nothing else), rewrites a node's
+allocatable to its current geometry for the scheduler's simulation
+(``sim_allocatable``, TpuNode.to_sim_node / SharingNode.to_sim_node) and,
+for MIG, re-derives its used / free split from the pods bound to it
+(``rebuild_usage_from_pods``, TpuNode's).
 """
 from __future__ import annotations
 
+import copy
 import re
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, Iterable, List, Mapping, Optional
 
 from nos_tpu_torch.gpu import annotations as annot
 from nos_tpu_torch.gpu.geometry import Geometry, geometry_add
@@ -100,6 +109,23 @@ class _GpuNode:
             out = geometry_add(out, g.free)
         return out
 
+    def has_free_capacity(self) -> bool:
+        return self.consistent and any(g.has_free_capacity() for g in self.gpus)
+
+    def plan_clone(self):
+        clone = copy.copy(self)
+        clone.gpus = [g.plan_clone() for g in self.gpus]
+        return clone
+
+    def sim_allocatable(self, allocatable: Mapping[str, int]) -> Dict[str, int]:
+        """``allocatable`` with this mode's slices and the whole GPUs
+        replaced by what the current geometry advertises."""
+        out = {k: v for k, v in allocatable.items()
+               if k != RESOURCE_GPU and self._profile(k) is None}
+        for name, qty in self.scalar_resources().items():
+            out[name] = out.get(name, 0) + qty
+        return out
+
     def scalar_resources(self) -> Dict[str, int]:
         """The resources this node's geometry exposes: what the device
         plugin advertises (reference node.go:173-195)."""
@@ -175,6 +201,28 @@ class MigNode(_GpuNode):
     def _gpu(self, index, used, free) -> MigGpu:
         return MigGpu(index, self.product, used=used, free=free)
 
+    def rebuild_usage_from_pods(self, requests: Iterable[Mapping[str, int]]) -> None:
+        """Re-derive the used / free split from the requests of the pods
+        bound here (pending or running), keeping only the reported
+        geometry: the reporter's split lags binds, and planning against a
+        stale "free" could carve away an instance a just-bound pod holds.
+        A profile with no instance left to hold it marks the node
+        inconsistent (mid-change) until the agent reports again."""
+        demand: Geometry = {}
+        for request in requests:
+            for name, qty in request.items():
+                profile = self._profile(name)
+                if profile is not None:
+                    demand[profile] = demand.get(profile, 0) + int(qty)
+        for gpu in self.gpus:
+            gpu.free = geometry_add(gpu.free, gpu.used)
+            gpu.used = {}
+        for profile in sorted(demand):
+            for _ in range(demand[profile]):
+                if not any(gpu.allocate(profile) for gpu in self.gpus):
+                    self.consistent = False
+                    return
+
 
 class MpsNode(_GpuNode):
     """A node whose GPUs are shared through MPS, in memory slices."""
@@ -184,3 +232,10 @@ class MpsNode(_GpuNode):
 
     def _gpu(self, index, used, free) -> SharedGpu:
         return SharedGpu(index, memory_gb_per_gpu(self.product), used=used, free=free)
+
+    def sim_allocatable(self, allocatable: Mapping[str, int]) -> Dict[str, int]:
+        """Slices advertised; a GPU holding any slice is no longer
+        requestable whole."""
+        out = super().sim_allocatable(allocatable)
+        out[RESOURCE_GPU] = sum(1 for g in self.gpus if not g.geometry)
+        return out

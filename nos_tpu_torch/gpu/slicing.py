@@ -57,6 +57,13 @@ class SharedGpu:
     def spare_memory_gb(self) -> int:
         return self.memory_gb - self.committed_memory_gb()
 
+    def has_free_capacity(self) -> bool:
+        return bool(self.free) or self.spare_memory_gb() >= MIN_SLICE_GB
+
+    def plan_clone(self) -> "SharedGpu":
+        """used / free are the only state a planning trial mutates."""
+        return SharedGpu(self.index, self.memory_gb, used=self.used, free=self.free)
+
     # ---------------------------------------------------------- mutation
 
     def _create(self, profile: str, quantity: int = 1) -> int:

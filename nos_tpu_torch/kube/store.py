@@ -2,13 +2,18 @@
 agents and the partitioners call.
 
 The port has no kube object model (``gpu/node.py``): a node is its name,
-labels, capacity, allocatable and annotations; a pod its name,
-namespace, node, phase and request ``{resource: quantity}``; a config map
-its name, namespace and string data. ``NodeStore`` keeps them under one
-lock, with the reference's verbs: ``create``, ``get`` / ``try_get``,
-``delete``, ``list``, ``patch_merge`` (a mutate callable run under the
-lock on a copy, then stored) and ``patch_annotations`` /
-``patch_labels`` (a ``None`` value deletes the key). Objects are copied
+labels, capacity, allocatable and annotations, plus the taints and the
+cordon the scheduler's filters read; a pod its name, namespace, node,
+phase and request ``{resource: quantity}``, plus what the scheduler and
+the planner read of ``nos_tpu/kube/objects.py``'s pod (priority, labels,
+node selector, tolerations, scheduler name) and its PodScheduled=False /
+Unschedulable condition as a flag and a message; a config map its name,
+namespace and string data. All of them stay plain dataclasses.
+``NodeStore`` keeps them under one lock, with the reference's verbs:
+``create``, ``get`` / ``try_get``, ``delete``, ``list``,
+``patch_merge`` (a mutate callable run under the lock on a copy, then
+stored) and ``patch_annotations`` / ``patch_labels`` (a ``None`` value
+deletes the key). Objects are copied
 on the way in and out, so mutating a returned object never mutates the
 store. There are no watches and no resource versions: the agents poll
 (``controllers/migagent``).
@@ -37,6 +42,32 @@ class PodPhase:
 
 
 @dataclass
+class Taint:
+    key: str = ""
+    value: str = ""
+    effect: str = "NoSchedule"  # NoSchedule | NoExecute | PreferNoSchedule
+
+
+@dataclass
+class Toleration:
+    key: str = ""
+    operator: str = "Equal"  # Equal | Exists
+    value: str = ""
+    effect: str = ""  # "" matches every effect
+
+    def tolerates(self, taint: Taint) -> bool:
+        """core/v1 semantics: an empty key with Exists tolerates every
+        taint; an empty effect matches every effect."""
+        if self.effect and self.effect != taint.effect:
+            return False
+        if not self.key:
+            return self.operator == "Exists"
+        if self.key != taint.key:
+            return False
+        return self.operator == "Exists" or self.value == taint.value
+
+
+@dataclass
 class Node:
     name: str
     labels: Dict[str, str] = field(default_factory=dict)
@@ -44,6 +75,8 @@ class Node:
     allocatable: Dict[str, int] = field(default_factory=dict)
     annotations: Dict[str, str] = field(default_factory=dict)
     namespace: str = ""  # nodes are cluster-scoped
+    taints: List[Taint] = field(default_factory=list)
+    unschedulable: bool = False  # cordoned
 
 
 @dataclass
@@ -53,6 +86,19 @@ class Pod:
     node: str = ""
     phase: str = PodPhase.PENDING
     request: Dict[str, int] = field(default_factory=dict)
+    priority: int = 0
+    labels: Dict[str, str] = field(default_factory=dict)
+    node_selector: Dict[str, str] = field(default_factory=dict)
+    tolerations: List[Toleration] = field(default_factory=list)
+    scheduler_name: str = ""
+    # PodScheduled=False with reason Unschedulable, and the scheduler's
+    # message: what the partitioner batches on
+    unschedulable: bool = False
+    unschedulable_message: str = ""
+
+    @property
+    def namespaced_name(self) -> str:
+        return f"{self.namespace}/{self.name}"
 
 
 @dataclass

@@ -1,0 +1,211 @@
+"""Cold-plan timings of the planner on clusters of H100 nodes.
+
+The cold-plan rows of ``bench_planner.py`` (the reference's ``cow``
+engine, ``bench_config``), and only those: one fresh snapshot and
+planner a plan, verdict cache on and off, on clusters of ``--sizes``
+nodes × pending pods (by default 16x50, 64x200 and 256x400), each node
+``--gpus-per-node`` H100s (8 by default). The cluster is busy and
+fragmented: each GPU draws its fill state, seeded, from ``FILLS`` (in
+sixteenths: 1 virgin, 1 each with one free 3g.40gb, 1g.10gb or
+2g.20gb beside used instances, 5 half used with a 3g.40gb and two
+1g.10gb, 7 full with a 7g.80gb; each used instance held by a running
+pod). Pending pods ask for one of 1g.10gb, 2g.20gb, 3g.40gb, 4g.40gb and
+7g.80gb, seeded. Demand deliberately exceeds the free supply, as in the
+reference's bench, so the carve loop runs to exhaustion and pods are
+left unserved; and the free slices are spread over profiles, so a pod
+is tried on many nodes whose free slices do not fit it, the trials the
+verdict cache answers. A row gives p50 / p95 plan milliseconds over ``--repeats``
+timed plans (after one untimed), forks a second, the cache's hits and
+hit rate, the pods placed and unserved, and whether the cache-on plan
+equals the cache-off one (partitioning state, the node each pending pod
+was placed on, and the unserved pods). The
+header gives the host's CPU count, and the card's name and power limit
+when NVML finds one (the planner is host code: the card is named so a
+row can be matched to its machine).
+
+    python -m nos_tpu_torch.partitioning.bench_planner --quick
+    python -m nos_tpu_torch.partitioning.bench_planner --sizes 64x200 --repeats 3
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import statistics
+import sys
+import time
+from typing import Dict, List, Optional, Tuple
+
+from nos_tpu_torch.gpu import annotations as annot
+from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, H100_80GB
+from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, RESOURCE_GPU, MigNode
+from nos_tpu_torch.gpu.node import mig_resource
+from nos_tpu_torch.kube.store import Node, Pod, PodPhase
+from nos_tpu_torch.partitioning.core import ClusterSnapshot, MigSliceCodec, Planner, SnapshotNode
+from nos_tpu_torch.partitioning.core.partition_state import node_key
+from nos_tpu_torch.scheduler import new_framework
+from nos_tpu_torch.util import metrics
+
+DEFAULT_SIZES = "16x50,64x200,256x400"
+SEED = 0
+REQUEST_MIX = ("1g.10gb", "2g.20gb", "3g.40gb", "4g.40gb", "7g.80gb")
+# a GPU's fill, (free, used), each listed as often as its share in sixteenths
+FILLS = ((({}, {}),)
+         + (({"3g.40gb": 1}, {"4g.40gb": 1}),)
+         + (({"1g.10gb": 1}, {"2g.20gb": 1, "4g.40gb": 1}),)
+         + (({"2g.20gb": 1}, {"1g.10gb": 1, "4g.40gb": 1}),)
+         + (({}, {"3g.40gb": 1, "1g.10gb": 2}),) * 5
+         + (({}, {"7g.80gb": 1}),) * 7)
+
+
+def node_name(i: int) -> str:
+    return f"h100-{i:04d}"
+
+
+def build_cluster(n_nodes: int, gpus_per_node: int, seed: int) -> ClusterSnapshot:
+    """A snapshot of ``n_nodes`` MIG nodes in mixed fill states, each used
+    instance held by a running pod."""
+    rng = random.Random(seed)
+    nodes: Dict[str, SnapshotNode] = {}
+    for i in range(n_nodes):
+        name = node_name(i)
+        free: Dict[int, Dict[str, int]] = {}
+        used: Dict[int, Dict[str, int]] = {}
+        for gpu in range(gpus_per_node):
+            gpu_free, gpu_used = FILLS[rng.randrange(len(FILLS))]
+            if gpu_free:
+                free[gpu] = dict(gpu_free)
+            if gpu_used:
+                used[gpu] = dict(gpu_used)
+        resources = {RESOURCE_GPU: gpus_per_node, "cpu": 112, "memory": 2048}
+        node = Node(name, labels={GPU_PRODUCT_LABEL: H100_80GB,
+                                  PARTITIONING_LABEL: PARTITIONING_MIG},
+                    capacity=dict(resources), allocatable=dict(resources),
+                    annotations=annot.status_from_devices(free, used))
+        pods = [Pod(f"{name}-run-{gpu}-{profile}-{k}", "bench", node=name,
+                    phase=PodPhase.RUNNING, request={mig_resource(profile): 1})
+                for gpu, geometry in sorted(used.items())
+                for profile, qty in sorted(geometry.items()) for k in range(qty)]
+        mig = MigNode(name, node.labels, node.capacity, node.annotations)
+        nodes[name] = SnapshotNode(partitionable=mig, node=node, pods=pods)
+    return ClusterSnapshot(nodes, codec=MigSliceCodec())
+
+
+def make_pending(n_pods: int, seed: int) -> List[Pod]:
+    rng = random.Random(seed + 1)
+    return [Pod(f"pend-{i:04d}", "bench", request={mig_resource(rng.choice(REQUEST_MIX)): 1})
+            for i in range(n_pods)]
+
+
+def plan_digest(snapshot: ClusterSnapshot, state, unserved) -> tuple:
+    """What two plans must agree on: each node's geometry, the node each
+    pending pod was placed on in the simulation, and the unserved pods
+    with their reasons."""
+    placed = tuple(sorted((pod.name, name) for name, node in snapshot.get_nodes().items()
+                          for pod in node.pods if pod.phase == PodPhase.PENDING))
+    return (tuple(sorted((name, node_key(np)) for name, np in state.items())), placed,
+            tuple(sorted(unserved.items())))
+
+
+def bench_config(n_nodes: int, n_pods: int, gpus_per_node: int, repeats: int,
+                 cache_on: bool, seed: int = SEED) -> Tuple[dict, tuple]:
+    """One row, and the digest of its plans (every repeat plans the same
+    inputs, so one digest must hold for all of them)."""
+    latencies: List[float] = []
+    forks = hits = misses = 0
+    digests = set()
+    placed = unserved = 0
+    for rep in range(repeats + 1):  # rep 0 is an untimed warm-up
+        snapshot = build_cluster(n_nodes, gpus_per_node, seed)
+        planner = Planner(new_framework(), verdict_cache_enabled=cache_on)
+        pods = make_pending(n_pods, seed)
+        forks_before = metrics.SNAPSHOT_FORKS.value
+        started = time.perf_counter()
+        state = planner.plan(snapshot, pods, pending_ages={})
+        elapsed = time.perf_counter() - started
+        digests.add(plan_digest(snapshot, state, planner.last_unserved))
+        if rep > 0:
+            latencies.append(elapsed)
+            forks += int(metrics.SNAPSHOT_FORKS.value - forks_before)
+            h, m, _ = planner.verdict_cache_stats()
+            hits, misses = hits + h, misses + m
+        unserved = len(planner.last_unserved)
+        placed = n_pods - unserved
+    total = sum(latencies)
+    quantiles = statistics.quantiles(latencies, n=20) if len(latencies) > 1 else latencies * 2
+    row = {"bench": "bench_planner", "engine": "cow",
+           "verdict_cache": "on" if cache_on else "off", "nodes": n_nodes,
+           "gpus_per_node": gpus_per_node, "gpus": n_nodes * gpus_per_node,
+           "pending_pods": n_pods, "repeats": repeats,
+           "p50_plan_ms": statistics.median(latencies) * 1e3,
+           "p95_plan_ms": quantiles[-1] * 1e3,
+           "forks_per_sec": forks / total if total else None, "forks_total": forks,
+           "pods_placed": placed, "pods_unserved": unserved,
+           "deterministic": len(digests) == 1}
+    if cache_on:
+        eligible = hits + misses
+        row.update(cache_hits=hits, cache_misses=misses,
+                   cache_hit_rate=hits / eligible if eligible else None)
+    return row, digests.pop()
+
+
+def card() -> Optional[dict]:
+    """The card's name and power limit from NVML, or None without one."""
+    try:
+        from nos_tpu_torch.device.nvml import Nvml, NvmlError, NvmlUnavailableError
+    except ImportError:
+        return None
+    try:
+        with Nvml() as nv:
+            if nv.device_count() == 0:
+                return None
+            return {"name": nv.name(0), "power_limit_w": nv.power_limit_w(0)}
+    except (NvmlUnavailableError, NvmlError):
+        return None
+
+
+def parse_sizes(text: str) -> List[Tuple[int, int]]:
+    out = []
+    for part in text.split(","):
+        nodes, pods = part.lower().split("x")
+        out.append((int(nodes), int(pods)))
+    return out
+
+
+def run(sizes: List[Tuple[int, int]], gpus_per_node: int, repeats: int) -> List[dict]:
+    """Cache-on and cache-off rows for every size; each cache-on row says
+    whether its plan equals the cache-off one."""
+    rows = []
+    for n_nodes, n_pods in sizes:
+        on, on_digest = bench_config(n_nodes, n_pods, gpus_per_node, repeats, True)
+        off, off_digest = bench_config(n_nodes, n_pods, gpus_per_node, repeats, False)
+        on["plan_equals_cache_off"] = on_digest == off_digest
+        rows += [on, off]
+    return rows
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--sizes", default=DEFAULT_SIZES, help="nodes x pending pods, ...")
+    parser.add_argument("--gpus-per-node", type=int, default=8)
+    parser.add_argument("--repeats", type=int, default=5)
+    parser.add_argument("--quick", action="store_true", help="16x50 only, 2 repeats")
+    parser.add_argument("--output", default="", help="also append JSON lines to this file")
+    args = parser.parse_args(argv)
+    sizes = [(16, 50)] if args.quick else parse_sizes(args.sizes)
+    repeats = 2 if args.quick else args.repeats
+    header = {"bench": "bench_planner", "host_cpus": os.cpu_count(), "card": card(),
+              "gpus_per_node": args.gpus_per_node}
+    rows = run(sizes, args.gpus_per_node, repeats)
+    lines = [json.dumps(header)] + [json.dumps(row) for row in rows]
+    print("\n".join(lines))
+    if args.output:
+        with open(args.output, "a") as f:
+            f.write("\n".join(lines) + "\n")
+    ok = all(r.get("plan_equals_cache_off", True) and r["deterministic"] for r in rows)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

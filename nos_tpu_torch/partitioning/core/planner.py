@@ -1,0 +1,381 @@
+"""Planner: simulate before actuating.
+
+Counterpart of ``nos_tpu/partitioning/core/planner.py`` (reference
+internal/partitioning/core/planner.go:67-153): ``sort_candidate_pods``
+(``:104``) and ``Planner`` (``:169``) with ``plan`` (``:342``), ``_plan``
+(``:504``), ``_plan_pass`` (``:658``), ``_try_add_pod`` and its lacking
+shortcut (``:942``), ``_can_schedule`` through the verdict cache
+(``:952``), ``_run_simulation`` (``:1006``), ``_simulation_pod``
+(``:1052``) and ``last_unserved``.
+
+A pass has three parts, as in the reference's cold plan. An *aged
+rescue*: a pending pod the fairness aging has promoted gets a carve
+aimed at exactly its profile before anyone claims free slices (one
+rescue a plan, at most three tries). A *claim pre-pass*: pods the
+existing free slices already serve are placed first, so no carve can
+destroy a slice a pending pod is entitled to. Then the *carve loop*: for
+each candidate node (best fit first), fork the snapshot, re-carve the
+node toward what the pending pods still lack, simulation-schedule each
+of them on it with the real scheduler framework (PreFilter + Filter),
+and commit the fork when a pod landed, else revert. The lacking
+shortcut skips the framework while the cluster cannot serve the pod at
+all. Every exit leaves ``last_unserved``: each pending pod still
+unserved, with the slices it lacks.
+
+The simulation goes through the verdict cache (``verdict_cache.py``),
+with the same exactness as the reference's; the lacking shortcut is
+memoized on (request, ``state_version``) and the simulated node views on
+(node, version). Out, each listed in ROADMAP.md for a later slice: the
+gang pre-pass, warm state, the incremental and fallback plan modes, and
+the carve-futility memo (the reference's tests hold that it never
+changes a plan; so do this port's, against the reference with it on
+and off). A pod's first sighting is keyed by its namespaced name (the
+port's pod has no uid).
+"""
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+from nos_tpu_torch.kube.store import Pod
+from nos_tpu_torch.partitioning.core.codec import effective_size, is_slice_resource
+from nos_tpu_torch.partitioning.core.partition_state import PartitioningState
+from nos_tpu_torch.partitioning.core.snapshot import ClusterSnapshot, SnapshotNode
+from nos_tpu_torch.partitioning.core.tracker import SliceTracker
+from nos_tpu_torch.partitioning.core.verdict_cache import VerdictCache, pod_signature
+from nos_tpu_torch.scheduler.framework import (
+    CycleState,
+    Framework,
+    NodeInfo,
+    is_verdict_cacheable,
+)
+from nos_tpu_torch.util import metrics
+from nos_tpu_torch.util import resources as res
+from nos_tpu_torch.util.tracing import TRACER
+
+log = logging.getLogger("nos_tpu_torch.partitioning")
+
+# effective size of boost at which an aged pod gets the dedicated rescue
+AGED_RESCUE_SIZE = 2.5
+PENDING_TTL_S = 600.0
+AGING_PER_SECOND = 1.0  # effective size a second passed over
+
+
+def sort_candidate_pods(pods: Iterable[Pod], aging_per_second: float = AGING_PER_SECOND,
+                        pending_since: Optional[Dict[str, float]] = None,
+                        now: Optional[float] = None) -> List[Pod]:
+    """Priority first, then the LARGEST effective slice, then age, then
+    namespace / name.
+
+    Largest first, as in the reference (the Go reference sorts smallest
+    first, core/util.go:34-71): whole-GPU requests place while whole GPUs
+    are still free, small slices fill the rest. Time a pod has been passed
+    over (``pending_since``: the instant the planner first saw it, on the
+    clock ``now`` is read from, ``time.monotonic`` by default) ages its
+    effective size up at ``aging_per_second``, so a small pod left behind
+    round after round sorts with, then ahead of, the large arrivals; a
+    first sighting is age 0, and aging never crosses a priority. The
+    effective size is computed once per pod (decorate-sort-undecorate)."""
+    now = time.monotonic() if now is None else now
+    pending_since = pending_since or {}
+    keyed: List[Tuple[tuple, Pod]] = []
+    for pod in pods:
+        sizes = [effective_size(name) for name in res.compute_pod_request(pod)]
+        age = max(0.0, now - pending_since.get(pod.namespaced_name, now))
+        effective = max(sizes, default=0) + age * aging_per_second
+        keyed.append(((-pod.priority, -effective, pod.namespace, pod.name), pod))
+    keyed.sort(key=lambda kv: kv[0])
+    return [pod for _, pod in keyed]
+
+
+def lacking_reason(lacking: dict) -> str:
+    """A lacking profile, read by people: the unserved reason."""
+    profile = ", ".join(f"{int(qty)}x {name}" for name, qty in sorted(lacking.items()))
+    return f"no node can be re-carved to yield lacking slices ({profile})"
+
+
+class Planner:
+    def __init__(self, framework: Framework, verdict_cache_enabled: bool = True,
+                 clock: Optional[Callable[[], float]] = None) -> None:
+        self.framework = framework
+        # the clock pods age on (first sightings, the aged rescue); a
+        # caller that runs on virtual time passes its own
+        self.clock = clock
+        # off runs the uncached simulation: the bench's and the tests' oracle
+        self.verdict_cache_enabled = verdict_cache_enabled
+        # namespaced name → reason, for every pending pod the last plan
+        # could not serve
+        self.last_unserved: Dict[str, str] = {}
+        self.last_pending_ages: Dict[str, float] = {}
+        # namespaced name → (first seen, last seen) on the clock; pruned after
+        # PENDING_TTL_S unseen
+        self._pending_seen: Dict[str, Tuple[float, float]] = {}
+        self._cache_snapshot: Optional[ClusterSnapshot] = None
+        self._reset_plan_caches(None)
+
+    # ------------------------------------------------------ plan caches
+
+    def _reset_plan_caches(self, snapshot: Optional[ClusterSnapshot]) -> None:
+        self._cache_snapshot = snapshot
+        self._verdict_cache = VerdictCache()
+        # id(pod) → (pod, signature); the pod reference pins the id
+        self._signature_cache: Dict[int, tuple] = {}
+        # (node name, version) → simulated NodeInfo
+        self._node_info_cache: Dict[Tuple[str, int], NodeInfo] = {}
+        # (request items, state_version) → still lacking
+        self._lacking_cache: Dict[Tuple[tuple, int], bool] = {}
+        # id(pod) → (pod, sorted request items)
+        self._request_cache: Dict[int, tuple] = {}
+        # state_version → candidate order
+        self._candidate_cache: Optional[Tuple[int, List[str]]] = None
+        fw = self.framework
+        self._cacheable_pre = [p for p in fw.pre_filter_plugins if is_verdict_cacheable(p)]
+        self._uncacheable_pre = [p for p in fw.pre_filter_plugins
+                                 if not is_verdict_cacheable(p)]
+        self._cacheable_filters = [p for p in fw.filter_plugins if is_verdict_cacheable(p)]
+        self._uncacheable_filters = [p for p in fw.filter_plugins
+                                     if not is_verdict_cacheable(p)]
+
+    def _ensure_plan_caches(self, snapshot: ClusterSnapshot) -> None:
+        # identity: the memo keys hold this snapshot's clock values
+        if snapshot is not self._cache_snapshot:
+            self._reset_plan_caches(snapshot)
+
+    def verdict_cache_stats(self) -> Tuple[int, int, int]:
+        """(hits, misses, bypasses) of the last plan()."""
+        return self._verdict_cache.stats()
+
+    # ----------------------------------------------------------- entry
+
+    def plan(self, snapshot: ClusterSnapshot, pending_pods: List[Pod],
+             pending_ages: Optional[Dict[str, float]] = None) -> PartitioningState:
+        """The desired partitioning for ``pending_pods``; the snapshot is
+        left carrying the plan's carves and simulated placements.
+        ``pending_ages`` (namespaced name → seconds pending) overrides the
+        planner's own first-seen bookkeeping."""
+        started = time.monotonic()
+        with TRACER.span("partitioner.plan", pending_pods=len(pending_pods),
+                         nodes=snapshot.node_count()) as span:
+            self._reset_plan_caches(snapshot)
+            try:
+                return self._plan(snapshot, pending_pods, span, pending_ages)
+            finally:
+                metrics.PLAN_DURATION.observe(time.monotonic() - started)
+                hits, misses, bypasses = self._verdict_cache.stats()
+                for event, n in (("hit", hits), ("miss", misses), ("bypass", bypasses)):
+                    if n:
+                        metrics.PLAN_VERDICT_CACHE.labels(event=event).inc(n)
+                span.set_attributes(verdict_cache_hits=hits, verdict_cache_misses=misses,
+                                    verdict_cache_bypasses=bypasses)
+
+    def _trial_cache_delta(self, before: Tuple[int, int, int]) -> dict:
+        hits, misses, bypasses = self._verdict_cache.stats()
+        return {"cache_hits": hits - before[0], "cache_misses": misses - before[1],
+                "cache_bypasses": bypasses - before[2]}
+
+    def _plan(self, snapshot: ClusterSnapshot, pending_pods: List[Pod], span,
+              pending_ages: Optional[Dict[str, float]]) -> PartitioningState:
+        self.last_unserved = {}
+        now = time.monotonic() if self.clock is None else self.clock()
+        if pending_ages is not None:
+            pending_since = {p.namespaced_name: now - pending_ages.get(p.namespaced_name, 0.0)
+                             for p in pending_pods}
+        else:
+            live = {p.namespaced_name for p in pending_pods}
+            for key in live:
+                first, _ = self._pending_seen.get(key, (now, now))
+                self._pending_seen[key] = (first, now)
+            self._pending_seen = {k: v for k, v in self._pending_seen.items()
+                                  if now - v[1] <= PENDING_TTL_S}
+            pending_since = {k: v[0] for k, v in self._pending_seen.items() if k in live}
+        self.last_pending_ages = {k: now - v for k, v in pending_since.items()}
+        # the tracker's pool draw order is the claim pre-pass's order
+        candidates = sort_candidate_pods(pending_pods, pending_since=pending_since, now=now)
+        aged = {p.namespaced_name for p in candidates
+                if (now - pending_since.get(p.namespaced_name, now)) * AGING_PER_SECOND
+                >= AGED_RESCUE_SIZE}
+        tracker = SliceTracker(snapshot, candidates)
+        if tracker.empty:
+            # the geometry already serves every pending pod (planner.go:80-83)
+            return snapshot.partitioning_state()
+        self._plan_pass(snapshot, tracker, candidates, aged)
+        self.last_unserved = {p.namespaced_name: lacking_reason(tracker.lacking_for(p))
+                              for p in candidates if p in tracker}
+        span.set_attributes(totals_calls=tracker.totals_calls,
+                            totals_recomputes=tracker.totals_recomputes)
+        return snapshot.partitioning_state()
+
+    def _plan_pass(self, snapshot: ClusterSnapshot, tracker: SliceTracker,
+                   candidates: List[Pod], aged: set) -> List[Pod]:
+        self._ensure_plan_caches(snapshot)
+        placed: List[Pod] = []
+        # Aged rescue, before anyone claims free slices: one rescue a plan
+        # (each fragments a free region), failed tries capped at three.
+        rescued = attempts = 0
+        for pod in candidates:
+            if not aged or rescued >= 1 or attempts >= 3:
+                break
+            if pod.namespaced_name not in aged or pod not in tracker:
+                continue
+            attempts += 1
+            for node_name in self._candidate_nodes(snapshot):
+                lacking = tracker.lacking_for(pod)
+                stats_before = self._verdict_cache.stats()
+                with TRACER.span("plan.trial", node=node_name, rescue=True) as trial:
+                    snapshot.fork()
+                    if not snapshot.update_geometry_for(node_name, lacking):
+                        trial.set_attributes(committed=False, nodes_copied=snapshot.revert(),
+                                             **self._trial_cache_delta(stats_before))
+                        continue
+                    if self._try_add_pod(snapshot, node_name, pod):
+                        tracker.remove(pod)
+                        placed.append(pod)
+                        rescued += 1
+                        trial.set_attributes(committed=True, nodes_copied=snapshot.commit(),
+                                             **self._trial_cache_delta(stats_before))
+                        log.info("planner: node %s re-carved (aged rescue) for %s",
+                                 node_name, pod.namespaced_name)
+                        break
+                    trial.set_attributes(committed=False, nodes_copied=snapshot.revert(),
+                                         **self._trial_cache_delta(stats_before))
+
+        # Claim pre-pass: pods the free slices already serve are placed
+        # first, so the carve loop sees their slices as used.
+        for pod in candidates:
+            if pod in tracker:
+                continue
+            claims_slices = self._claims_free_slices(pod)
+            for node_name in self._candidate_nodes(snapshot):
+                # a node with no free slice cannot serve a slice-consuming
+                # pod: add_pod's own no-fit precondition
+                if claims_slices and not snapshot.node_has_free_slices(node_name):
+                    continue
+                if self._try_add_pod(snapshot, node_name, pod):
+                    placed.append(pod)
+                    break
+
+        # The carve loop.
+        for node_name in self._candidate_nodes(snapshot):
+            if tracker.empty:
+                break
+            lacking = tracker.lacking_totals()
+            stats_before = self._verdict_cache.stats()
+            with TRACER.span("plan.trial", node=node_name) as trial:
+                snapshot.fork()
+                if not snapshot.update_geometry_for(node_name, lacking):
+                    trial.set_attributes(committed=False, nodes_copied=snapshot.revert(),
+                                         **self._trial_cache_delta(stats_before))
+                    continue
+                placed_here = 0
+                for pod in candidates:
+                    if pod in tracker and self._try_add_pod(snapshot, node_name, pod):
+                        tracker.remove(pod)
+                        placed.append(pod)
+                        placed_here += 1
+                if placed_here:
+                    trial.set_attributes(committed=True, pods_placed=placed_here,
+                                         nodes_copied=snapshot.commit(),
+                                         **self._trial_cache_delta(stats_before))
+                    log.info("planner: node %s re-carved for pending pods", node_name)
+                else:
+                    trial.set_attributes(committed=False, nodes_copied=snapshot.revert(),
+                                         **self._trial_cache_delta(stats_before))
+        return placed
+
+    # ------------------------------------------------------------------
+
+    def _candidate_nodes(self, snapshot: ClusterSnapshot) -> List[str]:
+        """get_candidate_nodes, memoized on state_version."""
+        cached = self._candidate_cache
+        if cached is not None and cached[0] == snapshot.state_version:
+            return cached[1]
+        names = snapshot.get_candidate_nodes()
+        self._candidate_cache = (snapshot.state_version, names)
+        return names
+
+    def _request_signature(self, pod: Pod) -> tuple:
+        entry = self._request_cache.get(id(pod))
+        if entry is None or entry[0] is not pod:
+            entry = (pod, tuple(sorted(res.compute_pod_request(pod).items())))
+            self._request_cache[id(pod)] = entry
+        return entry[1]
+
+    def _claims_free_slices(self, pod: Pod) -> bool:
+        """Whether binding the pod must take a free slice (it names a MIG
+        or MPS slice); such a pod cannot fit a node without one."""
+        return any(qty and is_slice_resource(name)
+                   for name, qty in self._request_signature(pod))
+
+    def _has_lacking(self, snapshot: ClusterSnapshot, pod: Pod) -> bool:
+        """bool(get_lacking_slices), memoized on (request, state_version)."""
+        key = (self._request_signature(pod), snapshot.state_version)
+        lacking = self._lacking_cache.get(key)
+        if lacking is None:
+            lacking = bool(snapshot.get_lacking_slices(pod))
+            self._lacking_cache[key] = lacking
+        return lacking
+
+    def _try_add_pod(self, snapshot: ClusterSnapshot, node_name: str, pod: Pod) -> bool:
+        self._ensure_plan_caches(snapshot)
+        # the cluster still lacks slices for the pod: no simulation
+        # (planner.go:155-175)
+        if self._has_lacking(snapshot, pod):
+            return False
+        if not self._can_schedule(snapshot, node_name, pod):
+            return False
+        return snapshot.add_pod(node_name, pod)
+
+    def _can_schedule(self, snapshot: ClusterSnapshot, node_name: str, pod: Pod) -> bool:
+        """The real scheduler plugins against the node's simulated view
+        (planner.go:178-207), through the verdict cache."""
+        self._ensure_plan_caches(snapshot)
+        # read through get_nodes(): nothing here may journal the node
+        node = snapshot.get_nodes()[node_name]
+        if not self.verdict_cache_enabled:
+            return self._run_simulation(node, pod)
+        key = (self._simulation_signature(pod), node_name, node.version)
+        verdict = self._verdict_cache.get(key)
+        if verdict is None:
+            verdict = self._run_simulation(node, pod, pre=self._cacheable_pre,
+                                           filters=self._cacheable_filters)
+            self._verdict_cache.put(key, verdict)
+        if not verdict:
+            return False
+        if not self._uncacheable_pre and not self._uncacheable_filters:
+            return True
+        # plugins that never opted in run on every trial; their verdict
+        # ANDs with the cached one
+        return self._run_simulation(node, pod, pre=self._uncacheable_pre,
+                                    filters=self._uncacheable_filters)
+
+    def _run_simulation(self, node: SnapshotNode, pod: Pod, pre=None, filters=None) -> bool:
+        """One PreFilter + Filter run (the whole chains, or the subsets
+        given) against the node's simulated view."""
+        state = CycleState()
+        status = self.framework.run_pre_filter_plugins(state, pod, plugins=pre)
+        if not status.success:
+            return False
+        status = self.framework.run_filter_plugins(state, pod, self._node_info(node),
+                                                   plugins=filters)
+        return status.success
+
+    def _node_info(self, node: SnapshotNode) -> NodeInfo:
+        """node.sim_node_info(), memoized on (name, version); the filters
+        treat it as read-only."""
+        key = (node.name, node.version)
+        info = self._node_info_cache.get(key)
+        if info is None:
+            info = node.sim_node_info()
+            self._node_info_cache[key] = info
+        return info
+
+    def _simulation_signature(self, pod: Pod) -> tuple:
+        """The pod's verdict-cache signature, once per pod and plan. The
+        simulation pod is the pod itself: no request is normalized to a
+        node's generation here."""
+        entry = self._signature_cache.get(id(pod))
+        if entry is None or entry[0] is not pod:
+            entry = (pod, pod_signature(pod))
+            self._signature_cache[id(pod)] = entry
+        return entry[1]

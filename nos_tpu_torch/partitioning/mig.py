@@ -9,15 +9,25 @@ the node's ``spec-gpu-*`` annotations with the geometries (GPU index →
 from there. ``MigNodeInitializer`` gives a node that reports no geometry
 yet the fewest-slices one (``MigGpu.init_geometry``: each GPU a whole
 7g.80gb), so its instances become visible at once.
+
+``MigSnapshotTaker`` is the counterpart of
+``nos_tpu/partitioning/tpu/snapshot_taker.py`` (reference
+internal/partitioning/mig/snapshot_taker.go:31-53): nodes labelled
+``nos.nebuly.com/gpu-partitioning=mig`` become ``MigNode``s whose used /
+free split is re-derived from the pods bound to them, frozen while
+their agent has not acknowledged the spec plan (``plan_in_flight``).
 """
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 from nos_tpu_torch.gpu import annotations as annot
-from nos_tpu_torch.gpu.node import MigNode
-from nos_tpu_torch.kube.store import Node, NodeStore
+from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, MigNode
+from nos_tpu_torch.kube.store import Node, NodeStore, Pod
+from nos_tpu_torch.partitioning.core.codec import MigSliceCodec
+from nos_tpu_torch.partitioning.core.snapshot import ClusterSnapshot, SnapshotNode
+from nos_tpu_torch.partitioning.core.state import ClusterState
 
 log = logging.getLogger("nos_tpu_torch.partitioning.mig")
 
@@ -69,3 +79,39 @@ class MigNodeInitializer:
         self.partitioner.apply_partitioning(node.name, self.plan_id_fn(), gpu_node.geometry())
         log.info("initialized MIG node %s", node.name)
         return True
+
+
+def plan_in_flight(node: Node) -> bool:
+    """True while the node's agent has not acknowledged its spec plan: its
+    geometry is mid-change and must not be carved again."""
+    spec_plan = node.annotations.get(annot.SPEC_PARTITIONING_PLAN)
+    return bool(spec_plan) and spec_plan != node.annotations.get(
+        annot.STATUS_PARTITIONING_PLAN)
+
+
+def cluster_view(state: ClusterState) -> Dict[str, Tuple[Node, List[Pod]]]:
+    """node name → (node, the pods bound there, pending or running), from
+    the controller's state as its last ``sync`` left it."""
+    return {name: (info.node, list(info.pods)) for name, info in state.read_view().items()}
+
+
+class MigSnapshotTaker:
+    def take_snapshot_node(self, node: Node, pods: List[Pod]) -> Optional[SnapshotNode]:
+        """The node's snapshot entry, or None when it is not a MIG node."""
+        if node.labels.get(PARTITIONING_LABEL) != PARTITIONING_MIG:
+            return None
+        mig = mig_node(node)
+        if not mig.gpus:
+            return None
+        # plan against the live bindings, not the reporter's split
+        mig.rebuild_usage_from_pods(p.request for p in pods)
+        return SnapshotNode(partitionable=mig, pods=list(pods), node=node,
+                            frozen=plan_in_flight(node))
+
+    def take_snapshot(self, state: ClusterState) -> ClusterSnapshot:
+        nodes: Dict[str, SnapshotNode] = {}
+        for name, (node, pods) in cluster_view(state).items():
+            snap_node = self.take_snapshot_node(node, pods)
+            if snap_node is not None:
+                nodes[name] = snap_node
+        return ClusterSnapshot(nodes, codec=MigSliceCodec())

@@ -6,8 +6,8 @@ The router (``slo/routing.py``) writes each model's backlog
 (``queue_depth``) and last arrival, stamped with the arrival's own time,
 so a run on the virtual serving clock stays bit-stable. The reference's
 burn-rate and error-budget fields, its ``now_fn`` clock and the
-autoscaler that reads them are control plane and stay unported
-(ROADMAP.md).
+autoscaler that reads them are control plane, not ported yet
+(ROADMAP.md, Queue 1 item 17).
 """
 from __future__ import annotations
 

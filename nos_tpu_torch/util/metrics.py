@@ -3,8 +3,9 @@
 Keeps what the serving engine and its telemetry use from
 ``nos_tpu/util/metrics.py``: counters, gauges and histograms as label
 families (``counter.labels(model="m")`` returns a child series), a
-get-or-create registry with text exposition, the ``SERVE_*`` families
-and the MIG agent's instance counters. The reference's cardinality governor, child deletion,
+get-or-create registry with text exposition, the ``SERVE_*`` families,
+the MIG agent's instance counters and the planner's plan, verdict-cache
+and snapshot counters. The reference's cardinality governor, child deletion,
 percentile windows and incremental snapshot cursors serve its control
 plane and are left out.
 """
@@ -279,4 +280,28 @@ MIG_INSTANCES_CREATED = REGISTRY.counter(
 )
 MIG_INSTANCES_DELETED = REGISTRY.counter(
     "nos_tpu_mig_instances_deleted_total", "MIG instances destroyed by node agents (by profile)"
+)
+
+# The partitioner's planner (partitioning/core, controllers/partitioner).
+PLAN_DURATION = REGISTRY.histogram(
+    "nos_tpu_plan_duration_seconds",
+    "Planner.plan() wall time per invocation",
+    buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0),
+)
+PLANS_APPLIED = REGISTRY.counter(
+    "nos_tpu_partitioning_plans_applied_total", "Partitioning plans actuated"
+)
+PLAN_VERDICT_CACHE = REGISTRY.counter(
+    "nos_tpu_plan_verdict_cache_total",
+    "Planner verdict-cache lookups by outcome (event=hit|miss|bypass), flushed once "
+    "per plan()",
+)
+SNAPSHOT_FORKS = REGISTRY.counter(
+    "nos_tpu_snapshot_forks_total", "Snapshot forks started by the planner"
+)
+SNAPSHOT_COMMITS = REGISTRY.counter(
+    "nos_tpu_snapshot_commits_total", "Snapshot forks committed (trial kept)"
+)
+SNAPSHOT_REVERTS = REGISTRY.counter(
+    "nos_tpu_snapshot_reverts_total", "Snapshot forks reverted (trial discarded)"
 )

@@ -6,8 +6,9 @@ attributes, implicit parenting through ``contextvars``, keyed *journeys*
 (a root span registered under a key that later stages parent onto), a
 bounded ring of finished traces, links (a span registered under a key
 for an out-of-context continuation to parent onto: a partitioner's apply
-and the node agent's re-carve) and the shared no-op span returned while
-tracing is disabled. The reference's retention policies, Chrome export
+and the node agent's re-carve), late spans (one that ends after its
+trace was stored joins the stored trace) and the shared no-op span
+returned while tracing is disabled. The reference's retention policies, Chrome export
 and profiler phase registry are left out.
 """
 from __future__ import annotations
@@ -95,6 +96,10 @@ class TraceStore:
             while len(self._traces) > self.capacity:
                 self._traces.popitem(last=False)
 
+    def get(self, trace_id: str) -> Optional[Trace]:
+        with self._lock:
+            return self._traces.get(trace_id)
+
     def list(self) -> List[Trace]:
         """Newest first."""
         with self._lock:
@@ -147,7 +152,12 @@ class Tracer:
         with self._lock:
             spans = self._active.get(span.trace_id)
             if spans is None:
-                return  # its trace already finished
+                # a late span (a node agent's re-carve after the plan's
+                # trace ended) joins the stored trace while it is kept
+                stored = self.store.get(span.trace_id)
+                if stored is not None and len(stored.spans) < self.MAX_SPANS_PER_TRACE:
+                    stored.spans.append(span)
+                return
             if len(spans) < self.MAX_SPANS_PER_TRACE:
                 spans.append(span)
             if span.parent_id is None:

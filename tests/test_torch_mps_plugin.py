@@ -12,7 +12,10 @@ label ``google.com/tpu-device-plugin.config`` against
 ``devices`` and ``google.com/tpu`` against ``nvidia.com/gpu``. Exact
 after translation: the config map's keys and entries, the label, the
 allocatable, the slices each GPU reports free or used (in order) and the
-status annotations, also over seeded random plans and pods.
+status annotations, also over seeded random plans and pods. The port's
+node also carries its own plan stamp and the reporter's acknowledgement
+of it (``spec-`` / ``status-partitioning-plan``), which the reference's
+sharing path does not write.
 """
 import json
 import random
@@ -234,8 +237,12 @@ def test_slices_track_pod_usage_and_the_reporter_writes_them():
         Request(name="shared-0"))
     MpsReporter(pair.store, SharedSliceClient(pair.store, CM), "shared-0").reconcile()
     node = pair.check()
+    # the reference's annotations, and the port's own plan stamp and its
+    # acknowledgement (the reference has no MPS plan gate)
     assert {gpu_key(k): v for k, v in pair.rstore.get("Node", "shared-0").metadata
-            .annotations.items()} == node.annotations
+            .annotations.items()} | {annot.SPEC_PARTITIONING_PLAN: "plan-1",
+                                     annot.STATUS_PARTITIONING_PLAN: "plan-1"} \
+        == node.annotations
     _, status = annot.parse_node_annotations(node.annotations)
     assert {(s.gpu_index, s.profile, s.status): s.quantity for s in status} == {
         (0, "8gb", "used"): 1, (0, "8gb", "free"): 1, (1, "16gb", "free"): 1}
@@ -258,12 +265,16 @@ def test_random_plans_and_pods_match_the_reference(seed):
     rep = (SharingReporter(pair.rstore, JSliceClient(pair.rstore, CM), "shared-0", 10.0),
            MpsReporter(pair.store, SharedSliceClient(pair.store, CM), "shared-0"))
     pods = 0
+    stamped = {}  # the port's own plan stamp and acknowledgement on shared-0
     for plan in range(6):
         node = rng.choice(["shared-0", "shared-1"])
         geometries = {g: {f"{rng.choice([8, 10, 16, 20, 40])}gb": rng.randint(1, 3)
                           for _ in range(rng.randint(1, 2))}
                       for g in rng.sample(range(4), rng.randint(0, 3))}
         pair.apply(node, f"p{plan}", geometries)
+        if node == "shared-0":
+            stamped = {annot.SPEC_PARTITIONING_PLAN: f"p{plan}",
+                       annot.STATUS_PARTITIONING_PLAN: f"p{plan}"}
         if rng.random() < 0.7:
             pair.reconcile(node)
         for _ in range(rng.randint(0, 2)):
@@ -274,4 +285,4 @@ def test_random_plans_and_pods_match_the_reference(seed):
         for n in ("shared-0", "shared-1"):
             pair.check(n)
         assert {gpu_key(k): v for k, v in pair.rstore.get("Node", "shared-0").metadata
-                .annotations.items()} == pair.store.get("Node", "shared-0").annotations
+                .annotations.items()} | stamped == pair.store.get("Node", "shared-0").annotations

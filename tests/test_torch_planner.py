@@ -1,0 +1,637 @@
+"""The planner core (nos_tpu_torch.partitioning.core) against nos_tpu's.
+
+Exact equality, this logic being integer: the same translated clusters
+(tests/torch_planner_cases.py: a v5e node of one 2x4 board per GPU ↔ an
+H100 node, topologies ↔ MIG profiles of as many memory slices, the same
+allowed-geometry table on both sides; an 80 GB shared chip ↔ an H100
+under MPS) go through both planners, and the port's PartitioningState,
+last_unserved (reasons with the resource names translated) and
+simulated placements must equal the reference's, with the verdict cache
+on and off (and the reference's carve-futility memo on and off: neither
+may change a plan). Both planners see one monotonic instant
+(``time.monotonic`` patched), so their fairness ages agree to the bit.
+The snapshot's fork / commit / revert journal, its free pool and node
+versions, the tracker and the snapshot takers are held the same way.
+
+Deliberate differences, tested here on the port alone: an MPS slice
+counts GB / 10 in the port's largest-first sort where the reference
+counts 0 (so the MPS cases give each pod its own priority, which orders
+both sides alike), and the reference's best-fit candidate sort raises on
+a free shared slice (``topology_chips('8gb')``), so for the MPS cases
+its snapshot module is given the port's measure of a slice.
+"""
+import random
+import time
+
+import pytest
+
+from nos_tpu.partitioning.core import ClusterSnapshot as JSnapshot
+from nos_tpu.partitioning.core import Planner as JPlanner
+from nos_tpu.partitioning.core import SliceTracker as JTracker
+from nos_tpu.partitioning.core import SnapshotNode as JSnapNode
+from nos_tpu.partitioning.core import snapshot as jsnapshot_mod
+from nos_tpu.partitioning.core.codec import SharedSliceCodec
+from nos_tpu.partitioning.core.planner import sort_candidate_pods as jsort
+from nos_tpu.partitioning.core.state import ClusterState as JState
+from nos_tpu.partitioning.tpu.snapshot_taker import TpuSnapshotTaker
+from nos_tpu.scheduler import framework as jfw
+from nos_tpu.tpu.node import TpuNode
+from nos_tpu.tpu.sharing import SharingNode
+from nos_tpu_torch.gpu.node import MigNode, MpsNode
+from nos_tpu_torch.partitioning.core import (
+    ClusterSnapshot,
+    ClusterState,
+    MigSliceCodec,
+    MpsSliceCodec,
+    Planner,
+    SliceTracker,
+    SnapshotNode,
+    sort_candidate_pods,
+)
+from nos_tpu_torch.partitioning.core.verdict_cache import VerdictCache, pod_signature
+from nos_tpu_torch.partitioning.mig import MigSnapshotTaker
+from nos_tpu_torch.scheduler import framework as tfw
+from tests.torch_planner_cases import (
+    MIG_PROFILES,
+    NodeDesc,
+    PodDesc,
+    eighty_gb_chips,
+    nonzero,
+    port_node,
+    port_pod,
+    port_state,
+    ref_node,
+    ref_pod,
+    ref_state,
+    ref_unserved,
+    running_pods,
+    same_tables,
+    to_ref_resource,
+    translate_pool,
+)
+
+NOW = 1000.0
+
+
+def mig(profile):
+    return f"nvidia.com/mig-{profile}"
+
+
+def mps(profile):
+    return f"nvidia.com/gpu-{profile}"
+
+
+@pytest.fixture
+def tables(monkeypatch):
+    monkeypatch.setattr(time, "monotonic", lambda: NOW)
+    with same_tables() as geometries:
+        yield geometries
+
+
+@pytest.fixture
+def mps_tables(monkeypatch):
+    monkeypatch.setattr(time, "monotonic", lambda: NOW)
+    original = jsnapshot_mod.topology_chips
+    monkeypatch.setattr(jsnapshot_mod, "topology_chips",
+                        lambda p: int(p[:-2]) / 10 if p.endswith("gb") else original(p))
+    with eighty_gb_chips():
+        yield
+
+
+# ------------------------------------------------------------ builders
+
+def snapshots(nodes, pods=()):
+    """(reference snapshot, port snapshot) of the same translated nodes,
+    with the running pods of each node on it."""
+    pods = list(pods) + running_pods(nodes)
+    jnodes, tnodes = {}, {}
+    for desc in nodes:
+        on = [p for p in pods if p.node == desc.name]
+        jn, tn = ref_node(desc), port_node(desc)
+        if desc.mode == "mig":
+            jpart = TpuNode(jn)
+            tpart = MigNode(tn.name, tn.labels, tn.capacity, tn.annotations)
+        else:
+            jpart = SharingNode(jn)
+            tpart = MpsNode(tn.name, tn.labels, tn.capacity, tn.annotations)
+        jnodes[desc.name] = JSnapNode(partitionable=jpart, pods=[ref_pod(p) for p in on])
+        tnodes[desc.name] = SnapshotNode(partitionable=tpart, pods=[port_pod(p) for p in on],
+                                         node=tn)
+    mode = nodes[0].mode if nodes else "mig"
+    if mode == "mps":
+        return JSnapshot(jnodes, codec=SharedSliceCodec()), ClusterSnapshot(tnodes,
+                                                                            MpsSliceCodec())
+    return JSnapshot(jnodes), ClusterSnapshot(tnodes, MigSliceCodec())
+
+
+def frameworks(kind):
+    if kind == "basic":
+        return (jfw.Framework(filter_plugins=[jfw.NodeResourcesFit(), jfw.NodeSelectorFit()]),
+                tfw.Framework(filter_plugins=[tfw.NodeResourcesFit(), tfw.NodeSelectorFit()]))
+    if kind == "vanilla":
+        return (jfw.Framework(filter_plugins=jfw.vanilla_filter_plugins()),
+                tfw.Framework(filter_plugins=tfw.vanilla_filter_plugins()))
+    assert kind == "reject_all"
+
+    class RejectAll:
+        name = "RejectAll"
+
+        def __init__(self, status):
+            self.status = status
+
+        def filter(self, state, pod, node_info):
+            return self.status.unschedulable("no", self.name)
+
+    return (jfw.Framework(filter_plugins=[RejectAll(jfw.Status)]),
+            tfw.Framework(filter_plugins=[RejectAll(tfw.Status)]))
+
+
+def _name(pod):
+    return pod.metadata.name if hasattr(pod, "metadata") else pod.name
+
+
+def placements(snapshot):
+    return {name: sorted(_name(p) for p in node.pods)
+            for name, node in snapshot.get_nodes().items()}
+
+
+def plan_both(nodes, pending, framework="basic", ages=None, cache=True, futility=True):
+    """Plan both sides; assert the port equals the reference; return the
+    port's (state, planner, snapshot)."""
+    jsnap, tsnap = snapshots(nodes)
+    jframe, tframe = frameworks(framework)
+    jplanner = JPlanner(jframe, verdict_cache_enabled=cache, futility_memo_enabled=futility)
+    tplanner = Planner(tframe, verdict_cache_enabled=cache)
+    jstate = jplanner.plan(jsnap, [ref_pod(p) for p in pending], pending_ages=ages)
+    tstate = tplanner.plan(tsnap, [port_pod(p) for p in pending], pending_ages=ages)
+    assert port_state(tstate) == ref_state(jstate)
+    assert tplanner.last_unserved == ref_unserved(jplanner.last_unserved)
+    assert placements(tsnap) == placements(jsnap)
+    if cache and not futility:
+        # the same trials, so the same verdict-cache ledger
+        assert tplanner.verdict_cache_stats() == jplanner.verdict_cache_stats()
+    return tstate, tplanner, tsnap
+
+
+def geometry_of(state, node):
+    return {g.gpu_index: g.resources for g in state[node].gpus}
+
+
+# ------------------------------------------------------------ sort
+
+def test_sort_priority_then_largest_slice():
+    small = port_pod(PodDesc("small", {mig("1g.10gb"): 1}))
+    big = port_pod(PodDesc("big", {mig("7g.80gb"): 1}))
+    vip = port_pod(PodDesc("vip", {mig("1g.10gb"): 1}, priority=100))
+    assert [p.name for p in sort_candidate_pods([big, small, vip])] == ["vip", "big", "small"]
+
+
+def test_sort_name_tiebreak():
+    a, b = (port_pod(PodDesc(n, {mig("1g.10gb"): 1})) for n in "ab")
+    assert [p.name for p in sort_candidate_pods([b, a])] == ["a", "b"]
+
+
+def test_sort_aging_promotes_starved_small_pod(monkeypatch):
+    monkeypatch.setattr(time, "monotonic", lambda: NOW)
+    old = port_pod(PodDesc("old-small", {mig("1g.10gb"): 1}))
+    fresh = port_pod(PodDesc("fresh-big", {mig("7g.80gb"): 1}))
+    since = {old.namespaced_name: NOW - 8.5}
+    assert [p.name for p in sort_candidate_pods([fresh, old], pending_since=since)] == [
+        "old-small", "fresh-big"]
+    assert [p.name for p in sort_candidate_pods([fresh, old], aging_per_second=0.0,
+                                                pending_since=since)] == [
+        "fresh-big", "old-small"]
+
+
+def test_sort_first_consideration_is_not_aged():
+    old = port_pod(PodDesc("old-small", {mig("1g.10gb"): 1}))
+    fresh = port_pod(PodDesc("fresh-big", {mig("7g.80gb"): 1}))
+    assert [p.name for p in sort_candidate_pods([old, fresh])] == ["fresh-big", "old-small"]
+
+
+def test_sort_aging_never_crosses_priority(monkeypatch):
+    monkeypatch.setattr(time, "monotonic", lambda: NOW)
+    old = port_pod(PodDesc("old-small", {mig("1g.10gb"): 1}))
+    vip = port_pod(PodDesc("vip", {mig("1g.10gb"): 1}, priority=1))
+    since = {old.namespaced_name: NOW - 3600}
+    assert [p.name for p in sort_candidate_pods([old, vip], pending_since=since)] == [
+        "vip", "old-small"]
+
+
+def test_sort_counts_mps_slices_by_gb_over_ten():
+    # the port's measure (the reference counts a shared slice as 0 chips)
+    pods = [port_pod(PodDesc(f"p{gb}", {mps(f"{gb}gb"): 1})) for gb in (10, 40, 5, 20)]
+    assert [p.name for p in sort_candidate_pods(pods)] == ["p40", "p20", "p10", "p5"]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_sort_matches_the_reference(tables, seed):
+    rng = random.Random(900 + seed)
+    pods = [PodDesc(f"p{i:02d}", {mig(rng.choice(MIG_PROFILES)): rng.randint(1, 2)},
+                    ns=rng.choice(["a", "b"]), priority=rng.choice([0, 0, 1, 5]))
+            for i in range(rng.randint(2, 25))]
+    since = {p.key: NOW - rng.choice([0.0, 0.0, 2.0, 9.0]) for p in pods}
+    got = [p.namespaced_name for p in sort_candidate_pods([port_pod(p) for p in pods],
+                                                          pending_since=since)]
+    want = [p.namespaced_name for p in jsort([ref_pod(p) for p in pods],
+                                              pending_since=since)]
+    assert got == want
+
+
+# ------------------------------------------------------------ planner cases
+
+FREE_4G = {0: {"4g.40gb": 1}}
+
+
+@pytest.mark.parametrize("cache", [True, False])
+class TestPlannerCases:
+    """tests/partitioning/test_planner.py's TestPlanner, TestPlannerRegressions,
+    TestPlannerSimulationFidelity and TestAgedRescue cases that this slice
+    carries, each against the reference and with the reference's outcome."""
+
+    def test_carves_virgin_node_for_pending_pod(self, tables, cache):
+        state, _, snap = plan_both([NodeDesc("n1")], [PodDesc("p", {mig("4g.40gb"): 1})],
+                                   cache=cache)
+        assert geometry_of(state, "n1")[0].get(mig("4g.40gb"), 0) >= 1
+        assert placements(snap)["n1"] == ["p"]
+
+    def test_no_lacking_returns_current_state(self, tables, cache):
+        state, _, snap = plan_both([NodeDesc("n1", free={0: {"4g.40gb": 2}})],
+                                   [PodDesc("p", {mig("4g.40gb"): 1})], cache=cache)
+        assert geometry_of(state, "n1") == {0: {mig("4g.40gb"): 2}}
+        assert placements(snap)["n1"] == []
+
+    def test_reverts_when_no_pod_fits(self, tables, cache):
+        state, planner, _ = plan_both([NodeDesc("n1")],
+                                      [PodDesc("p", {mig("4g.40gb"): 1, "cpu": 999})],
+                                      cache=cache)
+        assert geometry_of(state, "n1") == {0: {}}
+        assert "default/p" in planner.last_unserved
+
+    def test_multiple_pods_packed_on_one_node(self, tables, cache):
+        pods = [PodDesc(f"p{i}", {mig("1g.10gb"): 1}) for i in range(8)]
+        state, _, snap = plan_both([NodeDesc("n1")], pods, cache=cache)
+        assert geometry_of(state, "n1") == {0: {mig("1g.10gb"): 8}}
+        assert len(placements(snap)["n1"]) == 8
+
+    def test_spreads_over_two_nodes(self, tables, cache):
+        pods = [PodDesc(f"p{i}", {mig("7g.80gb"): 1}) for i in range(2)]
+        state, _, _ = plan_both([NodeDesc("n1"), NodeDesc("n2")], pods, cache=cache)
+        for name in ("n1", "n2"):
+            assert geometry_of(state, name) == {0: {mig("7g.80gb"): 1}}
+
+    def test_high_priority_pod_wins_contention(self, tables, cache):
+        pods = [PodDesc("low", {mig("7g.80gb"): 1}),
+                PodDesc("high", {mig("7g.80gb"): 1}, priority=10)]
+        _, planner, snap = plan_both([NodeDesc("n1")], pods, cache=cache)
+        assert placements(snap)["n1"] == ["high"]
+        assert list(planner.last_unserved) == ["default/low"]
+
+    def test_used_slices_preserved(self, tables, cache):
+        state, _, _ = plan_both([NodeDesc("n1", used=FREE_4G)],
+                                [PodDesc("p", {mig("1g.10gb"): 2})], cache=cache)
+        geometry = geometry_of(state, "n1")[0]
+        assert geometry.get(mig("4g.40gb")) == 1 and geometry.get(mig("1g.10gb"), 0) >= 2
+
+    def test_unschedulable_filter_blocks_placement(self, tables, cache):
+        state, _, snap = plan_both([NodeDesc("n1")], [PodDesc("p", {mig("4g.40gb"): 1})],
+                                   framework="reject_all", cache=cache)
+        assert geometry_of(state, "n1") == {0: {}} and placements(snap)["n1"] == []
+
+    def test_two_pods_sharing_one_free_slice_get_second_carved(self, tables, cache):
+        pods = [PodDesc(f"p{i}", {mig("4g.40gb"): 1}) for i in range(2)]
+        state, _, snap = plan_both([NodeDesc("n1", free=FREE_4G)], pods, cache=cache)
+        assert geometry_of(state, "n1")[0].get(mig("4g.40gb")) == 2
+        assert placements(snap)["n1"] == ["p0", "p1"]
+
+    def test_pod_wanting_more_than_net_delta_triggers_carve(self, tables, cache):
+        state, _, snap = plan_both([NodeDesc("n1", free=FREE_4G)],
+                                   [PodDesc("p", {mig("4g.40gb"): 2})], cache=cache)
+        assert geometry_of(state, "n1")[0].get(mig("4g.40gb")) == 2
+        assert placements(snap)["n1"] == ["p"]
+
+    def test_declines_carve_for_untolerated_pod(self, tables, cache):
+        node = NodeDesc("n1", taints=[("maintenance", "", "NoSchedule")])
+        state, _, snap = plan_both([node], [PodDesc("p", {mig("4g.40gb"): 1})],
+                                   framework="vanilla", cache=cache)
+        assert geometry_of(state, "n1")[0].get(mig("4g.40gb"), 0) == 0
+        assert placements(snap)["n1"] == []
+
+    def test_carves_for_tolerated_pod(self, tables, cache):
+        node = NodeDesc("n1", taints=[("maintenance", "", "NoSchedule")])
+        pod = PodDesc("p", {mig("4g.40gb"): 1}, tolerations=[("maintenance", "Exists", "", "")])
+        state, _, _ = plan_both([node], [pod], framework="vanilla", cache=cache)
+        assert geometry_of(state, "n1")[0].get(mig("4g.40gb"), 0) >= 1
+
+    def test_declines_carve_for_cordoned_node(self, tables, cache):
+        _, _, snap = plan_both([NodeDesc("n1", unschedulable=True)],
+                               [PodDesc("p", {mig("4g.40gb"): 1})], framework="vanilla",
+                               cache=cache)
+        assert placements(snap)["n1"] == []
+
+    def test_aged_small_pod_wins_contested_free_slice(self, tables, cache):
+        node = NodeDesc("n1", free=FREE_4G, used=FREE_4G)
+        pods = [PodDesc("starved", {mig("1g.10gb"): 1}, ns="ml"),
+                PodDesc("fresh", {mig("4g.40gb"): 1}, ns="ml")]
+        _, _, snap = plan_both([node], pods, ages={"ml/starved": 10.0}, cache=cache)
+        assert "starved" in placements(snap)["n1"]
+
+    def test_fresh_small_pod_does_not_trigger_rescue(self, tables, cache):
+        node = NodeDesc("n1", free=FREE_4G, used=FREE_4G)
+        pods = [PodDesc("small", {mig("1g.10gb"): 1}, ns="ml"),
+                PodDesc("fresh", {mig("4g.40gb"): 1}, ns="ml")]
+        _, _, snap = plan_both([node], pods, cache=cache)
+        placed = placements(snap)["n1"]
+        assert "fresh" in placed and "small" not in placed
+
+
+def test_plain_gpu_request_is_never_placed(tables):
+    # whole GPUs are not a MIG slice: nothing normalizes them (the
+    # reference's plain-chip normalization has no counterpart)
+    _, tsnap = snapshots([NodeDesc("n1", gpus=2)])
+    planner = Planner(tfw.Framework(filter_plugins=tfw.vanilla_filter_plugins()))
+    pod = port_pod(PodDesc("p", {"nvidia.com/gpu": 1}))
+    state = planner.plan(tsnap, [pod])
+    assert port_state(state) == {"n1": ()} and placements(tsnap)["n1"] == []
+    assert planner.last_unserved == {}  # it lacks no slice this mode serves
+
+
+# ------------------------------------------------------------ random clusters
+
+def _gpu_state(rng, geometries):
+    if rng.random() < 0.25:
+        return {}, {}
+    base = dict(rng.choice(geometries))
+    used = {p: k for p, n in base.items() if (k := rng.randint(0, n))}
+    rest = {p: n - used.get(p, 0) for p, n in base.items()}
+    free = {p: k for p, n in rest.items() if n > 0 and (k := rng.randint(0, n))}
+    return free, used
+
+
+def random_mig_case(rng, geometries):
+    nodes = []
+    for i in range(rng.randint(1, 8)):
+        desc = NodeDesc(f"n{i}", gpus=rng.randint(1, 3), labels={"pool": rng.choice("ab")})
+        for gpu in range(desc.gpus):
+            free, used = _gpu_state(rng, geometries)
+            if free:
+                desc.free[gpu] = free
+            if used:
+                desc.used[gpu] = used
+        if rng.random() < 0.15:
+            desc.taints = [("dedicated", "x", "NoSchedule")]
+        desc.unschedulable = rng.random() < 0.08
+        nodes.append(desc)
+    pods, ages = [], {}
+    for j in range(rng.randint(1, 30)):
+        request = {mig(rng.choice(MIG_PROFILES)): 2 if rng.random() < 0.15 else 1}
+        if rng.random() < 0.3:
+            request["cpu"] = rng.randint(1, 4)
+        pod = PodDesc(f"p{j:02d}", request, ns=rng.choice(["a", "b"]),
+                      priority=rng.choice([0, 0, 0, 1, 5]))
+        if rng.random() < 0.3:
+            pod.tolerations = [("dedicated", "Equal", "x", "NoSchedule")]
+        if rng.random() < 0.15:
+            pod.selector = {"pool": rng.choice("ab")}
+        if rng.random() < 0.25:
+            ages[pod.key] = rng.choice([1.0, 3.0, 10.0])
+        pods.append(pod)
+    return nodes, pods, ages
+
+
+@pytest.mark.parametrize("seed", range(50))
+def test_plan_matches_the_reference_on_random_mig_clusters(tables, seed):
+    rng = random.Random(1000 + seed)
+    nodes, pods, ages = random_mig_case(rng, tables)
+    for cache in (True, False):
+        for futility in (True, False):
+            plan_both(nodes, pods, framework="vanilla", ages=ages, cache=cache,
+                      futility=futility)
+
+
+MPS_PROFILES = ("5gb", "10gb", "20gb", "40gb")
+
+
+@pytest.mark.parametrize("seed", range(20))
+def test_plan_matches_the_reference_on_random_mps_clusters(mps_tables, seed):
+    rng = random.Random(2000 + seed)
+    nodes = []
+    for i in range(rng.randint(1, 6)):
+        desc = NodeDesc(f"s{i}", gpus=rng.randint(1, 3), mode="mps")
+        for gpu in range(desc.gpus):
+            budget = 80
+            for target in (desc.used, desc.free):
+                for p in rng.sample(MPS_PROFILES, rng.randint(0, 2)):
+                    n = rng.randint(1, 2)
+                    if int(p[:-2]) * n <= budget:
+                        target.setdefault(gpu, {})[p] = n
+                        budget -= int(p[:-2]) * n
+        nodes.append(desc)
+    n_pods = rng.randint(1, 30)
+    priorities = rng.sample(range(100), n_pods)  # one order on both sides
+    pods = [PodDesc(f"q{j:02d}", {mps(rng.choice(MPS_PROFILES)): 1}, priority=priorities[j])
+            for j in range(n_pods)]
+    for cache in (True, False):
+        plan_both(nodes, pods, framework="vanilla", cache=cache)
+
+
+# ------------------------------------------------------------ snapshot journal
+
+def _compare_snapshots(jsnap, tsnap):
+    assert nonzero(tsnap.free_slice_resources()) == translate_pool(jsnap.free_slice_resources())
+    assert ({n: node.version for n, node in tsnap.get_nodes().items()}
+            == {n: node.version for n, node in jsnap.get_nodes().items()})
+    assert tsnap.state_version == jsnap.state_version
+    assert tsnap.forked == jsnap.forked
+    assert port_state(tsnap.partitioning_state()) == ref_state(jsnap.partitioning_state())
+    assert placements(tsnap) == placements(jsnap)
+    assert tsnap.get_candidate_nodes() == jsnap.get_candidate_nodes()
+
+
+def _three_nodes():
+    return [NodeDesc("a", gpus=2), NodeDesc("b", free={0: {"2g.20gb": 2}}),
+            NodeDesc("c", gpus=2, used={1: {"7g.80gb": 1}}, free={0: {"1g.10gb": 1}})]
+
+
+def test_nested_fork_carve_add_revert_commit(tables):
+    jsnap, tsnap = snapshots(_three_nodes())
+    jsnap.free_slice_resources(), tsnap.free_slice_resources()  # pools computed up front
+    steps = [
+        ("fork",), ("carve", "a", {mig("4g.40gb"): 2}),
+        ("fork",), ("add", "a", PodDesc("x", {mig("4g.40gb"): 1})),
+        ("add", "b", PodDesc("y", {mig("2g.20gb"): 1})),
+        ("revert",), ("commit",),
+    ]
+    for step in steps:
+        _apply(jsnap, tsnap, step)
+        _compare_snapshots(jsnap, tsnap)
+    # the carve survived, the placements did not
+    assert port_state(tsnap.partitioning_state())["a"][0][1] == ((mig("4g.40gb"), 2),)
+    assert placements(tsnap) == {"a": [], "b": [], "c": ["run-c-1-7g.80gb-0"]}
+
+
+def _apply(jsnap, tsnap, step):
+    op = step[0]
+    if op == "fork":
+        jsnap.fork(), tsnap.fork()
+    elif op in ("commit", "revert"):
+        assert getattr(tsnap, op)() == getattr(jsnap, op)()
+    elif op == "carve":
+        _, node, lacking = step
+        assert tsnap.update_geometry_for(node, lacking) == jsnap.update_geometry_for(
+            node, {to_ref_resource(k): v for k, v in lacking.items()})
+    else:
+        _, node, pod = step
+        assert tsnap.add_pod(node, port_pod(pod)) == jsnap.add_pod(node, ref_pod(pod))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_random_fork_sequences_match_the_reference(tables, seed):
+    rng = random.Random(3000 + seed)
+    jsnap, tsnap = snapshots(_three_nodes())
+    if rng.random() < 0.5:
+        jsnap.free_slice_resources(), tsnap.free_slice_resources()
+    depth = 0
+    for i in range(40):
+        roll = rng.random()
+        if roll < 0.2 and depth < 3:
+            step, depth = ("fork",), depth + 1
+        elif roll < 0.35 and depth:
+            step, depth = (rng.choice(["commit", "revert"]),), depth - 1
+        elif roll < 0.7:
+            step = ("carve", rng.choice("abc"),
+                    {mig(rng.choice(MIG_PROFILES)): rng.randint(1, 3)})
+        else:
+            step = ("add", rng.choice("abc"),
+                    PodDesc(f"x{i}", {mig(rng.choice(MIG_PROFILES)): 1}))
+        _apply(jsnap, tsnap, step)
+        _compare_snapshots(jsnap, tsnap)
+
+
+def test_fork_clones_only_the_touched_node(tables):
+    _, tsnap = snapshots(_three_nodes())
+    untouched = tsnap.get_nodes()["b"]
+    tsnap.fork()
+    tsnap.update_geometry_for("a", {mig("1g.10gb"): 1})
+    assert tsnap.get_nodes()["b"] is untouched
+    assert tsnap.revert() == 1
+    with pytest.raises(RuntimeError):
+        tsnap.revert()
+
+
+def test_mutations_stamp_unique_versions_and_revert_restores_them(tables):
+    _, tsnap = snapshots(_three_nodes())
+    seen = set()
+    tsnap.fork()
+    assert tsnap.update_geometry_for("a", {mig("1g.10gb"): 1})
+    seen.add(tsnap.get_nodes()["a"].version)
+    tsnap.revert()
+    assert tsnap.get_nodes()["a"].version == 0 and tsnap.state_version == 0
+    tsnap.fork()
+    assert tsnap.update_geometry_for("a", {mig("1g.10gb"): 1})
+    version = tsnap.get_nodes()["a"].version
+    assert version not in seen  # the clock never repeats, even across a revert
+    tsnap.commit()
+    assert tsnap.get_nodes()["a"].version == version
+
+
+# ------------------------------------------------------------ tracker
+
+@pytest.mark.parametrize("seed", range(6))
+def test_tracker_matches_the_reference(tables, seed):
+    rng = random.Random(4000 + seed)
+    nodes, pods, _ = random_mig_case(rng, tables)
+    jsnap, tsnap = snapshots(nodes)
+    jpods, tpods = [ref_pod(p) for p in pods], [port_pod(p) for p in pods]
+    jt, tt = JTracker(jsnap, jpods), SliceTracker(tsnap, tpods)
+    assert tt.pods_with_lacking_slices() == jt.pods_with_lacking_slices()
+    assert tt.lacking_totals() == translate_pool(jt.lacking_totals())
+    for jp, tp in zip(jpods, tpods):
+        assert tt.lacking_for(tp) == translate_pool(jt.lacking_for(jp))
+        if rng.random() < 0.5:
+            jt.remove(jp), tt.remove(tp)
+            assert (tp in tt) == (jp in jt)
+            assert tt.lacking_totals() == translate_pool(jt.lacking_totals())
+    assert tt.empty == jt.empty
+
+
+def test_tracker_shares_one_free_pool():
+    _, tsnap = snapshots([NodeDesc("n1", free=FREE_4G)])
+    pods = [port_pod(PodDesc(f"p{i}", {mig("4g.40gb"): 1})) for i in range(2)]
+    tracker = SliceTracker(tsnap, pods)
+    assert tracker.pods_with_lacking_slices() == ["default/p1"]
+    assert tracker.lacking_totals() == {mig("4g.40gb"): 1}
+    tracker.remove(pods[1])
+    assert tracker.empty and tracker.lacking_totals() == {}
+
+
+# ------------------------------------------------------------ verdict cache
+
+def test_signature_is_an_equivalence_class():
+    a = port_pod(PodDesc("a", {mig("1g.10gb"): 1}))
+    b = port_pod(PodDesc("b", {mig("1g.10gb"): 1}))
+    assert pod_signature(a) == pod_signature(b)
+    for mutate in (lambda p: p.request.update(cpu=1), lambda p: setattr(p, "namespace", "x"),
+                   lambda p: p.labels.update(app="y"), lambda p: setattr(p, "node", "n"),
+                   lambda p: p.node_selector.update(pool="a"),
+                   lambda p: p.tolerations.append(PodDesc("t").tolerations or
+                                                  port_pod(PodDesc(
+                                                      "t", tolerations=[("k", "Exists", "",
+                                                                         "")])).tolerations[0])):
+        c = port_pod(PodDesc("c", {mig("1g.10gb"): 1}))
+        mutate(c)
+        assert pod_signature(c) != pod_signature(a)
+
+
+def test_cache_counts_hits_and_misses():
+    cache = VerdictCache()
+    key = ((), "n", 1)
+    assert cache.get(key) is None
+    cache.put(key, True)
+    assert cache.get(key) is True and cache.get(key) is True
+    assert cache.get(((), "n", 2)) is None  # another version: another entry
+    assert cache.stats() == (2, 2, 0)
+
+
+def test_a_plan_hits_the_cache_on_repeated_trials(tables):
+    # eight identical pods tried on the same unchanged nodes: the first
+    # trial of each (signature, node, version) misses, the rest hit
+    nodes = [NodeDesc("full", used={0: {"7g.80gb": 1}}), NodeDesc("n1", free={0: {
+        "1g.10gb": 1}})]
+    pods = [PodDesc(f"p{i}", {mig("1g.10gb"): 1, "cpu": 100}) for i in range(8)]
+    _, planner, _ = plan_both(nodes, pods, framework="vanilla", cache=True, futility=False)
+    hits, misses, bypasses = planner.verdict_cache_stats()
+    assert hits > 0 and bypasses == 0
+
+
+# ------------------------------------------------------------ snapshot takers
+
+def test_snapshot_taker_matches_the_reference(tables):
+    descs = [
+        NodeDesc("a", gpus=2, free={0: {"4g.40gb": 1}}, used={1: {"1g.10gb": 1}}),
+        NodeDesc("in-flight", annotations={"nos.nebuly.com/spec-partitioning-plan": "2",
+                                           "nos.nebuly.com/status-partitioning-plan": "1"}),
+        NodeDesc("stale", free={0: {"1g.10gb": 1}}),
+        NodeDesc("other", mode="mps"),
+    ]
+    bound = running_pods(descs) + [
+        # bound to a profile the node reports no instance of: mid-change
+        PodDesc("ghost", {mig("7g.80gb"): 1}, node="stale", phase="Running"),
+        # bound since the last report: takes the free 4g.40gb
+        PodDesc("fresh", {mig("4g.40gb"): 1}, node="a", phase="Pending")]
+    jstate, tstate = JState(), ClusterState()
+    for desc in descs:
+        on = [p for p in bound if p.node == desc.name]
+        jstate.update_node(ref_node(desc), [ref_pod(p) for p in on])
+        tstate.update_node(port_node(desc), [port_pod(p) for p in on])
+    jsnap = TpuSnapshotTaker().take_snapshot(jstate)
+    tsnap = MigSnapshotTaker().take_snapshot(tstate)
+    assert sorted(tsnap.get_nodes()) == sorted(jsnap.get_nodes()) == ["a", "in-flight", "stale"]
+    for name, node in tsnap.get_nodes().items():
+        jnode = jsnap.get_nodes()[name]
+        assert node.frozen == jnode.frozen
+        assert node.partitionable.consistent == jnode.partitionable.consistent
+        assert sorted(p.name for p in node.pods) == sorted(p.metadata.name for p in jnode.pods)
+    assert tsnap.get_candidate_nodes() == jsnap.get_candidate_nodes() == ["a"]
+    assert nonzero(tsnap.free_slice_resources()) == translate_pool(
+        jsnap.free_slice_resources())
