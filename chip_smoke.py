@@ -48,7 +48,26 @@ Phases, each fatal on failure (exit code != 0):
     verdict cache on and off: p50 / p95 ms, forks a second, the hit
     rate, the host's CPU count) on a busy, fragmented cluster whose
     demand exceeds its free supply, the cache-on plan equal to the
-    cache-off one and the cache answering some of its trials;
+    cache-off one and the cache answering some of its trials; the
+    planner runs the simulation framework SimCluster plans with (the
+    vanilla filters and CapacityScheduling's PreFilter, over a store of
+    the cluster with a quota that admits every pod), and the vanilla
+    filters alone in the same run, whose plans must agree;
+1e. quota: elastic quotas and fair-share preemption (quota_phase) on a
+    SimCluster of 20 nodes (the card's own MIG node, 15 more MIG nodes
+    and 4 MPS nodes of 8 H100s); team-a, team-b and team-c hold quotas
+    in nos.nebuly.com/gpu-memory of 40 / 30 / 30% of the fleet's GB
+    (max unset / 60% / unset); team-a's 200 pods borrow past its min,
+    then team-b's and team-c's 50 each, within their min, reclaim by
+    preemption; team-b within its max and the quotas' use within the
+    sum of their mins at every step, team-a's pods past its min labelled
+    over-quota, every victim an over-quota pod of the borrowing quota,
+    the second wave Running or unserved with a reason and within min
+    plus its guaranteed share, and SimCluster.check() (the quotas'
+    invariants among its own); pods placed and unserved, each quota's
+    used against min and max, the preemptions and their victims by
+    namespace, the loop's steps and seconds, and the p50 / p95 ms of
+    binding, nominating (preempting) and failing cycles;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
@@ -4374,6 +4393,9 @@ PARTITIONER_PODS = 40
 PARTITIONER_MAX_STEPS = 500
 PARTITIONER_PLAN_SIZE = (64, 200)  # nodes x pending pods, 8 H100s a node
 PARTITIONER_PLAN_REPEATS = 3
+# the cache-on p50 of PR 15's vanilla framework at PARTITIONER_PLAN_SIZE
+# (NVIDIA H100 80GB HBM3 at 700 W; PERF.md), printed beside this run's
+PARTITIONER_PR15_P50_MS = 59.61
 
 
 def partitioner_phase(card) -> dict:
@@ -4431,18 +4453,217 @@ def partitioner_phase(card) -> dict:
         "unserved_reasons": sorted(set(unserved.values()))}
     checks["pods_placed"] = row["loop"]["placed"] > 0
     n_nodes, n_pods = PARTITIONER_PLAN_SIZE
+    # the simulation framework SimCluster plans with (the quota PreFilter
+    # on every trial), and the vanilla filters alone in the same run
     rows = bench_planner.run([(n_nodes, n_pods)], 8, PARTITIONER_PLAN_REPEATS)
+    vanilla = bench_planner.run([(n_nodes, n_pods)], 8, PARTITIONER_PLAN_REPEATS, "vanilla")
     row["plans_at_size"] = rows
+    row["plans_at_size_vanilla"] = vanilla
+    row["plan_p50_ms"] = {"sim": rows[0]["p50_plan_ms"], "vanilla": vanilla[0]["p50_plan_ms"],
+                          "vanilla_pr15": PARTITIONER_PR15_P50_MS}
+    # the bench's quota admits every pod: the quota PreFilter changes no plan
+    checks["plan_sim_equals_vanilla"] = all(
+        (a["pods_placed"], a["pods_unserved"], a["forks_total"])
+        == (b["pods_placed"], b["pods_unserved"], b["forks_total"])
+        for a, b in zip(rows, vanilla))
     checks["plan_cache_on_equals_off"] = rows[0]["plan_equals_cache_off"]
     # the comparison means something only where the cache decided trials
     checks["plan_cache_hits"] = rows[0]["cache_hits"] > 0
     # demand exceeds the free supply: the carve loop ran to exhaustion
     checks["plan_demand_exceeds_supply"] = rows[0]["pods_unserved"] > 0
-    checks["plans_deterministic"] = all(r["deterministic"] for r in rows)
+    checks["plans_deterministic"] = all(r["deterministic"] for r in rows + vanilla)
     row.update(checks=checks, ok=all(checks.values()), seconds=time.time() - t0, card=card)
     emit(row)
     if not row["ok"]:
         raise SystemExit(f"partitioner failed: {checks}")
+    return row
+
+
+QUOTA_MIG_NODES = 15      # beside the card's own MIG node, 8 H100s each
+QUOTA_MPS_NODES = 4
+# namespace: (min, max) as shares of the fleet's GB of GPU memory
+QUOTA_SHARES = {"team-a": (0.40, None), "team-b": (0.30, 0.60), "team-c": (0.30, None)}
+QUOTA_FIRST_WAVE = 200    # team-a's pods, past its min
+QUOTA_SECOND_WAVE = 50    # pods each of team-b and team-c, within their min
+QUOTA_MAX_STEPS = 3000
+QUOTA_SEED = 16
+
+
+def quota_traffic(rng, namespace, n, counts, mix):
+    """``n`` pods of ``namespace``, each asking for one to a few slices of
+    one resource of ``mix``, seeded."""
+    from nos_tpu_torch.kube.store import Pod
+
+    return [Pod(f"{namespace}-{i:03d}", namespace, request={rng.choice(mix): rng.choice(counts)})
+            for i in range(n)]
+
+
+def quota_phase(card, nvml=None) -> dict:
+    """Elastic quotas and fair-share preemption on a SimCluster of 20
+    nodes: the card's own MIG node as NVML names it, 15 more MIG nodes and
+    4 MPS nodes of 8 H100s. team-a, team-b and team-c hold ElasticQuotas
+    in nos.nebuly.com/gpu-memory of 40 / 30 / 30% of the fleet's GB (max
+    unset / 60% / unset). team-a submits QUOTA_FIRST_WAVE pods, past its
+    min, and borrows; once the cluster is idle, team-b and team-c submit
+    QUOTA_SECOND_WAVE pods each, within their min, and reclaim by
+    preemption. Checked at every step: team-b within its max and the
+    quotas' use within the sum of their mins; at the end: team-a's pods
+    past its min labelled over-quota after the first wave, every victim
+    an over-quota pod of a borrowing quota, the second wave Running or
+    unserved with a reason and within min plus its guaranteed share, and
+    SimCluster.check()'s invariants, the quotas' three among them."""
+    import random
+    import statistics
+
+    from nos_tpu_torch.api.v1alpha1 import (
+        CAPACITY_LABEL,
+        CAPACITY_OVER_QUOTA,
+        RESOURCE_GPU_MEMORY,
+    )
+    from nos_tpu_torch.cluster import SimCluster
+    from nos_tpu_torch.controllers.elasticquota import quota_accounting
+    from nos_tpu_torch.gpu.node import RESOURCE_GPU, mig_resource, mps_resource
+    from nos_tpu_torch.kube.store import PodPhase
+    from nos_tpu_torch.scheduler.plugins.capacity import build_quota_infos
+    from nos_tpu_torch.util import resources as res
+
+    t0 = time.time()
+    gb = RESOURCE_GPU_MEMORY
+    cluster = SimCluster()
+    if nvml is None:
+        from nos_tpu_torch.device.nvml import Nvml
+
+        with Nvml() as nv:
+            cluster.add_mig_node("mig-card", nvml=nv)
+    else:
+        cluster.add_mig_node("mig-card", nvml=nvml)
+    for i in range(QUOTA_MIG_NODES):
+        cluster.add_mig_node(f"mig-{i:02d}", gpus=8)
+    for i in range(QUOTA_MPS_NODES):
+        cluster.add_mps_node(f"mps-{i}", gpus=8)
+    gpus = sum(n.capacity[RESOURCE_GPU] for n in cluster.store.list("Node"))
+    fleet_gb = gpus * res.DEFAULT_GPU_MEMORY_GB
+    quotas = {}
+    for ns, (min_share, max_share) in QUOTA_SHARES.items():
+        quotas[ns] = ({gb: int(min_share * fleet_gb)},
+                      {gb: int(max_share * fleet_gb)} if max_share else {})
+        cluster.add_quota(ns, *quotas[ns])
+    sum_min = sum(q[0][gb] for q in quotas.values())
+    mix = ([mig_resource(p) for p in ("1g.10gb", "2g.20gb", "3g.40gb", "4g.40gb", "7g.80gb")]
+           + [mps_resource(p) for p in ("10gb", "20gb")])
+    rng = random.Random(QUOTA_SEED)
+
+    # every scheduler cycle timed, by its decision
+    cycle_ms = {"bind": [], "nominate": [], "fail": []}
+    schedule_one = cluster.scheduler.schedule_one
+
+    def timed_cycle(pod):
+        started = time.perf_counter()
+        outcome = schedule_one(pod)
+        cycle_ms[outcome.decision].append((time.perf_counter() - started) * 1e3)
+        return outcome
+
+    cluster.scheduler.schedule_one = timed_cycle
+    watch = {"team_b_within_max": True, "use_within_sum_of_mins": True}
+
+    def on_step():
+        infos = build_quota_infos(cluster.store)
+        used = {ns: infos.for_namespace(ns).used.get(gb, 0) for ns in quotas}
+        watch["team_b_within_max"] &= used["team-b"] <= quotas["team-b"][1][gb]
+        watch["use_within_sum_of_mins"] &= sum(used.values()) <= sum_min
+
+    def namespace_rows():
+        pods = cluster.store.list("Pod")
+        unserved = cluster.unserved()
+        rows = {}
+        for ns in quotas:
+            mine = [p for p in pods if p.namespace == ns]
+            quota = cluster.store.get("ElasticQuota", "quota", ns)
+            rows[ns] = {"pods": len(mine),
+                        "running": sum(p.phase == PodPhase.RUNNING for p in mine),
+                        "unserved": sum(p.namespaced_name in unserved for p in mine),
+                        "over_quota": sum(p.labels.get(CAPACITY_LABEL) == CAPACITY_OVER_QUOTA
+                                          for p in mine),
+                        "used_gb": quota.used.get(gb, 0), "min_gb": quota.min[gb],
+                        "max_gb": quota.max.get(gb)}
+        return rows
+
+    checks = {}
+    for pod in quota_traffic(rng, "team-a", QUOTA_FIRST_WAVE, (1, 2, 4), mix):
+        cluster.store.create(pod)
+    t1 = time.perf_counter()
+    idle_1 = cluster.run_until_idle(QUOTA_MAX_STEPS, on_step)
+    wall_1, steps_1 = time.perf_counter() - t1, cluster.steps
+    first = namespace_rows()
+    team_a = [p for p in cluster.store.list("Pod")
+              if p.namespace == "team-a" and p.phase == PodPhase.RUNNING]
+    _, want_labels = quota_accounting(team_a, quotas["team-a"][0])
+    checks["first_wave_idle"] = idle_1
+    checks["team_a_borrows"] = first["team-a"]["used_gb"] > first["team-a"]["min_gb"]
+    checks["team_a_past_min_labelled_over_quota"] = (
+        first["team-a"]["over_quota"] > 0
+        and all(p.labels.get(CAPACITY_LABEL) == want_labels[p.namespaced_name] for p in team_a))
+    checks["first_wave_invariants"] = all(cluster.check().values())
+
+    second = (quota_traffic(rng, "team-b", QUOTA_SECOND_WAVE, (1, 2), mix)
+              + quota_traffic(rng, "team-c", QUOTA_SECOND_WAVE, (1, 2), mix))
+    for pod in second:
+        cluster.store.create(pod)
+    t2 = time.perf_counter()
+    idle_2 = cluster.run_until_idle(QUOTA_MAX_STEPS, on_step)
+    wall_2 = time.perf_counter() - t2
+    rows = namespace_rows()
+    final = cluster.check()
+    records = list(cluster.scheduler.preemptions)
+    infos = build_quota_infos(cluster.store)
+    unserved = cluster.unserved()
+    pods = {p.namespaced_name: p for p in cluster.store.list("Pod")}
+    checks["second_wave_idle"] = idle_2
+    checks.update(watch)
+    checks["preemptions_happened"] = bool(records)
+    checks["victims_over_quota_of_a_borrower"] = all(
+        v["capacity"] == CAPACITY_OVER_QUOTA and v["quota"] == "eq/team-a/quota"
+        for r in records for v in r["victims"])
+    checks["second_wave_running_or_unserved"] = all(
+        p.namespaced_name not in pods or pods[p.namespaced_name].phase == PodPhase.RUNNING
+        or bool(unserved.get(p.namespaced_name)) for p in second)
+    checks["second_wave_within_entitlement"] = all(
+        rows[ns]["used_gb"] <= rows[ns]["min_gb"]
+        + infos.guaranteed_overquota(infos.for_namespace(ns).name, gb)
+        for ns in ("team-b", "team-c"))
+    checks.update({f"cluster_{k}": v for k, v in final.items()})
+    victims = {}
+    for r in records:
+        for v in r["victims"]:
+            ns = v["pod"].split("/")[0]
+            victims[ns] = victims.get(ns, 0) + 1
+
+    def quantiles(values):
+        if len(values) < 2:
+            return {"n": len(values), "p50_ms": values[0] if values else None,
+                    "p95_ms": values[0] if values else None}
+        return {"n": len(values), "p50_ms": statistics.median(values),
+                "p95_ms": statistics.quantiles(values, n=20)[-1]}
+
+    row = {"phase": "quota", "host_cpus": os.cpu_count(),
+           "cluster": {"nodes": len(cluster.store.list("Node")), "gpus": gpus,
+                       "fleet_gb": fleet_gb, "pods": QUOTA_FIRST_WAVE + 2 * QUOTA_SECOND_WAVE},
+           "after_first_wave": first, "after_second_wave": rows,
+           "preemptions": {"cycles": len(records),
+                           "victims": sum(victims.values()), "victims_by_namespace": victims,
+                           "preemptors_by_namespace": {
+                               ns: sum(r["pod"].startswith(ns + "/") for r in records)
+                               for ns in quotas}},
+           "cycles": {k: quantiles(v) for k, v in cycle_ms.items()},
+           "loop": {"steps": cluster.steps, "steps_first_wave": steps_1,
+                    "wall_s_first_wave": wall_1, "wall_s_second_wave": wall_2,
+                    "admission_rejects": cluster.kubelet.admission_rejects,
+                    "plans": {c.kind: c.plans_processed for c in cluster.controllers}},
+           "unserved_reasons": sorted({r.split(" (")[0] for r in unserved.values()})}
+    row.update(checks=checks, ok=all(checks.values()), seconds=time.time() - t0, card=card)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"quota failed: {checks}")
     return row
 
 
@@ -4483,6 +4704,7 @@ def main() -> int:
     nvml_phase(card)
     migagent_phase(card)
     partitioner_phase(card)
+    quota_phase(card)
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa

@@ -1,11 +1,17 @@
 """SimCluster: the dynamic-partitioning loop running in-process on one store.
 
 Counterpart of ``nos_tpu/cmd/cluster.py:44-275`` (``SimCluster``,
-``build_cluster``), trimmed to one ``NodeStore`` and the vanilla
-scheduler, the MIG and MPS partitioner controllers, one ``MigAgent`` per
-MIG node on a shared ``SimMigPool``, the MPS device plugin's sim and
-reporter per MPS node, and a trimmed sim kubelet (``nos_tpu/sim/kubelet.py``:
-a bound pod is admitted against the devices that exist, then Running).
+``build_cluster``), trimmed to one ``NodeStore`` with the quota
+webhooks, the scheduler with ``CapacityScheduling`` (quota admission,
+reservations and preemption), the MIG and MPS partitioner controllers
+planning with the simulation framework (``build_sim_framework``: the
+vanilla filters and the quota PreFilter), one ``MigAgent`` per MIG node
+on a shared ``SimMigPool``, the MPS device plugin's sim and reporter per
+MPS node, a trimmed sim kubelet (``nos_tpu/sim/kubelet.py``: a bound
+pod is admitted against the devices that exist, then Running) and the
+quota controller, which labels running pods and writes each quota's
+used. ``add_quota`` makes an ElasticQuota, or, given ``namespaces``, a
+CompositeElasticQuota.
 
 A pending pod asking for ``nvidia.com/mig-3g.40gb`` goes around the
 loop: the scheduler marks it Unschedulable, the MIG controller batches
@@ -20,20 +26,36 @@ planners' aging clock) by ``TICK_S``, so a run plans the same however
 fast its host is; ``run_until_idle(max_steps)`` steps until a step
 changes nothing and each controller with pods it could help has just
 planned without applying anything, i.e. no pending pod can be helped.
-A MIG node's product and GPU count come from NVML when the caller
+The store's clock is the cluster's, so pods' creation times are virtual
+too. A MIG node's product and GPU count come from NVML when the caller
 passes an ``Nvml`` (the card's own identity; its instances stay on the
 sim pool), else from the caller's arguments. ``check()`` holds the
-idle cluster to the loop's invariants.
+idle cluster to the loop's invariants and the quotas' three.
 """
 from __future__ import annotations
 
 import itertools
 import logging
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
+from nos_tpu_torch.api.v1alpha1.elasticquota import (
+    CAPACITY_LABEL,
+    CAPACITY_OVER_QUOTA,
+    CompositeElasticQuota,
+    ElasticQuota,
+)
+from nos_tpu_torch.controllers.elasticquota import (
+    ElasticQuotaController,
+    quota_accounting,
+    register_elasticquota_webhooks,
+)
 from nos_tpu_torch.controllers.migagent import MigAgent, build_migagent
 from nos_tpu_torch.controllers.mpsagent import MpsReporter
-from nos_tpu_torch.controllers.partitioner import PartitionerController, could_help
+from nos_tpu_torch.controllers.partitioner import (
+    PartitionerController,
+    build_sim_framework,
+    could_help,
+)
 from nos_tpu_torch.device.client import GpuClient
 from nos_tpu_torch.device.sharing import (
     DEFAULT_CONFIG_MAP,
@@ -60,7 +82,8 @@ from nos_tpu_torch.partitioning.core import Actuator, ClusterState, Planner
 from nos_tpu_torch.partitioning.core.codec import is_mig_resource
 from nos_tpu_torch.partitioning.mig import MigNodeInitializer, MigPartitioner, MigSnapshotTaker
 from nos_tpu_torch.partitioning.mps import MpsPartitioner, MpsSnapshotTaker
-from nos_tpu_torch.scheduler import Scheduler, new_framework
+from nos_tpu_torch.scheduler import CapacityScheduling, Scheduler
+from nos_tpu_torch.scheduler.plugins.capacity import build_quota_infos
 
 log = logging.getLogger("nos_tpu_torch.cluster")
 
@@ -140,11 +163,13 @@ class SimKubelet:
 
 class SimCluster:
     def __init__(self, config_map_name: str = DEFAULT_CONFIG_MAP) -> None:
-        self.store = NodeStore()
         self.now = 0.0
+        self.store = NodeStore(clock=self.clock)
+        register_elasticquota_webhooks(self.store)
         self.steps = 0
         self.pool = SimMigPool()
         self.scheduler = Scheduler(self.store)
+        self.quotas = ElasticQuotaController(self.store)
         self.config_map_name = config_map_name
         plan_ids = itertools.count(1)
 
@@ -155,12 +180,13 @@ class SimCluster:
         mig_partitioner = MigPartitioner(self.store)
         self.mig = PartitionerController(
             self.store, ClusterState(), MigSnapshotTaker(),
-            Planner(new_framework(), clock=clock), Actuator(mig_partitioner), PARTITIONING_MIG,
+            Planner(build_sim_framework(self.store), clock=clock), Actuator(mig_partitioner),
+            PARTITIONING_MIG,
             is_mig_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
             initializer=MigNodeInitializer(mig_partitioner, plan_id), clock=clock)
         self.mps = PartitionerController(
             self.store, ClusterState(), MpsSnapshotTaker(),
-            Planner(new_framework(), clock=clock),
+            Planner(build_sim_framework(self.store), clock=clock),
             Actuator(MpsPartitioner(self.store, config_map_name)),
             PARTITIONING_MPS, is_mps_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
             clock=clock)
@@ -197,6 +223,17 @@ class SimCluster:
             self.store, SharedSliceClient(self.store, self.config_map_name), name)
         return node
 
+    def add_quota(self, namespace: str, min: Dict[str, int],
+                  max: Optional[Dict[str, int]] = None, name: str = "quota",
+                  namespaces: Optional[List[str]] = None):
+        """An ElasticQuota of ``namespace``; with ``namespaces``, a
+        CompositeElasticQuota over them, kept in ``namespace``. The
+        webhooks admit it or raise ``AdmissionError``."""
+        if namespaces is not None:
+            return self.store.create(CompositeElasticQuota(
+                name, namespace, list(namespaces), dict(min), dict(max or {})))
+        return self.store.create(ElasticQuota(name, namespace, dict(min), dict(max or {})))
+
     def _create_node(self, name: str, gpus: int, product: str, kind: str) -> Node:
         resources = {RESOURCE_GPU: gpus, "cpu": NODE_CPU, "memory": NODE_MEMORY_GIB}
         return self.store.create(Node(name, labels={GPU_PRODUCT_LABEL: product,
@@ -217,6 +254,7 @@ class SimCluster:
             reporter.reconcile()
         self.scheduler.step()
         self.kubelet.step()
+        self.quotas.step()
         self.steps += 1
 
     def fingerprint(self) -> tuple:
@@ -224,25 +262,33 @@ class SimCluster:
         nodes = tuple((n.name, tuple(sorted(n.annotations.items())),
                        tuple(sorted(n.labels.items())), tuple(sorted(n.allocatable.items())))
                       for n in self.store.list("Node"))
-        pods = tuple((p.namespaced_name, p.node, p.phase, p.unschedulable)
+        pods = tuple((p.namespaced_name, p.uid, p.node, p.phase, p.unschedulable,
+                      p.nominated_node, p.labels.get(CAPACITY_LABEL))
                      for p in self.store.list("Pod"))
         maps = tuple((c.name, tuple(sorted(c.data.items())))
                      for c in self.store.list("ConfigMap"))
-        return nodes, pods, maps
+        quotas = tuple((q.kind, q.namespace, q.name, tuple(sorted(q.used.items())))
+                       for kind in ("ElasticQuota", "CompositeElasticQuota")
+                       for q in self.store.list(kind))
+        return nodes, pods, maps, quotas
 
     def helpable(self, controller: PartitionerController) -> List[Pod]:
         """The pending pods ``controller`` could plan for."""
         return [p for p in controller.fetch_pending_pods()
                 if could_help(p) and controller.requests_tracked_resources(p)]
 
-    def run_until_idle(self, max_steps: int = 1000) -> bool:
+    def run_until_idle(self, max_steps: int = 1000,
+                       on_step: Optional[Callable[[], None]] = None) -> bool:
         """Step until no pending pod can be helped; False when
-        ``max_steps`` ran out first."""
+        ``max_steps`` ran out first. ``on_step`` runs after every step (a
+        caller's invariant watch)."""
         settled = {c.kind: False for c in self.controllers}
         for _ in range(max_steps):
             before = self.fingerprint()
             processed = {c.kind: c.plans_processed for c in self.controllers}
             self.step()
+            if on_step is not None:
+                on_step()
             if self.fingerprint() != before:
                 settled = {kind: False for kind in settled}
                 continue
@@ -257,10 +303,18 @@ class SimCluster:
     # ----------------------------------------------------------- checks
 
     def unserved(self) -> Dict[str, str]:
-        """Pending pod → the reason the last plan of its mode gave."""
+        """Pending pod → why it waits: its quota's refusal, when the quota
+        admission refuses it now, else the reason the last plan of its
+        mode gave."""
         out: Dict[str, str] = {}
         for c in self.controllers:
             out.update(c.planner.last_unserved)
+        infos = build_quota_infos(self.store)
+        for pod in self.store.list("Pod"):
+            if pod.phase == PodPhase.PENDING and not pod.node:
+                status = CapacityScheduling.check_quota(pod, infos)
+                if not status.success:
+                    out[pod.namespaced_name] = status.message
         return out
 
     def check(self) -> Dict[str, bool]:
@@ -322,4 +376,34 @@ class SimCluster:
                 committed &= all(replicas.get(n, 0) >= q for n, q in wanted.items())
         checks.update(geometries_allowed=allowed, plans_acknowledged=acked,
                       no_gpu_overcommitted=committed)
+        checks.update(self.check_quotas())
         return checks
+
+    def check_quotas(self) -> Dict[str, bool]:
+        """The quotas' invariants: each quota's used is the sum over its
+        running pods; every running pod a quota covers carries the label
+        its accounting position gives it; no pod was evicted in-quota
+        except by a higher-priority pod of its own quota (a borrower
+        reclaims only over-quota pods)."""
+        pods = self.store.list("Pod")
+        used_ok = labels_ok = True
+        composites = self.store.list("CompositeElasticQuota")
+        covered = {ns for q in composites for ns in q.namespaces}
+        quotas = [(q, list(q.namespaces)) for q in composites] + [
+            (q, [q.namespace]) for q in self.store.list("ElasticQuota")
+            if q.namespace not in covered]
+        for quota, namespaces in quotas:
+            running = [p for p in pods
+                       if p.namespace in namespaces and p.phase == PodPhase.RUNNING]
+            used, labels = quota_accounting(running, quota.min)
+            used_ok &= {k: v for k, v in quota.used.items() if v} == {
+                k: v for k, v in used.items() if v}
+            labels_ok &= all(p.labels.get(CAPACITY_LABEL) == labels[p.namespaced_name]
+                             for p in running)
+        reclaim_ok = all(
+            v["capacity"] == CAPACITY_OVER_QUOTA
+            or (v["quota"] == record["quota"] and v["priority"] < record["priority"])
+            for record in self.scheduler.preemptions for v in record["victims"])
+        return {"quota_used_is_running_sum": used_ok,
+                "capacity_labels_match_accounting": labels_ok,
+                "no_in_quota_pod_preempted_by_borrower": reclaim_ok}

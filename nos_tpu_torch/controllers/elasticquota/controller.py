@@ -1,0 +1,150 @@
+"""Quota accounting and the over-quota labels.
+
+Counterpart of ``nos_tpu/controllers/elasticquota/controller.py``
+(reference internal/controllers/elasticquota/elasticquota_controller.go:66-189,
+elasticquota.go:38-149 and compositeelasticquota_controller.go:110-137):
+a quota's running pods are walked in a fixed order (``sort_pods_for_quota``),
+each one's request, with ``nos.nebuly.com/gpu-memory`` added and cut to
+the resources ``min`` names, is summed into ``used``, a pod whose sum
+still fits ``min`` is labelled in-quota and the rest over-quota (the
+preemptor picks its cross-quota victims by that label), and ``used`` is
+written to the quota. A CompositeElasticQuota does the same over its
+namespace list, and deletes the ElasticQuotas of those namespaces first.
+
+The port has no watches: ``ElasticQuotaController.step()`` reconciles
+every composite quota, then every ElasticQuota, each time it is called,
+as the port's other controllers poll. Events and the flight recorder's
+quota records wait for their slice (ROADMAP.md); the reconcile keeps its
+``elasticquota.reconcile`` span.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Dict, List, Optional, Tuple
+
+from nos_tpu_torch.api.v1alpha1.elasticquota import (
+    CAPACITY_IN_QUOTA,
+    CAPACITY_LABEL,
+    CAPACITY_OVER_QUOTA,
+)
+from nos_tpu_torch.kube.store import NodeStore, NotFoundError, Pod, PodPhase
+from nos_tpu_torch.util import resources as res
+from nos_tpu_torch.util.tracing import TRACER
+
+log = logging.getLogger("nos_tpu_torch.elasticquota")
+
+
+def sort_pods_for_quota(pods: List[Pod], gpu_memory_gb: int = res.DEFAULT_GPU_MEMORY_GB
+                        ) -> List[Pod]:
+    """The accounting order (elasticquota.go:77-104): older pods first
+    (they claimed quota first), then higher priority, then the smaller
+    request summed over its resources with the memory aggregate, then
+    namespace and name. A pod no store created has no creation time and
+    sorts as created at 0."""
+    return sorted(pods, key=lambda p: (
+        p.created or 0.0, -p.priority,
+        sum(res.with_aggregate_gpu_memory(res.compute_pod_request(p), gpu_memory_gb).values()),
+        p.namespace, p.name))
+
+
+def _filter_to_min(request: res.ResourceList, min_resources: res.ResourceList
+                   ) -> res.ResourceList:
+    """A quota tracks only the resources its min names (elasticquota.go:64-69)."""
+    return {k: v for k, v in request.items() if k in min_resources}
+
+
+def quota_accounting(pods: List[Pod], quota_min: res.ResourceList,
+                     gpu_memory_gb: int = res.DEFAULT_GPU_MEMORY_GB
+                     ) -> Tuple[res.ResourceList, Dict[str, str]]:
+    """(used, namespaced name → capacity label) for a quota's running
+    pods: each pod's request, with the memory aggregate and cut to the
+    resources ``min`` names, summed in the accounting order; a pod whose
+    running sum still fits ``min`` is in-quota."""
+    used: res.ResourceList = {}
+    labels: Dict[str, str] = {}
+    for pod in sort_pods_for_quota(pods, gpu_memory_gb):
+        request = _filter_to_min(
+            res.with_aggregate_gpu_memory(res.compute_pod_request(pod), gpu_memory_gb),
+            quota_min)
+        used = res.sum_resources(used, request)
+        labels[pod.namespaced_name] = (CAPACITY_IN_QUOTA if res.fits(quota_min, used)
+                                       else CAPACITY_OVER_QUOTA)
+    return used, labels
+
+
+class _QuotaReconcilerBase:
+    def __init__(self, store: NodeStore, gpu_memory_gb: Optional[int] = None) -> None:
+        self.store = store
+        # the NvidiaGpuResourceMemoryGB knob: the GB a plain nvidia.com/gpu counts
+        self.gpu_memory_gb = gpu_memory_gb or res.DEFAULT_GPU_MEMORY_GB
+
+    def _running_pods(self, namespaces: List[str]) -> List[Pod]:
+        return [p for ns in namespaces for p in self.store.list("Pod", namespace=ns)
+                if p.phase == PodPhase.RUNNING]
+
+    def _reconcile_quota(self, quota, namespaces: List[str]) -> int:
+        """Label the quota's running pods and write its used; the writes
+        made."""
+        with TRACER.span("elasticquota.reconcile", quota=f"{quota.namespace}/{quota.name}"):
+            writes = 0
+            pods = self._running_pods(namespaces)
+            used, labels = quota_accounting(pods, quota.min, self.gpu_memory_gb)
+            for pod in pods:
+                desired = labels[pod.namespaced_name]
+                if pod.labels.get(CAPACITY_LABEL) != desired:
+                    try:
+                        self.store.patch_labels("Pod", pod.name, pod.namespace,
+                                                {CAPACITY_LABEL: desired})
+                        writes += 1
+                    except NotFoundError:
+                        pass
+            if quota.used != used:
+                self.store.patch_merge(quota.kind, quota.name, quota.namespace,
+                                       lambda q: setattr(q, "used", used))
+                writes += 1
+            return writes
+
+
+class ElasticQuotaReconciler(_QuotaReconcilerBase):
+    def reconcile(self, name: str, namespace: str) -> int:
+        quota = self.store.try_get("ElasticQuota", name, namespace)
+        if quota is None:
+            return 0
+        return self._reconcile_quota(quota, [quota.namespace])
+
+
+class CompositeElasticQuotaReconciler(_QuotaReconcilerBase):
+    def reconcile(self, name: str, namespace: str) -> int:
+        quota = self.store.try_get("CompositeElasticQuota", name, namespace)
+        if quota is None:
+            return 0
+        writes = 0
+        # a composite quota shadows the ElasticQuotas of its namespaces
+        # (compositeelasticquota_controller.go:110-137)
+        for eq in self.store.list("ElasticQuota"):
+            if eq.namespace in quota.namespaces:
+                log.info("deleting ElasticQuota %s/%s overlapped by CompositeElasticQuota %s",
+                         eq.namespace, eq.name, quota.name)
+                try:
+                    self.store.delete("ElasticQuota", eq.name, eq.namespace)
+                    writes += 1
+                except NotFoundError:
+                    pass
+        return writes + self._reconcile_quota(quota, list(quota.namespaces))
+
+
+class ElasticQuotaController:
+    """Both reconcilers over every quota in the store, polled."""
+
+    def __init__(self, store: NodeStore, gpu_memory_gb: Optional[int] = None) -> None:
+        self.store = store
+        self.elastic = ElasticQuotaReconciler(store, gpu_memory_gb)
+        self.composite = CompositeElasticQuotaReconciler(store, gpu_memory_gb)
+
+    def step(self) -> int:
+        """Every composite quota, then every ElasticQuota left; the store
+        writes made."""
+        writes = sum(self.composite.reconcile(q.name, q.namespace)
+                     for q in self.store.list("CompositeElasticQuota"))
+        return writes + sum(self.elastic.reconcile(q.name, q.namespace)
+                            for q in self.store.list("ElasticQuota"))

@@ -1,5 +1,9 @@
 """The partitioner controller: counterpart of
 ``nos_tpu/controllers/partitioner`` (the cold path, polled)."""
-from nos_tpu_torch.controllers.partitioner.controller import PartitionerController, could_help
+from nos_tpu_torch.controllers.partitioner.controller import (
+    PartitionerController,
+    build_sim_framework,
+    could_help,
+)
 
-__all__ = ["PartitionerController", "could_help"]
+__all__ = ["PartitionerController", "build_sim_framework", "could_help"]

@@ -28,7 +28,9 @@ the planner, ``SNAPSHOT_FORKS`` / ``COMMITS`` / ``REVERTS`` in the
 snapshot. Out (ROADMAP.md): pool sharding, the process backend and the
 warm-state codec (``:583-1015``), ``incremental.py``, the divergence
 reconcile (``:228``), ``multihost.py`` and the flight recorder (a
-bounded ``plans`` record stands in for it).
+bounded ``plans`` record stands in for it). ``build_sim_framework``
+(``nos_tpu/cmd/partitioner.py:39``) gives a planner the scheduler's
+filters and its quota PreFilter.
 """
 from __future__ import annotations
 
@@ -47,8 +49,11 @@ from nos_tpu_torch.partitioning.core import (
 )
 from nos_tpu_torch.partitioning.core.partition_state import partitioning_state_to_dict
 from nos_tpu_torch.partitioning.core.state import partitioning_kind
+from nos_tpu_torch.scheduler.framework import Framework, vanilla_filter_plugins
+from nos_tpu_torch.scheduler.plugins.capacity import CapacityScheduling
 from nos_tpu_torch.util import metrics
 from nos_tpu_torch.util import resources as res
+from nos_tpu_torch.util.pod import is_preempting
 from nos_tpu_torch.util.batcher import DEFAULT_IDLE_SECONDS, DEFAULT_TIMEOUT_SECONDS, Batcher
 from nos_tpu_torch.util.tracing import TRACER
 
@@ -59,8 +64,21 @@ PLAN_RECORDS = 64
 
 def could_help(pod: Pod) -> bool:
     """Re-partitioning could make the pod schedulable: it is pending,
-    unbound and marked Unschedulable (reference pkg/util/pod/pod.go:25-33)."""
-    return pod.phase == PodPhase.PENDING and not pod.node and pod.unschedulable
+    unbound, marked Unschedulable and not preempting its way onto a node
+    (reference pkg/util/pod/pod.go:25-33)."""
+    return (pod.phase == PodPhase.PENDING and not pod.node and pod.unschedulable
+            and not is_preempting(pod))
+
+
+def build_sim_framework(store: NodeStore) -> Framework:
+    """The planner's simulation framework: the vanilla filters and
+    ``CapacityScheduling`` as PreFilter, the plugins the scheduler's own
+    cycle filters with, so a plan never carves for a pod the quota would
+    refuse (``nos_tpu/cmd/partitioner.py:build_sim_framework``). The quota
+    plugin makes no verdict-cache promise: its PreFilter runs on every
+    trial."""
+    return Framework(pre_filter_plugins=[CapacityScheduling(store)],
+                     filter_plugins=vanilla_filter_plugins())
 
 
 def _default_plan_id() -> str:

@@ -6,24 +6,41 @@ labels, capacity, allocatable and annotations, plus the taints and the
 cordon the scheduler's filters read; a pod its name, namespace, node,
 phase and request ``{resource: quantity}``, plus what the scheduler and
 the planner read of ``nos_tpu/kube/objects.py``'s pod (priority, labels,
-node selector, tolerations, scheduler name) and its PodScheduled=False /
-Unschedulable condition as a flag and a message; a config map its name,
-namespace and string data. All of them stay plain dataclasses.
-``NodeStore`` keeps them under one lock, with the reference's verbs:
-``create``, ``get`` / ``try_get``, ``delete``, ``list``,
+node selector, tolerations, scheduler name, uid, creation time and
+nominated node) and its PodScheduled=False / Unschedulable condition as
+a flag and a message; a config map its name, namespace and string data;
+a pod disruption budget its selector and one of ``min_available`` /
+``max_unavailable`` (``nos_tpu/kube/objects.py:350-363``). The elastic
+quotas are ``api/v1alpha1/elasticquota.py``'s. All of them stay plain
+dataclasses. ``NodeStore`` keeps them under one lock, with the
+reference's verbs: ``create`` (which stamps a fresh ``uid`` on every pod,
+and its ``created`` from the store's clock when the caller left it
+unset), ``get`` / ``try_get``, ``delete``, ``list``,
 ``patch_merge`` (a mutate callable run under the lock on a copy, then
 stored) and ``patch_annotations`` / ``patch_labels`` (a ``None`` value
 deletes the key). Objects are copied
 on the way in and out, so mutating a returned object never mutates the
-store. There are no watches and no resource versions: the agents poll
+store. ``revision`` counts the writes (a resource version of the whole
+store, for readers that memoize on it). ``register_admission(kind, fn)``
+adds a validating webhook:
+``fn(obj, store)`` runs before ``create`` and ``patch_merge`` store the
+object, and raises ``AdmissionError`` to refuse it. There are no
+watches and no resource versions: the agents poll
 (``controllers/migagent``).
 """
 from __future__ import annotations
 
 import copy
+import itertools
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from nos_tpu_torch.api.v1alpha1.elasticquota import CompositeElasticQuota, ElasticQuota
+
+
+_deepcopy = copy.deepcopy  # list()'s ``copy`` argument shadows the module
 
 
 class NotFoundError(KeyError):
@@ -32,6 +49,19 @@ class NotFoundError(KeyError):
 
 class AlreadyExistsError(ValueError):
     pass
+
+
+class AdmissionError(ValueError):
+    """A validating webhook refused the object."""
+
+
+_uids = itertools.count(1)
+_uid_lock = threading.Lock()
+
+
+def _new_uid() -> str:
+    with _uid_lock:
+        return f"uid-{next(_uids)}"
 
 
 class PodPhase:
@@ -95,6 +125,12 @@ class Pod:
     # message: what the partitioner batches on
     unschedulable: bool = False
     unschedulable_message: str = ""
+    # stamped by NodeStore.create: a fresh uid, and the creation time
+    # (on the store's clock) unless the caller set one
+    uid: str = ""
+    created: Optional[float] = None
+    # the node a preemption cleared for the pod (status.nominatedNodeName)
+    nominated_node: str = ""
 
     @property
     def namespaced_name(self) -> str:
@@ -108,28 +144,64 @@ class ConfigMap:
     data: Dict[str, str] = field(default_factory=dict)
 
 
-_KINDS = {"Node": Node, "Pod": Pod, "ConfigMap": ConfigMap}
+@dataclass
+class PodDisruptionBudget:
+    """The policy/v1 subset the preemptor reads: a matchLabels selector and
+    one of min_available / max_unavailable, as absolute counts."""
+
+    name: str
+    namespace: str = "default"
+    selector: Dict[str, str] = field(default_factory=dict)
+    min_available: Optional[int] = None
+    max_unavailable: Optional[int] = None
+
+
+_KINDS = {"Node": Node, "Pod": Pod, "ConfigMap": ConfigMap, "ElasticQuota": ElasticQuota,
+          "CompositeElasticQuota": CompositeElasticQuota,
+          "PodDisruptionBudget": PodDisruptionBudget}
 
 
 def _kind(obj: Any) -> str:
     for name, cls in _KINDS.items():
         if isinstance(obj, cls):
             return name
-    raise TypeError(f"the store keeps nodes, pods and config maps, not {type(obj).__name__}")
+    raise TypeError(f"the store keeps {', '.join(_KINDS)}, not {type(obj).__name__}")
 
 
 class NodeStore:
-    def __init__(self) -> None:
+    def __init__(self, clock: Callable[[], float] = time.time) -> None:
         self._lock = threading.RLock()
         self._objects: Dict[Tuple[str, str, str], Any] = {}
+        # the clock pods' creation times are read from; a caller on
+        # virtual time passes its own
+        self.clock = clock
+        # kind → [fn(obj, store)], run before create / patch_merge store
+        self._admission: Dict[str, List[Callable[[Any, "NodeStore"], None]]] = {}
+        # bumped by every write
+        self.revision = 0
+
+    def register_admission(self, kind: str, fn: Callable[[Any, "NodeStore"], None]) -> None:
+        self._admission.setdefault(kind, []).append(fn)
+
+    def _admit(self, kind: str, obj: Any) -> None:
+        for fn in self._admission.get(kind, []):
+            fn(obj, self)
 
     def create(self, obj: Any) -> Any:
-        key = (_kind(obj), obj.namespace, obj.name)
+        kind = _kind(obj)
+        key = (kind, obj.namespace, obj.name)
+        stored = copy.deepcopy(obj)
         with self._lock:
             if key in self._objects:
                 raise AlreadyExistsError(f"{key[0]} {obj.namespace}/{obj.name} exists")
-            self._objects[key] = copy.deepcopy(obj)
-        return copy.deepcopy(obj)
+            if kind == "Pod":
+                stored.uid = _new_uid()
+                if stored.created is None:
+                    stored.created = self.clock()
+            self._admit(kind, stored)
+            self._objects[key] = stored
+            self.revision += 1
+            return copy.deepcopy(stored)
 
     def get(self, kind: str, name: str, namespace: str = "") -> Any:
         obj = self.try_get(kind, name, namespace)
@@ -145,15 +217,23 @@ class NodeStore:
     def delete(self, kind: str, name: str, namespace: str = "") -> Any:
         with self._lock:
             obj = self._objects.pop((kind, namespace, name), None)
+            if obj is not None:
+                self.revision += 1
         if obj is None:
             raise NotFoundError(f"{kind} {namespace}/{name} not found")
         return obj
 
-    def list(self, kind: str = "Pod") -> List[Any]:
-        """Every object of ``kind``, by namespace and name."""
+    def list(self, kind: str = "Pod", namespace: Optional[str] = None,
+             copy: bool = True) -> List[Any]:
+        """Every object of ``kind`` (in ``namespace`` when one is given), by
+        namespace and name. ``copy=False`` returns the stored objects
+        themselves, for read-only callers: every write stores a new object
+        and none is changed in place, so they stay as they were listed,
+        but a caller must not change them."""
         with self._lock:
-            return [copy.deepcopy(obj) for key, obj in sorted(self._objects.items())
-                    if key[0] == kind]
+            objs = [obj for key, obj in sorted(self._objects.items())
+                    if key[0] == kind and (namespace is None or key[1] == namespace)]
+        return [_deepcopy(obj) for obj in objs] if copy else objs
 
     def patch_merge(self, kind: str, name: str, namespace: str,
                     mutate: Callable[[Any], None]) -> Any:
@@ -164,7 +244,9 @@ class NodeStore:
                 raise NotFoundError(f"{kind} {namespace}/{name} not found")
             obj = copy.deepcopy(self._objects[key])
             mutate(obj)
+            self._admit(kind, obj)
             self._objects[key] = obj
+            self.revision += 1
             return copy.deepcopy(obj)
 
     @staticmethod

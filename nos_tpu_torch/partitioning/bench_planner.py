@@ -23,8 +23,18 @@ header gives the host's CPU count, and the card's name and power limit
 when NVML finds one (the planner is host code: the card is named so a
 row can be matched to its machine).
 
+The planner runs with ``--framework``: ``sim`` (the default) is the
+simulation framework ``SimCluster`` plans with (``build_sim_framework``:
+the vanilla filters and ``CapacityScheduling``'s PreFilter), over a
+store holding the cluster's nodes and running pods and one ElasticQuota
+of the bench namespace whose min, in ``nos.nebuly.com/gpu-memory``, is
+the whole cluster's memory, so the quota admits every pod and the
+PreFilter's arithmetic runs on every trial; ``vanilla`` is the vanilla
+filters alone, without a store (the rows before the quota slice).
+
     python -m nos_tpu_torch.partitioning.bench_planner --quick
     python -m nos_tpu_torch.partitioning.bench_planner --sizes 64x200 --repeats 3
+    python -m nos_tpu_torch.partitioning.bench_planner --framework vanilla --quick
 """
 from __future__ import annotations
 
@@ -37,14 +47,16 @@ import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
+from nos_tpu_torch.api.v1alpha1.elasticquota import RESOURCE_GPU_MEMORY, ElasticQuota
+from nos_tpu_torch.controllers.partitioner import build_sim_framework
 from nos_tpu_torch.gpu import annotations as annot
-from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, H100_80GB
+from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, H100_80GB, KNOWN_GPUS
 from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, RESOURCE_GPU, MigNode
 from nos_tpu_torch.gpu.node import mig_resource
-from nos_tpu_torch.kube.store import Node, Pod, PodPhase
+from nos_tpu_torch.kube.store import Node, NodeStore, Pod, PodPhase
 from nos_tpu_torch.partitioning.core import ClusterSnapshot, MigSliceCodec, Planner, SnapshotNode
 from nos_tpu_torch.partitioning.core.partition_state import node_key
-from nos_tpu_torch.scheduler import new_framework
+from nos_tpu_torch.scheduler import Framework, new_framework
 from nos_tpu_torch.util import metrics
 
 DEFAULT_SIZES = "16x50,64x200,256x400"
@@ -98,6 +110,24 @@ def make_pending(n_pods: int, seed: int) -> List[Pod]:
             for i in range(n_pods)]
 
 
+def make_framework(kind: str, snapshot: ClusterSnapshot, gpus_per_node: int) -> Framework:
+    """The planner's framework: ``sim`` over a store of the snapshot's
+    nodes and running pods, with an ElasticQuota of the bench namespace
+    as large as the cluster; ``vanilla`` without a store."""
+    if kind == "vanilla":
+        return new_framework()
+    if kind != "sim":
+        raise ValueError(f"framework {kind!r}: sim or vanilla")
+    store = NodeStore()
+    for node in snapshot.get_nodes().values():
+        store.create(node.node)
+        for pod in node.pods:
+            store.create(pod)
+    total_gb = snapshot.node_count() * gpus_per_node * KNOWN_GPUS[H100_80GB].memory_gb
+    store.create(ElasticQuota("bench", "bench", {RESOURCE_GPU_MEMORY: total_gb}))
+    return build_sim_framework(store)
+
+
 def plan_digest(snapshot: ClusterSnapshot, state, unserved) -> tuple:
     """What two plans must agree on: each node's geometry, the node each
     pending pod was placed on in the simulation, and the unserved pods
@@ -109,7 +139,8 @@ def plan_digest(snapshot: ClusterSnapshot, state, unserved) -> tuple:
 
 
 def bench_config(n_nodes: int, n_pods: int, gpus_per_node: int, repeats: int,
-                 cache_on: bool, seed: int = SEED) -> Tuple[dict, tuple]:
+                 cache_on: bool, seed: int = SEED, framework: str = "sim"
+                 ) -> Tuple[dict, tuple]:
     """One row, and the digest of its plans (every repeat plans the same
     inputs, so one digest must hold for all of them)."""
     latencies: List[float] = []
@@ -118,7 +149,8 @@ def bench_config(n_nodes: int, n_pods: int, gpus_per_node: int, repeats: int,
     placed = unserved = 0
     for rep in range(repeats + 1):  # rep 0 is an untimed warm-up
         snapshot = build_cluster(n_nodes, gpus_per_node, seed)
-        planner = Planner(new_framework(), verdict_cache_enabled=cache_on)
+        planner = Planner(make_framework(framework, snapshot, gpus_per_node),
+                          verdict_cache_enabled=cache_on)
         pods = make_pending(n_pods, seed)
         forks_before = metrics.SNAPSHOT_FORKS.value
         started = time.perf_counter()
@@ -134,7 +166,7 @@ def bench_config(n_nodes: int, n_pods: int, gpus_per_node: int, repeats: int,
         placed = n_pods - unserved
     total = sum(latencies)
     quantiles = statistics.quantiles(latencies, n=20) if len(latencies) > 1 else latencies * 2
-    row = {"bench": "bench_planner", "engine": "cow",
+    row = {"bench": "bench_planner", "engine": "cow", "framework": framework,
            "verdict_cache": "on" if cache_on else "off", "nodes": n_nodes,
            "gpus_per_node": gpus_per_node, "gpus": n_nodes * gpus_per_node,
            "pending_pods": n_pods, "repeats": repeats,
@@ -173,13 +205,16 @@ def parse_sizes(text: str) -> List[Tuple[int, int]]:
     return out
 
 
-def run(sizes: List[Tuple[int, int]], gpus_per_node: int, repeats: int) -> List[dict]:
+def run(sizes: List[Tuple[int, int]], gpus_per_node: int, repeats: int,
+        framework: str = "sim") -> List[dict]:
     """Cache-on and cache-off rows for every size; each cache-on row says
     whether its plan equals the cache-off one."""
     rows = []
     for n_nodes, n_pods in sizes:
-        on, on_digest = bench_config(n_nodes, n_pods, gpus_per_node, repeats, True)
-        off, off_digest = bench_config(n_nodes, n_pods, gpus_per_node, repeats, False)
+        on, on_digest = bench_config(n_nodes, n_pods, gpus_per_node, repeats, True,
+                                     framework=framework)
+        off, off_digest = bench_config(n_nodes, n_pods, gpus_per_node, repeats, False,
+                                       framework=framework)
         on["plan_equals_cache_off"] = on_digest == off_digest
         rows += [on, off]
     return rows
@@ -191,13 +226,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--gpus-per-node", type=int, default=8)
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument("--quick", action="store_true", help="16x50 only, 2 repeats")
+    parser.add_argument("--framework", default="sim", choices=("sim", "vanilla"),
+                        help="the planner's framework (sim: with CapacityScheduling)")
     parser.add_argument("--output", default="", help="also append JSON lines to this file")
     args = parser.parse_args(argv)
     sizes = [(16, 50)] if args.quick else parse_sizes(args.sizes)
     repeats = 2 if args.quick else args.repeats
     header = {"bench": "bench_planner", "host_cpus": os.cpu_count(), "card": card(),
               "gpus_per_node": args.gpus_per_node}
-    rows = run(sizes, args.gpus_per_node, repeats)
+    rows = run(sizes, args.gpus_per_node, repeats, args.framework)
     lines = [json.dumps(header)] + [json.dumps(row) for row in rows]
     print("\n".join(lines))
     if args.output:

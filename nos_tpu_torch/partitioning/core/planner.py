@@ -13,14 +13,21 @@ rescue*: a pending pod the fairness aging has promoted gets a carve
 aimed at exactly its profile before anyone claims free slices (one
 rescue a plan, at most three tries). A *claim pre-pass*: pods the
 existing free slices already serve are placed first, so no carve can
-destroy a slice a pending pod is entitled to. Then the *carve loop*: for
+destroy a slice a pending pod is entitled to; it skips the pod the
+rescue placed (the reference places it a second time: ROADMAP.md,
+fault F1). Then the *carve loop*: for
 each candidate node (best fit first), fork the snapshot, re-carve the
 node toward what the pending pods still lack, simulation-schedule each
 of them on it with the real scheduler framework (PreFilter + Filter),
 and commit the fork when a pod landed, else revert. The lacking
 shortcut skips the framework while the cluster cannot serve the pod at
-all. Every exit leaves ``last_unserved``: each pending pod still
-unserved, with the slices it lacks.
+all. Every exit leaves ``last_unserved``: each pending pod asking for
+slices that the plan leaves unplaced, with its reason. A pod the
+tracker still holds lacks its slices; so does one whose free slices are
+gone from the plan's snapshot (a rescue's carve, or the carve loop, took
+them); one the free slices still cover fits no node that holds them (its
+filters refuse it, or its slices lie on several nodes). The reference
+gives the last two no reason (ROADMAP.md, faults F1 and F3).
 
 The simulation goes through the verdict cache (``verdict_cache.py``),
 with the same exactness as the reference's; the lacking shortcut is
@@ -29,8 +36,8 @@ memoized on (request, ``state_version``) and the simulated node views on
 gang pre-pass, warm state, the incremental and fallback plan modes, and
 the carve-futility memo (the reference's tests hold that it never
 changes a plan; so do this port's, against the reference with it on
-and off). A pod's first sighting is keyed by its namespaced name (the
-port's pod has no uid).
+and off). A pod's first sighting is keyed by its namespaced name and
+uid, so a pod recreated under its name starts at age 0.
 """
 from __future__ import annotations
 
@@ -89,10 +96,19 @@ def sort_candidate_pods(pods: Iterable[Pod], aging_per_second: float = AGING_PER
     return [pod for _, pod in keyed]
 
 
+def _profile(slices: dict) -> str:
+    return ", ".join(f"{int(qty)}x {name}" for name, qty in sorted(slices.items()))
+
+
 def lacking_reason(lacking: dict) -> str:
     """A lacking profile, read by people: the unserved reason."""
-    profile = ", ".join(f"{int(qty)}x {name}" for name, qty in sorted(lacking.items()))
-    return f"no node can be re-carved to yield lacking slices ({profile})"
+    return f"no node can be re-carved to yield lacking slices ({_profile(lacking)})"
+
+
+def unplaced_reason(request: dict) -> str:
+    """The reason of a pod the free slices cover but no node can take."""
+    slices = {k: v for k, v in request.items() if is_slice_resource(k) and v}
+    return f"the free slices cover it, but no node it fits holds them ({_profile(slices)})"
 
 
 class Planner:
@@ -108,9 +124,9 @@ class Planner:
         # could not serve
         self.last_unserved: Dict[str, str] = {}
         self.last_pending_ages: Dict[str, float] = {}
-        # namespaced name → (first seen, last seen) on the clock; pruned after
-        # PENDING_TTL_S unseen
-        self._pending_seen: Dict[str, Tuple[float, float]] = {}
+        # (namespaced name, uid) → (first seen, last seen) on the clock;
+        # pruned after PENDING_TTL_S unseen
+        self._pending_seen: Dict[Tuple[str, str], Tuple[float, float]] = {}
         self._cache_snapshot: Optional[ClusterSnapshot] = None
         self._reset_plan_caches(None)
 
@@ -182,13 +198,13 @@ class Planner:
             pending_since = {p.namespaced_name: now - pending_ages.get(p.namespaced_name, 0.0)
                              for p in pending_pods}
         else:
-            live = {p.namespaced_name for p in pending_pods}
+            live = {(p.namespaced_name, p.uid) for p in pending_pods}
             for key in live:
                 first, _ = self._pending_seen.get(key, (now, now))
                 self._pending_seen[key] = (first, now)
             self._pending_seen = {k: v for k, v in self._pending_seen.items()
                                   if now - v[1] <= PENDING_TTL_S}
-            pending_since = {k: v[0] for k, v in self._pending_seen.items() if k in live}
+            pending_since = {k[0]: v[0] for k, v in self._pending_seen.items() if k in live}
         self.last_pending_ages = {k: now - v for k, v in pending_since.items()}
         # the tracker's pool draw order is the claim pre-pass's order
         candidates = sort_candidate_pods(pending_pods, pending_since=pending_since, now=now)
@@ -199,15 +215,28 @@ class Planner:
         if tracker.empty:
             # the geometry already serves every pending pod (planner.go:80-83)
             return snapshot.partitioning_state()
-        self._plan_pass(snapshot, tracker, candidates, aged)
-        self.last_unserved = {p.namespaced_name: lacking_reason(tracker.lacking_for(p))
-                              for p in candidates if p in tracker}
+        placed = {p.namespaced_name for p in self._plan_pass(snapshot, tracker, candidates,
+                                                             aged)}
+        self.last_unserved = {}
+        for p in candidates:
+            if p in tracker:
+                reason = lacking_reason(tracker.lacking_for(p))
+            elif p.namespaced_name in placed or not self._claims_free_slices(p):
+                continue
+            else:
+                # the free slices that served it when the plan began are
+                # gone, or no node it fits holds them
+                lacking = snapshot.get_lacking_slices(p)
+                reason = (lacking_reason(lacking) if lacking
+                          else unplaced_reason(res.compute_pod_request(p)))
+            self.last_unserved[p.namespaced_name] = reason
         span.set_attributes(totals_calls=tracker.totals_calls,
                             totals_recomputes=tracker.totals_recomputes)
         return snapshot.partitioning_state()
 
     def _plan_pass(self, snapshot: ClusterSnapshot, tracker: SliceTracker,
                    candidates: List[Pod], aged: set) -> List[Pod]:
+        """One pass; the pods it placed."""
         self._ensure_plan_caches(snapshot)
         placed: List[Pod] = []
         # Aged rescue, before anyone claims free slices: one rescue a plan
@@ -241,9 +270,11 @@ class Planner:
                                          **self._trial_cache_delta(stats_before))
 
         # Claim pre-pass: pods the free slices already serve are placed
-        # first, so the carve loop sees their slices as used.
+        # first, so the carve loop sees their slices as used. The rescued
+        # pod is placed already.
+        rescued_pods = {p.namespaced_name for p in placed}
         for pod in candidates:
-            if pod in tracker:
+            if pod in tracker or pod.namespaced_name in rescued_pods:
                 continue
             claims_slices = self._claims_free_slices(pod)
             for node_name in self._candidate_nodes(snapshot):

@@ -1,6 +1,7 @@
-"""The vanilla scheduler: counterpart of ``nos_tpu/scheduler``, trimmed to
-the framework, the vanilla predicates and the polled cycle
-(``framework``, ``scheduler``)."""
+"""The scheduler: counterpart of ``nos_tpu/scheduler``, trimmed to the
+framework, the vanilla predicates, the polled cycle and the quota
+plugin with its preemptor (``framework``, ``scheduler``,
+``plugins/capacity``, ``preemption``)."""
 from nos_tpu_torch.scheduler.framework import (
     CycleState,
     Diagnosis,
@@ -15,10 +16,11 @@ from nos_tpu_torch.scheduler.framework import (
     TaintTolerationScoring,
     vanilla_filter_plugins,
 )
+from nos_tpu_torch.scheduler.plugins.capacity import CapacityScheduling
 from nos_tpu_torch.scheduler.scheduler import CycleOutcome, Scheduler, new_framework
 
 __all__ = [
-    "CycleOutcome", "CycleState", "Diagnosis", "Framework", "NodeInfo", "NodeResourcesFit",
+    "CapacityScheduling", "CycleOutcome", "CycleState", "Diagnosis", "Framework", "NodeInfo", "NodeResourcesFit",
     "NodeSelectorFit", "NodeUnschedulableFit", "Scheduler", "Status", "StatusCode",
     "TaintTolerationFit", "TaintTolerationScoring", "new_framework",
     "vanilla_filter_plugins",

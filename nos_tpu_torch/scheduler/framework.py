@@ -5,7 +5,7 @@ Counterpart of ``nos_tpu/scheduler/framework.py`` (the k8s scheduler
 framework as the reference uses it): ``StatusCode`` / ``Status``
 (``:20-53``), ``CycleState`` (``:54``), ``Diagnosis`` (``:59``),
 ``NodeInfo`` (``:106``), ``Framework`` (``:216``) with its PreFilter,
-Filter, Score and Reserve runners, the ``verdict_cacheable`` marks
+Filter, PostFilter, Score, Reserve and Unreserve runners, the ``verdict_cacheable`` marks
 (``:173``), the filters ``NodeResourcesFit`` (``:323``),
 ``NodeSelectorFit`` (``:369``), ``TaintTolerationFit`` (``:404``) and
 ``NodeUnschedulableFit`` (``:424``), ``TaintTolerationScoring``
@@ -13,8 +13,8 @@ Filter, Score and Reserve runners, the ``verdict_cacheable`` marks
 
 The port's pod carries no affinity or topology-spread terms yet, so
 ``NodeAffinityFit``, ``PodTopologySpreadFit`` / ``Scoring`` and
-``InterPodAffinityFit`` wait for a later slice (ROADMAP.md), as do
-PostFilter (preemption) and Permit (gangs). A pod's request is one map,
+``InterPodAffinityFit`` wait for a later slice (ROADMAP.md), as does
+Permit (gangs). A pod's request is one map,
 and a plain ``nvidia.com/gpu`` request is never normalized into a slice.
 Per-plugin spans are left out: the cycle's own span carries the story.
 """
@@ -131,6 +131,16 @@ class FilterPlugin(Protocol):
     def filter(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> Status: ...
 
 
+class PostFilterPlugin(Protocol):
+    name: str
+
+    def post_filter(self, state: CycleState, pod: Pod,
+                    filtered_nodes: Dict[str, Status]) -> Optional[str]:
+        """Try to make the pod schedulable (preemption); the nominated
+        node's name, or None."""
+        ...
+
+
 class ReservePlugin(Protocol):
     name: str
 
@@ -161,9 +171,11 @@ class Framework:
     def __init__(self, pre_filter_plugins: Sequence[PreFilterPlugin] = (),
                  filter_plugins: Sequence[FilterPlugin] = (),
                  reserve_plugins: Sequence[ReservePlugin] = (),
-                 score_plugins: Sequence[ScorePlugin] = ()) -> None:
+                 score_plugins: Sequence[ScorePlugin] = (),
+                 post_filter_plugins: Sequence[PostFilterPlugin] = ()) -> None:
         self.pre_filter_plugins = list(pre_filter_plugins)
         self.filter_plugins = list(filter_plugins)
+        self.post_filter_plugins = list(post_filter_plugins)
         self.reserve_plugins = list(reserve_plugins)
         self.score_plugins = list(score_plugins)
 
@@ -186,6 +198,15 @@ class Framework:
                 status.plugin = status.plugin or p.name
                 return status
         return Status.ok()
+
+    def run_post_filter_plugins(self, state: CycleState, pod: Pod,
+                                filtered_nodes: Dict[str, Status]) -> Optional[str]:
+        """The first node a PostFilter plugin nominates, or None."""
+        for p in self.post_filter_plugins:
+            nominated = p.post_filter(state, pod, filtered_nodes)
+            if nominated:
+                return nominated
+        return None
 
     def run_reserve_plugins(self, state: CycleState, pod: Pod, node_name: str) -> Status:
         for i, p in enumerate(self.reserve_plugins):

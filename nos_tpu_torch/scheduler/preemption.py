@@ -1,0 +1,364 @@
+"""The preemptor: victims for a pod the quotas or the nodes refuse.
+
+Counterpart of ``nos_tpu/scheduler/preemption.py`` (reference
+capacity_scheduling.go:371-675). Victim selection follows the elastic
+quotas (``SelectVictimsOnNode``, :468-675): a victim of the preemptor's
+own quota must have a lower priority; a victim of another quota must be
+running over-quota (the quota controller's label), and the preemptor
+must stay within its guaranteed share (min plus its fair part of the
+unused min). Every eligible victim on a node is evicted in simulation,
+then victims are reprieved while the pod stays feasible: those whose
+eviction would break a PodDisruptionBudget first, then by priority and
+newest creation (:626-674). Nodes are compared by PDB violations, then
+the top victim priority, the sum of priorities and the count.
+
+Feasible means the quota admission passes on the simulated usage and
+the node's filters pass, or, on a MIG node, that the memory slices the
+surviving pods leave (8 a GPU, less the slices their MIG instances
+hold, counted as the planner counts sizes) hold the pod's MIG request
+and every filter but the resource fit passes: the partitioner re-carves
+freed slices into any profile. An MPS node has no such headroom.
+
+``VictimUnit`` is kept, but each unit holds one pod: gangs, and the
+spread and affinity overlay of the victim trials, wait for the gang
+slice (ROADMAP.md), the port's pod carrying no gang or spread terms yet.
+Events wait for their slice too; ``PREEMPTIONS`` counts the evictions.
+"""
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+from nos_tpu_torch.api.v1alpha1.elasticquota import CAPACITY_LABEL
+from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, KNOWN_GPUS
+from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, RESOURCE_GPU
+from nos_tpu_torch.kube.store import NodeStore, NotFoundError, Pod, PodPhase
+from nos_tpu_torch.partitioning.core.codec import effective_size, is_mig_resource
+from nos_tpu_torch.scheduler.framework import CycleState, NodeInfo, NodeResourcesFit, Status
+from nos_tpu_torch.util import metrics
+from nos_tpu_torch.util import pod as podutil
+from nos_tpu_torch.util import resources as res
+
+log = logging.getLogger("nos_tpu_torch.scheduler.preemption")
+
+
+@dataclass
+class VictimUnit:
+    """The atom of preemption: ``local`` are the members on the candidate
+    node, ``members`` every member. A unit holds one pod until gangs
+    arrive."""
+
+    local: List[Pod]
+    members: List[Pod]
+
+    @property
+    def max_priority(self) -> int:
+        return max((p.priority for p in self.members), default=0)
+
+    @property
+    def newest_creation(self) -> float:
+        return max((p.created or 0.0 for p in self.members), default=0.0)
+
+
+@dataclass
+class _NodeVictims:
+    units: List[VictimUnit]
+    num_pdb_violations: int
+
+    @property
+    def pods(self) -> List[Pod]:
+        return [p for u in self.units for p in u.members]
+
+
+class _PdbLedger:
+    """The disruptions each PodDisruptionBudget still allows, charged as
+    victims are classified (the reference's filterPodsWithPDBViolation)."""
+
+    def __init__(self, store: Optional[NodeStore]) -> None:
+        # [namespace, selector, disruptions still allowed] a budget
+        self._budgets: List[list] = []
+        if store is None:
+            return
+        pods_by_ns: Dict[str, List[Pod]] = {}
+        for pdb in store.list("PodDisruptionBudget", copy=False):
+            if pdb.namespace not in pods_by_ns:
+                pods_by_ns[pdb.namespace] = store.list("Pod", namespace=pdb.namespace,
+                                                       copy=False)
+            selector = dict(pdb.selector)
+            # terminal pods are outside the budget's expected count
+            matching = [p for p in pods_by_ns[pdb.namespace]
+                        if selector.items() <= p.labels.items()
+                        and p.phase in (PodPhase.PENDING, PodPhase.RUNNING)]
+            healthy = sum(1 for p in matching if p.phase == PodPhase.RUNNING)
+            if pdb.min_available is not None:
+                allowed = healthy - pdb.min_available
+            elif pdb.max_unavailable is not None:
+                # disruptionsAllowed = currentHealthy - (expected - maxUnavailable)
+                allowed = healthy - (len(matching) - pdb.max_unavailable)
+            else:
+                allowed = healthy
+            self._budgets.append([pdb.namespace, selector, max(0, allowed)])
+
+    def clone(self) -> "_PdbLedger":
+        c = _PdbLedger(None)
+        c._budgets = [list(b) for b in self._budgets]
+        return c
+
+    def _matching(self, pod: Pod):
+        for budget in self._budgets:
+            ns, selector, _ = budget
+            if pod.namespace == ns and selector.items() <= pod.labels.items():
+                yield budget
+
+    def would_violate(self, unit: VictimUnit) -> bool:
+        charges: Dict[int, int] = {}
+        for pod in unit.members:
+            for budget in self._matching(pod):
+                key = id(budget)
+                charges[key] = charges.get(key, 0) + 1
+                if charges[key] > budget[2]:
+                    return True
+        return False
+
+    def charge(self, unit: VictimUnit) -> None:
+        for pod in unit.members:
+            for budget in self._matching(pod):
+                budget[2] = max(0, budget[2] - 1)
+
+
+def mig_slices_in(request: res.ResourceList) -> float:
+    """The memory slices a request's MIG instances hold."""
+    return sum(effective_size(name) * int(qty) for name, qty in request.items()
+               if is_mig_resource(name))
+
+
+class Preemptor:
+    def __init__(self, store: NodeStore, plugin, infos) -> None:
+        self.store = store
+        self.plugin = plugin  # CapacityScheduling, with its .framework
+        self.infos = infos
+        # the simulation's requests are counted as the infos' were
+        self.gpu_memory_gb = getattr(plugin, "gpu_memory_gb", None)
+        # per-cycle memos: the store and the infos are fixed for one cycle
+        self._request_cache: Dict[str, res.ResourceList] = {}
+        self._entitled_cache: Dict[str, bool] = {}
+        self._victim_quota_cache: Dict[str, bool] = {}
+
+    def _quota_request(self, pod: Pod) -> res.ResourceList:
+        from nos_tpu_torch.scheduler.plugins.capacity import quota_request
+
+        key = pod.namespaced_name
+        if key not in self._request_cache:
+            self._request_cache[key] = quota_request(pod, self.gpu_memory_gb)
+        return self._request_cache[key]
+
+    # ----------------------------------------------------------- entry
+
+    def preempt(self, state: CycleState, pod: Pod,
+                filtered_nodes: Dict[str, Status]) -> Optional[str]:
+        framework = getattr(self.plugin, "framework", None)
+        if framework is None:
+            return None
+        best: Optional[Tuple[str, _NodeVictims]] = None
+        best_key = None
+        ledger = _PdbLedger(self.store)
+        node_infos = self._node_infos()
+        for node_name in sorted(filtered_nodes):
+            node_info = node_infos.get(node_name)
+            if node_info is None:
+                continue
+            victims = self.select_victims_on_node(state, pod, node_info, framework,
+                                                  ledger=ledger.clone())
+            if victims is None:
+                continue
+            # pickOneNodeForPreemption's order: fewest PDB violations,
+            # lowest top victim priority, smallest priority sum, fewest pods
+            key = (victims.num_pdb_violations,
+                   max((v.priority for v in victims.pods), default=0),
+                   sum(v.priority for v in victims.pods), len(victims.pods))
+            if best is None or key < best_key:
+                best, best_key = (node_name, victims), key
+        if best is None:
+            return None
+        node_name, victims = best
+        self.plugin.last_preemption = self._record(pod, node_name, victims.pods)
+        for victim in victims.pods:
+            log.info("preempting %s (node %s) for %s", victim.namespaced_name,
+                     victim.node or node_name, pod.namespaced_name)
+            try:
+                self.store.delete("Pod", victim.name, victim.namespace)
+                metrics.PREEMPTIONS.labels(namespace=victim.namespace).inc()
+            except NotFoundError:
+                pass
+        return node_name
+
+    def _record(self, pod: Pod, node_name: str, victims: List[Pod]) -> dict:
+        """What one preemption did, as the invariants read it: the
+        preemptor's quota and whether serving it borrows, each victim's
+        quota, priority and capacity label when it was evicted."""
+        def quota_of(p: Pod) -> Optional[str]:
+            info = self.infos.for_namespace(p.namespace)
+            return info.name if info is not None else None
+
+        p_info = self.infos.for_namespace(pod.namespace)
+        return {"pod": pod.namespaced_name, "priority": pod.priority, "node": node_name,
+                "quota": quota_of(pod),
+                "borrowing": bool(p_info is not None
+                                  and p_info.used_over_min_with(self._quota_request(pod))),
+                "victims": [{"pod": v.namespaced_name, "priority": v.priority,
+                             "quota": quota_of(v),
+                             "capacity": v.labels.get(CAPACITY_LABEL, "")}
+                            for v in sorted(victims, key=lambda v: v.namespaced_name)]}
+
+    # ---------------------------------------------------------- victims
+
+    def select_victims_on_node(self, state: CycleState, pod: Pod, node_info: NodeInfo,
+                               framework, ledger: Optional[_PdbLedger] = None
+                               ) -> Optional[_NodeVictims]:
+        units = self._eligible_units(pod, node_info)
+        if not units:
+            return None
+        from nos_tpu_torch.scheduler.plugins.capacity import CapacityScheduling
+
+        # feasible = the node's filters AND the quota admission on the
+        # simulated usage: a victim whose eviction only relieves the quota
+        # must not be reprieved
+        sim_infos = self.infos.clone()
+        needed = mig_slices_in(res.compute_pod_request(pod))
+
+        def feasible(trial: NodeInfo) -> bool:
+            if not CapacityScheduling.check_quota(pod, sim_infos, self.gpu_memory_gb).success:
+                return False
+            if framework.run_filter_plugins(state, pod, trial).success:
+                return True
+            # on a MIG node the current instances are not the limit: the
+            # partitioner re-carves freed slices; compare memory slices,
+            # and still require every other predicate
+            headroom = self._mig_slices_headroom(trial)
+            if headroom is None or needed <= 0 or needed > headroom:
+                return False
+            return all(plugin.filter(state, pod, trial).success
+                       for plugin in framework.filter_plugins
+                       if not isinstance(plugin, NodeResourcesFit))
+
+        def evict_sim(unit: VictimUnit) -> None:
+            for victim in unit.members:
+                v_info = sim_infos.for_namespace(victim.namespace)
+                if v_info is not None:
+                    v_info.remove_pod(victim.namespaced_name, self._quota_request(victim))
+
+        def restore_sim(unit: VictimUnit) -> None:
+            for victim in unit.members:
+                v_info = sim_infos.for_namespace(victim.namespace)
+                if v_info is not None:
+                    v_info.add_pod(victim.namespaced_name, self._quota_request(victim))
+
+        trial = NodeInfo(node=node_info.node, pods=list(node_info.pods))
+        for unit in units:
+            for p in unit.local:
+                trial.remove_pod(p)
+            evict_sim(unit)
+        if not feasible(trial):
+            return None
+
+        # Reprieve (:626-674): PDB-violating units first, then the rest;
+        # within each, highest priority, then newest. Classifying charges
+        # the shared budgets cumulatively, as filterPodsWithPDBViolation does.
+        if ledger is None:
+            ledger = _PdbLedger(self.store)
+        violating: List[VictimUnit] = []
+        non_violating: List[VictimUnit] = []
+        for unit in sorted(units, key=lambda u: (-u.max_priority, -u.newest_creation)):
+            violates = ledger.would_violate(unit)
+            ledger.charge(unit)
+            (violating if violates else non_violating).append(unit)
+
+        victims: List[VictimUnit] = []
+        num_violations = 0
+        for unit, violates in ([(u, True) for u in violating]
+                               + [(u, False) for u in non_violating]):
+            for p in unit.local:
+                trial.add_pod(p)
+            restore_sim(unit)
+            if feasible(trial):
+                continue  # reprieved
+            for p in unit.local:
+                trial.remove_pod(p)
+            evict_sim(unit)
+            victims.append(unit)
+            if violates:
+                num_violations += len(unit.members)
+        if not victims:
+            return None
+        return _NodeVictims(units=victims, num_pdb_violations=num_violations)
+
+    # ------------------------------------------------------------ units
+
+    def _eligible_units(self, preemptor: Pod, node_info: NodeInfo) -> List[VictimUnit]:
+        return [VictimUnit(local=[p], members=[p]) for p in node_info.pods
+                if self._eligible(preemptor, p)]
+
+    def _eligible(self, preemptor: Pod, victim: Pod) -> bool:
+        """The reference's SelectVictimsOnNode branches
+        (capacity_scheduling.go:512-598), keyed on whether serving the
+        preemptor takes its quota past min."""
+        if victim.phase not in (PodPhase.PENDING, PodPhase.RUNNING):
+            return False
+        p_info = self.infos.for_namespace(preemptor.namespace)
+        v_info = self.infos.for_namespace(victim.namespace)
+        if p_info is None:
+            # a preemptor outside every quota: plain priority preemption
+            # among pods outside every quota (:585-598)
+            return v_info is None and victim.priority < preemptor.priority
+        if v_info is None:
+            return False
+        request = self._quota_request(preemptor)
+        if p_info.used_over_min_with(request):
+            # the preemptor would borrow: lower-priority pods of its own
+            # quota (:536-541); over-quota pods of a quota past its own
+            # entitlement, while the preemptor stays within its guaranteed
+            # share (:543-564)
+            if v_info.name == p_info.name:
+                return victim.priority < preemptor.priority
+            if not podutil.is_over_quota(victim):
+                return False
+            if p_info.name not in self._entitled_cache:
+                self._entitled_cache[p_info.name] = self.infos.within_guaranteed_with(
+                    p_info.name, request)
+            if v_info.name not in self._victim_quota_cache:
+                self._victim_quota_cache[v_info.name] = self.infos.used_over_entitled(
+                    v_info.name)
+            return self._entitled_cache[p_info.name] and self._victim_quota_cache[v_info.name]
+        # the preemptor is within its min, which others are borrowing:
+        # reclaim from any borrowing quota's over-quota pods (:566-581)
+        if v_info.name == p_info.name:
+            return False
+        return podutil.is_over_quota(victim) and v_info.is_borrowing()
+
+    # ----------------------------------------------------------- helpers
+
+    @staticmethod
+    def _mig_slices_headroom(trial: NodeInfo) -> Optional[float]:
+        """A MIG node's memory slices less those its surviving pods' MIG
+        instances hold (None on any other node): what a re-carve could
+        shape into any profile."""
+        node = trial.node
+        if node.labels.get(PARTITIONING_LABEL) != PARTITIONING_MIG:
+            return None
+        spec = KNOWN_GPUS.get(node.labels.get(GPU_PRODUCT_LABEL, ""))
+        gpus = int(node.capacity.get(RESOURCE_GPU, 0))
+        if spec is None or gpus <= 0:
+            return None
+        used = sum(mig_slices_in(res.compute_pod_request(p)) for p in trial.pods)
+        return gpus * spec.memory_slices - used
+
+    def _node_infos(self) -> Dict[str, NodeInfo]:
+        """Every node with the pods bound to it, listed once a preemption
+        (the store does not change while victims are sought); read-only."""
+        infos = {node.name: NodeInfo(node=node)
+                 for node in self.store.list("Node", copy=False)}
+        for p in self.store.list("Pod", copy=False):
+            if p.node in infos and p.phase in (PodPhase.PENDING, PodPhase.RUNNING):
+                infos[p.node].add_pod(p)
+        return infos

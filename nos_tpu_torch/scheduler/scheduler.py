@@ -2,23 +2,31 @@
 
 Counterpart of ``nos_tpu/scheduler/scheduler.py``: ``new_framework``
 (``:50``), ``Scheduler.schedule_one`` / ``_decide`` (``:207-402``),
-``_bind`` (``:541``) and ``_mark_unschedulable`` (``:574``). A cycle runs
-PreFilter → Filter over every node → Score → Reserve → Bind; when no node
-passes, the pod's PodScheduled=False / Unschedulable condition is set
-with the diagnosis as its message, the signal the partitioner batches
-on. The port has no controller manager and no watches: ``step()`` runs a
-cycle for every pending pod this scheduler owns (highest priority first,
-then by namespace and name), and ``start()`` runs the steps on a thread
-of its own every ``interval`` seconds until ``stop()``, as ``MigAgent``
-does. PostFilter preemption, Permit and gangs, and ``CapacityScheduling``
-wait for the quota and gang slices (ROADMAP.md).
+``_bind`` (``:541``), ``_mark_unschedulable`` (``:574``) and
+``_set_nominated`` (``:605``). A cycle runs PreFilter → Filter over every
+node → Score → Reserve → Bind. When the PreFilter refuses the pod, or
+no node passes the filters, the PostFilter plugins run
+(``CapacityScheduling``'s preemption, ``:280-340``): if one nominates a
+node, its victims are gone and the pod's ``nominated_node`` is written
+(the ``nominate`` outcome, retried next step); else the pod's
+PodScheduled=False / Unschedulable condition is set with the diagnosis
+as its message, the signal the partitioner batches on (a nominated pod
+that fails again loses its nomination, handing it back to the
+partitioner). The port has no controller manager and no watches:
+``step()`` first forgets the quota reservations of pods now bound or
+gone from the store (the reference's guard at ``:166-176``), then runs
+a cycle for every pending pod this scheduler owns (highest priority
+first, then by namespace and name); ``start()`` runs the steps on a
+thread of its own every ``interval`` seconds until ``stop()``, as
+``MigAgent`` does. Permit and gangs wait for the gang slice (ROADMAP.md).
 """
 from __future__ import annotations
 
 import logging
 import threading
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional
 
 from nos_tpu_torch.kube.store import NodeStore, NotFoundError, Pod, PodPhase
 from nos_tpu_torch.scheduler.framework import (
@@ -30,24 +38,38 @@ from nos_tpu_torch.scheduler.framework import (
     TaintTolerationScoring,
     vanilla_filter_plugins,
 )
+from nos_tpu_torch.scheduler.plugins.capacity import CapacityScheduling
 from nos_tpu_torch.util.tracing import TRACER
 
 log = logging.getLogger("nos_tpu_torch.scheduler")
 
+PREEMPTION_RECORDS = 1024
 
-def new_framework() -> Framework:
+
+def new_framework(store: Optional[NodeStore] = None) -> Framework:
     """The default plugin wiring: the vanilla predicates and the taint
-    score."""
-    return Framework(filter_plugins=vanilla_filter_plugins(),
-                     score_plugins=[TaintTolerationScoring()])
+    score, and, given the store the quotas live in, ``CapacityScheduling``
+    as PreFilter, PostFilter and Reserve (``framework.capacity``; its
+    preemption re-runs this framework's filters)."""
+    if store is None:
+        return Framework(filter_plugins=vanilla_filter_plugins(),
+                         score_plugins=[TaintTolerationScoring()])
+    capacity = CapacityScheduling(store)
+    framework = Framework(pre_filter_plugins=[capacity], filter_plugins=vanilla_filter_plugins(),
+                          post_filter_plugins=[capacity], reserve_plugins=[capacity],
+                          score_plugins=[TaintTolerationScoring()])
+    capacity.framework = framework
+    framework.capacity = capacity
+    return framework
 
 
 @dataclass
 class CycleOutcome:
     """One cycle's decision, before its store write."""
 
-    decision: str  # bind | fail
+    decision: str  # bind | nominate | fail
     node: str = ""
+    victims: List[str] = field(default_factory=list)  # evicted by a nominate
     diagnosis: Optional[Diagnosis] = None
     message: str = ""
 
@@ -56,7 +78,13 @@ class Scheduler:
     def __init__(self, store: NodeStore, framework: Optional[Framework] = None,
                  scheduler_name: str = "", interval: float = 0.5) -> None:
         self.store = store
-        self.framework = framework or new_framework()
+        self.framework = framework or new_framework(store)
+        # the quota plugin new_framework wired, whose reservations step()
+        # forgets
+        self.capacity: Optional[CapacityScheduling] = getattr(self.framework, "capacity", None)
+        # the preemptor's records of the last PREEMPTION_RECORDS
+        # preemptions, in place of the flight recorder
+        self.preemptions: Deque[dict] = deque(maxlen=PREEMPTION_RECORDS)
         # non-empty: only pods naming this scheduler are ours
         self.scheduler_name = scheduler_name
         self.interval = interval
@@ -71,7 +99,10 @@ class Scheduler:
 
     def step(self) -> int:
         """A cycle for every pending unbound pod of ours; the pods bound."""
-        pending = [p for p in self.store.list("Pod")
+        pods = self.store.list("Pod", copy=False)
+        if self.capacity is not None:
+            self._forget_settled(pods)
+        pending = [p for p in pods
                    if p.phase == PodPhase.PENDING and not p.node and self.responsible_for(p)]
         pending.sort(key=lambda p: (-p.priority, p.namespace, p.name))
         bound = 0
@@ -79,24 +110,53 @@ class Scheduler:
             bound += self.schedule_one(pod).decision == "bind"
         return bound
 
+    def _forget_settled(self, pods: List[Pod]) -> None:
+        """Drop the reservations of pods now bound, finished or gone: the
+        store counts them from here on, or nothing should."""
+        live = {p.namespaced_name: p for p in pods}
+        for key in self.capacity.reserved_keys():
+            pod = live.get(key)
+            if pod is None or pod.node or pod.phase != PodPhase.PENDING:
+                self.capacity.forget_key(key)
+
     def schedule_one(self, pod: Pod) -> CycleOutcome:
         with TRACER.span("scheduler.cycle", pod=pod.namespaced_name) as span:
             outcome = self._decide(pod)
             span.set_attributes(decision=outcome.decision, node=outcome.node)
             if outcome.decision == "bind":
                 self._bind(pod, outcome.node)
+            elif outcome.decision == "nominate":
+                span.set_attributes(victims=len(outcome.victims))
+                self._set_nominated(pod, outcome.node)
             else:
                 self._mark_unschedulable(pod, outcome.message)
         return outcome
 
+    def _post_filter(self, state: CycleState, pod: Pod, node_infos: Dict[str, NodeInfo],
+                     filtered: Dict[str, Status]) -> CycleOutcome:
+        """PostFilter after a PreFilter or Filter rejection: a nomination,
+        or the failure with its diagnosis."""
+        nominated = self.framework.run_post_filter_plugins(state, pod, filtered)
+        if nominated:
+            record = getattr(self.capacity, "last_preemption", None)
+            if record is not None:
+                self.preemptions.append(record)
+            victims = [v["pod"] for v in record["victims"]] if record else []
+            return CycleOutcome("nominate", node=nominated, victims=victims)
+        diagnosis = self._diagnosis(pod, node_infos, filtered)
+        return CycleOutcome("fail", diagnosis=diagnosis, message=diagnosis.aggregate_message())
+
     def _decide(self, pod: Pod) -> CycleOutcome:
+        if self.capacity is not None:
+            self.capacity.last_preemption = None
         state = CycleState()
         node_infos = self._node_infos()
         status = self.framework.run_pre_filter_plugins(state, pod)
         if not status.success:
-            diagnosis = self._diagnosis(pod, node_infos, {name: status for name in node_infos})
-            return CycleOutcome("fail", diagnosis=diagnosis,
-                                message=diagnosis.aggregate_message())
+            # a quota refusal still gets a preemption attempt: evictions
+            # may change the quota arithmetic
+            return self._post_filter(state, pod, node_infos,
+                                     {name: status for name in node_infos})
         feasible: List[NodeInfo] = []
         filtered: Dict[str, Status] = {}
         for info in node_infos.values():
@@ -106,9 +166,7 @@ class Scheduler:
             else:
                 filtered[info.name] = node_status
         if not feasible:
-            diagnosis = self._diagnosis(pod, node_infos, filtered)
-            return CycleOutcome("fail", diagnosis=diagnosis,
-                                message=diagnosis.aggregate_message())
+            return self._post_filter(state, pod, node_infos, filtered)
         best = max(feasible, key=lambda info: (
             self.framework.run_score_plugins(state, pod, info), info.name))
         status = self.framework.run_reserve_plugins(state, pod, best.name)
@@ -125,8 +183,10 @@ class Scheduler:
                          node_statuses=dict(filtered))
 
     def _node_infos(self) -> Dict[str, NodeInfo]:
-        infos = {node.name: NodeInfo(node=node) for node in self.store.list("Node")}
-        for p in self.store.list("Pod"):
+        # read-only views: no filter changes a node or a pod
+        infos = {node.name: NodeInfo(node=node)
+                 for node in self.store.list("Node", copy=False)}
+        for p in self.store.list("Pod", copy=False):
             if p.node in infos and p.phase in (PodPhase.PENDING, PodPhase.RUNNING):
                 infos[p.node].add_pod(p)
         return infos
@@ -136,6 +196,7 @@ class Scheduler:
     def _bind(self, pod: Pod, node_name: str) -> None:
         def mutate(p: Pod) -> None:
             p.node = node_name
+            p.nominated_node = ""
             p.unschedulable = False
             p.unschedulable_message = ""
 
@@ -146,15 +207,27 @@ class Scheduler:
         log.info("scheduler: bound %s to %s", pod.namespaced_name, node_name)
 
     def _mark_unschedulable(self, pod: Pod, message: str) -> None:
-        if pod.unschedulable:
+        # a nominated pod failing again needs more than its victims' room
+        # (on a MIG node, a re-carve the partitioner skips for preempting
+        # pods): clearing the nomination hands it back to the partitioner
+        clear_nomination = bool(pod.nominated_node)
+        if pod.unschedulable and not clear_nomination:
             return  # already marked; no patch churn
 
         def mutate(p: Pod) -> None:
+            p.nominated_node = ""
             p.unschedulable = True
             p.unschedulable_message = message
 
         try:
             self.store.patch_merge("Pod", pod.name, pod.namespace, mutate)
+        except NotFoundError:
+            pass
+
+    def _set_nominated(self, pod: Pod, node_name: str) -> None:
+        try:
+            self.store.patch_merge("Pod", pod.name, pod.namespace,
+                                   lambda p: setattr(p, "nominated_node", node_name))
         except NotFoundError:
             pass
 

@@ -305,3 +305,8 @@ SNAPSHOT_COMMITS = REGISTRY.counter(
 SNAPSHOT_REVERTS = REGISTRY.counter(
     "nos_tpu_snapshot_reverts_total", "Snapshot forks reverted (trial discarded)"
 )
+
+# CapacityScheduling's preemptor (scheduler/preemption.py).
+PREEMPTIONS = REGISTRY.counter(
+    "nos_tpu_preemptions_total", "Pods evicted by quota preemption (by victim namespace)"
+)

@@ -137,3 +137,62 @@ def test_returned_objects_are_copies():
     with pytest.raises(TypeError):
         store.create(object())
     assert PodPhase.RUNNING == JPodPhase.RUNNING and PodPhase.PENDING == JPodPhase.PENDING
+
+
+def test_create_stamps_a_fresh_uid_and_the_creation_time():
+    clock = [3.0]
+    store = NodeStore(clock=lambda: clock[0])
+    first = store.create(Pod("p", uid="mine"))
+    assert first.uid and first.uid != "mine" and first.created == 3.0
+    store.delete("Pod", "p", "default")
+    clock[0] = 9.0
+    again = store.create(Pod("p"))
+    assert again.uid != first.uid and again.created == 9.0
+    # a creation time the caller set is kept
+    assert store.create(Pod("q", created=1.5)).created == 1.5
+    # nodes carry neither
+    assert not hasattr(store.create(Node("n")), "uid")
+
+
+def test_admission_refuses_a_create_and_a_patch():
+    from nos_tpu_torch.api.v1alpha1 import ElasticQuota
+    from nos_tpu_torch.kube.store import AdmissionError
+
+    store = NodeStore()
+    seen = []
+
+    def no_big_min(quota, s):
+        seen.append((quota.name, s is store))
+        if quota.min.get("cpu", 0) > 8:
+            raise AdmissionError("min too large")
+
+    store.register_admission("ElasticQuota", no_big_min)
+    store.create(ElasticQuota("q", "a", min={"cpu": 2}))
+    with pytest.raises(AdmissionError):
+        store.create(ElasticQuota("r", "a", min={"cpu": 9}))
+    with pytest.raises(AdmissionError):
+        store.patch_merge("ElasticQuota", "q", "a", lambda q: q.min.update(cpu=10))
+    assert store.get("ElasticQuota", "q", "a").min == {"cpu": 2}
+    assert store.try_get("ElasticQuota", "r", "a") is None
+    assert seen == [("q", True), ("r", True), ("q", True)]
+    store.create(Pod("p"))  # other kinds are not refused
+
+
+def test_list_by_namespace_without_copies_and_the_revision():
+    store = NodeStore()
+    assert store.revision == 0
+    for ns, name in (("b", "p"), ("a", "q"), ("a", "p")):
+        store.create(Pod(name, ns))
+    assert store.revision == 3
+    assert [p.namespaced_name for p in store.list("Pod", namespace="a")] == ["a/p", "a/q"]
+    shared = store.list("Pod", copy=False)
+    assert shared[0] is store.list("Pod", copy=False)[0]
+    assert store.list("Pod")[0] is not shared[0]
+    # a write stores a new object: what was listed stays as it was
+    store.patch_labels("Pod", "p", "a", {"x": "1"})
+    assert shared[0].labels == {} and store.get("Pod", "p", "a").labels == {"x": "1"}
+    store.delete("Pod", "p", "b")
+    assert store.revision == 5
+    with pytest.raises(NotFoundError):
+        store.delete("Pod", "p", "b")
+    assert store.revision == 5

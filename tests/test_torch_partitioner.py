@@ -24,7 +24,6 @@ from nos_tpu.controllers.partitioner import PartitionerController as JController
 from nos_tpu.partitioning.core import Actuator as JActuator
 from nos_tpu.partitioning.core import BoardPartitioning, PartitioningPlan as JPlan
 from nos_tpu.partitioning.core import NodePartitioning as JNodePartitioning
-from nos_tpu.partitioning.core import Planner as JPlanner
 from nos_tpu.partitioning.core.state import ClusterState as JState
 from nos_tpu.partitioning.tpu.snapshot_taker import TpuSnapshotTaker
 from nos_tpu.scheduler import framework as jfw
@@ -51,6 +50,7 @@ from nos_tpu_torch.partitioning.mps import MpsPartitioner, MpsSnapshotTaker
 from nos_tpu_torch.scheduler import new_framework
 from nos_tpu_torch.util.batcher import Batcher
 from nos_tpu_torch.util.tracing import TRACER, TraceStore
+from tests.test_torch_planner import RefPlanner, expected_unserved
 from tests.torch_planner_cases import (
     MIG_PROFILES,
     NodeDesc,
@@ -59,7 +59,6 @@ from tests.torch_planner_cases import (
     port_pod,
     ref_node,
     ref_pod,
-    ref_unserved,
     running_pods,
     same_tables,
     to_port_resource,
@@ -160,7 +159,7 @@ def controllers(nodes, pending):
         tstore.create(port_pod(p))
     jrec, trec = Recording(), Recording()
     jctl = JController(jstore, JState(), TpuSnapshotTaker(),
-                       JPlanner(jfw.Framework(filter_plugins=jfw.vanilla_filter_plugins())),
+                       RefPlanner(jfw.Framework(filter_plugins=jfw.vanilla_filter_plugins())),
                        JActuator(jrec), kind="tpu", plan_id_fn=lambda: "p1",
                        incremental_planning=False)
     tctl = PartitionerController(tstore, ClusterState(), MigSnapshotTaker(),
@@ -201,7 +200,8 @@ def test_process_pending_pods_matches_the_reference(tables, seed):
     tctl.sync()  # the port plans from its synced state, as every step does
     assert tctl.process_pending_pods() == jctl.process_pending_pods()
     assert trec.calls == ref_calls(jrec.calls)
-    assert tctl.planner.last_unserved == ref_unserved(jctl.planner.last_unserved)
+    # the reference's reasons and those it leaves out (F1, F3)
+    assert tctl.planner.last_unserved == expected_unserved(jctl.planner)
     assert [p.namespaced_name for p in tctl.fetch_pending_pods()] == sorted(
         p.namespaced_name for p in jctl.fetch_pending_pods())
     record = tctl.plans[-1]

@@ -13,6 +13,17 @@ may change a plan). Both planners see one monotonic instant
 The snapshot's fork / commit / revert journal, its free pool and node
 versions, the tracker and the snapshot takers are held the same way.
 
+Fault F1 of the reference (ROADMAP.md): its claim pre-pass places the
+pod the aged rescue placed a second time, and a pod left unplaced whose
+free slices a carve took gets no unserved reason. The port places each
+pod at most once and gives every pending pod it leaves lacking a reason.
+So the reference runs as ``RefPlanner``, its own planner with a second
+placement of a pod in one plan refused (the duplicate then holds no
+slice another pod could claim), and the port's ``last_unserved`` must
+equal the reference's plus, for each pending pod the reference neither
+placed nor gave a reason, the slices that pod lacks in the reference's
+final snapshot. Every case also holds both invariants on the port.
+
 Deliberate differences, tested here on the port alone: an MPS slice
 counts GB / 10 in the port's largest-first sort where the reference
 counts 0 (so the MPS cases give each pod its own priority, which orders
@@ -48,6 +59,7 @@ from nos_tpu_torch.partitioning.core import (
     SnapshotNode,
     sort_candidate_pods,
 )
+from nos_tpu_torch.partitioning.core.planner import unplaced_reason
 from nos_tpu_torch.partitioning.core.verdict_cache import VerdictCache, pod_signature
 from nos_tpu_torch.partitioning.mig import MigSnapshotTaker
 from nos_tpu_torch.scheduler import framework as tfw
@@ -66,6 +78,7 @@ from tests.torch_planner_cases import (
     ref_unserved,
     running_pods,
     same_tables,
+    to_port_resource,
     to_ref_resource,
     translate_pool,
 )
@@ -155,18 +168,79 @@ def placements(snapshot):
             for name, node in snapshot.get_nodes().items()}
 
 
+class RefPlanner(JPlanner):
+    """The reference's planner with its duplicate placement taken out: a
+    pod already placed in this plan is refused a second placement."""
+
+    def plan(self, snapshot, pending_pods, *args, **kwargs):
+        self.placed_keys = set()
+        self.passed = False  # the geometry served every pod: no pass ran
+        self.snapshot, self.pods = snapshot, list(pending_pods)
+        return super().plan(snapshot, pending_pods, *args, **kwargs)
+
+    def _plan_pass(self, *args, **kwargs):
+        self.passed = True
+        return super()._plan_pass(*args, **kwargs)
+
+    def _try_add_pod(self, snapshot, node_name, pod):
+        if pod.namespaced_name in self.placed_keys:
+            return False
+        if super()._try_add_pod(snapshot, node_name, pod):
+            self.placed_keys.add(pod.namespaced_name)
+            return True
+        return False
+
+
+def expected_unserved(jplanner):
+    """The reference's reasons in its last plan, plus one for each pending
+    pod asking for slices that it neither placed nor gave a reason: the
+    slices it lacks in the reference's final snapshot, else that no node
+    it fits holds them."""
+    want = ref_unserved(jplanner.last_unserved)
+    if not jplanner.passed:
+        return want
+    jsnap = jplanner.snapshot
+    placed = {p.namespaced_name for node in jsnap.get_nodes().values() for p in node.pods}
+    for pod in jplanner.pods:
+        request = pod.spec.containers[0].requests
+        slices = {k: v for k, v in request.items()
+                  if k.startswith(("google.com/tpu-slice-", "google.com/tpu-mem-"))}
+        if pod.namespaced_name in want or pod.namespaced_name in placed or not slices:
+            continue
+        lacking = jsnap.get_lacking_slices(pod)
+        reason = (JPlanner._lacking_reason(lacking) if lacking
+                  else unplaced_reason({to_port_resource(k): v for k, v in slices.items()}))
+        want[pod.namespaced_name] = ref_unserved({"": reason})[""]
+    return want
+
+
+def assert_plan_invariants(planner, snapshot, pods, ran_pass=True):
+    """Each pod placed at most once; when the plan ran a pass (the free
+    slices did not already serve every pod), every pending pod asking for
+    slices that it leaves unplaced has a reason."""
+    placed = [p.namespaced_name for node in snapshot.get_nodes().values() for p in node.pods]
+    assert len(placed) == len(set(placed))
+    for pod in pods if ran_pass else ():
+        if pod.namespaced_name not in placed and any(
+                k.startswith(("nvidia.com/mig-", "nvidia.com/gpu-")) for k in pod.request):
+            assert planner.last_unserved.get(pod.namespaced_name), pod.namespaced_name
+
+
 def plan_both(nodes, pending, framework="basic", ages=None, cache=True, futility=True):
-    """Plan both sides; assert the port equals the reference; return the
-    port's (state, planner, snapshot)."""
+    """Plan both sides; assert the port equals the reference (F1's
+    duplicate taken out, its missing reasons given); return the port's
+    (state, planner, snapshot)."""
     jsnap, tsnap = snapshots(nodes)
     jframe, tframe = frameworks(framework)
-    jplanner = JPlanner(jframe, verdict_cache_enabled=cache, futility_memo_enabled=futility)
+    jplanner = RefPlanner(jframe, verdict_cache_enabled=cache, futility_memo_enabled=futility)
     tplanner = Planner(tframe, verdict_cache_enabled=cache)
-    jstate = jplanner.plan(jsnap, [ref_pod(p) for p in pending], pending_ages=ages)
-    tstate = tplanner.plan(tsnap, [port_pod(p) for p in pending], pending_ages=ages)
+    jpods, tpods = [ref_pod(p) for p in pending], [port_pod(p) for p in pending]
+    jstate = jplanner.plan(jsnap, jpods, pending_ages=ages)
+    tstate = tplanner.plan(tsnap, tpods, pending_ages=ages)
     assert port_state(tstate) == ref_state(jstate)
-    assert tplanner.last_unserved == ref_unserved(jplanner.last_unserved)
+    assert tplanner.last_unserved == expected_unserved(jplanner)
     assert placements(tsnap) == placements(jsnap)
+    assert_plan_invariants(tplanner, tsnap, tpods, jplanner.passed)
     if cache and not futility:
         # the same trials, so the same verdict-cache ledger
         assert tplanner.verdict_cache_stats() == jplanner.verdict_cache_stats()
@@ -333,8 +407,14 @@ class TestPlannerCases:
         node = NodeDesc("n1", free=FREE_4G, used=FREE_4G)
         pods = [PodDesc("starved", {mig("1g.10gb"): 1}, ns="ml"),
                 PodDesc("fresh", {mig("4g.40gb"): 1}, ns="ml")]
-        _, _, snap = plan_both([node], pods, ages={"ml/starved": 10.0}, cache=cache)
-        assert "starved" in placements(snap)["n1"]
+        state, planner, snap = plan_both([node], pods, ages={"ml/starved": 10.0}, cache=cache)
+        # placed once, on the carve of the free 4g.40gb; fresh, whose slice
+        # that was, is told what it lacks (F1)
+        assert placements(snap)["n1"].count("starved") == 1
+        assert geometry_of(state, "n1")[0] == {mig("1g.10gb"): 2, mig("2g.20gb"): 1,
+                                               mig("4g.40gb"): 1}
+        assert planner.last_unserved == {"ml/fresh": (
+            "no node can be re-carved to yield lacking slices (1x nvidia.com/mig-4g.40gb)")}
 
     def test_fresh_small_pod_does_not_trigger_rescue(self, tables, cache):
         node = NodeDesc("n1", free=FREE_4G, used=FREE_4G)
@@ -343,6 +423,82 @@ class TestPlannerCases:
         _, _, snap = plan_both([node], pods, cache=cache)
         placed = placements(snap)["n1"]
         assert "fresh" in placed and "small" not in placed
+
+
+def test_reference_places_the_rescued_pod_twice(tables):
+    """Fault F1, pinned on the reference: its own planner places the
+    aged-rescued pod twice and leaves fresh without a reason; the port
+    places it once and gives fresh its reason."""
+    node = NodeDesc("n1", free=FREE_4G, used=FREE_4G)
+    pods = [PodDesc("starved", {mig("1g.10gb"): 1}, ns="ml"),
+            PodDesc("fresh", {mig("4g.40gb"): 1}, ns="ml")]
+    jsnap, tsnap = snapshots([node])
+    jframe, tframe = frameworks("basic")
+    jplanner, tplanner = JPlanner(jframe), Planner(tframe)
+    jplanner.plan(jsnap, [ref_pod(p) for p in pods], pending_ages={"ml/starved": 10.0})
+    tplanner.plan(tsnap, [port_pod(p) for p in pods], pending_ages={"ml/starved": 10.0})
+    assert placements(jsnap)["n1"].count("starved") == 2
+    assert jplanner.last_unserved == {}
+    assert placements(tsnap)["n1"].count("starved") == 1
+    assert list(tplanner.last_unserved) == ["ml/fresh"]
+
+
+# the random MIG cases in which the reference places a pod twice (F1)
+F1_SEEDS = (1003, 1004, 1009, 1017, 1018, 1019, 1037, 1038, 1048)
+
+
+@pytest.mark.parametrize("seed", F1_SEEDS)
+def test_reference_double_placement_seeds(tables, seed):
+    """On these seeds the reference's own planner places one pod twice;
+    the port, planning the same case, places every pod once."""
+    nodes, pods, ages = random_mig_case(random.Random(seed), tables)
+    jsnap, tsnap = snapshots(nodes)
+    jframe, tframe = frameworks("vanilla")
+    JPlanner(jframe).plan(jsnap, [ref_pod(p) for p in pods], pending_ages=ages)
+    tplanner = Planner(tframe)
+    tpods = [port_pod(p) for p in pods]
+    tplanner.plan(tsnap, tpods, pending_ages=ages)
+    jplaced = [n for names in placements(jsnap).values() for n in names]
+    assert len(jplaced) == len(set(jplaced)) + 1
+    assert_plan_invariants(tplanner, tsnap, tpods)
+
+
+def test_recreated_pod_starts_at_age_zero(tables, monkeypatch):
+    """Fault F2: ml/starved is planned alone at t 0, then deleted and
+    recreated under its name (a new uid) and planned at t 10 beside
+    ml/fresh. Both sides see a new pod of age 0: n1's geometry is left
+    alone and fresh takes the free 4g.40gb."""
+    from nos_tpu.kube.store import KubeStore
+    from nos_tpu_torch.kube.store import NodeStore
+
+    node = NodeDesc("n1", free=FREE_4G, used=FREE_4G)
+    starved = PodDesc("starved", {mig("1g.10gb"): 1}, ns="ml")
+    fresh = PodDesc("fresh", {mig("4g.40gb"): 1}, ns="ml")
+    clock = [0.0]
+    monkeypatch.setattr(time, "monotonic", lambda: clock[0])
+    jframe, tframe = frameworks("basic")
+    jplanner, tplanner = JPlanner(jframe), Planner(tframe, clock=lambda: clock[0])
+    jstore, tstore = KubeStore(), NodeStore()
+    for store, build in ((jstore, ref_pod), (tstore, port_pod)):
+        store.create(build(starved))
+    jsnap, tsnap = snapshots([node])
+    jplanner.plan(jsnap, jstore.list("Pod"))
+    tplanner.plan(tsnap, tstore.list("Pod"))
+    clock[0] = 10.0
+    old_uid = tstore.get("Pod", "starved", "ml").uid
+    for store, build in ((jstore, ref_pod), (tstore, port_pod)):
+        store.delete("Pod", "starved", "ml")
+        store.create(build(starved))
+        store.create(build(fresh))
+    assert tstore.get("Pod", "starved", "ml").uid != old_uid
+    jsnap, tsnap = snapshots([node])
+    jstate = jplanner.plan(jsnap, jstore.list("Pod"))
+    tstate = tplanner.plan(tsnap, tstore.list("Pod"))
+    assert tplanner.last_pending_ages == {"ml/starved": 0.0, "ml/fresh": 0.0}
+    assert port_state(tstate) == ref_state(jstate)
+    assert geometry_of(tstate, "n1") == {0: {mig("4g.40gb"): 2}}
+    assert placements(tsnap) == placements(jsnap) == {"n1": ["fresh", "run-n1-0-4g.40gb-0"]}
+    assert tplanner.last_unserved == ref_unserved(jplanner.last_unserved)
 
 
 def test_plain_gpu_request_is_never_placed(tables):

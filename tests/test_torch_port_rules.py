@@ -10,6 +10,9 @@
   and device/podresources.py imports grpc only when a client is made).
 - With no CUDA device, an entry point called without ``device`` raises;
   it never falls back to the CPU on its own.
+- The control plane (the API types, the store, the scheduler with its
+  quota plugin and preemptor, the controllers, the planner core,
+  SimCluster, the resource math) imports no torch either (an AST scan).
 """
 import ast
 import os
@@ -72,12 +75,36 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/partitioning/mig.py", "nos_tpu_torch/partitioning/mps.py",
         "nos_tpu_torch/examples/preempt_resume.py", "nos_tpu_torch/slo/signals.py",
         "nos_tpu_torch/slo/routing.py",
+        "nos_tpu_torch/api/v1alpha1/elasticquota.py",
+        "nos_tpu_torch/controllers/elasticquota/controller.py",
+        "nos_tpu_torch/controllers/elasticquota/webhooks.py",
+        "nos_tpu_torch/scheduler/plugins/capacity.py", "nos_tpu_torch/scheduler/preemption.py",
+        "nos_tpu_torch/util/pod.py", "nos_tpu_torch/util/resources.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
         f"{path.relative_to(ROOT)}: {mod}"
         for path in files for mod in _imports(path) if _forbidden(mod)
     ]
+    assert not bad, bad
+
+
+CONTROL_PLANE = ("api", "kube", "scheduler", "controllers", "partitioning/core",
+                 "util/resources.py", "util/pod.py", "util/batcher.py", "cluster.py")
+
+
+def test_control_plane_imports_no_torch():
+    root = ROOT / "nos_tpu_torch"
+    files = []
+    for entry in CONTROL_PLANE:
+        path = root / entry
+        files += sorted(path.rglob("*.py")) if path.is_dir() else [path]
+    names = {str(p.relative_to(root)) for p in files}
+    assert {"scheduler/plugins/capacity.py", "scheduler/preemption.py",
+            "controllers/elasticquota/controller.py", "controllers/elasticquota/webhooks.py",
+            "api/v1alpha1/elasticquota.py", "util/pod.py", "cluster.py"} <= names
+    bad = [f"{p.relative_to(ROOT)}: {mod}" for p in files for mod in _imports(p)
+           if mod == "torch" or mod.startswith("torch.")]
     assert not bad, bad
 
 
@@ -100,6 +127,8 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.device.sharing, nos_tpu_torch.partitioning\n"
         "import nos_tpu_torch.controllers.migagent, nos_tpu_torch.controllers.mpsagent\n"
         "import nos_tpu_torch.examples.preempt_resume, nos_tpu_torch.slo.routing\n"
+        "import nos_tpu_torch.cluster, nos_tpu_torch.scheduler.preemption\n"
+        "import nos_tpu_torch.controllers.elasticquota, nos_tpu_torch.api\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'nos_tpu', 'transformers', 'grpc') or m.startswith('google.protobuf'))\n"
         "print(bad)\n"

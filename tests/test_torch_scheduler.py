@@ -257,3 +257,67 @@ def test_diagnosis_message_groups_most_frequent_first():
     assert d.aggregate_message() == "0/3 nodes are available: 2 x, 1 y."
     assert tfw.Diagnosis(num_nodes=0).aggregate_message() == (
         "0/0 nodes are available: no nodes.")
+
+
+class _Recorder:
+    """A PostFilter that nominates ``node`` (or nothing) and records what
+    it was given."""
+
+    name = "Recorder"
+
+    def __init__(self, node=None):
+        self.node, self.calls = node, []
+
+    def post_filter(self, state, pod, filtered_nodes):
+        self.calls.append((pod.name, {n: (s.plugin, s.message)
+                                      for n, s in filtered_nodes.items()}))
+        return self.node
+
+
+class _RejectPre:
+    name = "RejectPre"
+
+    def pre_filter(self, state, pod):
+        if pod.name.startswith("quota"):
+            return tfw.Status.unschedulable("refused", self.name)
+        return tfw.Status.ok()
+
+
+def test_post_filter_runs_after_a_pre_filter_or_filter_rejection():
+    store = NodeStore()
+    for name in ("a", "b"):
+        store.create(nodes_both(NodeDesc(name), {})[1])
+    for name in ("quota-p", "fit-p"):
+        store.create(port_pod(PodDesc(name, {mig("1g.10gb"): 1})))
+    recorder = _Recorder()
+    framework = tfw.Framework(pre_filter_plugins=[_RejectPre()],
+                              filter_plugins=tfw.vanilla_filter_plugins(),
+                              post_filter_plugins=[recorder])
+    sched = Scheduler(store, framework)
+    assert sched.capacity is None
+    assert sched.step() == 0
+    no_slice = ("NodeResourcesFit", "insufficient nvidia.com/mig-1g.10gb: requested 1, "
+                                    "available 0")
+    assert recorder.calls == [
+        ("fit-p", {"a": no_slice, "b": no_slice}),
+        ("quota-p", {"a": ("RejectPre", "refused"), "b": ("RejectPre", "refused")})]
+    assert store.get("Pod", "quota-p", "default").unschedulable_message == (
+        "0/2 nodes are available: 2 refused.")
+
+
+def test_a_nominated_pod_failing_again_is_handed_back_to_the_partitioner():
+    from nos_tpu_torch.controllers.partitioner import could_help
+
+    store = NodeStore()
+    store.create(nodes_both(NodeDesc("a"), {})[1])
+    store.create(port_pod(PodDesc("p", {mig("3g.40gb"): 1})))
+    framework = tfw.Framework(filter_plugins=tfw.vanilla_filter_plugins(),
+                              post_filter_plugins=[_Recorder("a")])
+    outcome = Scheduler(store, framework).schedule_one(store.get("Pod", "p", "default"))
+    assert (outcome.decision, outcome.node) == ("nominate", "a")
+    pod = store.get("Pod", "p", "default")
+    assert pod.nominated_node == "a" and not could_help(pod)
+    # the room the nomination counted on never came: the nomination goes
+    Scheduler(store).schedule_one(pod)
+    pod = store.get("Pod", "p", "default")
+    assert pod.nominated_node == "" and pod.unschedulable and could_help(pod)

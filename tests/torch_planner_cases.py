@@ -15,7 +15,7 @@ import contextlib
 import dataclasses
 import re
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from nos_tpu.api.v1alpha1 import annotations as jannot
 from nos_tpu.api.v1alpha1 import constants, labels
@@ -62,7 +62,13 @@ def eighty_gb_chips():
 
 # ------------------------------------------------------------ names
 
+# the quotas' aggregate: GB for GB when the reference counts 10 GB a chip
+GPU_MEMORY, TPU_MEMORY = "nos.nebuly.com/gpu-memory", constants.RESOURCE_TPU_MEMORY
+
+
 def to_ref_resource(name: str) -> str:
+    if name == GPU_MEMORY:
+        return TPU_MEMORY
     if name.startswith("nvidia.com/mig-"):
         return constants.tpu_slice_resource(TO_TPU[name[len("nvidia.com/mig-"):]])
     if name.startswith("nvidia.com/gpu-"):
@@ -71,6 +77,8 @@ def to_ref_resource(name: str) -> str:
 
 
 def to_port_resource(name: str) -> str:
+    if name == TPU_MEMORY:
+        return GPU_MEMORY
     if constants.is_tpu_slice_resource(name):
         return "nvidia.com/mig-" + TO_MIG[constants.tpu_slice_topology(name)]
     if constants.is_tpu_shared_resource(name):
@@ -78,7 +86,7 @@ def to_port_resource(name: str) -> str:
     return name
 
 
-_REF_NAME = re.compile(r"google\.com/tpu-(?:slice-\d+x\d+|mem-\d+gb)")
+_REF_NAME = re.compile(r"google\.com/tpu-(?:slice-\d+x\d+|mem-\d+gb)|nos\.nebuly\.com/tpu-memory")
 
 
 def translate_text(text: str) -> str:
@@ -117,6 +125,8 @@ class PodDesc:
     node: str = ""
     phase: str = "Pending"
     unschedulable: bool = False
+    labels: Dict[str, str] = field(default_factory=dict)
+    created: Optional[float] = None  # the creation time both sides get
 
     @property
     def key(self) -> str:
@@ -170,6 +180,9 @@ def ref_pod(desc: PodDesc) -> jobj.Pod:
                          for k, o, v, e in desc.tolerations],
             node_selector=dict(desc.selector)))
     pod.status.phase = desc.phase
+    pod.metadata.labels.update(desc.labels)
+    if desc.created is not None:
+        pod.metadata.creation_timestamp = desc.created
     if desc.unschedulable:
         pod.status.conditions.append(jobj.PodCondition(type="PodScheduled", status="False",
                                                        reason="Unschedulable"))
@@ -181,7 +194,8 @@ def port_pod(desc: PodDesc) -> tstore.Pod:
                       request=dict(desc.request), priority=desc.priority,
                       tolerations=[tstore.Toleration(k, o, v, e)
                                    for k, o, v, e in desc.tolerations],
-                      node_selector=dict(desc.selector), unschedulable=desc.unschedulable)
+                      node_selector=dict(desc.selector), unschedulable=desc.unschedulable,
+                      labels=dict(desc.labels), created=desc.created)
 
 
 # ------------------------------------------------------------ states
