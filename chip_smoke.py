@@ -68,6 +68,29 @@ Phases, each fatal on failure (exit code != 0):
     used against min and max, the preemptions and their victims by
     namespace, the loop's steps and seconds, and the p50 / p95 ms of
     binding, nominating (preempting) and failing cycles;
+1f. gang: gangs, multi-node expansion, the drain reservation, topology
+    scoring and the affinity and spread filters (gang_phase) on a
+    SimCluster of 37 nodes: the card's own MIG node in a pool of its
+    own, 32 MIG nodes of 8 H100s in 4 node pools of 8, 4 MPS nodes of
+    8. Seeded waves: an F3 input built on purpose (the only free 20 GB
+    slices on two MPS nodes, one with memory never carved, then a pod
+    asking for 2 x gpu-20gb); a serving Deployment of 16 replicas spread
+    by hostname (maxSkew 1) with required anti-affinity on its own
+    label; multi-node jobs of 32, 16 and 24 nvidia.com/gpu (4, 2 and 3
+    members of 8 x 7g.80gb) and a 16-GPU gang borrowing past its quota;
+    an 80-GPU job no pool holds, watched through two Permit timeouts and
+    cancelled; 300 single-pod jobs of the quota mix; the quota within its
+    min reclaiming the borrowed GPUs; a single-node job of 8 x 7g.80gb
+    that waits past min_wait, gets a drain, and binds once the drained
+    node's jobs finish. SimCluster.check_gangs() (gangs whole, in one
+    pool, ranks and coordinator, at most one drain, no stale reservation)
+    at every step, the 80-GPU job never bound and waiting in one pool,
+    the replicas' skew at most 1 and anti-affinity kept; at the end the
+    F3 pod Running, every fitting gang bound in one pool, the reclaimed
+    gang evicted whole, the drain's holder bound and released, and
+    SimCluster.check(); the whole-GPU instances carved for the 80-GPU
+    job, steps, seconds and cycle p50 / p95 ms by decision (bind, wait,
+    nominate, fail);
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
@@ -4560,7 +4583,7 @@ def quota_phase(card, nvml=None) -> dict:
     def timed_cycle(pod):
         started = time.perf_counter()
         outcome = schedule_one(pod)
-        cycle_ms[outcome.decision].append((time.perf_counter() - started) * 1e3)
+        cycle_ms.setdefault(outcome.decision, []).append((time.perf_counter() - started) * 1e3)
         return outcome
 
     cluster.scheduler.schedule_one = timed_cycle
@@ -4667,6 +4690,347 @@ def quota_phase(card, nvml=None) -> dict:
     return row
 
 
+GANG_POOLS = 4            # node pools of GANG_POOL_NODES MIG nodes, 8 H100s each
+GANG_POOL_NODES = 8
+GANG_MPS_NODES = 4
+GANG_JOBS = 300           # single-pod slice jobs of the quota mix
+GANG_REPLICAS = 16        # the serving Deployment
+GANG_ZONE_REPLICAS = 10   # spread over the MPS nodes' zones: more replicas than zones
+# (namespace, name, GPUs) of the multi-node jobs that fit a pool, in their
+# arrival order; "lender" borrows past its quota
+GANG_ORDER = (("train", "job-32", 32), ("train", "job-16", 16), ("borrow", "lender", 16),
+              ("train", "job-24", 24))
+GANG_TOO_BIG = 80         # GPUs no pool holds
+GANG_DRAIN = 8            # 7g.80gb instances of the single-node job needing a drain
+GANG_TIMEOUT_S = 2.0      # the Permit wait, on the cluster's virtual clock
+GANG_TIMEOUT_ROUNDS = 2   # the 80-GPU job's timeouts watched before it is cancelled
+GANG_MAX_STEPS = 2000
+GANG_SEED = 17
+
+
+def gang_phase(card, nvml=None) -> dict:
+    """Gangs, multi-node expansion, the drain reservation, the topology
+    score and the affinity and spread filters on a SimCluster of 37
+    nodes: the card's own MIG node as NVML names it, in a pool of its
+    own; 32 MIG nodes of 8 H100s in 4 pools of 8; 4 MPS nodes of 8.
+    Seeded traffic, in waves: an F3 input built on purpose (the only free
+    20 GB slices on two MPS nodes, one with memory never carved, and a
+    pod asking for 2 x gpu-20gb); multi-node jobs of 16, 24 and 32 GPUs
+    (3 members for 24, the H100 rule), a namespace borrowing past its
+    quota with a 16-GPU gang, and a serving Deployment of 16 replicas
+    spread by hostname (maxSkew 1) with required anti-affinity on its own
+    label (with 37 hostnames the anti-affinity alone keeps that skew
+    within 1), and GANG_ZONE_REPLICAS replicas spread by zone (maxSkew 1)
+    over the four MPS nodes, one zone each, where the spread filter is
+    what decides; an 80-GPU job no pool holds, watched through its
+    timeouts, then cancelled; GANG_JOBS single-pod slice jobs; the quota within its
+    min reclaiming the borrowed GPUs; a single-node job of 8 x 7g.80gb
+    that waits past min_wait, gets a drain, and binds once the reserved
+    node's jobs finish. Checked at every step: SimCluster.check_gangs()
+    (gangs whole, in one pool, their ranks and coordinator, at most one
+    drain, no stale reservation), no member of the 80-GPU job bound, its
+    waiting members in one pool, the replicas' spread and anti-affinity,
+    and the zone skew; at the end, the F3 pod Running, the reclaimed gang
+    evicted whole, the drain's holder bound and its reservation released,
+    and SimCluster.check()."""
+    import random
+    import statistics
+
+    from nos_tpu_torch.api.v1alpha1 import RESOURCE_GPU_MEMORY
+    from nos_tpu_torch.cluster import HOSTNAME_LABEL, SimCluster
+    from nos_tpu_torch.controllers.partitioner.multinode import ROLE_LEADER, MULTINODE_ROLE_LABEL
+    from nos_tpu_torch.gpu.node import RESOURCE_GPU, mig_resource, mps_resource
+    from nos_tpu_torch.kube.store import (
+        Pod,
+        PodAffinityTerm,
+        PodPhase,
+        TopologySpreadConstraint,
+    )
+    from nos_tpu_torch.scheduler.plugins.gang import GANG_NAME_LABEL
+    from nos_tpu_torch.scheduler.plugins.reservation import RESERVED_FOR
+    from nos_tpu_torch.scheduler.plugins.topology import NODEPOOL_LABEL
+
+    ZONE_LABEL = "topology.kubernetes.io/zone"
+    t0 = time.time()
+    gb = RESOURCE_GPU_MEMORY
+    whole = mig_resource("7g.80gb")
+    cluster = SimCluster(gang_timeout_seconds=GANG_TIMEOUT_S)
+    if nvml is None:
+        from nos_tpu_torch.device.nvml import Nvml
+
+        with Nvml() as nv:
+            cluster.add_mig_node("mig-card", nvml=nv, pool="pool-card")
+    else:
+        cluster.add_mig_node("mig-card", nvml=nvml, pool="pool-card")
+    for p in range(GANG_POOLS):
+        for i in range(GANG_POOL_NODES):
+            cluster.add_mig_node(f"mig-{p}-{i}", gpus=8, pool=f"pool-{p}")
+    for i in range(GANG_MPS_NODES):
+        cluster.add_mps_node(f"mps-{i}", gpus=8)
+    nodes = {n.name: n for n in cluster.store.list("Node")}
+    gpus = sum(n.capacity[RESOURCE_GPU] for n in nodes.values())
+    pool_of = {name: n.labels.get(NODEPOOL_LABEL, "") for name, n in nodes.items()}
+    mix = ([mig_resource(p) for p in ("1g.10gb", "2g.20gb", "3g.40gb", "4g.40gb", "7g.80gb")]
+           + [mps_resource(p) for p in ("10gb", "20gb")])
+    rng = random.Random(GANG_SEED)
+
+    cycle_ms = {"bind": [], "wait": [], "nominate": [], "fail": []}
+    schedule_one = cluster.scheduler.schedule_one
+
+    def timed_cycle(pod):
+        started = time.perf_counter()
+        outcome = schedule_one(pod)
+        cycle_ms[outcome.decision].append((time.perf_counter() - started) * 1e3)
+        return outcome
+
+    cluster.scheduler.schedule_one = timed_cycle
+
+    def members(ns, gang):
+        return [p for p in cluster.store.list("Pod", namespace=ns, copy=False)
+                if p.labels.get(GANG_NAME_LABEL) == gang]
+
+    watch = {"gang_invariants": True, "too_big_never_binds": True,
+             "too_big_waits_in_one_pool": True, "replicas_spread": True,
+             "replicas_anti_affine": True, "zoned_spread": True}
+    too_big = {"timeouts": 0, "waiting_max": 0, "marked_each_time": True}
+    zone_of, zoned_counts = {}, {}
+    broken = []
+
+    def on_step():
+        gang_checks = cluster.check_gangs()
+        if not all(gang_checks.values()):
+            watch["gang_invariants"] = False
+            broken.append({"step": cluster.steps, **gang_checks})
+        big = members("train", "too-big")
+        watch["too_big_never_binds"] &= not any(p.node for p in big)
+        waiting = {k: n for k, n in cluster.scheduler.assumed().items()
+                   if k.startswith("train/too-big")}
+        watch["too_big_waits_in_one_pool"] &= len({pool_of[n] for n in waiting.values()}) <= 1
+        too_big["waiting_max"] = max(too_big["waiting_max"], len(waiting))
+        timeouts = cluster.scheduler.gang_timeouts.get("train/too-big", 0)
+        if timeouts > too_big["timeouts"]:
+            # a timeout unreserves every member and marks it unschedulable
+            # (the members re-wait in the same step, keeping the mark)
+            too_big["timeouts"] = timeouts
+            too_big["marked_each_time"] &= all(p.unschedulable for p in big)
+        replicas = [p for p in cluster.store.list("Pod", namespace="serve", copy=False)
+                    if p.node and p.phase in (PodPhase.PENDING, PodPhase.RUNNING)]
+        per_node = {}
+        for p in replicas:
+            per_node[p.node] = per_node.get(p.node, 0) + 1
+        counts = [per_node.get(name, 0) for name, n in nodes.items() if HOSTNAME_LABEL in n.labels]
+        watch["replicas_spread"] &= max(counts) - min(counts) <= 1
+        watch["replicas_anti_affine"] &= max(counts) <= 1
+        if zone_of:
+            per_zone = dict.fromkeys(zone_of.values(), 0)
+            for p in cluster.store.list("Pod", namespace="zoned", copy=False):
+                if p.node and p.phase in (PodPhase.PENDING, PodPhase.RUNNING):
+                    per_zone[zone_of[p.node]] += 1
+            zoned_counts.update(per_zone)
+            watch["zoned_spread"] &= max(per_zone.values()) - min(per_zone.values()) <= 1
+
+    def run(label, max_steps=GANG_MAX_STEPS):
+        started = cluster.steps
+        t = time.perf_counter()
+        idle = cluster.run_until_idle(max_steps, on_step)
+        steps[label] = {"steps": cluster.steps - started, "idle": idle,
+                        "wall_s": time.perf_counter() - t}
+        return idle
+
+    def create(pod):
+        return cluster.store.create(pod)
+
+    steps, checks = {}, {}
+
+    # --- F3, built on purpose: a free 20 GB slice on mps-0 and on mps-1
+    # (one each, the rest of their memory never carved), then a pod asking
+    # for two
+    for name in ("mps-0", "mps-1"):  # one at a time: one slice carved each
+        create(Pod(f"pin-{name}", "f3", request={mps_resource("20gb"): 1},
+                   node_selector={HOSTNAME_LABEL: name}))
+        run(f"f3_pin_{name}")
+    for name in ("mps-0", "mps-1"):
+        cluster.store.delete("Pod", f"pin-{name}", "f3")
+    run("f3_pins_gone")
+    free_20 = {}
+    for node in cluster.store.list("Node"):
+        if node.name.startswith("mps-"):
+            from nos_tpu_torch.gpu import annotations as annot
+
+            _, status = annot.parse_node_annotations(node.annotations)
+            free = sum(s.quantity for s in status
+                       if s.profile == "20gb" and s.status == annot.STATUS_FREE)
+            if free:
+                free_20[node.name] = free
+    create(Pod("f3-pod", "f3", request={mps_resource("20gb"): 2}))
+    run("f3")
+    f3 = cluster.store.get("Pod", "f3-pod", "f3")
+    checks["f3_input_split"] = free_20 == {"mps-0": 1, "mps-1": 1}
+    checks["f3_pod_runs"] = f3.phase == PodPhase.RUNNING
+
+    # --- the serving Deployment and the zone-spread replicas, then the
+    # gangs that fit a pool and the borrowing gang, one at a time. A
+    # gang's first member takes the best-scored node, ties to the highest
+    # name (the reference's scheduler), and pins the rest to its pool, so
+    # the arrival order decides the pools: 32 + 16 + 16 GPUs fill pool-3,
+    # 24 starts pool-2. The order keeps clear of open fault F6 (ROADMAP
+    # Queue 3, shared with the reference): a gang whose first member
+    # lands in a pool without room for the rest re-waits in that pool
+    # after every timeout and never forms (24, 32, 16 in that order
+    # leaves job-16 waiting on pool-3's last free node)
+    fleet_gb = gpus * 80
+    cluster.add_quota("borrow", {gb: 0})
+    cluster.add_quota("claim", {gb: 16 * 80}, max={gb: 16 * 80})
+    anti = PodAffinityTerm(topology_key=HOSTNAME_LABEL, match_labels={"app": "serve"})
+    spread = TopologySpreadConstraint(topology_key=HOSTNAME_LABEL, max_skew=1,
+                                      match_labels={"app": "serve"})
+    for i in range(GANG_REPLICAS):
+        create(Pod(f"serve-{i:02d}", "serve", request={mig_resource("1g.10gb"): 1},
+                   labels={"app": "serve"}, pod_anti_affinity=[anti],
+                   topology_spread_constraints=[spread]))
+    for i, name in enumerate(n for n in nodes if n.startswith("mps-")):
+        zone_of[name] = f"zone-{i}"
+        cluster.store.patch_merge("Node", name, "", lambda n: n.labels.update(
+            {ZONE_LABEL: zone_of[n.name]}))
+    by_zone = TopologySpreadConstraint(topology_key=ZONE_LABEL, max_skew=1,
+                                       match_labels={"app": "zoned"})
+    for i in range(GANG_ZONE_REPLICAS):
+        create(Pod(f"zoned-{i:02d}", "zoned", request={mps_resource("10gb"): 1},
+                   labels={"app": "zoned"}, topology_spread_constraints=[by_zone]))
+    run("replicas")
+    for ns, name, n in GANG_ORDER:
+        create(Pod(name, ns, request={RESOURCE_GPU: n}))
+        run(f"gang_{name}")
+    gang_rows = {}
+    for ns, name, _ in GANG_ORDER:
+        ms = members(ns, name)
+        gang_rows[name] = {"members": len(ms),
+                           "bound": sum(p.phase == PodPhase.RUNNING for p in ms),
+                           "pools": sorted({pool_of[p.node] for p in ms if p.node}),
+                           "nodes": sorted(p.node for p in ms if p.node)}
+    checks["gangs_formed"] = all(r["bound"] == r["members"] > 0 for r in gang_rows.values())
+    checks["gang_24_has_3_members"] = gang_rows["job-24"]["members"] == 3
+    replicas = [p for p in cluster.store.list("Pod", namespace="serve")]
+    checks["replicas_running"] = all(p.phase == PodPhase.RUNNING for p in replicas)
+    zoned = cluster.store.list("Pod", namespace="zoned")
+    checks["zoned_replicas_running"] = (len(zoned) == GANG_ZONE_REPLICAS and all(
+        p.phase == PodPhase.RUNNING for p in zoned))
+
+    # --- the 80-GPU job: carved for by the planner's trial across pools,
+    # pinned to one pool by its waiting members, timed out as a unit
+    def whole_gpus():
+        return sum(1 for n in cluster.agents for g in cluster.pool.geometry(n).values()
+                   if g == {"7g.80gb": 1})
+
+    # the fleet's GPUs start as whole 7g.80gb instances and the gangs
+    # before it leave most of them so: the trial needs no carve, whatever
+    # pools it places the members across
+    whole_before = whole_gpus()
+    create(Pod("too-big", "train", request={RESOURCE_GPU: GANG_TOO_BIG}))
+    started = cluster.steps
+    while too_big["timeouts"] < GANG_TIMEOUT_ROUNDS and cluster.steps - started < GANG_MAX_STEPS:
+        cluster.step()
+        on_step()
+    steps["too_big"] = {"steps": cluster.steps - started}
+    big = members("train", "too-big")
+    carved = whole_gpus() - whole_before
+    too_big_row = {"members": len(big), "timeouts": too_big["timeouts"],
+                   "waiting_max": too_big["waiting_max"], "whole_gpus_before": whole_before,
+                   "whole_gpus_carved": carved,
+                   "unserved": sorted({cluster.unserved().get(p.namespaced_name, "")
+                                       for p in big})}
+    checks["too_big_timed_out_as_a_unit"] = (too_big["timeouts"] >= GANG_TIMEOUT_ROUNDS
+                                             and too_big["marked_each_time"])
+    cluster.store.delete("Pod", "too-big", "train")  # cancelled; its workers follow
+    run("too_big_cancelled")
+    checks["too_big_workers_collected"] = members("train", "too-big") == []
+
+    # --- the single-pod jobs fill the fleet
+    for i in range(GANG_JOBS):
+        create(Pod(f"job-{i:03d}", "jobs", request={rng.choice(mix): rng.choice((1, 2, 4))}))
+    run("jobs")
+
+    # --- the quota within its min reclaims the borrowed GPUs
+    lender = {p.namespaced_name for p in members("borrow", "lender")}
+    for i in range(2):
+        create(Pod(f"claim-{i}", "claim", request={whole: 8}))
+    run("reclaim")
+    victims = [v["pod"] for r in cluster.scheduler.preemptions for v in r["victims"]]
+    claims = cluster.store.list("Pod", namespace="claim")
+    checks["reclaimed_gang_evicted_whole"] = (
+        lender <= set(victims) and members("borrow", "lender") == [])
+    checks["claims_run"] = all(p.phase == PodPhase.RUNNING for p in claims)
+
+    # --- a whole-node job on a full fleet: it waits past min_wait, gets a
+    # drain, and binds once the reserved node's jobs finish
+    created = create(Pod("drain", "jobs", request={whole: GANG_DRAIN})).created
+    run("drain_waits")
+    held = [n.name for n in cluster.store.list("Node")
+            if n.annotations.get(RESERVED_FOR) == "jobs/drain"]
+    checks["drain_not_before_min_wait"] = held == []
+    # the cluster idles through min_wait on its virtual clock
+    cluster.now += cluster.scheduler.reservation.min_wait
+    reserved, waited = None, None
+    for _ in range(10):
+        cluster.step()
+        on_step()
+        held = [n.name for n in cluster.store.list("Node")
+                if n.annotations.get(RESERVED_FOR) == "jobs/drain"]
+        if held:
+            reserved, waited = held[0], cluster.now - created
+            break
+    checks["drain_reserved"] = reserved is not None
+    finished = 0
+    if reserved is not None:
+        for p in cluster.store.list("Pod"):
+            if p.node == reserved and p.phase == PodPhase.RUNNING:
+                cluster.store.patch_merge("Pod", p.name, p.namespace,
+                                          lambda q: setattr(q, "phase", PodPhase.SUCCEEDED))
+                finished += 1
+    run("drain")
+    holder = cluster.store.get("Pod", "drain", "jobs")
+    checks["drain_holder_binds"] = holder.phase == PodPhase.RUNNING and holder.node == reserved
+    checks["drain_released"] = not any(n.annotations.get(RESERVED_FOR) == "jobs/drain"
+                                       for n in cluster.store.list("Node"))
+    checks.update(watch)
+    final = cluster.check()
+    checks.update({f"cluster_{k}": v for k, v in final.items()})
+
+    def quantiles(values):
+        if len(values) < 2:
+            return {"n": len(values), "p50_ms": values[0] if values else None,
+                    "p95_ms": values[0] if values else None}
+        return {"n": len(values), "p50_ms": statistics.median(values),
+                "p95_ms": statistics.quantiles(values, n=20)[-1]}
+
+    pods = cluster.store.list("Pod")
+    unserved = cluster.unserved()
+    row = {"phase": "gang", "host_cpus": os.cpu_count(),
+           "cluster": {"nodes": len(nodes), "gpus": gpus, "fleet_gb": fleet_gb,
+                       "pools": GANG_POOLS + 1, "pods": len(pods)},
+           "f3": {"free_20gb_before": free_20, "node": f3.node, "phase": f3.phase},
+           "gangs": gang_rows, "zoned_per_zone": zoned_counts, "too_big": too_big_row,
+           "reclaim": {"victims": sorted(victims), "claims_on": sorted(p.node for p in claims)},
+           "drain": {"node": reserved, "waited_s": waited, "jobs_finished": finished,
+                     "holder_node": holder.node,
+                     "reservations_made": cluster.scheduler.reservation.reservations_made,
+                     "held_after": {n.name: n.annotations[RESERVED_FOR]
+                                    for n in cluster.store.list("Node")
+                                    if RESERVED_FOR in n.annotations}},
+           "running": sum(p.phase == PodPhase.RUNNING for p in pods),
+           "unserved": len(unserved),
+           "cycles": {k: quantiles(v) for k, v in cycle_ms.items()},
+           "steps": {"total": cluster.steps, **steps},
+           "admission_rejects": cluster.kubelet.admission_rejects,
+           "plans": {c.kind: c.plans_processed for c in cluster.controllers},
+           "broken": broken[:3]}
+    row.update(checks=checks, ok=all(checks.values()), seconds=time.time() - t0, card=card)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"gang failed: {checks}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -4705,6 +5069,7 @@ def main() -> int:
     migagent_phase(card)
     partitioner_phase(card)
     quota_phase(card)
+    gang_phase(card)
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa

@@ -2,10 +2,15 @@
 
 Counterpart of ``nos_tpu/cmd/cluster.py:44-275`` (``SimCluster``,
 ``build_cluster``), trimmed to one ``NodeStore`` with the quota
-webhooks, the scheduler with ``CapacityScheduling`` (quota admission,
-reservations and preemption), the MIG and MPS partitioner controllers
-planning with the simulation framework (``build_sim_framework``: the
-vanilla filters and the quota PreFilter), one ``MigAgent`` per MIG node
+webhooks and the multi-node expander's admission hook, the expander
+itself (a plain GPU request past one node becomes a gang; its workers
+and Service), the scheduler with the reference's plugins
+(``CapacityScheduling``'s quota admission, reservations and preemption,
+``GangScheduling``'s Permit, the node-pool pin, the drain reservation
+and the scores), the MIG and MPS partitioner controllers planning with
+the simulation framework (``build_sim_framework``: the vanilla filters,
+the pool pin, the drain reservation and the quota PreFilter), one
+``MigAgent`` per MIG node
 on a shared ``SimMigPool``, the MPS device plugin's sim and reporter per
 MPS node, a trimmed sim kubelet (``nos_tpu/sim/kubelet.py``: a bound
 pod is admitted against the devices that exist, then Running) and the
@@ -26,11 +31,15 @@ planners' aging clock) by ``TICK_S``, so a run plans the same however
 fast its host is; ``run_until_idle(max_steps)`` steps until a step
 changes nothing and each controller with pods it could help has just
 planned without applying anything, i.e. no pending pod can be helped.
-The store's clock is the cluster's, so pods' creation times are virtual
-too. A MIG node's product and GPU count come from NVML when the caller
-passes an ``Nvml`` (the card's own identity; its instances stay on the
-sim pool), else from the caller's arguments. ``check()`` holds the
-idle cluster to the loop's invariants and the quotas' three.
+The store's clock is the cluster's, so pods' creation times, the gang
+timeouts and the drain reservations are virtual too. A MIG node's
+product and GPU count come from NVML when the caller passes an ``Nvml``
+(the card's own identity; its instances stay on the sim pool), else
+from the caller's arguments; ``pool`` puts a MIG node in a node pool
+(the ``cloud.google.com/gke-nodepool`` label), and every node carries
+``kubernetes.io/hostname``. ``check()`` holds the idle cluster to the
+loop's invariants, the quotas' three and the gangs' five
+(``check_gangs``, which hold at every step).
 """
 from __future__ import annotations
 
@@ -55,6 +64,15 @@ from nos_tpu_torch.controllers.partitioner import (
     PartitionerController,
     build_sim_framework,
     could_help,
+    register_multinode_admission,
+)
+from nos_tpu_torch.controllers.partitioner.multinode import (
+    COORDINATOR_ENV,
+    MULTINODE_ROLE_LABEL,
+    NUM_PROCESSES_ENV,
+    PROCESS_ID_ENV,
+    ROLE_LEADER,
+    gang_member_env,
 )
 from nos_tpu_torch.device.client import GpuClient
 from nos_tpu_torch.device.sharing import (
@@ -82,8 +100,11 @@ from nos_tpu_torch.partitioning.core import Actuator, ClusterState, Planner
 from nos_tpu_torch.partitioning.core.codec import is_mig_resource
 from nos_tpu_torch.partitioning.mig import MigNodeInitializer, MigPartitioner, MigSnapshotTaker
 from nos_tpu_torch.partitioning.mps import MpsPartitioner, MpsSnapshotTaker
-from nos_tpu_torch.scheduler import CapacityScheduling, Scheduler
+from nos_tpu_torch.scheduler import CapacityScheduling, Scheduler, new_framework
 from nos_tpu_torch.scheduler.plugins.capacity import build_quota_infos
+from nos_tpu_torch.scheduler.plugins.gang import GANG_NAME_LABEL, GANG_SIZE_LABEL, gang_of
+from nos_tpu_torch.scheduler.plugins.reservation import RESERVED_FOR
+from nos_tpu_torch.scheduler.plugins.topology import NODEPOOL_LABEL
 
 log = logging.getLogger("nos_tpu_torch.cluster")
 
@@ -95,6 +116,7 @@ NODE_MEMORY_GIB = 2048
 BATCH_TIMEOUT_S = 1.0
 BATCH_IDLE_S = 0.05
 TICK_S = 0.05
+HOSTNAME_LABEL = "kubernetes.io/hostname"
 
 
 def product_label(nvml_name: str) -> str:
@@ -162,13 +184,15 @@ class SimKubelet:
 
 
 class SimCluster:
-    def __init__(self, config_map_name: str = DEFAULT_CONFIG_MAP) -> None:
+    def __init__(self, config_map_name: str = DEFAULT_CONFIG_MAP,
+                 gang_timeout_seconds: float = 30.0) -> None:
         self.now = 0.0
         self.store = NodeStore(clock=self.clock)
         register_elasticquota_webhooks(self.store)
+        self.expander = register_multinode_admission(self.store)
         self.steps = 0
         self.pool = SimMigPool()
-        self.scheduler = Scheduler(self.store)
+        self.scheduler = Scheduler(self.store, new_framework(self.store, gang_timeout_seconds))
         self.quotas = ElasticQuotaController(self.store)
         self.config_map_name = config_map_name
         plan_ids = itertools.count(1)
@@ -202,14 +226,15 @@ class SimCluster:
     # ------------------------------------------------------------ nodes
 
     def add_mig_node(self, name: str, gpus: int = 8, product: str = H100_80GB,
-                     nvml=None) -> Node:
+                     nvml=None, pool: Optional[str] = None) -> Node:
         """A MIG node and its agent on the sim pool. With ``nvml`` (an
-        ``Nvml``) the product and GPU count are NVML's."""
+        ``Nvml``) the product and GPU count are NVML's; ``pool`` names its
+        node pool."""
         if nvml is not None:
             product, gpus = product_label(nvml.name(0)), nvml.device_count()
         if product not in KNOWN_GPUS:
             raise ValueError(f"{name}: GPU product {product!r} is not in gpu/known.py")
-        node = self._create_node(name, gpus, product, PARTITIONING_MIG)
+        node = self._create_node(name, gpus, product, PARTITIONING_MIG, pool)
         sim = SimMigClient(self.pool, name)
         client = GpuClient(sim, SimPodResourcesClient(self.store, name, sim.get_mig_devices))
         self.agents[name] = build_migagent(self.store, name, client,
@@ -234,17 +259,21 @@ class SimCluster:
                 name, namespace, list(namespaces), dict(min), dict(max or {})))
         return self.store.create(ElasticQuota(name, namespace, dict(min), dict(max or {})))
 
-    def _create_node(self, name: str, gpus: int, product: str, kind: str) -> Node:
+    def _create_node(self, name: str, gpus: int, product: str, kind: str,
+                     pool: Optional[str] = None) -> Node:
         resources = {RESOURCE_GPU: gpus, "cpu": NODE_CPU, "memory": NODE_MEMORY_GIB}
-        return self.store.create(Node(name, labels={GPU_PRODUCT_LABEL: product,
-                                                    PARTITIONING_LABEL: kind},
-                                      capacity=dict(resources), allocatable=dict(resources)))
+        labels = {GPU_PRODUCT_LABEL: product, PARTITIONING_LABEL: kind, HOSTNAME_LABEL: name}
+        if pool:
+            labels[NODEPOOL_LABEL] = pool
+        return self.store.create(Node(name, labels=labels, capacity=dict(resources),
+                                      allocatable=dict(resources)))
 
     # ------------------------------------------------------------- loop
 
     def step(self) -> None:
         """Every component once, in the loop's order."""
         self.now += TICK_S
+        self.expander.step()
         for controller in self.controllers:
             controller.step()
         for agent in self.agents.values():
@@ -261,15 +290,15 @@ class SimCluster:
         """The store's observable state."""
         nodes = tuple((n.name, tuple(sorted(n.annotations.items())),
                        tuple(sorted(n.labels.items())), tuple(sorted(n.allocatable.items())))
-                      for n in self.store.list("Node"))
+                      for n in self.store.list("Node", copy=False))
         pods = tuple((p.namespaced_name, p.uid, p.node, p.phase, p.unschedulable,
                       p.nominated_node, p.labels.get(CAPACITY_LABEL))
-                     for p in self.store.list("Pod"))
+                     for p in self.store.list("Pod", copy=False))
         maps = tuple((c.name, tuple(sorted(c.data.items())))
-                     for c in self.store.list("ConfigMap"))
+                     for c in self.store.list("ConfigMap", copy=False))
         quotas = tuple((q.kind, q.namespace, q.name, tuple(sorted(q.used.items())))
                        for kind in ("ElasticQuota", "CompositeElasticQuota")
-                       for q in self.store.list(kind))
+                       for q in self.store.list(kind, copy=False))
         return nodes, pods, maps, quotas
 
     def helpable(self, controller: PartitionerController) -> List[Pod]:
@@ -305,16 +334,29 @@ class SimCluster:
     def unserved(self) -> Dict[str, str]:
         """Pending pod → why it waits: its quota's refusal, when the quota
         admission refuses it now, else the reason the last plan of its
-        mode gave."""
+        mode gave, else, for a gang member, that it waits in Permit for
+        its gang, or the scheduler's last refusal (its gang's timeout
+        among them)."""
         out: Dict[str, str] = {}
         for c in self.controllers:
             out.update(c.planner.last_unserved)
         infos = build_quota_infos(self.store)
+        waiting = self.scheduler.assumed()
         for pod in self.store.list("Pod"):
             if pod.phase == PodPhase.PENDING and not pod.node:
                 status = CapacityScheduling.check_quota(pod, infos)
                 if not status.success:
                     out[pod.namespaced_name] = status.message
+                elif pod.namespaced_name in out:
+                    continue
+                elif pod.namespaced_name in waiting:
+                    out[pod.namespaced_name] = (
+                        f"waiting in Permit on {waiting[pod.namespaced_name]} for its gang")
+                elif pod.unschedulable_message and gang_of(pod) is not None:
+                    # the gang timeout, or the scheduler's diagnosis of a
+                    # member the plan counts as placed (its pool pin
+                    # refuses the plan's node)
+                    out[pod.namespaced_name] = pod.unschedulable_message
         return out
 
     def check(self) -> Dict[str, bool]:
@@ -377,7 +419,43 @@ class SimCluster:
         checks.update(geometries_allowed=allowed, plans_acknowledged=acked,
                       no_gpu_overcommitted=committed)
         checks.update(self.check_quotas())
+        checks.update(self.check_gangs())
         return checks
+
+    def check_gangs(self) -> Dict[str, bool]:
+        """The gangs' invariants, which hold at every step: every gang the
+        expander made has none or all of its members bound, a bound gang
+        lies in one node pool, its ranks are 0 … n-1 once each with the
+        coordinator naming the leader; at most one node drains, and no
+        reservation outlives its holder."""
+        pods = self.store.list("Pod", copy=False)
+        nodes = {n.name: n for n in self.store.list("Node", copy=False)}
+        whole = one_pool = ranks = True
+        for leader in pods:
+            if leader.labels.get(MULTINODE_ROLE_LABEL) != ROLE_LEADER:
+                continue
+            gang, ns = leader.labels[GANG_NAME_LABEL], leader.namespace
+            size = int(leader.labels[GANG_SIZE_LABEL])
+            members = [p for p in pods
+                       if p.namespace == ns and p.labels.get(GANG_NAME_LABEL) == gang]
+            bound = [p for p in members
+                     if p.node and p.phase in (PodPhase.PENDING, PodPhase.RUNNING)]
+            whole &= len(bound) in (0, size)
+            one_pool &= len({nodes[p.node].labels.get(NODEPOOL_LABEL, "")
+                             for p in bound if p.node in nodes}) <= 1
+            want = gang_member_env(leader.name, ns, 0, size)
+            ranks &= (sorted(int(p.env.get(PROCESS_ID_ENV, "-1")) for p in members)
+                      == list(range(size))) and all(
+                p.env.get(COORDINATOR_ENV) == want[COORDINATOR_ENV]
+                and p.env.get(NUM_PROCESSES_ENV) == want[NUM_PROCESSES_ENV]
+                for p in members)
+        reservation = self.scheduler.reservation
+        holders = [reservation.valid_holder(n) for n in nodes.values()
+                   if RESERVED_FOR in n.annotations]
+        return {"gangs_whole": whole, "gangs_in_one_pool": one_pool,
+                "gang_ranks_and_coordinator": ranks,
+                "at_most_one_drain": sum(h is not None for h in holders) <= 1,
+                "no_stale_reservation": all(h is not None for h in holders)}
 
     def check_quotas(self) -> Dict[str, bool]:
         """The quotas' invariants: each quota's used is the sum over its

@@ -27,10 +27,19 @@ batch (the reference's level-triggered retry). Spans:
 the planner, ``SNAPSHOT_FORKS`` / ``COMMITS`` / ``REVERTS`` in the
 snapshot. Out (ROADMAP.md): pool sharding, the process backend and the
 warm-state codec (``:583-1015``), ``incremental.py``, the divergence
-reconcile (``:228``), ``multihost.py`` and the flight recorder (a
-bounded ``plans`` record stands in for it). ``build_sim_framework``
-(``nos_tpu/cmd/partitioner.py:39``) gives a planner the scheduler's
+reconcile (``:228``) and the flight recorder (a bounded ``plans``
+record stands in for it); ``multihost.py``'s counterpart is
+``multinode.py``. ``build_sim_framework``
+(``nos_tpu/cmd/partitioner.py:39-66``) gives a planner the scheduler's
 filters and its quota PreFilter.
+
+Gang members waiting in the scheduler's Permit hold their slices only in
+its assume cache: the store, so the snapshot, shows those slices free.
+As in the reference (``:398-424``), they stay pending candidates (they
+carry no Unschedulable condition, but a plan that left them out could
+carve their slices away): the free pool covers them like any pod the
+free slices serve, and the claim pre-pass places them on free slices
+instead of carving for them.
 """
 from __future__ import annotations
 
@@ -51,6 +60,8 @@ from nos_tpu_torch.partitioning.core.partition_state import partitioning_state_t
 from nos_tpu_torch.partitioning.core.state import partitioning_kind
 from nos_tpu_torch.scheduler.framework import Framework, vanilla_filter_plugins
 from nos_tpu_torch.scheduler.plugins.capacity import CapacityScheduling
+from nos_tpu_torch.scheduler.plugins.reservation import BoardReservation
+from nos_tpu_torch.scheduler.plugins.topology import MultinodeFilter
 from nos_tpu_torch.util import metrics
 from nos_tpu_torch.util import resources as res
 from nos_tpu_torch.util.pod import is_preempting
@@ -71,14 +82,19 @@ def could_help(pod: Pod) -> bool:
 
 
 def build_sim_framework(store: NodeStore) -> Framework:
-    """The planner's simulation framework: the vanilla filters and
-    ``CapacityScheduling`` as PreFilter, the plugins the scheduler's own
-    cycle filters with, so a plan never carves for a pod the quota would
-    refuse (``nos_tpu/cmd/partitioner.py:build_sim_framework``). The quota
-    plugin makes no verdict-cache promise: its PreFilter runs on every
-    trial."""
+    """The planner's simulation framework: the plugins the scheduler's own
+    cycle filters with, so a plan never carves for a pod the scheduler
+    would refuse (``nos_tpu/cmd/partitioner.py:build_sim_framework``):
+    ``CapacityScheduling`` as PreFilter, the vanilla filters,
+    ``MultinodeFilter`` (a gang's bound members pin its pool; members
+    placed within one plan are not pinned, and a split across pools
+    resolves by the Permit timeout and a replan, as in the reference) and
+    ``BoardReservation`` (nothing is carved for another pod on a draining
+    node). None of the three store readers makes a verdict-cache promise:
+    they run on every trial."""
     return Framework(pre_filter_plugins=[CapacityScheduling(store)],
-                     filter_plugins=vanilla_filter_plugins())
+                     filter_plugins=vanilla_filter_plugins()
+                     + [MultinodeFilter(store), BoardReservation(store)])
 
 
 def _default_plan_id() -> str:
@@ -115,8 +131,9 @@ class PartitionerController:
     def sync(self) -> None:
         """ClusterState := the store (the node and pod state controllers);
         a MIG node with no geometry gets its first."""
-        nodes = self.store.list("Node")
-        pods = self.store.list("Pod")
+        # read-only: ClusterState keeps copies of its own
+        nodes = self.store.list("Node", copy=False)
+        pods = self.store.list("Pod", copy=False)
         by_node: Dict[str, List[Pod]] = {}
         for pod in pods:
             if pod.node and pod.phase in (PodPhase.PENDING, PodPhase.RUNNING):
@@ -176,8 +193,10 @@ class PartitionerController:
     # ------------------------------------------------------ processing
 
     def fetch_pending_pods(self) -> List[Pod]:
-        """Every pending unbound pod (reference :202-210)."""
-        return [p for p in self.store.list("Pod") if p.phase == PodPhase.PENDING and not p.node]
+        """Every pending unbound pod (reference :202-210), as the store
+        holds it: planning only reads pods."""
+        return [p for p in self.store.list("Pod", copy=False)
+                if p.phase == PodPhase.PENDING and not p.node]
 
     def process_pending_pods(self) -> int:
         """Snapshot, plan, actuate; the nodes re-partitioned (0: a no-op

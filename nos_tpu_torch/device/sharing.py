@@ -125,7 +125,7 @@ class SharedSliceClient:
         if not entries:
             return []
         demand: Dict[str, int] = {}
-        for pod in self.store.list("Pod"):
+        for pod in self.store.list("Pod", copy=False):
             if pod.node != node_name or pod.phase not in (PodPhase.PENDING, PodPhase.RUNNING):
                 continue
             for name, qty in pod.request.items():

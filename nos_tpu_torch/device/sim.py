@@ -130,7 +130,7 @@ class SimPodResourcesClient:
 
     def get_used_device_ids(self) -> List[str]:
         demand: Dict[str, int] = {}
-        for pod in self.store.list("Pod"):
+        for pod in self.store.list("Pod", copy=False):
             if pod.node != self.node_name or pod.phase not in (PodPhase.PENDING,
                                                                 PodPhase.RUNNING):
                 continue

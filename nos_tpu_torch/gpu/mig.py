@@ -6,10 +6,15 @@ instances and searches the allowed geometries for one that serves lacking
 profiles without destroying used instances (UpdateGeometryFor,
 gpu.go:158-212). Init picks the fewest-slices geometry (gpu.go:118-127):
 the whole GPU as one 7g.80gb instance.
+
+``refused`` holds the geometries the GPU's agent acknowledged but could
+not create (a used instance holds a placement the geometry needs: counts
+alone, which is all the planner sees, do not show it); the search skips
+them, so a plan the GPU cannot take is not re-planned forever.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import FrozenSet, Optional, Set, Tuple
 
 from nos_tpu_torch.gpu.geometry import (
     Geometry,
@@ -34,6 +39,7 @@ class MigGpu:
         self.product = product
         self.used: Geometry = dict(used or {})
         self.free: Geometry = dict(free or {})
+        self.refused: Set[FrozenSet[Tuple[str, int]]] = set()
 
     # ------------------------------------------------------------ queries
 
@@ -53,7 +59,9 @@ class MigGpu:
     def plan_clone(self) -> "MigGpu":
         """A planning trial mutates only used / free: copying them (the
         constructor does) is a whole clone."""
-        return MigGpu(self.index, self.product, used=self.used, free=self.free)
+        clone = MigGpu(self.index, self.product, used=self.used, free=self.free)
+        clone.refused = self.refused
+        return clone
 
     # ---------------------------------------------------------- mutation
 
@@ -109,7 +117,8 @@ class MigGpu:
         best: Optional[Geometry] = None
         best_score = sum(self.free.get(p, 0) * weight(p) for p in wanted)
         for candidate in allowed_geometries(self.product):
-            if not geometry_fits(candidate, self.used):
+            if not geometry_fits(candidate, self.used) or (
+                    self.refused and frozenset(candidate.items()) in self.refused):
                 continue
             score = provided(candidate)
             if score > best_score:

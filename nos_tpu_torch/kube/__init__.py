@@ -5,12 +5,20 @@ from nos_tpu_torch.kube.store import (
     AlreadyExistsError,
     ConfigMap,
     Node,
+    NodeSelectorRequirement,
+    NodeSelectorTerm,
     NodeStore,
     NotFoundError,
+    OwnerReference,
     Pod,
+    PodAffinityTerm,
     PodDisruptionBudget,
     PodPhase,
+    Service,
+    TopologySpreadConstraint,
 )
 
-__all__ = ["AdmissionError", "AlreadyExistsError", "ConfigMap", "Node", "NodeStore",
-           "NotFoundError", "Pod", "PodDisruptionBudget", "PodPhase"]
+__all__ = ["AdmissionError", "AlreadyExistsError", "ConfigMap", "Node",
+           "NodeSelectorRequirement", "NodeSelectorTerm", "NodeStore", "NotFoundError",
+           "OwnerReference", "Pod", "PodAffinityTerm", "PodDisruptionBudget", "PodPhase",
+           "Service", "TopologySpreadConstraint"]

@@ -6,13 +6,18 @@ labels, capacity, allocatable and annotations, plus the taints and the
 cordon the scheduler's filters read; a pod its name, namespace, node,
 phase and request ``{resource: quantity}``, plus what the scheduler and
 the planner read of ``nos_tpu/kube/objects.py``'s pod (priority, labels,
-node selector, tolerations, scheduler name, uid, creation time and
-nominated node) and its PodScheduled=False / Unschedulable condition as
-a flag and a message; a config map its name, namespace and string data;
-a pod disruption budget its selector and one of ``min_available`` /
-``max_unavailable`` (``nos_tpu/kube/objects.py:350-363``). The elastic
-quotas are ``api/v1alpha1/elasticquota.py``'s. All of them stay plain
-dataclasses. ``NodeStore`` keeps them under one lock, with the
+annotations, node selector, tolerations, scheduler name, uid, creation
+time and nominated node; the required node affinity terms, pod affinity
+and anti-affinity terms and topology spread constraints of ``:92-185``;
+the owner reference, hostname, subdomain and env the multi-node expander
+writes) and its PodScheduled=False / Unschedulable condition as a flag
+and a message; a config map its name, namespace and string data; a pod
+disruption budget its selector and one of ``min_available`` /
+``max_unavailable`` (``nos_tpu/kube/objects.py:350-363``); a headless
+service its selector and ports. The elastic quotas are
+``api/v1alpha1/elasticquota.py``'s. All of them stay plain dataclasses,
+and every new field defaults to "none". ``NodeStore`` keeps them under
+one lock, with the
 reference's verbs: ``create`` (which stamps a fresh ``uid`` on every pod,
 and its ``created`` from the store's clock when the caller left it
 unset), ``get`` / ``try_get``, ``delete``, ``list``,
@@ -20,11 +25,13 @@ unset), ``get`` / ``try_get``, ``delete``, ``list``,
 stored) and ``patch_annotations`` / ``patch_labels`` (a ``None`` value
 deletes the key). Objects are copied
 on the way in and out, so mutating a returned object never mutates the
-store. ``revision`` counts the writes (a resource version of the whole
+store (``list`` and ``try_get`` take ``copy=False`` for read-only
+callers). ``revision`` counts the writes (a resource version of the whole
 store, for readers that memoize on it). ``register_admission(kind, fn)``
-adds a validating webhook:
+adds an admission webhook:
 ``fn(obj, store)`` runs before ``create`` and ``patch_merge`` store the
-object, and raises ``AdmissionError`` to refuse it. There are no
+object; it may mutate the object (a mutating webhook) or raise
+``AdmissionError`` to refuse it. There are no
 watches and no resource versions: the agents poll
 (``controllers/migagent``).
 """
@@ -110,6 +117,89 @@ class Node:
 
 
 @dataclass
+class NodeSelectorRequirement:
+    """A label requirement: In | NotIn | Exists | DoesNotExist | Gt | Lt
+    (``nos_tpu/kube/objects.py:92``)."""
+
+    key: str = ""
+    operator: str = "In"
+    values: List[str] = field(default_factory=list)
+
+    def matches(self, labels: Dict[str, str]) -> bool:
+        present = self.key in labels
+        value = labels.get(self.key, "")
+        if self.operator == "In":
+            return present and value in self.values
+        if self.operator == "NotIn":
+            return not present or value not in self.values
+        if self.operator == "Exists":
+            return present
+        if self.operator == "DoesNotExist":
+            return not present
+        if self.operator in ("Gt", "Lt"):
+            try:
+                lhs, rhs = int(value), int(self.values[0])
+            except (ValueError, IndexError):
+                return False
+            return lhs > rhs if self.operator == "Gt" else lhs < rhs
+        return False
+
+
+@dataclass
+class NodeSelectorTerm:
+    """An AND of requirements; a pod's required terms OR together."""
+
+    match_expressions: List[NodeSelectorRequirement] = field(default_factory=list)
+
+    def matches(self, labels: Dict[str, str]) -> bool:
+        return all(r.matches(labels) for r in self.match_expressions)
+
+
+@dataclass
+class PodAffinityTerm:
+    """A required pod (anti-)affinity term: pods selected by matchLabels
+    AND matchExpressions, in ``namespaces`` (empty: the owner's own), within
+    a topology domain. A term with no selector selects no pod."""
+
+    topology_key: str = ""
+    match_labels: Dict[str, str] = field(default_factory=dict)
+    match_expressions: List[NodeSelectorRequirement] = field(default_factory=list)
+    namespaces: List[str] = field(default_factory=list)
+
+    def selects(self, pod_labels: Dict[str, str], pod_ns: str, own_ns: str) -> bool:
+        if not self.match_labels and not self.match_expressions:
+            return False
+        if pod_ns not in (self.namespaces or [own_ns]):
+            return False
+        if not all(pod_labels.get(k) == v for k, v in self.match_labels.items()):
+            return False
+        return all(r.matches(pod_labels) for r in self.match_expressions)
+
+
+@dataclass
+class TopologySpreadConstraint:
+    """DoNotSchedule is a filter, ScheduleAnyway a score; a constraint
+    with no selector matches no pod."""
+
+    topology_key: str = ""
+    max_skew: int = 1
+    when_unsatisfiable: str = "DoNotSchedule"  # DoNotSchedule | ScheduleAnyway
+    match_labels: Dict[str, str] = field(default_factory=dict)
+
+    def selects(self, labels: Dict[str, str]) -> bool:
+        if not self.match_labels:
+            return False
+        return all(labels.get(k) == v for k, v in self.match_labels.items())
+
+
+@dataclass
+class OwnerReference:
+    kind: str = ""
+    name: str = ""
+    uid: str = ""
+
+
+@dataclass
 class Pod:
     name: str
     namespace: str = "default"
@@ -131,6 +221,16 @@ class Pod:
     created: Optional[float] = None
     # the node a preemption cleared for the pod (status.nominatedNodeName)
     nominated_node: str = ""
+    annotations: Dict[str, str] = field(default_factory=dict)
+    # required node affinity: the node must match one term
+    node_affinity: List[NodeSelectorTerm] = field(default_factory=list)
+    pod_affinity: List[PodAffinityTerm] = field(default_factory=list)
+    pod_anti_affinity: List[PodAffinityTerm] = field(default_factory=list)
+    topology_spread_constraints: List[TopologySpreadConstraint] = field(default_factory=list)
+    owner: Optional[OwnerReference] = None
+    hostname: str = ""
+    subdomain: str = ""
+    env: Dict[str, str] = field(default_factory=dict)
 
     @property
     def namespaced_name(self) -> str:
@@ -156,9 +256,22 @@ class PodDisruptionBudget:
     max_unavailable: Optional[int] = None
 
 
+@dataclass
+class Service:
+    """A headless service: a stable DNS record per selected pod
+    (``<hostname>.<name>.<namespace>.svc``)."""
+
+    name: str
+    namespace: str = "default"
+    selector: Dict[str, str] = field(default_factory=dict)
+    ports: Dict[str, int] = field(default_factory=dict)  # port name → number
+    cluster_ip: str = "None"
+    owner: Optional[OwnerReference] = None
+
+
 _KINDS = {"Node": Node, "Pod": Pod, "ConfigMap": ConfigMap, "ElasticQuota": ElasticQuota,
           "CompositeElasticQuota": CompositeElasticQuota,
-          "PodDisruptionBudget": PodDisruptionBudget}
+          "PodDisruptionBudget": PodDisruptionBudget, "Service": Service}
 
 
 def _kind(obj: Any) -> str:
@@ -209,10 +322,15 @@ class NodeStore:
             raise NotFoundError(f"{kind} {namespace}/{name} not found")
         return obj
 
-    def try_get(self, kind: str, name: str, namespace: str = "") -> Optional[Any]:
+    def try_get(self, kind: str, name: str, namespace: str = "",
+                copy: bool = True) -> Optional[Any]:
+        """The object, or None; ``copy=False`` returns the stored object
+        itself, for read-only callers (as ``list``)."""
         with self._lock:
             obj = self._objects.get((kind, namespace, name))
-            return copy.deepcopy(obj) if obj is not None else None
+        if obj is None or not copy:
+            return obj
+        return _deepcopy(obj)
 
     def delete(self, kind: str, name: str, namespace: str = "") -> Any:
         with self._lock:

@@ -6,7 +6,8 @@ internal/partitioning/core/planner.go:67-153): ``sort_candidate_pods``
 (``:504``), ``_plan_pass`` (``:658``), ``_try_add_pod`` and its lacking
 shortcut (``:942``), ``_can_schedule`` through the verdict cache
 (``:952``), ``_run_simulation`` (``:1006``), ``_simulation_pod``
-(``:1052``) and ``last_unserved``.
+(``:1052``), the gang pre-pass (``:565-640``, ``_gang_membership`` and
+``_half_formable_gangs`` at ``:853-890``) and ``last_unserved``.
 
 A pass has three parts, as in the reference's cold plan. An *aged
 rescue*: a pending pod the fairness aging has promoted gets a carve
@@ -15,7 +16,12 @@ rescue a plan, at most three tries). A *claim pre-pass*: pods the
 existing free slices already serve are placed first, so no carve can
 destroy a slice a pending pod is entitled to; it skips the pod the
 rescue placed (the reference places it a second time: ROADMAP.md,
-fault F1). Then the *carve loop*: for
+fault F1). Every pod the pre-pass could not place goes back into the
+tracker with its whole request lacking (ROADMAP.md, fault F3: free
+slices split over nodes cover a multi-slice pod that no node can take,
+and the reference never carves for it; nor does it run a pass when the
+pool covers every pod, which the port does when a pod's slices lie on
+several nodes, ``SliceTracker.split``). Then the *carve loop*: for
 each candidate node (best fit first), fork the snapshot, re-carve the
 node toward what the pending pods still lack, simulation-schedule each
 of them on it with the real scheduler framework (PreFilter + Filter),
@@ -23,17 +29,24 @@ and commit the fork when a pod landed, else revert. The lacking
 shortcut skips the framework while the cluster cannot serve the pod at
 all. Every exit leaves ``last_unserved``: each pending pod asking for
 slices that the plan leaves unplaced, with its reason. A pod the
-tracker still holds lacks its slices; so does one whose free slices are
-gone from the plan's snapshot (a rescue's carve, or the carve loop, took
-them); one the free slices still cover fits no node that holds them (its
-filters refuse it, or its slices lie on several nodes). The reference
-gives the last two no reason (ROADMAP.md, faults F1 and F3).
+tracker still holds lacks its slices; one the tracker never held (it
+asks for another mode's slices) fits no node that holds them. The
+reference gives a pod F1's carve left unplaced no reason.
+
+The gang pre-pass: when a gang member is pending, a trial pass runs on
+a fork; a gang whose bound members (counted before the fork) and trial
+placements fall short of its size is excluded ("gang … cannot fully
+form; no slices are carved for partial gangs") and the real pass runs
+without it; when no gang is excluded the trial is committed as the
+plan.
 
 The simulation goes through the verdict cache (``verdict_cache.py``),
-with the same exactness as the reference's; the lacking shortcut is
-memoized on (request, ``state_version``) and the simulated node views on
-(node, version). Out, each listed in ROADMAP.md for a later slice: the
-gang pre-pass, warm state, the incremental and fallback plan modes, and
+with the same exactness as the reference's; a pod with spread or
+affinity terms, or any trial once a placed pod has anti-affinity,
+bypasses it and publishes the snapshot's whole view. The lacking
+shortcut is memoized on (request, ``state_version``) and the simulated
+node views on (node, version). Out, each listed in ROADMAP.md for a
+later slice: warm state, the incremental and fallback plan modes, and
 the carve-futility memo (the reference's tests hold that it never
 changes a plan; so do this port's, against the reference with it on
 and off). A pod's first sighting is keyed by its namespaced name and
@@ -50,13 +63,19 @@ from nos_tpu_torch.partitioning.core.codec import effective_size, is_slice_resou
 from nos_tpu_torch.partitioning.core.partition_state import PartitioningState
 from nos_tpu_torch.partitioning.core.snapshot import ClusterSnapshot, SnapshotNode
 from nos_tpu_torch.partitioning.core.tracker import SliceTracker
-from nos_tpu_torch.partitioning.core.verdict_cache import VerdictCache, pod_signature
+from nos_tpu_torch.partitioning.core.verdict_cache import (
+    VerdictCache,
+    needs_cluster_context,
+    pod_signature,
+)
 from nos_tpu_torch.scheduler.framework import (
+    TOPOLOGY_NODE_INFOS_KEY,
     CycleState,
     Framework,
     NodeInfo,
     is_verdict_cacheable,
 )
+from nos_tpu_torch.scheduler.plugins.gang import gang_of
 from nos_tpu_torch.util import metrics
 from nos_tpu_torch.util import resources as res
 from nos_tpu_torch.util.tracing import TRACER
@@ -103,6 +122,10 @@ def _profile(slices: dict) -> str:
 def lacking_reason(lacking: dict) -> str:
     """A lacking profile, read by people: the unserved reason."""
     return f"no node can be re-carved to yield lacking slices ({_profile(lacking)})"
+
+
+def gang_excluded_reason(gang_key: str) -> str:
+    return f"gang {gang_key} cannot fully form; no slices are carved for partial gangs"
 
 
 def unplaced_reason(request: dict) -> str:
@@ -212,27 +235,88 @@ class Planner:
                 if (now - pending_since.get(p.namespaced_name, now)) * AGING_PER_SECOND
                 >= AGED_RESCUE_SIZE}
         tracker = SliceTracker(snapshot, candidates)
-        if tracker.empty:
+        if tracker.empty and not tracker.split:
             # the geometry already serves every pending pod (planner.go:80-83)
             return snapshot.partitioning_state()
-        placed = {p.namespaced_name for p in self._plan_pass(snapshot, tracker, candidates,
-                                                             aged)}
-        self.last_unserved = {}
-        for p in candidates:
-            if p in tracker:
-                reason = lacking_reason(tracker.lacking_for(p))
-            elif p.namespaced_name in placed or not self._claims_free_slices(p):
-                continue
-            else:
-                # the free slices that served it when the plan began are
-                # gone, or no node it fits holds them
-                lacking = snapshot.get_lacking_slices(p)
-                reason = (lacking_reason(lacking) if lacking
-                          else unplaced_reason(res.compute_pod_request(p)))
-            self.last_unserved[p.namespaced_name] = reason
+        excluded_reasons: Dict[str, str] = {}
+        if any(gang_of(p) for p in candidates):
+            # bound members counted on the pristine snapshot, so trial
+            # placements never double as bound members
+            sizes, bound = self._gang_membership(snapshot, candidates)
+            snapshot.fork()
+            trial_tracker = SliceTracker(snapshot, candidates)
+            trial_placed = self._plan_pass(snapshot, trial_tracker, candidates, aged)
+            excluded = self._half_formable_gangs(sizes, bound, trial_placed)
+            if not excluded:
+                # the real pass would start from the same state in the same
+                # order: the trial is the plan
+                snapshot.commit()
+                self._set_unserved(trial_tracker, candidates, trial_placed)
+                span.set_attributes(gang_trial_reused=True)
+                return snapshot.partitioning_state()
+            snapshot.revert()
+            log.info("planner: gangs %s cannot fully form; excluding their pods",
+                     sorted(excluded))
+            excluded_reasons = {p.namespaced_name: gang_excluded_reason(gang_of(p)[0])
+                                for p in candidates if (gang_of(p) or (None,))[0] in excluded}
+            candidates = [p for p in candidates if p.namespaced_name not in excluded_reasons]
+            tracker = SliceTracker(snapshot, candidates)
+            if tracker.empty and not tracker.split:
+                self.last_unserved = excluded_reasons
+                return snapshot.partitioning_state()
+        placed = self._plan_pass(snapshot, tracker, candidates, aged)
+        self._set_unserved(tracker, candidates, placed, excluded_reasons)
         span.set_attributes(totals_calls=tracker.totals_calls,
                             totals_recomputes=tracker.totals_recomputes)
         return snapshot.partitioning_state()
+
+    def _set_unserved(self, tracker: SliceTracker, candidates: List[Pod], placed: List[Pod],
+                      extra: Optional[Dict[str, str]] = None) -> None:
+        """``last_unserved``: ``extra`` (the excluded gangs' reasons), then
+        each candidate asking for slices that the pass left unplaced."""
+        self.last_unserved = dict(extra or {})
+        placed_keys = {p.namespaced_name for p in placed}
+        for p in candidates:
+            if p in tracker:
+                reason = lacking_reason(tracker.lacking_for(p))
+            elif p.namespaced_name in placed_keys or not self._claims_free_slices(p):
+                continue
+            else:
+                # the pass put every unplaced pod asking for this mode's
+                # slices back in the tracker: this one asks for another
+                # mode's, which no node here holds
+                reason = unplaced_reason(res.compute_pod_request(p))
+            self.last_unserved[p.namespaced_name] = reason
+
+    @staticmethod
+    def _gang_membership(snapshot: ClusterSnapshot, candidates: List[Pod]
+                         ) -> Tuple[Dict[str, int], Dict[str, int]]:
+        """(gang → declared size, gang → members on any node of the
+        snapshot), for the gangs of the candidates."""
+        sizes: Dict[str, int] = {}
+        for pod in candidates:
+            gang = gang_of(pod)
+            if gang:
+                sizes[gang[0]] = gang[1]
+        bound: Dict[str, int] = {}
+        for node in snapshot.get_nodes().values():
+            for pod in node.pods:
+                gang = gang_of(pod)
+                if gang:
+                    bound[gang[0]] = bound.get(gang[0], 0) + 1
+        return sizes, bound
+
+    @staticmethod
+    def _half_formable_gangs(sizes: Dict[str, int], bound: Dict[str, int],
+                             trial_placed: List[Pod]) -> set:
+        """The gangs whose bound and trial-placed members fall short."""
+        placed: Dict[str, int] = {}
+        for pod in trial_placed:
+            gang = gang_of(pod)
+            if gang:
+                placed[gang[0]] = placed.get(gang[0], 0) + 1
+        return {key for key, size in sizes.items()
+                if bound.get(key, 0) + placed.get(key, 0) < size}
 
     def _plan_pass(self, snapshot: ClusterSnapshot, tracker: SliceTracker,
                    candidates: List[Pod], aged: set) -> List[Pod]:
@@ -285,6 +369,15 @@ class Planner:
                 if self._try_add_pod(snapshot, node_name, pod):
                     placed.append(pod)
                     break
+
+        # F3: a pod the pre-pass could not place lacks its whole request,
+        # however the free slices cover it (they may lie on several nodes)
+        placed_keys = {p.namespaced_name for p in placed}
+        for pod in candidates:
+            if pod not in tracker and pod.namespaced_name not in placed_keys:
+                lacking = snapshot.take_from_pool({}, res.compute_pod_request(pod))
+                if lacking:
+                    tracker.add(pod, lacking)
 
         # The carve loop.
         for node_name in self._candidate_nodes(snapshot):
@@ -363,8 +456,13 @@ class Planner:
         self._ensure_plan_caches(snapshot)
         # read through get_nodes(): nothing here may journal the node
         node = snapshot.get_nodes()[node_name]
+        # a verdict that reads other nodes has no single-node key
+        bypass = needs_cluster_context(pod) or snapshot.has_anti_affinity_pods()
         if not self.verdict_cache_enabled:
-            return self._run_simulation(node, pod)
+            return self._run_simulation(node, pod, snapshot if bypass else None)
+        if bypass:
+            self._verdict_cache.bypasses += 1
+            return self._run_simulation(node, pod, snapshot)
         key = (self._simulation_signature(pod), node_name, node.version)
         verdict = self._verdict_cache.get(key)
         if verdict is None:
@@ -380,10 +478,15 @@ class Planner:
         return self._run_simulation(node, pod, pre=self._uncacheable_pre,
                                     filters=self._uncacheable_filters)
 
-    def _run_simulation(self, node: SnapshotNode, pod: Pod, pre=None, filters=None) -> bool:
+    def _run_simulation(self, node: SnapshotNode, pod: Pod,
+                        published: Optional[ClusterSnapshot] = None, pre=None,
+                        filters=None) -> bool:
         """One PreFilter + Filter run (the whole chains, or the subsets
-        given) against the node's simulated view."""
+        given) against the node's simulated view; with ``published``, that
+        snapshot's whole view is published for the filters that read it."""
         state = CycleState()
+        if published is not None:
+            state[TOPOLOGY_NODE_INFOS_KEY] = published.sim_node_infos()
         status = self.framework.run_pre_filter_plugins(state, pod, plugins=pre)
         if not status.success:
             return False

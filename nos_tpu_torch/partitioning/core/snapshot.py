@@ -26,6 +26,12 @@ the journaled nodes with their old versions and the checkpointed
 ``state_version``, so a version-keyed cache (the planner's verdict
 cache) finds its entries from before the fork valid again.
 
+``sim_node_infos`` (every node's simulated view, for the filters that
+read the whole cluster) and ``has_anti_affinity_pods`` (``:495-518``)
+are memoized on ``state_version``, which names one state of the nodes
+(a revert restores it with them); a node's view is rebuilt only when its
+version moved.
+
 The candidate order is best fit: fewest free slices first, by effective
 size (``codec.profile_size``), then by name. ``refresh_node`` (the
 incremental planner's) and ``DeepcopyClusterSnapshot`` (the reference's
@@ -104,6 +110,10 @@ class ClusterSnapshot:
         self._free_state_cache: Dict[str, tuple] = {}
         # node name → (version, NodePartitioning) for the projection
         self._part_state_cache: Dict[str, tuple] = {}
+        # node name → (version, sim NodeInfo); (state_version, views)
+        self._sim_view_cache: Dict[str, tuple] = {}
+        self._sim_infos: Optional[tuple] = None
+        self._anti: Optional[tuple] = None  # (state_version, any anti-affinity pod)
 
     # ------------------------------------------------------ fork/commit
 
@@ -194,11 +204,37 @@ class ClusterSnapshot:
         return [name for name in sorted(self._nodes, key=lambda n: (states[n][0], n))
                 if states[name][1] and not self._nodes[name].frozen]
 
+    def sim_node_infos(self) -> List[NodeInfo]:
+        """Every node's simulated view (read-only), for the predicates that
+        read the whole cluster."""
+        if self._sim_infos is None or self._sim_infos[0] != self.state_version:
+            views = []
+            for name, node in self._nodes.items():
+                cached = self._sim_view_cache.get(name)
+                if cached is None or cached[0] != node.version:
+                    cached = (node.version, node.sim_node_info())
+                    self._sim_view_cache[name] = cached
+                views.append(cached[1])
+            self._sim_infos = (self.state_version, views)
+        return self._sim_infos[1]
+
+    def has_anti_affinity_pods(self) -> bool:
+        """A placed pod carries required anti-affinity: its terms refuse
+        incoming pods, so every trial must see the whole cluster."""
+        if self._anti is None or self._anti[0] != self.state_version:
+            found = any(p.pod_anti_affinity for node in self._nodes.values()
+                        for p in node.pods)
+            self._anti = (self.state_version, found)
+        return self._anti[1]
+
+    def codec_resources(self, slices: Dict[str, int]) -> res.ResourceList:
+        """``{profile: qty}`` as ``{resource: qty}`` in this mode's names."""
+        return {self.codec.resource(profile): qty for profile, qty in slices.items()}
+
     def _compute_free_pool(self) -> res.ResourceList:
         total: res.ResourceList = {}
         for node in self._nodes.values():
-            for profile, qty in node.partitionable.free_slices().items():
-                name = self.codec.resource(profile)
+            for name, qty in self.codec_resources(node.partitionable.free_slices()).items():
                 total[name] = total.get(name, 0) + qty
         return total
 

@@ -5,11 +5,16 @@ internal/partitioning/core/tracker.go:26-88). Pods draw, in the planner's
 order, from ONE shared free pool: when two pods each want the one free
 3g.40gb, the second lacks it (drawing each pod from the whole pool, as
 the reference nos does, lets N pods hide behind one free slice and
-stalls the planner). ``remove(pod)`` drops a pod the planner placed; the
-lacking totals are kept current by subtracting its share, not summed
-again per candidate node. A plain ``nvidia.com/gpu`` request lacks
+stalls the planner). ``remove(pod)`` drops a pod the planner placed, and
+``add(pod, lacking)`` puts one back (the planner's repair of fault F3,
+ROADMAP.md); the lacking totals are kept current by each pod's share,
+not summed again per candidate node. A plain ``nvidia.com/gpu`` request lacks
 nothing here: no codec tracks it, so the reference's ``_convert_plain``
 has no counterpart.
+
+``split`` names the pods the pool covers whose slices no single node's
+free slices hold (F3's pods): the free slices do not serve them, so the
+planner runs a pass, where the reference would stop at an empty tracker.
 """
 from __future__ import annotations
 
@@ -25,11 +30,24 @@ class SliceTracker:
         self._totals: Optional[res.ResourceList] = None
         self.totals_calls = 0
         self.totals_recomputes = 0
+        self.split: List[str] = []
         pool = snapshot.free_slice_resources()
+        node_frees = None
         for pod in pods:
-            lacking = snapshot.take_from_pool(pool, res.compute_pod_request(pod))
+            request = res.compute_pod_request(pod)
+            lacking = snapshot.take_from_pool(pool, request)
             if lacking:
                 self._lacking[pod.namespaced_name] = lacking
+                continue
+            slices = snapshot.take_from_pool({}, request)
+            if sum(slices.values()) < 2:
+                continue  # a single slice lies on one node
+            if node_frees is None:
+                node_frees = [snapshot.codec_resources(node.partitionable.free_slices())
+                              for node in snapshot.get_nodes().values()]
+            if not any(all(free.get(k, 0) >= q for k, q in slices.items())
+                       for free in node_frees):
+                self.split.append(pod.namespaced_name)
 
     @property
     def empty(self) -> bool:
@@ -55,6 +73,12 @@ class SliceTracker:
     def lacking_for(self, pod: Pod) -> res.ResourceList:
         """One pod's lack: what a carve for exactly this pod aims at."""
         return dict(self._lacking.get(pod.namespaced_name, {}))
+
+    def add(self, pod: Pod, lacking: res.ResourceList) -> None:
+        """Track ``pod`` as lacking ``lacking`` (it must not be tracked)."""
+        self._lacking[pod.namespaced_name] = dict(lacking)
+        if self._totals is not None:
+            self._totals = res.sum_resources(self._totals, lacking)
 
     def remove(self, pod: Pod) -> None:
         lacking = self._lacking.pop(pod.namespaced_name, None)

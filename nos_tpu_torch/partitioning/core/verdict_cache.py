@@ -8,18 +8,21 @@ state, so a repeated trial reads the cache instead of the plugin chain.
 
 Key: ``(pod signature, node name, node version)``. The signature holds
 every pod field the cacheable predicates read: the request, namespace,
-labels, node, node selector and tolerations. The node name pins the
-node's static state (labels, taints, cordon), and
-``SnapshotNode.version`` its mutable state (geometry, placed pods):
-versions come from a clock that never repeats (``snapshot.py``), so a
-(name, version) pair never names two states, and a reverted trial
-restores the old version, making the old entries valid again.
+labels, node, node selector, tolerations and required node affinity
+(``:43-68``). The node name pins the node's static state (labels,
+taints, cordon), and ``SnapshotNode.version`` its mutable state
+(geometry, placed pods): versions come from a clock that never repeats
+(``snapshot.py``), so a (name, version) pair never names two states, and
+a reverted trial restores the old version, making the old entries valid
+again.
 
-The port's pod carries no topology-spread or inter-pod affinity terms,
-so no trial reads another node and none bypasses the cache; the
-bypass count stays in the ledger for the day they come. A plugin takes
-part only if it sets ``verdict_cacheable = True``; the others run fresh
-on every trial, after the cached verdict.
+A verdict that reads other nodes cannot be keyed by one node's state:
+the planner bypasses the cache when the pod has spread or inter-pod
+(anti-)affinity terms (``needs_cluster_context``, ``:71-80``), or when a
+pod placed in the snapshot has required anti-affinity (symmetric terms
+refuse incoming pods). A plugin takes part only if it sets
+``verdict_cacheable = True``; the others run fresh on every trial, after
+the cached verdict.
 """
 from __future__ import annotations
 
@@ -38,7 +41,16 @@ def pod_signature(pod: Pod) -> tuple:
         pod.node,
         tuple(sorted(pod.node_selector.items())),
         tuple((t.key, t.operator, t.value, t.effect) for t in pod.tolerations),
+        tuple(tuple((r.key, r.operator, tuple(r.values)) for r in term.match_expressions)
+              for term in pod.node_affinity),
     )
+
+
+def needs_cluster_context(pod: Pod) -> bool:
+    """The pod's own terms make its verdict read nodes other than the
+    candidate: the per-pod half of the bypass."""
+    return bool(pod.topology_spread_constraints or pod.pod_affinity
+                or pod.pod_anti_affinity)
 
 
 class VerdictCache:

@@ -16,6 +16,12 @@ internal/partitioning/mig/snapshot_taker.go:31-53): nodes labelled
 ``nos.nebuly.com/gpu-partitioning=mig`` become ``MigNode``s whose used /
 free split is re-derived from the pods bound to them, frozen while
 their agent has not acknowledged the spec plan (``plan_in_flight``).
+A GPU whose acknowledged spec geometry differs from what its agent
+reports refused that geometry (``refused_geometries``). The taker keeps
+each GPU's refusals while its reported geometry and used split stay the
+same, and its ``MigGpu`` skips them all, so the planner does not re-plan
+geometries a used instance's placement forbids on every batch
+(ROADMAP.md, fault F4).
 """
 from __future__ import annotations
 
@@ -89,6 +95,19 @@ def plan_in_flight(node: Node) -> bool:
         annot.STATUS_PARTITIONING_PLAN)
 
 
+def refused_geometries(node: Node) -> Dict[int, Dict[str, int]]:
+    """GPU → the spec geometry its agent acknowledged but did not create
+    (the reported geometry differs), once the node's plan is
+    acknowledged."""
+    if plan_in_flight(node) or not node.annotations.get(annot.SPEC_PARTITIONING_PLAN):
+        return {}
+    spec, status = annot.parse_node_annotations(node.annotations)
+    wanted = annot.spec_geometries([s for s in spec if annot.MIG_PROFILE_RE.match(s.profile)])
+    have = annot.status_geometries([s for s in status if annot.MIG_PROFILE_RE.match(s.profile)])
+    return {gpu: geometry for gpu, geometry in wanted.items()
+            if geometry != have.get(gpu, {})}
+
+
 def cluster_view(state: ClusterState) -> Dict[str, Tuple[Node, List[Pod]]]:
     """node name → (node, the pods bound there, pending or running), from
     the controller's state as its last ``sync`` left it."""
@@ -96,6 +115,25 @@ def cluster_view(state: ClusterState) -> Dict[str, Tuple[Node, List[Pod]]]:
 
 
 class MigSnapshotTaker:
+    def __init__(self) -> None:
+        # (node, GPU, reported geometry, reported used) → the geometries
+        # its agent refused in that state
+        self._refusals: Dict[tuple, set] = {}
+        self._seen: set = set()
+
+    def _note_refusals(self, node: Node, mig: MigNode) -> None:
+        """Record the node's refusals and hand each GPU those of its
+        reported state (before the split is re-derived from pods)."""
+        refused = refused_geometries(node)
+        for gpu in mig.gpus:
+            key = (node.name, gpu.index, frozenset(gpu.geometry.items()),
+                   frozenset(gpu.used.items()))
+            self._seen.add(key)
+            if gpu.index in refused:
+                self._refusals.setdefault(key, set()).add(
+                    frozenset(refused[gpu.index].items()))
+            gpu.refused = self._refusals.get(key, set())
+
     def take_snapshot_node(self, node: Node, pods: List[Pod]) -> Optional[SnapshotNode]:
         """The node's snapshot entry, or None when it is not a MIG node."""
         if node.labels.get(PARTITIONING_LABEL) != PARTITIONING_MIG:
@@ -103,6 +141,7 @@ class MigSnapshotTaker:
         mig = mig_node(node)
         if not mig.gpus:
             return None
+        self._note_refusals(node, mig)
         # plan against the live bindings, not the reporter's split
         mig.rebuild_usage_from_pods(p.request for p in pods)
         return SnapshotNode(partitionable=mig, pods=list(pods), node=node,
@@ -110,8 +149,11 @@ class MigSnapshotTaker:
 
     def take_snapshot(self, state: ClusterState) -> ClusterSnapshot:
         nodes: Dict[str, SnapshotNode] = {}
+        self._seen = set()
         for name, (node, pods) in cluster_view(state).items():
             snap_node = self.take_snapshot_node(node, pods)
             if snap_node is not None:
                 nodes[name] = snap_node
+        # a state no GPU reports any more: its refusals go with it
+        self._refusals = {k: v for k, v in self._refusals.items() if k in self._seen}
         return ClusterSnapshot(nodes, codec=MigSliceCodec())

@@ -1,15 +1,20 @@
-"""The scheduler: counterpart of ``nos_tpu/scheduler``, trimmed to the
-framework, the vanilla predicates, the polled cycle and the quota
-plugin with its preemptor (``framework``, ``scheduler``,
-``plugins/capacity``, ``preemption``)."""
+"""The scheduler: counterpart of ``nos_tpu/scheduler``: the framework with
+the vanilla predicates, the polled cycle with Permit, and the nos
+plugins (``plugins/capacity`` with its preemptor, ``plugins/gang``,
+``plugins/reservation``, ``plugins/topology``)."""
 from nos_tpu_torch.scheduler.framework import (
+    TOPOLOGY_NODE_INFOS_KEY,
     CycleState,
     Diagnosis,
     Framework,
+    InterPodAffinityFit,
+    NodeAffinityFit,
     NodeInfo,
     NodeResourcesFit,
     NodeSelectorFit,
     NodeUnschedulableFit,
+    PodTopologySpreadFit,
+    PodTopologySpreadScoring,
     Status,
     StatusCode,
     TaintTolerationFit,
@@ -17,11 +22,17 @@ from nos_tpu_torch.scheduler.framework import (
     vanilla_filter_plugins,
 )
 from nos_tpu_torch.scheduler.plugins.capacity import CapacityScheduling
+from nos_tpu_torch.scheduler.plugins.gang import GangScheduling, gang_of
+from nos_tpu_torch.scheduler.plugins.reservation import AutoscalerGraceScoring, BoardReservation
+from nos_tpu_torch.scheduler.plugins.topology import MultinodeFilter, TopologyScoring
 from nos_tpu_torch.scheduler.scheduler import CycleOutcome, Scheduler, new_framework
 
 __all__ = [
-    "CapacityScheduling", "CycleOutcome", "CycleState", "Diagnosis", "Framework", "NodeInfo", "NodeResourcesFit",
-    "NodeSelectorFit", "NodeUnschedulableFit", "Scheduler", "Status", "StatusCode",
-    "TaintTolerationFit", "TaintTolerationScoring", "new_framework",
+    "AutoscalerGraceScoring", "BoardReservation", "CapacityScheduling", "CycleOutcome",
+    "CycleState", "Diagnosis", "Framework", "GangScheduling", "InterPodAffinityFit",
+    "MultinodeFilter", "NodeAffinityFit", "NodeInfo", "NodeResourcesFit", "NodeSelectorFit",
+    "NodeUnschedulableFit", "PodTopologySpreadFit", "PodTopologySpreadScoring", "Scheduler",
+    "Status", "StatusCode", "TOPOLOGY_NODE_INFOS_KEY", "TaintTolerationFit",
+    "TaintTolerationScoring", "TopologyScoring", "gang_of", "new_framework",
     "vanilla_filter_plugins",
 ]

@@ -19,10 +19,18 @@ hold, counted as the planner counts sizes) hold the pod's MIG request
 and every filter but the resource fit passes: the partitioner re-carves
 freed slices into any profile. An MPS node has no such headroom.
 
-``VictimUnit`` is kept, but each unit holds one pod: gangs, and the
-spread and affinity overlay of the victim trials, wait for the gang
-slice (ROADMAP.md), the port's pod carrying no gang or spread terms yet.
-Events wait for their slice too; ``PREEMPTIONS`` counts the evictions.
+Victims are units (``VictimUnit``, ``:35-53``): one pod, or a whole
+gang (``_eligible_units`` / ``_gang_members``, ``:410-445``). A gang is
+eligible only if every member is, its pending members included; it is
+reprieved or evicted whole, its whole quota usage frees together in the
+simulation, and a PodDisruptionBudget violation counts its pods. Since
+a gang's eviction removes pods from other nodes too, the spread and
+inter-pod affinity filters of the victim trials read an overlay of the
+published cluster view (``:253-360``): trial copies of the remote nodes
+the evicted members leave, with the filters' per-cycle caches dropped.
+The overlay is taken when the preemptor has spread or affinity terms,
+or a victim has anti-affinity (symmetric terms). Events wait for their
+slice; ``PREEMPTIONS`` counts the evictions.
 """
 from __future__ import annotations
 
@@ -35,7 +43,16 @@ from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, KNOWN_GPUS
 from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, RESOURCE_GPU
 from nos_tpu_torch.kube.store import NodeStore, NotFoundError, Pod, PodPhase
 from nos_tpu_torch.partitioning.core.codec import effective_size, is_mig_resource
-from nos_tpu_torch.scheduler.framework import CycleState, NodeInfo, NodeResourcesFit, Status
+from nos_tpu_torch.scheduler.framework import (
+    TOPOLOGY_NODE_INFOS_KEY,
+    CycleState,
+    InterPodAffinityFit,
+    NodeInfo,
+    NodeResourcesFit,
+    PodTopologySpreadFit,
+    Status,
+)
+from nos_tpu_torch.scheduler.plugins.gang import gang_of
 from nos_tpu_torch.util import metrics
 from nos_tpu_torch.util import pod as podutil
 from nos_tpu_torch.util import resources as res
@@ -45,9 +62,9 @@ log = logging.getLogger("nos_tpu_torch.scheduler.preemption")
 
 @dataclass
 class VictimUnit:
-    """The atom of preemption: ``local`` are the members on the candidate
-    node, ``members`` every member. A unit holds one pod until gangs
-    arrive."""
+    """The atom of preemption, one pod or one gang: ``local`` are the
+    members on the candidate node (they free its capacity), ``members``
+    every member in the cluster (all are evicted, all free quota)."""
 
     local: List[Pod]
     members: List[Pod]
@@ -144,6 +161,7 @@ class Preemptor:
         self._request_cache: Dict[str, res.ResourceList] = {}
         self._entitled_cache: Dict[str, bool] = {}
         self._victim_quota_cache: Dict[str, bool] = {}
+        self._gang_cache: Dict[str, List[Pod]] = {}
 
     def _quota_request(self, pod: Pod) -> res.ResourceList:
         from nos_tpu_torch.scheduler.plugins.capacity import quota_request
@@ -227,10 +245,44 @@ class Preemptor:
         sim_infos = self.infos.clone()
         needed = mig_slices_in(res.compute_pod_request(pod))
 
+        # a gang's eviction leaves other nodes too: the filters that read
+        # the whole cluster see trial copies of those nodes, overlaid on
+        # the published view (the candidate's own trial view is the one
+        # each filter is handed)
+        has_context = (any(c.when_unsatisfiable == "DoNotSchedule"
+                           for c in pod.topology_spread_constraints)
+                       or bool(pod.pod_affinity or pod.pod_anti_affinity)
+                       or any(m.pod_anti_affinity for u in units for m in u.members))
+        published = state.get(TOPOLOGY_NODE_INFOS_KEY) if has_context else None
+        remote_trials: Dict[str, NodeInfo] = {}
+
+        def remote_trial(node_name: str) -> Optional[NodeInfo]:
+            if published is None or node_name == node_info.name:
+                return None
+            if node_name not in remote_trials:
+                for info in published:
+                    if info.name == node_name:
+                        remote_trials[node_name] = NodeInfo(node=info.node,
+                                                            pods=list(info.pods))
+                        break
+            return remote_trials.get(node_name)
+
+        def filter_state() -> CycleState:
+            if published is None or not remote_trials:
+                return state
+            overlay = CycleState(state)
+            overlay[TOPOLOGY_NODE_INFOS_KEY] = [remote_trials.get(i.name, i)
+                                                for i in published]
+            for key in (PodTopologySpreadFit._CACHE_KEY, InterPodAffinityFit._CACHE_KEY,
+                        InterPodAffinityFit._TERM_CACHE_KEY):
+                overlay.pop(key, None)
+            return overlay
+
         def feasible(trial: NodeInfo) -> bool:
             if not CapacityScheduling.check_quota(pod, sim_infos, self.gpu_memory_gb).success:
                 return False
-            if framework.run_filter_plugins(state, pod, trial).success:
+            fs = filter_state()
+            if framework.run_filter_plugins(fs, pod, trial).success:
                 return True
             # on a MIG node the current instances are not the limit: the
             # partitioner re-carves freed slices; compare memory slices,
@@ -238,21 +290,28 @@ class Preemptor:
             headroom = self._mig_slices_headroom(trial)
             if headroom is None or needed <= 0 or needed > headroom:
                 return False
-            return all(plugin.filter(state, pod, trial).success
+            return all(plugin.filter(fs, pod, trial).success
                        for plugin in framework.filter_plugins
                        if not isinstance(plugin, NodeResourcesFit))
 
         def evict_sim(unit: VictimUnit) -> None:
+            # the whole gang dies, so its whole quota usage frees
             for victim in unit.members:
                 v_info = sim_infos.for_namespace(victim.namespace)
                 if v_info is not None:
                     v_info.remove_pod(victim.namespaced_name, self._quota_request(victim))
+                remote = remote_trial(victim.node) if victim.node else None
+                if remote is not None:
+                    remote.remove_pod(victim)
 
         def restore_sim(unit: VictimUnit) -> None:
             for victim in unit.members:
                 v_info = sim_infos.for_namespace(victim.namespace)
                 if v_info is not None:
                     v_info.add_pod(victim.namespaced_name, self._quota_request(victim))
+                remote = remote_trial(victim.node) if victim.node else None
+                if remote is not None:
+                    remote.add_pod(victim)
 
         trial = NodeInfo(node=node_info.node, pods=list(node_info.pods))
         for unit in units:
@@ -296,8 +355,35 @@ class Preemptor:
     # ------------------------------------------------------------ units
 
     def _eligible_units(self, preemptor: Pod, node_info: NodeInfo) -> List[VictimUnit]:
-        return [VictimUnit(local=[p], members=[p]) for p in node_info.pods
-                if self._eligible(preemptor, p)]
+        """The node's pods grouped into victim units; a gang's unit is
+        eligible only if every member in the cluster is."""
+        singles: List[Pod] = []
+        gangs: Dict[str, List[Pod]] = {}
+        for p in node_info.pods:
+            gang = gang_of(p)
+            if gang is None:
+                singles.append(p)
+            else:
+                gangs.setdefault(gang[0], []).append(p)
+        units = [VictimUnit(local=[p], members=[p]) for p in singles
+                 if self._eligible(preemptor, p)]
+        for key, local in gangs.items():
+            members = self._gang_members(key)
+            if members and all(self._eligible(preemptor, m) for m in members):
+                units.append(VictimUnit(local=local, members=members))
+        return units
+
+    def _gang_members(self, gang_key: str) -> List[Pod]:
+        """Every pending or running member of the gang, bound or not: a gang
+        dies whole, or its survivors wait on a quorum that cannot re-form.
+        Memoized for the preemption."""
+        if gang_key not in self._gang_cache:
+            ns = gang_key.split("/", 1)[0]
+            self._gang_cache[gang_key] = [
+                p for p in self.store.list("Pod", namespace=ns, copy=False)
+                if p.phase in (PodPhase.PENDING, PodPhase.RUNNING)
+                and (gang_of(p) or (None,))[0] == gang_key]
+        return self._gang_cache[gang_key]
 
     def _eligible(self, preemptor: Pod, victim: Pod) -> bool:
         """The reference's SelectVictimsOnNode branches

@@ -539,3 +539,89 @@ def test_the_bench_cluster_is_busy_and_the_cache_decides_trials():
     # demand exceeds the free supply: the carve loop runs to exhaustion
     assert on["pods_unserved"] > 0 and on["pods_placed"] > 0
     assert (on["pods_placed"], on["forks_total"]) == (off["pods_placed"], off["forks_total"])
+
+
+# ------------------------------------------------------------ gangs
+
+def test_sim_framework_wires_the_reference_filters():
+    from nos_tpu.cmd.partitioner import build_sim_framework as jbuild
+    from nos_tpu_torch.controllers.partitioner import build_sim_framework
+
+    from tests.torch_planner_cases import PLUGIN_NAMES
+
+    jframe, tframe = jbuild(KubeStore()), build_sim_framework(NodeStore())
+    for point in ("pre_filter_plugins", "filter_plugins"):
+        assert [p.name for p in getattr(tframe, point)] == [
+            PLUGIN_NAMES.get(p.name, p.name) for p in getattr(jframe, point)]
+
+
+def test_a_waiting_gang_member_is_not_carved_for_twice():
+    """Gang member w0 waits in Permit on h0's free 7g.80gb, which the store
+    still shows free; w1 finds no whole GPU. The plan keeps w0 on the slice
+    it holds and carves h1 for w1 alone, so the gang binds with one
+    7g.80gb a node and nothing more is carved."""
+    cluster = SimCluster()
+    for i in range(2):
+        cluster.add_mig_node(f"h{i}", gpus=1, pool="pool-a")
+    cluster.store.create(Pod("warm", "ml", request={mig("7g.80gb"): 1}))
+    assert cluster.run_until_idle(200)
+    warm_node = cluster.store.get("Pod", "warm", "ml").node
+    cluster.store.delete("Pod", "warm", "ml")
+    labels = {"nos.nebuly.com/gang": "job", "nos.nebuly.com/gang-size": "2"}
+    cluster.store.create(Pod("w0", "ml", request={mig("7g.80gb"): 1}, labels=dict(labels)))
+    cluster.step()
+    assert cluster.scheduler.assumed() == {"ml/w0": warm_node}
+    cluster.store.create(Pod("w1", "ml", request={mig("7g.80gb"): 1}, labels=dict(labels)))
+    assert cluster.run_until_idle(400)
+    pods = {p.name: p for p in cluster.store.list("Pod", namespace="ml")}
+    assert all(p.phase == PodPhase.RUNNING for p in pods.values())
+    assert pods["w0"].node == warm_node and pods["w1"].node != warm_node
+    assert {n: cluster.pool.geometry(n) for n in ("h0", "h1")} == {
+        "h0": {0: {"7g.80gb": 1}}, "h1": {0: {"7g.80gb": 1}}}
+    assert all(cluster.check().values()), cluster.check()
+
+
+# ------------------------------------------------------------ F4
+
+def _refusing_node(spec):
+    """A one-GPU MIG node whose agent acknowledged plan 7 but reports the
+    geometry it had: a used 1g.10gb and three free 2g.20gb."""
+    annotations = tannot.status_from_devices({0: {"2g.20gb": 3}}, {0: {"1g.10gb": 1}})
+    annotations.update(tannot.spec_from_geometries({0: spec}))
+    annotations.update({tannot.SPEC_PARTITIONING_PLAN: "7",
+                        tannot.STATUS_PARTITIONING_PLAN: "7"})
+    return port_node(NodeDesc("m0", annotations=annotations))
+
+
+def test_f4_refused_geometries_are_not_planned_again():
+    """Fault F4: the planner sees instance counts, not placements, so it
+    chose a geometry the agent cannot create (a 4g.40gb must start where
+    the used 1g.10gb sits) and re-planned it on every batch. The taker
+    keeps each refusal while the GPU reports the same state, and the
+    planner skips them all: after two refusals it tries the third
+    geometry with a 4g.40gb."""
+    from nos_tpu_torch.partitioning.mig import refused_geometries
+
+    pod = Pod("p", "default", request={mig("4g.40gb"): 1}, unschedulable=True)
+    held = Pod("held", "default", node="m0", phase=PodPhase.RUNNING,
+               request={mig("1g.10gb"): 1})
+    taker = MigSnapshotTaker()
+    first = {"1g.10gb": 1, "2g.20gb": 1, "4g.40gb": 1}
+    second = {"1g.10gb": 2, "1g.20gb": 1, "4g.40gb": 1}
+    for spec in (first, second):
+        node = _refusing_node(spec)
+        assert refused_geometries(node) == {0: spec}
+        state = ClusterState()
+        state.update_node(node, [held])
+        snapshot = taker.take_snapshot(state)
+        plan = Planner(new_framework()).plan(snapshot, [pod])
+        chosen = {k[len("nvidia.com/mig-"):]: v for g in plan["m0"].gpus
+                  for k, v in g.resources.items()}
+        assert chosen != spec
+    gpu = snapshot.get_nodes()["m0"].partitionable.gpus[0]
+    assert gpu.refused == {frozenset(first.items()), frozenset(second.items())}
+    assert chosen == {"1g.10gb": 3, "4g.40gb": 1}
+    # a plan in flight, or no spec, refuses nothing
+    node = _refusing_node(first)
+    node.annotations[tannot.STATUS_PARTITIONING_PLAN] = "6"
+    assert refused_geometries(node) == {}

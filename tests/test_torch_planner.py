@@ -40,6 +40,7 @@ from nos_tpu.partitioning.core import ClusterSnapshot as JSnapshot
 from nos_tpu.partitioning.core import Planner as JPlanner
 from nos_tpu.partitioning.core import SliceTracker as JTracker
 from nos_tpu.partitioning.core import SnapshotNode as JSnapNode
+from nos_tpu.partitioning.core import planner as jplanner_mod
 from nos_tpu.partitioning.core import snapshot as jsnapshot_mod
 from nos_tpu.partitioning.core.codec import SharedSliceCodec
 from nos_tpu.partitioning.core.planner import sort_candidate_pods as jsort
@@ -113,10 +114,11 @@ def mps_tables(monkeypatch):
 
 # ------------------------------------------------------------ builders
 
-def snapshots(nodes, pods=()):
+def snapshots(nodes, pods=(), generic=True):
     """(reference snapshot, port snapshot) of the same translated nodes,
-    with the running pods of each node on it."""
-    pods = list(pods) + running_pods(nodes)
+    with ``pods`` on their nodes and, when ``generic``, one running pod
+    per used slice."""
+    pods = list(pods) + (running_pods(nodes) if generic else [])
     jnodes, tnodes = {}, {}
     for desc in nodes:
         on = [p for p in pods if p.node == desc.name]
@@ -168,19 +170,97 @@ def placements(snapshot):
             for name, node in snapshot.get_nodes().items()}
 
 
+class _SplitTracker(JTracker):
+    """The reference's tracker with the port's ``split``: the pods the
+    pool covers whose slices no single node's free slices hold. While
+    any is named the tracker is not empty, so the reference runs a pass
+    where it would stop; ``_F3Tracker``'s repair clears the names."""
+
+    def __init__(self, snapshot, pods):
+        pods = list(pods)
+        super().__init__(snapshot, pods)
+        node_frees = [{snapshot.codec.resource(p): q
+                       for p, q in node.partitionable.free_slices().items()}
+                      for node in snapshot.get_nodes().values()]
+        self.split = []
+        for pod in pods:
+            if pod in self:
+                continue
+            slices = snapshot.take_from_pool({}, pod.spec.containers[0].requests)
+            if sum(slices.values()) >= 2 and not any(
+                    all(free.get(k, 0) >= q for k, q in slices.items()) for free in node_frees):
+                self.split.append(pod.namespaced_name)
+
+    @property
+    def empty(self):
+        return not self._lacking and not self.split
+
+
+class _F3Tracker:
+    """The reference's tracker for one pass, with the port's repair of F3:
+    before the carve loop's first look (``empty``), or at the pass's end
+    when the loop had no node to look at, every candidate the rescue and
+    the claim pre-pass left unplaced goes back in, its whole request
+    lacking."""
+
+    def __init__(self, tracker, snapshot, candidates, placed_keys):
+        self._tracker, self._snapshot = tracker, snapshot
+        self._candidates, self._placed_keys = candidates, placed_keys
+        self._repaired = False
+
+    def repair(self):
+        if self._repaired:
+            return
+        self._repaired = True
+        inner = self._tracker
+        inner.split = []
+        for pod in self._candidates:
+            if pod in inner or pod.namespaced_name in self._placed_keys:
+                continue
+            lacking = self._snapshot.take_from_pool({}, pod.spec.containers[0].requests)
+            if not lacking:
+                continue
+            inner._lacking[pod.namespaced_name] = dict(lacking)
+            for accelerator, total in inner._totals_cache.items():
+                for name, amount in inner._convert_plain(lacking, accelerator).items():
+                    total[name] = total.get(name, 0) + amount
+
+    @property
+    def empty(self):
+        self.repair()
+        return self._tracker.empty
+
+    def __contains__(self, pod):
+        return pod in self._tracker
+
+    def __getattr__(self, name):
+        return getattr(self._tracker, name)
+
+
 class RefPlanner(JPlanner):
-    """The reference's planner with its duplicate placement taken out: a
-    pod already placed in this plan is refused a second placement."""
+    """The reference's planner with F1's duplicate placement taken out (a
+    pod already placed in the pass is refused a second placement) and the
+    port's repair of F3 (``_SplitTracker``, put in the reference planner
+    module's place for the plan, and ``_F3Tracker``)."""
 
     def plan(self, snapshot, pending_pods, *args, **kwargs):
         self.placed_keys = set()
         self.passed = False  # the geometry served every pod: no pass ran
         self.snapshot, self.pods = snapshot, list(pending_pods)
-        return super().plan(snapshot, pending_pods, *args, **kwargs)
+        original = jplanner_mod.SliceTracker
+        jplanner_mod.SliceTracker = _SplitTracker
+        try:
+            return super().plan(snapshot, pending_pods, *args, **kwargs)
+        finally:
+            jplanner_mod.SliceTracker = original
 
-    def _plan_pass(self, *args, **kwargs):
+    def _plan_pass(self, snapshot, tracker, candidates, *args, **kwargs):
         self.passed = True
-        return super()._plan_pass(*args, **kwargs)
+        self.placed_keys = set()  # a gang trial's placements were reverted
+        repaired = _F3Tracker(tracker, snapshot, candidates, self.placed_keys)
+        placed = super()._plan_pass(snapshot, repaired, candidates, *args, **kwargs)
+        repaired.repair()
+        return placed
 
     def _try_add_pod(self, snapshot, node_name, pod):
         if pod.namespaced_name in self.placed_keys:
@@ -226,11 +306,14 @@ def assert_plan_invariants(planner, snapshot, pods, ran_pass=True):
             assert planner.last_unserved.get(pod.namespaced_name), pod.namespaced_name
 
 
-def plan_both(nodes, pending, framework="basic", ages=None, cache=True, futility=True):
+def plan_both(nodes, pending, framework="basic", ages=None, cache=True, futility=True,
+              running=None):
     """Plan both sides; assert the port equals the reference (F1's
     duplicate taken out, its missing reasons given); return the port's
-    (state, planner, snapshot)."""
-    jsnap, tsnap = snapshots(nodes)
+    (state, planner, snapshot). ``running`` replaces the generic running
+    pods of the nodes' used slices."""
+    jsnap, tsnap = (snapshots(nodes) if running is None
+                    else snapshots(nodes, running, generic=False))
     jframe, tframe = frameworks(framework)
     jplanner = RefPlanner(jframe, verdict_cache_enabled=cache, futility_memo_enabled=futility)
     tplanner = Planner(tframe, verdict_cache_enabled=cache)
@@ -791,3 +874,185 @@ def test_snapshot_taker_matches_the_reference(tables):
     assert tsnap.get_candidate_nodes() == jsnap.get_candidate_nodes() == ["a"]
     assert nonzero(tsnap.free_slice_resources()) == translate_pool(
         jsnap.free_slice_resources())
+
+
+# ------------------------------------------------------------ F3
+
+def f3_nodes():
+    """Two MPS nodes, each with one free 20 GB slice; s3 also has a GPU
+    whose memory was never carved."""
+    return [NodeDesc("s2", mode="mps", free={0: {"20gb": 1}}, used={0: {"20gb": 3}}),
+            NodeDesc("s3", gpus=2, mode="mps", free={0: {"20gb": 1}}, used={0: {"20gb": 3}})]
+
+
+def test_f3_port_carves_for_a_pod_split_free_slices_cover(mps_tables):
+    """Fault F3: the free pool covers 2 x 20 GB, no node holds both. The
+    reference's own planner leaves the pod unplaced with no reason and
+    carves nothing; the port puts it back into the tracker, carves s3's
+    uncarved GPU for it and places it there."""
+    pod = PodDesc("f3", {mps("20gb"): 2}, ns="team-c")
+    jsnap, tsnap = snapshots(f3_nodes())
+    jframe, tframe = frameworks("vanilla")
+    jplanner, tplanner = JPlanner(jframe), Planner(tframe)
+    jstate = jplanner.plan(jsnap, [ref_pod(pod)])
+    tstate = tplanner.plan(tsnap, [port_pod(pod)])
+    assert all("f3" not in names for names in placements(jsnap).values())
+    assert jplanner.last_unserved == {}
+    assert ref_state(jstate) == port_state(snapshots(f3_nodes())[1].partitioning_state())
+    assert "f3" in placements(tsnap)["s3"]
+    assert geometry_of(tstate, "s3")[1] == {mps("20gb"): 1}
+    assert tplanner.last_unserved == {}
+    # with the same repair on the reference's side, the plans agree
+    plan_both(f3_nodes(), [pod], framework="vanilla")
+
+
+def test_f3_unplaceable_pod_lacks_its_whole_request(mps_tables):
+    """Without memory to carve, the repaired pod is told it lacks its
+    whole request, where the reference gave it no reason."""
+    nodes = [NodeDesc(n, mode="mps", free={0: {"20gb": 1}}, used={0: {"20gb": 3}})
+             for n in ("s2", "s3")]
+    _, planner, _ = plan_both(nodes, [PodDesc("f3", {mps("20gb"): 2})], framework="vanilla")
+    assert planner.last_unserved == {"default/f3": (
+        "no node can be re-carved to yield lacking slices (2x nvidia.com/gpu-20gb)")}
+
+
+# ------------------------------------------------------------ the gang pre-pass
+
+def gang(name, gang_name, size, request=None, **kw):
+    return PodDesc(name, dict(request or {mig("4g.40gb"): 1}), ns="team",
+                   labels={"nos.nebuly.com/gang": gang_name,
+                           "nos.nebuly.com/gang-size": str(size)}, **kw)
+
+
+class TestPlannerGangFidelity:
+    """tests/partitioning/test_planner.py's TestPlannerGangFidelity: a
+    half-formable gang triggers no carve."""
+
+    def test_half_formable_gang_triggers_no_carve(self, tables):
+        state, planner, snap = plan_both([NodeDesc("n1")],
+                                         [gang(f"m{i}", "trainer", 3) for i in range(2)])
+        assert geometry_of(state, "n1")[0].get(mig("4g.40gb"), 0) == 0
+        assert placements(snap)["n1"] == []
+        assert planner.last_unserved == {
+            f"team/m{i}": "gang team/trainer cannot fully form; no slices are carved for "
+                          "partial gangs" for i in range(2)}
+
+    def test_fully_formable_gang_is_carved(self, tables):
+        state, _, snap = plan_both([NodeDesc("n1")],
+                                   [gang(f"m{i}", "trainer", 2) for i in range(2)])
+        assert geometry_of(state, "n1")[0].get(mig("4g.40gb"), 0) >= 2
+        assert len(placements(snap)["n1"]) == 2
+
+    def test_gang_exclusion_leaves_other_pods_served(self, tables):
+        pods = [gang(f"m{i}", "trainer", 5) for i in range(2)]
+        pods.append(PodDesc("solo", {mig("4g.40gb"): 1}))
+        _, _, snap = plan_both([NodeDesc("n1")], pods)
+        assert placements(snap)["n1"] == ["solo"]
+
+    def test_gang_counts_already_running_members(self, tables):
+        running = gang("m0", "trainer", 2, node="n1", phase="Running")
+        _, _, snap = plan_both([NodeDesc("n1", used={0: {"4g.40gb": 1}})],
+                               [gang("m1", "trainer", 2)], running=[running])
+        assert "m1" in placements(snap)["n1"]
+
+    def test_gang_member_on_fully_carved_node_still_counts(self, tables):
+        running = gang("m0", "trainer", 2, {mig("7g.80gb"): 1}, node="n1", phase="Running")
+        nodes = [NodeDesc("n1", used={0: {"7g.80gb": 1}}), NodeDesc("n2")]
+        jsnap, tsnap = snapshots(nodes, [running], generic=False)
+        assert "n1" not in tsnap.get_candidate_nodes()  # the premise
+        _, _, snap = plan_both(nodes, [gang("m1", "trainer", 2)], running=[running])
+        assert placements(snap)["n2"] == ["m1"]
+
+
+def _decorate(rng, pods, nodes, running):
+    """Gangs, spread and anti-affinity terms on a random case, drawn from
+    their own generator so the base case is the undecorated seed's."""
+    from nos_tpu_torch.kube.store import PodAffinityTerm, TopologySpreadConstraint
+
+    for desc in nodes:
+        desc.labels["zone"] = rng.choice(["z1", "z2"])
+        desc.labels["kubernetes.io/hostname"] = desc.name
+    apps = ["web", "db"]
+    for pod in pods + running:
+        pod.labels["app"] = rng.choice(apps)
+    for pod in running:
+        if rng.random() < 0.2:
+            pod.pod_anti_affinity = [PodAffinityTerm(
+                topology_key=rng.choice(["zone", "kubernetes.io/hostname"]),
+                match_labels={"app": rng.choice(apps)})]
+        if rng.random() < 0.2:
+            pod.labels.update({"nos.nebuly.com/gang": f"g{rng.randint(0, 2)}",
+                               "nos.nebuly.com/gang-size": str(rng.randint(2, 4))})
+            pod.ns = "a"
+    sizes = {f"g{i}": rng.randint(1, 4) for i in range(3)}
+    for pod in pods:
+        roll = rng.random()
+        if roll < 0.25:
+            name = rng.choice(sorted(sizes))
+            pod.ns = "a"
+            pod.labels.update({"nos.nebuly.com/gang": name,
+                               "nos.nebuly.com/gang-size": str(sizes[name])})
+        elif roll < 0.4:
+            pod.pod_anti_affinity = [PodAffinityTerm(
+                topology_key=rng.choice(["zone", "kubernetes.io/hostname"]),
+                match_labels={"app": pod.labels["app"]})]
+        elif roll < 0.55:
+            pod.spread = [TopologySpreadConstraint(
+                topology_key=rng.choice(["zone", "kubernetes.io/hostname"]),
+                max_skew=rng.choice([1, 2]), match_labels={"app": pod.labels["app"]})]
+
+
+@pytest.mark.parametrize("seed", range(50))
+def test_plan_with_gangs_and_terms_matches_the_reference_on_random_mig_clusters(tables, seed):
+    """The 50 random MIG clusters, their pods given gangs, spread and
+    anti-affinity terms and some running pods gangs and anti-affinity:
+    plans, placements, reasons and the verdict-cache ledger with its
+    bypasses agree, the cache on and off."""
+    nodes, pods, ages = random_mig_case(random.Random(1000 + seed), tables)
+    running = running_pods(nodes)
+    _decorate(random.Random(11000 + seed), pods, nodes, running)
+    for cache in (True, False):
+        plan_both(nodes, pods, framework="vanilla", ages=ages, cache=cache, futility=False,
+                  running=running)
+
+
+@pytest.mark.parametrize("seed", range(20))
+def test_plan_with_gangs_and_terms_matches_the_reference_on_random_mps_clusters(
+        mps_tables, seed):
+    rng = random.Random(12000 + seed)
+    nodes = []
+    for i in range(rng.randint(1, 6)):
+        desc = NodeDesc(f"s{i}", gpus=rng.randint(1, 3), mode="mps")
+        for gpu in range(desc.gpus):
+            budget = 80
+            for target in (desc.used, desc.free):
+                for p in rng.sample(MPS_PROFILES, rng.randint(0, 2)):
+                    n = rng.randint(1, 2)
+                    if int(p[:-2]) * n <= budget:
+                        target.setdefault(gpu, {})[p] = n
+                        budget -= int(p[:-2]) * n
+        nodes.append(desc)
+    n_pods = rng.randint(1, 30)
+    priorities = rng.sample(range(100), n_pods)
+    pods = [PodDesc(f"q{j:02d}", {mps(rng.choice(MPS_PROFILES)): rng.choice([1, 1, 2])},
+                    priority=priorities[j]) for j in range(n_pods)]
+    running = running_pods(nodes)
+    _decorate(rng, pods, nodes, running)
+    for cache in (True, False):
+        plan_both(nodes, pods, framework="vanilla", cache=cache, futility=False,
+                  running=running)
+
+
+def test_random_gang_cases_exclude_gangs_and_bypass_the_cache(tables):
+    """The decorated cases are not all one outcome: some exclude a gang,
+    some reuse the trial, and some trials bypass the cache."""
+    excluded = bypassed = 0
+    for seed in range(50):
+        nodes, pods, ages = random_mig_case(random.Random(1000 + seed), tables)
+        running = running_pods(nodes)
+        _decorate(random.Random(11000 + seed), pods, nodes, running)
+        _, planner, _ = plan_both(nodes, pods, framework="vanilla", ages=ages, futility=False,
+                                  running=running)
+        excluded += any("cannot fully form" in r for r in planner.last_unserved.values())
+        bypassed += planner.verdict_cache_stats()[2] > 0
+    assert excluded > 0 and bypassed > 0

@@ -80,6 +80,9 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/controllers/elasticquota/webhooks.py",
         "nos_tpu_torch/scheduler/plugins/capacity.py", "nos_tpu_torch/scheduler/preemption.py",
         "nos_tpu_torch/util/pod.py", "nos_tpu_torch/util/resources.py",
+        "nos_tpu_torch/scheduler/plugins/gang.py", "nos_tpu_torch/scheduler/plugins/reservation.py",
+        "nos_tpu_torch/scheduler/plugins/topology.py",
+        "nos_tpu_torch/controllers/partitioner/multinode.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -102,7 +105,9 @@ def test_control_plane_imports_no_torch():
     names = {str(p.relative_to(root)) for p in files}
     assert {"scheduler/plugins/capacity.py", "scheduler/preemption.py",
             "controllers/elasticquota/controller.py", "controllers/elasticquota/webhooks.py",
-            "api/v1alpha1/elasticquota.py", "util/pod.py", "cluster.py"} <= names
+            "api/v1alpha1/elasticquota.py", "util/pod.py", "cluster.py",
+            "scheduler/plugins/gang.py", "scheduler/plugins/reservation.py",
+            "scheduler/plugins/topology.py", "controllers/partitioner/multinode.py"} <= names
     bad = [f"{p.relative_to(ROOT)}: {mod}" for p in files for mod in _imports(p)
            if mod == "torch" or mod.startswith("torch.")]
     assert not bad, bad

@@ -32,7 +32,12 @@ from nos_tpu.kube.controller import Request
 from nos_tpu_torch.api.v1alpha1 import CAPACITY_IN_QUOTA, CAPACITY_LABEL, CAPACITY_OVER_QUOTA
 from nos_tpu_torch.cluster import SimCluster
 from nos_tpu_torch.controllers.elasticquota import ElasticQuotaController
-from nos_tpu_torch.kube.store import Pod, PodPhase
+from nos_tpu_torch.kube.store import (
+    Pod,
+    PodAffinityTerm,
+    PodPhase,
+    TopologySpreadConstraint,
+)
 from nos_tpu_torch.scheduler import Scheduler
 from tests.torch_planner_cases import MIG_PROFILES, NodeDesc, same_tables
 from tests.torch_quota_cases import (
@@ -48,6 +53,7 @@ from tests.torch_quota_cases import (
     mps,
     pod_view,
     ref_scheduler,
+    reservations,
     stores,
     to_port,
 )
@@ -75,6 +81,14 @@ def running(name, n_chips, ns, node_name="n1", labels=None, priority=0):
                    labels=dict(labels or {}), priority=priority)
 
 
+def over_quota(name, n_chips, ns, node_name, gang=None, size=2, **labels):
+    """A running over-quota pod, a member of ``gang`` when given."""
+    labels.update(OVER)
+    if gang:
+        labels.update({"nos.nebuly.com/gang": gang, "nos.nebuly.com/gang-size": str(size)})
+    return running(name, n_chips, ns, node_name, labels)
+
+
 def quota(ns, min_chips=4, max_chips=16, name="q"):
     return QuotaDesc(ns, min=chips(min_chips), max=chips(max_chips), name=name)
 
@@ -87,6 +101,8 @@ def cycle(jstore, tstore, name, ns, scheds=None):
     assert_same_outcome(want, got)
     want_pods, got_pods = pod_view(jstore, tstore)
     assert got_pods == want_pods
+    want_held, got_held = reservations(jstore, tstore)
+    assert got_held == want_held
     return got
 
 
@@ -194,6 +210,84 @@ class TestPdbAwarePreemption:
             [PdbDesc("pdb", "team-b", {"app": "svc"}, max_unavailable=1)])
         got = cycle(jstore, tstore, "p", "team-a")
         assert len(got.victims) == 1
+
+
+# ------------------------------------------------------------ gang victim units
+
+class TestGangAtomicPreemption:
+    """tests/scheduler/test_preemption.py's gang cases: a gang is evicted
+    whole, or not at all."""
+
+    def cluster(self, pods, min_a=4):
+        return stores(nodes=[node("n1", 8), node("n2", 8)], pods=pods,
+                      quotas=[quota("team-a", min_chips=min_a), quota("team-b")])
+
+    def test_evicting_gang_member_cascades_to_whole_gang(self):
+        jstore, tstore = self.cluster([over_quota("g0", 8, "team-b", "n1", "trainer"),
+                                       over_quota("g1", 8, "team-b", "n2", "trainer"),
+                                       PodDesc("p", chips(4), ns="team-a")])
+        got = cycle(jstore, tstore, "p", "team-a")
+        assert got.decision == "nominate"
+        assert sorted(got.victims) == ["team-b/g0", "team-b/g1"]
+        assert tstore.try_get("Pod", "g0", "team-b") is None
+        assert tstore.try_get("Pod", "g1", "team-b") is None
+
+    def test_gang_with_ineligible_member_is_untouchable(self):
+        in_quota = running("g1", 8, "team-b", "n2", {
+            CAPACITY_LABEL: CAPACITY_IN_QUOTA, "nos.nebuly.com/gang": "trainer",
+            "nos.nebuly.com/gang-size": "2"})
+        jstore, tstore = self.cluster([over_quota("g0", 8, "team-b", "n1", "trainer"), in_quota,
+                                       PodDesc("p", chips(4), ns="team-a")])
+        got = cycle(jstore, tstore, "p", "team-a")
+        assert got.decision == "fail"
+        assert tstore.try_get("Pod", "g0", "team-b") and tstore.try_get("Pod", "g1", "team-b")
+
+    def test_singleton_preferred_over_gang(self):
+        g1 = over_quota("g1", 4, "team-b", "n2", "trainer")
+        g1.request = {"cpu": 1}
+        jstore, tstore = self.cluster([over_quota("solo", 8, "team-b", "n1"),
+                                       over_quota("g0", 8, "team-b", "n2", "trainer"), g1,
+                                       PodDesc("p", chips(8), ns="team-a")], min_a=8)
+        got = cycle(jstore, tstore, "p", "team-a")
+        assert (got.node, got.victims) == ("n1", ["team-b/solo"])
+        assert tstore.try_get("Pod", "g0", "team-b") is not None
+
+
+class TestSpreadAndAffinityAwarePreemption:
+    """tests/scheduler/test_preemption.py's overlay cases: the victim
+    trials' spread and affinity filters see the cluster after the remote
+    evictions."""
+
+    def test_gang_not_destroyed_when_remote_evictions_break_spread(self):
+        zone = "topology.kubernetes.io/zone"
+        nodes = [PlainNode("n1", {**chips(4), "cpu": 64}, labels={zone: "zone-a", "pool": "a"}),
+                 PlainNode("n2", {**chips(8), "cpu": 64}, labels={zone: "zone-b"})]
+        pods = [over_quota("w0", 4, "team-b", "n1", "trainer", size=3, app="web")]
+        pods += [over_quota(f"w{i}", 4, "team-b", "n2", "trainer", size=3, app="web")
+                 for i in (1, 2)]
+        pods += [PodDesc(f"anchor-{i}", {"cpu": 1}, ns="team-a", node="n1", phase="Running",
+                         priority=100, labels={"app": "web"}) for i in range(2)]
+        pods.append(PodDesc("p", chips(4), ns="team-a", labels={"app": "web"},
+                            selector={"pool": "a"},
+                            spread=[TopologySpreadConstraint(zone, 1, "DoNotSchedule",
+                                                             {"app": "web"})]))
+        jstore, tstore = stores(nodes=nodes, pods=pods,
+                                quotas=[quota("team-a"), quota("team-b")])
+        got = cycle(jstore, tstore, "p", "team-a")
+        assert got.decision == "fail"
+        assert all(tstore.try_get("Pod", f"w{i}", "team-b") for i in range(3))
+        assert tstore.get("Pod", "p", "team-a").nominated_node == ""
+
+    def test_eviction_resolves_anti_affinity_violation(self):
+        zone = "topology.kubernetes.io/zone"
+        jstore, tstore = stores(
+            nodes=[PlainNode("n1", {**chips(8), "cpu": 64}, labels={zone: "zone-a"})],
+            quotas=[quota("team-a"), quota("team-b")],
+            pods=[over_quota("blocker", 8, "team-b", "n1", app="web"),
+                  PodDesc("p", chips(4), ns="team-a", labels={"app": "web"},
+                          pod_anti_affinity=[PodAffinityTerm(zone, {"app": "web"})])])
+        got = cycle(jstore, tstore, "p", "team-a")
+        assert (got.decision, got.node, got.victims) == ("nominate", "n1", ["team-b/blocker"])
 
 
 # ------------------------------------------------------------ MIG headroom
@@ -306,6 +400,45 @@ def reconcile_both(jstore, tstore):
 def test_preemption_matches_the_reference_on_random_clusters(tables, seed):
     nodes, quotas, pdbs, pods, preemptor = random_quota_case(random.Random(8000 + seed),
                                                              tables)
+    jstore, tstore = stores(nodes=nodes, quotas=quotas, pdbs=pdbs, pods=pods + [preemptor])
+    reconcile_both(jstore, tstore)
+    cycle(jstore, tstore, preemptor.name, preemptor.ns)
+    reconcile_both(jstore, tstore)
+
+
+def decorate_quota_case(rng, pods, preemptor, nodes):
+    """Gangs among the running pods (members sharing a namespace), zones
+    on the nodes, and spread or anti-affinity terms on the preemptor and
+    some running pods, from a generator of their own."""
+    zone = "topology.kubernetes.io/zone"
+    for desc, _ in nodes:
+        desc.labels[zone] = rng.choice(["z1", "z2"])
+    for pod in pods:
+        pod.labels.setdefault("app", rng.choice(["web", "db"]))
+        roll = rng.random()
+        if roll < 0.3:
+            pod.labels.update({"nos.nebuly.com/gang": f"{pod.ns}-g{rng.randint(0, 1)}",
+                               "nos.nebuly.com/gang-size": str(rng.randint(2, 3))})
+        elif roll < 0.4:
+            pod.pod_anti_affinity = [PodAffinityTerm(zone, {"app": rng.choice(["web", "db"])})]
+    preemptor.labels["app"] = rng.choice(["web", "db"])
+    roll = rng.random()
+    if roll < 0.3:
+        preemptor.spread = [TopologySpreadConstraint(zone, rng.choice([1, 2]), "DoNotSchedule",
+                                                     {"app": preemptor.labels["app"]})]
+    elif roll < 0.5:
+        preemptor.pod_anti_affinity = [PodAffinityTerm(zone, {"app": preemptor.labels["app"]})]
+
+
+@pytest.mark.parametrize("seed", range(40))
+def test_preemption_with_gangs_and_terms_matches_the_reference_on_random_clusters(tables,
+                                                                                   seed):
+    """The 40 random clusters with gangs among their running pods and
+    spread or anti-affinity terms: decisions, victims (whole gangs),
+    labels and the quotas' used agree."""
+    nodes, quotas, pdbs, pods, preemptor = random_quota_case(random.Random(8000 + seed),
+                                                             tables)
+    decorate_quota_case(random.Random(13000 + seed), pods, preemptor, nodes)
     jstore, tstore = stores(nodes=nodes, quotas=quotas, pdbs=pdbs, pods=pods + [preemptor])
     reconcile_both(jstore, tstore)
     cycle(jstore, tstore, preemptor.name, preemptor.ns)

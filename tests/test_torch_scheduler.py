@@ -7,9 +7,11 @@ cordoned or labelled, running pods, and a pending pod with requests,
 tolerations and a node selector. Each filter's status (code, plugin,
 message with its resource names translated), the taint score, and the
 whole cycle: the node chosen, the Unschedulable condition's message and
-the diagnosis's counts per (plugin, message). The reference runs its
-vanilla predicates (its affinity and spread filters pass a pod without
-such terms) and its taint score, without quota, gangs or preemption.
+the diagnosis's counts per (plugin, message). Both sides run their
+default wiring (``new_framework``: quota, gangs, the pool pin, the drain
+reservation and the topology, taint, spread and grace scores; with no
+quota, gang, pool or reservation in these cases, the filters that count
+are the seven vanilla predicates, and the topology score steers).
 """
 import random
 
@@ -17,9 +19,9 @@ import pytest
 
 from nos_tpu.kube.store import KubeStore
 from nos_tpu.scheduler import framework as jfw
-from nos_tpu.scheduler.scheduler import Scheduler as JScheduler
 from nos_tpu_torch.kube.store import NodeStore, PodPhase
 from nos_tpu_torch.scheduler import Scheduler, framework as tfw
+from tests.torch_quota_cases import grouped, ref_cycle, ref_scheduler
 from tests.torch_planner_cases import (
     MIG_PROFILES,
     NodeDesc,
@@ -137,27 +139,7 @@ def stores(nodes, running, pods):
 
 
 def schedulers(jstore, tstore):
-    jframe = jfw.Framework(filter_plugins=jfw.vanilla_filter_plugins(),
-                           score_plugins=[jfw.TaintTolerationScoring()])
-    return JScheduler(jstore, jframe), Scheduler(tstore)
-
-
-def ref_cycle(jsched, jpod):
-    """The reference's cycle, decided and written by its own functions,
-    without ``_fail_cycle``'s process-wide unschedulable metric (another
-    file's test reads that family whole)."""
-    outcome = jsched._decide(jpod)
-    if outcome.decision == "bind":
-        jsched._bind(jpod, outcome.node)
-    else:
-        jsched._mark_unschedulable(jpod, outcome.message)
-    return outcome
-
-
-def grouped(diagnosis):
-    if diagnosis is None:
-        return None
-    return [(n, plugin, translate_text(msg)) for n, plugin, msg in diagnosis.grouped()]
+    return ref_scheduler(jstore), Scheduler(tstore)
 
 
 @pytest.mark.parametrize("seed", range(40))
@@ -321,3 +303,17 @@ def test_a_nominated_pod_failing_again_is_handed_back_to_the_partitioner():
     Scheduler(store).schedule_one(pod)
     pod = store.get("Pod", "p", "default")
     assert pod.nominated_node == "" and pod.unschedulable and could_help(pod)
+
+
+def test_new_framework_wires_the_reference_plugins():
+    from nos_tpu.scheduler.scheduler import new_framework as jnew
+
+    from nos_tpu_torch.scheduler import new_framework
+    from tests.torch_planner_cases import PLUGIN_NAMES
+
+    jframe, _, _ = jnew(KubeStore())
+    tframe = new_framework(NodeStore())
+    for point in ("pre_filter_plugins", "filter_plugins", "post_filter_plugins",
+                  "reserve_plugins", "permit_plugins", "score_plugins"):
+        assert [p.name for p in getattr(tframe, point)] == [
+            PLUGIN_NAMES.get(p.name, p.name) for p in getattr(jframe, point)], point

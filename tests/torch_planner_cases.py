@@ -12,6 +12,7 @@ budget corresponds to one H100: ``google.com/tpu-mem-<N>gb`` ↔
 ``nvidia.com/gpu-<N>gb``. Descriptions are written in the port's names.
 """
 import contextlib
+import copy
 import dataclasses
 import re
 from dataclasses import dataclass, field
@@ -89,8 +90,16 @@ def to_port_resource(name: str) -> str:
 _REF_NAME = re.compile(r"google\.com/tpu-(?:slice-\d+x\d+|mem-\d+gb)|nos\.nebuly\.com/tpu-memory")
 
 
+# the reference's plugin names and wording where the port's differ
+PLUGIN_NAMES = {"MultihostIci": "Multinode", "IciTopologyScoring": "TopologyScoring"}
+_REF_WORDING = (("multi-host slice pinned to node pool", "multi-node gang pinned to node pool"),)
+
+
 def translate_text(text: str) -> str:
-    """A reference message with its resource names in the port's form."""
+    """A reference message with its resource names and wording in the
+    port's form."""
+    for ref, port in _REF_WORDING:
+        text = text.replace(ref, port)
     return _REF_NAME.sub(lambda m: to_port_resource(m.group(0)), text)
 
 
@@ -127,6 +136,12 @@ class PodDesc:
     unschedulable: bool = False
     labels: Dict[str, str] = field(default_factory=dict)
     created: Optional[float] = None  # the creation time both sides get
+    # the scheduling terms, as the port's dataclasses (tstore.*)
+    annotations: Dict[str, str] = field(default_factory=dict)
+    node_affinity: list = field(default_factory=list)  # NodeSelectorTerm
+    pod_affinity: list = field(default_factory=list)  # PodAffinityTerm
+    pod_anti_affinity: list = field(default_factory=list)
+    spread: list = field(default_factory=list)  # TopologySpreadConstraint
 
     @property
     def key(self) -> str:
@@ -168,6 +183,18 @@ def port_node(desc: NodeDesc) -> tstore.Node:
                        unschedulable=desc.unschedulable)
 
 
+def _ref_requirements(reqs):
+    return [jobj.NodeSelectorRequirement(key=r.key, operator=r.operator, values=list(r.values))
+            for r in reqs]
+
+
+def ref_term(term: tstore.PodAffinityTerm) -> jobj.PodAffinityTerm:
+    return jobj.PodAffinityTerm(topology_key=term.topology_key,
+                                match_labels=dict(term.match_labels),
+                                match_expressions=_ref_requirements(term.match_expressions),
+                                namespaces=list(term.namespaces))
+
+
 def ref_pod(desc: PodDesc) -> jobj.Pod:
     pod = jobj.Pod(
         metadata=jobj.ObjectMeta(name=desc.name, namespace=desc.ns),
@@ -186,6 +213,18 @@ def ref_pod(desc: PodDesc) -> jobj.Pod:
     if desc.unschedulable:
         pod.status.conditions.append(jobj.PodCondition(type="PodScheduled", status="False",
                                                        reason="Unschedulable"))
+    pod.metadata.annotations.update(desc.annotations)
+    if desc.node_affinity:
+        pod.spec.affinity = jobj.NodeAffinity(required_terms=[
+            jobj.NodeSelectorTerm(match_expressions=_ref_requirements(t.match_expressions))
+            for t in desc.node_affinity])
+    pod.spec.pod_affinity = [ref_term(t) for t in desc.pod_affinity]
+    pod.spec.pod_anti_affinity = [ref_term(t) for t in desc.pod_anti_affinity]
+    pod.spec.topology_spread_constraints = [
+        jobj.TopologySpreadConstraint(topology_key=c.topology_key, max_skew=c.max_skew,
+                                      when_unsatisfiable=c.when_unsatisfiable,
+                                      match_labels=dict(c.match_labels))
+        for c in desc.spread]
     return pod
 
 
@@ -195,7 +234,12 @@ def port_pod(desc: PodDesc) -> tstore.Pod:
                       tolerations=[tstore.Toleration(k, o, v, e)
                                    for k, o, v, e in desc.tolerations],
                       node_selector=dict(desc.selector), unschedulable=desc.unschedulable,
-                      labels=dict(desc.labels), created=desc.created)
+                      labels=dict(desc.labels), created=desc.created,
+                      annotations=dict(desc.annotations),
+                      node_affinity=copy.deepcopy(desc.node_affinity),
+                      pod_affinity=copy.deepcopy(desc.pod_affinity),
+                      pod_anti_affinity=copy.deepcopy(desc.pod_anti_affinity),
+                      topology_spread_constraints=copy.deepcopy(desc.spread))
 
 
 # ------------------------------------------------------------ states

@@ -20,11 +20,19 @@ from nos_tpu.kube import objects as jobj
 from nos_tpu.kube.store import KubeStore
 from nos_tpu.scheduler import framework as jfw
 from nos_tpu.scheduler.plugins.capacity import CapacityScheduling as JCapacity
+from nos_tpu.scheduler.plugins.gang import GangScheduling as JGang
+from nos_tpu.scheduler.plugins.reservation import RESERVED_FOR as REF_RESERVED_FOR
+from nos_tpu.scheduler.plugins.reservation import AutoscalerGraceScoring as JGrace
+from nos_tpu.scheduler.plugins.reservation import BoardReservation as JReservation
+from nos_tpu.scheduler.plugins.topology import IciTopologyScoring, MultihostIciFilter
 from nos_tpu.scheduler.scheduler import Scheduler as JScheduler
 from nos_tpu_torch.api.v1alpha1 import elasticquota as teq
 from nos_tpu_torch.kube import store as tstore
-from nos_tpu_torch.scheduler import Scheduler
+from nos_tpu_torch.scheduler import Scheduler, new_framework
+from nos_tpu_torch.scheduler.plugins.gang import GANG_NAME_LABEL, GANG_SIZE_LABEL
+from nos_tpu_torch.scheduler.plugins.reservation import RESERVED_FOR
 from tests.torch_planner_cases import (
+    PLUGIN_NAMES,
     NodeDesc,
     PodDesc,
     port_node,
@@ -115,16 +123,18 @@ class PlainNode:
 
     name: str
     alloc: Dict[str, int] = field(default_factory=dict)
+    labels: Dict[str, str] = field(default_factory=dict)
 
 
 def ref_plain_node(desc: PlainNode):
     alloc = to_ref(desc.alloc)
-    return jobj.Node(metadata=jobj.ObjectMeta(name=desc.name),
+    return jobj.Node(metadata=jobj.ObjectMeta(name=desc.name, labels=dict(desc.labels)),
                      status=jobj.NodeStatus(capacity=dict(alloc), allocatable=dict(alloc)))
 
 
 def port_plain_node(desc: PlainNode):
-    return tstore.Node(desc.name, capacity=dict(desc.alloc), allocatable=dict(desc.alloc))
+    return tstore.Node(desc.name, labels=dict(desc.labels), capacity=dict(desc.alloc),
+                       allocatable=dict(desc.alloc))
 
 
 def ref_any_node(desc, advertised=None):
@@ -143,10 +153,12 @@ def port_any_node(desc, advertised=None):
     return node
 
 
-def stores(nodes=(), pods=(), quotas=(), pdbs=()):
+def stores(nodes=(), pods=(), quotas=(), pdbs=(), clock=None):
     """(reference store, port store) holding the same objects; ``nodes``
-    are PlainNodes, or (NodeDesc, advertised slices) pairs."""
-    jstore, tstore_ = KubeStore(), tstore.NodeStore()
+    are PlainNodes, or (NodeDesc, advertised slices) pairs; ``clock`` is
+    the port store's (``time.time`` by default)."""
+    jstore = KubeStore()
+    tstore_ = tstore.NodeStore() if clock is None else tstore.NodeStore(clock=clock)
     for entry in nodes:
         desc, advertised = entry if isinstance(entry, tuple) else (entry, None)
         jstore.create(ref_any_node(desc, advertised))
@@ -163,30 +175,185 @@ def stores(nodes=(), pods=(), quotas=(), pdbs=()):
     return jstore, tstore_
 
 
-def ref_scheduler(jstore):
-    """The reference's scheduler with CapacityScheduling and the vanilla
-    filters (its gang, reservation and topology plugins left out: they
-    wait for the gang slice), the quotas counted at 10 GB a chip."""
+class RefReservation(JReservation):
+    """The reference's board reservation with the port's repair of F5: no
+    new reservation while another pod validly holds one anywhere (the
+    reference checks only the nodes big enough for the pod and not
+    contested). A new annotation the reference would write is withheld
+    and its answer turned to False; refreshing the pod's own stays."""
+
+    def try_reserve(self, pod, node_infos):
+        key = pod.namespaced_name
+        self._blocked = any(
+            self._valid_holder(info.node) not in (None, key) for info in node_infos.values()
+            if REF_RESERVED_FOR in info.node.metadata.annotations)
+        self._withheld = False
+        reserved = super().try_reserve(pod, node_infos)
+        return reserved and not self._withheld
+
+    def _annotate(self, node_name, holder):
+        node = self.store.try_get("Node", node_name)
+        refresh = node is not None and node.metadata.annotations.get(REF_RESERVED_FOR) == holder
+        if getattr(self, "_blocked", False) and not refresh:
+            self._withheld = True
+            return
+        super()._annotate(node_name, holder)
+
+
+def ref_scheduler(jstore, gang_timeout=30.0):
+    """The reference's scheduler wired as its ``new_framework`` wires it
+    (CapacityScheduling, the vanilla filters, the multi-host pin, the
+    board reservation, gangs in Permit, the topology, taint, spread and
+    grace scores), the quotas counted at 10 GB a chip, with F5 repaired
+    (``RefReservation``)."""
     capacity = JCapacity(jstore, chip_memory_gb=CHIP_MEMORY_GB)
-    framework = jfw.Framework(pre_filter_plugins=[capacity],
-                              filter_plugins=jfw.vanilla_filter_plugins(),
-                              post_filter_plugins=[capacity], reserve_plugins=[capacity],
-                              score_plugins=[jfw.TaintTolerationScoring()])
+    gang = JGang(jstore, wait_timeout_seconds=gang_timeout)
+    reservation = RefReservation(jstore)
+    framework = jfw.Framework(
+        pre_filter_plugins=[capacity],
+        filter_plugins=jfw.vanilla_filter_plugins() + [MultihostIciFilter(jstore, gang),
+                                                       reservation],
+        post_filter_plugins=[capacity], reserve_plugins=[capacity], permit_plugins=[gang],
+        score_plugins=[IciTopologyScoring(jstore), jfw.TaintTolerationScoring(),
+                       jfw.PodTopologySpreadScoring(), JGrace()])
     capacity.framework = framework
-    return JScheduler(jstore, framework, capacity=capacity)
+    framework.reservation = reservation
+    return JScheduler(jstore, framework, capacity=capacity, gang=gang)
 
 
 def ref_cycle(jsched, jpod):
-    """The reference's cycle through ``_decide`` and its own store writes,
-    without ``_fail_cycle``'s process-wide unschedulable metric."""
+    """The reference's cycle through ``_decide`` and its own store writes
+    (``_apply_outcome``'s binds, each releasing its reservation), without
+    ``_fail_cycle``'s process-wide unschedulable metric."""
     outcome = jsched._decide(jpod)
     if outcome.decision == "bind":
-        jsched._bind(jpod, outcome.node)
+        for pod, node in outcome.to_bind:
+            jsched._assumed.pop(pod.namespaced_name, None)
+            jsched._bind(pod, node)
+            if jsched.reservation is not None:
+                jsched.reservation.release_for(pod)
     elif outcome.decision == "nominate":
         jsched._set_nominated(jpod, outcome.node)
-    else:
+    elif outcome.decision == "fail":
         jsched._mark_unschedulable(jpod, outcome.message)
     return outcome
+
+
+def ref_reconcile(jsched, name, ns):
+    """The reference's ``reconcile`` of one pod, its cycle through
+    ``ref_cycle``: the gang timeouts, then a cycle unless the pod is gone,
+    bound, finished or waiting in Permit (None then)."""
+    jsched._handle_gang_timeouts()
+    pod = jsched.store.try_get("Pod", name, ns)
+    key = f"{ns}/{name}"
+    if pod is None:
+        jsched._assumed.pop(key, None)
+        if jsched.capacity is not None:
+            jsched.capacity.forget_key(key)
+        return None
+    if pod.spec.node_name or pod.status.phase != "Pending":
+        if jsched.capacity is not None:
+            jsched.capacity.forget(pod)
+        return None
+    if key in jsched._assumed:
+        return None
+    return ref_cycle(jsched, pod)
+
+
+class Clock:
+    """One settable instant for both sides: the port store's clock, and,
+    patched over the reference's gang and reservation modules' ``time``
+    (``drive_ref_time``), their ``monotonic`` and ``time``."""
+
+    def __init__(self, t: float = 1000.0) -> None:
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def monotonic(self) -> float:
+        return self.t
+
+    def time(self) -> float:
+        return self.t
+
+
+def drive_ref_time(monkeypatch, clock: Clock) -> None:
+    """The reference's gang deadlines and reservation times read
+    ``clock``; its other modules keep the real ``time``."""
+    from nos_tpu.scheduler.plugins import gang as jgang_mod
+    from nos_tpu.scheduler.plugins import reservation as jreservation_mod
+
+    monkeypatch.setattr(jgang_mod, "time", clock)
+    monkeypatch.setattr(jreservation_mod, "time", clock)
+
+
+class Both:
+    """The same cluster on both sides, one clock, one reconcile at a
+    time, held equal after each."""
+
+    def __init__(self, monkeypatch, nodes, pods=(), quotas=(), gang_timeout=30.0):
+        self.clock = Clock()
+        drive_ref_time(monkeypatch, self.clock)
+        self.jstore, self.tstore = stores(nodes=nodes, pods=pods, quotas=quotas,
+                                          clock=self.clock)
+        self.jsched = ref_scheduler(self.jstore, gang_timeout=gang_timeout)
+        self.tsched = Scheduler(self.tstore, new_framework(self.tstore, gang_timeout))
+
+    def create(self, desc: PodDesc):
+        if desc.created is None:
+            desc.created = self.clock.t
+        self.jstore.create(ref_pod(desc))
+        self.tstore.create(port_pod(desc))
+
+    def reconcile(self, name, ns="default"):
+        want = ref_reconcile(self.jsched, name, ns)
+        got = self.tsched.reconcile(name, ns)
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert_same_outcome(want, got)
+        self.assert_same_state()
+        return got
+
+    def sched(self, desc: PodDesc):
+        self.create(desc)
+        return self.reconcile(desc.name, desc.ns)
+
+    def assert_same_state(self):
+        want = {p.namespaced_name: (p.spec.node_name, p.unschedulable())
+                for p in self.jstore.list("Pod")}
+        got = {p.namespaced_name: (p.node, p.unschedulable) for p in self.tstore.list("Pod")}
+        assert got == want
+        assert self.tsched.assumed() == {k: n for k, (_, n) in self.jsched._assumed.items()}
+        assert self.tsched.gang.waiting_count() == self.jsched.gang.waiting_count()
+
+    def node_of(self, name, ns="default"):
+        return self.tstore.get("Pod", name, ns).node
+
+    def set_phase(self, name, ns, phase):
+        def ref(p):
+            p.status.phase = phase
+
+        self.jstore.patch_merge("Pod", name, ns, ref)
+        self.tstore.patch_merge("Pod", name, ns, lambda p: setattr(p, "phase", phase))
+
+    def delete(self, name, ns="default"):
+        self.jstore.delete("Pod", name, ns)
+        self.tstore.delete("Pod", name, ns)
+
+
+def gang_pod(name, gang, size, request=None, ns="default", **kw):
+    return PodDesc(name, dict(request or {"cpu": 1}), ns=ns,
+                   labels={GANG_NAME_LABEL: gang, GANG_SIZE_LABEL: str(size)}, **kw)
+
+
+def reservations(jstore, tstore_):
+    """Each side's drain reservations: node → holder."""
+    want = {n.metadata.name: n.metadata.annotations[REF_RESERVED_FOR]
+            for n in jstore.list("Node") if REF_RESERVED_FOR in n.metadata.annotations}
+    got = {n.name: n.annotations[RESERVED_FOR]
+           for n in tstore_.list("Node") if RESERVED_FOR in n.annotations}
+    return want, got
 
 
 def cycle_both(jstore, tstore_, name, ns, jsched=None, tsched=None):
@@ -200,9 +367,11 @@ def cycle_both(jstore, tstore_, name, ns, jsched=None, tsched=None):
 
 
 def grouped(diagnosis):
+    """A diagnosis's (count, plugin, message) groups in the port's names."""
     if diagnosis is None:
         return None
-    return [(n, plugin, translate_text(msg)) for n, plugin, msg in diagnosis.grouped()]
+    return sorted((n, PLUGIN_NAMES.get(plugin, plugin), translate_text(msg))
+                  for n, plugin, msg in diagnosis.grouped())
 
 
 def pod_view(jstore, tstore_):
@@ -217,8 +386,16 @@ def pod_view(jstore, tstore_):
     return want, got
 
 
+def _name(pod):
+    return pod.metadata.name if hasattr(pod, "metadata") else pod.name
+
+
 def assert_same_outcome(want, got):
+    """Decision, node, the pods bound with their nodes, victims,
+    diagnosis and message."""
     assert (got.decision, got.node) == (want.decision, want.node)
+    assert (sorted((_name(p), n) for p, n in got.to_bind)
+            == sorted((_name(p), n) for p, n in want.to_bind))
     assert sorted(got.victims) == sorted(want.victims)
     assert grouped(got.diagnosis) == grouped(want.diagnosis)
     assert got.message == translate_text(want.message)
@@ -227,4 +404,6 @@ def assert_same_outcome(want, got):
 __all__ = ["CHIP_MEMORY_GB", "GB", "NodeDesc", "PdbDesc", "PlainNode", "PodDesc", "QuotaDesc",
            "REF_GB", "assert_same_outcome", "cycle_both", "grouped", "mig", "mps",
            "pod_view", "port_pdb", "port_pod", "port_quota", "ref_cycle", "ref_pdb",
-           "ref_pod", "ref_quota", "ref_scheduler", "stores", "to_port", "to_ref"]
+           "ref_pod", "ref_quota", "ref_reconcile", "ref_scheduler", "reservations",
+           "stores", "to_port", "to_ref", "Both", "Clock", "RefReservation", "drive_ref_time",
+           "gang_pod"]
