@@ -62,8 +62,9 @@ Phases, each fatal on failure (exit code != 0):
     preemption; team-b within its max and the quotas' use within the
     sum of their mins at every step, team-a's pods past its min labelled
     over-quota, every victim an over-quota pod of the borrowing quota,
-    the second wave Running or unserved with a reason and within min
-    plus its guaranteed share, and SimCluster.check() (the quotas'
+    the second wave all Running (any pod of it that is not is listed
+    with its reason) and within min plus its guaranteed share, and
+    SimCluster.check() (the quotas'
     invariants among its own); pods placed and unserved, each quota's
     used against min and max, the preemptions and their victims by
     namespace, the loop's steps and seconds, and the p50 / p95 ms of
@@ -76,8 +77,10 @@ Phases, each fatal on failure (exit code != 0):
     slices on two MPS nodes, one with memory never carved, then a pod
     asking for 2 x gpu-20gb); a serving Deployment of 16 replicas spread
     by hostname (maxSkew 1) with required anti-affinity on its own
-    label; multi-node jobs of 32, 16 and 24 nvidia.com/gpu (4, 2 and 3
-    members of 8 x 7g.80gb) and a 16-GPU gang borrowing past its quota;
+    label; multi-node jobs of 24, 32 and 16 nvidia.com/gpu (3, 4 and 2
+    members of 8 x 7g.80gb) in that order, fault F6's input (job-16 must
+    form whole in another pool than the first two), and a 16-GPU gang
+    borrowing past its quota;
     an 80-GPU job no pool holds, watched through two Permit timeouts and
     cancelled; 300 single-pod jobs of the quota mix; the quota within its
     min reclaiming the borrowed GPUs; a single-node job of 8 x 7g.80gb
@@ -91,6 +94,15 @@ Phases, each fatal on failure (exit code != 0):
     SimCluster.check(); the whole-GPU instances carved for the 80-GPU
     job, steps, seconds and cycle p50 / p95 ms by decision (bind, wait,
     nominate, fail);
+1g. control_bench: bench.py's control-plane half
+    (nos_tpu_torch.bench_control_plane.run_control_plane_bench at
+    ControlPlaneSizes.quick(): 8 MIG nodes of 8 H100s in one pool, the
+    stream cut to 8 virtual seconds; fill, stream, contention, churn,
+    a 64-GPU multi-node job) with SimCluster.check_gangs() on every step;
+    fails unless the borrow converges, the fair share is restored, the
+    gang forms, every churn turn converges and SimCluster.check() holds
+    after each phase; prints every key, the time keys on the cluster's
+    virtual clock, each phase's wall seconds beside the card;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
@@ -4532,9 +4544,10 @@ def quota_phase(card, nvml=None) -> dict:
     preemption. Checked at every step: team-b within its max and the
     quotas' use within the sum of their mins; at the end: team-a's pods
     past its min labelled over-quota after the first wave, every victim
-    an over-quota pod of a borrowing quota, the second wave Running or
-    unserved with a reason and within min plus its guaranteed share, and
-    SimCluster.check()'s invariants, the quotas' three among them."""
+    an over-quota pod of a borrowing quota, the second wave Running (the
+    row lists any pod of it that is not, with its reason) and within min
+    plus its guaranteed share, and SimCluster.check()'s invariants, the
+    quotas' three among them."""
     import random
     import statistics
 
@@ -4650,6 +4663,11 @@ def quota_phase(card, nvml=None) -> dict:
     checks["second_wave_running_or_unserved"] = all(
         p.namespaced_name not in pods or pods[p.namespaced_name].phase == PodPhase.RUNNING
         or bool(unserved.get(p.namespaced_name)) for p in second)
+    # each pod not running, with its reason: within their min, none should be
+    second_unserved = {p.namespaced_name: unserved.get(p.namespaced_name, "")
+                       for p in second if p.namespaced_name in pods
+                       and pods[p.namespaced_name].phase != PodPhase.RUNNING}
+    checks["second_wave_all_running"] = not second_unserved
     checks["second_wave_within_entitlement"] = all(
         rows[ns]["used_gb"] <= rows[ns]["min_gb"]
         + infos.guaranteed_overquota(infos.for_namespace(ns).name, gb)
@@ -4682,7 +4700,8 @@ def quota_phase(card, nvml=None) -> dict:
                     "wall_s_first_wave": wall_1, "wall_s_second_wave": wall_2,
                     "admission_rejects": cluster.kubelet.admission_rejects,
                     "plans": {c.kind: c.plans_processed for c in cluster.controllers}},
-           "unserved_reasons": sorted({r.split(" (")[0] for r in unserved.values()})}
+           "unserved_reasons": sorted({r.split(" (")[0] for r in unserved.values()}),
+           "second_wave_unserved": second_unserved}
     row.update(checks=checks, ok=all(checks.values()), seconds=time.time() - t0, card=card)
     emit(row)
     if not row["ok"]:
@@ -4697,9 +4716,11 @@ GANG_JOBS = 300           # single-pod slice jobs of the quota mix
 GANG_REPLICAS = 16        # the serving Deployment
 GANG_ZONE_REPLICAS = 10   # spread over the MPS nodes' zones: more replicas than zones
 # (namespace, name, GPUs) of the multi-node jobs that fit a pool, in their
-# arrival order; "lender" borrows past its quota
-GANG_ORDER = (("train", "job-32", 32), ("train", "job-16", 16), ("borrow", "lender", 16),
-              ("train", "job-24", 24))
+# arrival order: fault F6's (after job-24 and job-32 one free node is left
+# in their pool, and job-16 must go elsewhere whole); "lender" borrows
+# past its quota
+GANG_ORDER = (("train", "job-24", 24), ("train", "job-32", 32), ("train", "job-16", 16),
+              ("borrow", "lender", 16))
 GANG_TOO_BIG = 80         # GPUs no pool holds
 GANG_DRAIN = 8            # 7g.80gb instances of the single-node job needing a drain
 GANG_TIMEOUT_S = 2.0      # the Permit wait, on the cluster's virtual clock
@@ -4715,9 +4736,10 @@ def gang_phase(card, nvml=None) -> dict:
     own; 32 MIG nodes of 8 H100s in 4 pools of 8; 4 MPS nodes of 8.
     Seeded traffic, in waves: an F3 input built on purpose (the only free
     20 GB slices on two MPS nodes, one with memory never carved, and a
-    pod asking for 2 x gpu-20gb); multi-node jobs of 16, 24 and 32 GPUs
-    (3 members for 24, the H100 rule), a namespace borrowing past its
-    quota with a 16-GPU gang, and a serving Deployment of 16 replicas
+    pod asking for 2 x gpu-20gb); multi-node jobs of 24, 32 and 16 GPUs
+    in that order, fault F6's input (3 members for 24, the H100 rule;
+    job-16 must form in another pool than the first two), a namespace
+    borrowing past its quota with a 16-GPU gang, and a serving Deployment of 16 replicas
     spread by hostname (maxSkew 1) with required anti-affinity on its own
     label (with 37 hostnames the anti-affinity alone keeps that skew
     within 1), and GANG_ZONE_REPLICAS replicas spread by zone (maxSkew 1)
@@ -4869,15 +4891,13 @@ def gang_phase(card, nvml=None) -> dict:
     checks["f3_pod_runs"] = f3.phase == PodPhase.RUNNING
 
     # --- the serving Deployment and the zone-spread replicas, then the
-    # gangs that fit a pool and the borrowing gang, one at a time. A
-    # gang's first member takes the best-scored node, ties to the highest
-    # name (the reference's scheduler), and pins the rest to its pool, so
-    # the arrival order decides the pools: 32 + 16 + 16 GPUs fill pool-3,
-    # 24 starts pool-2. The order keeps clear of open fault F6 (ROADMAP
-    # Queue 3, shared with the reference): a gang whose first member
-    # lands in a pool without room for the rest re-waits in that pool
-    # after every timeout and never forms (24, 32, 16 in that order
-    # leaves job-16 waiting on pool-3's last free node)
+    # gangs that fit a pool and the borrowing gang, one at a time, in
+    # fault F6's order (ROADMAP, closed faults): 24 + 32 GPUs leave one
+    # free node in pool-3. A gang's first member takes the best-scored
+    # node, ties to the highest name, among the pools that can hold the
+    # whole gang now, and pins the rest there, so job-16 goes to pool-2
+    # whole (before the repair its first member took pool-3's last node
+    # and the gang never formed, as it never does in the reference)
     fleet_gb = gpus * 80
     cluster.add_quota("borrow", {gb: 0})
     cluster.add_quota("claim", {gb: 16 * 80}, max={gb: 16 * 80})
@@ -5031,6 +5051,41 @@ def gang_phase(card, nvml=None) -> dict:
     return row
 
 
+def control_bench_phase(card) -> dict:
+    """bench.py's control-plane half at ControlPlaneSizes.quick(), every
+    step watched by SimCluster.check_gangs(); the run fails unless the
+    borrow converges, the fair share is restored, the multi-node gang
+    forms, every churn turn converges, the fill fills and every
+    invariant holds after each phase."""
+    from nos_tpu_torch.bench_control_plane import ControlPlaneSizes, run_control_plane_bench
+
+    t0 = time.time()
+    watch = {"gang_invariants_every_step": True}
+    broken = []
+
+    def on_step(cluster):
+        gang_checks = cluster.check_gangs()
+        if not all(gang_checks.values()):
+            watch["gang_invariants_every_step"] = False
+            broken.append({"step": cluster.steps, **gang_checks})
+
+    result = run_control_plane_bench(ControlPlaneSizes.quick(), on_step=on_step)
+    checks = {"borrow_converged": result["borrow_converged"],
+              "fair_share_restored": result["fair_share_restored"],
+              "multihost_gang_formed": result["multihost_gang_formed"],
+              "fill_converged": result["fill_converged"],
+              "churn_converged": all(t["converged"] for t in result["churn_turns"]),
+              "invariants_after_each_phase": result["invariants_hold"], **watch}
+    row = {"phase": "control_bench", "host_cpus": os.cpu_count(), **result,
+           "broken": broken[:3]}
+    row.update(checks=checks, ok=all(checks.values()),
+               seconds=time.time() - t0, card=card)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"control_bench failed: {checks}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -5070,6 +5125,7 @@ def main() -> int:
     partitioner_phase(card)
     quota_phase(card)
     gang_phase(card)
+    control_bench_phase(card)
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa

@@ -144,12 +144,17 @@ class SimKubelet:
 
     def step(self) -> int:
         """Admit every bound pending pod; the pods whose phase changed."""
-        pods = self.store.list("Pod")
+        pods = self.store.list("Pod", copy=False)  # read-only
+        # node → the MIG demand of its running pods, kept as pods are admitted
+        running: Dict[str, Dict[str, int]] = {}
+        for pod in pods:
+            if pod.node and pod.phase == PodPhase.RUNNING:
+                _add_demand(running.setdefault(pod.node, {}), _mig_demand(pod.request))
         changed = 0
         for pod in pods:
             if not pod.node or pod.phase != PodPhase.PENDING:
                 continue
-            admitted = self._admit(pod, pods)
+            admitted = self._admit(pod, running)
             phase = PodPhase.RUNNING if admitted else PodPhase.FAILED
             if not admitted:
                 self.admission_rejects += 1
@@ -160,32 +165,33 @@ class SimKubelet:
                                        lambda p, phase=phase: setattr(p, "phase", phase))
             except NotFoundError:
                 continue
-            pod.phase = phase
+            if admitted:
+                _add_demand(running.setdefault(pod.node, {}), _mig_demand(pod.request))
             changed += 1
         return changed
 
-    def _admit(self, pod: Pod, pods: List[Pod]) -> bool:
-        node = self.store.try_get("Node", pod.node)
+    def _admit(self, pod: Pod, running: Dict[str, Dict[str, int]]) -> bool:
+        node = self.store.try_get("Node", pod.node, copy=False)
         if node is None or node.labels.get(PARTITIONING_LABEL) != PARTITIONING_MIG:
             return True
         demand = _mig_demand(pod.request)
         if not demand:
             return True
-        for other in pods:
-            if other.node == pod.node and other.phase == PodPhase.RUNNING \
-                    and other.namespaced_name != pod.namespaced_name:
-                for profile, qty in _mig_demand(other.request).items():
-                    demand[profile] = demand.get(profile, 0) + qty
+        _add_demand(demand, running.get(pod.node, {}))
         inventory: Dict[str, int] = {}
         for gpu in self.geometry_fn(pod.node).values():
-            for profile, qty in gpu.items():
-                inventory[profile] = inventory.get(profile, 0) + qty
+            _add_demand(inventory, gpu)
         return all(inventory.get(p, 0) >= q for p, q in demand.items())
+
+
+def _add_demand(into: Dict[str, int], demand: Dict[str, int]) -> None:
+    for profile, qty in demand.items():
+        into[profile] = into.get(profile, 0) + qty
 
 
 class SimCluster:
     def __init__(self, config_map_name: str = DEFAULT_CONFIG_MAP,
-                 gang_timeout_seconds: float = 30.0) -> None:
+                 gang_timeout_seconds: float = 30.0, incremental_planning: bool = True) -> None:
         self.now = 0.0
         self.store = NodeStore(clock=self.clock)
         register_elasticquota_webhooks(self.store)
@@ -207,13 +213,14 @@ class SimCluster:
             Planner(build_sim_framework(self.store), clock=clock), Actuator(mig_partitioner),
             PARTITIONING_MIG,
             is_mig_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
-            initializer=MigNodeInitializer(mig_partitioner, plan_id), clock=clock)
+            initializer=MigNodeInitializer(mig_partitioner, plan_id), clock=clock,
+            incremental_planning=incremental_planning)
         self.mps = PartitionerController(
             self.store, ClusterState(), MpsSnapshotTaker(),
             Planner(build_sim_framework(self.store), clock=clock),
             Actuator(MpsPartitioner(self.store, config_map_name)),
             PARTITIONING_MPS, is_mps_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
-            clock=clock)
+            clock=clock, incremental_planning=incremental_planning)
         self.controllers = (self.mig, self.mps)
         self.mps_plugin = SimSharedDevicePlugin(self.store, config_map_name)
         self.agents: Dict[str, MigAgent] = {}

@@ -79,7 +79,8 @@ class _QuotaReconcilerBase:
         self.gpu_memory_gb = gpu_memory_gb or res.DEFAULT_GPU_MEMORY_GB
 
     def _running_pods(self, namespaces: List[str]) -> List[Pod]:
-        return [p for ns in namespaces for p in self.store.list("Pod", namespace=ns)
+        # read-only: the labels are written through patch_labels
+        return [p for ns in namespaces for p in self.store.list("Pod", namespace=ns, copy=False)
                 if p.phase == PodPhase.RUNNING]
 
     def _reconcile_quota(self, quota, namespaces: List[str]) -> int:

@@ -73,13 +73,12 @@ class MigActuator:
         on a report, else None."""
         if not self.shared.at_least_one_report_since_last_apply():
             return REQUEUE_SECONDS
-        node = self.store.try_get("Node", self.node_name)
+        node = self.store.try_get("Node", self.node_name, copy=False)  # read-only
         if node is None:
             return None
-        spec, _ = annot.parse_node_annotations(node.annotations)
         plan_id = node.annotations.get(annot.SPEC_PARTITIONING_PLAN, "")
         devices = self.client.get_devices()
-        plan = compute_plan(devices, annot.spec_geometries(spec))
+        plan = compute_plan(devices, self.shared.spec_geometries(node))
         if plan.empty:
             self.shared.on_apply(plan_id)
             return None

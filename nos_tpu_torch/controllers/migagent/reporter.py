@@ -41,16 +41,15 @@ class MigReporter:
         self.shared = shared
 
     def reconcile(self) -> None:
-        node = self.store.try_get("Node", self.node_name)
+        node = self.store.try_get("Node", self.node_name, copy=False)  # read-only
         if node is None:
             return
         devices = self.client.get_devices()
         grouped = group_geometries(devices)
         desired = annot.status_from_devices(free=grouped[DeviceStatus.FREE],
                                             used=grouped[DeviceStatus.USED])
-        spec, _ = annot.parse_node_annotations(node.annotations)
         spec_plan = node.annotations.get(annot.SPEC_PARTITIONING_PLAN, "")
-        if spec_plan and (annot.spec_geometries(spec) == device_geometry(devices)
+        if spec_plan and (self.shared.spec_geometries(node) == device_geometry(devices)
                           or self.shared.last_applied_plan_id == spec_plan):
             desired[annot.STATUS_PARTITIONING_PLAN] = spec_plan
         elif annot.STATUS_PARTITIONING_PLAN in node.annotations:

@@ -39,7 +39,7 @@ class MpsReporter:
         self.node_name = node_name
 
     def reconcile(self) -> None:
-        node = self.store.try_get("Node", self.node_name)
+        node = self.store.try_get("Node", self.node_name, copy=False)  # read-only
         if node is None:
             return
         if node.labels.get(PARTITIONING_LABEL, "") == PARTITIONING_MIG:

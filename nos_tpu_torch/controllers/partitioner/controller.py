@@ -1,17 +1,19 @@
 """PartitionerController: pending pods → batch → snapshot → plan → actuate.
 
 Counterpart of ``nos_tpu/controllers/partitioner/controller.py``
-(reference internal/controllers/gpupartitioner/partitioner_controller.go:81-239),
-on the cold path only: ``fetch_pending_pods`` (``:399``),
-``process_pending_pods`` (``:427``: snapshot, plan, actuate) and
-``_record_plan`` (``:1016``), with the batcher's windows (60 s and 10 s
-by default) and the plan-id gate.
+(reference internal/controllers/gpupartitioner/partitioner_controller.go:81-239):
+``fetch_pending_pods`` (``:399``), ``process_pending_pods`` (``:427``:
+snapshot, plan, actuate), ``_record_plan`` (``:1016``), the divergence
+reconcile (``:226-291``) and the capacity-freed trigger (``:293-311``),
+with the batcher's windows (60 s and 10 s by default) and the plan-id
+gate.
 
 The port has no watches: ``step()`` polls. It syncs ``ClusterState``
 from the store (the reference's node and pod state controllers,
 ``node_controller.py`` and ``pod_controller.py``, folded into ``sync``,
 which also gives a MIG node with no geometry yet its first one through
-``MigNodeInitializer``; the gate, the mode check and the snapshot all
+``MigNodeInitializer``, and passes over a node whose object and pods are
+the ones it synced last; the gate, the mode check and the snapshot all
 read that state), adds every pending pod that re-partitioning
 could help and that asks for this mode's resources to the batch, and
 processes the batch once a window has passed. The gate: no plan while a
@@ -20,18 +22,50 @@ node of this mode has not acknowledged its last one (its
 reporter, differs from its ``spec-partitioning-plan``);
 a released batch waits for the gate, so the loop never re-carves a GPU
 mid-change. After each plan the pods still pending go back into the
-batch (the reference's level-triggered retry). Spans:
-``partitioner.process``, ``snapshot.take``, ``partitioner.plan`` and
-``plan.trial`` (the planner's), ``partitioner.actuate``. Counters:
-``PLANS_APPLIED`` here, ``PLAN_DURATION`` / ``PLAN_VERDICT_CACHE`` in
-the planner, ``SNAPSHOT_FORKS`` / ``COMMITS`` / ``REVERTS`` in the
-snapshot. Out (ROADMAP.md): pool sharding, the process backend and the
-warm-state codec (``:583-1015``), ``incremental.py``, the divergence
-reconcile (``:228``) and the flight recorder (a bounded ``plans``
-record stands in for it); ``multihost.py``'s counterpart is
-``multinode.py``. ``build_sim_framework``
-(``nos_tpu/cmd/partitioner.py:39-66``) gives a planner the scheduler's
-filters and its quota PreFilter.
+batch (the reference's level-triggered retry).
+
+Two triggers fire the batch at once, where the reference's watches fire
+them. *Capacity freed*: a pod holding this mode's resources on a node
+that has finished (Succeeded or Failed) or been deleted since the last
+step, with a pending pod re-partitioning could help (the reference calls
+the freed window "the single largest utilization tax in a steady stream
+of short jobs"). While a pending pod is nominated to a node whose
+capacity was freed, that room is a preemption's, freed for that pod: the
+trigger waits until the scheduler's next cycle has bound the pod or
+handed it back (a nominee that needs a re-carve fails once and loses
+its nomination), then fires. The reference fires at once and leaves
+the order to its threads; in the polled loop the plan would always
+come first and carve the nominee's room for other pods. *Divergence*
+(the MIG mode only, as the reference wires it to its TPU controller
+alone; an MPS node's plan is a config map, with no spec geometry to
+diverge from): a node that acknowledged its plan but
+reports another geometry (its agent could not create the plan) fires one
+replan per plan id (``_diverged``), and with nothing pending its spec
+adopts the reported geometry under the same plan id. F4's refusal memo
+(``partitioning/mig.py``) keeps the replan from asking for the refused
+geometry again. Each is checked for every node of the mode on every
+step, from the node's parsed annotations memoized on its stored object.
+
+Incremental planning (``incremental_planning``, on by default, as in
+the reference, ``:59-60``, ``:440-470``): an
+``IncrementalSnapshotMaintainer`` keeps one base snapshot and hands the
+planner the nodes refreshed since its last plan (``plan(...,
+dirty=...)``, which leaves the base as observed). Off, every plan takes
+a whole snapshot and consumes it. ``incremental_dirty_threshold`` sets
+the planner's.
+
+Spans: ``partitioner.process``, ``snapshot.take``, ``partitioner.plan``
+and ``plan.trial`` (the planner's), ``partitioner.actuate``. Counters:
+``PLANS_APPLIED`` and ``DIVERGENCE_REPLANS`` here, ``plans_applied``
+and ``nodes_repartitioned`` (each node a plan re-partitioned, the bench's
+re-carves), ``PLAN_DURATION`` / ``PLAN_MODE`` / ``PLAN_VERDICT_CACHE`` /
+``PLAN_CARVE_FUTILITY`` in the planner, ``SNAPSHOT_FORKS`` / ``COMMITS``
+/ ``REVERTS`` in the snapshot. Out (ROADMAP.md): pool sharding, the
+process backend and the warm-state codec (``:583-1015``, item 16b) and
+the flight recorder (a bounded ``plans`` record stands in for it);
+``multihost.py``'s counterpart is ``multinode.py``.
+``build_sim_framework`` (``nos_tpu/cmd/partitioner.py:39-66``) gives a
+planner the scheduler's filters and its quota PreFilter.
 
 Gang members waiting in the scheduler's Permit hold their slices only in
 its assume cache: the store, so the snapshot, shows those slices free.
@@ -46,10 +80,12 @@ from __future__ import annotations
 import logging
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, List
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
+from nos_tpu_torch.controllers.partitioner.incremental import IncrementalSnapshotMaintainer
 from nos_tpu_torch.gpu import annotations as annot
-from nos_tpu_torch.kube.store import NodeStore, Pod, PodPhase
+from nos_tpu_torch.gpu.node import PARTITIONING_MIG
+from nos_tpu_torch.kube.store import Node, NodeStore, Pod, PodPhase
 from nos_tpu_torch.partitioning.core import (
     Actuator,
     ClusterState,
@@ -108,7 +144,9 @@ class PartitionerController:
                  batch_timeout_seconds: float = DEFAULT_TIMEOUT_SECONDS,
                  batch_idle_seconds: float = DEFAULT_IDLE_SECONDS,
                  plan_id_fn: Callable[[], str] = _default_plan_id,
-                 initializer=None, clock: Callable[[], float] = time.monotonic) -> None:
+                 initializer=None, clock: Callable[[], float] = time.monotonic,
+                 incremental_planning: bool = True,
+                 incremental_dirty_threshold: Optional[float] = None) -> None:
         self.store = store
         self.cluster_state = cluster_state
         self.snapshot_taker = snapshot_taker
@@ -123,32 +161,62 @@ class PartitionerController:
         self._released = False  # a released batch waiting for the gate
         self.plans_applied = 0
         self.plans_processed = 0
+        self.nodes_repartitioned = 0
         self.last_applied = 0
         self.plans: Deque[dict] = deque(maxlen=PLAN_RECORDS)
+        self.incremental_planning = incremental_planning
+        if incremental_dirty_threshold is not None:
+            self.planner.incremental_dirty_threshold = incremental_dirty_threshold
+        self.maintainer: Optional[IncrementalSnapshotMaintainer] = None
+        # node → (node, pods) as last synced: the store's objects, replaced
+        # on every write, so an identical pair needs no re-sync
+        self._synced: Dict[str, Tuple[Node, Tuple[Pod, ...]]] = {}
+        # pod key → (uid, node) of the pods holding this mode's resources
+        self._holding: Dict[str, Tuple[str, str]] = {}
+        # nodes whose capacity was freed since the trigger last looked
+        self._freed: set = set()
+        self.capacity_freed_fires = 0
+        # divergence: node → the spec plan id already replanned for, and
+        # node → (node object, its parsed annotations)
+        self._diverged: Dict[str, str] = {}
+        self._parsed: Dict[str, tuple] = {}
 
     # ------------------------------------------------------------ sync
 
     def sync(self) -> None:
         """ClusterState := the store (the node and pod state controllers);
         a MIG node with no geometry gets its first."""
-        # read-only: ClusterState keeps copies of its own
+        # read-only: ClusterState keeps these objects as they are
         nodes = self.store.list("Node", copy=False)
         pods = self.store.list("Pod", copy=False)
         by_node: Dict[str, List[Pod]] = {}
+        holding: Dict[str, Tuple[str, str]] = {}
         for pod in pods:
             if pod.node and pod.phase in (PodPhase.PENDING, PodPhase.RUNNING):
                 by_node.setdefault(pod.node, []).append(pod)
+                if self.requests_tracked_resources(pod):
+                    holding[pod.namespaced_name] = (pod.uid, pod.node)
+        # held last step, not now: finished, deleted or recreated
+        self._freed.update(node for k, (uid, node) in self._holding.items()
+                           if holding.get(k, ("",))[0] != uid)
+        self._holding = holding
         seen = set()
         for node in nodes:
             if (self.initializer is not None and partitioning_kind(node) == self.kind
                     and not self.initializer.is_initialized(node)
                     and self.initializer.init_node_partitioning(node)):
-                node = self.store.get("Node", node.name)
-            self.cluster_state.update_node(node, by_node.get(node.name, []))
+                node = self.store.try_get("Node", node.name, copy=False) or node
+            bound = tuple(by_node.get(node.name, ()))
+            last = self._synced.get(node.name)
+            if last is None or last[0] is not node or len(last[1]) != len(bound) or any(
+                    a is not b for a, b in zip(last[1], bound)):
+                self.cluster_state.update_node(node, list(bound))
+                self._synced[node.name] = (node, bound)
             seen.add(node.name)
         for name in self.cluster_state.node_names():
             if name not in seen:
                 self.cluster_state.delete_node(name)
+                self._synced.pop(name, None)
 
     def gate_open(self) -> bool:
         """Every node of this mode has acknowledged its last plan."""
@@ -176,10 +244,16 @@ class PartitionerController:
                 self.batcher.add(key)
 
     def step(self) -> int:
-        """One poll: sync, batch, and process a due batch when the gate is
-        open. The nodes re-partitioned."""
+        """One poll: sync, batch, the two triggers, and process a due batch
+        when the gate is open. The nodes re-partitioned."""
         self.sync()
         self._enqueue()
+        if self.kind == PARTITIONING_MIG:
+            for node in self.store.list("Node", copy=False):
+                self.reconcile_node_divergence(node)
+        if self._freed and not self._nominated_to(self._freed):
+            self._freed.clear()
+            self.reconcile_capacity_freed()
         if self.batcher.poll() is not None:
             self._released = True
             self._batched.clear()
@@ -189,6 +263,73 @@ class PartitionerController:
         applied = self.process_pending_pods()
         self._enqueue()  # the pods still pending start the next window
         return applied
+
+    # ----------------------------------------------------------- triggers
+
+    def _could_be_helped(self) -> bool:
+        return any(could_help(p) and self.requests_tracked_resources(p)
+                   for p in self.fetch_pending_pods())
+
+    def _nominated_to(self, nodes: set) -> bool:
+        """A pending pod is nominated to one of ``nodes``: a preemption
+        freed that room for it."""
+        return any(p.nominated_node in nodes for p in self.fetch_pending_pods())
+
+    def reconcile_capacity_freed(self) -> bool:
+        """A pod holding this mode's resources finished or went: with a
+        pending pod re-partitioning could help, fire the batch now."""
+        if self._could_be_helped():
+            self.capacity_freed_fires += 1
+            self.batcher.fire_now()
+            return True
+        return False
+
+    def _parsed_annotations(self, node: Node) -> tuple:
+        """(spec plan, status plan, spec geometries, status geometries),
+        memoized on the stored node object (replaced on every write)."""
+        cached = self._parsed.get(node.name)
+        if cached is not None and cached[0] is node:
+            return cached[1]
+        spec, status = annot.parse_node_annotations(node.annotations)
+        parsed = (node.annotations.get(annot.SPEC_PARTITIONING_PLAN),
+                  node.annotations.get(annot.STATUS_PARTITIONING_PLAN),
+                  annot.spec_geometries(spec), annot.status_geometries(status))
+        self._parsed[node.name] = (node, parsed)
+        return parsed
+
+    def reconcile_node_divergence(self, node: Node) -> str:
+        """A node that acknowledged its plan but reports another geometry:
+        replan once for that plan id, or, with nothing pending, let the
+        spec adopt the reported geometry. What was done: "other_kind",
+        "in_flight", "converged", "adopted", "replan" or
+        "replanned_already"."""
+        if partitioning_kind(node) != self.kind:
+            return "other_kind"
+        spec_plan, status_plan, wanted, have = self._parsed_annotations(node)
+        if not spec_plan or spec_plan != status_plan:
+            return "in_flight"  # the plan gate's business
+        if wanted == have:
+            self._diverged.pop(node.name, None)
+            return "converged"
+        if not self.fetch_pending_pods():
+            # nothing to replan for: the intent adopts what exists, under
+            # the same plan id, which the agent acknowledges as it stands
+            patch: Dict[str, Optional[str]] = dict(annot.strip_spec_annotations(
+                node.annotations))
+            patch.update(annot.spec_from_geometries(have))
+            metrics.DIVERGENCE_REPLANS.inc()
+            log.info("partitioner: %s reports geometry diverging from plan %s with no "
+                     "pending pods; spec adopts reported geometry", node.name, spec_plan)
+            self.store.patch_annotations("Node", node.name, "", patch)
+            return "adopted"
+        if self._diverged.get(node.name) == spec_plan:
+            return "replanned_already"
+        self._diverged[node.name] = spec_plan
+        metrics.DIVERGENCE_REPLANS.inc()
+        log.info("partitioner: %s reports geometry diverging from plan %s; replanning now",
+                 node.name, spec_plan)
+        self.batcher.fire_now()
+        return "replan"
 
     # ------------------------------------------------------ processing
 
@@ -207,9 +348,16 @@ class PartitionerController:
         with TRACER.span("partitioner.process", kind=self.kind,
                          pending=len(pending)) as proc:
             with TRACER.span("snapshot.take"):
-                snapshot = self.snapshot_taker.take_snapshot(self.cluster_state)
+                if self.incremental_planning:
+                    if self.maintainer is None:
+                        self.maintainer = IncrementalSnapshotMaintainer(
+                            self.store, self.snapshot_taker, self.kind)
+                    snapshot, dirty = self.maintainer.snapshot(self.cluster_state)
+                else:
+                    snapshot = self.snapshot_taker.take_snapshot(self.cluster_state)
+                    dirty = None
             current = snapshot.partitioning_state()
-            desired = self.planner.plan(snapshot, pending)
+            desired = self.planner.plan(snapshot, pending, dirty=dirty)
             plan = PartitioningPlan(desired_state=desired, id=self.plan_id_fn())
             proc.set_attributes(plan_id=plan.id)
             with TRACER.span("partitioner.actuate", plan_id=plan.id):
@@ -220,6 +368,7 @@ class PartitionerController:
         self.last_applied = applied
         if applied:
             self.plans_applied += 1
+            self.nodes_repartitioned += applied
             metrics.PLANS_APPLIED.inc()
             log.info("partitioner %s: plan %s applied to %d nodes for %d pending pods",
                      self.kind, plan.id, applied, len(pending))
@@ -235,5 +384,6 @@ class PartitionerController:
             "plan_id": plan.id,
             "desired": partitioning_state_to_dict(plan.desired_state),
             "unserved": dict(self.planner.last_unserved),
+            "mode": self.planner.last_plan_mode,
             "applied": applied,
         })

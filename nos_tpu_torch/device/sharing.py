@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 from nos_tpu_torch.device.types import DeviceStatus, SharedSlice
 from nos_tpu_torch.gpu.annotations import MPS_PROFILE_RE
 from nos_tpu_torch.gpu.node import MPS_RESOURCE_PREFIX, RESOURCE_GPU
-from nos_tpu_torch.kube.store import NodeStore, NotFoundError, PodPhase
+from nos_tpu_torch.kube.store import NodeStore, NotFoundError
 
 log = logging.getLogger("nos_tpu_torch.device.sharing")
 
@@ -44,13 +44,13 @@ def load_plugin_config(store: NodeStore, node_name: str,
     """The node's active MPS config: label → config map key → JSON. None
     when the node has no label, the key is gone (a superseded plan) or
     the payload does not parse."""
-    node = store.try_get("Node", node_name)
+    node = store.try_get("Node", node_name, copy=False)  # read-only
     if node is None:
         return None
     key = node.labels.get(DEVICE_PLUGIN_CONFIG_LABEL, "")
     if not key:
         return None
-    cm = store.try_get("ConfigMap", config_map_name, config_map_namespace)
+    cm = store.try_get("ConfigMap", config_map_name, config_map_namespace, copy=False)
     if cm is None or key not in cm.data:
         return None
     try:
@@ -77,7 +77,7 @@ class SimSharedDevicePlugin:
         self.config_map_namespace = config_map_namespace
 
     def reconcile(self, node_name: str) -> None:
-        if self.store.try_get("Node", node_name) is None:
+        if self.store.try_get("Node", node_name, copy=False) is None:
             return
         config = load_plugin_config(self.store, node_name, self.config_map_name,
                                     self.config_map_namespace)
@@ -125,9 +125,7 @@ class SharedSliceClient:
         if not entries:
             return []
         demand: Dict[str, int] = {}
-        for pod in self.store.list("Pod", copy=False):
-            if pod.node != node_name or pod.phase not in (PodPhase.PENDING, PodPhase.RUNNING):
-                continue
+        for pod in self.store.pods_by_node().get(node_name, ()):
             for name, qty in pod.request.items():
                 if is_mps_resource(name):
                     demand[name] = demand.get(name, 0) + int(qty)

@@ -29,7 +29,7 @@ from nos_tpu_torch.device.client import MigPlacementError, create_in_some_order
 from nos_tpu_torch.device.types import MigDevice, device_geometry
 from nos_tpu_torch.gpu.known import H100_80GB, KNOWN_GPUS, mig_profile
 from nos_tpu_torch.gpu.node import MIG_RESOURCE_PREFIX, RESOURCE_GPU, mig_resource
-from nos_tpu_torch.kube.store import NodeStore, PodPhase
+from nos_tpu_torch.kube.store import NodeStore
 
 
 class SimMigPool:
@@ -130,10 +130,7 @@ class SimPodResourcesClient:
 
     def get_used_device_ids(self) -> List[str]:
         demand: Dict[str, int] = {}
-        for pod in self.store.list("Pod", copy=False):
-            if pod.node != self.node_name or pod.phase not in (PodPhase.PENDING,
-                                                                PodPhase.RUNNING):
-                continue
+        for pod in self.store.pods_by_node().get(self.node_name, ()):
             for name, qty in pod.request.items():
                 if name.startswith(MIG_RESOURCE_PREFIX):
                     profile = name[len(MIG_RESOURCE_PREFIX):]
@@ -158,7 +155,7 @@ class DevicePluginAdvertiser:
         self.geometry_fn = geometry_fn
 
     def restart(self, node_name: str) -> None:
-        if self.store.try_get("Node", node_name) is None:
+        if self.store.try_get("Node", node_name, copy=False) is None:
             return
         geometry = self.geometry_fn(node_name)
         advertised: Dict[str, int] = {}

@@ -27,13 +27,25 @@ deletes the key). Objects are copied
 on the way in and out, so mutating a returned object never mutates the
 store (``list`` and ``try_get`` take ``copy=False`` for read-only
 callers). ``revision`` counts the writes (a resource version of the whole
-store, for readers that memoize on it). ``register_admission(kind, fn)``
+store, for readers that memoize on it; ``pods_by_node`` is one such, the
+live pods bound to each node). ``register_admission(kind, fn)``
 adds an admission webhook:
 ``fn(obj, store)`` runs before ``create`` and ``patch_merge`` store the
 object; it may mutate the object (a mutating webhook) or raise
 ``AdmissionError`` to refuse it. There are no
 watches and no resource versions: the agents poll
 (``controllers/migagent``).
+
+The change journal stands in for the watch deltas the reference's
+incremental snapshot maintainer drains
+(``nos_tpu/controllers/partitioner/incremental.py``): every write
+appends a ``Change`` (its revision, kind, namespace and name, ADDED /
+MODIFIED / DELETED, for a pod the node it was bound to before and
+after, for a quota whether its spec moved or only its status),
+``JOURNAL_LENGTH`` of them at most. ``changes_since(revision)`` gives
+the changes after a reader's cursor, or None when some of them have
+been dropped (the reader rebuilds, as on the reference's drain
+overflow). Watches themselves wait for the kube substrate's slice.
 """
 from __future__ import annotations
 
@@ -41,8 +53,9 @@ import copy
 import itertools
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from nos_tpu_torch.api.v1alpha1.elasticquota import CompositeElasticQuota, ElasticQuota
 
@@ -274,6 +287,41 @@ _KINDS = {"Node": Node, "Pod": Pod, "ConfigMap": ConfigMap, "ElasticQuota": Elas
           "PodDisruptionBudget": PodDisruptionBudget, "Service": Service}
 
 
+# the writes the journal keeps; a reader further behind rebuilds
+JOURNAL_LENGTH = 10_000
+
+
+@dataclass(frozen=True)
+class Change:
+    """One write, as a watch would deliver it."""
+
+    revision: int
+    kind: str
+    namespace: str
+    name: str
+    type: str  # ADDED | MODIFIED | DELETED
+    node_before: str = ""  # a pod's node before and after the write
+    node_after: str = ""
+    spec_changed: bool = True  # False: a quota write that moved only its status
+
+
+def _quota_spec(obj: Any) -> tuple:
+    return (tuple(sorted(obj.min.items())), tuple(sorted(obj.max.items())),
+            tuple(getattr(obj, "namespaces", ())))
+
+
+def _change(revision: int, kind: str, before: Any, after: Any) -> Change:
+    obj = after if after is not None else before
+    kind_of_write = "ADDED" if before is None else "DELETED" if after is None else "MODIFIED"
+    spec_changed = True
+    if kind in ("ElasticQuota", "CompositeElasticQuota") and before is not None \
+            and after is not None:
+        spec_changed = _quota_spec(before) != _quota_spec(after)
+    node_of = (lambda o: o.node if o is not None else "") if kind == "Pod" else (lambda o: "")
+    return Change(revision, kind, obj.namespace, obj.name, kind_of_write, node_of(before),
+                  node_of(after), spec_changed)
+
+
 def _kind(obj: Any) -> str:
     for name, cls in _KINDS.items():
         if isinstance(obj, cls):
@@ -285,6 +333,9 @@ class NodeStore:
     def __init__(self, clock: Callable[[], float] = time.time) -> None:
         self._lock = threading.RLock()
         self._objects: Dict[Tuple[str, str, str], Any] = {}
+        # kind → the (namespace, name) keys of its objects, sorted, rebuilt
+        # after a create or delete of that kind (None: stale)
+        self._sorted_keys: Dict[str, Optional[List[Tuple[str, str]]]] = {}
         # the clock pods' creation times are read from; a caller on
         # virtual time passes its own
         self.clock = clock
@@ -292,6 +343,8 @@ class NodeStore:
         self._admission: Dict[str, List[Callable[[Any, "NodeStore"], None]]] = {}
         # bumped by every write
         self.revision = 0
+        self._journal: Deque[Change] = deque(maxlen=JOURNAL_LENGTH)
+        self._pods_by_node: Optional[Tuple[int, Dict[str, List[Any]]]] = None
 
     def register_admission(self, kind: str, fn: Callable[[Any, "NodeStore"], None]) -> None:
         self._admission.setdefault(kind, []).append(fn)
@@ -313,7 +366,7 @@ class NodeStore:
                     stored.created = self.clock()
             self._admit(kind, stored)
             self._objects[key] = stored
-            self.revision += 1
+            self._record(kind, None, stored)
             return copy.deepcopy(stored)
 
     def get(self, kind: str, name: str, namespace: str = "") -> Any:
@@ -336,7 +389,7 @@ class NodeStore:
         with self._lock:
             obj = self._objects.pop((kind, namespace, name), None)
             if obj is not None:
-                self.revision += 1
+                self._record(kind, obj, None)
         if obj is None:
             raise NotFoundError(f"{kind} {namespace}/{name} not found")
         return obj
@@ -349,8 +402,13 @@ class NodeStore:
         and none is changed in place, so they stay as they were listed,
         but a caller must not change them."""
         with self._lock:
-            objs = [obj for key, obj in sorted(self._objects.items())
-                    if key[0] == kind and (namespace is None or key[1] == namespace)]
+            keys = self._sorted_keys.get(kind)
+            if keys is None:
+                keys = sorted(key[1:] for key in self._objects if key[0] == kind)
+                self._sorted_keys[kind] = keys
+            objects = self._objects
+            objs = [objects[(kind,) + key] for key in keys
+                    if namespace is None or key[0] == namespace]
         return [_deepcopy(obj) for obj in objs] if copy else objs
 
     def patch_merge(self, kind: str, name: str, namespace: str,
@@ -360,12 +418,50 @@ class NodeStore:
         with self._lock:
             if key not in self._objects:
                 raise NotFoundError(f"{kind} {namespace}/{name} not found")
-            obj = copy.deepcopy(self._objects[key])
+            before = self._objects[key]
+            obj = copy.deepcopy(before)
             mutate(obj)
             self._admit(kind, obj)
             self._objects[key] = obj
-            self.revision += 1
+            self._record(kind, before, obj)
             return copy.deepcopy(obj)
+
+    def _record(self, kind: str, before: Any, after: Any) -> None:
+        """One write: the revision and the journal (under the lock)."""
+        if before is None or after is None:
+            self._sorted_keys[kind] = None
+        self.revision += 1
+        self._journal.append(_change(self.revision, kind, before, after))
+
+    def pods_by_node(self) -> Dict[str, List[Any]]:
+        """node → its bound pods that are pending or running, as stored
+        (read-only), by namespace and name; built once a revision."""
+        with self._lock:
+            memo = self._pods_by_node
+            if memo is not None and memo[0] == self.revision:
+                return memo[1]
+            by_node: Dict[str, List[Any]] = {}
+            for pod in self.list("Pod", copy=False):
+                if pod.node and pod.phase in (PodPhase.PENDING, PodPhase.RUNNING):
+                    by_node.setdefault(pod.node, []).append(pod)
+            self._pods_by_node = (self.revision, by_node)
+            return by_node
+
+    def changes_since(self, revision: int) -> Optional[List[Change]]:
+        """The changes after ``revision``, oldest first; None when the
+        journal no longer holds them all."""
+        with self._lock:
+            if revision >= self.revision:
+                return []
+            if not self._journal or self._journal[0].revision > revision + 1:
+                return None
+            out = []
+            for change in reversed(self._journal):
+                if change.revision <= revision:
+                    break
+                out.append(change)
+            out.reverse()
+            return out
 
     @staticmethod
     def _merge(target: Dict[str, str], patch: Dict[str, Optional[str]]) -> None:

@@ -32,9 +32,27 @@ the whole cluster's memory, so the quota admits every pod and the
 PreFilter's arithmetic runs on every trial; ``vanilla`` is the vanilla
 filters alone, without a store (the rows before the quota slice).
 
+``--incremental`` runs the ``bench_incremental`` row instead
+(``bench_planner.py:233-292``): steady-state replans over one persistent
+snapshot and planner. Every GPU of the steady cluster is pinned by a
+used 4g.40gb (no 7g.80gb carve can succeed) beside free 1g.10gb
+instances (two, or one beside a used one: the two variants a refresh
+flips between); 90% of the pending pods ask for a 7g.80gb (every carve
+futile: the futility memo carries the replan), 10% for a 1g.10gb the
+free pool claims each cycle. An untimed cold plan (fallback mode) builds
+the memos, an untimed warm-up cycle follows, then ``--repeats`` timed
+cycles each flip 5% of the nodes through ``refresh_node`` and
+replan with that dirty set. Every cycle must take the incremental path
+(else the row raises), and each cycle's plan is held against a full
+plan of the same state on a fresh snapshot and planner
+(``plan_equals_full``). The row gives the cold plan's ms, p50 / p95
+replan ms, their ratio, the futility memo's hits and the verdict
+cache's hit rate in the last cycle.
+
     python -m nos_tpu_torch.partitioning.bench_planner --quick
     python -m nos_tpu_torch.partitioning.bench_planner --sizes 64x200 --repeats 3
     python -m nos_tpu_torch.partitioning.bench_planner --framework vanilla --quick
+    python -m nos_tpu_torch.partitioning.bench_planner --incremental --sizes 256x400
 """
 from __future__ import annotations
 
@@ -182,6 +200,94 @@ def bench_config(n_nodes: int, n_pods: int, gpus_per_node: int, repeats: int,
     return row, digests.pop()
 
 
+# the steady cluster's GPU, (free, used), in its two variants
+STEADY = {False: ({"1g.10gb": 2}, {"4g.40gb": 1}),
+          True: ({"1g.10gb": 1}, {"4g.40gb": 1, "1g.10gb": 1})}
+STEADY_MIX = ("7g.80gb",) * 9 + ("1g.10gb",)
+CHURN = 0.05  # the share of the steady cluster's nodes refreshed a cycle
+
+
+def build_steady_node(name: str, variant: bool, gpus_per_node: int) -> SnapshotNode:
+    """One node of the steady cluster, every GPU in ``variant``'s state,
+    each used instance held by a running pod."""
+    gpu_free, gpu_used = STEADY[variant]
+    free = {gpu: dict(gpu_free) for gpu in range(gpus_per_node)}
+    used = {gpu: dict(gpu_used) for gpu in range(gpus_per_node)}
+    resources = {RESOURCE_GPU: gpus_per_node, "cpu": 112, "memory": 2048}
+    node = Node(name, labels={GPU_PRODUCT_LABEL: H100_80GB,
+                              PARTITIONING_LABEL: PARTITIONING_MIG},
+                capacity=dict(resources), allocatable=dict(resources),
+                annotations=annot.status_from_devices(free, used))
+    pods = [Pod(f"{name}-run-{gpu}-{profile}-{k}", "bench", node=name, phase=PodPhase.RUNNING,
+                request={mig_resource(profile): 1})
+            for gpu, geometry in sorted(used.items())
+            for profile, qty in sorted(geometry.items()) for k in range(qty)]
+    mig = MigNode(name, node.labels, node.capacity, node.annotations)
+    return SnapshotNode(partitionable=mig, node=node, pods=pods)
+
+
+def build_steady_cluster(variants: Dict[str, bool], gpus_per_node: int) -> ClusterSnapshot:
+    return ClusterSnapshot({name: build_steady_node(name, v, gpus_per_node)
+                            for name, v in sorted(variants.items())}, codec=MigSliceCodec())
+
+
+def make_steady_pending(n_pods: int) -> List[Pod]:
+    return [Pod(f"pend-{i:04d}", "bench",
+                request={mig_resource(STEADY_MIX[i % len(STEADY_MIX)]): 1})
+            for i in range(n_pods)]
+
+
+def _state_digest(state, unserved) -> tuple:
+    return (tuple(sorted((name, node_key(np)) for name, np in state.items())),
+            tuple(sorted(unserved.items())))
+
+
+def bench_incremental(n_nodes: int, n_pods: int, gpus_per_node: int, repeats: int) -> dict:
+    """The steady-state replan row (see the module's docstring)."""
+    variants = {node_name(i): False for i in range(n_nodes)}
+    snapshot = build_steady_cluster(variants, gpus_per_node)
+    planner = Planner(new_framework())
+    pods = make_steady_pending(n_pods)
+    started = time.perf_counter()
+    planner.plan(snapshot, pods, pending_ages={}, dirty=set(variants))
+    cold_ms = (time.perf_counter() - started) * 1e3
+    if planner.last_plan_mode != "fallback":
+        raise RuntimeError(f"cold plan mode {planner.last_plan_mode!r}")
+    k = max(1, int(n_nodes * CHURN))
+    latencies: List[float] = []
+    equal = True
+    for cycle in range(repeats + 1):  # cycle 0 is an untimed warm-up
+        dirty = set()
+        for j in range(k):
+            name = node_name((cycle * k + j) % n_nodes)
+            variants[name] = not variants[name]
+            snapshot.refresh_node(name, build_steady_node(name, variants[name], gpus_per_node))
+            dirty.add(name)
+        t0 = time.perf_counter()
+        state = planner.plan(snapshot, pods, pending_ages={}, dirty=dirty)
+        elapsed = time.perf_counter() - t0
+        if planner.last_plan_mode != "incremental":
+            raise RuntimeError(f"replan mode {planner.last_plan_mode!r}")
+        if cycle > 0:
+            latencies.append(elapsed)
+        digest = _state_digest(state, planner.last_unserved)
+        full = Planner(new_framework())
+        full_state = full.plan(build_steady_cluster(variants, gpus_per_node), pods,
+                               pending_ages={})
+        equal &= digest == _state_digest(full_state, full.last_unserved)
+    quantiles = statistics.quantiles(latencies, n=20) if len(latencies) > 1 else latencies * 2
+    hits, misses, _ = planner.verdict_cache_stats()
+    p50_ms = statistics.median(latencies) * 1e3
+    return {"bench": "bench_planner_incremental", "engine": "cow", "plan_mode": "incremental",
+            "nodes": n_nodes, "gpus_per_node": gpus_per_node, "gpus": n_nodes * gpus_per_node,
+            "pending_pods": n_pods, "churn": CHURN, "dirty_per_cycle": k, "cycles": repeats,
+            "cold_plan_ms": cold_ms, "p50_replan_ms": p50_ms,
+            "p95_replan_ms": quantiles[-1] * 1e3, "replan_speedup_vs_cold": cold_ms / p50_ms,
+            "futility_hits_last_cycle": planner._futility_hits,
+            "cache_hit_rate_last_cycle": hits / (hits + misses) if hits + misses else None,
+            "plan_equals_full": equal}
+
+
 def card() -> Optional[dict]:
     """The card's name and power limit from NVML, or None without one."""
     try:
@@ -229,18 +335,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--framework", default="sim", choices=("sim", "vanilla"),
                         help="the planner's framework (sim: with CapacityScheduling)")
     parser.add_argument("--output", default="", help="also append JSON lines to this file")
+    parser.add_argument("--incremental", action="store_true",
+                        help="the steady-state incremental replan row instead")
     args = parser.parse_args(argv)
     sizes = [(16, 50)] if args.quick else parse_sizes(args.sizes)
     repeats = 2 if args.quick else args.repeats
     header = {"bench": "bench_planner", "host_cpus": os.cpu_count(), "card": card(),
               "gpus_per_node": args.gpus_per_node}
-    rows = run(sizes, args.gpus_per_node, repeats, args.framework)
+    if args.incremental:
+        rows = [bench_incremental(n, p, args.gpus_per_node, repeats) for n, p in sizes]
+    else:
+        rows = run(sizes, args.gpus_per_node, repeats, args.framework)
     lines = [json.dumps(header)] + [json.dumps(row) for row in rows]
     print("\n".join(lines))
     if args.output:
         with open(args.output, "a") as f:
             f.write("\n".join(lines) + "\n")
-    ok = all(r.get("plan_equals_cache_off", True) and r["deterministic"] for r in rows)
+    ok = all(r.get("plan_equals_cache_off", True) and r.get("deterministic", True)
+             and r.get("plan_equals_full", True) for r in rows)
     return 0 if ok else 1
 
 

@@ -45,12 +45,31 @@ with the same exactness as the reference's; a pod with spread or
 affinity terms, or any trial once a placed pod has anti-affinity,
 bypasses it and publishes the snapshot's whole view. The lacking
 shortcut is memoized on (request, ``state_version``) and the simulated
-node views on (node, version). Out, each listed in ROADMAP.md for a
-later slice: warm state, the incremental and fallback plan modes, and
-the carve-futility memo (the reference's tests hold that it never
-changes a plan; so do this port's, against the reference with it on
-and off). A pod's first sighting is keyed by its namespaced name and
-uid, so a pod recreated under its name starts at age 0.
+node views on (node, version). The carve-futility memo (``:176-260``,
+``:484-491``) keys a carve that changed no geometry by (node, version,
+lacking profile) and skips the fork and carve when the same key comes
+again: a failed carve stamps no version and a revert restores the
+versions, so a hit replays a no-op exactly (``futility_memo_enabled``
+off runs every trial; the tests hold that it changes no plan). A pod's
+first sighting is keyed by its namespaced name and uid, so a pod
+recreated under its name starts at age 0.
+
+Plan modes (``:280-340``): ``plan(snapshot, pods)`` is ``full``: the
+memos are rebuilt and the snapshot is left carrying the plan's carves.
+``plan(..., dirty=names)`` preserves its base: the caller keeps one
+snapshot across plans and changes it only through ``refresh_node``
+(``dirty`` names the nodes it refreshed); the plan runs inside an outer
+fork that is reverted before it returns. When the snapshot is the one
+the last plan saw and the dirty share is at most
+``incremental_dirty_threshold`` of its nodes, the plan is
+``incremental``: every memo entry whose version key still matches a
+live node survives (``_prune_plan_caches``), so untouched nodes keep
+their verdicts, views, candidate order and futility proofs; else it is
+``fallback`` (a new snapshot object, or too many dirty nodes): the
+memos are rebuilt, the base still preserved. ``last_plan_mode`` names
+the mode, ``PLAN_MODE`` counts them and ``PLAN_CARVE_FUTILITY`` the
+memo's hits. The planner's warm-state export and import (``:410-470``)
+wait for a later slice (ROADMAP.md, item 16b).
 """
 from __future__ import annotations
 
@@ -86,6 +105,7 @@ log = logging.getLogger("nos_tpu_torch.partitioning")
 AGED_RESCUE_SIZE = 2.5
 PENDING_TTL_S = 600.0
 AGING_PER_SECOND = 1.0  # effective size a second passed over
+INCREMENTAL_DIRTY_THRESHOLD = 0.25
 
 
 def sort_candidate_pods(pods: Iterable[Pod], aging_per_second: float = AGING_PER_SECOND,
@@ -136,13 +156,20 @@ def unplaced_reason(request: dict) -> str:
 
 class Planner:
     def __init__(self, framework: Framework, verdict_cache_enabled: bool = True,
-                 clock: Optional[Callable[[], float]] = None) -> None:
+                 clock: Optional[Callable[[], float]] = None,
+                 futility_memo_enabled: bool = True,
+                 incremental_dirty_threshold: float = INCREMENTAL_DIRTY_THRESHOLD) -> None:
         self.framework = framework
         # the clock pods age on (first sightings, the aged rescue); a
         # caller that runs on virtual time passes its own
         self.clock = clock
-        # off runs the uncached simulation: the bench's and the tests' oracle
+        # off runs the uncached simulation / every futile trial: the
+        # bench's and the tests' oracles
         self.verdict_cache_enabled = verdict_cache_enabled
+        self.futility_memo_enabled = futility_memo_enabled
+        # above this dirty share of the nodes, replan from scratch
+        self.incremental_dirty_threshold = incremental_dirty_threshold
+        self.last_plan_mode = "full"
         # namespaced name → reason, for every pending pod the last plan
         # could not serve
         self.last_unserved: Dict[str, str] = {}
@@ -168,6 +195,10 @@ class Planner:
         self._request_cache: Dict[int, tuple] = {}
         # state_version → candidate order
         self._candidate_cache: Optional[Tuple[int, List[str]]] = None
+        # (node name, version, sorted lacking items) → the lacking reason:
+        # a carve of that node state toward that profile changed nothing
+        self._futility_cache: Dict[Tuple[str, int, tuple], str] = {}
+        self._futility_hits = 0
         fw = self.framework
         self._cacheable_pre = [p for p in fw.pre_filter_plugins if is_verdict_cacheable(p)]
         self._uncacheable_pre = [p for p in fw.pre_filter_plugins
@@ -181,6 +212,43 @@ class Planner:
         if snapshot is not self._cache_snapshot:
             self._reset_plan_caches(snapshot)
 
+    def _prune_plan_caches(self, snapshot: ClusterSnapshot, pending_pods: List[Pod]) -> None:
+        """Incremental mode: drop exactly the memo entries a refreshed node
+        or a new state can no longer reach; an entry whose version key
+        matches its live node describes the same state (``refresh_node``
+        stamps fresh ticks, the outer revert restores the base's). The
+        counters restart: they stay per plan."""
+        self._verdict_cache.reset_stats()
+        self._futility_hits = 0
+        version_of = snapshot.node_version
+        entries = self._verdict_cache.entries
+        for key in [k for k in entries if version_of(k[1]) != k[2]]:
+            del entries[key]
+        for cache in (self._node_info_cache, self._futility_cache):
+            for key in [k for k in cache if version_of(k[0]) != k[1]]:
+                del cache[key]
+        state_version = snapshot.state_version
+        lacking = self._lacking_cache
+        for key in [k for k in lacking if k[1] != state_version]:
+            del lacking[key]
+        if self._candidate_cache is not None and self._candidate_cache[0] != state_version:
+            self._candidate_cache = None
+        live = {id(p) for p in pending_pods}
+        for cache in (self._signature_cache, self._request_cache):
+            for key in [k for k in cache if k not in live]:
+                del cache[key]
+
+    def _select_plan_mode(self, snapshot: ClusterSnapshot, dirty: Optional[set]) -> str:
+        if dirty is None:
+            return "full"
+        if snapshot is not self._cache_snapshot:
+            # another snapshot's clock: no memo key means anything
+            return "fallback"
+        total = snapshot.node_count()
+        if total and len(dirty) <= self.incremental_dirty_threshold * total:
+            return "incremental"
+        return "fallback"
+
     def verdict_cache_stats(self) -> Tuple[int, int, int]:
         """(hits, misses, bypasses) of the last plan()."""
         return self._verdict_cache.stats()
@@ -188,25 +256,45 @@ class Planner:
     # ----------------------------------------------------------- entry
 
     def plan(self, snapshot: ClusterSnapshot, pending_pods: List[Pod],
-             pending_ages: Optional[Dict[str, float]] = None) -> PartitioningState:
-        """The desired partitioning for ``pending_pods``; the snapshot is
-        left carrying the plan's carves and simulated placements.
-        ``pending_ages`` (namespaced name → seconds pending) overrides the
-        planner's own first-seen bookkeeping."""
+             pending_ages: Optional[Dict[str, float]] = None,
+             dirty: Optional[set] = None) -> PartitioningState:
+        """The desired partitioning for ``pending_pods``. With ``dirty``
+        None the snapshot is left carrying the plan's carves and
+        simulated placements; with ``dirty`` (the nodes refreshed since
+        the last plan) it is left as it was. ``pending_ages`` (namespaced
+        name → seconds pending) overrides the planner's own first-seen
+        bookkeeping."""
         started = time.monotonic()
+        mode = self._select_plan_mode(snapshot, dirty)
         with TRACER.span("partitioner.plan", pending_pods=len(pending_pods),
-                         nodes=snapshot.node_count()) as span:
-            self._reset_plan_caches(snapshot)
+                         nodes=snapshot.node_count(), plan_mode=mode,
+                         dirty_nodes=-1 if dirty is None else len(dirty)) as span:
+            if mode == "incremental":
+                self._prune_plan_caches(snapshot, pending_pods)
+            else:
+                self._reset_plan_caches(snapshot)
+            self.last_plan_mode = mode
+            metrics.PLAN_MODE.labels(mode=mode).inc()
+            if dirty is not None:
+                # warm the free pool before the fork checkpoints it, or the
+                # revert throws it away and every plan recomputes it
+                snapshot.free_slice_resources()
+                snapshot.fork()
             try:
                 return self._plan(snapshot, pending_pods, span, pending_ages)
             finally:
+                if dirty is not None:
+                    snapshot.revert()
                 metrics.PLAN_DURATION.observe(time.monotonic() - started)
                 hits, misses, bypasses = self._verdict_cache.stats()
                 for event, n in (("hit", hits), ("miss", misses), ("bypass", bypasses)):
                     if n:
                         metrics.PLAN_VERDICT_CACHE.labels(event=event).inc(n)
+                if self._futility_hits:
+                    metrics.PLAN_CARVE_FUTILITY.inc(self._futility_hits)
                 span.set_attributes(verdict_cache_hits=hits, verdict_cache_misses=misses,
-                                    verdict_cache_bypasses=bypasses)
+                                    verdict_cache_bypasses=bypasses,
+                                    carve_futility_hits=self._futility_hits)
 
     def _trial_cache_delta(self, before: Tuple[int, int, int]) -> dict:
         hits, misses, bypasses = self._verdict_cache.stats()
@@ -334,10 +422,14 @@ class Planner:
             attempts += 1
             for node_name in self._candidate_nodes(snapshot):
                 lacking = tracker.lacking_for(pod)
+                futility_key = self._futility_key(snapshot, node_name, lacking)
+                if self._futile(futility_key):
+                    continue
                 stats_before = self._verdict_cache.stats()
                 with TRACER.span("plan.trial", node=node_name, rescue=True) as trial:
                     snapshot.fork()
                     if not snapshot.update_geometry_for(node_name, lacking):
+                        self._note_futile(futility_key, lacking)
                         trial.set_attributes(committed=False, nodes_copied=snapshot.revert(),
                                              **self._trial_cache_delta(stats_before))
                         continue
@@ -384,10 +476,14 @@ class Planner:
             if tracker.empty:
                 break
             lacking = tracker.lacking_totals()
+            futility_key = self._futility_key(snapshot, node_name, lacking)
+            if self._futile(futility_key):
+                continue
             stats_before = self._verdict_cache.stats()
             with TRACER.span("plan.trial", node=node_name) as trial:
                 snapshot.fork()
                 if not snapshot.update_geometry_for(node_name, lacking):
+                    self._note_futile(futility_key, lacking)
                     trial.set_attributes(committed=False, nodes_copied=snapshot.revert(),
                                          **self._trial_cache_delta(stats_before))
                     continue
@@ -408,6 +504,22 @@ class Planner:
         return placed
 
     # ------------------------------------------------------------------
+
+    @staticmethod
+    def _futility_key(snapshot: ClusterSnapshot, node_name: str, lacking: dict) -> tuple:
+        # read the version before the trial's fork (get_nodes never journals)
+        return node_name, snapshot.get_nodes()[node_name].version, tuple(sorted(lacking.items()))
+
+    def _futile(self, key: tuple) -> bool:
+        """The carve memo proved this trial a no-op."""
+        if self.futility_memo_enabled and key in self._futility_cache:
+            self._futility_hits += 1
+            return True
+        return False
+
+    def _note_futile(self, key: tuple, lacking: dict) -> None:
+        if self.futility_memo_enabled:
+            self._futility_cache[key] = lacking_reason(lacking)
 
     def _candidate_nodes(self, snapshot: ClusterSnapshot) -> List[str]:
         """get_candidate_nodes, memoized on state_version."""

@@ -33,9 +33,18 @@ are memoized on ``state_version``, which names one state of the nodes
 version moved.
 
 The candidate order is best fit: fewest free slices first, by effective
-size (``codec.profile_size``), then by name. ``refresh_node`` (the
-incremental planner's) and ``DeepcopyClusterSnapshot`` (the reference's
-bench baseline) are not ported.
+size (``codec.profile_size``), then by name.
+
+A persistent base (the incremental planner's, ``:249-290``):
+``refresh_node`` replaces one node's observed state between plans,
+keeping the free pool and the anti-affinity count exact, and stamps the
+replacement with a fresh tick, so every version-keyed memo of the old
+state becomes unreachable; it refuses to run under a fork (the
+replacement would bypass the journal and survive a revert). Adding or
+removing a node changes the snapshot's shape: rebuild it instead.
+``node_version`` reads one node's tick (-1 when absent).
+``DeepcopyClusterSnapshot`` (the reference's bench baseline) is not
+ported.
 """
 from __future__ import annotations
 
@@ -54,6 +63,10 @@ from nos_tpu_torch.partitioning.core.partition_state import (
 from nos_tpu_torch.scheduler.framework import NodeInfo
 from nos_tpu_torch.util import metrics
 from nos_tpu_torch.util import resources as res
+
+
+def _anti_affine(pods: List[Pod]) -> int:
+    return sum(1 for p in pods if p.pod_anti_affinity)
 
 
 @dataclass
@@ -113,7 +126,8 @@ class ClusterSnapshot:
         # node name → (version, sim NodeInfo); (state_version, views)
         self._sim_view_cache: Dict[str, tuple] = {}
         self._sim_infos: Optional[tuple] = None
-        self._anti: Optional[tuple] = None  # (state_version, any anti-affinity pod)
+        # (state_version, placed pods with required anti-affinity)
+        self._anti: Optional[tuple] = None
 
     # ------------------------------------------------------ fork/commit
 
@@ -173,6 +187,30 @@ class ClusterSnapshot:
     def node_count(self) -> int:
         return len(self._nodes)
 
+    def node_version(self, name: str) -> int:
+        """One node's mutation tick; -1 when absent."""
+        node = self._nodes.get(name)
+        return node.version if node is not None else -1
+
+    def refresh_node(self, name: str, replacement: SnapshotNode) -> None:
+        """Replace one node's observed state between plans: the free pool
+        takes the old → new free-slice delta, the anti-affinity count the
+        old and new pod sets, and the replacement a fresh tick."""
+        if self._journals:
+            raise RuntimeError("refresh_node during an active fork")
+        old = self._nodes.get(name)
+        if old is None:
+            raise KeyError(f"refresh_node: unknown node {name!r}")
+        before = dict(old.partitionable.free_slices())
+        anti = None
+        if self._anti is not None and self._anti[0] == self.state_version:
+            anti = (self._anti[1] - _anti_affine(old.pods) + _anti_affine(replacement.pods))
+        self._nodes[name] = replacement
+        self._apply_free_delta(before, replacement)
+        self._stamp(replacement)
+        if anti is not None:
+            self._anti = (self.state_version, anti)
+
     def get_nodes(self) -> Dict[str, SnapshotNode]:
         return self._nodes
 
@@ -222,10 +260,9 @@ class ClusterSnapshot:
         """A placed pod carries required anti-affinity: its terms refuse
         incoming pods, so every trial must see the whole cluster."""
         if self._anti is None or self._anti[0] != self.state_version:
-            found = any(p.pod_anti_affinity for node in self._nodes.values()
-                        for p in node.pods)
-            self._anti = (self.state_version, found)
-        return self._anti[1]
+            count = sum(_anti_affine(node.pods) for node in self._nodes.values())
+            self._anti = (self.state_version, count)
+        return self._anti[1] > 0
 
     def codec_resources(self, slices: Dict[str, int]) -> res.ResourceList:
         """``{profile: qty}`` as ``{resource: qty}`` in this mode's names."""

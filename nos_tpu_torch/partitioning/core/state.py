@@ -6,16 +6,16 @@ pod → node bindings, and a count of nodes per partitioning kind so a
 controller can tell cheaply whether its mode is in use. ``read_view``
 is the snapshot takers' copy-on-read path: it copies only
 the containers and shares the Node and Pod objects, which is safe
-because the state never mutates a stored object in place (an update
-replaces it whole). The port's controllers sync the whole state from
-the store each poll (``update_node`` / ``delete_node``) and snapshot
-from ``read_view``, so the reference's per-pod bookkeeping
+because no one mutates a stored object in place (an update replaces it
+whole; ``update_node`` keeps the store's objects as they are, where the
+reference deep-copies them). The port's controllers sync the whole
+state from the store each poll (``update_node`` / ``delete_node``) and
+snapshot from ``read_view``, so the reference's per-pod bookkeeping
 (``update_pod_usage``, ``delete_pod``, the bindings) and its deep-copy
 reads (``get_node`` / ``get_nodes``) have no counterpart.
 """
 from __future__ import annotations
 
-import copy
 import threading
 from typing import Dict, List
 
@@ -36,13 +36,14 @@ class ClusterState:
         self._kind_counts: Dict[str, int] = {}
 
     def update_node(self, node: Node, pods: List[Pod]) -> None:
-        """The node and the pods bound to it (pending or running)."""
+        """The node and the pods bound to it (pending or running), kept as
+        given: objects no one changes in place (a store replaces an
+        object on every write)."""
         with self._lock:
             old = self._nodes.get(node.name)
             if old is not None:
                 self._count_kind(old.node, -1)
-            self._nodes[node.name] = NodeInfo(node=copy.deepcopy(node),
-                                              pods=copy.deepcopy(list(pods)))
+            self._nodes[node.name] = NodeInfo(node=node, pods=list(pods))
             self._count_kind(node, +1)
 
     def delete_node(self, node_name: str) -> None:

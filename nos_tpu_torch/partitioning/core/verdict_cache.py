@@ -81,3 +81,10 @@ class VerdictCache:
 
     def stats(self) -> Tuple[int, int, int]:
         return (self.hits, self.misses, self.bypasses)
+
+    def reset_stats(self) -> None:
+        """Zero the ledger, keeping the entries: an incremental plan keeps
+        the still-valid ones, its counts stay its own."""
+        self.hits = 0
+        self.misses = 0
+        self.bypasses = 0

@@ -116,26 +116,31 @@ def cluster_view(state: ClusterState) -> Dict[str, Tuple[Node, List[Pod]]]:
 
 class MigSnapshotTaker:
     def __init__(self) -> None:
-        # (node, GPU, reported geometry, reported used) → the geometries
+        # node → (GPU, reported geometry, reported used) → the geometries
         # its agent refused in that state
-        self._refusals: Dict[tuple, set] = {}
-        self._seen: set = set()
+        self._refusals: Dict[str, Dict[tuple, set]] = {}
 
     def _note_refusals(self, node: Node, mig: MigNode) -> None:
         """Record the node's refusals and hand each GPU those of its
-        reported state (before the split is re-derived from pods)."""
+        reported state (before the split is re-derived from pods); a state
+        no GPU of the node reports any more takes its refusals with it."""
         refused = refused_geometries(node)
+        before = self._refusals.get(node.name, {})
+        kept: Dict[tuple, set] = {}
         for gpu in mig.gpus:
-            key = (node.name, gpu.index, frozenset(gpu.geometry.items()),
-                   frozenset(gpu.used.items()))
-            self._seen.add(key)
+            key = (gpu.index, frozenset(gpu.geometry.items()), frozenset(gpu.used.items()))
+            refusals = before.get(key, set())
             if gpu.index in refused:
-                self._refusals.setdefault(key, set()).add(
-                    frozenset(refused[gpu.index].items()))
-            gpu.refused = self._refusals.get(key, set())
+                refusals = refusals | {frozenset(refused[gpu.index].items())}
+            if refusals:
+                kept[key] = refusals
+            gpu.refused = refusals
+        self._refusals[node.name] = kept
 
     def take_snapshot_node(self, node: Node, pods: List[Pod]) -> Optional[SnapshotNode]:
-        """The node's snapshot entry, or None when it is not a MIG node."""
+        """The node's snapshot entry, or None when it is not a MIG node:
+        the constructor of both the whole take and the incremental
+        maintainer's refresh of one node."""
         if node.labels.get(PARTITIONING_LABEL) != PARTITIONING_MIG:
             return None
         mig = mig_node(node)
@@ -149,11 +154,10 @@ class MigSnapshotTaker:
 
     def take_snapshot(self, state: ClusterState) -> ClusterSnapshot:
         nodes: Dict[str, SnapshotNode] = {}
-        self._seen = set()
         for name, (node, pods) in cluster_view(state).items():
             snap_node = self.take_snapshot_node(node, pods)
             if snap_node is not None:
                 nodes[name] = snap_node
-        # a state no GPU reports any more: its refusals go with it
-        self._refusals = {k: v for k, v in self._refusals.items() if k in self._seen}
+        # a node gone: its refusals go with it
+        self._refusals = {k: v for k, v in self._refusals.items() if k in nodes}
         return ClusterSnapshot(nodes, codec=MigSliceCodec())

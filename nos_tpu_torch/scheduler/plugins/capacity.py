@@ -33,7 +33,7 @@ import math
 from typing import Dict, List, Optional, Set, Tuple
 
 from nos_tpu_torch.kube.store import NodeStore, Pod, PodPhase
-from nos_tpu_torch.scheduler.framework import CycleState, Status
+from nos_tpu_torch.scheduler.framework import CycleState, NodeInfo, Status
 from nos_tpu_torch.util import resources as res
 
 log = logging.getLogger("nos_tpu_torch.scheduler.capacity")
@@ -213,6 +213,10 @@ class CapacityScheduling:
         self._built: Optional[Tuple[int, ElasticQuotaInfos]] = None
         # the preemptor's record of the last preemption, read by the scheduler
         self.last_preemption: Optional[dict] = None
+        # (store revision, node → NodeInfo of its bound live pods): the
+        # preemptor's read-only node views, shared by every preemption of
+        # one revision
+        self.preemption_node_infos: Optional[Tuple[int, Dict[str, NodeInfo]]] = None
 
     # -------------------------------------------------------- snapshot
 

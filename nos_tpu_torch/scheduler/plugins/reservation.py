@@ -44,6 +44,7 @@ from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, RESOURC
 from nos_tpu_torch.kube.store import Node, NodeStore, NotFoundError, Pod, PodPhase
 from nos_tpu_torch.scheduler.framework import CycleState, NodeInfo, Status
 from nos_tpu_torch.scheduler.preemption import mig_slices_in
+from nos_tpu_torch.util import metrics
 from nos_tpu_torch.util import resources as res
 
 log = logging.getLogger("nos_tpu_torch.scheduler")
@@ -150,6 +151,7 @@ class BoardReservation:
             return False
         self._annotate(best[1], key)
         self.reservations_made += 1
+        metrics.BOARD_RESERVATIONS.inc()  # as the reference's :181
         log.info("scheduler: reserved %s for %s (%g memory slices need a drained GPU)",
                  best[1], key, needed)
         return True

@@ -178,10 +178,13 @@ class Preemptor:
         framework = getattr(self.plugin, "framework", None)
         if framework is None:
             return None
+        node_infos = self._node_infos()
+        if self.infos.for_namespace(pod.namespace) is None \
+                and not self._lower_priority_outside_quotas(pod.priority, node_infos):
+            return None  # no pod is eligible anywhere (the first branch of _eligible)
         best: Optional[Tuple[str, _NodeVictims]] = None
         best_key = None
         ledger = _PdbLedger(self.store)
-        node_infos = self._node_infos()
         for node_name in sorted(filtered_nodes):
             node_info = node_infos.get(node_name)
             if node_info is None:
@@ -439,12 +442,23 @@ class Preemptor:
         used = sum(mig_slices_in(res.compute_pod_request(p)) for p in trial.pods)
         return gpus * spec.memory_slices - used
 
+    def _lower_priority_outside_quotas(self, priority: int,
+                                       node_infos: Dict[str, NodeInfo]) -> bool:
+        """A bound live pod outside every quota with a priority below
+        ``priority``: the only victims of a preemptor outside every quota."""
+        return any(p.priority < priority and self.infos.for_namespace(p.namespace) is None
+                   for info in node_infos.values() for p in info.pods)
+
     def _node_infos(self) -> Dict[str, NodeInfo]:
-        """Every node with the pods bound to it, listed once a preemption
-        (the store does not change while victims are sought); read-only."""
-        infos = {node.name: NodeInfo(node=node)
+        """Every node with the pods bound to it, read-only, kept by the
+        plugin for the store's revision (the store does not change while
+        victims are sought, and every preemption of one revision sees the
+        same nodes)."""
+        memo = self.plugin.preemption_node_infos
+        if memo is not None and memo[0] == self.store.revision:
+            return memo[1]
+        by_node = self.store.pods_by_node()
+        infos = {node.name: NodeInfo(node=node, pods=list(by_node.get(node.name, ())))
                  for node in self.store.list("Node", copy=False)}
-        for p in self.store.list("Pod", copy=False):
-            if p.node in infos and p.phase in (PodPhase.PENDING, PodPhase.RUNNING):
-                infos[p.node].add_pod(p)
+        self.plugin.preemption_node_infos = (self.store.revision, infos)
         return infos

@@ -99,6 +99,25 @@ def new_framework(store: Optional[NodeStore] = None,
     return framework
 
 
+class _AssumeCache(dict):
+    """The assume cache; every write bumps ``version``."""
+
+    version = 0
+
+    def __setitem__(self, key, value) -> None:
+        self.version += 1
+        super().__setitem__(key, value)
+
+    def __delitem__(self, key) -> None:
+        self.version += 1
+        super().__delitem__(key)
+
+    def pop(self, key, *default):
+        if key in self:
+            self.version += 1
+        return super().pop(key, *default)
+
+
 @dataclass
 class CycleOutcome:
     """One cycle's decision, before its store writes."""
@@ -127,7 +146,9 @@ class Scheduler:
         self.preemptions: Deque[dict] = deque(maxlen=PREEMPTION_RECORDS)
         # the assume cache: pod key → (pod, node) of gang members waiting
         # in Permit, reserved on a node but not bound
-        self._assumed: Dict[str, Tuple[Pod, str]] = {}
+        self._assumed: Dict[str, Tuple[Pod, str]] = _AssumeCache()
+        # (store revision, assume-cache version, the cycle's node views)
+        self._infos_memo: Optional[tuple] = None
         # gang key → the times its formation timed out
         self.gang_timeouts: Dict[str, int] = {}
         # non-empty: only pods naming this scheduler are ours
@@ -313,16 +334,20 @@ class Scheduler:
                          node_statuses=dict(filtered))
 
     def _node_infos(self) -> Dict[str, NodeInfo]:
-        # read-only views: no filter changes a node or a pod
-        infos = {node.name: NodeInfo(node=node)
+        """Every node with its bound live pods and the Permit claims:
+        read-only views (no filter changes a node or a pod), memoized on
+        the store's revision and the assume cache's version."""
+        key = (self.store.revision, self._assumed.version)
+        if self._infos_memo is not None and self._infos_memo[:2] == key:
+            return self._infos_memo[2]
+        by_node = self.store.pods_by_node()
+        infos = {node.name: NodeInfo(node=node, pods=list(by_node.get(node.name, ())))
                  for node in self.store.list("Node", copy=False)}
-        for p in self.store.list("Pod", copy=False):
-            if p.node in infos and p.phase in (PodPhase.PENDING, PodPhase.RUNNING):
-                infos[p.node].add_pod(p)
-        for key, (assumed_pod, node_name) in self._assumed.items():
-            if node_name in infos and all(p.namespaced_name != key
+        for pod_key, (assumed_pod, node_name) in self._assumed.items():
+            if node_name in infos and all(p.namespaced_name != pod_key
                                           for p in infos[node_name].pods):
                 infos[node_name].add_pod(assumed_pod)
+        self._infos_memo = key + (infos,)
         return infos
 
     def handle_gang_timeouts(self) -> int:

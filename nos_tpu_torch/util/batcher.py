@@ -7,7 +7,9 @@ or the *idle window* (quiet time since the last add) has passed. The
 defaults are the reference's helm values (values.yaml:278-285): 60 s and
 10 s. The port's controllers poll, so there is no timer thread: ``poll``
 releases the batch once a window has passed on ``clock`` (injectable, so
-tests and the in-process cluster drive time themselves).
+tests and the in-process cluster drive time themselves), or at once
+after ``fire_now`` (the reference's immediate trigger: the next poll
+releases the batch, an empty one included).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ class Batcher(Generic[T]):
         self._batch: List[T] = []
         self._first_add = 0.0
         self._last_add = 0.0
+        self._fired = False
 
     def add(self, item: T) -> None:
         with self._lock:
@@ -40,6 +43,11 @@ class Batcher(Generic[T]):
                 self._first_add = now
             self._last_add = now
             self._batch.append(item)
+
+    def fire_now(self) -> None:
+        """Release the batch at the next poll, however young or empty."""
+        with self._lock:
+            self._fired = True
 
     def current_batch_size(self) -> int:
         with self._lock:
@@ -59,7 +67,8 @@ class Batcher(Generic[T]):
         """The released batch, or None while no window has passed."""
         due = self.deadline()
         with self._lock:
-            if due is None or self.clock() < due:
+            if not self._fired and (due is None or self.clock() < due):
                 return None
+            self._fired = False
             released, self._batch = self._batch, []
             return released

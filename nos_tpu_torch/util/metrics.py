@@ -4,10 +4,11 @@ Keeps what the serving engine and its telemetry use from
 ``nos_tpu/util/metrics.py``: counters, gauges and histograms as label
 families (``counter.labels(model="m")`` returns a child series), a
 get-or-create registry with text exposition, the ``SERVE_*`` families,
-the MIG agent's instance counters and the planner's plan, verdict-cache
-and snapshot counters. The reference's cardinality governor, child deletion,
-percentile windows and incremental snapshot cursors serve its control
-plane and are left out.
+the MIG agent's instance counters, the planner's plan, mode, verdict-cache,
+carve-futility and snapshot counters, the divergence replans, the drain
+reservations and the preemptions. The reference's cardinality governor,
+child deletion, percentile windows and incremental snapshot cursors
+serve its control plane and are left out.
 """
 from __future__ import annotations
 
@@ -296,6 +297,21 @@ PLAN_VERDICT_CACHE = REGISTRY.counter(
     "Planner verdict-cache lookups by outcome (event=hit|miss|bypass), flushed once "
     "per plan()",
 )
+PLAN_CARVE_FUTILITY = REGISTRY.counter(
+    "nos_tpu_plan_carve_futility_total",
+    "Carve attempts skipped because a (node version, lacking signature) memo already "
+    "proved them futile; flushed once per plan()",
+)
+PLAN_MODE = REGISTRY.counter(
+    "nos_tpu_plan_mode_total",
+    "Planner.plan() invocations by mode (mode=incremental|full|fallback): incremental "
+    "keeps the previous plan's memos still valid over a persistent base snapshot, "
+    "fallback replans from scratch but preserves the base, full consumes the snapshot",
+)
+DIVERGENCE_REPLANS = REGISTRY.counter(
+    "nos_tpu_partitioning_divergence_replans_total",
+    "Immediate replans triggered by actuation diverging from spec",
+)
 SNAPSHOT_FORKS = REGISTRY.counter(
     "nos_tpu_snapshot_forks_total", "Snapshot forks started by the planner"
 )
@@ -304,6 +320,11 @@ SNAPSHOT_COMMITS = REGISTRY.counter(
 )
 SNAPSHOT_REVERTS = REGISTRY.counter(
     "nos_tpu_snapshot_reverts_total", "Snapshot forks reverted (trial discarded)"
+)
+
+# The drain reservation (scheduler/plugins/reservation.py).
+BOARD_RESERVATIONS = REGISTRY.counter(
+    "nos_tpu_board_reservations_total", "Nodes reserved to drain for whole-GPU pods"
 )
 
 # CapacityScheduling's preemptor (scheduler/preemption.py).

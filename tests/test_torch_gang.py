@@ -291,3 +291,131 @@ def test_random_gang_arrivals_match_the_reference(monkeypatch, seed):
         both.clock.t += 1.0
         for name in created:
             both.reconcile(name)
+
+
+# ------------------------------------------------------------ fault F6
+
+MULTINODE = "nos.nebuly.com/multihost-topology"
+
+
+def pool_board(name, pool):
+    desc, advertised = board(name)
+    desc.labels = {"cloud.google.com/gke-nodepool": pool}
+    return desc, advertised
+
+
+def f6_nodes():
+    """pool-a: two free one-GPU nodes; pool-c: one free, one held by a
+    squatter. A gang's first member takes the best-scored node, ties to
+    the highest name: c0, in the pool without room for the rest."""
+    nodes = [pool_board("a0", "pool-a"), pool_board("a1", "pool-a"),
+             pool_board("c0", "pool-c"), pool_board("c1", "pool-c")]
+    squatter = PodDesc("squatter", {mig("7g.80gb"): 1}, node="c1", phase="Running")
+    return nodes, [squatter]
+
+
+def multinode_member(name, gang, size):
+    return gang_pod(name, gang, size, {mig("7g.80gb"): 1},
+                    annotations={MULTINODE: f"{size}x1"})
+
+
+def _rounds(reconcile, node_of, names, clock, rounds=3, timeout=0.5):
+    """Cycle every member, then let the gang time out; the members'
+    nodes after each round."""
+    seen = []
+    for _ in range(rounds):
+        for name in names:
+            reconcile(name)
+        seen.append([node_of(name) for name in names])
+        clock.t += timeout + 0.1
+        reconcile(names[0])  # the timeout sweep
+    return seen
+
+
+def test_f6_reference_never_forms_the_gang_and_the_port_does(monkeypatch):
+    """F6's input at small size: the reference's pin (unrepaired) puts the
+    first member on c0 after every timeout, and the gang never forms; the
+    port pins the whole gang to pool-a, which holds it, and binds it
+    there at the first try."""
+    from tests.torch_quota_cases import (
+        Clock,
+        drive_ref_time,
+        ref_reconcile,
+        ref_scheduler,
+        stores,
+    )
+    from nos_tpu_torch.scheduler import Scheduler, new_framework
+
+    nodes, pods = f6_nodes()
+    clock = Clock()
+    drive_ref_time(monkeypatch, clock)
+    jstore, tstore = stores(nodes=nodes, pods=pods, clock=clock)
+    names = ["m0", "m1"]
+    for name in names:
+        desc = multinode_member(name, "job", 2)
+        desc.created = clock.t
+        jstore.create(ref_pod(desc))
+        tstore.create(port_pod(desc))
+    jsched = ref_scheduler(jstore, gang_timeout=0.5, repair_f6=False)
+    tsched = Scheduler(tstore, new_framework(tstore, 0.5))
+    ref_rounds = _rounds(lambda n: ref_reconcile(jsched, n, "default"),
+                         lambda n: jstore.get("Pod", n, "default").spec.node_name,
+                         names, clock)
+    assert ref_rounds == [["", ""]] * 3
+    assert jsched.gang.waiting_count() == 0 or all(
+        node == "c0" for _, node in jsched.gang.waiting_members("default/job"))
+    for name in names:
+        tsched.reconcile(name, "default")
+    bound = {tstore.get("Pod", n, "default").node for n in names}
+    assert bound == {"a0", "a1"}
+    assert tsched.gang_timeouts == {}
+
+
+def test_f6_gang_no_pool_holds_still_times_out_as_a_unit(monkeypatch):
+    """A gang of three no pool holds (two nodes a pool): no pool pins it,
+    its members wait, time out as a unit and never bind."""
+    nodes = [pool_board("a0", "pool-a"), pool_board("a1", "pool-a"),
+             pool_board("c0", "pool-c"), pool_board("c1", "pool-c")]
+    both = Both(monkeypatch, nodes, gang_timeout=0.5)
+    names = ["m0", "m1", "m2"]
+    for name in names:
+        both.sched(multinode_member(name, "big", 3))
+    for _ in range(2):
+        both.clock.t += 0.6
+        for name in names:
+            both.reconcile(name)
+    assert all(both.node_of(n) == "" for n in names)
+    assert both.tsched.gang_timeouts["default/big"] >= 2
+
+
+def test_f6_input_matches_the_repaired_reference(monkeypatch):
+    """The parity side: with F6 repaired on the reference's side
+    (``RefMultihostIciFilter``), every cycle of the F6 input agrees,
+    refusals and their messages included."""
+    nodes, pods = f6_nodes()
+    both = Both(monkeypatch, nodes, pods=pods, gang_timeout=0.5)
+    for name in ("m0", "m1"):
+        both.sched(multinode_member(name, "job", 2))
+    assert {both.node_of("m0"), both.node_of("m1")} == {"a0", "a1"}
+    # a later gang of one sees c0 alone in a pool that holds it
+    got = both.sched(multinode_member("solo", "one", 1))
+    assert got.decision == "bind" and both.node_of("solo") == "c0"
+
+
+def test_f6_members_on_unlabelled_nodes_match_the_repaired_reference(monkeypatch):
+    """Mixed labelled and unlabelled nodes: once a member waits on a node
+    with no pool label, the whole-gang check is skipped on both sides
+    (that member pins nothing), so the later members go to the
+    best-scored nodes, whatever their pool, and the gang forms across
+    them, every cycle agreeing."""
+    nodes = [board("u0"), board("u1"), pool_board("a0", "pool-a"),
+             pool_board("a1", "pool-a"), pool_board("c0", "pool-c")]
+    both = Both(monkeypatch, nodes)
+    for name in ("m0", "m1"):
+        got = both.sched(multinode_member(name, "job", 3))
+        assert got.decision == "wait"
+    assert both.tsched.assumed() == {"default/m0": "u1", "default/m1": "u0"}
+    got = both.sched(multinode_member("m2", "job", 3))
+    assert got.decision == "bind"
+    assert {n: both.node_of(n) for n in ("m0", "m1", "m2")} == {
+        "m0": "u1", "m1": "u0", "m2": "c0"}

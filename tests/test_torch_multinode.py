@@ -8,7 +8,8 @@ one H100 (8 memory slices, a 7g.80gb): ``google.com/tpu: 8N`` expands to
 the smallest v5e shape, N hosts of one board each for N = 2, 4, 8, 16 and
 32 (4x4 … 16x16), and ``nvidia.com/gpu: N`` to N members of one whole
 GPU each. The cases are tests/controllers/test_multihost.py's expansion,
-idempotency, garbage-collection and filter tests, and its admission
+idempotency, garbage-collection and filter tests (the reference's filter
+with F6 repaired, ``RefMultihostIciFilter``), and its admission
 mutation against the port's admission hook (the wire webhook waits for
 the kube substrate's slice). The shape annotation is the reference's
 topology (``4x4``) and the port's ``<members>x<G>`` (``2x1``).
@@ -53,6 +54,7 @@ from tests.torch_planner_cases import (
     to_port_resource,
     to_ref_resource,
 )
+from tests.torch_quota_cases import RefMultihostIciFilter
 
 TPU = "google.com/tpu"
 GPU = "nvidia.com/gpu"
@@ -292,7 +294,7 @@ def test_members_pinned_to_first_pool():
     jstore, tstore = _pool_stores()
     for store, build in ((jstore, ref_pod), (tstore, port_pod)):
         store.create(build(_member_desc("m0", node="a1")))
-    jf, tf = jtopo.MultihostIciFilter(jstore), ttopo.MultinodeFilter(tstore)
+    jf, tf = RefMultihostIciFilter(jstore), ttopo.MultinodeFilter(tstore)
     assert _filter_both(jf, tf, jstore, tstore, _member_desc("m1"), "a1").success
     blocked = _filter_both(jf, tf, jstore, tstore, _member_desc("m1"), "b1")
     assert not blocked.success and "pinned" in blocked.message
@@ -306,7 +308,7 @@ def test_permit_reserved_members_pin_too():
     tstore.create(port_pod(m0))
     jg.permit(jfw.CycleState(), ref_pod(m0), "a1")
     tg.permit(tfw.CycleState(), port_pod(m0), "a1")
-    blocked = _filter_both(jtopo.MultihostIciFilter(jstore, jg),
+    blocked = _filter_both(RefMultihostIciFilter(jstore, jg),
                            ttopo.MultinodeFilter(tstore, tg), jstore, tstore,
                            _member_desc("m1"), "b1")
     assert not blocked.success
@@ -315,7 +317,7 @@ def test_permit_reserved_members_pin_too():
 def test_non_multinode_pods_unconstrained():
     jstore, tstore = _pool_stores()
     pod = PodDesc("plain", {"nvidia.com/mig-4g.40gb": 1})
-    assert _filter_both(jtopo.MultihostIciFilter(jstore), ttopo.MultinodeFilter(tstore),
+    assert _filter_both(RefMultihostIciFilter(jstore), ttopo.MultinodeFilter(tstore),
                         jstore, tstore, pod, "b1").success
 
 

@@ -444,7 +444,7 @@ def test_the_agents_reconfig_span_parents_on_the_actuators_link():
     assert found
 
 
-def _aging_run(monkeypatch, wall_step):
+def _aging_run(monkeypatch, wall_step, incremental=True):
     """A pod no node can serve, pending for 4 s of the cluster's clock;
     the host's monotonic clock moves ``wall_step`` seconds a read."""
     wall = [0.0]
@@ -455,7 +455,7 @@ def _aging_run(monkeypatch, wall_step):
 
     monkeypatch.setattr(tplanner.time, "monotonic", monotonic)
     monkeypatch.setattr(TRACER, "store", TraceStore(4096))
-    c = SimCluster()
+    c = SimCluster(incremental_planning=incremental)
     c.add_mig_node("aging-1", gpus=1)
     submit(c, "half", {mig("4g.40gb"): 1})
     assert c.run_until_idle(100) and running_on(c, "half")
@@ -477,9 +477,14 @@ def test_pods_age_on_the_clusters_clock_not_the_hosts(monkeypatch):
     assert ages == sorted(set(ages))  # older at every plan
     # virtual seconds, bounded by the 4 s the steps took
     assert tplanner.AGED_RESCUE_SIZE <= max(ages) < 4.0 + 1e-9
-    # past the rescue age the aged rescue tried a carve aimed at the pod
-    assert rescues > 0
     assert all(plan[2].get("default/whole") for plan in still)
+    # past the rescue age the aged rescue tried a carve aimed at the pod:
+    # seen on the cold path, where each plan starts without the futility
+    # memo (incrementally the memo keeps the carve the loop proved futile
+    # before, and skips it), which plans the same
+    cold, rescues = _aging_run(monkeypatch, 100.0, incremental=False)
+    assert cold == still
+    assert rescues > 0
 
 
 class FakeNvml:

@@ -7,8 +7,8 @@ allowed-geometry table on both sides; an 80 GB shared chip ↔ an H100
 under MPS) go through both planners, and the port's PartitioningState,
 last_unserved (reasons with the resource names translated) and
 simulated placements must equal the reference's, with the verdict cache
-on and off (and the reference's carve-futility memo on and off: neither
-may change a plan). Both planners see one monotonic instant
+on and off, and the carve-futility memo on and off on both sides
+(neither may change a plan; with it on, both skip the same trials). Both planners see one monotonic instant
 (``time.monotonic`` patched), so their fairness ages agree to the bit.
 The snapshot's fork / commit / revert journal, its free pool and node
 versions, the tracker and the snapshot takers are held the same way.
@@ -316,11 +316,13 @@ def plan_both(nodes, pending, framework="basic", ages=None, cache=True, futility
                     else snapshots(nodes, running, generic=False))
     jframe, tframe = frameworks(framework)
     jplanner = RefPlanner(jframe, verdict_cache_enabled=cache, futility_memo_enabled=futility)
-    tplanner = Planner(tframe, verdict_cache_enabled=cache)
+    tplanner = Planner(tframe, verdict_cache_enabled=cache, futility_memo_enabled=futility)
     jpods, tpods = [ref_pod(p) for p in pending], [port_pod(p) for p in pending]
     jstate = jplanner.plan(jsnap, jpods, pending_ages=ages)
     tstate = tplanner.plan(tsnap, tpods, pending_ages=ages)
     assert port_state(tstate) == ref_state(jstate)
+    # the same futile carves skipped
+    assert tplanner._futility_hits == jplanner._futility_hits
     assert tplanner.last_unserved == expected_unserved(jplanner)
     assert placements(tsnap) == placements(jsnap)
     assert_plan_invariants(tplanner, tsnap, tpods, jplanner.passed)

@@ -83,6 +83,8 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/scheduler/plugins/gang.py", "nos_tpu_torch/scheduler/plugins/reservation.py",
         "nos_tpu_torch/scheduler/plugins/topology.py",
         "nos_tpu_torch/controllers/partitioner/multinode.py",
+        "nos_tpu_torch/controllers/partitioner/incremental.py",
+        "nos_tpu_torch/bench_control_plane.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -93,7 +95,10 @@ def test_no_port_file_imports_jax_or_the_reference():
 
 
 CONTROL_PLANE = ("api", "kube", "scheduler", "controllers", "partitioning/core",
-                 "util/resources.py", "util/pod.py", "util/batcher.py", "cluster.py")
+                 "util/resources.py", "util/pod.py", "util/batcher.py", "cluster.py",
+                 "bench_control_plane.py", "partitioning/mig.py", "partitioning/mps.py",
+                 "partitioning/bench_planner.py", "device/sim.py", "device/sharing.py",
+                 "util/metrics.py")
 
 
 def test_control_plane_imports_no_torch():
@@ -107,7 +112,10 @@ def test_control_plane_imports_no_torch():
             "controllers/elasticquota/controller.py", "controllers/elasticquota/webhooks.py",
             "api/v1alpha1/elasticquota.py", "util/pod.py", "cluster.py",
             "scheduler/plugins/gang.py", "scheduler/plugins/reservation.py",
-            "scheduler/plugins/topology.py", "controllers/partitioner/multinode.py"} <= names
+            "scheduler/plugins/topology.py", "controllers/partitioner/multinode.py",
+            "bench_control_plane.py", "controllers/partitioner/incremental.py",
+            "controllers/migagent/shared.py", "partitioning/bench_planner.py",
+            "util/metrics.py"} <= names
     bad = [f"{p.relative_to(ROOT)}: {mod}" for p in files for mod in _imports(p)
            if mod == "torch" or mod.startswith("torch.")]
     assert not bad, bad
@@ -134,6 +142,8 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.examples.preempt_resume, nos_tpu_torch.slo.routing\n"
         "import nos_tpu_torch.cluster, nos_tpu_torch.scheduler.preemption\n"
         "import nos_tpu_torch.controllers.elasticquota, nos_tpu_torch.api\n"
+        "import nos_tpu_torch.bench_control_plane\n"
+        "import nos_tpu_torch.controllers.partitioner.incremental\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'nos_tpu', 'transformers', 'grpc') or m.startswith('google.protobuf'))\n"
         "print(bad)\n"

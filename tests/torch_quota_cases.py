@@ -200,19 +200,87 @@ class RefReservation(JReservation):
         super()._annotate(node_name, holder)
 
 
-def ref_scheduler(jstore, gang_timeout=30.0):
+class RefMultihostIciFilter(MultihostIciFilter):
+    """The reference's multi-host pin with the port's repair of F6: while
+    no member of the gang is bound or waiting in Permit, a member may only
+    take a node in a pool whose nodes can hold every unplaced member now
+    (first fit, each request against a node's available resources; the
+    members not created yet count as the pod), and is not pinned when no
+    pool can. The nodes are the cycle's published view, else the
+    store's. A refusal carries the port's message."""
+
+    def filter(self, state, pod, node_info):
+        from nos_tpu.controllers.partitioner.multihost import MULTIHOST_TOPOLOGY_ANNOTATION
+        from nos_tpu.scheduler.plugins.gang import GANG_NAME_LABEL as REF_GANG_LABEL
+        from nos_tpu.scheduler.plugins.gang import gang_of as ref_gang_of
+        from nos_tpu.scheduler.plugins.topology import GKE_NODEPOOL_LABEL
+        from nos_tpu.util import resources as jres
+
+        status = super().filter(state, pod, node_info)
+        gang = ref_gang_of(pod)
+        if (not status.success or gang is None
+                or not pod.metadata.annotations.get(MULTIHOST_TOPOLOGY_ANNOTATION)):
+            return status
+        key, size = gang
+        ns, name = key.split("/", 1)
+        waiting = self.gang.waiting_members(key) if self.gang is not None else []
+        members = [p for p in self.store.list("Pod", namespace=ns)
+                   if p.metadata.labels.get(REF_GANG_LABEL) == name
+                   and p.status.phase in ("Pending", "Running")]
+        if waiting or any(p.spec.node_name for p in members):
+            return status  # pinned (or unpinned) by its placed members, as before
+        waiting_keys = {p.namespaced_name for p, _ in waiting}
+        unplaced = [jres.compute_pod_request(p) for p in members
+                    if not p.spec.node_name and p.namespaced_name not in waiting_keys
+                    and p.namespaced_name != pod.namespaced_name]
+        created = any(p.namespaced_name == pod.namespaced_name for p in members)
+        unplaced += [jres.compute_pod_request(pod)] * max(
+            1, size - len(members) + (1 if created else 0))
+        infos = state.get(jfw.TOPOLOGY_NODE_INFOS_KEY)
+        if infos is None:
+            by_name = {n.metadata.name: jfw.NodeInfo(node=n) for n in self.store.list("Node")}
+            for p in self.store.list("Pod"):
+                if p.spec.node_name in by_name and p.status.phase in ("Pending", "Running"):
+                    by_name[p.spec.node_name].add_pod(p)
+            infos = list(by_name.values())
+        frees = {}
+        for info in infos:
+            if info.node.spec.unschedulable:
+                continue
+            frees.setdefault(info.node.metadata.labels.get(GKE_NODEPOOL_LABEL, ""),
+                             []).append(dict(info.available()))
+        holding = set()
+        for pool, rooms in frees.items():
+            for want in unplaced:
+                room = next((r for r in rooms
+                             if all(r.get(k, 0) >= v for k, v in want.items())), None)
+                if room is None:
+                    break
+                for k, v in want.items():
+                    room[k] = room.get(k, 0) - v
+            else:
+                holding.add(pool)
+        pool = node_info.node.metadata.labels.get(GKE_NODEPOOL_LABEL, "")
+        if not holding or pool in holding:
+            return status
+        return jfw.Status.unschedulable(
+            f"multi-node gang fits whole only in node pools {sorted(holding)}", self.name)
+
+
+def ref_scheduler(jstore, gang_timeout=30.0, repair_f6=True):
     """The reference's scheduler wired as its ``new_framework`` wires it
     (CapacityScheduling, the vanilla filters, the multi-host pin, the
     board reservation, gangs in Permit, the topology, taint, spread and
     grace scores), the quotas counted at 10 GB a chip, with F5 repaired
-    (``RefReservation``)."""
+    (``RefReservation``) and, unless ``repair_f6`` is False, F6
+    (``RefMultihostIciFilter``)."""
     capacity = JCapacity(jstore, chip_memory_gb=CHIP_MEMORY_GB)
     gang = JGang(jstore, wait_timeout_seconds=gang_timeout)
     reservation = RefReservation(jstore)
+    pin = (RefMultihostIciFilter if repair_f6 else MultihostIciFilter)(jstore, gang)
     framework = jfw.Framework(
         pre_filter_plugins=[capacity],
-        filter_plugins=jfw.vanilla_filter_plugins() + [MultihostIciFilter(jstore, gang),
-                                                       reservation],
+        filter_plugins=jfw.vanilla_filter_plugins() + [pin, reservation],
         post_filter_plugins=[capacity], reserve_plugins=[capacity], permit_plugins=[gang],
         score_plugins=[IciTopologyScoring(jstore), jfw.TaintTolerationScoring(),
                        jfw.PodTopologySpreadScoring(), JGrace()])
@@ -406,4 +474,5 @@ __all__ = ["CHIP_MEMORY_GB", "GB", "NodeDesc", "PdbDesc", "PlainNode", "PodDesc"
            "pod_view", "port_pdb", "port_pod", "port_quota", "ref_cycle", "ref_pdb",
            "ref_pod", "ref_quota", "ref_reconcile", "ref_scheduler", "reservations",
            "stores", "to_port", "to_ref", "Both", "Clock", "RefReservation", "drive_ref_time",
+           "RefMultihostIciFilter",
            "gang_pod"]
