@@ -103,6 +103,23 @@ Phases, each fatal on failure (exit code != 0):
     gang forms, every churn turn converges and SimCluster.check() holds
     after each phase; prints every key, the time keys on the cluster's
     virtual clock, each phase's wall seconds beside the card;
+1h. pools: pool-sharded planning (pools_phase) on a SimCluster of 289
+    H100s: 4 pools of 8 MIG nodes of 8, a fifth pool of 4 MPS nodes of 8
+    and the card's own MIG node, three quotas with min = max. Wave 1
+    (300 jobs of the quota mix pinned round-robin by node selector, a
+    16-GPU gang pinned to one pool) runs unsharded, sharded on the
+    serial backend and sharded on worker processes (one worker killed
+    after the first plan); wave 2 adds one unpinned pod, which merges
+    every pool; wave 3 restarts a controller from the warm-state file
+    beside a cold one. Fails unless the serial and process runs end
+    alike (placements, geometries, unserved reasons), each equals the
+    unsharded run wherever the draw decomposed at every plan,
+    check_gangs() holds at every step and check() at the end, the
+    killed pool's next plan escalated and the one after ran on a
+    respawned worker, wave 2 merged the pools, and the restart adopted
+    and planned as the cold start; prints pools a plan, pool and merge
+    ms, each worker's start-to-bootstrapped s, whether torch was in a
+    worker, frame bytes a plan, adopted entries, each run's steps and s;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
@@ -5086,6 +5103,350 @@ def control_bench_phase(card) -> dict:
     return row
 
 
+POOLS_POOLS = 4            # MIG node pools of POOLS_POOL_NODES nodes, 8 H100s each
+POOLS_POOL_NODES = 8
+POOLS_MPS_NODES = 4        # 8 H100s each, in the fifth pool with the card's own node
+POOLS_JOBS = 300           # single-pod jobs of the quota mix, pinned round-robin
+POOLS_COUNTS = (1, 2, 4)   # slices a job asks for: more than the fleet holds, so pods wait
+POOLS_GANG = 16            # GPUs of the gang inside one pool
+POOLS_SHARES = {"team-a": 0.4, "team-b": 0.3, "team-c": 0.3}  # quota min = max, of the fleet
+POOLS_MAX_STEPS = 1500
+POOLS_SEED = 19
+POOLS_KILLED = "pool-1"    # the pool whose worker the process run kills after its first plan
+
+
+def pools_world(card_nvml, **sharding):
+    """The pools phase's SimCluster: 4 pools of 8 MIG nodes, a fifth of
+    4 MPS nodes and the card's own MIG node, three quotas with min = max."""
+    from nos_tpu_torch.api.v1alpha1 import RESOURCE_GPU_MEMORY
+    from nos_tpu_torch.cluster import SimCluster
+    from nos_tpu_torch.gpu.node import RESOURCE_GPU
+    from nos_tpu_torch.util import resources as res
+
+    cluster = SimCluster(gang_timeout_seconds=GANG_TIMEOUT_S, **sharding)
+    last = f"pool-{POOLS_POOLS}"
+    cluster.add_mig_node("mig-card", nvml=card_nvml, pool=last)
+    for p in range(POOLS_POOLS):
+        for i in range(POOLS_POOL_NODES):
+            cluster.add_mig_node(f"mig-{p}-{i}", gpus=8, pool=f"pool-{p}")
+    for i in range(POOLS_MPS_NODES):
+        cluster.add_mps_node(f"mps-{i}", gpus=8, pool=last)
+    gpus = sum(n.capacity[RESOURCE_GPU] for n in cluster.store.list("Node"))
+    fleet_gb = gpus * res.DEFAULT_GPU_MEMORY_GB
+    for ns, share in POOLS_SHARES.items():
+        bound = {RESOURCE_GPU_MEMORY: int(share * fleet_gb)}
+        cluster.add_quota(ns, bound, max=dict(bound))
+    return cluster, gpus
+
+
+def pools_wave1(cluster) -> None:
+    """POOLS_JOBS jobs of the quota mix, seeded, each pinned by its node
+    selector: MIG jobs round-robin over the MIG pools, MPS jobs to the
+    fifth pool; and one POOLS_GANG-GPU job pinned to pool-2."""
+    import random
+
+    from nos_tpu_torch.gpu.node import RESOURCE_GPU, mig_resource, mps_resource
+    from nos_tpu_torch.kube.store import Pod
+    from nos_tpu_torch.scheduler.plugins.topology import NODEPOOL_LABEL
+
+    rng = random.Random(POOLS_SEED)
+    mix = ([mig_resource(p) for p in ("1g.10gb", "2g.20gb", "3g.40gb", "4g.40gb", "7g.80gb")]
+           + [mps_resource(p) for p in ("10gb", "20gb")])
+    mig_jobs = 0
+    for i in range(POOLS_JOBS):
+        resource = rng.choice(mix)
+        if resource.startswith("nvidia.com/mig-"):
+            pool, mig_jobs = f"pool-{mig_jobs % POOLS_POOLS}", mig_jobs + 1
+        else:
+            pool = f"pool-{POOLS_POOLS}"
+        cluster.store.create(Pod(f"job-{i:03d}", rng.choice(sorted(POOLS_SHARES)),
+                                 request={resource: rng.choice(POOLS_COUNTS)},
+                                 node_selector={NODEPOOL_LABEL: pool}))
+    cluster.store.create(Pod("gang-16", "team-a", request={RESOURCE_GPU: POOLS_GANG},
+                             node_selector={NODEPOOL_LABEL: "pool-2"}))
+
+
+def pools_outcome(cluster) -> tuple:
+    """What two runs must agree on: each pod's node and phase, each MIG
+    node's spec geometry and the MPS plugin's config maps, and each
+    pending pod's reason."""
+    from nos_tpu_torch.gpu import annotations as annot
+
+    pods = {p.namespaced_name: (p.node, p.phase) for p in cluster.store.list("Pod", copy=False)}
+    geometry = {n.name: sorted((k, v) for k, v in n.annotations.items()
+                               if k.startswith(annot.PREFIX + "spec-gpu-"))
+                for n in cluster.store.list("Node", copy=False)}
+    geometry.update({f"configmap/{c.name}": sorted(c.data.items())
+                     for c in cluster.store.list("ConfigMap", copy=False)})
+    pending = {k for k, (node, phase) in pods.items() if not node and phase == "Pending"}
+    return pods, geometry, {k: v for k, v in cluster.unserved().items() if k in pending}
+
+
+def pools_run(card_nvml, backend: str, on_plan=None, **sharding) -> dict:
+    """Wave 1 on a fresh world: every step held to check_gangs(); every
+    sharded plan asked whether the draw decomposes, and held against
+    fresh unsharded planners on the same base and ages. ``pool_equal``:
+    for each pool whose pods' draw decomposes, whether an unsharded plan
+    of the whole cluster for that pool's pending pods alone gives the
+    pool's nodes the sharded plan's partitioning and leaves every other
+    node as it is, with the nodes the pool's plan carved. ``unsharded_equal``:
+    at each plan whose whole draw decomposes, whether the unsharded plan
+    of every pending pod equals the merged plan (the reference's claim,
+    which F7 breaks: reported, not held). The run's cluster, outcome,
+    steps and wall seconds."""
+    from nos_tpu_torch.partitioning.core import Planner
+    from nos_tpu_torch.partitioning.core import pools as pool_plans
+    from nos_tpu_torch.partitioning.core.partition_state import partitioning_state_to_dict
+    from nos_tpu_torch.partitioning.core.planner import sort_candidate_pods
+
+    t0 = time.time()
+    cluster, gpus = pools_world(card_nvml, pool_sharding=backend != "unsharded",
+                                pool_backend=backend if backend != "unsharded" else "",
+                                **sharding)
+    decomposes, unsharded_equal, pool_equal = [], [], []
+    for controller in cluster.controllers:
+        plan_sharded = controller._plan_sharded
+
+        def traced(pending, shard, controller=controller, plan_sharded=plan_sharded):
+            out = plan_sharded(pending, shard)
+            now = cluster.clock()
+            ages = dict(controller.last_pending_ages)
+            since = {k: now - age for k, age in ages.items()}
+            order = sort_candidate_pods(pending, pending_since=since, now=now)
+            decomposes.append(pool_plans.draw_decomposes(shard[0], shard[2], order))
+            base, partition = shard[0], shard[2]
+            current, merged = (partitioning_state_to_dict(state) for state in out[:2])
+
+            def unsharded(pods):
+                # a full plan on a fork of the base, which it leaves as it was
+                return partitioning_state_to_dict(Planner(
+                    controller.planner.framework, clock=cluster.clock).plan(
+                        base, pods, pending_ages=ages, dirty=set(base.get_nodes())))
+
+            if decomposes[-1]:
+                unsharded_equal.append(unsharded(pending) == merged)
+            for pool, pods in sorted(pool_plans.split_pending(pending, partition).items()):
+                if not pods or not pool_plans.draw_decomposes(
+                        base, partition, sort_candidate_pods(pods, pending_since=since, now=now)):
+                    continue
+                alone = unsharded(pods)
+                mine = {n for n, p in partition.node_pool.items() if p == pool}
+                pool_equal.append((
+                    all(alone[n] == (merged if n in mine else current)[n] for n in alone),
+                    sum(merged[n] != current[n] for n in mine)))
+            return out
+
+        controller._plan_sharded = traced
+    gang_ok = []
+
+    def on_step():
+        gang_ok.append(all(cluster.check_gangs().values()))
+        if on_plan is not None:
+            on_plan(cluster)
+
+    pools_wave1(cluster)
+    idle = cluster.run_until_idle(POOLS_MAX_STEPS, on_step=on_step)
+    return {"cluster": cluster, "gpus": gpus, "idle": idle, "outcome": pools_outcome(cluster),
+            "decomposes": list(decomposes), "unsharded_equal": list(unsharded_equal),
+            "pool_equal": list(pool_equal),
+            "gangs_every_step": all(gang_ok),
+            "steps": cluster.steps, "seconds": time.time() - t0}
+
+
+def pools_phase(card, nvml=None) -> dict:
+    """Pool-sharded planning on a SimCluster of 289 H100s: 4 pools of 8
+    MIG nodes of 8, a fifth pool of 4 MPS nodes of 8 and the card's own
+    MIG node, three quotas with min = max (none couples pools). Wave 1
+    (POOLS_JOBS jobs of the quota mix pinned round-robin by node selector,
+    a 16-GPU gang pinned to one pool) runs three times from one seed:
+    unsharded, sharded on the serial backend (with a warm-state file), and
+    sharded on the process backend, whose worker of POOLS_KILLED is killed
+    after its first plan. Wave 2, on the serial run: one pod with no
+    selector merges every pool into one. Wave 3: a fresh controller on
+    the same store restarts from the warm-state file, beside a cold one.
+    Fails unless the serial and process runs end with the same
+    placements, geometries and unserved reasons; at every sharded plan,
+    each pool whose pods' draw decomposes plans what an unsharded planner
+    plans for that pool's pods alone on the same base (at least one such
+    pool plan of each run carved nodes; the whole plan against the
+    unsharded plan of every pod is reported, F7);
+    check_gangs() holds at every step and check() at the end of each run;
+    the process run planned every pool on its workers at every plan but
+    the one after the kill (escalated in the parent), and the plan after
+    that on a respawned worker; wave 2 merged the pools; the restart
+    adopted (adopted or partial) and its first plan equals the cold
+    one's."""
+    import shutil
+    import signal
+    import statistics
+    import tempfile
+
+    from nos_tpu_torch.controllers.partitioner import PartitionerController
+    from nos_tpu_torch.gpu.node import PARTITIONING_MIG
+    from nos_tpu_torch.kube.store import Pod
+    from nos_tpu_torch.partitioning.core import ClusterState, Planner
+    from nos_tpu_torch.partitioning.core.codec import is_mig_resource
+    from nos_tpu_torch.partitioning.core.partition_state import partitioning_state_to_dict
+    from nos_tpu_torch.partitioning.mig import MigSnapshotTaker
+    from nos_tpu_torch.controllers.partitioner import build_sim_framework
+
+    if nvml is None:
+        from nos_tpu_torch.device.nvml import Nvml
+
+        with Nvml() as nv:
+            return pools_phase(card, nvml=nv)
+    from nos_tpu_torch.partitioning.core.procpool import start_fork_server
+
+    t0 = time.time()
+    # the fork server imports the package (torch with it, seconds) while
+    # the unsharded and serial runs plan
+    start_fork_server()
+    warm_dir = tempfile.mkdtemp(prefix="nos-warm-")
+    runs = {}
+    killed = []
+    try:
+        runs["unsharded"] = pools_run(nvml, "unsharded")
+        runs["serial"] = pools_run(nvml, "serial", warm_state_path=warm_dir,
+                                   warm_state_save_interval_seconds=0.0)
+
+        def kill_after_first_plan(cluster):
+            workers = cluster.mig._worker_pool
+            if cluster.mig.plans_processed == 1 and not killed and workers is not None:
+                pid = workers.pids()[POOLS_KILLED]
+                os.kill(pid, signal.SIGKILL)
+                killed.append(pid)
+
+        runs["process"] = pools_run(nvml, "process", on_plan=kill_after_first_plan,
+                                    pool_cycle_timeout_seconds=60.0)
+        process = runs["process"]["cluster"]
+        workers = process.mig._worker_pool
+        ready = list(workers.ready) + list(process.mps._worker_pool.ready
+                                           if process.mps._worker_pool else [])
+        process.close()
+
+        # wave 2: one pod with no selector merges every pool
+        serial = runs["serial"]["cluster"]
+        serial.store.create(Pod("unpinned", "team-b", request={"nvidia.com/mig-7g.80gb": 1}))
+        plans_before = serial.mig.plans_processed
+        wave2_idle = serial.run_until_idle(POOLS_MAX_STEPS)
+        merged = [r for r in list(serial.mig.plans)[-(serial.mig.plans_processed
+                                                      - plans_before):]
+                  if len(r.get("pools", ())) == 1] if serial.mig.plans_processed > plans_before \
+            else []
+        partition = serial.mig.last_partition
+        wave2 = {"idle": wave2_idle, "plans": serial.mig.plans_processed - plans_before,
+                 "merged_plans": len(merged),
+                 "merged_from": dict(partition.merged_from) if merged else {}}
+
+        # wave 3: a restart from the warm-state file, beside a cold start
+        class Recording:
+            def __init__(self):
+                self.plans = []
+
+            def apply(self, current, plan):
+                self.plans.append(plan)
+                return 0
+
+        def restarted(path):
+            actuator = Recording()
+            controller = PartitionerController(
+                serial.store, ClusterState(), MigSnapshotTaker(),
+                Planner(build_sim_framework(serial.store), clock=serial.clock), actuator,
+                PARTITIONING_MIG, is_mig_resource, clock=serial.clock, pool_sharding=True,
+                warm_state_path=path)
+            controller.sync()
+            t = time.perf_counter()
+            controller.process_pending_pods()
+            return controller, actuator.plans, (time.perf_counter() - t) * 1e3
+
+        # cold first: the first restart in a process pays one-time costs
+        cold, cold_plans, cold_ms = restarted("")
+        warm, warm_plans, warm_ms = restarted(os.path.join(warm_dir, "warm-state-mig.json"))
+    finally:
+        shutil.rmtree(warm_dir, ignore_errors=True)
+    same_first_plan = bool(warm_plans) and bool(cold_plans) and (
+        partitioning_state_to_dict(warm_plans[0].desired_state)
+        == partitioning_state_to_dict(cold_plans[0].desired_state)
+        and warm.last_unserved == cold.last_unserved)
+
+    def records(run):
+        return [r for c in run["cluster"].controllers for r in c.plans if "pools" in r]
+
+    process_backends = [r["backends"] for r in runs["process"]["cluster"].mig.plans]
+    escalated_at = [i for i, b in enumerate(process_backends) if "escalated" in b.values()]
+    pool_ms = [ms for run in ("serial", "process") for r in records(runs[run])
+               for ms in r["pool_ms"].values()]
+    merge_ms = [r["merge_ms"] for run in ("serial", "process") for r in records(runs[run])]
+    frames = [r["frame_bytes"] for r in records(runs["process"]) if "frame_bytes" in r]
+
+    def quantiles(values):
+        if not values:
+            return None
+        cut = statistics.quantiles(values, n=20) if len(values) > 1 else values * 2
+        return {"p50": statistics.median(values), "p95": cut[-1]}
+
+    every_plan_decomposes = all(all(runs[r]["decomposes"]) for r in ("serial", "process"))
+    checks = {
+        "serial_equals_process": runs["serial"]["outcome"] == runs["process"]["outcome"],
+        # pool by pool at every plan; it cannot pass without comparing
+        # a pool's plan that carved
+        "pools_equal_unsharded_where_decomposing": all(
+            all(equal for equal, _ in runs[r]["pool_equal"])
+            and any(carved for _, carved in runs[r]["pool_equal"])
+            for r in ("serial", "process")),
+        "gang_invariants_every_step": all(runs[r]["gangs_every_step"] for r in runs),
+        "runs_idle": all(runs[r]["idle"] for r in runs),
+        "check_holds": all(all(runs[r]["cluster"].check().values())
+                           for r in ("serial", "process")),
+        "process_backend_every_plan_but_the_killed": (
+            bool(killed) and escalated_at == [1]
+            and process_backends[1][POOLS_KILLED] == "escalated"
+            and all(set(b.values()) == {"process"}
+                    for i, b in enumerate(process_backends) if i != 1)
+            and len(process_backends) > 2),
+        "wave2_merged_every_pool": wave2["idle"] and bool(wave2["merged_from"]),
+        "restart_adopted": (warm.last_warm_boot or {}).get("outcome") in ("adopted", "partial"),
+        "restart_plan_equals_cold": same_first_plan,
+    }
+    row = {"phase": "pools", "gpus": runs["serial"]["gpus"], "host_cpus": os.cpu_count(),
+           "pools_a_plan": sorted({len(r["pools"]) for r in records(runs["serial"])}),
+           "pool_plan_ms": quantiles(pool_ms), "merge_ms": quantiles(merge_ms),
+           "worker_ready_s": [round(s, 3) for s, _ in ready],
+           "torch_in_worker": all(loaded for _, loaded in ready) if ready else None,
+           "frame_bytes_a_plan": quantiles(frames),
+           "draw_decomposes_every_plan": every_plan_decomposes,
+           "decomposing_plans": {r: f"{sum(runs[r]['decomposes'])}/{len(runs[r]['decomposes'])}"
+                                 for r in ("serial", "process")},
+           "pool_plans_equal_to_unsharded": {
+               r: f"{sum(e for e, _ in runs[r]['pool_equal'])}/{len(runs[r]['pool_equal'])}"
+               for r in ("serial", "process")},
+           "pool_plans_compared_carving": {
+               r: sum(1 for _, carved in runs[r]["pool_equal"] if carved)
+               for r in ("serial", "process")},
+           "plans_equal_to_unsharded_f7": {
+               r: f"{sum(runs[r]['unsharded_equal'])}/{len(runs[r]['unsharded_equal'])}"
+               for r in ("serial", "process")},
+           "unsharded_unserved_without_reason": sum(
+               1 for p in runs["unsharded"]["cluster"].store.list("Pod", copy=False)
+               if p.phase == "Pending" and not p.node
+               and p.namespaced_name not in runs["unsharded"]["outcome"][2]),
+           "unserved": {r: len(runs[r]["outcome"][2]) for r in runs},
+           "running": {r: sum(ph == "Running" for _, ph in runs[r]["outcome"][0].values())
+                       for r in runs},
+           "process_backends": process_backends[:4], "killed_pool": POOLS_KILLED,
+           "wave2": wave2, "restart": warm.last_warm_boot,
+           "restart_plan_ms": {"warm": warm_ms, "cold": cold_ms},
+           "runs": {r: {"steps": runs[r]["steps"], "seconds": runs[r]["seconds"]}
+                    for r in runs}}
+    for run in runs.values():
+        run["cluster"].close()
+    row.update(checks=checks, ok=all(checks.values()), seconds=time.time() - t0, card=card)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"pools failed: {checks}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -5126,6 +5487,7 @@ def main() -> int:
     quota_phase(card)
     gang_phase(card)
     control_bench_phase(card)
+    pools_phase(card)
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa

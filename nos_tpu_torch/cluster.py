@@ -35,16 +35,24 @@ The store's clock is the cluster's, so pods' creation times, the gang
 timeouts and the drain reservations are virtual too. A MIG node's
 product and GPU count come from NVML when the caller passes an ``Nvml``
 (the card's own identity; its instances stay on the sim pool), else
-from the caller's arguments; ``pool`` puts a MIG node in a node pool
+from the caller's arguments; ``pool`` puts a node in a node pool
 (the ``cloud.google.com/gke-nodepool`` label), and every node carries
 ``kubernetes.io/hostname``. ``check()`` holds the idle cluster to the
 loop's invariants, the quotas' three and the gangs' five
 (``check_gangs``, which hold at every step).
+
+``pool_sharding``, ``pool_backend`` and ``warm_state_path`` (all off by
+default) go to both controllers (``PartitionerController``'s sharded
+path): with a warm-state path, a directory, each mode saves to its own
+file there (``warm-state-mig.json``, ``warm-state-mps.json``); the
+save interval runs on the cluster's clock. ``close()`` stops the pool
+workers of the process backend.
 """
 from __future__ import annotations
 
 import itertools
 import logging
+import os
 from typing import Callable, Dict, List, Optional
 
 from nos_tpu_torch.api.v1alpha1.elasticquota import (
@@ -191,7 +199,10 @@ def _add_demand(into: Dict[str, int], demand: Dict[str, int]) -> None:
 
 class SimCluster:
     def __init__(self, config_map_name: str = DEFAULT_CONFIG_MAP,
-                 gang_timeout_seconds: float = 30.0, incremental_planning: bool = True) -> None:
+                 gang_timeout_seconds: float = 30.0, incremental_planning: bool = True,
+                 pool_sharding: bool = False, pool_backend: str = "",
+                 warm_state_path: str = "", pool_cycle_timeout_seconds: float = 5.0,
+                 warm_state_save_interval_seconds: float = 30.0) -> None:
         self.now = 0.0
         self.store = NodeStore(clock=self.clock)
         register_elasticquota_webhooks(self.store)
@@ -207,6 +218,15 @@ class SimCluster:
             return f"plan-{next(plan_ids)}"
 
         clock = self.clock
+
+        def sharding(kind: str) -> dict:
+            return {"incremental_planning": incremental_planning,
+                    "pool_sharding": pool_sharding, "pool_backend": pool_backend,
+                    "pool_cycle_timeout_seconds": pool_cycle_timeout_seconds,
+                    "warm_state_path": (os.path.join(warm_state_path, f"warm-state-{kind}.json")
+                                        if warm_state_path else ""),
+                    "warm_state_save_interval_seconds": warm_state_save_interval_seconds}
+
         mig_partitioner = MigPartitioner(self.store)
         self.mig = PartitionerController(
             self.store, ClusterState(), MigSnapshotTaker(),
@@ -214,13 +234,13 @@ class SimCluster:
             PARTITIONING_MIG,
             is_mig_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
             initializer=MigNodeInitializer(mig_partitioner, plan_id), clock=clock,
-            incremental_planning=incremental_planning)
+            **sharding(PARTITIONING_MIG))
         self.mps = PartitionerController(
             self.store, ClusterState(), MpsSnapshotTaker(),
             Planner(build_sim_framework(self.store), clock=clock),
             Actuator(MpsPartitioner(self.store, config_map_name)),
             PARTITIONING_MPS, is_mps_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
-            clock=clock, incremental_planning=incremental_planning)
+            clock=clock, **sharding(PARTITIONING_MPS))
         self.controllers = (self.mig, self.mps)
         self.mps_plugin = SimSharedDevicePlugin(self.store, config_map_name)
         self.agents: Dict[str, MigAgent] = {}
@@ -229,6 +249,11 @@ class SimCluster:
 
     def clock(self) -> float:
         return self.now
+
+    def close(self) -> None:
+        """Stop the controllers' pool workers."""
+        for controller in self.controllers:
+            controller.close()
 
     # ------------------------------------------------------------ nodes
 
@@ -248,9 +273,11 @@ class SimCluster:
                                            SimDevicePlugin(self.store, self.pool))
         return node
 
-    def add_mps_node(self, name: str, gpus: int = 8, product: str = H100_80GB) -> Node:
-        """An MPS node, its device plugin's sim and its reporter."""
-        node = self._create_node(name, gpus, product, PARTITIONING_MPS)
+    def add_mps_node(self, name: str, gpus: int = 8, product: str = H100_80GB,
+                     pool: Optional[str] = None) -> Node:
+        """An MPS node, its device plugin's sim and its reporter; ``pool``
+        names its node pool."""
+        node = self._create_node(name, gpus, product, PARTITIONING_MPS, pool)
         self.mps_reporters[name] = MpsReporter(
             self.store, SharedSliceClient(self.store, self.config_map_name), name)
         return node
@@ -346,7 +373,7 @@ class SimCluster:
         among them)."""
         out: Dict[str, str] = {}
         for c in self.controllers:
-            out.update(c.planner.last_unserved)
+            out.update(c.last_unserved)
         infos = build_quota_infos(self.store)
         waiting = self.scheduler.assumed()
         for pod in self.store.list("Pod"):

@@ -31,8 +31,19 @@ free pool and the anti-affinity count exact and stamps a fresh tick. A
 refresh of an unchanged node is harmless. ``snapshot()`` returns
 ``(base, dirty)``; a rebuild reports every node dirty, and the planner
 maps a new snapshot object or too large a dirty set to its fallback on
-its own. ``PoolShardedMaintainer`` waits for a later slice (ROADMAP.md,
-item 16b).
+its own.
+
+``PoolShardedMaintainer`` (``:267-363``) layers one persistent snapshot
+a pool (``partitioning/core/pools.py``) over the inner maintainer's
+base: each cycle the partition is recomputed from the base, the pending
+pods and the quotas' bounds through a selector index kept node by node.
+While every node keeps its pool, a dirty node's fresh state is cloned
+into its own pool's snapshot (``refresh_node``) and no other pool
+notices; a no-op cycle keeps every pool snapshot as it is. Any change of
+``node_pool`` (a gang now spanning two pools, a relabelled node, an
+unpinned pod merging everything), a new base, or ``force_rebuild`` (the
+escape hatch after a failed merge check or a lost pool worker) rebuilds
+every pool snapshot from the base and reports each pool wholly dirty.
 """
 from __future__ import annotations
 
@@ -40,7 +51,13 @@ import logging
 from typing import Dict, List, Optional, Set, Tuple
 
 from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL
-from nos_tpu_torch.kube.store import Change, NodeStore
+from nos_tpu_torch.kube.store import Change, NodeStore, Pod
+from nos_tpu_torch.partitioning.core.pools import (
+    PoolPartition,
+    SelectorPoolIndex,
+    partition_pools,
+    split_snapshot,
+)
 from nos_tpu_torch.partitioning.core.snapshot import ClusterSnapshot
 
 log = logging.getLogger("nos_tpu_torch.partitioner")
@@ -155,3 +172,60 @@ class IncrementalSnapshotMaintainer:
         self.full_rebuilds += 1
         return self._base, set(self._names)
 
+
+
+class PoolShardedMaintainer:
+    """The persistent snapshot of each pool of one partitioner mode, over
+    an ``IncrementalSnapshotMaintainer``. Single-threaded, as the inner
+    one; the pool snapshots share no node, so they may be planned at
+    once."""
+
+    def __init__(self, store: NodeStore, snapshot_taker, kind: str) -> None:
+        self.inner = IncrementalSnapshotMaintainer(store, snapshot_taker, kind)
+        self.store = store
+        self.kind = kind
+        self._index = SelectorPoolIndex()
+        self._base: Optional[ClusterSnapshot] = None
+        self._partition: Optional[PoolPartition] = None
+        self._pool_bases: Dict[str, ClusterSnapshot] = {}
+        # whether the last shard() rebuilt the pool snapshots: the
+        # controller makes new pool planners exactly then
+        self.last_rebuilt = False
+        self._force_rebuild = False
+        self.pool_rebuilds = 0
+
+    def force_rebuild(self) -> None:
+        """Rebuild the pool snapshots at the next ``shard()``."""
+        self._force_rebuild = True
+
+    def shard(self, cluster_state, pending_pods: List[Pod]):
+        """(base, base dirty, partition, pool snapshots, pool dirty sets)."""
+        snapshot, dirty = self.inner.snapshot(cluster_state)
+        nodes = snapshot.get_nodes()
+        if snapshot is not self._base:
+            self._base = snapshot
+            self._index.rebuild(snapshot)
+        else:
+            for name in dirty:
+                if name in nodes:
+                    self._index.note(name, nodes[name])
+        quotas = [q for kind in QUOTA_KINDS for q in self.store.list(kind, copy=False)]
+        partition = partition_pools(snapshot, pending_pods, quotas=quotas,
+                                    selector_index=self._index)
+        rebuild = (self._force_rebuild or self._partition is None
+                   or partition.node_pool != self._partition.node_pool)
+        self._force_rebuild = False
+        if rebuild:
+            self._pool_bases = split_snapshot(snapshot, partition)
+            pool_dirty = {pool: set(base.get_nodes()) for pool, base in self._pool_bases.items()}
+            self.pool_rebuilds += 1
+        else:
+            pool_dirty = {pool: set() for pool in partition.pools}
+            for name in dirty:
+                pool = partition.node_pool.get(name)
+                if pool is not None:
+                    self._pool_bases[pool].refresh_node(name, nodes[name].plan_clone())
+                    pool_dirty[pool].add(name)
+        self._partition = partition
+        self.last_rebuilt = rebuild
+        return snapshot, dirty, partition, self._pool_bases, pool_dirty

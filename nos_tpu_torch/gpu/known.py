@@ -104,6 +104,13 @@ def set_known_geometries(overrides: Optional[Dict[str, List[Dict[str, int]]]]) -
     _geometry_overrides = dict(overrides) if overrides else {}
 
 
+def known_geometry_overrides() -> Dict[str, List[Dict[str, int]]]:
+    """The overrides ``set_known_geometries`` installed (a copy): what a
+    spawned process replays to derive the same geometries."""
+    return {product: [dict(g) for g in geometries]
+            for product, geometries in _geometry_overrides.items()}
+
+
 @lru_cache(maxsize=None)
 def enumerate_geometries(product: str) -> Tuple[Dict[str, int], ...]:
     """The maximal multisets of MIG profiles that pack into one GPU.

@@ -22,7 +22,7 @@ reference's verbs: ``create`` (which stamps a fresh ``uid`` on every pod,
 and its ``created`` from the store's clock when the caller left it
 unset), ``get`` / ``try_get``, ``delete``, ``list``,
 ``patch_merge`` (a mutate callable run under the lock on a copy, then
-stored) and ``patch_annotations`` / ``patch_labels`` (a ``None`` value
+stored), ``apply`` (a replica's create-or-replace, as given) and ``patch_annotations`` / ``patch_labels`` (a ``None`` value
 deletes the key). Objects are copied
 on the way in and out, so mutating a returned object never mutates the
 store (``list`` and ``try_get`` take ``copy=False`` for read-only
@@ -368,6 +368,21 @@ class NodeStore:
             self._objects[key] = stored
             self._record(kind, None, stored)
             return copy.deepcopy(stored)
+
+    def apply(self, obj: Any, copy: bool = True) -> None:
+        """Store a copy of ``obj`` as it is, created or replaced: no uid
+        stamped and no admission run. A replica mirroring another store's
+        objects (a pool worker's, ``partitioning/core/procpool.py``) writes
+        this way, as a watch event would; ``copy=False`` stores ``obj``
+        itself, for a caller that hands it over and never changes it (an
+        object just decoded from the wire)."""
+        kind = _kind(obj)
+        key = (kind, obj.namespace, obj.name)
+        stored = _deepcopy(obj) if copy else obj
+        with self._lock:
+            before = self._objects.get(key)
+            self._objects[key] = stored
+            self._record(kind, before, stored)
 
     def get(self, kind: str, name: str, namespace: str = "") -> Any:
         obj = self.try_get(kind, name, namespace)

@@ -52,18 +52,53 @@ cache's hit rate in the last cycle.
     python -m nos_tpu_torch.partitioning.bench_planner --quick
     python -m nos_tpu_torch.partitioning.bench_planner --sizes 64x200 --repeats 3
     python -m nos_tpu_torch.partitioning.bench_planner --framework vanilla --quick
+``--plan-mode sharded`` (``bench_planner.py:191-232``, ``:302-735``)
+runs the pool-sharded pipeline on the steady cluster split into
+``--pools`` node pools (the node-pool label, round-robin) with every
+pending pod pinned to a pool by its node selector, round-robin: a
+``capacity_row`` (the cluster's capacity and free memory slices, the
+utilization and the fragmentation index: 1 - the largest free slice over
+the largest askable slice); then ``bench_sharded`` for each backend of
+``--parallel`` (``serial``, ``thread``, ``process`` or ``all``): one
+persistent snapshot and planner a pool, 5% of the nodes refreshed in
+their pool's snapshot a cycle, every pool replanned, then
+the merge and its checks, the whole timed (``p50_merge_ms`` alone), the
+cyclic collector run between cycles outside the timed window and
+reported; every timed cycle must plan incrementally. The process row
+runs the controller's own call, ``PoolWorkerPool.plan_pools`` (a
+bootstrap from the whole wire image, then a cycle of the refreshed nodes
+and only the new or changed pending pods out, the touched nodes back
+over the parent's mirror); it adds the bootstrap's milliseconds, each worker's
+start-to-bootstrapped seconds, whether ``torch`` is in a worker's
+``sys.modules``, the frame bytes a cycle and the start method
+(``--start-method``). The thread row (``run_pool_plans``) exists here
+alone, to measure that the controller is right to leave it out: the
+planner is pure Python, so threads share one interpreter lock. Every row
+carries the host's CPU count, which bounds the processes' gain. Then ``bench_sharded_equivalence``
+(the sharded plan against the unsharded one on the same inputs:
+``draw_decomposes`` and ``byte_identical``) and ``bench_warm_boot`` (a
+restart that adopts the saved warm state against a cold plan, the median
+of ``--repeats`` fresh worlds: the adoption's and the warm plan's
+milliseconds and whether the warm plan equals the cold one byte for
+byte).
+
     python -m nos_tpu_torch.partitioning.bench_planner --incremental --sizes 256x400
+    python -m nos_tpu_torch.partitioning.bench_planner --plan-mode sharded \
+        --sizes 64x200,256x400 --pools 4 --parallel all
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import random
 import statistics
 import sys
+import tempfile
 import time
-from typing import Dict, List, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Tuple
 
 from nos_tpu_torch.api.v1alpha1.elasticquota import RESOURCE_GPU_MEMORY, ElasticQuota
 from nos_tpu_torch.controllers.partitioner import build_sim_framework
@@ -73,8 +108,16 @@ from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, RESOURC
 from nos_tpu_torch.gpu.node import mig_resource
 from nos_tpu_torch.kube.store import Node, NodeStore, Pod, PodPhase
 from nos_tpu_torch.partitioning.core import ClusterSnapshot, MigSliceCodec, Planner, SnapshotNode
-from nos_tpu_torch.partitioning.core.partition_state import node_key
+from nos_tpu_torch.partitioning.core import pools as pool_plans
+from nos_tpu_torch.partitioning.core.codec import profile_size
+from nos_tpu_torch.partitioning.core.partition_state import (
+    node_key,
+    partitioning_state_to_dict,
+)
+from nos_tpu_torch.partitioning.core.snapcodec import WarmStateCodec
 from nos_tpu_torch.scheduler import Framework, new_framework
+from nos_tpu_torch.scheduler.framework import vanilla_filter_plugins
+from nos_tpu_torch.scheduler.plugins.topology import NODEPOOL_LABEL
 from nos_tpu_torch.util import metrics
 
 DEFAULT_SIZES = "16x50,64x200,256x400"
@@ -207,15 +250,23 @@ STEADY_MIX = ("7g.80gb",) * 9 + ("1g.10gb",)
 CHURN = 0.05  # the share of the steady cluster's nodes refreshed a cycle
 
 
-def build_steady_node(name: str, variant: bool, gpus_per_node: int) -> SnapshotNode:
+def pool_of(i: int, pools: int) -> str:
+    """The pool of node (or pod) ``i`` when the cluster has ``pools``."""
+    return f"pool-{i % pools}" if pools else ""
+
+
+def build_steady_node(name: str, variant: bool, gpus_per_node: int,
+                      pool: str = "") -> SnapshotNode:
     """One node of the steady cluster, every GPU in ``variant``'s state,
-    each used instance held by a running pod."""
+    each used instance held by a running pod; ``pool`` labels its node
+    pool."""
     gpu_free, gpu_used = STEADY[variant]
     free = {gpu: dict(gpu_free) for gpu in range(gpus_per_node)}
     used = {gpu: dict(gpu_used) for gpu in range(gpus_per_node)}
     resources = {RESOURCE_GPU: gpus_per_node, "cpu": 112, "memory": 2048}
     node = Node(name, labels={GPU_PRODUCT_LABEL: H100_80GB,
-                              PARTITIONING_LABEL: PARTITIONING_MIG},
+                              PARTITIONING_LABEL: PARTITIONING_MIG,
+                              **({NODEPOOL_LABEL: pool} if pool else {})},
                 capacity=dict(resources), allocatable=dict(resources),
                 annotations=annot.status_from_devices(free, used))
     pods = [Pod(f"{name}-run-{gpu}-{profile}-{k}", "bench", node=name, phase=PodPhase.RUNNING,
@@ -226,14 +277,21 @@ def build_steady_node(name: str, variant: bool, gpus_per_node: int) -> SnapshotN
     return SnapshotNode(partitionable=mig, node=node, pods=pods)
 
 
-def build_steady_cluster(variants: Dict[str, bool], gpus_per_node: int) -> ClusterSnapshot:
-    return ClusterSnapshot({name: build_steady_node(name, v, gpus_per_node)
-                            for name, v in sorted(variants.items())}, codec=MigSliceCodec())
+def build_steady_cluster(variants: Dict[str, bool], gpus_per_node: int,
+                         pools: int = 0) -> ClusterSnapshot:
+    """The steady cluster; with ``pools``, node ``i`` in ``pool_of(i)``."""
+    return ClusterSnapshot({name: build_steady_node(name, v, gpus_per_node,
+                                                    pool_of(i, pools))
+                            for i, (name, v) in enumerate(sorted(variants.items()))},
+                           codec=MigSliceCodec())
 
 
-def make_steady_pending(n_pods: int) -> List[Pod]:
+def make_steady_pending(n_pods: int, pools: int = 0) -> List[Pod]:
+    """The steady cluster's pending pods; with ``pools``, pod ``i`` pinned
+    to ``pool_of(i)`` by its node selector."""
     return [Pod(f"pend-{i:04d}", "bench",
-                request={mig_resource(STEADY_MIX[i % len(STEADY_MIX)]): 1})
+                request={mig_resource(STEADY_MIX[i % len(STEADY_MIX)]): 1},
+                node_selector={NODEPOOL_LABEL: pool_of(i, pools)} if pools else {})
             for i in range(n_pods)]
 
 
@@ -288,6 +346,318 @@ def bench_incremental(n_nodes: int, n_pods: int, gpus_per_node: int, repeats: in
             "plan_equals_full": equal}
 
 
+# ------------------------------------------------------------ sharded
+
+LARGEST_SLICE = profile_size("7g.80gb")
+
+
+def capacity_row(snapshot: ClusterSnapshot, n_nodes: int, n_pods: int, churn: float) -> dict:
+    """The steady cluster's capacity in memory slices: capacity, free,
+    the utilization, the largest free slice and the fragmentation index,
+    1 - largest free slice / min(free, the largest slice one can ask
+    for), 0 when nothing is free."""
+    capacity = free = largest = 0.0
+    for snap_node in snapshot.get_nodes().values():
+        capacity += pool_plans.node_capacity(snap_node) or 0.0
+        for gpu in snap_node.partitionable.gpus:
+            sizes = [profile_size(p) for p, n in gpu.free.items() for _ in range(n)]
+            free += sum(sizes)
+            largest = max([largest] + sizes)
+    askable = min(free, LARGEST_SLICE)
+    return {"bench": "bench_capacity", "nodes": n_nodes, "pending_pods": n_pods,
+            "churn": churn, "capacity_slices": capacity, "free_slices": free,
+            "steady_state_utilization": 1 - free / capacity if capacity else None,
+            "largest_free_slice": largest,
+            "fragmentation_index": max(0.0, 1 - largest / askable) if askable > 0 else 0.0}
+
+
+def sharded_framework() -> Framework:
+    return Framework(filter_plugins=vanilla_filter_plugins())
+
+
+def _sharded_world(n_nodes: int, n_pods: int, gpus_per_node: int, pools: int):
+    """(variants, snapshot, pending, partition) of the pinned steady
+    cluster, the partition checked to have ``pools`` pools."""
+    variants = {node_name(i): False for i in range(n_nodes)}
+    snapshot = build_steady_cluster(variants, gpus_per_node, pools)
+    pending = make_steady_pending(n_pods, pools)
+    partition = pool_plans.partition_pools(snapshot, pending)
+    if len(partition.pools) != pools:
+        raise RuntimeError(f"expected {pools} pools, got {partition.pools}")
+    return variants, snapshot, pending, partition
+
+
+def _churn(variants: Dict[str, bool], cycle: int, k: int, n_nodes: int, gpus_per_node: int,
+           pools: int):
+    """The cycle's refreshed nodes: name → (index, fresh snapshot node)."""
+    out = {}
+    for j in range(k):
+        i = (cycle * k + j) % n_nodes
+        name = node_name(i)
+        variants[name] = not variants[name]
+        out[name] = build_steady_node(name, variants[name], gpus_per_node, pool_of(i, pools))
+    return out
+
+
+def _quantile_row(latencies: List[float], merges: List[float], pauses: List[float]) -> dict:
+    quantiles = statistics.quantiles(latencies, n=20) if len(latencies) > 1 else latencies * 2
+    return {"p50_replan_ms": statistics.median(latencies) * 1e3,
+            "p95_replan_ms": quantiles[-1] * 1e3,
+            "p50_merge_ms": statistics.median(merges) * 1e3,
+            "gc_p50_pause_ms": statistics.median(pauses) * 1e3,
+            "gc_max_pause_ms": max(pauses) * 1e3}
+
+
+def run_pool_plans(tasks: Dict[str, Callable[[], object]],
+                   parallelism: str = "serial") -> Dict[str, object]:
+    """One closure a pool: in sorted pool order (``serial``), or on a
+    thread a pool (``thread``), with the cyclic collector held off until
+    the join so a full collection does not land inside the pools'
+    timings (``nos_tpu/partitioning/core/pools.py:run_pool_plans``)."""
+    if parallelism == "thread" and len(tasks) > 1:
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with ThreadPoolExecutor(max_workers=len(tasks)) as executor:
+                futures = {name: executor.submit(task) for name, task in sorted(tasks.items())}
+                return {name: future.result() for name, future in futures.items()}
+        finally:
+            if was_enabled:
+                gc.enable()
+    return {name: task() for name, task in sorted(tasks.items())}
+
+
+def bench_sharded(n_nodes: int, n_pods: int, gpus_per_node: int, repeats: int, pools: int,
+                  churn: float = CHURN, parallelism: str = "serial",
+                  start_method: str = "forkserver") -> dict:
+    """Steady-state replans through the sharded pipeline (see the module's
+    docstring); ``process`` runs them on worker processes."""
+    if parallelism == "process":
+        return bench_sharded_process(n_nodes, n_pods, gpus_per_node, repeats, pools, churn,
+                                     start_method)
+    variants, snapshot, pending, partition = _sharded_world(n_nodes, n_pods, gpus_per_node,
+                                                            pools)
+    snaps = pool_plans.split_snapshot(snapshot, partition)
+    pending_of = pool_plans.split_pending(pending, partition)
+    planners = {pool: Planner(sharded_framework()) for pool in partition.pools}
+    capacities = pool_plans.node_capacities(snaps.values())
+    ages = {p.namespaced_name: 0.0 for p in pending}
+
+    def plan_all(dirty: Dict[str, set]):
+        def task(pool):
+            def run_one():
+                current = snaps[pool].partitioning_state()
+                return current, planners[pool].plan(snaps[pool], pending_of[pool],
+                                                    pending_ages=ages, dirty=dirty[pool])
+            return run_one
+        return run_pool_plans({pool: task(pool) for pool in partition.pools}, parallelism)
+
+    started = time.perf_counter()
+    plan_all({pool: set(snaps[pool].get_nodes()) for pool in partition.pools})
+    cold_ms = (time.perf_counter() - started) * 1e3
+    k = max(1, int(n_nodes * churn))
+    latencies, merges, pauses = [], [], []
+    for cycle in range(repeats + 1):  # cycle 0 is an untimed warm-up
+        dirty = {pool: set() for pool in partition.pools}
+        for name, fresh in _churn(variants, cycle, k, n_nodes, gpus_per_node, pools).items():
+            pool = partition.node_pool[name]
+            snaps[pool].refresh_node(name, fresh)
+            dirty[pool].add(name)
+        t0 = time.perf_counter()
+        outcomes = plan_all(dirty)
+        t1 = time.perf_counter()
+        current = {pool: out[0] for pool, out in outcomes.items()}
+        desired = {pool: out[1] for pool, out in outcomes.items()}
+        violations = pool_plans.check_merge_invariants(partition, current, desired, capacities)
+        pool_plans.merge_pool_states(desired)
+        t2 = time.perf_counter()
+        if violations:
+            raise RuntimeError(f"merge checks failed: {violations[:3]}")
+        modes = {planner.last_plan_mode for planner in planners.values()}
+        if modes != {"incremental"}:
+            raise RuntimeError(f"replan modes {sorted(modes)}")
+        if cycle > 0:
+            latencies.append(t2 - t0)
+            merges.append(t2 - t1)
+        t_gc = time.perf_counter()
+        gc.collect()
+        pauses.append(time.perf_counter() - t_gc)
+    return {"bench": "bench_planner_sharded", "plan_mode": "sharded", "nodes": n_nodes,
+            "gpus_per_node": gpus_per_node, "pending_pods": n_pods, "pools": pools,
+            "parallelism": parallelism, "churn": churn, "dirty_per_cycle": k,
+            "cycles": repeats, "cold_plan_ms": cold_ms,
+            **_quantile_row(latencies, merges, pauses), "cpus": os.cpu_count()}
+
+
+def bench_sharded_process(n_nodes: int, n_pods: int, gpus_per_node: int, repeats: int,
+                          pools: int, churn: float = CHURN,
+                          start_method: str = "forkserver") -> dict:
+    """The sharded pipeline on a worker process a pool, through the
+    controller's call (``PoolWorkerPool.plan_pools``): bootstrapped from
+    the whole wire image, then each cycle the refreshed nodes out and the
+    touched nodes back over the parent's mirror, then the merge and its
+    checks. The timed cycle runs from the first frame out to the merge;
+    ``cold_plan_ms`` includes the bootstrap."""
+    from nos_tpu_torch.partitioning.core.procpool import (
+        PoolWorkerPool,
+        framework_spec,
+        planner_knobs,
+    )
+
+    variants, snapshot, pending, partition = _sharded_world(n_nodes, n_pods, gpus_per_node,
+                                                            pools)
+    snaps = pool_plans.split_snapshot(snapshot, partition)
+    pending_of = pool_plans.split_pending(pending, partition)
+    capacities = pool_plans.node_capacities(snaps.values())
+    # the parent's planners, for an escalation (the row refuses one)
+    planners = {pool: Planner(sharded_framework()) for pool in partition.pools}
+    workers = PoolWorkerPool("mig", "MigSliceCodec", framework_spec(sharded_framework()),
+                             planner_knobs(Planner(sharded_framework())),
+                             cycle_timeout_seconds=600.0, bootstrap_timeout_seconds=600.0,
+                             start_method=start_method, clock=lambda: 0.0)
+
+    def plan_all(dirty: Dict[str, set], rebuilt: bool, cycle: str):
+        plans = workers.plan_pools(snaps, dirty, pending_of, planners, rebuilt=rebuilt, now=0.0)
+        for pool, plan in plans.items():
+            if plan.backend != "process":
+                raise RuntimeError(f"pool {pool}: cycle {cycle} was planned in the parent")
+        return plans
+
+    try:
+        started = time.perf_counter()
+        plan_all({pool: set() for pool in partition.pools}, True, "cold")
+        cold_ms = (time.perf_counter() - started) * 1e3
+        # the workers start together: the last ready closes the bootstrap
+        bootstrap_ms = max(seconds for seconds, _ in workers.ready) * 1e3
+        k = max(1, int(n_nodes * churn))
+        latencies, merges, pauses, frame_bytes = [], [], [], []
+        for cycle in range(repeats + 1):  # cycle 0 is an untimed warm-up
+            dirty: Dict[str, set] = {pool: set() for pool in partition.pools}
+            for name, fresh in _churn(variants, cycle, k, n_nodes, gpus_per_node,
+                                      pools).items():
+                pool = partition.node_pool[name]
+                snaps[pool].refresh_node(name, fresh)
+                dirty[pool].add(name)
+            t0 = time.perf_counter()
+            plans = plan_all(dirty, False, str(cycle))
+            t1 = time.perf_counter()
+            for pool, plan in plans.items():
+                if plan.plan_mode != "incremental":
+                    raise RuntimeError(f"pool {pool}: replan mode {plan.plan_mode!r}")
+            current = {pool: plan.current for pool, plan in plans.items()}
+            desired = {pool: plan.desired for pool, plan in plans.items()}
+            violations = pool_plans.check_merge_invariants(partition, current, desired,
+                                                           capacities)
+            pool_plans.merge_pool_states(desired)
+            t2 = time.perf_counter()
+            if violations:
+                raise RuntimeError(f"merge checks failed: {violations[:3]}")
+            if cycle > 0:
+                latencies.append(t2 - t0)
+                merges.append(t2 - t1)
+                frame_bytes.append(workers.last_frame_bytes)
+            t_gc = time.perf_counter()
+            gc.collect()
+            pauses.append(time.perf_counter() - t_gc)
+        ready = list(workers.ready)
+    finally:
+        workers.close()
+    return {"bench": "bench_planner_sharded", "plan_mode": "sharded", "nodes": n_nodes,
+            "gpus_per_node": gpus_per_node, "pending_pods": n_pods, "pools": pools,
+            "parallelism": "process", "start_method": start_method, "churn": churn,
+            "dirty_per_cycle": k, "cycles": repeats, "cold_plan_ms": cold_ms,
+            "bootstrap_ms": bootstrap_ms, **_quantile_row(latencies, merges, pauses),
+            "worker_ready_s": [seconds for seconds, _ in ready],
+            "torch_in_worker": all(loaded for _, loaded in ready),
+            "frame_bytes_per_cycle": statistics.median(frame_bytes), "cpus": os.cpu_count()}
+
+
+def _state_bytes(state) -> str:
+    return json.dumps(partitioning_state_to_dict(state), sort_keys=True)
+
+
+def bench_sharded_equivalence(n_nodes: int, n_pods: int, gpus_per_node: int,
+                              pools: int) -> dict:
+    """The merged sharded plan against the unsharded plan of the same
+    pinned steady cluster: whether the draw decomposes, and whether the
+    two are byte-identical."""
+    variants, snapshot, pending, partition = _sharded_world(n_nodes, n_pods, gpus_per_node,
+                                                            pools)
+    unsharded = Planner(sharded_framework()).plan(
+        build_steady_cluster(variants, gpus_per_node, pools), list(pending), pending_ages={})
+    decomposes = pool_plans.draw_decomposes(snapshot, partition, pending)
+    snaps = pool_plans.split_snapshot(snapshot, partition)
+    pending_of = pool_plans.split_pending(pending, partition)
+    sharded = pool_plans.merge_pool_states({
+        pool: Planner(sharded_framework()).plan(snaps[pool], pending_of[pool], pending_ages={})
+        for pool in partition.pools})
+    return {"bench": "bench_planner_sharded_equivalence", "nodes": n_nodes,
+            "gpus_per_node": gpus_per_node, "pending_pods": n_pods,
+            "pools": len(partition.pools), "draw_decomposes": decomposes,
+            "byte_identical": _state_bytes(sharded) == _state_bytes(unsharded)}
+
+
+def bench_warm_boot(n_nodes: int, n_pods: int, gpus_per_node: int, repeats: int = 3) -> dict:
+    """A restart's first plan against a cold plan, the median of
+    ``repeats`` fresh worlds: the cold plan, the adoption (the file read,
+    every node's signature taken again) and the warm plan of the
+    unmatched nodes, and whether the warm plan equals the cold one."""
+    cold_s, adopt_s, warm_s = [], [], []
+    identical = True
+    report = None
+    pending = make_steady_pending(n_pods)
+    variants = {node_name(i): False for i in range(n_nodes)}
+    for _ in range(repeats):
+        snapshot = build_steady_cluster(variants, gpus_per_node)
+        planner = Planner(sharded_framework())
+        t0 = time.perf_counter()
+        cold = planner.plan(snapshot, pending, pending_ages={}, dirty=set(snapshot.get_nodes()))
+        cold_s.append(time.perf_counter() - t0)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "warm-state.json")
+            WarmStateCodec(path).save(snapshot, planner, force=True)
+            restarted = build_steady_cluster(variants, gpus_per_node)
+            warm_planner = Planner(sharded_framework())
+            t0 = time.perf_counter()
+            report = WarmStateCodec(path).adopt(restarted, warm_planner)
+            adopt_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            warm = warm_planner.plan(restarted, pending, pending_ages={},
+                                     dirty=set(report.unmatched))
+            warm_s.append(time.perf_counter() - t0)
+        identical &= _state_bytes(warm) == _state_bytes(cold)
+    cold_ms, adopt_ms = statistics.median(cold_s) * 1e3, statistics.median(adopt_s) * 1e3
+    warm_ms = statistics.median(warm_s) * 1e3
+    return {"bench": "bench_planner_warm_boot", "nodes": n_nodes, "gpus_per_node": gpus_per_node,
+            "pending_pods": n_pods, "repeats": repeats, "cold_plan_ms": cold_ms,
+            "adopt_ms": adopt_ms, "warm_plan_ms": warm_ms,
+            "warm_plan_speedup_vs_cold": cold_ms / warm_ms if warm_ms else None,
+            "restart_total_ms": adopt_ms + warm_ms, "nodes_matched": report.matched,
+            "nodes_unmatched": len(report.unmatched), "entries_adopted": report.adopted_entries,
+            "byte_identical": identical}
+
+
+PARALLEL = ("serial", "thread", "process")
+
+
+def run_sharded(sizes: List[Tuple[int, int]], gpus_per_node: int, repeats: int, pools: int,
+                parallel: str = "all", churn: float = CHURN,
+                start_method: str = "forkserver") -> List[dict]:
+    """Each size's capacity row, sharded rows, equivalence and warm-boot
+    rows."""
+    modes = PARALLEL if parallel == "all" else (parallel,)
+    rows = []
+    for n_nodes, n_pods in sizes:
+        snapshot = build_steady_cluster({node_name(i): False for i in range(n_nodes)},
+                                        gpus_per_node, pools)
+        rows.append(capacity_row(snapshot, n_nodes, n_pods, churn))
+        rows += [bench_sharded(n_nodes, n_pods, gpus_per_node, repeats, pools, churn, mode,
+                               start_method) for mode in modes]
+        rows.append(bench_sharded_equivalence(n_nodes, n_pods, gpus_per_node, pools))
+        rows.append(bench_warm_boot(n_nodes, n_pods, gpus_per_node, min(repeats, 3)))
+    return rows
+
+
 def card() -> Optional[dict]:
     """The card's name and power limit from NVML, or None without one."""
     try:
@@ -337,12 +707,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--output", default="", help="also append JSON lines to this file")
     parser.add_argument("--incremental", action="store_true",
                         help="the steady-state incremental replan row instead")
+    parser.add_argument("--plan-mode", default="cold", choices=("cold", "incremental", "sharded"),
+                        help="cold plans (default), incremental replans, or the sharded rows")
+    parser.add_argument("--pools", type=int, default=4, help="node pools of the sharded rows")
+    parser.add_argument("--parallel", default="all", choices=PARALLEL + ("all",),
+                        help="the sharded rows' backends")
+    parser.add_argument("--start-method", default="forkserver", choices=("forkserver", "spawn"),
+                        help="how the process rows start their workers")
     args = parser.parse_args(argv)
     sizes = [(16, 50)] if args.quick else parse_sizes(args.sizes)
     repeats = 2 if args.quick else args.repeats
     header = {"bench": "bench_planner", "host_cpus": os.cpu_count(), "card": card(),
               "gpus_per_node": args.gpus_per_node}
-    if args.incremental:
+    if args.plan_mode == "sharded":
+        rows = run_sharded(sizes, args.gpus_per_node, repeats, args.pools, args.parallel,
+                           start_method=args.start_method)
+    elif args.incremental or args.plan_mode == "incremental":
         rows = [bench_incremental(n, p, args.gpus_per_node, repeats) for n, p in sizes]
     else:
         rows = run(sizes, args.gpus_per_node, repeats, args.framework)
@@ -352,7 +732,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         with open(args.output, "a") as f:
             f.write("\n".join(lines) + "\n")
     ok = all(r.get("plan_equals_cache_off", True) and r.get("deterministic", True)
-             and r.get("plan_equals_full", True) for r in rows)
+             and r.get("plan_equals_full", True)
+             and (r["bench"] != "bench_planner_warm_boot" or r["byte_identical"])
+             for r in rows)
     return 0 if ok else 1
 
 

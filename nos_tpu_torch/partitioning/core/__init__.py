@@ -4,7 +4,9 @@ The state types (``partition_state``), the per-mode resource codecs
 (``codec``), the partitioner's cluster cache (``state``), the snapshot
 with its fork journal (``snapshot``), the pending pods' lack
 (``tracker``), the simulation's verdict cache (``verdict_cache``), the
-planner (``planner``) and the actuator (``actuator``). None of these
+planner (``planner``), the actuator (``actuator``), pool-sharded
+planning (``pools``), the pool worker processes (``procpool``) and the
+warm-state codec with the workers' frames (``snapcodec``). None of these
 modules imports torch: the planner is host code.
 """
 from nos_tpu_torch.partitioning.core.actuator import Actuator, node_geometries

@@ -50,3 +50,10 @@ def partitioning_state_to_dict(state: PartitioningState) -> dict:
     """node → GPU index (a string key) → resources: the plan record's form."""
     return {node: {str(g.gpu_index): dict(g.resources) for g in np.gpus}
             for node, np in state.items()}
+
+
+def partitioning_state_from_dict(doc: dict) -> PartitioningState:
+    """``partitioning_state_to_dict``'s inverse."""
+    return {node: NodePartitioning(gpus=[GpuPartitioning(int(index), dict(resources))
+                                         for index, resources in gpus.items()])
+            for node, gpus in doc.items()}

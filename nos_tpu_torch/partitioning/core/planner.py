@@ -68,8 +68,18 @@ their verdicts, views, candidate order and futility proofs; else it is
 ``fallback`` (a new snapshot object, or too many dirty nodes): the
 memos are rebuilt, the base still preserved. ``last_plan_mode`` names
 the mode, ``PLAN_MODE`` counts them and ``PLAN_CARVE_FUTILITY`` the
-memo's hits. The planner's warm-state export and import (``:410-470``)
-wait for a later slice (ROADMAP.md, item 16b).
+memo's hits.
+
+The hand-offs (``:401-470``): ``adopt_pending_seen`` carries another
+planner's first sightings into this one (a pool planner rebuilt when the
+pools change keeps every pod's age); ``export_warm_state`` gives, per
+node, the futility proofs and verdicts keyed at the node's current
+(observed) version, with their version half dropped, and
+``adopt_warm_state`` re-keys such entries at a snapshot's live versions
+(``snapcodec.py`` proves first, by each node's state signature, that the
+state is the one they were derived from). The keys are the port's own:
+a futility entry is (lacking profile items, reason), a verdict (pod
+signature, verdict).
 """
 from __future__ import annotations
 
@@ -133,6 +143,16 @@ def sort_candidate_pods(pods: Iterable[Pod], aging_per_second: float = AGING_PER
         keyed.append(((-pod.priority, -effective, pod.namespace, pod.name), pod))
     keyed.sort(key=lambda kv: kv[0])
     return [pod for _, pod in keyed]
+
+
+def _relist(value):
+    """A memo key's tuples as JSON lists."""
+    return [_relist(v) for v in value] if isinstance(value, tuple) else value
+
+
+def _retuple(value):
+    """``_relist``'s inverse: every list a tuple again."""
+    return tuple(_retuple(v) for v in value) if isinstance(value, list) else value
 
 
 def _profile(slices: dict) -> str:
@@ -252,6 +272,49 @@ class Planner:
     def verdict_cache_stats(self) -> Tuple[int, int, int]:
         """(hits, misses, bypasses) of the last plan()."""
         return self._verdict_cache.stats()
+
+    # ------------------------------------------------------ hand-offs
+
+    def adopt_pending_seen(self, other: "Planner") -> None:
+        """Take ``other``'s first sightings, keeping the earlier of two."""
+        for key, value in other._pending_seen.items():
+            mine = self._pending_seen.get(key)
+            if mine is None or value[0] < mine[0]:
+                self._pending_seen[key] = value
+
+    def export_warm_state(self, snapshot: ClusterSnapshot) -> Dict[str, dict]:
+        """node → {"futility": [[lacking items, reason]], "verdicts":
+        [[pod signature, verdict]]}, the entries keyed at the node's
+        current version only: a trial fork's versions name hypothetical
+        states."""
+        version_of = snapshot.node_version
+        out: Dict[str, dict] = {}
+        for (node, version, lacking), reason in self._futility_cache.items():
+            if version_of(node) == version:
+                out.setdefault(node, {"futility": [], "verdicts": []})["futility"].append(
+                    [[list(item) for item in lacking], reason])
+        for (signature, node, version), verdict in self._verdict_cache.entries.items():
+            if version_of(node) == version:
+                out.setdefault(node, {"futility": [], "verdicts": []})["verdicts"].append(
+                    [_relist(signature), bool(verdict)])
+        return out
+
+    def adopt_warm_state(self, snapshot: ClusterSnapshot, entries: Dict[str, dict]) -> int:
+        """Re-key exported entries at ``snapshot``'s live versions and make
+        it this planner's memo snapshot; the entries adopted."""
+        self._reset_plan_caches(snapshot)
+        adopted = 0
+        for node, memos in entries.items():
+            version = snapshot.node_version(node)
+            if version < 0:
+                continue
+            for lacking, reason in memos.get("futility", ()):
+                self._futility_cache[(node, version, _retuple(lacking))] = reason
+                adopted += 1
+            for signature, verdict in memos.get("verdicts", ()):
+                self._verdict_cache.put((_retuple(signature), node, version), bool(verdict))
+                adopted += 1
+        return adopted
 
     # ----------------------------------------------------------- entry
 

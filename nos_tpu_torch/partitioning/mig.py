@@ -21,7 +21,9 @@ reports refused that geometry (``refused_geometries``). The taker keeps
 each GPU's refusals while its reported geometry and used split stay the
 same, and its ``MigGpu`` skips them all, so the planner does not re-plan
 geometries a used instance's placement forbids on every batch
-(ROADMAP.md, fault F4).
+(ROADMAP.md, fault F4). ``take_in_refusals`` seeds a taker with
+another's refusals for a node: a pool worker's taker gets the parent's
+from the wire (``partitioning/core/procpool.py``).
 """
 from __future__ import annotations
 
@@ -136,6 +138,21 @@ class MigSnapshotTaker:
                 kept[key] = refusals
             gpu.refused = refusals
         self._refusals[node.name] = kept
+
+    def take_in_refusals(self, node: Node, refusals: Mapping[int, list]) -> None:
+        """Take another taker's refusals of ``node`` (GPU index → the refused
+        geometries as item lists, ``snapcodec.node_refusals``) as this
+        one's, keyed by the GPUs' reported state: a pool worker's taker then
+        holds what the parent's held, and ``take_snapshot_node`` hands them
+        on."""
+        mig = mig_node(node)
+        kept = self._refusals.setdefault(node.name, {})
+        for gpu in mig.gpus:
+            key = (gpu.index, frozenset(gpu.geometry.items()), frozenset(gpu.used.items()))
+            if refusals.get(gpu.index):
+                kept[key] = {frozenset((p, n) for p, n in g) for g in refusals[gpu.index]}
+            else:
+                kept.pop(key, None)
 
     def take_snapshot_node(self, node: Node, pods: List[Pod]) -> Optional[SnapshotNode]:
         """The node's snapshot entry, or None when it is not a MIG node:

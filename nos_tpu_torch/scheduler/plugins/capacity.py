@@ -22,9 +22,12 @@ them once. In-flight reservations are folded into a copy.
 
 A request counts ``nos.nebuly.com/gpu-memory`` beside its own resources
 (``util/resources.py``); ``gpu_memory_gb`` is the reference's
-``NvidiaGpuResourceMemoryGB`` knob. The reference's
-``set_external_usage`` (the process pools' out-of-pool usage) waits for
-incremental planning's slice (ROADMAP.md).
+``NvidiaGpuResourceMemoryGB`` knob. ``set_external_usage``
+(``:263-274``) charges each quota usage this store cannot see (a pool
+worker's replica holds only its pool's pods,
+``partitioning/core/procpool.py``), folded in as one synthetic pod a
+quota; a call drops the memoized infos, so the next verdict reads the
+new usage at the same store revision.
 """
 from __future__ import annotations
 
@@ -211,6 +214,8 @@ class CapacityScheduling:
         self._reserved: Dict[str, Dict[str, res.ResourceList]] = {}
         # (store revision, infos built at it); the infos are read-only
         self._built: Optional[Tuple[int, ElasticQuotaInfos]] = None
+        # quota name → usage charged outside this store's pods
+        self._external: Dict[str, res.ResourceList] = {}
         # the preemptor's record of the last preemption, read by the scheduler
         self.last_preemption: Optional[dict] = None
         # (store revision, node → NodeInfo of its bound live pods): the
@@ -225,7 +230,12 @@ class CapacityScheduling:
         callers do not mutate it (the preemptor simulates on a clone)."""
         revision = self.store.revision
         if self._built is None or self._built[0] != revision:
-            self._built = (revision, build_quota_infos(self.store, self.gpu_memory_gb))
+            infos = build_quota_infos(self.store, self.gpu_memory_gb)
+            for quota_name, usage in self._external.items():
+                info = infos.get(quota_name)
+                if info is not None:
+                    info.add_pod(f"__external__/{quota_name}", usage)
+            self._built = (revision, infos)
         infos = self._built[1]
         if not any(self._reserved.values()):
             return infos
@@ -237,6 +247,12 @@ class CapacityScheduling:
             for key, request in pods.items():
                 info.add_pod(key, request)
         return infos
+
+    def set_external_usage(self, usage: Dict[str, res.ResourceList]) -> None:
+        """Replace the usage charged outside this store, ``{quota name:
+        {resource: quantity}}``, and drop the memoized infos."""
+        self._external = {name: dict(request) for name, request in usage.items() if request}
+        self._built = None
 
     def reserved_keys(self) -> Set[str]:
         """The pods holding a reservation."""

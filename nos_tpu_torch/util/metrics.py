@@ -5,7 +5,9 @@ Keeps what the serving engine and its telemetry use from
 families (``counter.labels(model="m")`` returns a child series), a
 get-or-create registry with text exposition, the ``SERVE_*`` families,
 the MIG agent's instance counters, the planner's plan, mode, verdict-cache,
-carve-futility and snapshot counters, the divergence replans, the drain
+carve-futility and snapshot counters, the pool-sharded planner's pool
+count, pool durations, merge conflicts, backends and warm boots
+(``nos_tpu/util/metrics.py:743-790``), the divergence replans, the drain
 reservations and the preemptions. The reference's cardinality governor,
 child deletion, percentile windows and incremental snapshot cursors
 serve its control plane and are left out.
@@ -307,6 +309,30 @@ PLAN_MODE = REGISTRY.counter(
     "Planner.plan() invocations by mode (mode=incremental|full|fallback): incremental "
     "keeps the previous plan's memos still valid over a persistent base snapshot, "
     "fallback replans from scratch but preserves the base, full consumes the snapshot",
+)
+PLAN_POOL_COUNT = REGISTRY.gauge(
+    "nos_tpu_plan_pool_count",
+    "Pools the last sharded plan partitioned the cluster into (by kind)",
+)
+PLAN_POOL_DURATION = REGISTRY.histogram(
+    "nos_tpu_plan_pool_duration_seconds",
+    "One pool's plan() wall time within a sharded plan (by pool)",
+    buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0),
+)
+PLAN_MERGE_CONFLICTS = REGISTRY.counter(
+    "nos_tpu_plan_merge_conflicts_total",
+    "Sharded plans whose merge checks failed (a node claimed twice or unplanned, a GPU "
+    "listed twice, capacity exceeded): the plan is discarded and the pools rebuilt",
+)
+PLAN_BACKEND = REGISTRY.counter(
+    "nos_tpu_plan_backend_total",
+    "Pool plans by backend (backend=serial|thread|process|escalated): escalated counts "
+    "the pools a process-backend plan planned in the parent for want of a worker",
+)
+WARM_BOOT_OUTCOME = REGISTRY.counter(
+    "nos_tpu_warm_boot_outcome_total",
+    "Warm-state adoptions on a new base by outcome (outcome=adopted|partial|cold): "
+    "every node's signature matched, some did, or none",
 )
 DIVERGENCE_REPLANS = REGISTRY.counter(
     "nos_tpu_partitioning_divergence_replans_total",

@@ -350,3 +350,24 @@ def test_infos_are_built_once_per_store_revision():
     folded = plugin.snapshot()
     assert folded.for_namespace("a").used == {RESOURCE_GPU_MEMORY: 30}
     assert second.for_namespace("a").used == {RESOURCE_GPU_MEMORY: 10}  # untouched
+
+
+def test_external_usage_flips_a_verdict_at_one_store_revision():
+    """``set_external_usage`` (``capacity.py:263-274``): a pool worker's
+    replica holds only its pool's pods, so the parent charges each quota
+    the usage outside it, folded in as one synthetic pod; the memoized
+    infos are dropped, so the verdict reads it at the same revision."""
+    store = NodeStore()
+    store.create(ElasticQuota("quota", "a", min={RESOURCE_GPU_MEMORY: 80},
+                              max={RESOURCE_GPU_MEMORY: 80}))
+    plugin = CapacityScheduling(store)
+    pod = Pod("p", "a", request={"nvidia.com/mig-4g.40gb": 1})
+    revision = store.revision
+    assert plugin.pre_filter(CycleState(), pod).success
+    plugin.set_external_usage({"eq/a/quota": {RESOURCE_GPU_MEMORY: 60}})
+    status = plugin.pre_filter(CycleState(), pod)
+    assert not status.success and "max exceeded" in status.message
+    assert plugin.snapshot().for_namespace("a").pods == {"__external__/eq/a/quota"}
+    plugin.set_external_usage({"eq/a/quota": {}})
+    assert plugin.pre_filter(CycleState(), pod).success
+    assert store.revision == revision

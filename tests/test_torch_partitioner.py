@@ -546,6 +546,25 @@ def test_the_bench_cluster_is_busy_and_the_cache_decides_trials():
     assert (on["pods_placed"], on["forks_total"]) == (off["pods_placed"], off["forks_total"])
 
 
+def test_the_sharded_bench_rows_at_16x50_with_two_pools():
+    """``bench_planner --plan-mode sharded``'s rows, serial only: keys,
+    incremental replans, and the sharded plan byte-identical to the
+    unsharded one where the draw decomposes (every carve of the steady
+    cluster is futile, so pool-local carve targets cannot differ)."""
+    rows = bench_planner.run_sharded([(16, 50)], 8, 2, pools=2, parallel="serial")
+    capacity, sharded, equivalence, warm = rows
+    assert capacity["bench"] == "bench_capacity" and capacity["capacity_slices"] == 16 * 8 * 8
+    assert 0 < capacity["steady_state_utilization"] < 1
+    assert {"p50_replan_ms", "p95_replan_ms", "p50_merge_ms", "cold_plan_ms", "cpus",
+            "gc_max_pause_ms"} <= set(sharded)
+    assert sharded["pools"] == 2 and sharded["parallelism"] == "serial"
+    assert equivalence["pools"] == 2
+    assert equivalence["byte_identical"] or not equivalence["draw_decomposes"]
+    assert equivalence["draw_decomposes"]
+    assert warm["byte_identical"] and warm["nodes_unmatched"] == 0
+    assert warm["entries_adopted"] > 0
+
+
 # ------------------------------------------------------------ gangs
 
 def test_sim_framework_wires_the_reference_filters():

@@ -85,6 +85,8 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/controllers/partitioner/multinode.py",
         "nos_tpu_torch/controllers/partitioner/incremental.py",
         "nos_tpu_torch/bench_control_plane.py",
+        "nos_tpu_torch/partitioning/core/pools.py", "nos_tpu_torch/partitioning/core/procpool.py",
+        "nos_tpu_torch/partitioning/core/snapcodec.py", "nos_tpu_torch/kube/serde.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -115,7 +117,8 @@ def test_control_plane_imports_no_torch():
             "scheduler/plugins/topology.py", "controllers/partitioner/multinode.py",
             "bench_control_plane.py", "controllers/partitioner/incremental.py",
             "controllers/migagent/shared.py", "partitioning/bench_planner.py",
-            "util/metrics.py"} <= names
+            "util/metrics.py", "partitioning/core/pools.py", "partitioning/core/procpool.py",
+            "partitioning/core/snapcodec.py", "kube/serde.py"} <= names
     bad = [f"{p.relative_to(ROOT)}: {mod}" for p in files for mod in _imports(p)
            if mod == "torch" or mod.startswith("torch.")]
     assert not bad, bad
@@ -144,6 +147,8 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.controllers.elasticquota, nos_tpu_torch.api\n"
         "import nos_tpu_torch.bench_control_plane\n"
         "import nos_tpu_torch.controllers.partitioner.incremental\n"
+        "import nos_tpu_torch.partitioning.core.pools, nos_tpu_torch.partitioning.core.procpool\n"
+        "import nos_tpu_torch.partitioning.core.snapcodec, nos_tpu_torch.kube.serde\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'nos_tpu', 'transformers', 'grpc') or m.startswith('google.protobuf'))\n"
         "print(bad)\n"
