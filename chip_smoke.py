@@ -194,6 +194,24 @@ then the model bench, ResNet and the checkpoint:
     drive's wall seconds; then nos_tpu_torch.slo.routing's
     ReplicaRouter on the calibrated clock, one model scaled from 0 to 2
     replicas: the backlog while it had none, the cold-start TTFT p95;
+4a1. autoscale: nos_tpu_torch.bench_autoscale, reference() at 80
+    virtual s on the reference's costs (its virtual keys' digest must be
+    the one the CPU tests pin), then quick() (8 MIG nodes x 8 H100s, 16
+    chat / batch pairs at 16 x 14 requests/s times 8 ms over the card's
+    tick, the reference's load a replica) on slo_serve's calibrated
+    clock: every batch-<i> scales to zero with the nodes it vacated held
+    in the cold-start grace (GB-seconds > 0), every hold expires and its
+    GPUs go back to no-demand, every chat-<i> scales up at least once,
+    some chat scales back down, every replica is bound at each settled
+    epoch, and SimCluster.check()
+    with the capacity ledger's self_check holds at every epoch; the SLO
+    compliance at peak, the chats' TTFT and the cold-start penalty are
+    reported (autoscale_phase);
+4a2. forecast: nos_tpu_torch.bench_forecast at reference(): the accuracy
+    gate (p95 ETA error at most 25% of the gang's wait), a validated
+    advisor proposal, no store write by the forecaster and the stage
+    counts the CPU tests pin; each cycle's run_once wall ms beside an
+    incremental plan's (forecast_phase);
 4b. examples: serve_llama --real-weights <the checkpoint> (full width,
     int8, the Engine and a sampled generate), train_llama at its card
     config (head_dim 64, flash + remat, ClippedAdamW, 30 steps with
@@ -2302,7 +2320,7 @@ def router_drive(clock) -> dict:
     from nos_tpu_torch.slo import ModelProfile, WorkloadConfig, build_arrivals
     from nos_tpu_torch.slo.driver import percentiles
     from nos_tpu_torch.slo.routing import ReplicaRouter
-    from nos_tpu_torch.slo.signals import SignalRegistry
+    from nos_tpu_torch.controllers.autoscaler.signals import SignalRegistry
 
     arrivals = build_arrivals(WorkloadConfig(seed=0, duration_s=2 * ROUTER_EPOCH_S,
                                              rate_rps=3.0, models=(ModelProfile("llama"),)))
@@ -2355,6 +2373,99 @@ def slo_serve_phase(card, params, cfg) -> dict:
     emit(row)
     if not row["ok"]:
         raise SystemExit(f"slo_serve failed: {row}")
+    return row
+
+
+def autoscale_phase(card, clock) -> dict:
+    """The autoscaler bench (nos_tpu_torch.bench_autoscale): reference()
+    at 80 virtual s on the reference's costs, whose virtual keys must
+    give the digest the CPU tests pin; then quick() (64 H100s, 16 model
+    pairs) on the clock slo_serve calibrated on the card, its rate scaled
+    by the reference's tick over the card's so that the load a replica
+    sees stays the reference's. Held: every batch-<i> scales to zero, the
+    nodes it vacated come under the grace hold (GB-seconds > 0), every
+    hold expires and the GPUs go back to no-demand, every chat-<i> scales
+    up at least once, some chat scales back down, every replica is
+    bound at each settled epoch, and SimCluster.check() with the
+    ledger's self_check holds at every epoch. Reported: the SLO
+    compliance at peak, the chats' TTFT and the cold-start penalty on
+    the card's tick."""
+    from nos_tpu_torch import bench_autoscale as ba
+    from nos_tpu_torch.slo.routing import TICK_COST_S
+
+    t0 = time.time()
+    ref = ba.run_bench(ba.AutoscaleSizes.reference(), duration_s=80.0)
+    ref_digest = ba.virtual_digest(ref)
+    t_ref = time.time() - t0
+    t1 = time.time()
+    sizes = ba.AutoscaleSizes.quick()
+    # the reference's operating point: the arrival rate over the tick's
+    # slowdown, so a replica sees the load it sees on the 8 ms tick
+    rate_rps = sizes.rate_rps * TICK_COST_S / clock["tick_cost_s"]
+    quick = ba.run_bench(sizes, rate_rps=rate_rps, tick_cost_s=clock["tick_cost_s"],
+                         prefill_token_cost_s=clock["prefill_token_cost_s"])
+    t_quick = time.time() - t1
+    chats = [c for c, _ in ba.model_names(sizes.pairs)]
+    batches = [b for _, b in ba.model_names(sizes.pairs)]
+    scaled_up = {c: any(row[c]["verdict"] == "scale-up" for row in quick["timeline"])
+                 for c in chats}
+    grace = quick["grace"]
+    idle = quick["capacity"]["idle_gb_seconds"]
+    checks = {
+        "reference_digest": ref_digest == ba.REFERENCE_80S_DIGEST,
+        "every_batch_scaled_to_zero": sorted(grace["scaled_to_zero"]) == sorted(batches)
+        and all(quick["replicas"]["final"][b] == 0 for b in batches),
+        "vacated_nodes_held_in_grace": grace["vacated_nodes_held"]
+        and idle["autoscaler-grace"] > 0,
+        "grace_reclaimed_to_no_demand": grace["nodes_held_at_end"] == 0
+        and (grace["no_demand_gb_seconds_after_release"] or 0) > 0,
+        "every_chat_scaled_up": all(scaled_up.values()),
+        "chats_scaled_down": quick["scale_events"].get("scale-down", 0) > 0,
+        "invariants_every_epoch": quick["invariants_hold"],
+    }
+    chat_ttft = {c: quick["models"][c]["ttft_s"] for c in chats}
+    row = {"phase": "autoscale", "reference_digest": ref_digest,
+           "reference_seconds": t_ref, "quick_seconds": t_quick,
+           "clock": clock, "rate_rps": rate_rps, "sizes": quick["sizes"],
+           "scale_events": quick["scale_events"],
+           "scale_downs": quick["scale_events"].get("scale-down", 0),
+           "peak_slos_compliant": quick["peak"]["slos_compliant"],
+           "peak_noncompliant_models": sorted(m for m, v in quick["peak"]["by_model"].items()
+                                              if not v["compliant"]),
+           "chat_ttft_p50_s_median": sorted(v["p50"] for v in chat_ttft.values())[
+               len(chats) // 2],
+           "chat_ttft_p95_s_max": max(v["p95"] for v in chat_ttft.values()),
+           "cold_start": quick["cold_start"], "capacity": quick["capacity"],
+           "grace": grace, "settle_steps": quick["settle_steps"], "wall_s": quick["wall_s"],
+           "checks": checks, "ok": all(checks.values()), "seconds": time.time() - t0,
+           "card": card}
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"autoscale failed: {checks}")
+    return row
+
+
+def forecast_phase(card) -> dict:
+    """The forecaster bench (nos_tpu_torch.bench_forecast) at reference():
+    the accuracy gate (p95 ETA error at most 25% of the wait), a
+    validated advisor proposal, zero store writes by the forecaster and
+    the stage counts the CPU tests pin; each cycle's run_once wall ms
+    beside an incremental plan's of the same pending pods."""
+    from nos_tpu_torch import bench_forecast as bf
+
+    t0 = time.time()
+    report = bf.run_bench()
+    checks = {"gate_and_writes": bf.failures(report) == [],
+              "stages": report["stages"] == bf.REFERENCE_STAGES}
+    row = {"phase": "forecast", "stages": report["stages"], "accuracy": report["accuracy"],
+           "overhead": report["overhead"], "advisor": {
+               k: report["advisor"][k] for k in ("validated_cycles",
+                                                 "max_predicted_savings_chip_seconds")},
+           "wall_ms": report["wall_ms"], "checks": checks, "ok": all(checks.values()),
+           "seconds": time.time() - t0, "card": card}
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"forecast failed: {checks} {bf.failures(report)}")
     return row
 
 
@@ -5638,7 +5749,9 @@ def _from_the_checkpoint(card, t_start, ckpt_path, main_kernels) -> int:
 
     # ---------------------------------------- SLO bench and the examples
     t0 = time.time()
-    slo_serve_phase(card, params, cfg)
+    slo = slo_serve_phase(card, params, cfg)
+    autoscale_phase(card, slo["clock"])
+    forecast_phase(card)
     examples = examples_phase(card, ckpt_path)
     torch.cuda.empty_cache()
     preempt = preempt_resume_phase(card)

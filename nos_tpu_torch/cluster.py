@@ -47,6 +47,22 @@ path): with a warm-state path, a directory, each mode saves to its own
 file there (``warm-state-mig.json``, ``warm-state-mps.json``); the
 save interval runs on the cluster's clock. ``close()`` stops the pool
 workers of the process backend.
+
+Three optional components, wired as the reference's
+``nos_tpu/cmd/cluster.py:185``, ``cmd/partitioner.py:112`` and
+``cmd/autoscaler.py:31`` wire theirs, each stepped on the virtual clock:
+with ``capacity_ledger`` one ``CapacityLedger`` (``capacity/ledger.py``)
+that the scheduler stamps gang clocks on, the MIG controller observes
+after each plan, and each step observes at its end (the reference's
+heartbeat), and ``check()`` holds its ``self_check``; with ``forecast``
+a ``PlacementForecaster`` of the MIG nodes (its own planner and taker,
+the MIG controller's synced state), notified by the MIG controller's
+plans and run right after the controllers, before the agents apply a
+plan and the scheduler binds (the reference's thread wakes at the plan,
+while the carve is still ahead); with ``autoscaler`` (an
+``AutoscalerConfig``) a ``ModelServingReconciler`` whose registry, on
+the cluster's clock, callers feed through ``autoscaler.signals``, and
+which decides each step.
 """
 from __future__ import annotations
 
@@ -55,12 +71,15 @@ import logging
 import os
 from typing import Callable, Dict, List, Optional
 
+from nos_tpu_torch.api.config import AutoscalerConfig
 from nos_tpu_torch.api.v1alpha1.elasticquota import (
     CAPACITY_LABEL,
     CAPACITY_OVER_QUOTA,
     CompositeElasticQuota,
     ElasticQuota,
 )
+from nos_tpu_torch.capacity import CapacityLedger
+from nos_tpu_torch.controllers.autoscaler import ModelServingReconciler, SignalRegistry
 from nos_tpu_torch.controllers.elasticquota import (
     ElasticQuotaController,
     quota_accounting,
@@ -91,6 +110,7 @@ from nos_tpu_torch.device.sharing import (
     load_plugin_config,
 )
 from nos_tpu_torch.device.sim import SimDevicePlugin, SimMigClient, SimMigPool, SimPodResourcesClient
+from nos_tpu_torch.forecast import PlacementForecaster
 from nos_tpu_torch.gpu import annotations as annot
 from nos_tpu_torch.gpu.geometry import geometry_fits, geometry_slices
 from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, H100_80GB, KNOWN_GPUS, allowed_geometries
@@ -202,14 +222,19 @@ class SimCluster:
                  gang_timeout_seconds: float = 30.0, incremental_planning: bool = True,
                  pool_sharding: bool = False, pool_backend: str = "",
                  warm_state_path: str = "", pool_cycle_timeout_seconds: float = 5.0,
-                 warm_state_save_interval_seconds: float = 30.0) -> None:
+                 warm_state_save_interval_seconds: float = 30.0,
+                 capacity_ledger: bool = False, forecast: bool = False,
+                 autoscaler: Optional[AutoscalerConfig] = None) -> None:
         self.now = 0.0
         self.store = NodeStore(clock=self.clock)
         register_elasticquota_webhooks(self.store)
         self.expander = register_multinode_admission(self.store)
         self.steps = 0
         self.pool = SimMigPool()
-        self.scheduler = Scheduler(self.store, new_framework(self.store, gang_timeout_seconds))
+        self.ledger: Optional[CapacityLedger] = (
+            CapacityLedger(self.store) if capacity_ledger else None)
+        self.scheduler = Scheduler(self.store, new_framework(self.store, gang_timeout_seconds),
+                                   capacity_ledger=self.ledger)
         self.quotas = ElasticQuotaController(self.store)
         self.config_map_name = config_map_name
         plan_ids = itertools.count(1)
@@ -228,12 +253,21 @@ class SimCluster:
                     "warm_state_save_interval_seconds": warm_state_save_interval_seconds}
 
         mig_partitioner = MigPartitioner(self.store)
+        mig_state = ClusterState()
+        self.forecaster: Optional[PlacementForecaster] = None
+        if forecast:
+            # its own planner and taker: forecast trials never touch the
+            # controller's memos
+            self.forecaster = PlacementForecaster(
+                self.store, mig_state, Planner(build_sim_framework(self.store), clock=clock),
+                MigSnapshotTaker(), kind=PARTITIONING_MIG, capacity_ledger=self.ledger)
         self.mig = PartitionerController(
-            self.store, ClusterState(), MigSnapshotTaker(),
+            self.store, mig_state, MigSnapshotTaker(),
             Planner(build_sim_framework(self.store), clock=clock), Actuator(mig_partitioner),
             PARTITIONING_MIG,
             is_mig_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
             initializer=MigNodeInitializer(mig_partitioner, plan_id), clock=clock,
+            capacity_ledger=self.ledger, forecaster=self.forecaster,
             **sharding(PARTITIONING_MIG))
         self.mps = PartitionerController(
             self.store, ClusterState(), MpsSnapshotTaker(),
@@ -246,6 +280,11 @@ class SimCluster:
         self.agents: Dict[str, MigAgent] = {}
         self.mps_reporters: Dict[str, MpsReporter] = {}
         self.kubelet = SimKubelet(self.store, self.pool.geometry)
+        self.autoscaler: Optional[ModelServingReconciler] = None
+        if autoscaler is not None:
+            autoscaler.validate()
+            self.autoscaler = ModelServingReconciler(
+                self.store, autoscaler, SignalRegistry(now_fn=self.clock))
 
     def clock(self) -> float:
         return self.now
@@ -307,9 +346,13 @@ class SimCluster:
     def step(self) -> None:
         """Every component once, in the loop's order."""
         self.now += TICK_S
+        if self.autoscaler is not None:
+            self.autoscaler.step()
         self.expander.step()
         for controller in self.controllers:
             controller.step()
+        if self.forecaster is not None:
+            self.forecaster.step()
         for agent in self.agents.values():
             agent.step()
         for name, reporter in self.mps_reporters.items():
@@ -318,6 +361,8 @@ class SimCluster:
         self.scheduler.step()
         self.kubelet.step()
         self.quotas.step()
+        if self.ledger is not None:
+            self.ledger.observe(self.now)
         self.steps += 1
 
     def fingerprint(self) -> tuple:
@@ -454,6 +499,8 @@ class SimCluster:
                       no_gpu_overcommitted=committed)
         checks.update(self.check_quotas())
         checks.update(self.check_gangs())
+        if self.ledger is not None:
+            checks["capacity_ledger_consistent"] = not self.ledger.self_check()
         return checks
 
     def check_gangs(self) -> Dict[str, bool]:

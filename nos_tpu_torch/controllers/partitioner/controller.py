@@ -104,6 +104,11 @@ and ``last_plan_mode`` give the last plan's ledger (the pools' merged,
 when sharded). Out (ROADMAP.md): the flight recorder (a bounded
 ``plans`` record stands in for it); ``multihost.py``'s counterpart is
 ``multinode.py``.
+With a ``capacity_ledger`` the controller observes it after each plan
+(on its clock, with the plan's unserved reasons), and with a
+``forecaster`` it notifies it of the cycle's pending pods, at the
+reference's points (``nos_tpu/controllers/partitioner/controller.py:520-540``);
+the forecast itself runs off the plan path (``SimCluster``).
 ``build_sim_framework`` (``nos_tpu/cmd/partitioner.py:39-66``) gives a
 planner the scheduler's filters and its quota PreFilter.
 
@@ -208,9 +213,12 @@ class PartitionerController:
                  incremental_dirty_threshold: Optional[float] = None,
                  pool_sharding: bool = False, pool_backend: str = "",
                  pool_cycle_timeout_seconds: float = 5.0, warm_state_path: str = "",
-                 warm_state_save_interval_seconds: float = 30.0) -> None:
+                 warm_state_save_interval_seconds: float = 30.0,
+                 capacity_ledger=None, forecaster=None) -> None:
         self.store = store
         self.clock = clock
+        self.capacity_ledger = capacity_ledger
+        self.forecaster = forecaster
         self.cluster_state = cluster_state
         self.snapshot_taker = snapshot_taker
         self.planner = planner
@@ -456,6 +464,12 @@ class PartitionerController:
                 applied = self.actuator.apply(current, plan)
             proc.set_attributes(nodes_repartitioned=applied)
             self._record_plan(pending, plan, applied, record)
+            if self.capacity_ledger is not None:
+                # close the interval since the last observation and label
+                # the pending idle time with this plan's reasons
+                self.capacity_ledger.observe(self.clock(), unserved=dict(self.last_unserved))
+            if self.forecaster is not None:
+                self.forecaster.notify_cycle(pending, now=self.clock())
             self._save_warm_state(snapshot, shard)
         self.plans_processed += 1
         self.last_applied = applied

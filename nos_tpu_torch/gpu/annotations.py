@@ -26,6 +26,11 @@ from typing import Dict, List, Mapping, Tuple
 PREFIX = "nos.nebuly.com/"
 SPEC_PARTITIONING_PLAN = PREFIX + "spec-partitioning-plan"
 STATUS_PARTITIONING_PLAN = PREFIX + "status-partitioning-plan"
+# the model autoscaler's cold-start grace hold on the nodes a scale to zero
+# vacated: the ModelServing it is held for, and until when (the
+# reconciler's clock; ``nos_tpu/api/v1alpha1/annotations.py:28-34``)
+AUTOSCALER_RESERVED = PREFIX + "autoscaler-reserved"
+AUTOSCALER_RESERVED_UNTIL = PREFIX + "autoscaler-reserved-until"
 
 MIG_PROFILE_RE = re.compile(r"^\d+g\.\d+gb$")
 MPS_PROFILE_RE = re.compile(r"^\d+gb$")

@@ -15,7 +15,8 @@ and a message; a config map its name, namespace and string data; a pod
 disruption budget its selector and one of ``min_available`` /
 ``max_unavailable`` (``nos_tpu/kube/objects.py:350-363``); a headless
 service its selector and ports. The elastic quotas are
-``api/v1alpha1/elasticquota.py``'s. All of them stay plain dataclasses,
+``api/v1alpha1/elasticquota.py``'s, the ModelServing
+``api/v1alpha1/modelserving.py``'s. All of them stay plain dataclasses,
 and every new field defaults to "none". ``NodeStore`` keeps them under
 one lock, with the
 reference's verbs: ``create`` (which stamps a fresh ``uid`` on every pod,
@@ -41,8 +42,9 @@ incremental snapshot maintainer drains
 (``nos_tpu/controllers/partitioner/incremental.py``): every write
 appends a ``Change`` (its revision, kind, namespace and name, ADDED /
 MODIFIED / DELETED, for a pod the node it was bound to before and
-after, for a quota whether its spec moved or only its status),
-``JOURNAL_LENGTH`` of them at most. ``changes_since(revision)`` gives
+after, for a quota whether its spec moved or only its status, and the
+object as the write stored it, None for a delete: stored objects are
+never changed in place), ``JOURNAL_LENGTH`` of them at most. ``changes_since(revision)`` gives
 the changes after a reader's cursor, or None when some of them have
 been dropped (the reader rebuilds, as on the reference's drain
 overflow). Watches themselves wait for the kube substrate's slice.
@@ -58,6 +60,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from nos_tpu_torch.api.v1alpha1.elasticquota import CompositeElasticQuota, ElasticQuota
+from nos_tpu_torch.api.v1alpha1.modelserving import ModelServing
 
 
 _deepcopy = copy.deepcopy  # list()'s ``copy`` argument shadows the module
@@ -284,7 +287,8 @@ class Service:
 
 _KINDS = {"Node": Node, "Pod": Pod, "ConfigMap": ConfigMap, "ElasticQuota": ElasticQuota,
           "CompositeElasticQuota": CompositeElasticQuota,
-          "PodDisruptionBudget": PodDisruptionBudget, "Service": Service}
+          "PodDisruptionBudget": PodDisruptionBudget, "Service": Service,
+          "ModelServing": ModelServing}
 
 
 # the writes the journal keeps; a reader further behind rebuilds
@@ -303,6 +307,8 @@ class Change:
     node_before: str = ""  # a pod's node before and after the write
     node_after: str = ""
     spec_changed: bool = True  # False: a quota write that moved only its status
+    # the object as stored by the write (None: deleted); read-only
+    obj: Any = field(default=None, compare=False, repr=False)
 
 
 def _quota_spec(obj: Any) -> tuple:
@@ -319,7 +325,7 @@ def _change(revision: int, kind: str, before: Any, after: Any) -> Change:
         spec_changed = _quota_spec(before) != _quota_spec(after)
     node_of = (lambda o: o.node if o is not None else "") if kind == "Pod" else (lambda o: "")
     return Change(revision, kind, obj.namespace, obj.name, kind_of_write, node_of(before),
-                  node_of(after), spec_changed)
+                  node_of(after), spec_changed, after)
 
 
 def _kind(obj: Any) -> str:

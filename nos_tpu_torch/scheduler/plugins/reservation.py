@@ -31,14 +31,16 @@ the reference reads ``time.time``.
 ``AutoscalerGraceScoring`` softly steers a returning model to the node
 the autoscaler held for it (``nos.nebuly.com/autoscaler-reserved``): its
 replicas score 50 there, unrelated pods 0, and 30 anywhere unreserved.
-Nothing writes that annotation until the autoscaler's slice.
+The autoscaler (``controllers/autoscaler``) writes that annotation on a
+scale to zero.
 """
 from __future__ import annotations
 
 import logging
 from typing import Dict, Optional
 
-from nos_tpu_torch.gpu.annotations import PREFIX
+from nos_tpu_torch.api.v1alpha1.modelserving import MODEL_SERVING_LABEL
+from nos_tpu_torch.gpu.annotations import AUTOSCALER_RESERVED, PREFIX
 from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, KNOWN_GPUS
 from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, RESOURCE_GPU
 from nos_tpu_torch.kube.store import Node, NodeStore, NotFoundError, Pod, PodPhase
@@ -51,8 +53,6 @@ log = logging.getLogger("nos_tpu_torch.scheduler")
 
 RESERVED_FOR = PREFIX + "reserved-for"
 RESERVED_AT = PREFIX + "reserved-at"
-AUTOSCALER_RESERVED = PREFIX + "autoscaler-reserved"
-MODEL_SERVING_LABEL = "nos.nebuly.com/model-serving"
 
 _VALID_CACHE_KEY = "board_reservation_valid"
 

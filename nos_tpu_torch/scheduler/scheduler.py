@@ -34,8 +34,12 @@ of pods now bound or gone (the reference's guard at ``:166-176``), then
 reconciles every pending pod this scheduler owns (highest priority
 first, then by namespace and name); ``start()`` runs the steps on a
 thread of its own every ``interval`` seconds until ``stop()``, as
-``MigAgent`` does. The capacity ledger's gang wait clocks and events
-wait for the observability slice (ROADMAP.md).
+``MigAgent`` does. With a ``capacity_ledger`` the cycles stamp the gang
+wait clocks on the store's clock, as the reference's do (``:269-273``,
+``:437-445``, ``:469-473``, ``:619-624``): a gang's first cycle its
+arrival, a member waiting in Permit or binding its first feasible cycle,
+its bind the bound stamp, a timeout drops the clock. Events wait for
+the observability slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -133,8 +137,10 @@ class CycleOutcome:
 
 class Scheduler:
     def __init__(self, store: NodeStore, framework: Optional[Framework] = None,
-                 scheduler_name: str = "", interval: float = 0.5) -> None:
+                 scheduler_name: str = "", interval: float = 0.5,
+                 capacity_ledger=None) -> None:
         self.store = store
+        self.capacity_ledger = capacity_ledger
         self.framework = framework or new_framework(store)
         # the plugins new_framework wired (None when absent)
         self.capacity: Optional[CapacityScheduling] = getattr(self.framework, "capacity", None)
@@ -235,10 +241,21 @@ class Scheduler:
             self._drop_assumed(key)  # recreated under its name
         return self.schedule_one(pod)
 
+    def _gang_clock(self, pod: Pod, stamp: str) -> None:
+        """Stamp the pod's gang wait clock on the capacity ledger."""
+        gang = gang_of(pod) if self.capacity_ledger is not None else None
+        if gang is not None:
+            getattr(self.capacity_ledger, stamp)(gang[0], self.store.clock())
+
     def schedule_one(self, pod: Pod) -> CycleOutcome:
         with TRACER.span("scheduler.cycle", pod=pod.namespaced_name) as span:
+            # idempotent: the first cycle of any member starts the clock
+            self._gang_clock(pod, "note_gang_arrival")
             outcome = self._decide(pod)
             span.set_attributes(decision=outcome.decision, node=outcome.node)
+            if outcome.decision in ("wait", "bind"):
+                # the whole gang found nodes this cycle
+                self._gang_clock(pod, "note_gang_feasible")
             if outcome.decision == "bind":
                 span.set_attributes(pods=len(outcome.to_bind))
                 for bind_pod, node_name in outcome.to_bind:
@@ -246,6 +263,8 @@ class Scheduler:
                     self._bind(bind_pod, node_name)
                     if self.reservation is not None:
                         self.reservation.release_for(bind_pod)
+                for bind_pod, _ in outcome.to_bind:
+                    self._gang_clock(bind_pod, "note_gang_bound")
             elif outcome.decision == "wait":
                 log.info("scheduler: %s waiting (%s)", pod.namespaced_name, outcome.message)
             elif outcome.decision == "nominate":
@@ -359,6 +378,10 @@ class Scheduler:
         for members in self.gang.expired_gangs():
             key = gang_of(members[0][0])[0]
             self.gang_timeouts[key] = self.gang_timeouts.get(key, 0) + 1
+            if self.capacity_ledger is not None:
+                # the gang will not bind: a stale clock would pollute its
+                # re-arrival's wait
+                self.capacity_ledger.drop_gang(key)
             for member, node_name in members:
                 self._assumed.pop(member.namespaced_name, None)
                 self.framework.run_unreserve_plugins(CycleState(), member, node_name)

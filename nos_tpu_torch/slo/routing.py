@@ -25,7 +25,7 @@ from typing import Dict, List, Optional
 
 from nos_tpu_torch.serve.telemetry import ServeTelemetry, VirtualServeClock
 from nos_tpu_torch.slo.driver import Arrival
-from nos_tpu_torch.slo.signals import SignalRegistry
+from nos_tpu_torch.controllers.autoscaler.signals import SignalRegistry
 
 TICK_COST_S = 0.008
 PREFILL_TOKEN_COST_S = 0.0002

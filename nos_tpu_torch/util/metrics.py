@@ -8,9 +8,12 @@ the MIG agent's instance counters, the planner's plan, mode, verdict-cache,
 carve-futility and snapshot counters, the pool-sharded planner's pool
 count, pool durations, merge conflicts, backends and warm boots
 (``nos_tpu/util/metrics.py:743-790``), the divergence replans, the drain
-reservations and the preemptions. The reference's cardinality governor,
-child deletion, percentile windows and incremental snapshot cursors
-serve its control plane and are left out.
+reservations and the preemptions, the autoscaler's replicas, decisions
+and cold starts, the capacity ledger's GB-seconds and gang waits, and
+the forecaster's ETAs, accuracy, unsafe backfills and runs
+(``:928-1078``); ``remove(**labels)`` drops a child series. The
+reference's cardinality governor, percentile windows and incremental
+snapshot cursors serve its control plane and are left out.
 """
 from __future__ import annotations
 
@@ -57,6 +60,12 @@ class _Family:
                 child = self._new_child({k: str(v) for k, v in label_values.items()})
                 self._children[key] = child
             return child
+
+    def remove(self, **label_values: str) -> None:
+        """Drop the child series of this label set (a no-op when absent)."""
+        key = tuple(sorted((k, str(v)) for k, v in label_values.items()))
+        with self._lock:
+            self._children.pop(key, None)
 
     def _sorted_children(self):
         with self._lock:
@@ -356,4 +365,59 @@ BOARD_RESERVATIONS = REGISTRY.counter(
 # CapacityScheduling's preemptor (scheduler/preemption.py).
 PREEMPTIONS = REGISTRY.counter(
     "nos_tpu_preemptions_total", "Pods evicted by quota preemption (by victim namespace)"
+)
+
+# The model autoscaler (controllers/autoscaler).
+_WAIT_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 15.0, 30.0, 60.0)
+AUTOSCALER_REPLICAS = REGISTRY.gauge(
+    "nos_tpu_autoscaler_replicas",
+    "Replica counts per ModelServing (by model, state=desired|ready)",
+)
+AUTOSCALER_DECISIONS = REGISTRY.counter(
+    "nos_tpu_autoscaler_decisions_total",
+    "Autoscaler verdicts per reconcile "
+    "(by verdict=hold|scale-up|scale-down|scale-to-zero|cold-start)",
+)
+AUTOSCALER_COLD_START_SECONDS = REGISTRY.histogram(
+    "nos_tpu_autoscaler_cold_start_seconds",
+    "Time from a scaled-to-zero model's wake decision to its first replica "
+    "binding (the carve included)",
+    buckets=_WAIT_BUCKETS,
+)
+
+# The capacity ledger (capacity/ledger.py), in GB of GPU memory.
+CAPACITY_GB_SECONDS = REGISTRY.counter(
+    "nos_tpu_capacity_gb_seconds_total",
+    "GPU-memory GB-seconds integrated between observations, by "
+    "state=busy|no-demand|pending-unschedulable|reconfig|reserved-by-gang"
+    "|autoscaler-grace (reason: the dominant unserved-reason prefix of "
+    "pending-unschedulable)",
+)
+GANG_WAIT_SECONDS = REGISTRY.histogram(
+    "nos_tpu_gang_wait_seconds",
+    "Gang wait from arrival, by stage=first_feasible|bound",
+    buckets=_WAIT_BUCKETS,
+)
+
+# The placement forecaster (forecast/).
+GANG_ETA_SECONDS = REGISTRY.histogram(
+    "nos_tpu_gang_eta_seconds",
+    "Forecast earliest-start ETA per pending gang "
+    "(by stage=feasible-now|recarve|blocked; a blocked gang without "
+    "expected-completion hints publishes none)",
+    buckets=_WAIT_BUCKETS,
+)
+FORECAST_ACCURACY_RATIO = REGISTRY.gauge(
+    "nos_tpu_forecast_accuracy_ratio",
+    "Rolling forecast calibration: absolute ETA error over the gang's "
+    "arrival-to-bound wait (by quantile=p50|p95)",
+)
+BACKFILL_UNSAFE_TOTAL = REGISTRY.counter(
+    "nos_tpu_backfill_unsafe_total",
+    "Backfill trials whose (small pod, node) placement would delay the "
+    "oldest pending gang",
+)
+FORECAST_RUNS = REGISTRY.counter(
+    "nos_tpu_forecast_runs_total",
+    "Completed forecast cycles",
 )

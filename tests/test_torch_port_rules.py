@@ -73,7 +73,8 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/controllers/migagent/__init__.py",
         "nos_tpu_torch/controllers/mpsagent/reporter.py",
         "nos_tpu_torch/partitioning/mig.py", "nos_tpu_torch/partitioning/mps.py",
-        "nos_tpu_torch/examples/preempt_resume.py", "nos_tpu_torch/slo/signals.py",
+        "nos_tpu_torch/examples/preempt_resume.py",
+        "nos_tpu_torch/controllers/autoscaler/signals.py",
         "nos_tpu_torch/slo/routing.py",
         "nos_tpu_torch/api/v1alpha1/elasticquota.py",
         "nos_tpu_torch/controllers/elasticquota/controller.py",
@@ -87,6 +88,13 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/bench_control_plane.py",
         "nos_tpu_torch/partitioning/core/pools.py", "nos_tpu_torch/partitioning/core/procpool.py",
         "nos_tpu_torch/partitioning/core/snapcodec.py", "nos_tpu_torch/kube/serde.py",
+        "nos_tpu_torch/api/v1alpha1/modelserving.py", "nos_tpu_torch/api/config/v1alpha1.py",
+        "nos_tpu_torch/controllers/autoscaler/policy.py",
+        "nos_tpu_torch/controllers/autoscaler/controller.py",
+        "nos_tpu_torch/capacity/ledger.py", "nos_tpu_torch/forecast/engine.py",
+        "nos_tpu_torch/forecast/advisor.py", "nos_tpu_torch/forecast/accuracy.py",
+        "nos_tpu_torch/forecast/forecaster.py", "nos_tpu_torch/bench_autoscale.py",
+        "nos_tpu_torch/bench_forecast.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -100,7 +108,8 @@ CONTROL_PLANE = ("api", "kube", "scheduler", "controllers", "partitioning/core",
                  "util/resources.py", "util/pod.py", "util/batcher.py", "cluster.py",
                  "bench_control_plane.py", "partitioning/mig.py", "partitioning/mps.py",
                  "partitioning/bench_planner.py", "device/sim.py", "device/sharing.py",
-                 "util/metrics.py")
+                 "util/metrics.py", "capacity", "forecast", "bench_autoscale.py",
+                 "bench_forecast.py")
 
 
 def test_control_plane_imports_no_torch():
@@ -118,7 +127,12 @@ def test_control_plane_imports_no_torch():
             "bench_control_plane.py", "controllers/partitioner/incremental.py",
             "controllers/migagent/shared.py", "partitioning/bench_planner.py",
             "util/metrics.py", "partitioning/core/pools.py", "partitioning/core/procpool.py",
-            "partitioning/core/snapcodec.py", "kube/serde.py"} <= names
+            "partitioning/core/snapcodec.py", "kube/serde.py", "api/v1alpha1/modelserving.py",
+            "api/config/v1alpha1.py", "controllers/autoscaler/signals.py",
+            "controllers/autoscaler/policy.py", "controllers/autoscaler/controller.py",
+            "capacity/ledger.py", "forecast/engine.py", "forecast/advisor.py",
+            "forecast/accuracy.py", "forecast/forecaster.py", "bench_autoscale.py",
+            "bench_forecast.py"} <= names
     bad = [f"{p.relative_to(ROOT)}: {mod}" for p in files for mod in _imports(p)
            if mod == "torch" or mod.startswith("torch.")]
     assert not bad, bad

@@ -1,5 +1,5 @@
-"""Replica routing (nos_tpu_torch.slo.routing, nos_tpu_torch.slo.signals)
-against nos_tpu.slo.routing and nos_tpu.controllers.autoscaler.signals.
+"""Replica routing (nos_tpu_torch.slo.routing,
+nos_tpu_torch.controllers.autoscaler.signals) against nos_tpu.slo.routing and nos_tpu.controllers.autoscaler.signals.
 
 The same arrivals (``slo/driver``'s workload, from a seed, built by each
 side's own ``build_arrivals``) and the same ``sync_replicas`` sequence a
@@ -8,9 +8,8 @@ go through both routers. Both run on the virtual serving clock, so the
 bar is exact equality: each completed request's TTFT, TPOT, end-to-end
 and queue wait in completion order, the requests completed an epoch, the
 backlog, the replicas' clocks and every ``SignalRegistry`` value after
-each epoch. The port's registry keeps the two signals the router writes;
-the reference's burn-rate and budget fields, which no router writes,
-must stay at their defaults.
+each epoch. The burn-rate and budget fields, which no router writes,
+must stay at their defaults on both sides.
 """
 import pytest
 
@@ -20,7 +19,7 @@ from nos_tpu.slo.routing import ReplicaRouter as JRouter
 from nos_tpu.slo.routing import SimReplicaEngine as JEngine
 from nos_tpu_torch.slo import driver as tdriver
 from nos_tpu_torch.slo.routing import ReplicaRouter, SimReplicaEngine
-from nos_tpu_torch.slo.signals import SignalRegistry
+from nos_tpu_torch.controllers.autoscaler.signals import SignalRegistry
 
 EPOCH_S = 2.0
 COLD_START_S = 1.5
@@ -109,12 +108,14 @@ def test_an_engine_alone_matches_the_reference():
 
 
 def test_the_registry_matches_the_reference():
-    ref, port = JRegistry(now_fn=lambda: 7.0), SignalRegistry()
+    ref, port = JRegistry(now_fn=lambda: 7.0), SignalRegistry(now_fn=lambda: 7.0)
     for reg in (ref, port):
         reg.note_arrival("a", 3.0, 2)
         reg.note_arrival("a", 1.0, 5)  # an older arrival keeps the newest stamp
         reg.update("b", queue_depth=4)
-    assert port.payload() == _payload(ref)
+        reg.update("c", burn_fast=1.5, burn_slow=0.25, error_budget_remaining=0.5)
+    assert port.payload() == ref.payload()
+    assert port.models() == ref.models() and port.now() == ref.now() == 7.0
     assert port.get("a").queue_depth == ref.get("a").queue_depth == 5
     assert port.get("zzz") == type(port.get("zzz"))()
 
