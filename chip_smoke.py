@@ -53,6 +53,19 @@ Phases, each fatal on failure (exit code != 0):
     vanilla filters and CapacityScheduling's PreFilter, over a store of
     the cluster with a quota that admits every pod), and the vanilla
     filters alone in the same run, whose plans must agree;
+1d1. kube: the kube substrate over HTTP (kube_phase): the port's stub
+    API server on 127.0.0.1, two replicas each a KubeApiStore, a
+    LeaderElector and, while it leads, a threaded Manager feeding a
+    ClusterState (state-node / state-pod); through the API 32 MIG nodes
+    of 8 H100s (256 GPUs, the first with the card's product as NVML
+    names it), 400 pods, 300 bound through the binding subresource with
+    an event a bind, the first leader releasing, 50 finished, 50
+    deleted: every cache equal to the server, the leader's state equal
+    to a whole sync of its cache, every kind delivered in resource
+    version order, never two leaders and a handover, events deduplicated
+    (counts summing to the binds); printed: a fresh store's list+watch
+    sync, the HTTP writes' p50 / p99, the create-to-ClusterState lag and
+    the handover, in ms;
 1e. quota: elastic quotas and fair-share preemption (quota_phase) on a
     SimCluster of 20 nodes (the card's own MIG node, 15 more MIG nodes
     and 4 MPS nodes of 8 H100s); team-a, team-b and team-c hold quotas
@@ -200,8 +213,10 @@ then the model bench, ResNet and the checkpoint:
     chat / batch pairs at 16 x 14 requests/s times 8 ms over the card's
     tick, the reference's load a replica) on slo_serve's calibrated
     clock: every batch-<i> scales to zero with the nodes it vacated held
-    in the cold-start grace (GB-seconds > 0), every hold expires and its
-    GPUs go back to no-demand, every chat-<i> scales up at least once,
+    in the cold-start grace (GB-seconds > 0), one hold a vacated replica
+    whose grace runs at every epoch (several on one 8-GPU node), every
+    hold expires and its GPUs go back to no-demand, every chat-<i> scales
+    up at least once,
     some chat scales back down, every replica is bound at each settled
     epoch, and SimCluster.check()
     with the capacity ledger's self_check holds at every epoch; the SLO
@@ -2383,8 +2398,10 @@ def autoscale_phase(card, clock) -> dict:
     pairs) on the clock slo_serve calibrated on the card, its rate scaled
     by the reference's tick over the card's so that the load a replica
     sees stays the reference's. Held: every batch-<i> scales to zero, the
-    nodes it vacated come under the grace hold (GB-seconds > 0), every
-    hold expires and the GPUs go back to no-demand, every chat-<i> scales
+    nodes it vacated come under the grace hold (GB-seconds > 0), the
+    nodes carry one hold a vacated replica whose grace runs at every
+    epoch (F10: several on one 8-GPU node at once), every hold expires
+    and the GPUs go back to no-demand, every chat-<i> scales
     up at least once, some chat scales back down, every replica is
     bound at each settled epoch, and SimCluster.check() with the
     ledger's self_check holds at every epoch. Reported: the SLO
@@ -2417,6 +2434,9 @@ def autoscale_phase(card, clock) -> dict:
         and all(quick["replicas"]["final"][b] == 0 for b in batches),
         "vacated_nodes_held_in_grace": grace["vacated_nodes_held"]
         and idle["autoscaler-grace"] > 0,
+        # one hold a vacated replica whose grace runs, at every epoch (F10)
+        "one_hold_per_vacated_replica": grace["holds_match_vacated_replicas"]
+        and grace["holds_peak"] >= len(batches),
         "grace_reclaimed_to_no_demand": grace["nodes_held_at_end"] == 0
         and (grace["no_demand_gb_seconds_after_release"] or 0) > 0,
         "every_chat_scaled_up": all(scaled_up.values()),
@@ -4642,6 +4662,279 @@ def partitioner_phase(card) -> dict:
     return row
 
 
+KUBE_NODES = 32           # MIG nodes of 8 H100s: 256 GPUs
+KUBE_PODS = 400
+KUBE_BINDS = 300
+KUBE_FINISHED = 50
+KUBE_DELETED = 50
+KUBE_SEED = 21
+
+
+def kube_phase(card, nvml=None) -> dict:
+    """The kube substrate over HTTP at a real cluster size: the port's
+    StubApiServer on 127.0.0.1 and KubeApiStores on it; two replicas,
+    each a LeaderElector and, while it leads, a threaded Manager feeding a
+    ClusterState through state-node / state-pod. Through the API: 32 MIG
+    nodes of 8 H100s (the first with the card's product as NVML names
+    it), 400 pods, 300 bound through the binding subresource (an event
+    recorded on the node at each), then the first leader releases, 50
+    pods finish and 50 are deleted. Checked: each store's cache equals
+    the server's objects; the leader's ClusterState equals a whole sync
+    of its cache; each store's watch delivered every kind in resource
+    version order; never two leaders at once, and the lease changed hands;
+    the recorder bumped its duplicates (one event a node, counts summing
+    to the binds). Reported: a fresh store's list+watch sync at the end,
+    the HTTP writes' p50 / p99, the create-to-ClusterState lag (a node's
+    create, a pod's bind) p50 / p99, the handover."""
+    import random
+    import threading
+
+    if nvml is None:
+        from nos_tpu_torch.device.nvml import Nvml
+
+        with Nvml() as nv:
+            return kube_phase(card, nvml=nv)
+    from nos_tpu_torch.cluster import HOSTNAME_LABEL, NODE_CPU, NODE_MEMORY_GIB, product_label
+    from nos_tpu_torch.controllers.partitioner.node_controller import add_state_controllers
+    from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, H100_80GB
+    from nos_tpu_torch.gpu.node import (
+        PARTITIONING_LABEL,
+        PARTITIONING_MIG,
+        RESOURCE_GPU,
+        mig_resource,
+    )
+    from nos_tpu_torch.kube import serde
+    from nos_tpu_torch.kube.apiclient import ClusterCredentials, KubeApiClient
+    from nos_tpu_torch.kube.apistore import KubeApiStore
+    from nos_tpu_torch.kube.controller import Manager
+    from nos_tpu_torch.kube.events import EventRecorder
+    from nos_tpu_torch.kube.leaderelection import LeaderElector
+    from nos_tpu_torch.kube.store import Node, Pod, PodPhase
+    from nos_tpu_torch.partitioning.core import ClusterState
+    from nos_tpu_torch.sim.apiserver import StubApiServer
+    from nos_tpu_torch.slo.driver import percentiles
+
+    class TimedState(ClusterState):
+        """Stamps when each node, and each pod on its node, first enters."""
+
+        def __init__(self):
+            super().__init__()
+            self.seen = {}
+
+        def update_node(self, node, pods):
+            super().update_node(node, pods)
+            now = time.perf_counter()
+            self.seen.setdefault(("Node", node.name), now)
+            for pod in pods:
+                self.seen.setdefault(("Pod", pod.namespaced_name, node.name), now)
+
+        def update_pod_usage(self, pod):
+            super().update_pod_usage(pod)
+            if pod.node and self.bindings().get(pod.namespaced_name) == pod.node:
+                self.seen.setdefault(("Pod", pod.namespaced_name, pod.node),
+                                     time.perf_counter())
+
+    kinds = ("Node", "Pod", "ConfigMap", "Event")
+    t0 = time.time()
+    rng = random.Random(KUBE_SEED)
+    row = {"phase": "kube", "nvml": {"name": nvml.name(0), "gpus": nvml.device_count()}}
+    server = StubApiServer().start()
+
+    def new_store():
+        return KubeApiStore(KubeApiClient(ClusterCredentials(server=server.url), timeout=30.0),
+                            kinds=kinds)
+
+    replicas = {}
+    leaders = []  # (identity, started or stopped, perf_counter)
+    stores, electors = [], []
+    try:
+        for ident in ("a", "b"):
+            store = new_store()
+            store.start(sync_timeout_s=30.0)
+            stores.append(store)
+            state = TimedState()
+            manager = Manager(store)
+            add_state_controllers(manager, state, kind=PARTITIONING_MIG, suffix=f"-{ident}")
+            replicas[ident] = {"store": store, "state": state, "manager": manager,
+                               "watch": store.watch(["Node", "Pod"], name=f"check-{ident}")}
+
+            def started(ident=ident):
+                leaders.append((ident, "up", time.perf_counter()))
+                replicas[ident]["manager"].start()
+
+            def stopped(ident=ident):
+                leaders.append((ident, "down", time.perf_counter()))
+                replicas[ident]["manager"].stop()
+
+            electors.append(LeaderElector(store, "nos-partitioner", ident,
+                                          lease_duration_s=2.0, renew_period_s=0.1,
+                                          on_started_leading=started,
+                                          on_stopped_leading=stopped))
+        a, b = electors
+        a.start()
+        if not a.wait_for_leadership(10.0):
+            raise SystemExit("kube: the first elector never led")
+        b.start()
+        at_once = []
+        watching = threading.Event()
+
+        def watch_leaders():
+            while not watching.is_set():
+                at_once.append(sum(e.is_leader for e in electors))
+                time.sleep(0.002)
+
+        monitor = threading.Thread(target=watch_leaders, daemon=True)
+        monitor.start()
+
+        writer = stores[0]
+        recorder = EventRecorder(writer, "kube-smoke")
+        writes = []
+        started_at = {}
+
+        def timed(fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            writes.append(time.perf_counter() - t)
+            return out, t
+
+        product = product_label(nvml.name(0))
+        for i in range(KUBE_NODES):
+            name = f"gpu-{i:02d}"
+            resources = {RESOURCE_GPU: 8, "cpu": NODE_CPU, "memory": NODE_MEMORY_GIB}
+            labels = {GPU_PRODUCT_LABEL: product if i == 0 else H100_80GB,
+                      PARTITIONING_LABEL: PARTITIONING_MIG, HOSTNAME_LABEL: name}
+            _, started_at[("Node", name)] = timed(writer.create, Node(
+                name, labels=labels, capacity=dict(resources), allocatable=dict(resources)))
+        profiles = ("1g.10gb", "2g.20gb", "3g.40gb", "4g.40gb", "7g.80gb")
+        for j in range(KUBE_PODS):
+            timed(writer.create, Pod(f"job-{j:03d}", "smoke", scheduler_name="nos-scheduler",
+                                     request={mig_resource(rng.choice(profiles)): 1}))
+        bound = {}
+        for j in rng.sample(range(KUBE_PODS), KUBE_BINDS):
+            name, node = f"job-{j:03d}", f"gpu-{rng.randrange(KUBE_NODES):02d}"
+            _, started_at[("Pod", f"smoke/{name}", node)] = timed(
+                writer.patch_merge, "Pod", name, "smoke",
+                lambda p, node=node: setattr(p, "node", node))
+            bound[name] = node
+            recorder.record(writer.get("Node", node), "Scheduled", "bound a pod")
+        # the first leader steps down partway
+        t_release = time.perf_counter()
+        a.stop()
+        if not b.wait_for_leadership(10.0):
+            raise SystemExit("kube: the lease never changed hands")
+        handover_ms = (time.perf_counter() - t_release) * 1e3
+        names = sorted(bound)
+        rng.shuffle(names)
+        for name in names[:KUBE_FINISHED]:
+            timed(writer.patch_merge, "Pod", name, "smoke",
+                  lambda p: setattr(p, "phase", PodPhase.SUCCEEDED))
+        for name in names[KUBE_FINISHED:KUBE_FINISHED + KUBE_DELETED]:
+            timed(writer.delete, "Pod", name, "smoke")
+
+        # the caches catch up with the server; the leader's state with its cache
+        def server_objects():
+            with server.state.lock:
+                docs = [dict(o) for (p, _, _), o in server.state.objects.items()
+                        if p in ("nodes", "pods", "configmaps", "events")]
+            return {(d["kind"], d["metadata"].get("namespace", ""), d["metadata"]["name"]):
+                    serde.from_wire(d) for d in docs}
+
+        def cache(store, of=kinds):
+            return {(k, o.namespace, o.name): o for k in of for o in store.list(k)}
+
+        def caught_up(of):
+            deadline = time.monotonic() + 20.0
+            while time.monotonic() < deadline:
+                want = {k: o for k, o in server_objects().items() if k[0] in of}
+                if all(cache(s, of) == want for s in stores):
+                    return True
+                time.sleep(0.02)
+            return False
+
+        objects_caught_up = caught_up(("Node", "Pod", "Event"))
+        leader = replicas["b"]
+        leader["manager"].wait_idle(timeout=10.0)
+        whole = ClusterState()
+        by_node = leader["store"].pods_by_node()
+        for node in leader["store"].list("Node", copy=False):
+            whole.update_node(node, list(by_node.get(node.name, ())))
+        state_equal = (leader["state"].read_view() == whole.read_view()
+                       and leader["state"].bindings() == whole.bindings())
+        watching.set()
+        monitor.join(5)
+        b.stop()  # releases: the lease's last write
+        leases_caught_up = caught_up(kinds)
+
+        def in_order(q):
+            last, ok, n = {}, True, 0
+            while not q.empty():
+                e = q.get_nowait()
+                ok &= e.object.resource_version > last.get(e.kind, 0)
+                last[e.kind] = e.object.resource_version
+                n += 1
+            return ok, n
+
+        orders = {ident: in_order(r["watch"]) for ident, r in replicas.items()}
+        # the writes ran while a led: the lag is read off a's state (b's
+        # came by its replay, after the handover)
+        seen = replicas["a"]["state"].seen
+        lags = [(seen[key] - t) * 1e3 for key, t in started_at.items()
+                if key[0] == "Node" and key in seen]
+        pod_lags = [(seen[key] - t) * 1e3 for key, t in started_at.items()
+                    if key[0] == "Pod" and key in seen]
+        events = writer.list("Event", namespace="default")
+        fresh = new_store()
+        t_sync = time.perf_counter()
+        fresh.start(sync_timeout_s=30.0)
+        sync_ms = (time.perf_counter() - t_sync) * 1e3
+        fresh_equal = cache(fresh) == server_objects()
+        fresh.stop()
+        ups = [i for i, what, _ in leaders if what == "up"]
+        checks = {
+            "nvml_product": product == H100_80GB,
+            "caches_equal_server": objects_caught_up and leases_caught_up,
+            "fresh_list_watch_equals_server": fresh_equal,
+            "state_equals_whole_sync": state_equal,
+            "state_holds_the_live_binds": len(whole.bindings()) == KUBE_BINDS - KUBE_FINISHED
+            - KUBE_DELETED,
+            "every_create_reached_the_state": len(lags) == KUBE_NODES
+            and len(pod_lags) == KUBE_BINDS,
+            "deliveries_in_version_order": all(ok for ok, _ in orders.values()),
+            "never_two_leaders": max(at_once) <= 1,
+            "lease_changed_hands": ups[:2] == ["a", "b"],
+            "events_deduplicated": len(events) == len(set(bound.values())),
+            "event_counts_sum_to_binds": sum(e.count for e in events) == KUBE_BINDS
+            and recorder.dropped == 0,
+        }
+        row.update({
+            "nodes": KUBE_NODES, "gpus": 8 * KUBE_NODES, "pods": KUBE_PODS,
+            "binds": KUBE_BINDS, "finished": KUBE_FINISHED, "deleted": KUBE_DELETED,
+            "http_writes": len(writes),
+            "http_write_ms": {k: v * 1e3 for k, v in percentiles(writes).items()},
+            "list_watch_sync_ms": sync_ms,
+            "create_to_state_ms": percentiles(lags + pod_lags),
+            "node_create_to_state_ms": percentiles(lags),
+            "pod_bind_to_state_ms": percentiles(pod_lags),
+            "handover_ms": handover_ms, "leaders": ups,
+            "deliveries": {ident: n for ident, (_, n) in orders.items()},
+            "events": len(events), "event_count_max": max((e.count for e in events), default=0),
+            "relists": dict(fresh.relists),
+        })
+    finally:
+        for e in electors:
+            e.stop()
+        for r in replicas.values():
+            r["manager"].stop()
+        for store in stores:
+            store.stop()
+        server.stop()
+    row.update(checks=checks, ok=all(checks.values()), seconds=time.time() - t0, card=card)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"kube failed: {checks}")
+    return row
+
+
 QUOTA_MIG_NODES = 15      # beside the card's own MIG node, 8 H100s each
 QUOTA_MPS_NODES = 4
 # namespace: (min, max) as shares of the fleet's GB of GPU memory
@@ -5595,6 +5888,7 @@ def main() -> int:
     nvml_phase(card)
     migagent_phase(card)
     partitioner_phase(card)
+    kube_phase(card)
     quota_phase(card)
     gang_phase(card)
     control_bench_phase(card)

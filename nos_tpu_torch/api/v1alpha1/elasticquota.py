@@ -37,6 +37,7 @@ class ElasticQuota:
     min: Dict[str, int] = field(default_factory=dict)
     max: Dict[str, int] = field(default_factory=dict)
     used: Dict[str, int] = field(default_factory=dict)  # status.used
+    resource_version: int = 0
     kind: ClassVar[str] = "ElasticQuota"
 
 
@@ -51,4 +52,5 @@ class CompositeElasticQuota:
     min: Dict[str, int] = field(default_factory=dict)
     max: Dict[str, int] = field(default_factory=dict)
     used: Dict[str, int] = field(default_factory=dict)
+    resource_version: int = 0
     kind: ClassVar[str] = "CompositeElasticQuota"

@@ -101,4 +101,5 @@ class ModelServing:
     namespace: str = "default"
     spec: ModelServingSpec = field(default_factory=ModelServingSpec)
     status: ModelServingStatus = field(default_factory=ModelServingStatus)
+    resource_version: int = 0
     kind: ClassVar[str] = "ModelServing"

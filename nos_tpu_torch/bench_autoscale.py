@@ -86,6 +86,7 @@ from nos_tpu_torch.scheduler.plugins.reservation import RESERVED_FOR
 from nos_tpu_torch.slo.driver import ModelProfile, WorkloadConfig, build_arrivals, percentiles
 from nos_tpu_torch.slo.engine import SLOEngine
 from nos_tpu_torch.slo.routing import PREFILL_TOKEN_COST_S, TICK_COST_S, ReplicaRouter
+from nos_tpu_torch.util.resources import node_memory_slices
 
 # one control decision an epoch (the reconciler's resync)
 EPOCH_S = 5.0
@@ -165,6 +166,13 @@ def _bound(store, ms: ModelServing) -> List[str]:
                   if p.labels.get(MODEL_SERVING_LABEL) == key and p.node)
 
 
+def _bound_replica_nodes(store, ms: ModelServing) -> List[str]:
+    """The node of each bound replica, sorted (a node once a replica)."""
+    key = serving_key(ms)
+    return sorted(p.node for p in store.list("Pod", namespace=ms.namespace, copy=False)
+                  if p.labels.get(MODEL_SERVING_LABEL) == key and p.node)
+
+
 def _bound_nodes(store, ms: ModelServing) -> List[str]:
     key = serving_key(ms)
     return sorted({p.node for p in store.list("Pod", namespace=ms.namespace, copy=False)
@@ -173,32 +181,47 @@ def _bound_nodes(store, ms: ModelServing) -> List[str]:
 
 class _GraceWatch:
     """Where the cold-start grace holds went, from the settled epochs: the
-    nodes each scale to zero vacated and whether they came under a hold
-    (a node holds one holder, as in the reference: a later scale to zero
-    on the same node takes the hold over), the epochs each model held
-    nodes, and the ledger's no-demand GB-seconds after the last hold was
-    released (the GPUs reclaimed)."""
+    nodes each scale to zero vacated and whether each came under a hold of
+    that model (one hold a vacated replica, beside any other model's on
+    the node), whether the holds the nodes carry number the vacated
+    replicas whose grace has not run out at every epoch (and the most at
+    once), the epochs each model held slices, and the ledger's no-demand
+    GB-seconds after the last hold was released (the GPUs reclaimed)."""
 
     def __init__(self) -> None:
-        self.vacated: Dict[str, List[str]] = {}  # model serving → nodes at its zero
+        self.vacated: Dict[str, List[str]] = {}  # model serving → its replicas' nodes
         self.vacated_held = True
         self.held_epochs: Dict[str, int] = {}
         self.held_now = 0
+        self.holds_match = True
+        self.holds_peak = 0
         self.no_demand_at_release: Optional[float] = None
 
     def epoch(self, store, servings, before: Dict[str, List[str]],
-              ledger: CapacityLedger) -> None:
-        holders = {n.name: n.annotations.get(annot.AUTOSCALER_RESERVED)
-                   for n in store.list("Node", copy=False)}
+              ledger: CapacityLedger, now: float) -> None:
+        """``before``: each model's bound replicas' nodes (one entry a
+        replica) before the epoch's reconcile at ``now``."""
+        holds = {n.name: [h.holder for h in annot.grace_holds(n.annotations,
+                                                                node_memory_slices(n))]
+                 for n in store.list("Node", copy=False)}
+        expected = 0
         for ms in servings:
             fresh = store.get("ModelServing", ms.name, ms.namespace)
+            key = serving_key(ms)
             if (fresh.status.last_verdict == policy.VERDICT_SCALE_TO_ZERO
                     and before[ms.name] and not _bound_nodes(store, ms)):
                 self.vacated[ms.name] = before[ms.name]
-                self.vacated_held &= all(holders.get(n) for n in before[ms.name])
-            if serving_key(ms) in holders.values():
+                self.vacated_held &= all(key in holds.get(n, ()) for n in before[ms.name])
+            if (fresh.status.desired_replicas == 0 and ms.name in self.vacated
+                    and now < fresh.status.last_transition_t
+                    + fresh.spec.cold_start_grace_seconds):
+                expected += len(self.vacated[ms.name])
+            if any(key in h for h in holds.values()):
                 self.held_epochs[ms.name] = self.held_epochs.get(ms.name, 0) + 1
-        held = sum(1 for h in holders.values() if h)
+        count = sum(len(h) for h in holds.values())
+        self.holds_match &= count == expected
+        self.holds_peak = max(self.holds_peak, count)
+        held = sum(1 for h in holds.values() if h)
         if self.held_now and not held:
             self.no_demand_at_release = ledger.idle_gb_seconds["no-demand"]
         self.held_now = held
@@ -210,6 +233,8 @@ class _GraceWatch:
         return {"scaled_to_zero": sorted(self.vacated), "vacated_nodes_held": self.vacated_held,
                 "held_epochs": dict(sorted(self.held_epochs.items())),
                 "nodes_held_at_end": self.held_now,
+                "holds_match_vacated_replicas": self.holds_match,
+                "holds_peak": self.holds_peak,
                 "no_demand_gb_seconds_after_release": reclaimed}
 
 
@@ -373,10 +398,10 @@ def run_bench(sizes: AutoscaleSizes, seed: int = 0, duration_s: Optional[float] 
                                                default=1.0))
                 final_eval[model] = slos
             state["now"] = t1
-            before = {ms.name: _bound_nodes(cluster.store, ms) for ms in servings}
+            before = {ms.name: _bound_replica_nodes(cluster.store, ms) for ms in servings}
             timed("reconcile", reconcile_all)
             settle_steps.append(timed("settle", _converge, cluster))
-            grace.epoch(cluster.store, servings, before, shadow)
+            grace.epoch(cluster.store, servings, before, shadow, t1)
 
             row = {"t": round(t1, 3)}
             for ms in servings:
@@ -474,7 +499,7 @@ def run_bench(sizes: AutoscaleSizes, seed: int = 0, duration_s: Optional[float] 
 
 # ``virtual_digest`` of ``run_bench(AutoscaleSizes.reference(), duration_s=80.0)``
 # on the reference's costs: the CPU tests and the smoke hold it
-REFERENCE_80S_DIGEST = "1f3abf72b781647978487abb001394ee9bf4b4fce75b7bb6cd45e2490ffa681b"
+REFERENCE_80S_DIGEST = "058c2932d426160e6a83b3ff35087b94314541e758dbf8b5dc75a625c099276b"
 
 
 def virtual_digest(report: dict) -> str:

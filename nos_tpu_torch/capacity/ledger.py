@@ -62,7 +62,12 @@ from nos_tpu_torch.kube.store import NodeStore, PodPhase
 from nos_tpu_torch.scheduler.plugins.gang import gang_of
 from nos_tpu_torch.scheduler.plugins.reservation import RESERVED_FOR
 from nos_tpu_torch.util import metrics as m
-from nos_tpu_torch.util.resources import DEFAULT_GPU_MEMORY_GB, gpu_memory_gb_in
+from nos_tpu_torch.util.resources import (
+    DEFAULT_GPU_MEMORY_GB,
+    gb_per_memory_slice,
+    gpu_memory_gb_in,
+    node_memory_slices,
+)
 
 log = logging.getLogger("nos_tpu_torch.capacity")
 
@@ -127,7 +132,7 @@ def _quota_gb(resource_list: Dict[str, Any]) -> int:
 class _NodeState:
     """What the integration reads of one node, at the watermark."""
 
-    __slots__ = ("total_gb", "pool", "product", "frozen", "reserved", "autoscaler_grace",
+    __slots__ = ("total_gb", "pool", "product", "frozen", "reserved", "grace_gb",
                  "used_profiles")
 
     def __init__(self, node: Any, total_gb: int) -> None:
@@ -138,9 +143,12 @@ class _NodeState:
         spec_plan = ann.get(annot.SPEC_PARTITIONING_PLAN)
         self.frozen = bool(spec_plan) and spec_plan != ann.get(annot.STATUS_PARTITIONING_PLAN)
         self.reserved = RESERVED_FOR in ann
-        # the autoscaler's cold-start hold: a chosen wake-latency trade,
-        # not no-demand
-        self.autoscaler_grace = annot.AUTOSCALER_RESERVED in ann
+        # the autoscaler's cold-start holds: a chosen wake-latency trade,
+        # not no-demand; the GB they hold (a hold of the whole node where
+        # only the summary annotations are written)
+        holds = annot.grace_holds(ann, node_memory_slices(node))
+        self.grace_gb = min(total_gb, sum(h.slices for h in holds)
+                            * gb_per_memory_slice(self.product))
         _, status = annot.parse_node_annotations(ann)
         used: Dict[str, int] = {}
         for entry in status:
@@ -151,7 +159,7 @@ class _NodeState:
 
     def canonical(self) -> tuple:
         return (self.total_gb, self.pool, self.product, self.frozen, self.reserved,
-                self.autoscaler_grace, tuple(sorted(self.used_profiles.items())))
+                self.grace_gb, tuple(sorted(self.used_profiles.items())))
 
 
 def _pod_entry(pod: Any):
@@ -266,12 +274,14 @@ class CapacityLedger:
             pool_acc["total"] += st.total_gb * dt
             pool_acc["busy"] += busy * dt
             bucket = (BUCKET_RECONFIG if st.frozen else BUCKET_RESERVED if st.reserved
-                      else BUCKET_AUTOSCALER if st.autoscaler_grace else None)
-            if bucket is None:
-                available_idle += idle
-            else:
-                self.idle_gb_seconds[bucket] += idle * dt
-                held[bucket] = held.get(bucket, 0) + idle
+                      else BUCKET_AUTOSCALER if st.grace_gb else None)
+            # the grace holds keep their GB; the rest of the node's idle
+            # could take pods
+            kept = min(idle, st.grace_gb) if bucket == BUCKET_AUTOSCALER else idle
+            available_idle += idle - kept if bucket is not None else idle
+            if bucket is not None:
+                self.idle_gb_seconds[bucket] += kept * dt
+                held[bucket] = held.get(bucket, 0) + kept
             for profile in sorted(st.used_profiles):
                 self.by_profile[profile] = (self.by_profile.get(profile, 0.0)
                                             + st.used_profiles[profile] * dt)

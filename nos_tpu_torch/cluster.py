@@ -12,10 +12,19 @@ the simulation framework (``build_sim_framework``: the vanilla filters,
 the pool pin, the drain reservation and the quota PreFilter), one
 ``MigAgent`` per MIG node
 on a shared ``SimMigPool``, the MPS device plugin's sim and reporter per
-MPS node, a trimmed sim kubelet (``nos_tpu/sim/kubelet.py``: a bound
-pod is admitted against the devices that exist, then Running) and the
-quota controller, which labels running pods and writes each quota's
-used. ``add_quota`` makes an ElasticQuota, or, given ``namespaces``, a
+MPS node, the sim kubelet (``sim/kubelet.py``: a bound pod is admitted
+against the devices that exist, then Running) and the quota controller,
+which labels running pods and writes each quota's used.
+
+One ``Manager`` on the store (``manager``) runs the watch-fed parts, as
+the reference's ``cmd/cluster.py`` and ``cmd/partitioner.py:166-177``
+wire them: for each mode's ``ClusterState`` a ``state-node-<mode>`` and
+a ``state-pod-<mode>`` controller, and ``sim-kubelet`` on the bound
+pending pods. Each is drained where its consumer reads, on the virtual
+clock: a mode's pair at the start of its partitioner's step (the
+forecaster reads the MIG state as that step drained it), the kubelet at
+its place in ``step()``. The scheduler, the quota controller, the
+expander and the autoscaler are polled (item 18a.2 moves them). ``add_quota`` makes an ElasticQuota, or, given ``namespaces``, a
 CompositeElasticQuota.
 
 A pending pod asking for ``nvidia.com/mig-3g.40gb`` goes around the
@@ -101,6 +110,7 @@ from nos_tpu_torch.controllers.partitioner.multinode import (
     ROLE_LEADER,
     gang_member_env,
 )
+from nos_tpu_torch.controllers.partitioner.node_controller import add_state_controllers
 from nos_tpu_torch.device.client import GpuClient
 from nos_tpu_torch.device.sharing import (
     DEFAULT_CONFIG_MAP,
@@ -115,7 +125,6 @@ from nos_tpu_torch.gpu import annotations as annot
 from nos_tpu_torch.gpu.geometry import geometry_fits, geometry_slices
 from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, H100_80GB, KNOWN_GPUS, allowed_geometries
 from nos_tpu_torch.gpu.node import (
-    MIG_RESOURCE_PREFIX,
     MPS_RESOURCE_PREFIX,
     PARTITIONING_LABEL,
     PARTITIONING_MIG,
@@ -123,7 +132,8 @@ from nos_tpu_torch.gpu.node import (
     RESOURCE_GPU,
 )
 from nos_tpu_torch.gpu.slicing import profile_gb
-from nos_tpu_torch.kube.store import Node, NodeStore, NotFoundError, Pod, PodPhase
+from nos_tpu_torch.kube.controller import Controller, Manager
+from nos_tpu_torch.kube.store import Node, NodeStore, Pod, PodPhase
 from nos_tpu_torch.partitioning.core import Actuator, ClusterState, Planner
 from nos_tpu_torch.partitioning.core.codec import is_mig_resource
 from nos_tpu_torch.partitioning.mig import MigNodeInitializer, MigPartitioner, MigSnapshotTaker
@@ -133,6 +143,7 @@ from nos_tpu_torch.scheduler.plugins.capacity import build_quota_infos
 from nos_tpu_torch.scheduler.plugins.gang import GANG_NAME_LABEL, GANG_SIZE_LABEL, gang_of
 from nos_tpu_torch.scheduler.plugins.reservation import RESERVED_FOR
 from nos_tpu_torch.scheduler.plugins.topology import NODEPOOL_LABEL
+from nos_tpu_torch.sim.kubelet import SIM_KUBELET_WATCH, SimKubelet, mig_demand
 
 log = logging.getLogger("nos_tpu_torch.cluster")
 
@@ -151,70 +162,6 @@ def product_label(nvml_name: str) -> str:
     """NVML's product name as GPU feature discovery labels it:
     'NVIDIA H100 80GB HBM3' → 'NVIDIA-H100-80GB-HBM3'."""
     return nvml_name.strip().replace(" ", "-")
-
-
-def _mig_demand(request) -> Dict[str, int]:
-    return {name[len(MIG_RESOURCE_PREFIX):]: int(qty) for name, qty in request.items()
-            if is_mig_resource(name)}
-
-
-class SimKubelet:
-    """Admits bound pods against the devices that exist, then runs them:
-    a pod whose MIG demand, with that of the pods already running on its
-    node, exceeds the node's instances fails (the last line against a
-    bind racing a re-carve); anything else becomes Running."""
-
-    def __init__(self, store: NodeStore, geometry_fn: Callable[[str], Dict[int, Dict[str, int]]]
-                 ) -> None:
-        self.store = store
-        self.geometry_fn = geometry_fn
-        self.admission_rejects = 0
-
-    def step(self) -> int:
-        """Admit every bound pending pod; the pods whose phase changed."""
-        pods = self.store.list("Pod", copy=False)  # read-only
-        # node → the MIG demand of its running pods, kept as pods are admitted
-        running: Dict[str, Dict[str, int]] = {}
-        for pod in pods:
-            if pod.node and pod.phase == PodPhase.RUNNING:
-                _add_demand(running.setdefault(pod.node, {}), _mig_demand(pod.request))
-        changed = 0
-        for pod in pods:
-            if not pod.node or pod.phase != PodPhase.PENDING:
-                continue
-            admitted = self._admit(pod, running)
-            phase = PodPhase.RUNNING if admitted else PodPhase.FAILED
-            if not admitted:
-                self.admission_rejects += 1
-                log.warning("kubelet: rejecting %s on %s: MIG demand exceeds the instances",
-                            pod.namespaced_name, pod.node)
-            try:
-                self.store.patch_merge("Pod", pod.name, pod.namespace,
-                                       lambda p, phase=phase: setattr(p, "phase", phase))
-            except NotFoundError:
-                continue
-            if admitted:
-                _add_demand(running.setdefault(pod.node, {}), _mig_demand(pod.request))
-            changed += 1
-        return changed
-
-    def _admit(self, pod: Pod, running: Dict[str, Dict[str, int]]) -> bool:
-        node = self.store.try_get("Node", pod.node, copy=False)
-        if node is None or node.labels.get(PARTITIONING_LABEL) != PARTITIONING_MIG:
-            return True
-        demand = _mig_demand(pod.request)
-        if not demand:
-            return True
-        _add_demand(demand, running.get(pod.node, {}))
-        inventory: Dict[str, int] = {}
-        for gpu in self.geometry_fn(pod.node).values():
-            _add_demand(inventory, gpu)
-        return all(inventory.get(p, 0) >= q for p, q in demand.items())
-
-
-def _add_demand(into: Dict[str, int], demand: Dict[str, int]) -> None:
-    for profile, qty in demand.items():
-        into[profile] = into.get(profile, 0) + qty
 
 
 class SimCluster:
@@ -253,7 +200,18 @@ class SimCluster:
                     "warm_state_save_interval_seconds": warm_state_save_interval_seconds}
 
         mig_partitioner = MigPartitioner(self.store)
-        mig_state = ClusterState()
+        mig_state, mps_state = ClusterState(), ClusterState()
+        mig_initializer = MigNodeInitializer(mig_partitioner, plan_id)
+        # the watch-fed state of each mode, and the kubelet, drained where
+        # each consumer reads
+        self.manager = Manager(self.store)
+        self._mig_feed = add_state_controllers(self.manager, mig_state, mig_initializer,
+                                               PARTITIONING_MIG, "-mig", clock)
+        self._mps_feed = add_state_controllers(self.manager, mps_state, None,
+                                               PARTITIONING_MPS, "-mps", clock)
+        self.kubelet = SimKubelet(self.store, self.pool.geometry)
+        self.manager.add(Controller("sim-kubelet", self.store, self.kubelet.reconcile,
+                                    [SIM_KUBELET_WATCH], clock=clock))
         self.forecaster: Optional[PlacementForecaster] = None
         if forecast:
             # its own planner and taker: forecast trials never touch the
@@ -266,20 +224,21 @@ class SimCluster:
             Planner(build_sim_framework(self.store), clock=clock), Actuator(mig_partitioner),
             PARTITIONING_MIG,
             is_mig_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
-            initializer=MigNodeInitializer(mig_partitioner, plan_id), clock=clock,
+            initializer=mig_initializer, clock=clock,
             capacity_ledger=self.ledger, forecaster=self.forecaster,
+            state_feed=lambda: self.manager.drain(self._mig_feed),
             **sharding(PARTITIONING_MIG))
         self.mps = PartitionerController(
-            self.store, ClusterState(), MpsSnapshotTaker(),
+            self.store, mps_state, MpsSnapshotTaker(),
             Planner(build_sim_framework(self.store), clock=clock),
             Actuator(MpsPartitioner(self.store, config_map_name)),
             PARTITIONING_MPS, is_mps_resource, BATCH_TIMEOUT_S, BATCH_IDLE_S, plan_id,
-            clock=clock, **sharding(PARTITIONING_MPS))
+            clock=clock, state_feed=lambda: self.manager.drain(self._mps_feed),
+            **sharding(PARTITIONING_MPS))
         self.controllers = (self.mig, self.mps)
         self.mps_plugin = SimSharedDevicePlugin(self.store, config_map_name)
         self.agents: Dict[str, MigAgent] = {}
         self.mps_reporters: Dict[str, MpsReporter] = {}
-        self.kubelet = SimKubelet(self.store, self.pool.geometry)
         self.autoscaler: Optional[ModelServingReconciler] = None
         if autoscaler is not None:
             autoscaler.validate()
@@ -352,6 +311,8 @@ class SimCluster:
         for controller in self.controllers:
             controller.step()
         if self.forecaster is not None:
+            # the MIG state as the MIG controller's step drained it: the
+            # plan's writes are still ahead of it, as the carve is
             self.forecaster.step()
         for agent in self.agents.values():
             agent.step()
@@ -359,7 +320,7 @@ class SimCluster:
             self.mps_plugin.reconcile(name)
             reporter.reconcile()
         self.scheduler.step()
-        self.kubelet.step()
+        self.manager.drain(["sim-kubelet"])
         self.quotas.step()
         if self.ledger is not None:
             self.ledger.observe(self.now)
@@ -472,7 +433,7 @@ class SimCluster:
                 demand: Dict[str, int] = {}
                 for p in running:
                     if p.node == node.name:
-                        for profile, qty in _mig_demand(p.request).items():
+                        for profile, qty in mig_demand(p.request).items():
                             demand[profile] = demand.get(profile, 0) + qty
                 have: Dict[str, int] = {}
                 for geometry in self.pool.geometry(node.name).values():

@@ -13,13 +13,18 @@ creates the lowest missing indices, a scale down deletes from the top,
 so each (current, desired) pair maps to one set of writes and a repeated
 reconcile is idempotent.
 
-A scale to zero stamps a cold-start grace reservation
-(``gpu/annotations.py``: ``AUTOSCALER_RESERVED`` / ``_UNTIL``) on the
-MIG nodes its replicas vacated: the capacity ledger books that idle time
-to ``autoscaler-grace``, the scheduler's ``AutoscalerGraceScoring``
-steers the model's cold start back there, and the reservation expires
-on the reconciler's clock (the signal registry's ``now_fn``, which
-defaults to the store's clock), so a held node cannot leak.
+A scale to zero stamps a cold-start grace hold for each replica it
+vacates on that replica's MIG node (``gpu/annotations.py``:
+``GraceHold``, ``AUTOSCALER_HOLDS``): its holder, the memory slices of
+the replica's profile and its own expiry. A node keeps several holds at
+once, so a second model's scale to zero on an 8-GPU node adds its hold
+beside the first, where the reference's node (one board) holds one. The
+capacity ledger books the held GB to ``autoscaler-grace``, the
+scheduler's ``AutoscalerGraceScoring`` steers the model's cold start
+back there, and each hold expires on the reconciler's clock (the signal
+registry's ``now_fn``, which defaults to the store's clock), so a held
+node cannot leak. On a one-GPU node with a ``7g.80gb`` replica the two
+summary annotations are the reference's hold, value for value.
 
 Polled, with no watches (ROADMAP.md, Queue 3): ``reconcile(name,
 namespace)`` is the reference's reconcile of one request; ``step()``
@@ -32,23 +37,32 @@ keeps preemptions. The status goes through ``NodeStore.patch_merge``.
 from __future__ import annotations
 
 import logging
-from collections import deque
+from collections import Counter, deque
 from typing import Deque, Dict, List, Optional, Tuple
 
 from nos_tpu_torch.api.config import AutoscalerConfig
 from nos_tpu_torch.api.v1alpha1.modelserving import MODEL_SERVING_LABEL, ModelServing
 from nos_tpu_torch.controllers.autoscaler import policy
 from nos_tpu_torch.controllers.autoscaler.signals import SignalRegistry
-from nos_tpu_torch.gpu.annotations import AUTOSCALER_RESERVED, AUTOSCALER_RESERVED_UNTIL
+from nos_tpu_torch.gpu.annotations import GraceHold, grace_hold_patch, grace_holds
 from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, mig_resource
 from nos_tpu_torch.kube.store import AlreadyExistsError, NodeStore, NotFoundError, Pod
 from nos_tpu_torch.scheduler.plugins.gang import GANG_NAME_LABEL, GANG_SIZE_LABEL
 from nos_tpu_torch.util import metrics
+from nos_tpu_torch.util.resources import node_memory_slices
 from nos_tpu_torch.util.tracing import TRACER
 
 log = logging.getLogger("nos_tpu_torch.autoscaler")
 
 DECISION_RECORDS = 1024
+
+
+def _merge_annotations(obj, patch) -> None:
+    for k, v in patch.items():
+        if v is None:
+            obj.annotations.pop(k, None)
+        else:
+            obj.annotations[k] = v
 
 
 def serving_key(ms: ModelServing) -> str:
@@ -110,39 +124,50 @@ class ModelServingReconciler:
 
     # ------------------------------------------------- grace reservations
 
-    def _reserve_nodes(self, ms: ModelServing, node_names: List[str], now: float) -> None:
+    def _reserve_nodes(self, ms: ModelServing, vacated: List[str], now: float) -> None:
+        """One grace hold for each vacated replica (``vacated`` holds the
+        node of each), added beside the holds a node already carries."""
         if ms.spec.cold_start_grace_seconds <= 0:
             return
         until = now + ms.spec.cold_start_grace_seconds
-        for node_name in sorted(set(n for n in node_names if n)):
+        fresh = GraceHold(serving_key(ms), ms.spec.chips_per_replica, until)
+        per_node = Counter(n for n in vacated if n)
+        for node_name in sorted(per_node):
             node = self.store.try_get("Node", node_name, copy=False)
             if node is None or node.labels.get(PARTITIONING_LABEL) != PARTITIONING_MIG:
                 continue  # gone (mid re-carve), or not a MIG node
+
+            def add(obj, count=per_node[node_name]) -> None:
+                holds = grace_holds(obj.annotations, node_memory_slices(obj))
+                _merge_annotations(obj, grace_hold_patch(holds + [fresh] * count))
+
             try:
-                self.store.patch_annotations("Node", node_name, "", {
-                    AUTOSCALER_RESERVED: serving_key(ms),
-                    AUTOSCALER_RESERVED_UNTIL: f"{until:.6f}"})
+                self.store.patch_merge("Node", node_name, "", add)
             except NotFoundError:
                 continue
 
     def _sweep_reservations(self, ms: ModelServing, now: float, release_all: bool) -> None:
-        """Clear this model's expired grace reservations (all of them with
-        ``release_all``)."""
+        """Clear this model's grace holds whose own expiry has passed (all
+        of them with ``release_all``); other models' holds stay."""
         key = serving_key(ms)
+
+        def expired(hold: GraceHold) -> bool:
+            return hold.holder == key and (release_all or now >= hold.until)
+
         for node in self.store.list("Node", copy=False):
-            ann = node.annotations
-            if ann.get(AUTOSCALER_RESERVED) != key:
+            holds = grace_holds(node.annotations, node_memory_slices(node))
+            if not any(expired(h) for h in holds):
                 continue
+
+            def sweep(obj) -> None:
+                left = [h for h in grace_holds(obj.annotations, node_memory_slices(obj))
+                        if not expired(h)]
+                _merge_annotations(obj, grace_hold_patch(left))
+
             try:
-                until = float(ann.get(AUTOSCALER_RESERVED_UNTIL, "0"))
-            except ValueError:
-                until = 0.0
-            if release_all or now >= until:
-                try:
-                    self.store.patch_annotations("Node", node.name, "", {
-                        AUTOSCALER_RESERVED: None, AUTOSCALER_RESERVED_UNTIL: None})
-                except NotFoundError:
-                    continue
+                self.store.patch_merge("Node", node.name, "", sweep)
+            except NotFoundError:
+                continue
 
     # ----------------------------------------------------------- reconcile
 
@@ -236,14 +261,14 @@ class ModelServingReconciler:
     def _scale_down(self, ms: ModelServing, live: List[Pod], decision: policy.Decision,
                     now: float) -> int:
         doomed = live[decision.desired:]  # by name: the top first out
-        freed_nodes = [p.node for p in doomed]
+        vacated = [p.node for p in doomed]
         for p in doomed:
             try:
                 self.store.delete("Pod", p.name, p.namespace)
             except NotFoundError:
                 continue
         if decision.desired == 0:
-            self._reserve_nodes(ms, freed_nodes, now)
+            self._reserve_nodes(ms, vacated, now)
         return len(doomed)
 
     def _update_status(self, ms: ModelServing, decision: policy.Decision, now: float) -> None:

@@ -8,15 +8,17 @@ reconcile (``:226-291``) and the capacity-freed trigger (``:293-311``),
 with the batcher's windows (60 s and 10 s by default) and the plan-id
 gate.
 
-The port has no watches: ``step()`` polls. It syncs ``ClusterState``
-from the store (the reference's node and pod state controllers,
-``node_controller.py`` and ``pod_controller.py``, folded into ``sync``,
-which also gives a MIG node with no geometry yet its first one through
-``MigNodeInitializer``, and passes over a node whose object and pods are
-the ones it synced last; the gate, the mode check and the snapshot all
-read that state), adds every pending pod that re-partitioning
-could help and that asks for this mode's resources to the batch, and
-processes the batch once a window has passed. The gate: no plan while a
+``step()`` runs the cycle on the caller's clock. Its ``sync`` first
+brings ``ClusterState`` up to the store through the reference's node and
+pod state controllers (``node_controller.py``, ``pod_controller.py``,
+which give a MIG node with no geometry yet its first one through
+``MigNodeInitializer``): ``state_feed``, the drain of those controllers'
+watches; a ``SimCluster`` passes its ``Manager``'s, and a controller
+given none drains a private ``Manager`` of its own. The gate, the mode
+check and the snapshot all read that state. The step then adds every
+pending pod that re-partitioning could help and that asks for this
+mode's resources to the batch, and processes the batch once a window has
+passed. The gate: no plan while a
 node of this mode has not acknowledged its last one (its
 ``status-partitioning-plan``, written by the node's MIG agent or MPS
 reporter, differs from its ``spec-partitioning-plan``);
@@ -24,8 +26,9 @@ a released batch waits for the gate, so the loop never re-carves a GPU
 mid-change. After each plan the pods still pending go back into the
 batch (the reference's level-triggered retry).
 
-Two triggers fire the batch at once, where the reference's watches fire
-them. *Capacity freed*: a pod holding this mode's resources on a node
+Two triggers fire the batch at once, polled in ``step`` where the
+reference's watches fire them (ROADMAP.md: item 18a.2 moves them onto
+the pod and node watches). *Capacity freed*: a pod holding this mode's resources on a node
 that has finished (Succeeded or Failed) or been deleted since the last
 step, with a pending pod re-partitioning could help (the reference calls
 the freed window "the single largest utilization tax in a steady stream
@@ -131,8 +134,10 @@ from nos_tpu_torch.controllers.partitioner.incremental import (
     IncrementalSnapshotMaintainer,
     PoolShardedMaintainer,
 )
+from nos_tpu_torch.controllers.partitioner.node_controller import add_state_controllers
 from nos_tpu_torch.gpu import annotations as annot
 from nos_tpu_torch.gpu.node import PARTITIONING_MIG
+from nos_tpu_torch.kube.controller import Manager
 from nos_tpu_torch.kube.store import Node, NodeStore, Pod, PodPhase
 from nos_tpu_torch.partitioning.core import (
     Actuator,
@@ -214,7 +219,8 @@ class PartitionerController:
                  pool_sharding: bool = False, pool_backend: str = "",
                  pool_cycle_timeout_seconds: float = 5.0, warm_state_path: str = "",
                  warm_state_save_interval_seconds: float = 30.0,
-                 capacity_ledger=None, forecaster=None) -> None:
+                 capacity_ledger=None, forecaster=None,
+                 state_feed: Optional[Callable[[], object]] = None) -> None:
         self.store = store
         self.clock = clock
         self.capacity_ledger = capacity_ledger
@@ -227,6 +233,13 @@ class PartitionerController:
         self.tracked_resource_fn = tracked_resource_fn
         self.plan_id_fn = plan_id_fn
         self.initializer = initializer
+        if state_feed is None:
+            # its own state controllers, drained at each sync
+            self.state_manager = Manager(store)
+            names = add_state_controllers(self.state_manager, cluster_state, initializer,
+                                          kind, suffix=f"-{kind}", clock=clock)
+            state_feed = lambda: self.state_manager.drain(names)  # noqa: E731
+        self._feed = state_feed
         self.batcher: Batcher[str] = Batcher(batch_timeout_seconds, batch_idle_seconds, clock)
         self._batched: set = set()
         self._released = False  # a released batch waiting for the gate
@@ -239,9 +252,6 @@ class PartitionerController:
         if incremental_dirty_threshold is not None:
             self.planner.incremental_dirty_threshold = incremental_dirty_threshold
         self.maintainer: Optional[IncrementalSnapshotMaintainer] = None
-        # node → (node, pods) as last synced: the store's objects, replaced
-        # on every write, so an identical pair needs no re-sync
-        self._synced: Dict[str, Tuple[Node, Tuple[Pod, ...]]] = {}
         # pod key → (uid, node) of the pods holding this mode's resources
         self._holding: Dict[str, Tuple[str, str]] = {}
         # nodes whose capacity was freed since the trigger last looked
@@ -276,39 +286,19 @@ class PartitionerController:
     # ------------------------------------------------------------ sync
 
     def sync(self) -> None:
-        """ClusterState := the store (the node and pod state controllers);
-        a MIG node with no geometry gets its first."""
-        # read-only: ClusterState keeps these objects as they are
-        nodes = self.store.list("Node", copy=False)
-        pods = self.store.list("Pod", copy=False)
-        by_node: Dict[str, List[Pod]] = {}
+        """ClusterState catches up with the store (the state controllers'
+        watches drained), then the capacity-freed trigger notes the nodes
+        where a pod holding this mode's resources finished or went."""
+        self._feed()
         holding: Dict[str, Tuple[str, str]] = {}
-        for pod in pods:
-            if pod.node and pod.phase in (PodPhase.PENDING, PodPhase.RUNNING):
-                by_node.setdefault(pod.node, []).append(pod)
+        for node, pods in self.store.pods_by_node().items():
+            for pod in pods:
                 if self.requests_tracked_resources(pod):
-                    holding[pod.namespaced_name] = (pod.uid, pod.node)
+                    holding[pod.namespaced_name] = (pod.uid, node)
         # held last step, not now: finished, deleted or recreated
         self._freed.update(node for k, (uid, node) in self._holding.items()
                            if holding.get(k, ("",))[0] != uid)
         self._holding = holding
-        seen = set()
-        for node in nodes:
-            if (self.initializer is not None and partitioning_kind(node) == self.kind
-                    and not self.initializer.is_initialized(node)
-                    and self.initializer.init_node_partitioning(node)):
-                node = self.store.try_get("Node", node.name, copy=False) or node
-            bound = tuple(by_node.get(node.name, ()))
-            last = self._synced.get(node.name)
-            if last is None or last[0] is not node or len(last[1]) != len(bound) or any(
-                    a is not b for a, b in zip(last[1], bound)):
-                self.cluster_state.update_node(node, list(bound))
-                self._synced[node.name] = (node, bound)
-            seen.add(node.name)
-        for name in self.cluster_state.node_names():
-            if name not in seen:
-                self.cluster_state.delete_node(name)
-                self._synced.pop(name, None)
 
     def gate_open(self) -> bool:
         """Every node of this mode has acknowledged its last plan."""

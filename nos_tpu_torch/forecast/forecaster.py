@@ -20,8 +20,12 @@ cycle, at that cycle's time, the store's virtual clock there), or
 reference's forecasting thread, its throttle, the watchdog and the
 profiler registrations and the flight records wait for the
 observability slice (ROADMAP.md, item 18b). The forecaster never writes
-to the store. With ``cluster_state`` None it keeps its own, synced from
-the store at each run (the reference's taker reads the store there).
+to the store. With ``cluster_state`` None it keeps its own, fed by state
+controllers of its own (``controllers/partitioner/node_controller.py``)
+whose watches it drains at each run; else it reads the one it is given,
+which its owner keeps (a ``SimCluster``'s MIG controller drains it at
+the start of its step, and the forecaster reads it as drained there,
+before the plan's writes).
 """
 from __future__ import annotations
 
@@ -30,9 +34,11 @@ import threading
 from typing import Any, Dict, List, Optional
 
 from nos_tpu_torch.controllers.partitioner.incremental import IncrementalSnapshotMaintainer
+from nos_tpu_torch.controllers.partitioner.node_controller import add_state_controllers
 from nos_tpu_torch.forecast.accuracy import CalibrationTracker
 from nos_tpu_torch.forecast.advisor import DefragAdvisor
 from nos_tpu_torch.forecast.engine import STAGE_FEASIBLE_NOW, ForecastEngine
+from nos_tpu_torch.kube.controller import Manager
 from nos_tpu_torch.kube.store import NodeStore
 from nos_tpu_torch.partitioning.core.state import ClusterState
 from nos_tpu_torch.util import metrics
@@ -48,6 +54,12 @@ class PlacementForecaster:
         self.store = store
         self._own_state = cluster_state is None
         self.cluster_state = ClusterState() if cluster_state is None else cluster_state
+        self._state_manager: Optional[Manager] = None
+        if self._own_state:
+            # its own state controllers, drained at each run
+            self._state_manager = Manager(store)
+            add_state_controllers(self._state_manager, self.cluster_state, kind=kind,
+                                  suffix=f"-{kind}-forecast")
         self.kind = kind
         self.ledger = capacity_ledger
         self.default_reconfig_seconds = default_reconfig_seconds
@@ -132,21 +144,9 @@ class PlacementForecaster:
         return payload
 
     def _snapshot(self):
-        if self._own_state:
-            self._sync_state()
+        if self._state_manager is not None:
+            self._state_manager.drain()
         return self._maintainer.snapshot(self.cluster_state)
-
-    def _sync_state(self) -> None:
-        """The private ClusterState := the store's nodes and their bound
-        pods."""
-        by_node = self.store.pods_by_node()
-        names = set()
-        for node in self.store.list("Node", copy=False):
-            self.cluster_state.update_node(node, list(by_node.get(node.name, ())))
-            names.add(node.name)
-        for name in self.cluster_state.node_names():
-            if name not in names:
-                self.cluster_state.delete_node(name)
 
     def _measured_reconfig_seconds(self) -> float:
         if self.ledger is not None:

@@ -18,19 +18,24 @@ owns only its own profiles' (``is_mig_status_key`` /
 """
 from __future__ import annotations
 
+import json
 import re
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 PREFIX = "nos.nebuly.com/"
 SPEC_PARTITIONING_PLAN = PREFIX + "spec-partitioning-plan"
 STATUS_PARTITIONING_PLAN = PREFIX + "status-partitioning-plan"
-# the model autoscaler's cold-start grace hold on the nodes a scale to zero
-# vacated: the ModelServing it is held for, and until when (the
-# reconciler's clock; ``nos_tpu/api/v1alpha1/annotations.py:28-34``)
+# the model autoscaler's cold-start grace holds on the nodes a scale to
+# zero vacated (``nos_tpu/api/v1alpha1/annotations.py:28-34``): one hold a
+# vacated replica, each with its holder, its slices and its own expiry,
+# as JSON under AUTOSCALER_HOLDS; AUTOSCALER_RESERVED names the holders
+# (comma-joined) and AUTOSCALER_RESERVED_UNTIL the latest expiry, which
+# for one hold are the reference's two annotations as it writes them
 AUTOSCALER_RESERVED = PREFIX + "autoscaler-reserved"
 AUTOSCALER_RESERVED_UNTIL = PREFIX + "autoscaler-reserved-until"
+AUTOSCALER_HOLDS = PREFIX + "autoscaler-holds"
 
 MIG_PROFILE_RE = re.compile(r"^\d+g\.\d+gb$")
 MPS_PROFILE_RE = re.compile(r"^\d+gb$")
@@ -158,3 +163,49 @@ def status_geometries(status: List[StatusAnnotation]) -> Dict[int, Dict[str, int
 def strip_spec_annotations(annotations: Mapping[str, str]) -> Dict[str, None]:
     """The patch that removes every spec geometry annotation."""
     return {k: None for k in annotations if _SPEC_RE.match(k)}
+
+
+@dataclass(frozen=True)
+class GraceHold:
+    """One cold-start grace hold: the replica a scale to zero vacated was
+    ``holder``'s (its serving key), it held ``slices`` memory slices (its
+    profile's), and the hold lasts until ``until`` (the reconciler's
+    clock)."""
+
+    holder: str
+    slices: int
+    until: float
+
+
+def grace_holds(annotations: Mapping[str, str], node_slices: int) -> List[GraceHold]:
+    """The node's grace holds. A node carrying only the two summary
+    annotations (written by a writer that records no slices) holds all
+    its ``node_slices`` for one holder."""
+    raw = annotations.get(AUTOSCALER_HOLDS)
+    if raw is not None:
+        try:
+            return [GraceHold(str(h["holder"]), int(h["slices"]), float(h["until"]))
+                    for h in json.loads(raw)]
+        except (ValueError, TypeError, KeyError):
+            return []
+    holder = annotations.get(AUTOSCALER_RESERVED, "")
+    if not holder:
+        return []
+    try:
+        until = float(annotations.get(AUTOSCALER_RESERVED_UNTIL, "0"))
+    except ValueError:
+        until = 0.0
+    return [GraceHold(holder, node_slices, until)]
+
+
+def grace_hold_patch(holds: List[GraceHold]) -> Dict[str, Optional[str]]:
+    """The annotation patch that makes ``holds`` the node's holds (none:
+    every grace annotation removed)."""
+    if not holds:
+        return {AUTOSCALER_HOLDS: None, AUTOSCALER_RESERVED: None,
+                AUTOSCALER_RESERVED_UNTIL: None}
+    ordered = sorted(holds, key=lambda h: (h.until, h.holder, h.slices))
+    return {AUTOSCALER_HOLDS: json.dumps([{"holder": h.holder, "slices": h.slices,
+                                           "until": h.until} for h in ordered]),
+            AUTOSCALER_RESERVED: ",".join(sorted({h.holder for h in holds})),
+            AUTOSCALER_RESERVED_UNTIL: f"{max(h.until for h in holds):.6f}"}

@@ -1,9 +1,21 @@
-"""The node store the port's agents and partitioners share: a trimmed
-counterpart of ``nos_tpu/kube/`` (``store.py``)."""
+"""The port's kube substrate: a counterpart of ``nos_tpu/kube/`` on flat
+objects (``objects.py``): the store with watches, versions and indexers
+(``store.py``), the controller runtime (``controller.py``), the
+Kubernetes wire (``serde.py``) and the flat wire of the pool workers
+(``flatwire.py``), events (``events.py``), leader election
+(``leaderelection.py``), the API client (``apiclient.py``) and the
+API-backed store (``apistore.py``)."""
 from nos_tpu_torch.kube.store import (
+    ADDED,
+    DELETED,
+    INDEX_POD_NODE,
+    INDEX_POD_PHASE,
+    MODIFIED,
     AdmissionError,
     AlreadyExistsError,
     ConfigMap,
+    ConflictError,
+    Event,
     Node,
     NodeSelectorRequirement,
     NodeSelectorTerm,
@@ -16,9 +28,12 @@ from nos_tpu_torch.kube.store import (
     PodPhase,
     Service,
     TopologySpreadConstraint,
+    WatchEvent,
 )
 
-__all__ = ["AdmissionError", "AlreadyExistsError", "ConfigMap", "Node",
-           "NodeSelectorRequirement", "NodeSelectorTerm", "NodeStore", "NotFoundError",
-           "OwnerReference", "Pod", "PodAffinityTerm", "PodDisruptionBudget", "PodPhase",
-           "Service", "TopologySpreadConstraint"]
+__all__ = ["ADDED", "DELETED", "INDEX_POD_NODE", "INDEX_POD_PHASE", "MODIFIED",
+           "AdmissionError", "AlreadyExistsError", "ConfigMap", "ConflictError", "Event",
+           "Node", "NodeSelectorRequirement", "NodeSelectorTerm", "NodeStore",
+           "NotFoundError", "OwnerReference", "Pod", "PodAffinityTerm",
+           "PodDisruptionBudget", "PodPhase", "Service", "TopologySpreadConstraint",
+           "WatchEvent"]

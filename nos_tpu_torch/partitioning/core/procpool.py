@@ -86,7 +86,7 @@ log = logging.getLogger("nos_tpu_torch.partitioner")
 START_METHOD = "forkserver"
 # what the fork server loads once, so a worker forks with it loaded
 PRELOAD = ("nos_tpu_torch.partitioning.core.procpool", "nos_tpu_torch.partitioning.mig",
-           "nos_tpu_torch.partitioning.mps", "nos_tpu_torch.kube.serde",
+           "nos_tpu_torch.partitioning.mps", "nos_tpu_torch.kube.flatwire",
            "nos_tpu_torch.scheduler")
 
 
@@ -106,7 +106,7 @@ def start_fork_server() -> None:
 def snapshot_node_to_wire(snap_node) -> dict:
     """A snapshot node's store node and bound pods, and its GPUs'
     refusals: what the worker's taker rebuilds it from."""
-    from nos_tpu_torch.kube.serde import node_to_wire, pod_to_wire
+    from nos_tpu_torch.kube.flatwire import node_to_wire, pod_to_wire
 
     return {"node": node_to_wire(snap_node.node),
             "pods": [pod_to_wire(pod) for pod in snap_node.pods],
@@ -116,7 +116,7 @@ def snapshot_node_to_wire(snap_node) -> dict:
 def snapshot_node_from_wire(entry: dict, taker):
     """(node, pods, snapshot node) through ``taker``, given the refusals
     first."""
-    from nos_tpu_torch.kube.serde import node_from_wire, pod_from_wire
+    from nos_tpu_torch.kube.flatwire import node_from_wire, pod_from_wire
 
     node = node_from_wire(entry["node"])
     pods = [pod_from_wire(doc) for doc in entry["pods"]]
@@ -126,7 +126,7 @@ def snapshot_node_from_wire(entry: dict, taker):
 
 
 def quotas_to_wire(quotas, composite_quotas) -> List[dict]:
-    from nos_tpu_torch.kube.serde import ceq_to_wire, eq_to_wire
+    from nos_tpu_torch.kube.flatwire import ceq_to_wire, eq_to_wire
 
     return ([{"kind": "ElasticQuota", "doc": eq_to_wire(q)} for q in quotas]
             + [{"kind": "CompositeElasticQuota", "doc": ceq_to_wire(q)}
@@ -134,7 +134,7 @@ def quotas_to_wire(quotas, composite_quotas) -> List[dict]:
 
 
 def quotas_from_wire(entries: List[dict]) -> list:
-    from nos_tpu_torch.kube.serde import ceq_from_wire, eq_from_wire
+    from nos_tpu_torch.kube.flatwire import ceq_from_wire, eq_from_wire
 
     return [eq_from_wire(e["doc"]) if e["kind"] == "ElasticQuota" else ceq_from_wire(e["doc"])
             for e in entries]
@@ -368,7 +368,7 @@ class _WorkerState:
                 self.store.delete("Pod", pod.name, pod.namespace)
 
     def cycle(self, request: dict) -> dict:
-        from nos_tpu_torch.kube.serde import pod_from_wire
+        from nos_tpu_torch.kube.flatwire import pod_from_wire
 
         seq = request.get("seq")
         if self.base is None:
@@ -484,7 +484,7 @@ class _Worker:
     def pending_request(self, pods, ages: Dict[str, float]) -> dict:
         """The cycle's pending fields: every key in order with its age,
         and the docs of the pods the worker does not hold as they are."""
-        from nos_tpu_torch.kube.serde import pod_to_wire
+        from nos_tpu_torch.kube.flatwire import pod_to_wire
 
         docs: Dict[str, dict] = {}
         sent: Dict[str, tuple] = {}
@@ -659,7 +659,7 @@ class PoolWorkerPool:
         pool whose worker fails is planned here by ``planners[pool]`` on
         the same inputs (``escalated``), and its worker dropped: the
         caller rebuilds the pools, so the next plan respawns it."""
-        from nos_tpu_torch.kube.serde import pod_to_wire
+        from nos_tpu_torch.kube.flatwire import pod_to_wire
         from nos_tpu_torch.partitioning.core.partition_state import (
             partitioning_state_from_dict,
         )

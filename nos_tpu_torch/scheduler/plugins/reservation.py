@@ -28,11 +28,14 @@ reference's janitor) clears the others. MPS nodes are never reserved: their slic
 that free without a drain. Times are read from the store's clock, where
 the reference reads ``time.time``.
 
-``AutoscalerGraceScoring`` softly steers a returning model to the node
-the autoscaler held for it (``nos.nebuly.com/autoscaler-reserved``): its
-replicas score 50 there, unrelated pods 0, and 30 anywhere unreserved.
-The autoscaler (``controllers/autoscaler``) writes that annotation on a
-scale to zero.
+``AutoscalerGraceScoring`` softly steers a returning model to the
+slices the autoscaler held for it (``gpu/annotations.py:grace_holds``,
+one hold a vacated replica): its replicas score 50 on a node holding
+slices for it; any other pod scores 30 where its request fits in the
+slices no model holds, and 0 otherwise; a node with no hold scores 30.
+On a node whose holds cover it whole (the reference's node is one board,
+its hold the board) that is the reference's 50 / 0 / 30. The autoscaler
+(``controllers/autoscaler``) writes the holds on a scale to zero.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import logging
 from typing import Dict, Optional
 
 from nos_tpu_torch.api.v1alpha1.modelserving import MODEL_SERVING_LABEL
-from nos_tpu_torch.gpu.annotations import AUTOSCALER_RESERVED, PREFIX
+from nos_tpu_torch.gpu.annotations import AUTOSCALER_RESERVED, PREFIX, grace_holds  # noqa: F401
 from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, KNOWN_GPUS
 from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, RESOURCE_GPU
 from nos_tpu_torch.kube.store import Node, NodeStore, NotFoundError, Pod, PodPhase
@@ -201,7 +204,18 @@ class AutoscalerGraceScoring:
     name = "AutoscalerGraceScore"
 
     def score(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> int:
-        holder = node_info.node.annotations.get(AUTOSCALER_RESERVED, "")
-        if not holder:
+        node = node_info.node
+        total = res.node_memory_slices(node)
+        holds = grace_holds(node.annotations, total)
+        if not holds:
             return 30
-        return 50 if pod.labels.get(MODEL_SERVING_LABEL, "") == holder else 0
+        model = pod.labels.get(MODEL_SERVING_LABEL, "")
+        if model and any(h.holder == model for h in holds):
+            return 50
+        free = total - sum(h.slices for h in holds)
+        product = node.labels.get(GPU_PRODUCT_LABEL, "")
+        per_slice = res.gb_per_memory_slice(product)
+        gpu_gb = KNOWN_GPUS[product].memory_gb if product in KNOWN_GPUS else \
+            res.DEFAULT_GPU_MEMORY_GB
+        need = -(-res.gpu_memory_gb_in(pod.request, gpu_gb) // per_slice)
+        return 30 if 0 < free and need <= free else 0

@@ -11,7 +11,11 @@ count, pool durations, merge conflicts, backends and warm boots
 reservations and the preemptions, the autoscaler's replicas, decisions
 and cold starts, the capacity ledger's GB-seconds and gang waits, and
 the forecaster's ETAs, accuracy, unsafe backfills and runs
-(``:928-1078``); ``remove(**labels)`` drops a child series. The
+(``:928-1078``), and the kube substrate's series (the watch queues'
+depth and drain lag, the store lock's contention, the loops' busy
+fraction, the informers' reconnects, the leader transitions);
+``remove(**labels)`` drops a child series and ``snapshot()`` reads
+every series at once. The
 reference's cardinality governor, percentile windows and incremental
 snapshot cursors serve its control plane and are left out.
 """
@@ -190,6 +194,22 @@ class MetricsRegistry:
         with self._lock:
             metrics = sorted(self._metrics.values(), key=lambda m: m.name)
         return "".join(m.render() for m in metrics)
+
+    def snapshot(self) -> Dict[str, float]:
+        """Every series' value by its exposition key (a histogram's count
+        and sum under ``_count`` and ``_sum``)."""
+        with self._lock:
+            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
+        out: Dict[str, float] = {}
+        for family in metrics:
+            for series in [family] + family._sorted_children():
+                labels = render_labels(series._label_values)
+                if isinstance(series, Histogram):
+                    out[f"{series.name}_count{labels}"] = float(series.count)
+                    out[f"{series.name}_sum{labels}"] = series._sum
+                else:
+                    out[f"{series.name}{labels}"] = series.value
+        return out
 
 
 # The process-wide registry of the port.
@@ -420,4 +440,44 @@ BACKFILL_UNSAFE_TOTAL = REGISTRY.counter(
 FORECAST_RUNS = REGISTRY.counter(
     "nos_tpu_forecast_runs_total",
     "Completed forecast cycles",
+)
+
+# The kube substrate (kube/store.py, kube/controller.py, util/loop_health.py,
+# kube/apistore.py, kube/leaderelection.py), under the reference's names
+# (``nos_tpu/util/metrics.py:796-1031``).
+LEADER_TRANSITIONS = REGISTRY.counter(
+    "nos_tpu_leader_transitions_total",
+    "Leadership acquisitions across all components' leases",
+)
+WATCH_RECONNECTS = REGISTRY.counter(
+    "nos_tpu_watch_reconnects_total",
+    "Informer watch streams re-established after an error, disconnect, "
+    "or 410 expiry (by kind)",
+)
+CONTROLLER_BUSY = REGISTRY.gauge(
+    "nos_tpu_controller_busy_fraction",
+    "Fraction of the last ~1 s window a control loop spent doing work "
+    "rather than waiting for it (by loop)",
+)
+WATCH_DRAIN_LAG = REGISTRY.histogram(
+    "nos_tpu_watch_drain_lag_seconds",
+    "Age of a WatchEvent at dequeue: monotonic enqueue-to-drain delay "
+    "per consuming loop (by consumer); a growing lag means the consumer "
+    "is saturated",
+    buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0),
+)
+WATCH_QUEUE_DEPTH = REGISTRY.gauge(
+    "nos_tpu_watch_queue_depth",
+    "Events waiting in a watch subscriber's (unbounded) queue "
+    "(by kind_set: the subscriber's name, or its joined kind set when "
+    "anonymous)",
+)
+STORE_LOCK_WAIT = REGISTRY.counter(
+    "nos_tpu_store_lock_wait_seconds_total",
+    "Seconds callers spent blocked on the store lock, sampled at "
+    "contention: the uncontended path records nothing",
+)
+STORE_LOCK_CONTENTION = REGISTRY.counter(
+    "nos_tpu_store_lock_contention_total",
+    "Store lock acquisitions that had to wait for another holder",
 )

@@ -23,7 +23,7 @@ from typing import Dict, Mapping
 
 from nos_tpu_torch.api.v1alpha1.elasticquota import RESOURCE_GPU_MEMORY
 from nos_tpu_torch.gpu.annotations import MIG_PROFILE_RE, MPS_PROFILE_RE
-from nos_tpu_torch.gpu.known import H100_80GB, KNOWN_GPUS
+from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, H100_80GB, KNOWN_GPUS
 from nos_tpu_torch.gpu.node import MIG_RESOURCE_PREFIX, MPS_RESOURCE_PREFIX, RESOURCE_GPU
 
 ResourceList = Dict[str, int]
@@ -86,3 +86,15 @@ def with_aggregate_gpu_memory(request: Mapping[str, int],
     if memory > 0:
         out[RESOURCE_GPU_MEMORY] = memory
     return out
+
+
+def gb_per_memory_slice(product: str) -> int:
+    """GB of one memory slice of ``product`` (an H100 80GB's 10)."""
+    spec = KNOWN_GPUS.get(product, KNOWN_GPUS[H100_80GB])
+    return spec.memory_gb // spec.memory_slices
+
+
+def node_memory_slices(node) -> int:
+    """A node's memory slices: its GPUs x its product's slices a GPU."""
+    spec = KNOWN_GPUS.get(node.labels.get(GPU_PRODUCT_LABEL, ""), KNOWN_GPUS[H100_80GB])
+    return int(node.capacity.get(RESOURCE_GPU, 0)) * spec.memory_slices

@@ -42,7 +42,7 @@ from nos_tpu_torch.controllers.autoscaler.controller import (
 )
 from nos_tpu_torch.controllers.autoscaler.signals import Signals
 from nos_tpu_torch.gpu import annotations as tannot
-from nos_tpu_torch.kube.store import NodeStore
+from nos_tpu_torch.kube.store import NodeStore, Pod
 from nos_tpu_torch.scheduler.plugins.gang import GANG_NAME_LABEL, GANG_SIZE_LABEL
 from tests.factory import build_tpu_node
 from tests.torch_planner_cases import TO_TPU, NodeDesc, port_node
@@ -398,3 +398,95 @@ def test_sim_cluster_places_min_replicas_and_scales_to_zero():
     payload = cluster.autoscaler.debug_payload()
     assert payload["servings"]["default/svc"]["ready_replicas"] == 1
     assert serving_key(cluster.store.get("ModelServing", "svc", "default")) == "default.svc"
+
+
+# ------------------------------------------------ F10: one hold a replica
+
+
+class EightGpuRig:
+    """Port alone: one MIG node of 8 H100s, ModelServings ``a`` (grace
+    30 s) and ``b`` (grace 60 s) of one 7g.80gb replica each, bound there."""
+
+    def __init__(self):
+        from nos_tpu_torch.capacity import CapacityLedger
+
+        self.t = 100.0
+        self.store = NodeStore(clock=lambda: self.t)
+        self.signals = SignalRegistry(now_fn=lambda: self.t)
+        self.rec = ModelServingReconciler(self.store, AutoscalerConfig(**CFG),
+                                          signals=self.signals)
+        self.store.create(port_node(NodeDesc("n0", gpus=8)))
+        self.ledger = CapacityLedger(self.store, metrics=False)
+        for name, grace in (("a", 30.0), ("b", 60.0)):
+            spec = ModelServingSpec(slice_profile="7g.80gb", **dict(
+                SPEC, model=name, cold_start_grace_seconds=grace))
+            self.store.create(ModelServing(name, "default", spec=spec))
+            self.signals.note_arrival(name, 99.0, queue_depth=5)
+            self.rec.reconcile(name, "default")
+            self.store.patch_merge("Pod", replica_name(name, 0), "default",
+                                   lambda p: setattr(p, "node", "n0"))
+
+    def to_zero(self, name, t):
+        self.t = t
+        self.signals.update(name, queue_depth=0)
+        self.rec.reconcile(name, "default")
+
+    def holds(self):
+        node = self.store.get("Node", "n0")
+        return [(h.holder, h.slices, h.until) for h in tannot.grace_holds(
+            node.annotations, 64)]
+
+
+def test_two_models_scale_to_zero_on_one_8_gpu_node_and_both_holds_survive():
+    rig = EightGpuRig()
+    rig.to_zero("a", 300.0)
+    rig.to_zero("b", 310.0)
+    assert rig.store.list("Pod") == []
+    assert rig.holds() == [("default.a", 8, 330.0), ("default.b", 8, 370.0)]
+    node = rig.store.get("Node", "n0")
+    assert node.annotations[tannot.AUTOSCALER_RESERVED] == "default.a,default.b"
+    assert float(node.annotations[tannot.AUTOSCALER_RESERVED_UNTIL]) == 370.0
+    # the ledger books the held GB (two 7g.80gb, 160 GB) to grace, the
+    # rest of the node's 640 GB stays available
+    rig.ledger.observe(320.0)
+    rig.ledger.observe(330.0)
+    idle = rig.ledger.totals()["idle"]
+    assert idle["autoscaler-grace"] == 160.0 * 10 and idle["no-demand"] == 480.0 * 10
+
+
+def test_each_hold_expires_on_its_own_clock():
+    rig = EightGpuRig()
+    rig.to_zero("a", 300.0)
+    rig.to_zero("b", 310.0)
+    for name in ("a", "b"):
+        rig.to_zero(name, 335.0)
+    assert rig.holds() == [("default.b", 8, 370.0)]
+    node = rig.store.get("Node", "n0")
+    assert node.annotations[tannot.AUTOSCALER_RESERVED] == "default.b"
+    for name in ("a", "b"):
+        rig.to_zero(name, 370.0)
+    assert rig.holds() == []
+    assert not any(k.startswith(tannot.PREFIX + "autoscaler-")
+                   for k in rig.store.get("Node", "n0").annotations)
+
+
+def test_a_third_models_replica_scores_30_on_the_unheld_slices():
+    from nos_tpu_torch.scheduler import framework as tfw
+    from nos_tpu_torch.scheduler.plugins.reservation import AutoscalerGraceScoring
+
+    rig = EightGpuRig()
+    rig.to_zero("a", 300.0)
+    rig.to_zero("b", 310.0)
+    info = tfw.NodeInfo(node=rig.store.get("Node", "n0"))
+    score = AutoscalerGraceScoring().score
+
+    def pod(model, request):
+        return Pod("x", labels={MODEL_SERVING_LABEL: model} if model else {}, request=request)
+
+    one = {"nvidia.com/mig-7g.80gb": 1}
+    assert score(tfw.CycleState(), pod("default.c", one), info) == 30
+    assert score(tfw.CycleState(), pod("", {"nvidia.com/gpu": 6}), info) == 30
+    # past the 48 slices no model holds
+    assert score(tfw.CycleState(), pod("default.c", {"nvidia.com/gpu": 7}), info) == 0
+    assert score(tfw.CycleState(), pod("default.a", one), info) == 50
+    assert score(tfw.CycleState(), pod("default.b", one), info) == 50

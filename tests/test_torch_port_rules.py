@@ -10,9 +10,10 @@
   and device/podresources.py imports grpc only when a client is made).
 - With no CUDA device, an entry point called without ``device`` raises;
   it never falls back to the CPU on its own.
-- The control plane (the API types, the store, the scheduler with its
-  quota plugin and preemptor, the controllers, the planner core,
-  SimCluster, the resource math) imports no torch either (an AST scan).
+- The control plane (the API types, the kube substrate, the scheduler
+  with its quota plugin and preemptor, the controllers, the planner
+  core, SimCluster and its sim/ stand-ins, the resource math, the loop
+  health and the watch predicates) imports no torch either (an AST scan).
 """
 import ast
 import os
@@ -94,7 +95,15 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/capacity/ledger.py", "nos_tpu_torch/forecast/engine.py",
         "nos_tpu_torch/forecast/advisor.py", "nos_tpu_torch/forecast/accuracy.py",
         "nos_tpu_torch/forecast/forecaster.py", "nos_tpu_torch/bench_autoscale.py",
-        "nos_tpu_torch/bench_forecast.py",
+        "nos_tpu_torch/bench_forecast.py", "nos_tpu_torch/kube/objects.py",
+        "nos_tpu_torch/kube/flatwire.py", "nos_tpu_torch/kube/controller.py",
+        "nos_tpu_torch/kube/events.py", "nos_tpu_torch/kube/leaderelection.py",
+        "nos_tpu_torch/kube/apiclient.py", "nos_tpu_torch/kube/apistore.py",
+        "nos_tpu_torch/sim/apiserver.py", "nos_tpu_torch/sim/kubelet.py",
+        "nos_tpu_torch/util/loop_health.py", "nos_tpu_torch/util/predicates.py",
+        "nos_tpu_torch/api/v1alpha1/constants.py",
+        "nos_tpu_torch/controllers/partitioner/node_controller.py",
+        "nos_tpu_torch/controllers/partitioner/pod_controller.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -109,7 +118,7 @@ CONTROL_PLANE = ("api", "kube", "scheduler", "controllers", "partitioning/core",
                  "bench_control_plane.py", "partitioning/mig.py", "partitioning/mps.py",
                  "partitioning/bench_planner.py", "device/sim.py", "device/sharing.py",
                  "util/metrics.py", "capacity", "forecast", "bench_autoscale.py",
-                 "bench_forecast.py")
+                 "bench_forecast.py", "sim", "util/loop_health.py", "util/predicates.py")
 
 
 def test_control_plane_imports_no_torch():
@@ -132,7 +141,12 @@ def test_control_plane_imports_no_torch():
             "controllers/autoscaler/policy.py", "controllers/autoscaler/controller.py",
             "capacity/ledger.py", "forecast/engine.py", "forecast/advisor.py",
             "forecast/accuracy.py", "forecast/forecaster.py", "bench_autoscale.py",
-            "bench_forecast.py"} <= names
+            "bench_forecast.py", "kube/objects.py", "kube/store.py", "kube/flatwire.py",
+            "kube/controller.py", "kube/events.py", "kube/leaderelection.py",
+            "kube/apiclient.py", "kube/apistore.py", "sim/apiserver.py", "sim/kubelet.py",
+            "sim/__init__.py", "util/loop_health.py", "util/predicates.py",
+            "api/v1alpha1/constants.py", "controllers/partitioner/node_controller.py",
+            "controllers/partitioner/pod_controller.py"} <= names
     bad = [f"{p.relative_to(ROOT)}: {mod}" for p in files for mod in _imports(p)
            if mod == "torch" or mod.startswith("torch.")]
     assert not bad, bad
@@ -163,6 +177,11 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.controllers.partitioner.incremental\n"
         "import nos_tpu_torch.partitioning.core.pools, nos_tpu_torch.partitioning.core.procpool\n"
         "import nos_tpu_torch.partitioning.core.snapcodec, nos_tpu_torch.kube.serde\n"
+        "import nos_tpu_torch.kube.flatwire, nos_tpu_torch.kube.controller\n"
+        "import nos_tpu_torch.kube.events, nos_tpu_torch.kube.leaderelection\n"
+        "import nos_tpu_torch.kube.apistore, nos_tpu_torch.sim.apiserver\n"
+        "import nos_tpu_torch.sim.kubelet, nos_tpu_torch.util.loop_health\n"
+        "import nos_tpu_torch.util.predicates, nos_tpu_torch.util.pod\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'nos_tpu', 'transformers', 'grpc') or m.startswith('google.protobuf'))\n"
         "print(bad)\n"

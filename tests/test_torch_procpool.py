@@ -1,5 +1,5 @@
 """Pool planning in worker processes (``partitioning/core/procpool.py``),
-its wire (``kube/serde.py``, ``snapcodec.py``'s frames) and the
+its wire (``kube/flatwire.py``, ``snapcodec.py``'s frames) and the
 controller's process backend, port against port.
 
 - The frames (tests/partitioning/test_procpool.py:88-123): a round trip,
@@ -42,7 +42,7 @@ from nos_tpu_torch.api.v1alpha1 import RESOURCE_GPU_MEMORY
 from nos_tpu_torch.cluster import SimCluster
 from nos_tpu_torch.controllers.partitioner import build_sim_framework
 from nos_tpu_torch.gpu.node import RESOURCE_GPU
-from nos_tpu_torch.kube import serde
+from nos_tpu_torch.kube import flatwire
 from nos_tpu_torch.kube.store import (
     NodeSelectorRequirement,
     NodeSelectorTerm,
@@ -162,18 +162,18 @@ def test_nodes_pods_and_quotas_round_trip_on_every_field():
         pod.uid, pod.nominated_node, pod.hostname = "uid-7", "n1", "h"
         pod.owner = OwnerReference("Pod", "leader", "uid-1")
         pod.env = {"RANK": "1"}
-        _wire_round_trip(pod, serde.pod_to_wire, serde.pod_from_wire)
+        _wire_round_trip(pod, flatwire.pod_to_wire, flatwire.pod_from_wire)
     node = port_node(NodeDesc("n0", gpus=2, free={0: {"1g.10gb": 2}}, used={1: {"7g.80gb": 1}},
                               taints=[("dedicated", "x", "NoSchedule")], unschedulable=True,
                               labels={NODEPOOL_LABEL: "pool-a"}))
-    _wire_round_trip(node, serde.node_to_wire, serde.node_from_wire)
+    _wire_round_trip(node, flatwire.node_to_wire, flatwire.node_from_wire)
     eq = port_quota(QuotaDesc("team-a", min={RESOURCE_GPU_MEMORY: 80},
                               max={RESOURCE_GPU_MEMORY: 160}))
     eq.used = {RESOURCE_GPU_MEMORY: 40}
     ceq = port_quota(QuotaDesc("admin", min={RESOURCE_GPU_MEMORY: 80}, name="c",
                                namespaces=["t1", "t2"]))
-    _wire_round_trip(eq, serde.eq_to_wire, serde.eq_from_wire)
-    _wire_round_trip(ceq, serde.ceq_to_wire, serde.ceq_from_wire)
+    _wire_round_trip(eq, flatwire.eq_to_wire, flatwire.eq_from_wire)
+    _wire_round_trip(ceq, flatwire.ceq_to_wire, flatwire.ceq_from_wire)
     assert procpool.quotas_from_wire(json.loads(json.dumps(
         procpool.quotas_to_wire([eq], [ceq])))) == [eq, ceq]
 
@@ -187,15 +187,15 @@ def test_a_sim_clusters_objects_round_trip():
     cluster.store.create(Pod("job", "default", request={RESOURCE_GPU: 16}))
     cluster.run_until_idle(100)
     for pod in cluster.store.list("Pod"):
-        _wire_round_trip(pod, serde.pod_to_wire, serde.pod_from_wire)
+        _wire_round_trip(pod, flatwire.pod_to_wire, flatwire.pod_from_wire)
     for node in cluster.store.list("Node"):
-        _wire_round_trip(node, serde.node_to_wire, serde.node_from_wire)
+        _wire_round_trip(node, flatwire.node_to_wire, flatwire.node_from_wire)
     assert any(p.owner is not None for p in cluster.store.list("Pod"))
 
 
 def test_a_wire_doc_leaves_out_fields_at_their_defaults():
     pod = Pod("p", "ml", request={mig("1g.10gb"): 1}, priority=0, unschedulable=True)
-    doc = _wire_round_trip(pod, serde.pod_to_wire, serde.pod_from_wire)
+    doc = _wire_round_trip(pod, flatwire.pod_to_wire, flatwire.pod_from_wire)
     assert doc == {"name": "p", "namespace": "ml", "request": {mig("1g.10gb"): 1},
                    "unschedulable": True}
 
@@ -269,7 +269,7 @@ REFUSED = ({"1g.10gb": 1, "2g.20gb": 1, "4g.40gb": 1}, {"1g.10gb": 2, "1g.20gb":
 def _cycle(workers, pods=(POD,)):
     return workers.plan_cycle({"p": {
         "deltas": [], "pending": [p.namespaced_name for p in pods],
-        "pending_docs": {p.namespaced_name: serde.pod_to_wire(p) for p in pods},
+        "pending_docs": {p.namespaced_name: flatwire.pod_to_wire(p) for p in pods},
         "ages": [0.0 for _ in pods], "external_usage": {}, "context": [], "now": 0.0}})["p"]
 
 
