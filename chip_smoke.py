@@ -133,6 +133,28 @@ Phases, each fatal on failure (exit code != 0):
     and planned as the cold start; prints pools a plan, pool and merge
     ms, each worker's start-to-bootstrapped s, whether torch was in a
     worker, frame bytes a plan, adopted entries, each run's steps and s;
+1i. components: the components on the Manager (components_phase).
+    (a) build_cluster, every component threaded on one in-memory store
+    in wall time: 16 MIG nodes of 8 H100s in 2 node pools and 4 MPS
+    nodes of 8 (160 GPUs), 240 pods of 1g.10gb ... 7g.80gb and 10 / 20 /
+    40 GB MPS slices in two quota namespaces (one borrowing) and the
+    default one, a 2-member 7g.80gb gang, a plain nvidia.com/gpu: 12 pod
+    for the multi-node expander and a ModelServing of 2 replicas, at
+    about 84% of the fleet's GB: every pod Running within 60 s, the gangs
+    in one pool, the quotas within max, /debug/explain for a pod made
+    unschedulable on purpose, /healthz /readyz /metrics, SimCluster's
+    invariants on the store, and the same description through the
+    polled SimCluster; (b) one process a component (python -m
+    nos_tpu_torch ...) on the stub API server through a JSON
+    kubeconfig: operator, partitioner, autoscaler, two schedulers under
+    leader election, a MIG and an MPS agent on the sim devices, and a
+    MIG agent on NVML that must exit 1 with the MIG-off refusal: every
+    /healthz 200, pods bound on advertised slices, a plan written for a
+    profile nobody advertises, a bind within the lease and 5 s after
+    SIGTERM to the leading scheduler, every process exiting 0 on
+    SIGTERM; prints the wall s to all Running, reconciles by controller
+    kind, plans applied, each process's start-to-healthy s and the bind
+    after the handover;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
@@ -5851,6 +5873,439 @@ def pools_phase(card, nvml=None) -> dict:
     return row
 
 
+COMPONENTS_MIG_NODES = 16    # 8 H100s each, in 2 node pools of 8
+COMPONENTS_MPS_NODES = 4     # 8 H100s each: 160 GPUs in all
+# (namespace, MIG profile or MPS slice, pods): 240 pods, at about 84% of
+# the fleet's GB with the gang, the expander's job and the replicas
+COMPONENTS_MIX = (("team-a", "mig", "7g.80gb", 30), ("team-a", "mig", "3g.40gb", 40),
+                  ("team-a", "mig", "2g.20gb", 15), ("team-a", "mig", "1g.10gb", 15),
+                  ("team-b", "mig", "7g.80gb", 25), ("team-b", "mig", "3g.40gb", 15),
+                  ("team-b", "mig", "2g.20gb", 15), ("team-b", "mig", "1g.10gb", 15),
+                  ("default", "mps", "40gb", 25), ("default", "mps", "20gb", 30),
+                  ("default", "mps", "10gb", 15))
+COMPONENTS_SEED = 22
+COMPONENTS_DEADLINE_S = 60.0    # wall seconds for every pod to run
+COMPONENTS_LEASE_S = 2.0        # the schedulers' lease in the process half
+COMPONENTS_PROCESS_S = 90.0     # a process's start to healthy, and its exit
+
+
+def components_suite(card) -> dict:
+    """The components' half (a): build_cluster, every component threaded
+    on one in-memory store, in wall time: COMPONENTS_MIG_NODES MIG nodes
+    of 8 H100s in two node pools and COMPONENTS_MPS_NODES MPS nodes of 8
+    (160 GPUs), two quotas in nos.nebuly.com/gpu-memory (team-a's min
+    below its demand, so it borrows team-b's unused guarantee), and 240
+    pods of COMPONENTS_MIX in a seeded order, with a 2-member 7g.80gb
+    gang, one plain nvidia.com/gpu: 12 pod the expander makes a gang of
+    two whole nodes, and a ModelServing of 2 replicas. Checked: every pod
+    Running within COMPONENTS_DEADLINE_S; the gangs whole in one pool;
+    each quota's use within its max, team-a's past its min; then a pod
+    made unschedulable on purpose (9 x 7g.80gb, more than a node has)
+    gets its diagnosis on /debug/explain, and /healthz, /readyz and
+    /metrics answer; SimCluster.check()'s invariants on the store; and
+    the same description through the polled SimCluster places every
+    pod. Reported: the wall s to all Running, the reconciles by
+    controller kind, the plans applied, the polled run's steps and s."""
+    import json as _json
+    import random
+    import urllib.request
+
+    from nos_tpu_torch.api.config import AutoscalerConfig, GpuPartitionerConfig, SchedulerConfig
+    from nos_tpu_torch.api.v1alpha1 import RESOURCE_GPU_MEMORY
+    from nos_tpu_torch.api.v1alpha1.elasticquota import ElasticQuota
+    from nos_tpu_torch.cluster import SimCluster
+    from nos_tpu_torch.cmd._component import health_server
+    from nos_tpu_torch.cmd.cluster import build_cluster
+    from nos_tpu_torch.cmd.run import seed_modelserving, seed_node, seed_pod
+    from nos_tpu_torch.kube.store import PodPhase
+    from nos_tpu_torch.scheduler.plugins.topology import NODEPOOL_LABEL
+
+    t0 = time.time()
+    rng = random.Random(COMPONENTS_SEED)
+    nodes = ([{"name": f"mig-{i:02d}", "partitioning": "mig",
+               "nodepool": "pool-a" if i < COMPONENTS_MIG_NODES // 2 else "pool-b"}
+              for i in range(COMPONENTS_MIG_NODES)]
+             + [{"name": f"mps-{i}", "partitioning": "mps"} for i in range(COMPONENTS_MPS_NODES)])
+    pods = [{"name": f"{kind}-{what.replace('.', '-')}-{i}", "namespace": ns, kind: what}
+            for ns, kind, what, n in COMPONENTS_MIX for i in range(n)]
+    pods += [{"name": f"pair-{i}", "mig": "7g.80gb", "gang": "pair", "gangSize": 2}
+             for i in range(2)]
+    pods.append({"name": "wide", "gpus": 12})
+    rng.shuffle(pods)
+    serving = {"name": "chat", "model": "chat", "sliceProfile": "3g.40gb",
+               "minReplicas": 2, "maxReplicas": 2}
+
+    def gb(spec):
+        if "gpus" in spec:
+            return 80 * 16  # two whole nodes
+        # "7g.80gb" and "20gb" both end in their GB
+        return int(spec.get("mig", spec.get("mps", "")).rsplit(".", 1)[-1][:-2])
+
+    demand = {}
+    for spec in pods:
+        ns = spec.get("namespace", "default")
+        demand[ns] = demand.get(ns, 0) + gb(spec)
+    gpus = 8 * (COMPONENTS_MIG_NODES + COMPONENTS_MPS_NODES)
+    total_gb = sum(demand.values()) + 2 * gb({"mig": serving["sliceProfile"]})
+    mem = RESOURCE_GPU_MEMORY
+    quotas = [ElasticQuota("quota", "team-a", {mem: int(demand["team-a"] * 0.8)},
+                           {mem: int(demand["team-a"] * 1.2)}),
+              ElasticQuota("quota", "team-b", {mem: int(demand["team-b"] * 1.5)})]
+    row = {"nodes": len(nodes), "gpus": gpus, "pods": len(pods),
+           "demand_gb": demand, "fleet_share": total_gb / (80 * gpus)}
+
+    cluster = build_cluster(
+        partitioner_config=GpuPartitionerConfig(batch_window_timeout_seconds=1.0,
+                                                batch_window_idle_seconds=0.05),
+        scheduler_config=SchedulerConfig(retry_seconds=0.2),
+        autoscaler_config=AutoscalerConfig())
+    health = health_server({}, 0, cluster.scheduler, cluster.store)
+    health.host, health.autoscaler_fn = "127.0.0.1", cluster.autoscaler.debug_payload
+    port = health.start()
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, ""
+
+    checks = {}
+    try:
+        for quota in quotas:
+            cluster.store.create(quota)
+        for spec in nodes:
+            cluster.add_node(seed_node(spec))
+        cluster.start()
+        t1 = time.perf_counter()
+        for spec in pods:
+            cluster.store.create(seed_pod(spec))
+        cluster.store.create(seed_modelserving(serving))
+        want = len(pods) + 1 + 2  # the expander's worker, the two replicas
+        running_s = None
+        while time.perf_counter() - t1 < COMPONENTS_DEADLINE_S:
+            live = cluster.pods()
+            if len(live) == want and all(p.phase == PodPhase.RUNNING for p in live):
+                running_s = time.perf_counter() - t1
+                break
+            time.sleep(0.02)
+        checks["every_pod_running_in_time"] = running_s is not None
+        if running_s is None:
+            row["not_running"] = {p.namespaced_name: [p.phase, p.node, p.unschedulable_message]
+                                  for p in cluster.pods() if p.phase != PodPhase.RUNNING}
+        live = cluster.pods()
+        node_pool = {n.name: n.labels.get(NODEPOOL_LABEL, "")
+                     for n in cluster.store.list("Node", copy=False)}
+        gangs = {}
+        for p in live:
+            if "nos.nebuly.com/gang" in p.labels and p.node:
+                gangs.setdefault(p.labels["nos.nebuly.com/gang"], set()).add(node_pool[p.node])
+        checks["gangs_in_one_pool"] = all(len(v) == 1 for k, v in gangs.items()
+                                          if k in ("pair", "wide"))
+        checks["expander_gang_formed"] = sum(p.name.startswith("wide") for p in live) == 2
+        used = {q.namespace: q.used.get(mem, 0)
+                for q in cluster.store.list("ElasticQuota", copy=False)}
+        checks["quota_within_max"] = used["team-a"] <= quotas[0].max[mem]
+        checks["team_a_borrows"] = used["team-a"] > quotas[0].min[mem]
+        cluster.store.create(seed_pod({"name": "too-big", "mig": "7g.80gb", "count": 9}))
+        deadline = time.perf_counter() + 20.0
+        while get("/debug/explain?pod=default/too-big")[0] != 200 \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        status, body = get("/debug/explain?pod=default/too-big")
+        explained = _json.loads(body) if status == 200 else {}
+        checks["debug_explain"] = explained.get("message", "").startswith(
+            f"0/{len(nodes)} nodes are available")
+        checks["healthz_readyz"] = get("/healthz") == (200, "ok") == get("/readyz")
+        status, metrics_text = get("/metrics")
+        checks["metrics_families"] = status == 200 and all(
+            f'nos_tpu_controller_busy_fraction{{loop="{loop}"}}' in metrics_text
+            for loop in ("scheduler", "partitioner-mig", "partitioner-mps", "elasticquota",
+                         "autoscaler", "sim-kubelet"))
+        cluster.wait_idle(timeout=20.0)
+        invariants = cluster.check()
+        checks["simcluster_invariants"] = all(invariants.values())
+        row["invariants"] = invariants
+        kinds = {}
+        for name, n in cluster.reconciles().items():
+            kind = name.rsplit("-", 1)[0] if name.startswith(("migagent", "mpsagent")) else name
+            kinds[kind] = kinds.get(kind, 0) + n
+        row.update(running_s=running_s, reconciles=kinds,
+                   plans_applied={"mig": cluster.partitioner.plans_applied,
+                                  "mps": cluster.partitioner.mps.plans_applied},
+                   quota_used_gb=used, explain=explained.get("message"))
+    finally:
+        cluster.stop()
+        health.stop()
+
+    # the same description through the polled loop
+    t2 = time.perf_counter()
+    polled = SimCluster(autoscaler=AutoscalerConfig())
+    try:
+        for quota in quotas:
+            polled.store.create(quota)
+        for spec in nodes:
+            if spec["partitioning"] == "mig":
+                polled.add_mig_node(spec["name"], pool=spec["nodepool"])
+            else:
+                polled.add_mps_node(spec["name"])
+        for spec in pods:
+            polled.store.create(seed_pod(spec))
+        polled.store.create(seed_modelserving(serving))
+        idle = polled.run_until_idle(2000)
+        pods_polled = polled.store.list("Pod", copy=False)
+        checks["polled_simcluster_places_every_pod"] = idle and len(pods_polled) == want and all(
+            p.phase == PodPhase.RUNNING for p in pods_polled)
+        row["polled"] = {"steps": polled.steps, "seconds": time.perf_counter() - t2}
+    finally:
+        polled.close()
+    row.update(checks=checks, seconds=time.time() - t0)
+    return row
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def components_processes(card, refusal: str = "MIG mode disabled") -> dict:
+    """The components' half (b): one process a component, each
+    ``python -m nos_tpu_torch <component>`` against the port's stub API
+    server on 127.0.0.1 through a JSON kubeconfig: operator, partitioner,
+    autoscaler, two schedulers under leader election (a
+    COMPONENTS_LEASE_S lease), a MIG agent and an MPS agent on the sim
+    devices, and a MIG agent on NVML, which must exit 1 with ``refusal``
+    (the card's MIG mode is off). Checked: each /healthz 200; pods asking
+    the profile every MIG GPU starts with bind on the slices their node
+    advertises; a pod asking a profile nobody advertises gets a plan
+    written for it (the node's spec annotations name it) and binds; an
+    MPS pod binds on its node's slice; after SIGTERM to the leading
+    scheduler and its exit (0), a new pod binds through the other within
+    the lease and 5 s of the signal, the other holding the lease (as the
+    API server reads) at the bind and after it; every process exits 0 on
+    SIGTERM. Reported: each process's start to healthy s; from the
+    signal, the old leader's exit, the lease taken and the bind s; the
+    bind from the pod's create s."""
+    import json as _json
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+
+    from nos_tpu_torch.cmd.run import seed_node, seed_pod
+    from nos_tpu_torch.gpu.annotations import SPEC_PARTITIONING_PLAN
+    from nos_tpu_torch.kube.apiclient import ClusterCredentials, KubeApiClient
+    from nos_tpu_torch.kube.apistore import KubeApiStore
+    from nos_tpu_torch.kube.leaderelection import HOLDER_ANNOTATION
+    from nos_tpu_torch.kube.store import NotFoundError
+    from nos_tpu_torch.sim.apiserver import StubApiServer
+
+    t0 = time.time()
+    work = tempfile.mkdtemp(prefix="nos-components-")
+    server = StubApiServer().start()
+    writer = KubeApiStore(KubeApiClient(ClusterCredentials(server=server.url)),
+                          kinds=("Node", "Pod", "ConfigMap"))
+    procs = {}
+    row, checks = {}, {}
+    try:
+        writer.start()
+        kubeconfig = os.path.join(work, "kubeconfig.json")
+        with open(kubeconfig, "w") as f:
+            _json.dump({"apiVersion": "v1", "kind": "Config", "current-context": "stub",
+                        "clusters": [{"name": "stub", "cluster": {"server": server.url}}],
+                        "contexts": [{"name": "stub",
+                                      "context": {"cluster": "stub", "user": "stub"}}],
+                        "users": [{"name": "stub", "user": {}}]}, f)
+        for spec in ({"name": "mig-a", "partitioning": "mig"},
+                     {"name": "mps-a", "partitioning": "mps"}):
+            writer.create(seed_node(spec))
+        base = {"store": {"type": "kubeconfig", "kubeconfig": kubeconfig},
+                "manager": {"healthProbeHost": "127.0.0.1"},
+                "partitioner": {"batchWindowTimeoutSeconds": 1.0, "batchWindowIdleSeconds": 0.1},
+                "scheduler": {"retrySeconds": 0.2},
+                "agent": {"reportConfigIntervalSeconds": 0.5}}
+        election = {"enabled": True, "leaseDurationSeconds": COMPONENTS_LEASE_S,
+                    "renewPeriodSeconds": 0.2}
+        plan = [("operator", "operator", {}, ""), ("partitioner", "partitioner", {}, ""),
+                ("autoscaler", "autoscaler", {}, ""),
+                ("scheduler-a", "scheduler", {"leaderElection": {**election,
+                                                                 "identity": "scheduler-a"}}, ""),
+                ("scheduler-b", "scheduler", {"leaderElection": {**election,
+                                                                 "identity": "scheduler-b"}}, ""),
+                ("migagent", "migagent", {}, "mig-a"), ("mpsagent", "mpsagent", {}, "mps-a"),
+                ("migagent-nvml", "migagent", {"deviceBackend": "nvml"}, "card")]
+        for name, command, extra, node in plan:
+            path = os.path.join(work, f"{name}.json")
+            with open(path, "w") as f:
+                _json.dump({**base, **extra}, f)
+            env = dict(os.environ, PYTHONPATH=HERE, **({"NODE_NAME": node} if node else {}))
+            port = _free_port()
+            log = open(os.path.join(work, f"{name}.log"), "w")
+            procs[name] = {"port": port, "log": log, "started": time.perf_counter(),
+                           "proc": subprocess.Popen(
+                               [sys.executable, "-m", "nos_tpu_torch", command, "--config",
+                                path, "--health-port", str(port)],
+                               cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)}
+
+        def healthy(p):
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{p['port']}/healthz",
+                                            timeout=2) as r:
+                    return r.status == 200
+            except OSError:
+                return False
+
+        def log_tail(name, n=2000):
+            with open(os.path.join(work, f"{name}.log")) as f:
+                return f.read()[-n:]
+
+        def wait(predicate, timeout):
+            end = time.perf_counter() + timeout
+            while time.perf_counter() < end:
+                if predicate():
+                    return True
+                time.sleep(0.05)
+            return False
+
+        start_s = {}
+        for name, p in procs.items():
+            if name == "migagent-nvml":
+                continue
+            ok = wait(lambda p=p: healthy(p) or p["proc"].poll() is not None,
+                      COMPONENTS_PROCESS_S) and p["proc"].poll() is None
+            start_s[name] = time.perf_counter() - p["started"] if ok else None
+        checks["every_healthz_200"] = all(s is not None for s in start_s.values())
+        nvml = procs["migagent-nvml"]["proc"]
+        try:
+            nvml_rc = nvml.wait(timeout=COMPONENTS_PROCESS_S)
+        except subprocess.TimeoutExpired:
+            nvml_rc = None
+        nvml_log = log_tail("migagent-nvml")
+        checks["nvml_migagent_refused"] = nvml_rc == 1 and refusal in nvml_log
+        row.update(start_to_healthy_s=start_s, nvml_migagent={"rc": nvml_rc,
+                                                               "refusal": nvml_log.strip()[-300:]})
+        if not checks["every_healthz_200"]:
+            row["logs"] = {n: log_tail(n) for n, s in start_s.items() if s is None}
+            raise RuntimeError("a component never served /healthz")
+
+        def node(name):
+            return writer.try_get("Node", name) or seed_node({"name": name})
+
+        whole = "nvidia.com/mig-7g.80gb"
+        checks["initial_slices_advertised"] = wait(
+            lambda: node("mig-a").allocatable.get(whole, 0) >= 2, 30.0)
+        t_bind = time.perf_counter()
+        for i in range(2):
+            writer.create(seed_pod({"name": f"whole-{i}", "mig": "7g.80gb"}))
+        writer.create(seed_pod({"name": "new-profile", "mig": "2g.20gb"}))
+        writer.create(seed_pod({"name": "shared", "mps": "20gb"}))
+
+        def bound(name):
+            pod = writer.try_get("Pod", name, "default")
+            return pod is not None and bool(pod.node)
+
+        checks["pods_bind_on_advertised_slices"] = wait(
+            lambda: bound("whole-0") and bound("whole-1"), 30.0)
+        checks["plan_written_for_unadvertised_profile"] = wait(
+            lambda: any("2g.20gb" in k for k in node("mig-a").annotations)
+            and bool(node("mig-a").annotations.get(SPEC_PARTITIONING_PLAN)), 30.0)
+        checks["new_profile_pod_bound"] = wait(lambda: bound("new-profile"), 30.0)
+        checks["mps_pod_bound"] = wait(lambda: bound("shared"), 30.0)
+        row["binds_s"] = time.perf_counter() - t_bind
+
+        def holder():
+            # the lease as the API server holds it, not as a cache saw it
+            try:
+                wire = writer.raw_get("ConfigMap", "nos-tpu-scheduler", "nos-system")
+            except NotFoundError:
+                return ""
+            return ((wire.get("metadata") or {}).get("annotations") or {}).get(
+                HOLDER_ANNOTATION, "")
+
+        leader = holder()
+        checks["a_scheduler_leads"] = leader in ("scheduler-a", "scheduler-b")
+        if checks["a_scheduler_leads"]:
+            other = "scheduler-b" if leader == "scheduler-a" else "scheduler-a"
+            t_term = time.perf_counter()
+            procs[leader]["proc"].send_signal(signal.SIGTERM)
+            # the old leader gone first: only the other can bind what follows
+            taken_at = []
+
+            def old_gone():
+                if not taken_at and holder() == other:
+                    taken_at.append(time.perf_counter())
+                return procs[leader]["proc"].poll() is not None
+
+            wait(old_gone, COMPONENTS_LEASE_S + 5.0)
+            old_rc = procs[leader]["proc"].poll()
+            row["old_leader_exit_s"] = time.perf_counter() - t_term
+            checks["old_leader_exits_0"] = old_rc == 0
+            if not taken_at and wait(lambda: holder() == other, max(
+                    0.0, COMPONENTS_LEASE_S + 5.0 - (time.perf_counter() - t_term))):
+                taken_at.append(time.perf_counter())
+            took = bool(taken_at)
+            row["lease_taken_s"] = taken_at[0] - t_term if took else None
+            t_pod = time.perf_counter()
+            writer.create(seed_pod({"name": "after-handover", "mig": "7g.80gb"}))
+            handed = old_rc is not None and wait(
+                lambda: bound("after-handover"),
+                max(0.0, COMPONENTS_LEASE_S + 5.0 - (t_pod - t_term)))
+            at_bind = holder()
+            row["handover_bind_s"] = time.perf_counter() - t_term if handed else None
+            row["bind_after_create_s"] = time.perf_counter() - t_pod if handed else None
+            checks["bind_after_handover_in_time"] = handed and at_bind == other
+            time.sleep(COMPONENTS_LEASE_S / 2)  # several renewals on
+            at_end = holder()
+            row["leaders"] = {"before": leader, "at_bind": at_bind, "at_end": at_end}
+            checks["successor_holds_the_lease"] = (took and at_end == other
+                                                   and procs[other]["proc"].poll() is None)
+        exits = {}
+        for name, p in procs.items():
+            if p["proc"].poll() is None:
+                p["proc"].send_signal(signal.SIGTERM)
+        for name, p in procs.items():
+            if name == "migagent-nvml":
+                continue
+            try:
+                exits[name] = p["proc"].wait(timeout=30.0)
+            except subprocess.TimeoutExpired:
+                exits[name] = None
+        checks["every_process_exits_0_on_sigterm"] = all(rc == 0 for rc in exits.values())
+        row["exit_codes"] = exits
+        if not all(checks.values()):
+            row["logs"] = {n: log_tail(n, 1500) for n in procs}
+    finally:
+        for p in procs.values():
+            if p["proc"].poll() is None:
+                p["proc"].kill()
+                p["proc"].wait()
+            p["log"].close()
+        writer.stop()
+        server.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    row.update(checks=checks, seconds=time.time() - t0)
+    return row
+
+
+def components_phase(card, refusal: str = "MIG mode disabled") -> dict:
+    """The components on the Manager (cmd/): components_suite, then
+    components_processes; fails unless every check of both holds."""
+    t0 = time.time()
+    suite = components_suite(card)
+    processes = components_processes(card, refusal)
+    checks = {**{f"suite_{k}": v for k, v in suite.pop("checks").items()},
+              **{f"processes_{k}": v for k, v in processes.pop("checks").items()}}
+    row = {"phase": "components", "suite": suite, "processes": processes, "checks": checks,
+           "ok": all(checks.values()), "seconds": time.time() - t0, "card": card}
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"components failed: {checks}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -5893,6 +6348,7 @@ def main() -> int:
     gang_phase(card)
     control_bench_phase(card)
     pools_phase(card)
+    components_phase(card)
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa

@@ -1,5 +1,13 @@
-"""The components' configuration: counterpart of ``nos_tpu/api/config``,
-trimmed to the autoscaler's."""
-from nos_tpu_torch.api.config.v1alpha1 import AutoscalerConfig, ConfigError
+"""The components' configurations: counterpart of ``nos_tpu/api/config``."""
+from nos_tpu_torch.api.config.v1alpha1 import (
+    AgentConfig,
+    AutoscalerConfig,
+    ConfigError,
+    GpuPartitionerConfig,
+    ManagerConfig,
+    OperatorConfig,
+    SchedulerConfig,
+)
 
-__all__ = ["AutoscalerConfig", "ConfigError"]
+__all__ = ["AgentConfig", "AutoscalerConfig", "ConfigError", "GpuPartitionerConfig",
+           "ManagerConfig", "OperatorConfig", "SchedulerConfig"]

@@ -26,13 +26,18 @@ registry's ``now_fn``, which defaults to the store's clock), so a held
 node cannot leak. On a one-GPU node with a ``7g.80gb`` replica the two
 summary annotations are the reference's hold, value for value.
 
-Polled, with no watches (ROADMAP.md, Queue 3): ``reconcile(name,
-namespace)`` is the reference's reconcile of one request; ``step()``
+``reconcile(name, namespace)`` is the reference's reconcile of one
+request. The autoscaler component (``cmd/autoscaler.py``) runs it on the
+ModelServing watch and the replica pods' watch (``serving_requests_of``,
+the reference's ``pod_to_serving_requests`` mapper) through
+``reconcile_request``, which requeues a live ModelServing after
+``resync_seconds`` so idle timers and grace holds are read with no event
+(the reference also requeues at a hold's expiry; here a hold expires at
+the next resync). ``SimCluster`` polls (ROADMAP.md, Queue 3): ``step()``
 reconciles every ModelServing, then collects the replicas of a deleted
-one (the reference's pod watch maps them back, ``pod_to_serving_requests``,
-kept as a function of a pod). There are no events: ``decisions`` keeps
-the last ``DECISION_RECORDS`` decisions, as ``Scheduler.preemptions``
-keeps preemptions. The status goes through ``NodeStore.patch_merge``.
+one (``pod_to_serving_requests``, the mapper as a function of a pod).
+There are no events: ``decisions`` keeps the last ``DECISION_RECORDS``
+decisions, as ``Scheduler.preemptions`` keeps preemptions. The status goes through ``NodeStore.patch_merge``.
 """
 from __future__ import annotations
 
@@ -46,7 +51,8 @@ from nos_tpu_torch.controllers.autoscaler import policy
 from nos_tpu_torch.controllers.autoscaler.signals import SignalRegistry
 from nos_tpu_torch.gpu.annotations import GraceHold, grace_hold_patch, grace_holds
 from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, mig_resource
-from nos_tpu_torch.kube.store import AlreadyExistsError, NodeStore, NotFoundError, Pod
+from nos_tpu_torch.kube.controller import Request, Result
+from nos_tpu_torch.kube.store import AlreadyExistsError, NodeStore, NotFoundError, Pod, WatchEvent
 from nos_tpu_torch.scheduler.plugins.gang import GANG_NAME_LABEL, GANG_SIZE_LABEL
 from nos_tpu_torch.util import metrics
 from nos_tpu_torch.util.resources import node_memory_slices
@@ -83,6 +89,12 @@ def pod_to_serving_requests(pod: Pod) -> List[Tuple[str, str]]:
         return []
     ns, _, name = key.partition(".")
     return [(name, ns)]
+
+
+def serving_requests_of(event: WatchEvent) -> List[Request]:
+    """The replica pods' watch mapper: a replica's event maps to its
+    ModelServing."""
+    return [Request(name, ns) for name, ns in pod_to_serving_requests(event.object)]
 
 
 class ModelServingReconciler:
@@ -197,6 +209,14 @@ class ModelServingReconciler:
             return
         with TRACER.span("autoscaler.reconcile", model_serving=f"{namespace}/{name}"):
             self._reconcile(ms)
+
+    def reconcile_request(self, req: Request) -> Optional[Result]:
+        """``reconcile`` on a watch's request, resynced every
+        ``resync_seconds`` while the ModelServing lives."""
+        self.reconcile(req.name, req.namespace)
+        if self.store.try_get("ModelServing", req.name, req.namespace, copy=False) is None:
+            return None
+        return Result(requeue_after=self.config.resync_seconds)
 
     def _collect_orphans(self, name: str, namespace: str) -> None:
         """A deleted ModelServing's replicas do not outlive it."""

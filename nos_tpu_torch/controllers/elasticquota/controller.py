@@ -11,11 +11,13 @@ preemptor picks its cross-quota victims by that label), and ``used`` is
 written to the quota. A CompositeElasticQuota does the same over its
 namespace list, and deletes the ElasticQuotas of those namespaces first.
 
-The port has no watches: ``ElasticQuotaController.step()`` reconciles
-every composite quota, then every ElasticQuota, each time it is called,
-as the port's other controllers poll. Events and the flight recorder's
-quota records wait for their slice (ROADMAP.md); the reconcile keeps its
-``elasticquota.reconcile`` span.
+The operator component (``cmd/operator.py``) runs each reconciler on
+its quota's watch and the pod watch (``pod_to_quota_requests``, the
+reference's mapper), through ``reconcile_request``. ``SimCluster``
+polls: ``ElasticQuotaController.step()`` reconciles every composite
+quota, then every ElasticQuota, each time it is called. Events and the
+flight recorder's quota records wait for their slice (ROADMAP.md); the
+reconcile keeps its ``elasticquota.reconcile`` span.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from nos_tpu_torch.api.v1alpha1.elasticquota import (
     CAPACITY_LABEL,
     CAPACITY_OVER_QUOTA,
 )
-from nos_tpu_torch.kube.store import NodeStore, NotFoundError, Pod, PodPhase
+from nos_tpu_torch.kube.controller import Request, Result
+from nos_tpu_torch.kube.store import NodeStore, NotFoundError, Pod, PodPhase, WatchEvent
 from nos_tpu_torch.util import resources as res
 from nos_tpu_torch.util.tracing import TRACER
 
@@ -72,6 +75,16 @@ def quota_accounting(pods: List[Pod], quota_min: res.ResourceList,
     return used, labels
 
 
+def pod_to_quota_requests(store: NodeStore, event: WatchEvent) -> List[Request]:
+    """The pod watch's mapper: a pod's event maps to the quotas covering
+    its namespace (reference elasticquota_controller.go:140-164)."""
+    ns = event.object.namespace
+    out = [Request(q.name, ns) for q in store.list("ElasticQuota", namespace=ns, copy=False)]
+    out += [Request(q.name, q.namespace)
+            for q in store.list("CompositeElasticQuota", copy=False) if ns in q.namespaces]
+    return out
+
+
 class _QuotaReconcilerBase:
     def __init__(self, store: NodeStore, gpu_memory_gb: Optional[int] = None) -> None:
         self.store = store
@@ -104,6 +117,11 @@ class _QuotaReconcilerBase:
                                        lambda q: setattr(q, "used", used))
                 writes += 1
             return writes
+
+    def reconcile_request(self, req: Request) -> Optional[Result]:
+        """``reconcile`` on a watch's request."""
+        self.reconcile(req.name, req.namespace)
+        return None
 
 
 class ElasticQuotaReconciler(_QuotaReconcilerBase):

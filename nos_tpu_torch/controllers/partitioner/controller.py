@@ -26,10 +26,9 @@ a released batch waits for the gate, so the loop never re-carves a GPU
 mid-change. After each plan the pods still pending go back into the
 batch (the reference's level-triggered retry).
 
-Two triggers fire the batch at once, polled in ``step`` where the
-reference's watches fire them (ROADMAP.md: item 18a.2 moves them onto
-the pod and node watches). *Capacity freed*: a pod holding this mode's resources on a node
-that has finished (Succeeded or Failed) or been deleted since the last
+Two triggers fire the batch at once, polled in ``step`` for
+``SimCluster`` (the watch path's are below). *Capacity freed*: a pod
+holding this mode's resources on a node that has finished (Succeeded or Failed) or been deleted since the last
 step, with a pending pod re-partitioning could help (the reference calls
 the freed window "the single largest utilization tax in a steady stream
 of short jobs"). While a pending pod is nominated to a node whose
@@ -48,6 +47,23 @@ adopts the reported geometry under the same plan id. F4's refusal memo
 (``partitioning/mig.py``) keeps the replan from asking for the refused
 geometry again. Each is checked for every node of the mode on every
 step, from the node's parsed annotations memoized on its stored object.
+
+The watch path (the partitioner component, ``cmd/partitioner.py``,
+wiring the reference's ``controller.py:179-240``, ``:315-355``):
+``reconcile(req)`` on the pending-pod watch adds a pod to the batch, or
+requeues it with the reference's age-proportional delay while no node of
+this mode is known; ``reconcile_freed_event`` and
+``reconcile_divergence_event`` are the two triggers on the pod and node
+watches, firing at once (the polled nominee wait is ``step``'s alone);
+``start()`` runs the batch thread, which sleeps on ``Batcher.wait``,
+waits for the plan gate, plans, and puts the pods still pending back in
+the batch; ``stop()`` ends it. There, ``ClusterState`` is fed by the
+component's threaded state controllers (``state_feed`` does nothing),
+the batch windows run on the monotonic clock and a pod's age on the
+store's. One lock serializes the watch threads and the batch thread
+over the batch, the divergence memo and the snapshot maintainers;
+``step()`` takes none (it has no other thread). ``scheduler_name``, when
+given, keeps the pods of other schedulers out of the plans.
 
 Incremental planning (``incremental_planning``, on by default, as in
 the reference, ``:59-60``, ``:440-470``): an
@@ -126,6 +142,7 @@ instead of carving for them.
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Tuple
@@ -137,7 +154,7 @@ from nos_tpu_torch.controllers.partitioner.incremental import (
 from nos_tpu_torch.controllers.partitioner.node_controller import add_state_controllers
 from nos_tpu_torch.gpu import annotations as annot
 from nos_tpu_torch.gpu.node import PARTITIONING_MIG
-from nos_tpu_torch.kube.controller import Manager
+from nos_tpu_torch.kube.controller import Manager, Request, Result
 from nos_tpu_torch.kube.store import Node, NodeStore, Pod, PodPhase
 from nos_tpu_torch.partitioning.core import (
     Actuator,
@@ -170,6 +187,7 @@ from nos_tpu_torch.util import metrics
 from nos_tpu_torch.util import resources as res
 from nos_tpu_torch.util.pod import is_preempting
 from nos_tpu_torch.util.batcher import DEFAULT_IDLE_SECONDS, DEFAULT_TIMEOUT_SECONDS, Batcher
+from nos_tpu_torch.util.loop_health import LOOPS, BusyMeter
 from nos_tpu_torch.util.tracing import TRACER
 
 log = logging.getLogger("nos_tpu_torch.partitioner")
@@ -220,8 +238,16 @@ class PartitionerController:
                  pool_cycle_timeout_seconds: float = 5.0, warm_state_path: str = "",
                  warm_state_save_interval_seconds: float = 30.0,
                  capacity_ledger=None, forecaster=None,
-                 state_feed: Optional[Callable[[], object]] = None) -> None:
+                 state_feed: Optional[Callable[[], object]] = None,
+                 scheduler_name: str = "") -> None:
         self.store = store
+        # non-empty: plan only for the pods this scheduler binds
+        self.scheduler_name = scheduler_name
+        # the watch entry points and the batch thread take it (step does not)
+        self._lock = threading.RLock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._busy = BusyMeter(f"partitioner-{kind}")
         self.clock = clock
         self.capacity_ledger = capacity_ledger
         self.forecaster = forecaster
@@ -413,13 +439,102 @@ class PartitionerController:
         self.batcher.fire_now()
         return "replan"
 
+    # ----------------------------------------------------- watch path
+
+    def reconcile(self, req: Request) -> Optional[Result]:
+        """The pending-pod watch: a pod re-partitioning could help joins
+        the batch. While no node of this mode is known yet it is requeued,
+        after a quarter of its age (1 to 30 s, on the store's clock): the
+        node's event may still be behind the pod's."""
+        pod = self.store.try_get("Pod", req.name, req.namespace, copy=False)
+        if pod is None or not self.requests_tracked_resources(pod) or not could_help(pod):
+            return None
+        if self.scheduler_name and pod.scheduler_name != self.scheduler_name:
+            return None
+        if not self.cluster_state.is_partitioning_enabled(self.kind):
+            age = max(0.0, self.store.clock() - (pod.created or self.store.clock()))
+            return Result(requeue_after=min(30.0, max(1.0, age / 4.0)))
+        with self._lock:
+            if pod.namespaced_name not in self._batched:
+                self._batched.add(pod.namespaced_name)
+                self.batcher.add(pod.namespaced_name)
+        return None
+
+    def reconcile_divergence_event(self, req: Request) -> Optional[Result]:
+        """The node watch's divergence check (``reconcile_node_divergence``
+        on the node the request names); a node replanned for stays on a 1 s
+        heartbeat, so the adopt path still runs once the pods drain."""
+        node = self.store.try_get("Node", req.name, copy=False)
+        with self._lock:
+            if node is None:
+                self._diverged.pop(req.name, None)
+                return None
+            outcome = self.reconcile_node_divergence(node)
+        return Result(requeue_after=1.0) if outcome in ("replan", "replanned_already") else None
+
+    def reconcile_freed_event(self, req: Request) -> Optional[Result]:
+        """The pod watch's capacity-freed trigger: a bound pod finished or
+        went; fire the batch at once when a pending pod could be helped."""
+        with self._lock:
+            self.reconcile_capacity_freed()
+        return None
+
+    def start(self) -> None:
+        """The batch thread: it sleeps on the batcher, waits for the plan
+        gate, then plans and puts the pods still pending back in the
+        batch."""
+        self._stop.clear()
+        LOOPS.register(f"partitioner-{self.kind}", self._loop_stats)
+        self._thread = threading.Thread(target=self._batch_loop,
+                                        name=f"partitioner-{self.kind}", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        LOOPS.unregister(f"partitioner-{self.kind}")
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        self.close()
+
+    def _loop_stats(self) -> dict:
+        stats = self._busy.snapshot()
+        stats.update(plans_applied=self.plans_applied, plans_processed=self.plans_processed,
+                     nodes_repartitioned=self.nodes_repartitioned,
+                     capacity_freed_fires=self.capacity_freed_fires)
+        return stats
+
+    def _batch_loop(self) -> None:
+        while not self._stop.is_set():
+            t0 = time.monotonic()
+            if self.batcher.wait(timeout=0.2) is None:
+                self._busy.record(0.0, idle_s=time.monotonic() - t0)
+                continue
+            with self._lock:
+                self._batched.clear()
+            # a released batch waits for every node to acknowledge its plan
+            while not self.gate_open():
+                if self._stop.wait(0.02):
+                    return
+            t1 = time.monotonic()
+            try:
+                with self._lock:
+                    self.process_pending_pods()
+                    self._enqueue()  # level-triggered: the pods still pending
+            except Exception:  # the loop goes on
+                log.exception("partitioner %s: batch processing failed", self.kind)
+            finally:
+                self._busy.record(time.monotonic() - t1, idle_s=t1 - t0)
+
     # ------------------------------------------------------ processing
 
     def fetch_pending_pods(self) -> List[Pod]:
         """Every pending unbound pod (reference :202-210), as the store
         holds it: planning only reads pods."""
+        name = self.scheduler_name
         return [p for p in self.store.list("Pod", copy=False)
-                if p.phase == PodPhase.PENDING and not p.node]
+                if p.phase == PodPhase.PENDING and not p.node
+                and (not name or p.scheduler_name == name)]
 
     def process_pending_pods(self) -> int:
         """Snapshot, plan, actuate; the nodes re-partitioned (0: a no-op
@@ -503,9 +618,11 @@ class PartitionerController:
         """A pool planner: the controller planner's framework and knobs,
         memos of its own."""
         t = self.planner
-        return Planner(t.framework, verdict_cache_enabled=t.verdict_cache_enabled, clock=t.clock,
-                       futility_memo_enabled=t.futility_memo_enabled,
-                       incremental_dirty_threshold=t.incremental_dirty_threshold)
+        planner = Planner(t.framework, verdict_cache_enabled=t.verdict_cache_enabled,
+                          clock=t.clock, futility_memo_enabled=t.futility_memo_enabled,
+                          incremental_dirty_threshold=t.incremental_dirty_threshold)
+        planner.aging_per_second = t.aging_per_second
+        return planner
 
     def _new_pool_planners(self, snapshot, partition, pool_snaps, pool_dirty) -> None:
         """After a pool rebuild: a planner a pool, each taking the old

@@ -26,28 +26,36 @@ and preemption evicts it whole. A MIG instance has no GPU-to-GPU peer
 access, so a gang on 7g.80gb instances talks through the host or the
 network, even inside a node.
 
-The port polls: ``step()`` does for every pod what ``reconcile`` does
-(expand a pending oversized pod, ensure a leader's Service and workers,
+``reconcile(req)`` is the reference's reconcile of one pod (expand a
+pending oversized pod, ensure a leader's Service and workers,
 garbage-collect a worker whose leader is gone: the owner-reference
-contract, in place of ``leader_deleted_mapper``'s watch). The admission
-seam (``admission_mutate_pod``) is ``admit``, registered with
+contract), fed by the pod watch through ``leader_deleted_mapper``, which
+maps a leader's deletion to its workers (the multi-node expander of
+``cmd/partitioner.py``). ``SimCluster`` polls: ``step()`` reconciles
+every pod. The in-process admission seam is ``admit``, registered with
 ``NodeStore.register_admission``: it expands a pod as it is created, so
-the pod never exists un-expanded. The raw-wire paths
-(``worker_wire_from_leader`` and the webhook server) wait for the kube
-substrate's slice. The env names and the default port are the
-reference's, kept here as this module's own copy (``parallel/
-distributed.py`` imports torch).
+the pod never exists un-expanded. A real API server allows the rewrite
+only at admission: ``admission_mutate_pod`` gives the JSONPatch of the
+mutating webhook (``kube/webhook.py``'s ``/mutate-v1-pod``), computed
+against the pod's own wire document so the fields the flat pod does not
+model survive. Over the API-backed store a worker is built from the
+leader's whole wire document (``worker_wire_from_leader``). The env
+names and the default port are the reference's, kept here as this
+module's own copy (``parallel/distributed.py`` imports torch).
 """
 from __future__ import annotations
 
 import copy
+import json
 import logging
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 from nos_tpu_torch.gpu.known import GPU_PRODUCT_LABEL, KNOWN_GPUS
 from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, RESOURCE_GPU, mig_resource
+from nos_tpu_torch.kube.controller import Request, Result
 from nos_tpu_torch.kube.store import (
+    DELETED,
     AlreadyExistsError,
     NodeStore,
     NotFoundError,
@@ -55,6 +63,7 @@ from nos_tpu_torch.kube.store import (
     Pod,
     PodPhase,
     Service,
+    WatchEvent,
 )
 from nos_tpu_torch.scheduler.plugins.gang import GANG_NAME_LABEL, GANG_SIZE_LABEL
 from nos_tpu_torch.scheduler.plugins.topology import MULTINODE_TOPOLOGY_ANNOTATION
@@ -137,17 +146,27 @@ class MultinodeExpander:
 
     def step(self) -> int:
         """Reconcile every pod; the pods expanded."""
-        expanded = 0
-        for pod in self.store.list("Pod", copy=False):
-            role = pod.labels.get(MULTINODE_ROLE_LABEL)
-            if role == ROLE_WORKER:
-                self._gc_orphan_worker(pod)
-            elif role == ROLE_LEADER:
-                self._ensure_service(pod)
-                self._ensure_workers(pod)
-            elif self._expand(pod):
-                expanded += 1
-        return expanded
+        return sum(self._reconcile_pod(pod) for pod in self.store.list("Pod", copy=False))
+
+    def reconcile(self, req: Request) -> Optional[Result]:
+        """The reference's reconcile of one pod."""
+        pod = self.store.try_get("Pod", req.name, req.namespace, copy=False)
+        if pod is not None:
+            self._reconcile_pod(pod)
+        return None
+
+    def _reconcile_pod(self, pod: Pod) -> bool:
+        """Collect an orphan worker, complete a leader's gang, or expand;
+        whether the pod was expanded."""
+        role = pod.labels.get(MULTINODE_ROLE_LABEL)
+        if role == ROLE_WORKER:
+            self._gc_orphan_worker(pod)
+        elif role == ROLE_LEADER:
+            self._ensure_service(pod)
+            self._ensure_workers(pod)
+        else:
+            return self._expand(pod)
+        return False
 
     def _expand(self, pod: Pod) -> bool:
         expansion = self._expansion(pod)
@@ -186,13 +205,25 @@ class MultinodeExpander:
             size = int(leader.labels.get(GANG_SIZE_LABEL, "0"))
         except ValueError:
             return
+        raw_get = getattr(self.store, "raw_get", None)
+        leader_wire = None
         for rank in range(1, size):
             name = f"{leader.name}-w{rank}"
-            if self.store.try_get("Pod", name, leader.namespace, copy=False) is None:
+            if self.store.try_get("Pod", name, leader.namespace, copy=False) is not None:
+                continue
+            if raw_get is not None and leader_wire is None:
                 try:
+                    leader_wire = raw_get("Pod", leader.name, leader.namespace)
+                except Exception:  # noqa: BLE001 - the flat pod will do
+                    leader_wire = {}
+            try:
+                if leader_wire:
+                    self.store.raw_create("Pod", worker_wire_from_leader(leader_wire, rank,
+                                                                         size))
+                else:
                     self.store.create(worker_from_leader(leader, rank, size))
-                except AlreadyExistsError:
-                    pass
+            except AlreadyExistsError:
+                pass
 
     def _gc_orphan_worker(self, worker: Pod) -> None:
         """A worker and the gang's Service follow their leader: when the
@@ -209,6 +240,22 @@ class MultinodeExpander:
                          worker.namespace, name, ref.name)
             except NotFoundError:
                 pass
+
+
+def leader_deleted_mapper(store: NodeStore):
+    """The expander's pod watch mapper: a leader's deletion maps to the
+    workers it owns (their collection needs no poll), every other event
+    to its own pod."""
+    def mapper(event: WatchEvent) -> List[Request]:
+        pod = event.object
+        if event.type != DELETED or pod.labels.get(MULTINODE_ROLE_LABEL) != ROLE_LEADER:
+            return [Request(pod.name, pod.namespace)]
+        return [Request(p.name, p.namespace)
+                for p in store.list("Pod", namespace=pod.namespace, copy=False)
+                if p.owner is not None and p.owner.kind == "Pod"
+                and p.owner.name == pod.name]
+
+    return mapper
 
 
 def register_multinode_admission(store: NodeStore) -> MultinodeExpander:
@@ -265,3 +312,56 @@ def worker_from_leader(leader: Pod, rank: int, size: int) -> Pod:
     worker.env.update(gang_member_env(leader.name, leader.namespace, rank, size))
     return worker
 
+
+
+def worker_wire_from_leader(leader_wire: dict, rank: int, size: int) -> dict:
+    """Worker ``rank``'s wire document, built from the leader's whole wire
+    document: every field the flat pod does not model carries over."""
+    wire = json.loads(json.dumps(leader_wire))
+    meta = wire.get("metadata") or {}
+    leader, namespace = meta.get("name", ""), meta.get("namespace", "")
+    name = f"{leader}-w{rank}"
+    labels = dict(meta.get("labels") or {})
+    labels[MULTINODE_ROLE_LABEL] = ROLE_WORKER
+    wire["metadata"] = {
+        "name": name, "namespace": namespace, "labels": labels,
+        "annotations": {MULTINODE_TOPOLOGY_ANNOTATION: (meta.get("annotations") or {}).get(
+            MULTINODE_TOPOLOGY_ANNOTATION, "")},
+        "ownerReferences": [{"apiVersion": "v1", "kind": "Pod", "name": leader,
+                             "uid": meta.get("uid", ""), "controller": True}]}
+    wire.pop("status", None)
+    spec = wire.setdefault("spec", {})
+    spec.pop("nodeName", None)
+    spec["hostname"] = name
+    env_vars = gang_member_env(leader, namespace, rank, size)
+    for container in spec.get("containers") or []:
+        env = [e for e in container.get("env") or [] if e.get("name") not in env_vars]
+        env.extend({"name": k, "value": v} for k, v in sorted(env_vars.items()))
+        container["env"] = env
+    return wire
+
+
+def admission_mutate_pod(wire_pod: dict, store: NodeStore) -> Optional[List[dict]]:
+    """The mutating webhook's JSONPatch expanding an oversized pod at
+    admission, or None when it needs none. The ops are computed against
+    the pod's own wire document, so the fields the flat pod does not model
+    survive."""
+    from nos_tpu_torch.kube import serde
+    from nos_tpu_torch.kube.apistore import _overlay_containers
+
+    pod = serde.pod_from_wire(wire_pod)
+    expansion = MultinodeExpander(store)._expansion(pod)
+    if expansion is None:
+        return None
+    expand_leader_in_place(pod, *expansion)
+    projected = serde.pod_to_wire(pod)
+    ops = [{"op": "add", "path": f"/metadata/{key}",
+            "value": {**((wire_pod.get("metadata") or {}).get(key) or {}),
+                      **(projected["metadata"].get(key) or {})}}
+           for key in ("labels", "annotations")]
+    ops.append({"op": "replace", "path": "/spec/containers",
+                "value": _overlay_containers((wire_pod.get("spec") or {}).get("containers"),
+                                             projected["spec"].get("containers"))})
+    ops.append({"op": "add", "path": "/spec/hostname", "value": pod.hostname})
+    ops.append({"op": "add", "path": "/spec/subdomain", "value": pod.subdomain})
+    return ops

@@ -17,6 +17,7 @@ pkg/gpu/slicing/client.go).
 """
 from __future__ import annotations
 
+import copy
 import json
 import logging
 from typing import Dict, List, Optional
@@ -77,7 +78,8 @@ class SimSharedDevicePlugin:
         self.config_map_namespace = config_map_namespace
 
     def reconcile(self, node_name: str) -> None:
-        if self.store.try_get("Node", node_name, copy=False) is None:
+        current = self.store.try_get("Node", node_name, copy=False)
+        if current is None:
             return
         config = load_plugin_config(self.store, node_name, self.config_map_name,
                                     self.config_map_namespace)
@@ -103,6 +105,13 @@ class SimSharedDevicePlugin:
             # a GPU folded into MPS slices is no longer requestable whole
             target[RESOURCE_GPU] = max(0, int(node.capacity.get(RESOURCE_GPU, 0)) - len(covered))
 
+        # a write that changes nothing is skipped: on a node watch it
+        # would only wake the plugin again
+        after = copy.copy(current)
+        after.allocatable = dict(current.allocatable)
+        mutate(after)
+        if after.allocatable == current.allocatable:
+            return
         try:
             self.store.patch_merge("Node", node_name, "", mutate)
         except NotFoundError:

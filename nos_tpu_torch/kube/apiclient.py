@@ -1,8 +1,8 @@
 """A Kubernetes API client over the standard library: counterpart of
 ``nos_tpu/kube/apiclient.py`` (``:33-329``).
 
-Credential loading (a kubeconfig: explicit path, ``$KUBECONFIG``,
-``~/.kube/config``; or a pod's service account), the verbs (get, create,
+Credential loading (a kubeconfig, JSON or YAML: explicit path,
+``$KUBECONFIG``, ``~/.kube/config``; or a pod's service account), the verbs (get, create,
 replace, merge patch, delete, list) with API errors as ``ApiError``, and
 streamed watches (``?watch=true``, newline-delimited JSON events over a
 chunked response) on ``http.client``, with TLS (a CA, a client
@@ -24,6 +24,8 @@ import threading
 import urllib.parse
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+from nos_tpu_torch.util.documents import load_document
 
 logger = logging.getLogger("nos_tpu_torch.kube.apiclient")
 
@@ -126,12 +128,10 @@ def load_kubeconfig(
     path: Optional[str] = None, context: Optional[str] = None
 ) -> ClusterCredentials:
     """Parse a kubeconfig (mirrors client-go clientcmd's order: explicit
-    path, $KUBECONFIG, ~/.kube/config)."""
-    import yaml
-
+    path, $KUBECONFIG, ~/.kube/config), JSON-first: PyYAML is imported
+    only for a document that is not JSON."""
     path = path or os.environ.get("KUBECONFIG") or os.path.expanduser("~/.kube/config")
-    with open(path) as f:
-        cfg = yaml.safe_load(f) or {}
+    cfg = load_document(path) or {}
 
     ctx_name = context or cfg.get("current-context")
     contexts = {c["name"]: c["context"] for c in cfg.get("contexts") or []}

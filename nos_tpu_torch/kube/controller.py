@@ -7,7 +7,11 @@ one store. ``_WorkQueue`` keeps client-go's semantics, as the
 reference's does: a request already queued is not queued twice; a
 request added while it is being processed runs again once it is done;
 ``Result(requeue=True)`` adds it back at once, ``requeue_after`` after
-that many seconds; a reconcile that raises is requeued after 0.05 s.
+that many seconds; a reconcile that raises is requeued after 0.05 s. A
+request waits for one delayed re-add at a time, the soonest asked for
+(client-go's delaying queue): a reconcile that requeues itself on a
+period, and runs on events between, keeps one period, not one more
+each event.
 
 Two ways to run them, the same queues either way:
 
@@ -40,7 +44,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from nos_tpu_torch.kube.store import NodeStore, WatchEvent
 from nos_tpu_torch.util import metrics
@@ -96,6 +100,8 @@ class _WorkQueue:
         self._dirty: set = set()
         self._processing: set = set()
         self._delayed: List[Tuple[float, int, Request]] = []
+        # request → the time its delayed re-add is due (one a request)
+        self._waiting: Dict[Request, float] = {}
         self._seq = 0
         self._shutdown = False
 
@@ -113,14 +119,21 @@ class _WorkQueue:
             self.add(req)
             return
         with self._cond:
+            due = self.clock() + delay
+            if self._waiting.get(req, due + 1) <= due:
+                return  # already due sooner
+            self._waiting[req] = due
             self._seq += 1
-            heapq.heappush(self._delayed, (self.clock() + delay, self._seq, req))
+            heapq.heappush(self._delayed, (due, self._seq, req))
             self._cond.notify()
 
     def _promote_due(self) -> None:
         now = self.clock()
         while self._delayed and self._delayed[0][0] <= now:
-            _, _, req = heapq.heappop(self._delayed)
+            due, _, req = heapq.heappop(self._delayed)
+            if self._waiting.get(req) != due:
+                continue  # superseded by a sooner re-add
+            del self._waiting[req]
             if req not in self._dirty:
                 self._dirty.add(req)
                 if req not in self._processing:
@@ -277,12 +290,16 @@ class Controller:
             t.start()
             self._threads.append(t)
 
-    def stop(self) -> None:
+    def stop(self, join: bool = True) -> None:
         self._stop.set()
         self.queue.shut_down()
         LOOPS.unregister(self.name)
         if self._event_queue is not None:
             self.store.stop_watch(self._event_queue)
+        if join:
+            self.join()
+
+    def join(self) -> None:
         for t in self._threads:
             t.join(timeout=2.0)
 
@@ -326,8 +343,11 @@ class Manager:
     def stop(self) -> None:
         for s in self._stoppables:
             s()
+        # every controller told first, then joined: their last waits overlap
         for c in self.controllers:
-            c.stop()
+            c.stop(join=False)
+        for c in self.controllers:
+            c.join()
 
     def drain(self, names: Optional[Iterable[str]] = None) -> int:
         """``Controller.drain`` over the named controllers (every one by

@@ -189,6 +189,8 @@ class Planner:
         self.futility_memo_enabled = futility_memo_enabled
         # above this dirty share of the nodes, replan from scratch
         self.incremental_dirty_threshold = incremental_dirty_threshold
+        # the effective size a second of waiting adds (the config's aging)
+        self.aging_per_second = AGING_PER_SECOND
         self.last_plan_mode = "full"
         # namespaced name → reason, for every pending pod the last plan
         # could not serve
@@ -381,9 +383,10 @@ class Planner:
             pending_since = {k[0]: v[0] for k, v in self._pending_seen.items() if k in live}
         self.last_pending_ages = {k: now - v for k, v in pending_since.items()}
         # the tracker's pool draw order is the claim pre-pass's order
-        candidates = sort_candidate_pods(pending_pods, pending_since=pending_since, now=now)
+        candidates = sort_candidate_pods(pending_pods, self.aging_per_second,
+                                         pending_since=pending_since, now=now)
         aged = {p.namespaced_name for p in candidates
-                if (now - pending_since.get(p.namespaced_name, now)) * AGING_PER_SECOND
+                if (now - pending_since.get(p.namespaced_name, now)) * self.aging_per_second
                 >= AGED_RESCUE_SIZE}
         tracker = SliceTracker(snapshot, candidates)
         if tracker.empty and not tracker.split:

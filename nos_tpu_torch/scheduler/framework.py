@@ -97,6 +97,14 @@ class Diagnosis:
         parts = ", ".join(f"{n} {msg}" for n, _, msg in groups)
         return f"0/{self.num_nodes} nodes are available: {parts}."
 
+    def to_dict(self, timestamp: float = 0.0) -> Dict:
+        """The ``/debug/explain`` document (the reference's, without its
+        trace id)."""
+        return {"pod": self.pod, "message": self.aggregate_message(),
+                "nodes": {name: {"plugin": s.plugin, "message": s.message}
+                          for name, s in sorted(self.node_statuses.items())},
+                "timestamp": timestamp}
+
 
 @dataclass
 class NodeInfo:

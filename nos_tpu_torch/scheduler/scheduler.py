@@ -24,9 +24,10 @@ each bind releasing the reservation the pod held. A gang that does not
 form within its timeout (the store's clock) is unreserved and marked
 unschedulable as a unit.
 
-The port has no controller manager and no watches: ``reconcile(name,
-namespace)`` is the reference's reconcile of one pod (the gang timeouts
-first, then the cycle); ``step()`` clears the invalid reservations (the
+``reconcile(name, namespace)`` is the reference's reconcile of one pod
+(the gang timeouts first, then the cycle); the scheduler component
+(``cmd/scheduler.py``) drives it from its watches and maps each outcome
+to the reference's requeue. ``SimCluster`` polls: ``step()`` clears the invalid reservations (the
 reference's janitor), drops the Permit claims of members gone from the
 store or recreated under their name (with their place in the gang's
 waiting set, which the reference keeps), forgets the quota reservations
@@ -38,8 +39,11 @@ thread of its own every ``interval`` seconds until ``stop()``, as
 wait clocks on the store's clock, as the reference's do (``:269-273``,
 ``:437-445``, ``:469-473``, ``:619-624``): a gang's first cycle its
 arrival, a member waiting in Permit or binding its first feasible cycle,
-its bind the bound stamp, a timeout drops the clock. Events wait for
-the observability slice (ROADMAP.md).
+its bind the bound stamp, a timeout drops the clock. A failed cycle's
+diagnosis is kept, the latest a pod for ``DIAGNOSIS_RECORDS`` pods
+(``:135-136``, ``:517-520``): ``explain(pod_key)``, the
+``/debug/explain`` backend. Events wait for the observability slice
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -71,6 +75,8 @@ from nos_tpu_torch.util.tracing import TRACER
 log = logging.getLogger("nos_tpu_torch.scheduler")
 
 PREEMPTION_RECORDS = 1024
+# the diagnoses /debug/explain keeps, one a pod, the oldest dropped first
+DIAGNOSIS_RECORDS = 1024
 GANG_TIMEOUT_MESSAGE = "gang formation timed out"
 
 
@@ -150,6 +156,9 @@ class Scheduler:
         # the preemptor's records of the last PREEMPTION_RECORDS
         # preemptions, in place of the flight recorder
         self.preemptions: Deque[dict] = deque(maxlen=PREEMPTION_RECORDS)
+        # pod key → its latest failed cycle's diagnosis (``explain``)
+        self._diagnoses: Dict[str, dict] = {}
+        self._diagnoses_lock = threading.Lock()
         # the assume cache: pod key → (pod, node) of gang members waiting
         # in Permit, reserved on a node but not bound
         self._assumed: Dict[str, Tuple[Pod, str]] = _AssumeCache()
@@ -271,8 +280,25 @@ class Scheduler:
                 span.set_attributes(victims=len(outcome.victims))
                 self._set_nominated(pod, outcome.node)
             else:
+                self._note_diagnosis(pod, outcome.diagnosis)
                 self._mark_unschedulable(pod, outcome.message)
         return outcome
+
+    def _note_diagnosis(self, pod: Pod, diagnosis: Optional[Diagnosis]) -> None:
+        if diagnosis is None:
+            return
+        doc = diagnosis.to_dict(timestamp=self.store.clock())
+        with self._diagnoses_lock:
+            self._diagnoses.pop(pod.namespaced_name, None)
+            while len(self._diagnoses) >= DIAGNOSIS_RECORDS:
+                self._diagnoses.pop(next(iter(self._diagnoses)))
+            self._diagnoses[pod.namespaced_name] = doc
+
+    def explain(self, pod_key: str) -> Optional[dict]:
+        """The latest diagnosis of ``namespace/name``, or None: the
+        ``/debug/explain`` backend."""
+        with self._diagnoses_lock:
+            return self._diagnoses.get(pod_key)
 
     def _post_filter(self, state: CycleState, pod: Pod,
                      filtered: Dict[str, Status]) -> Optional[CycleOutcome]:

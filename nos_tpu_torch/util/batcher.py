@@ -9,7 +9,10 @@ defaults are the reference's helm values (values.yaml:278-285): 60 s and
 releases the batch once a window has passed on ``clock`` (injectable, so
 tests and the in-process cluster drive time themselves), or at once
 after ``fire_now`` (the reference's immediate trigger: the next poll
-releases the batch, an empty one included).
+releases the batch, an empty one included). ``wait(timeout)`` is the
+blocking poll a batch thread sleeps on (the reference's ``ready``): it
+wakes at the batch's deadline, at an ``add`` or ``fire_now``, or at
+``timeout``, on a clock that is wall or monotonic time.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ class Batcher(Generic[T]):
         self.idle = idle_seconds
         self.clock = clock
         self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
         self._batch: List[T] = []
         self._first_add = 0.0
         self._last_add = 0.0
@@ -43,32 +47,57 @@ class Batcher(Generic[T]):
                 self._first_add = now
             self._last_add = now
             self._batch.append(item)
+            self._cond.notify_all()
 
     def fire_now(self) -> None:
         """Release the batch at the next poll, however young or empty."""
         with self._lock:
             self._fired = True
+            self._cond.notify_all()
 
     def current_batch_size(self) -> int:
         with self._lock:
             return len(self._batch)
 
+    def _due(self) -> Optional[float]:
+        if not self._batch:
+            return None
+        due = self._first_add + self.timeout
+        if self.idle > 0:
+            due = min(due, self._last_add + self.idle)
+        return due
+
     def deadline(self) -> Optional[float]:
         """When the current batch is due on ``clock``; None when empty."""
         with self._lock:
-            if not self._batch:
-                return None
-            due = self._first_add + self.timeout
-            if self.idle > 0:
-                due = min(due, self._last_add + self.idle)
-            return due
+            return self._due()
+
+    def _release(self) -> Optional[List[T]]:
+        due = self._due()
+        if not self._fired and (due is None or self.clock() < due):
+            return None
+        self._fired = False
+        released, self._batch = self._batch, []
+        return released
 
     def poll(self) -> Optional[List[T]]:
         """The released batch, or None while no window has passed."""
-        due = self.deadline()
         with self._lock:
-            if not self._fired and (due is None or self.clock() < due):
-                return None
-            self._fired = False
-            released, self._batch = self._batch, []
-            return released
+            return self._release()
+
+    def wait(self, timeout: float) -> Optional[List[T]]:
+        """The released batch, waiting up to ``timeout`` seconds for a
+        window to pass or a ``fire_now``; None at the timeout."""
+        end = time.monotonic() + timeout
+        with self._lock:
+            while True:
+                released = self._release()
+                if released is not None:
+                    return released
+                left = end - time.monotonic()
+                if left <= 0:
+                    return None
+                due = self._due()
+                if due is not None:
+                    left = min(left, max(due - self.clock(), 0.001))
+                self._cond.wait(left)

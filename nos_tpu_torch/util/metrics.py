@@ -481,3 +481,9 @@ STORE_LOCK_CONTENTION = REGISTRY.counter(
     "nos_tpu_store_lock_contention_total",
     "Store lock acquisitions that had to wait for another holder",
 )
+
+# The components (cmd/, kube/webhook.py), under the reference's names.
+WEBHOOK_DENIALS = REGISTRY.counter(
+    "nos_tpu_webhook_denials_total",
+    "AdmissionReview requests the validating webhooks denied",
+)

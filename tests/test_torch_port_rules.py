@@ -10,10 +10,12 @@
   and device/podresources.py imports grpc only when a client is made).
 - With no CUDA device, an entry point called without ``device`` raises;
   it never falls back to the CPU on its own.
-- The control plane (the API types, the kube substrate, the scheduler
-  with its quota plugin and preemptor, the controllers, the planner
-  core, SimCluster and its sim/ stand-ins, the resource math, the loop
-  health and the watch predicates) imports no torch either (an AST scan).
+- The control plane (the API types, the kube substrate and its webhook
+  server, the scheduler with its quota plugin and preemptor, the
+  controllers, the planner core, SimCluster and its sim/ stand-ins, the
+  resource math, the loop health, the watch predicates, the components
+  of cmd/ with the package's __main__, the health server and the config
+  reader) imports no torch either (an AST scan).
 """
 import ast
 import os
@@ -104,6 +106,13 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/api/v1alpha1/constants.py",
         "nos_tpu_torch/controllers/partitioner/node_controller.py",
         "nos_tpu_torch/controllers/partitioner/pod_controller.py",
+        "nos_tpu_torch/__main__.py", "nos_tpu_torch/cmd/_component.py",
+        "nos_tpu_torch/cmd/scheduler.py", "nos_tpu_torch/cmd/operator.py",
+        "nos_tpu_torch/cmd/partitioner.py", "nos_tpu_torch/cmd/autoscaler.py",
+        "nos_tpu_torch/cmd/migagent.py", "nos_tpu_torch/cmd/mpsagent.py",
+        "nos_tpu_torch/cmd/metricsexporter.py", "nos_tpu_torch/cmd/cluster.py",
+        "nos_tpu_torch/cmd/run.py", "nos_tpu_torch/util/health.py",
+        "nos_tpu_torch/util/documents.py", "nos_tpu_torch/kube/webhook.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -118,7 +127,8 @@ CONTROL_PLANE = ("api", "kube", "scheduler", "controllers", "partitioning/core",
                  "bench_control_plane.py", "partitioning/mig.py", "partitioning/mps.py",
                  "partitioning/bench_planner.py", "device/sim.py", "device/sharing.py",
                  "util/metrics.py", "capacity", "forecast", "bench_autoscale.py",
-                 "bench_forecast.py", "sim", "util/loop_health.py", "util/predicates.py")
+                 "bench_forecast.py", "sim", "util/loop_health.py", "util/predicates.py",
+                 "cmd", "__main__.py", "util/health.py", "util/documents.py")
 
 
 def test_control_plane_imports_no_torch():
@@ -146,7 +156,11 @@ def test_control_plane_imports_no_torch():
             "kube/apiclient.py", "kube/apistore.py", "sim/apiserver.py", "sim/kubelet.py",
             "sim/__init__.py", "util/loop_health.py", "util/predicates.py",
             "api/v1alpha1/constants.py", "controllers/partitioner/node_controller.py",
-            "controllers/partitioner/pod_controller.py"} <= names
+            "controllers/partitioner/pod_controller.py", "cmd/__init__.py",
+            "cmd/_component.py", "cmd/scheduler.py", "cmd/operator.py", "cmd/partitioner.py",
+            "cmd/autoscaler.py", "cmd/migagent.py", "cmd/mpsagent.py",
+            "cmd/metricsexporter.py", "cmd/cluster.py", "cmd/run.py", "__main__.py",
+            "util/health.py", "util/documents.py", "kube/webhook.py"} <= names
     bad = [f"{p.relative_to(ROOT)}: {mod}" for p in files for mod in _imports(p)
            if mod == "torch" or mod.startswith("torch.")]
     assert not bad, bad
@@ -182,6 +196,8 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.kube.apistore, nos_tpu_torch.sim.apiserver\n"
         "import nos_tpu_torch.sim.kubelet, nos_tpu_torch.util.loop_health\n"
         "import nos_tpu_torch.util.predicates, nos_tpu_torch.util.pod\n"
+        "import nos_tpu_torch.cmd.cluster, nos_tpu_torch.cmd.run, nos_tpu_torch.__main__\n"
+        "import nos_tpu_torch.cmd.metricsexporter, nos_tpu_torch.kube.webhook\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'nos_tpu', 'transformers', 'grpc') or m.startswith('google.protobuf'))\n"
         "print(bad)\n"
