@@ -6306,6 +6306,222 @@ def components_phase(card, refusal: str = "MIG mode disabled") -> dict:
     return row
 
 
+OBS_SAMPLE_S = 0.2            # the suite's timeline interval in the observability phase
+OBS_HEALTHY_SAMPLES = 15      # samples the healthy suite must pass without a finding
+OBS_STALL_SAMPLES = 8         # samples from the wedge to its stall finding and event, at most
+OBS_WEDGED = "sim-kubelet"    # the controller whose worker the phase wedges
+OBS_TOKEN = "observability-smoke"
+
+
+def observability_phase(card) -> dict:
+    """The observability plane (item 18b.1) on the card's host:
+    bench_observability at reference() size (1,000 nodes x 10,000 pods;
+    every *_within_budget true and two governed builds byte-identical),
+    bench_store at the same size (each verb's median or mean reported),
+    then the threaded suite (build_cluster: COMPONENTS_MIG_NODES MIG and
+    COMPONENTS_MPS_NODES MPS nodes of 8 H100s, COMPONENTS_MIX's 240 pods)
+    with its health timeline sampling every OBS_SAMPLE_S s, armed on
+    OBS_WEDGED's worker loop, and the stack profiler on. Checked: each of
+    /debug/, /debug/timeline, /debug/profile, /debug/traces and
+    /debug/vars answers 401 without the bearer token and 200 with it; no
+    timeline finding over OBS_HEALTHY_SAMPLES samples of the settled
+    suite; then with OBS_WEDGED's worker parked in a reconcile on an
+    event, a stall finding on loop.<OBS_WEDGED>-work (with the profiler's
+    stacks of that thread) and a HealthDegraded event about
+    default/nos-health-timeline within OBS_STALL_SAMPLES samples; the
+    worker released, it reconciles again."""
+    import json as _json
+    import random
+    import shutil
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from nos_tpu_torch import bench_observability, bench_store
+    from nos_tpu_torch.api.config import GpuPartitionerConfig, SchedulerConfig
+    from nos_tpu_torch.api.v1alpha1.constants import EVENT_REASON_HEALTH_DEGRADED
+    from nos_tpu_torch.cmd._component import build_timeline, health_server
+    from nos_tpu_torch.cmd.cluster import build_cluster
+    from nos_tpu_torch.cmd.run import seed_node, seed_pod
+    from nos_tpu_torch.kube.store import PodPhase
+    from nos_tpu_torch.util.profiling import PROFILER
+
+    t0 = time.time()
+    checks = {}
+    obs_rows, obs_timing = bench_observability.run_bench(
+        bench_observability.ObservabilitySizes.reference())
+    obs = obs_rows[0]
+    for key, ok in obs["overhead"].items():
+        if key.endswith("_within_budget"):
+            checks[f"bench_{key}"] = ok
+    checks["bench_governed_byte_identical"] = obs["exposition"]["byte_identical"]
+    store_rows = bench_store.run_bench(bench_store.StoreSizes.reference())
+    store_p50 = {}
+    for r in store_rows:
+        name = r["bench"] + "".join(f"_{r[k]}" for k in ("copy", "variant") if k in r)
+        store_p50[name] = {k: r[k] for k in r if k in bench_store.TIMING_KEYS}
+    row = {"bench_observability": obs, "bench_observability_timing": obs_timing[0],
+           "bench_store": store_p50}
+
+    tmp = tempfile.mkdtemp(prefix="nos-obs-")
+    token_file = os.path.join(tmp, "token")
+    with open(token_file, "w") as f:
+        f.write(OBS_TOKEN)
+    config = {"manager": {"healthProbeHost": "127.0.0.1", "metricsAuthTokenFile": token_file,
+                          "timelineSampleSeconds": OBS_SAMPLE_S}}
+    rng = random.Random(COMPONENTS_SEED)
+    nodes = ([{"name": f"mig-{i:02d}", "partitioning": "mig",
+               "nodepool": "pool-a" if i < COMPONENTS_MIG_NODES // 2 else "pool-b"}
+              for i in range(COMPONENTS_MIG_NODES)]
+             + [{"name": f"mps-{i}", "partitioning": "mps"} for i in range(COMPONENTS_MPS_NODES)])
+    pods = [{"name": f"{kind}-{what.replace('.', '-')}-{i}", "namespace": ns, kind: what}
+            for ns, kind, what, n in COMPONENTS_MIX for i in range(n)]
+    rng.shuffle(pods)
+    cluster = build_cluster(
+        partitioner_config=GpuPartitionerConfig(batch_window_timeout_seconds=1.0,
+                                                batch_window_idle_seconds=0.05),
+        scheduler_config=SchedulerConfig(retry_seconds=0.2))
+    wedged = next(c for c in cluster.manager.controllers if c.name == OBS_WEDGED)
+    reconcile, release, parked = wedged.reconciler, threading.Event(), threading.Event()
+
+    def wedging(req):
+        if req.name == "wedge-probe":
+            parked.set()
+            release.wait(30.0)
+        return reconcile(req)
+
+    wedged.reconciler = wedging
+    timeline = build_timeline(config, cluster.store, "nos-health-timeline")
+    # an event-driven loop is stall-checked only where a policy arms it
+    timeline.policy.stall_series = (f"loop.{OBS_WEDGED}-work",)
+    health = health_server(config, 0, cluster.scheduler, cluster.store, timeline)
+    port = health.start()
+
+    def get(path, token=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}")
+        if token:
+            req.add_header("Authorization", f"Bearer {token}")
+        try:
+            with urllib.request.urlopen(req, timeout=10) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, ""
+
+    def degraded():
+        return [e for e in cluster.store.list("Event", namespace="default", copy=False)
+                if e.reason == EVENT_REASON_HEALTH_DEGRADED
+                and e.involved_name == "nos-health-timeline"]
+
+    try:
+        for spec in nodes:
+            cluster.add_node(seed_node(spec))
+        cluster.start()
+        t1 = time.perf_counter()
+        for spec in pods:
+            cluster.store.create(seed_pod(spec))
+        running_s = None
+        while time.perf_counter() - t1 < COMPONENTS_DEADLINE_S:
+            live = cluster.pods()
+            if all(p.phase == PodPhase.RUNNING for p in live):
+                running_s = time.perf_counter() - t1
+                break
+            time.sleep(0.02)
+        checks["suite_every_pod_running"] = running_s is not None
+        checks["suite_settles"] = cluster.wait_idle(timeout=20.0)
+        PROFILER.start()
+        timeline.start()
+        t2 = time.perf_counter()
+        while timeline.samples < OBS_HEALTHY_SAMPLES:
+            time.sleep(0.05)
+        healthy_s = time.perf_counter() - t2
+        findings = timeline.findings()
+        checks["no_finding_while_healthy"] = not findings
+        row["healthy_findings"] = [{k: f[k] for k in ("detector", "series", "verdict")}
+                                   for f in findings]
+
+        scrapes = {}
+        for path in ("/debug/", "/debug/timeline", "/debug/profile", "/debug/traces",
+                     "/debug/vars"):
+            closed = get(path)[0]
+            status, body = get(path, OBS_TOKEN)
+            scrapes[path] = {"without_token": closed, "with_token": status, "bytes": len(body)}
+            checks[f"scrape_{path.strip('/').replace('/', '_')}_401_then_200"] = (
+                closed == 401 and status == 200)
+            if path == "/debug/":
+                index = sorted(_json.loads(body)["endpoints"]) if status == 200 else []
+                checks["debug_index_lists_the_plane"] = {
+                    "/debug/timeline", "/debug/profile", "/debug/traces",
+                    "/debug/vars", "/debug/loops"} <= set(index)
+            elif path == "/debug/timeline" and status == 200:
+                doc = _json.loads(body)
+                checks["timeline_samples_the_armed_loop"] = (
+                    f"loop.{OBS_WEDGED}-work" in doc["rollups"] and doc["samples"] > 0)
+            elif path == "/debug/profile" and status == 200:
+                doc = _json.loads(body)
+                checks["profiler_samples_the_workers"] = (
+                    doc["enabled"] and doc["total_samples"] > 0
+                    and f"{OBS_WEDGED}-work" in doc["threads"])
+                row["profile"] = {k: doc[k] for k in ("total_samples", "stacks",
+                                                      "overhead_fraction", "threads")}
+                row["profile"]["threads"] = len(doc["threads"])
+        row["scrapes"] = scrapes
+
+        # the wedge: the worker parks in a reconcile until released
+        events_before = len(degraded())
+        cluster.store.create(seed_pod({"name": "wedge-probe", "mig": "1g.10gb"}))
+        parked.wait(10.0)
+        checks["worker_parked"] = parked.is_set()
+        at_wedge = timeline.samples
+        t3 = time.perf_counter()
+        stall = event = None
+        while timeline.samples - at_wedge <= OBS_STALL_SAMPLES + 2:
+            stall = stall or next((f for f in timeline.findings("stall")
+                                   if f["series"] == f"loop.{OBS_WEDGED}-work"), None)
+            if stall is not None and event is None and len(degraded()) > events_before:
+                event = (timeline.samples - at_wedge, degraded()[-1])
+            if stall is not None and event is not None:
+                break
+            time.sleep(0.02)
+        checks["stall_finding_on_the_wedged_loop"] = stall is not None
+        checks["stall_carries_the_threads_stacks"] = bool(stall and stall.get("stacks"))
+        checks["health_degraded_event_in_time"] = (
+            event is not None and event[0] <= OBS_STALL_SAMPLES)
+        release.set()
+        deadline = time.perf_counter() + 30.0
+        while time.perf_counter() < deadline:
+            probe = cluster.store.try_get("Pod", "wedge-probe", "default", copy=False)
+            if probe is not None and probe.phase == PodPhase.RUNNING:
+                break
+            time.sleep(0.05)
+        checks["released_worker_reconciles"] = (probe is not None
+                                                and probe.phase == PodPhase.RUNNING)
+        row.update(running_s=running_s, healthy_s=healthy_s,
+                   healthy_samples=OBS_HEALTHY_SAMPLES,
+                   wedge={"samples_to_event": event[0] if event else None,
+                          "seconds_to_finding": time.perf_counter() - t3,
+                          "finding": stall and {k: stall[k] for k in ("series", "verdict")},
+                          "stacks": (stall or {}).get("stacks", [])[:3],
+                          "event": event and {"reason": event[1].reason,
+                                              "message": event[1].message,
+                                              "type": event[1].type}},
+                   timeline_samples=timeline.samples)
+    finally:
+        release.set()
+        timeline.stop()
+        cluster.stop()
+        PROFILER.stop()
+        health.stop()
+        timeline.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"phase": "observability", **row, "checks": checks, "ok": all(checks.values()),
+           "seconds": time.time() - t0, "card": card}
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"observability failed: {checks}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -6349,6 +6565,7 @@ def main() -> int:
     control_bench_phase(card)
     pools_phase(card)
     components_phase(card)
+    observability_phase(card)
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa

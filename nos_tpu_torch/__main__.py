@@ -6,7 +6,7 @@ the whole suite in one process; ``operator``, ``partitioner``,
 ``scheduler``, ``autoscaler``, ``migagent`` and ``mpsagent`` each run one
 component (``--config <file>``); ``export-metrics`` is the one-shot
 telemetry job; ``bench`` runs ``nos_tpu_torch/bench.py``. The
-reference's ``replay`` and ``chaos`` come with item 18b.
+reference's ``replay`` comes with item 18b.2, ``chaos`` with item 18b.3.
 """
 import importlib
 import sys

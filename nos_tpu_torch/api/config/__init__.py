@@ -5,9 +5,10 @@ from nos_tpu_torch.api.config.v1alpha1 import (
     ConfigError,
     GpuPartitionerConfig,
     ManagerConfig,
+    ObservabilityConfig,
     OperatorConfig,
     SchedulerConfig,
 )
 
 __all__ = ["AgentConfig", "AutoscalerConfig", "ConfigError", "GpuPartitionerConfig",
-           "ManagerConfig", "OperatorConfig", "SchedulerConfig"]
+           "ManagerConfig", "ObservabilityConfig", "OperatorConfig", "SchedulerConfig"]

@@ -19,14 +19,17 @@ nodes:
 - ``aging_chips_per_second`` becomes ``aging_per_second``: the planner's
   effective size, in slices, that a second passed over adds.
 
-What the port's partitioner does not run is refused, never quietly
-ignored: ``forecast_enabled`` and an ``audit_sample_rate`` above 0 raise
-a ``ConfigError`` naming item 18b, which brings the forecaster's thread
-and the auditor (their other knobs are validated as the reference's).
-``pool_parallelism`` keeps the reference's values; its ``thread`` mode
-plans serially (the port's deliberate difference: the planner is pure
-Python, and threads plan no faster). ``ObservabilityConfig`` waits for
-item 18b.
+What the port does not run is refused, never quietly ignored:
+``forecast_enabled`` raises a ``ConfigError`` naming item 18b.3 (the
+forecaster's thread), an ``audit_sample_rate`` above 0 one naming item
+18b.2 (the auditor), and ``ObservabilityConfig.node_top_k`` above 0 one
+naming item 18b.3 (the capacity ledger's per-node gauges); their other
+knobs are validated as the reference's. ``pool_parallelism`` keeps the
+reference's values; its ``thread`` mode plans serially (the port's
+deliberate difference: the planner is pure Python, and threads plan no
+faster). ``timeline_sample_seconds`` reads a component's
+``manager.timelineSampleSeconds`` (5), which must be above 0: the
+reference takes any number, and a sampler at 0 would spin.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ from nos_tpu_torch.api.v1alpha1.constants import SCHEDULER_NAME
 # the H100's GB: what a plain nvidia.com/gpu counts as in quotas
 H100_MEMORY_GB = 80
 DEVICE_PLUGIN_CONFIG_MAP = "nos-device-plugin-config"
-ITEM_18B = "item 18b (recording and observability)"
+ITEM_18B2 = "item 18b.2 (the flight recorder and the auditor)"
+ITEM_18B3 = "item 18b.3 (the capacity ledger's rest and the forecaster's thread)"
 
 
 class ConfigError(ValueError):
@@ -68,7 +72,7 @@ class GpuPartitionerConfig:
     aging_per_second: float = 1.0
     # plan only for pods this scheduler binds; empty: every pod
     scheduler_name: str = SCHEDULER_NAME
-    # the auditor's shadow replans: item 18b; above 0 is refused
+    # the auditor's shadow replans: item 18b.2; above 0 is refused
     audit_sample_rate: float = 0.0
     incremental_planning: bool = True
     incremental_dirty_threshold: float = 0.25
@@ -81,7 +85,7 @@ class GpuPartitionerConfig:
     pool_cycle_timeout_seconds: float = 5.0
     warm_state_path: str = ""
     warm_state_save_interval_seconds: float = 30.0
-    # the forecaster's thread: item 18b; True is refused
+    # the forecaster's thread: item 18b.3; True is refused
     forecast_enabled: bool = False
     forecast_min_interval_seconds: float = 0.25
     forecast_max_gangs: int = 32
@@ -124,9 +128,9 @@ class GpuPartitionerConfig:
         if self.forecast_small_pod_chips < 1:
             raise ConfigError("forecast_small_pod_chips must be >= 1")
         if self.forecast_enabled:
-            raise ConfigError(f"forecast_enabled: the forecaster's thread waits for {ITEM_18B}")
+            raise ConfigError(f"forecast_enabled: the forecaster's thread waits for {ITEM_18B3}")
         if self.audit_sample_rate > 0:
-            raise ConfigError(f"audit_sample_rate > 0: the auditor waits for {ITEM_18B}")
+            raise ConfigError(f"audit_sample_rate > 0: the auditor waits for {ITEM_18B2}")
 
     @property
     def plan_backend(self) -> str:
@@ -185,6 +189,54 @@ class AutoscalerConfig:
             raise ConfigError("recent_activity_seconds must be >= 0")
         if self.resync_seconds <= 0:
             raise ConfigError("resync_seconds must be > 0")
+
+
+def timeline_sample_seconds(manager: dict) -> float:
+    """The health timeline's interval of a ``manager`` block."""
+    seconds = float(manager.get("timelineSampleSeconds", 5.0))
+    if seconds <= 0:
+        raise ConfigError(f"timelineSampleSeconds must be > 0 (got {seconds})")
+    return seconds
+
+
+@dataclass
+class ObservabilityConfig:
+    """The observability plane's knobs (``nos_tpu/api/config/v1alpha1.py:
+    202-250``): the governor's series budgets, the tail-kept trace
+    retention and the debug pages. The defaults leave it all off."""
+
+    # family → its most exact label sets (``observability.seriesBudget``)
+    series_budget: Dict[str, int] = field(default_factory=dict)
+    # the budget of every other family; None: unbudgeted
+    series_budget_default: Optional[int] = None
+    # the capacity ledger's per-node tiering: item 18b.3; above 0 is refused
+    node_top_k: int = 0
+    trace_tail_capacity: int = 64
+    trace_boring_sample_n: int = 1
+    # root span name → seconds past which its trace is slow
+    trace_slow_thresholds: Dict[str, float] = field(default_factory=dict)
+    debug_page_limit: int = 500
+
+    def validate(self) -> None:
+        for family, budget in self.series_budget.items():
+            if budget <= 0:
+                raise ConfigError(f"seriesBudget.{family} must be > 0 (got {budget})")
+        if self.series_budget_default is not None and self.series_budget_default <= 0:
+            raise ConfigError("seriesBudget default must be > 0 when set")
+        if self.node_top_k < 0:
+            raise ConfigError("node_top_k must be >= 0")
+        if self.trace_tail_capacity < 0:
+            raise ConfigError("trace_tail_capacity must be >= 0")
+        if self.trace_boring_sample_n < 1:
+            raise ConfigError("trace_boring_sample_n must be >= 1")
+        for kind, threshold in self.trace_slow_thresholds.items():
+            if threshold <= 0:
+                raise ConfigError(f"trace_slow_thresholds.{kind} must be > 0 (got {threshold})")
+        if self.debug_page_limit < 0:
+            raise ConfigError("debug_page_limit must be >= 0")
+        if self.node_top_k:
+            raise ConfigError(f"node_top_k > 0: the per-node capacity gauges wait for "
+                              f"{ITEM_18B3}")
 
 
 @dataclass

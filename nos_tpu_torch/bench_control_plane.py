@@ -238,10 +238,6 @@ def profile_gb(profile: str) -> int:
     return gpu_memory_gb_in({mig_resource(profile): 1})
 
 
-def _counter_total(counter) -> float:
-    return counter.value + sum(child.value for child in counter._sorted_children())
-
-
 def _plan_modes() -> Dict[str, float]:
     return {child._label_values["mode"]: child.value
             for child in metrics.PLAN_MODE._sorted_children()}
@@ -368,7 +364,7 @@ def run_control_plane_bench(sizes: Optional[ControlPlaneSizes] = None, seed: int
     total = sizes.fleet_gb
     wall: Dict[str, float] = {}
     invariants: Dict[str, Dict[str, bool]] = {}
-    preempt_before = _counter_total(metrics.PREEMPTIONS)
+    preempt_before = metrics.PREEMPTIONS.total
     reservations_before = metrics.BOARD_RESERVATIONS.value
     divergence_before = metrics.DIVERGENCE_REPLANS.value
     modes_before = _plan_modes()
@@ -458,7 +454,7 @@ def run_control_plane_bench(sizes: Optional[ControlPlaneSizes] = None, seed: int
         lambda: b.running_gb(by_ns=True).get("team-b", 0) >= total // 2,
         CONTENTION_TIMEOUT_S)
     by_ns = b.running_gb(by_ns=True)
-    preemptions = int(_counter_total(metrics.PREEMPTIONS) - preempt_before)
+    preemptions = int(metrics.PREEMPTIONS.total - preempt_before)
     log(f"phase3 contention: team-a borrow {'ok' if borrowed else 'TIMED OUT'} "
         f"{borrowed_gb}; fair share {'ok' if restored else 'TIMED OUT'} {by_ns}, "
         f"preemptions={preemptions}")

@@ -37,7 +37,7 @@ and seed 5; ``card()`` 32 nodes x 8 H100s in the reference's node roles
 and ratio (16 gang nodes, 8 mixed, 8 spare, every GPU carved as its
 node's role says), the stream's counts and rate scaled by 64, run from
 this module. The report keeps the reference's keys but ``replay``, which
-waits for the flight recorder (ROADMAP.md, item 18b), and adds each
+waits for the flight recorder (ROADMAP.md, item 18b.2), and adds each
 cycle's ``run_once`` wall milliseconds (``wall_ms``, named so, the
 host's, out of ``virtual_digest``). The module imports no torch.
 """

@@ -41,10 +41,10 @@ The frozen edges measure the re-carve latency (``mean_reconfig_seconds``).
 ``self_check`` diffs the incremental state against ``state_from_store``.
 
 Polled, with no thread: whoever drives the loop observes on its clock
-(``SimCluster`` on its virtual one). Left for the observability slice
-(ROADMAP.md, item 18b): the fragmentation indices, the per-node and
-per-pool gauges, the heartbeat, the flight-recorder records and the
-debug documents.
+(``SimCluster`` on its virtual one). Left for item 18b.3 (ROADMAP.md):
+the fragmentation indices, the per-node and per-pool gauges, the
+heartbeat and the debug documents; the flight-recorder records wait for
+item 18b.2.
 """
 from __future__ import annotations
 

@@ -27,11 +27,16 @@ The config's blocks:
   first), so a successor never reconciles beside a leader that is still
   stopping.
 
-A component whose build returns an object with ``explain`` (the
-scheduler) serves it as ``/debug/explain``, one with ``debug_payload``
-(the autoscaler) as ``/debug/autoscaler``; every one serves
-``/debug/loops``. The reference's timeline and profiler wait for item
-18b.
+Every component runs the observability plane: a health timeline
+sampling every ``manager.timelineSampleSeconds`` (5; above 0), whose
+findings become ``HealthDegraded`` events about the
+``default/nos-health-timeline`` ConfigMap, and the stack profiler, on
+from the health server's start to the way out. It serves
+``/debug/traces``, ``/debug/vars``, ``/debug/profile``,
+``/debug/timeline`` and ``/debug/loops``; a component whose build
+returns an object with ``explain`` (the scheduler) serves it as
+``/debug/explain``, one with ``debug_payload`` (the autoscaler) as
+``/debug/autoscaler``.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from nos_tpu_torch.kube.store import NodeStore
 from nos_tpu_torch.util.documents import load_document
 from nos_tpu_torch.util.health import HealthServer, token_file_provider
 from nos_tpu_torch.util.loop_health import LOOPS
+from nos_tpu_torch.util.profiling import PROFILER
 
 log = logging.getLogger("nos_tpu_torch.cmd")
 
@@ -92,8 +98,23 @@ def component_argparser(name: str) -> argparse.ArgumentParser:
     return parser
 
 
-def health_server(config: dict, port: Optional[int], component: Any,
-                  store: NodeStore) -> HealthServer:
+def build_timeline(config: dict, store: NodeStore, component: str):
+    """The health timeline of the config's ``manager`` block, its
+    findings recorded as events through ``store``."""
+    from nos_tpu_torch.api.config.v1alpha1 import timeline_sample_seconds
+    from nos_tpu_torch.kube.events import EventRecorder
+    from nos_tpu_torch.kube.objects import ConfigMap
+    from nos_tpu_torch.timeline import TimelineStore
+
+    timeline = TimelineStore(
+        interval_seconds=timeline_sample_seconds(config.get("manager") or {}))
+    timeline.attach(recorder=EventRecorder(store, component=component),
+                    event_obj=ConfigMap("nos-health-timeline", "default"))
+    return timeline
+
+
+def health_server(config: dict, port: Optional[int], component: Any, store: NodeStore,
+                  timeline=None) -> HealthServer:
     """The component's health server, from the config's ``manager`` block."""
     manager_cfg = config.get("manager") or {}
     if port is None:
@@ -104,9 +125,11 @@ def health_server(config: dict, port: Optional[int], component: Any,
         port=port, host=manager_cfg.get("healthProbeHost", "0.0.0.0"),
         metrics_token=token_file_provider(token_file) if token_file else "",
         metrics_loopback_port=int(loopback) if loopback is not None else None,
-        explain_fn=getattr(component, "explain", None),
+        explain_fn=getattr(component, "explain", None), profiler=PROFILER,
         loops_fn=lambda: LOOPS.payload(store=store),
-        autoscaler_fn=getattr(component, "debug_payload", None))
+        autoscaler_fn=getattr(component, "debug_payload", None),
+        timeline_fn=timeline.debug_payload if timeline is not None else None,
+        timeline_stream_fn=timeline.iter_jsonl if timeline is not None else None)
 
 
 def run_component(name: str, build: Callable[[Manager, dict], Any], argv=None,
@@ -114,7 +137,8 @@ def run_component(name: str, build: Callable[[Manager, dict], Any], argv=None,
                   on_started: Optional[Callable[[dict], None]] = None) -> int:
     """Build the component with ``build(manager, config)`` and serve it
     until stopped; 0. ``on_started`` gets {"health_port", "manager",
-    "component", "elector"} once it serves (in-process callers)."""
+    "component", "elector", "timeline"} once it serves (in-process
+    callers)."""
     args = component_argparser(name).parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -127,7 +151,7 @@ def run_component(name: str, build: Callable[[Manager, dict], Any], argv=None,
     config = load_config(args.config)
     store = build_store(config)
     manager = Manager(store)
-    health = elector = None
+    health = elector = timeline = None
     # the manager starts on the lease unless the process already stops
     leading, stopped = threading.Lock(), [False]
 
@@ -138,9 +162,12 @@ def run_component(name: str, build: Callable[[Manager, dict], Any], argv=None,
 
     try:
         component = build(manager, config)
-        health = health_server(config, args.health_port, component, store)
+        timeline = build_timeline(config, store, f"nos-{name}-health-timeline")
+        health = health_server(config, args.health_port, component, store, timeline)
         port = health.start()
         log.info("%s: health and metrics on port %d", name, port)
+        PROFILER.start()
+        timeline.start()
         le_cfg = config.get("leaderElection") or {}
         if le_cfg.get("enabled", False):
             from nos_tpu_torch.kube.leaderelection import LeaderElector
@@ -159,7 +186,7 @@ def run_component(name: str, build: Callable[[Manager, dict], Any], argv=None,
         log.info("%s running", name)
         if on_started is not None:
             on_started({"health_port": port, "manager": manager, "component": component,
-                        "elector": elector})
+                        "elector": elector, "timeline": timeline})
         stop.wait()
     finally:
         # the controllers stop while the lease is still held, and only then
@@ -169,6 +196,10 @@ def run_component(name: str, build: Callable[[Manager, dict], Any], argv=None,
             manager.stop()
         if elector is not None:
             elector.stop()
+        if timeline is not None:
+            timeline.stop()
+            timeline.close()
+        PROFILER.stop()
         if health is not None:
             health.stop()
         if hasattr(store, "stop"):

@@ -26,9 +26,9 @@ reference:
   each with its batch thread as a runnable.
 
 The capacity ledger, when given, goes to the MIG controller alone (one
-observer a cluster, ``:164-167``). The forecaster's thread, the flight
-recorder and the auditor wait for item 18b; their config knobs are
-refused (``api/config/v1alpha1.py``).
+observer a cluster, ``:164-167``). The forecaster's thread waits for
+item 18b.3, the flight recorder and the auditor for item 18b.2; their
+config knobs are refused (``api/config/v1alpha1.py``).
 """
 from __future__ import annotations
 

@@ -9,13 +9,20 @@ on one store (``cmd/cluster.py``), with the health server and, where
 ``manager.metricsSnapshotPath`` is set, the installation snapshot
 rewritten every ``metricsSnapshotSeconds`` (60) for ``export-metrics``.
 ``--run-seconds`` ends the run after that many seconds; SIGINT and
-SIGTERM end it otherwise.
+SIGTERM end it otherwise. The config's ``observability:`` section
+(``observability_from``: ``seriesBudget``, ``traceTailCapacity``,
+``traceBoringSampleN``, ``traceSlowThresholds``, ``debugPageLimit``;
+``nodeTopK`` above 0 is refused, item 18b.3) is applied to the process's
+registry and tracer before any component registers a series, and put
+back on the way out; the suite runs a health timeline
+(``manager.timelineSampleSeconds``) and the stack profiler, and serves
+their ``/debug/`` endpoints.
 
 The config keys, where they differ from the reference's:
 
 - ``partitioner``: ``knownMigGeometries`` (for ``knownTpuGeometries``),
   ``agingPerSecond`` (for ``agingChipsPerSecond``), ``forecastEnabled``
-  (refused: item 18b);
+  (refused: item 18b.3);
 - ``operator``: ``gpuMemoryGB`` (80; for the top-level
   ``tpuChipMemoryGB``);
 - a node: ``name``, ``gpus`` (8), ``product`` (an H100 80GB),
@@ -33,12 +40,13 @@ import logging
 import signal
 import sys
 import threading
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 from nos_tpu_torch.api.config import (
     AgentConfig,
     AutoscalerConfig,
     GpuPartitionerConfig,
+    ObservabilityConfig,
     OperatorConfig,
     SchedulerConfig,
 )
@@ -60,8 +68,8 @@ from nos_tpu_torch.scheduler.plugins.topology import NODEPOOL_LABEL
 
 log = logging.getLogger("nos_tpu_torch.cmd")
 
-__all__ = ["Configs", "configs_from", "load_config", "main", "seed", "seed_modelserving",
-           "seed_node", "seed_pod"]
+__all__ = ["Configs", "configs_from", "load_config", "main", "observability_from", "seed",
+           "seed_modelserving", "seed_node", "seed_pod"]
 
 
 class Configs(NamedTuple):
@@ -118,6 +126,26 @@ def configs_from(config: dict) -> Configs:
         if c is not None:
             c.validate()
     return Configs(partitioner, scheduler, agent, autoscaler, operator)
+
+
+def observability_from(config: dict) -> ObservabilityConfig:
+    """The validated ``observability:`` section (``nos_tpu/cmd/run.py:
+    103-130``); none leaves every knob off. ``seriesBudget.default`` is
+    the other families' budget, every other key names a family."""
+    o = config.get("observability") or {}
+    budgets = dict(o.get("seriesBudget") or {})
+    default = budgets.pop("default", o.get("seriesBudgetDefault"))
+    obs = ObservabilityConfig(
+        series_budget={str(k): int(v) for k, v in budgets.items()},
+        series_budget_default=int(default) if default is not None else None,
+        node_top_k=int(o.get("nodeTopK", 0)),
+        trace_tail_capacity=int(o.get("traceTailCapacity", 64)),
+        trace_boring_sample_n=int(o.get("traceBoringSampleN", 1)),
+        trace_slow_thresholds={str(k): float(v)
+                               for k, v in (o.get("traceSlowThresholds") or {}).items()},
+        debug_page_limit=int(o.get("debugPageLimit", 500)))
+    obs.validate()
+    return obs
 
 
 def seed_node(spec: dict) -> Node:
@@ -185,9 +213,14 @@ def seed(cluster, config: dict, agent: Optional[AgentConfig] = None) -> None:
         cluster.store.create(seed_modelserving(spec))
 
 
-def main(argv=None, stop_event: Optional[threading.Event] = None) -> int:
-    from nos_tpu_torch.cmd._component import health_server
+def main(argv=None, stop_event: Optional[threading.Event] = None,
+         on_started: Optional[Callable[[dict], None]] = None) -> int:
+    """Run the suite; 0. ``on_started`` gets {"health_port", "cluster",
+    "timeline"} once it runs (in-process callers)."""
+    from nos_tpu_torch.cmd._component import build_timeline, health_server
     from nos_tpu_torch.cmd.cluster import build_cluster
+    from nos_tpu_torch.obsplane.apply import apply_observability
+    from nos_tpu_torch.util.profiling import PROFILER
 
     parser = argparse.ArgumentParser(prog="python -m nos_tpu_torch run",
                                      description="run the whole suite in one process")
@@ -205,46 +238,66 @@ def main(argv=None, stop_event: Optional[threading.Event] = None) -> int:
             signal.signal(sig, lambda *_: stop.set())
     config = load_config(args.config)
     configs = configs_from(config)
+    obs = observability_from(config)
     if config.get("deviceBackend", "sim") != "sim":
         raise ValueError("the in-process suite runs on the sim devices (deviceBackend: sim)")
-    cluster = build_cluster(partitioner_config=configs.partitioner,
-                            scheduler_config=configs.scheduler,
-                            operator_config=configs.operator,
-                            autoscaler_config=configs.autoscaler)
-    seed(cluster, config, configs.agent)
-    health = health_server(config, args.health_port, cluster.scheduler, cluster.store)
-    health.autoscaler_fn = cluster.autoscaler.debug_payload if cluster.autoscaler else None
-    port = health.start()
-    log.info("health and metrics on port %d (/healthz /readyz /metrics /debug/)", port)
-    cluster.start()
-    manager_cfg = config.get("manager") or {}
-    snapshot_path = manager_cfg.get("metricsSnapshotPath", "")
+    # before any component registers a series: the exact / _other split
+    # follows the order of admission
+    revert_observability = apply_observability(obs)
+    cluster = health = timeline = None
     snapshot_thread = None
-    if snapshot_path:
-        from nos_tpu_torch.cmd.metricsexporter import collect_metrics, export
-
-        interval = float(manager_cfg.get("metricsSnapshotSeconds", 60))
-
-        def snapshot_loop() -> None:
-            while not stop.is_set():
-                try:
-                    export(collect_metrics(cluster.store), snapshot_path)
-                except OSError:
-                    log.exception("the metrics snapshot could not be written")
-                stop.wait(interval)
-
-        snapshot_thread = threading.Thread(target=snapshot_loop, name="metrics-snapshot",
-                                           daemon=True)
-        snapshot_thread.start()
-    log.info("the suite is running")
     try:
+        cluster = build_cluster(partitioner_config=configs.partitioner,
+                                scheduler_config=configs.scheduler,
+                                operator_config=configs.operator,
+                                autoscaler_config=configs.autoscaler)
+        seed(cluster, config, configs.agent)
+        timeline = build_timeline(config, cluster.store, "nos-health-timeline")
+        health = health_server(config, args.health_port, cluster.scheduler, cluster.store,
+                               timeline)
+        health.autoscaler_fn = cluster.autoscaler.debug_payload if cluster.autoscaler else None
+        health.debug_page_limit = obs.debug_page_limit
+        port = health.start()
+        log.info("health and metrics on port %d (/healthz /readyz /metrics /debug/)", port)
+        PROFILER.start()
+        cluster.start()
+        timeline.start()
+        manager_cfg = config.get("manager") or {}
+        snapshot_path = manager_cfg.get("metricsSnapshotPath", "")
+        if snapshot_path:
+            from nos_tpu_torch.cmd.metricsexporter import collect_metrics, export
+
+            interval = float(manager_cfg.get("metricsSnapshotSeconds", 60))
+
+            def snapshot_loop() -> None:
+                while not stop.is_set():
+                    try:
+                        export(collect_metrics(cluster.store), snapshot_path)
+                    except OSError:
+                        log.exception("the metrics snapshot could not be written")
+                    stop.wait(interval)
+
+            snapshot_thread = threading.Thread(target=snapshot_loop, name="metrics-snapshot",
+                                               daemon=True)
+            snapshot_thread.start()
+        log.info("the suite is running")
+        if on_started is not None:
+            on_started({"health_port": port, "cluster": cluster, "timeline": timeline})
         stop.wait(args.run_seconds)
     finally:
         stop.set()
         if snapshot_thread is not None:
             snapshot_thread.join(timeout=5.0)
-        cluster.stop()
-        health.stop()
+        if timeline is not None:
+            timeline.stop()
+        if cluster is not None:
+            cluster.stop()
+        PROFILER.stop()
+        if health is not None:
+            health.stop()
+        if timeline is not None:
+            timeline.close()
+        revert_observability()
     return 0
 
 

@@ -101,7 +101,10 @@ The plan record gives the pools, each pool's backend and milliseconds,
 the merge's milliseconds and, on the process backend, the frame bytes.
 The divergence reconcile, the capacity-freed trigger and the plan-id
 gate do not change. The auditor's shadow replans (``audit_runs``) wait
-for item 18b.
+for item 18b.2. A started controller's batch loop is sampled by the
+profiler and beats the watchdog (``partitioner-<kind>``, its plans
+applied the counter); its verdict cache and futility memo are the
+timeline's ``size.planner.<kind>.*`` series.
 
 Warm state (``warm_state_path``, ``:1016-1094``; ``snapcodec.py``):
 after a plan the planners' futility proofs and verdicts are saved beside
@@ -183,11 +186,14 @@ from nos_tpu_torch.scheduler.plugins.capacity import (
 )
 from nos_tpu_torch.scheduler.plugins.reservation import RESERVED_FOR, BoardReservation
 from nos_tpu_torch.scheduler.plugins.topology import MultinodeFilter
+from nos_tpu_torch.timeline.sizes import SIZES
+from nos_tpu_torch.timeline.watchdog import WATCHDOG
 from nos_tpu_torch.util import metrics
 from nos_tpu_torch.util import resources as res
 from nos_tpu_torch.util.pod import is_preempting
 from nos_tpu_torch.util.batcher import DEFAULT_IDLE_SECONDS, DEFAULT_TIMEOUT_SECONDS, Batcher
 from nos_tpu_torch.util.loop_health import LOOPS, BusyMeter
+from nos_tpu_torch.util.profiling import PROFILER
 from nos_tpu_torch.util.tracing import TRACER
 
 log = logging.getLogger("nos_tpu_torch.partitioner")
@@ -484,14 +490,26 @@ class PartitionerController:
         gate, then plans and puts the pods still pending back in the
         batch."""
         self._stop.clear()
-        LOOPS.register(f"partitioner-{self.kind}", self._loop_stats)
-        self._thread = threading.Thread(target=self._batch_loop,
-                                        name=f"partitioner-{self.kind}", daemon=True)
+        name = f"partitioner-{self.kind}"
+        LOOPS.register(name, self._loop_stats)
+        # event-driven (a batch opens when work arrives): stall-checked
+        # only when armed; the memos are leak-watched (pruned by version
+        # every cycle, so growth past pruning is the cross-cycle bug)
+        WATCHDOG.register(name, periodic=False, thread_name=name,
+                          counter_fn=lambda: self.plans_applied)
+        SIZES.register(f"planner.{self.kind}.verdict_cache",
+                       lambda: len(self.planner._verdict_cache.entries))
+        SIZES.register(f"planner.{self.kind}.futility_memo",
+                       lambda: len(self.planner._futility_cache))
+        self._thread = threading.Thread(target=self._batch_loop, name=name, daemon=True)
         self._thread.start()
 
     def stop(self) -> None:
         self._stop.set()
         LOOPS.unregister(f"partitioner-{self.kind}")
+        WATCHDOG.unregister(f"partitioner-{self.kind}")
+        SIZES.unregister(f"planner.{self.kind}.verdict_cache")
+        SIZES.unregister(f"planner.{self.kind}.futility_memo")
         if self._thread is not None:
             self._thread.join(timeout=5.0)
             self._thread = None
@@ -505,9 +523,19 @@ class PartitionerController:
         return stats
 
     def _batch_loop(self) -> None:
+        PROFILER.register_thread()
+        try:
+            self._batch_loop_inner()
+        finally:
+            PROFILER.unregister_thread()
+
+    def _batch_loop_inner(self) -> None:
+        beat = f"partitioner-{self.kind}"
         while not self._stop.is_set():
             t0 = time.monotonic()
-            if self.batcher.wait(timeout=0.2) is None:
+            batch = self.batcher.wait(timeout=0.2)
+            WATCHDOG.beat(beat)
+            if batch is None:
                 self._busy.record(0.0, idle_s=time.monotonic() - t0)
                 continue
             with self._lock:

@@ -18,8 +18,8 @@ No thread and no wall clock: whoever drives the loop calls ``step``
 cycle, at that cycle's time, the store's virtual clock there), or
 ``run_once`` with an explicit ``now`` and pending set (the bench). The
 reference's forecasting thread, its throttle, the watchdog and the
-profiler registrations and the flight records wait for the
-observability slice (ROADMAP.md, item 18b). The forecaster never writes
+profiler registrations wait for item 18b.3 and the flight records for
+item 18b.2 (ROADMAP.md). The forecaster never writes
 to the store. With ``cluster_state`` None it keeps its own, fed by state
 controllers of its own (``controllers/partitioner/node_controller.py``)
 whose watches it drains at each run; else it reads the one it is given,

@@ -33,8 +33,11 @@ Two ways to run them, the same queues either way:
 
 Each controller meters its busy fraction (``BusyMeter``) and the age of
 each event at dispatch (``WATCH_DRAIN_LAG``); a started one registers its
-stats with ``LOOPS``. The reference's profiler and watchdog
-registrations wait for item 18b.
+stats with ``LOOPS``, its pump and worker threads with the profiler, and
+each of them with the watchdog as an event-driven loop
+(``<name>-pump``, ``<name>-work``) that beats once an iteration: a
+worker parked in a reconcile stops beating, which a timeline armed on its
+``loop.<name>-work`` series reports as a stall.
 """
 from __future__ import annotations
 
@@ -47,8 +50,10 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from nos_tpu_torch.kube.store import NodeStore, WatchEvent
+from nos_tpu_torch.timeline.watchdog import WATCHDOG
 from nos_tpu_torch.util import metrics
 from nos_tpu_torch.util.loop_health import LOOPS, BusyMeter
+from nos_tpu_torch.util.profiling import PROFILER
 
 log = logging.getLogger("nos_tpu_torch.kube")
 
@@ -262,31 +267,45 @@ class Controller:
     # ---------------------------------------------------------- threads
 
     def _pump(self) -> None:
-        while not self._stop.is_set():
-            try:
-                event = self._event_queue.get(timeout=0.2)
-            except queue.Empty:
-                continue
-            try:
-                self._dispatch(event)
-            except Exception:  # pragma: no cover - defensive
-                log.exception("[%s] dispatch failed", self.name)
+        beat = f"{self.name}-pump"
+        PROFILER.register_thread()
+        try:
+            while not self._stop.is_set():
+                WATCHDOG.beat(beat)
+                try:
+                    event = self._event_queue.get(timeout=0.2)
+                except queue.Empty:
+                    continue
+                try:
+                    self._dispatch(event)
+                except Exception:  # pragma: no cover - defensive
+                    log.exception("[%s] dispatch failed", self.name)
+        finally:
+            PROFILER.unregister_thread()
 
     def _work(self) -> None:
-        while not self._stop.is_set():
-            t0 = time.monotonic()
-            req = self.queue.get(timeout=0.2)
-            if req is None:
+        beat = f"{self.name}-work"
+        PROFILER.register_thread()
+        try:
+            while not self._stop.is_set():
+                WATCHDOG.beat(beat)
+                t0 = time.monotonic()
+                req = self.queue.get(timeout=0.2)
                 self._busy.record(0.0, idle_s=time.monotonic() - t0)
-                continue
-            self._busy.record(0.0, idle_s=time.monotonic() - t0)
-            self._process(req)
+                if req is not None:
+                    self._process(req)
+        finally:
+            PROFILER.unregister_thread()
 
     def start(self) -> None:
         self.subscribe()
         LOOPS.register(self.name, self._loop_stats)
         for target, label in ((self._pump, "pump"), (self._work, "work")):
-            t = threading.Thread(target=target, name=f"{self.name}-{label}", daemon=True)
+            # both poll with a timeout and beat while idle, but work only
+            # on events: event-driven loops
+            thread_name = f"{self.name}-{label}"
+            WATCHDOG.register(thread_name, periodic=False, thread_name=thread_name)
+            t = threading.Thread(target=target, name=thread_name, daemon=True)
             t.start()
             self._threads.append(t)
 
@@ -294,6 +313,8 @@ class Controller:
         self._stop.set()
         self.queue.shut_down()
         LOOPS.unregister(self.name)
+        for label in ("pump", "work"):
+            WATCHDOG.unregister(f"{self.name}-{label}")
         if self._event_queue is not None:
             self.store.stop_watch(self._event_queue)
         if join:

@@ -12,9 +12,12 @@ minutes, client-go's spam filter) drops floods and counts them in
 Reasons come from ``api/v1alpha1/constants.py:EVENT_REASONS``; any other
 raises. Every time is read from ``clock`` (``time.time`` by default; a
 ``SimCluster`` passes its virtual one). Events about a cluster-scoped
-object (a node) land in ``default``. The reference's trace-id
-annotation waits for the tracing of item 18b; no component of the port
-emits events yet.
+object (a node) land in ``default``. An event recorded under an open
+span carries its trace id in the ``nos.nebuly.com/trace-id`` annotation
+(``kubectl describe`` leads to ``/debug/traces``; a repeat points it at
+its latest trace); the annotation is no part of the dedup digest. The
+health timeline records ``HealthDegraded`` events; the builders' events
+wait for item 18b.2.
 """
 from __future__ import annotations
 
@@ -26,6 +29,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from nos_tpu_torch.api.v1alpha1.constants import EVENT_REASONS
 from nos_tpu_torch.kube.objects import Event
 from nos_tpu_torch.kube.store import AlreadyExistsError, NotFoundError
+from nos_tpu_torch.util.tracing import TRACER
+
+# the trace of the decision that recorded an event (not in the digest, or
+# every trace would mint a new event instead of bumping the count)
+TRACE_ID_ANNOTATION = "nos.nebuly.com/trace-id"
 
 DEFAULT_BURST = 25
 DEFAULT_REFILL_PER_SECOND = 1.0 / 300.0
@@ -70,10 +78,14 @@ class EventRecorder:
         now = self.clock()
         event_name = self._event_name(kind, ns, name, reason, message)
         event_ns = ns or "default"
+        span = TRACER.current()
+        trace_id = span.trace_id if span is not None else ""
 
         def bump(ev: Event) -> None:
             ev.count += 1
             ev.last_timestamp = now
+            if trace_id:
+                ev.annotations[TRACE_ID_ANNOTATION] = trace_id
 
         try:
             return self.store.patch_merge("Event", event_name, event_ns, bump)
@@ -81,7 +93,8 @@ class EventRecorder:
             pass
         ev = Event(event_name, event_ns, involved_kind=kind, involved_namespace=ns,
                    involved_name=name, reason=reason, message=message, type=type, count=1,
-                   first_timestamp=now, last_timestamp=now, source_component=self.component)
+                   first_timestamp=now, last_timestamp=now, source_component=self.component,
+                   annotations={TRACE_ID_ANNOTATION: trace_id} if trace_id else {})
         try:
             return self.store.create(ev)
         except AlreadyExistsError:

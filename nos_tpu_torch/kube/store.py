@@ -42,8 +42,11 @@ lists to its objects, in step with every write, and ``list_by_index``
 answers from it; ``INDEX_POD_NODE`` and ``INDEX_POD_PHASE`` are the
 reference's names (``nos_tpu/api/v1alpha1/constants.py:53-54``). The
 lock meters its contention (``STORE_LOCK_CONTENTION`` / ``_WAIT``), each
-watch its queue depth (``WATCH_QUEUE_DEPTH``). The reference's chaos
-seam and the timeline's size registration wait for item 18b.
+watch its queue depth (``WATCH_QUEUE_DEPTH``); the events queued on
+every watch, summed, are the health timeline's
+``size.kube.watch_queue_events`` (the newest store's, replace-by-name),
+whose leak detector catches a consumer that never drains. The
+reference's chaos seam waits for item 18b.3.
 
 The change journal stands in for the watch deltas the reference's
 incremental snapshot maintainer and capacity ledger drain
@@ -89,6 +92,7 @@ from nos_tpu_torch.kube.objects import (  # noqa: F401  (the store's names)
     Toleration,
     TopologySpreadConstraint,
 )
+from nos_tpu_torch.timeline.sizes import SIZES
 from nos_tpu_torch.util import metrics
 
 log = logging.getLogger("nos_tpu_torch.kube.store")
@@ -250,6 +254,8 @@ class NodeStore:
         # (kind, index) → fn, and (kind, index) → value → keys
         self._indexers: Dict[Tuple[str, str], Callable[[Any], List[str]]] = {}
         self._index_maps: Dict[Tuple[str, str], Dict[str, Set[Key]]] = {}
+        SIZES.register("kube.watch_queue_events",
+                       lambda: sum(w.queue.qsize() for w in list(self._watchers)))
 
     def register_admission(self, kind: str, fn: Callable[[Any, "NodeStore"], None]) -> None:
         self._admission.setdefault(kind, []).append(fn)

@@ -6,9 +6,11 @@ Counterpart of ``nos_tpu/partitioning/core/procpool.py``: the wire docs
 ``planner_knobs``, ``PendingSeenLedger``, ``pool_worker_main`` with its
 ``_WorkerState`` (bootstrap, cycle, export), ``WorkerUnavailable`` and
 ``PoolWorkerPool`` (``sync_pools``, ``bootstrap``, ``plan_cycle``,
-``export_warm``, ``close``). Left out: the timeline watchdog
-(``:578-587``) and ``chaos_kill_one`` (``:739-750``), both item 18b; the
-tests kill a worker's process themselves (``pids()``).
+``export_warm``, ``close``). Each worker is an event-driven loop of the
+timeline's watchdog (``poolworker.<pool>``, its replies the counter),
+registered while it lives (``:578-595``). Left out: ``chaos_kill_one``
+(``:739-750``), item 18b.3; the tests kill a worker's process themselves
+(``pids()``).
 
 The planner is pure Python, so threads give it no parallel work; a
 worker process a pool does. Each worker holds its pool's replica store,
@@ -80,6 +82,7 @@ from nos_tpu_torch.partitioning.core.snapcodec import (
     encode_frame,
     node_refusals,
 )
+from nos_tpu_torch.timeline.watchdog import WATCHDOG
 
 log = logging.getLogger("nos_tpu_torch.partitioner")
 
@@ -462,6 +465,7 @@ class _Worker:
         self.ready_seconds: Optional[float] = None  # start to first ready reply
         self.torch_loaded: Optional[bool] = None
         self.bytes = 0  # frame bytes both ways
+        self.replies = 0  # the watchdog's counter of the worker
         # node → its partitioning in the worker's base, as last planned
         self.mirror: Optional[Dict[str, object]] = None
         # pending key → (the pod object, its doc) as last sent; the
@@ -553,12 +557,15 @@ class PoolWorkerPool:
         if worker is not None:
             worker.kill()
             self._dropped_bytes += worker.bytes
+        WATCHDOG.unregister(f"poolworker.{pool}")
         self.restarts += 1
         log.warning("procpool[%s]: dropping the worker of pool %s: %s", self.kind, pool, reason)
 
     def _spawn(self, pool: str) -> None:
-        self._workers[pool] = _Worker(self._ctx, pool, self.kind)
+        worker = self._workers[pool] = _Worker(self._ctx, pool, self.kind)
         self.spawned += 1
+        WATCHDOG.register(f"poolworker.{pool}", periodic=False,
+                          counter_fn=lambda: worker.replies)
 
     def pools(self) -> Set[str]:
         return set(self._workers)
@@ -609,6 +616,7 @@ class PoolWorkerPool:
             worker.torch_loaded = bool(reply.get("torch_loaded"))
             self.ready.append((worker.ready_seconds, worker.torch_loaded))
         worker.bootstrapped = True
+        worker.replies += 1
 
     def plan_cycle(self, requests: Dict[str, dict]) -> Dict[str, object]:
         """pool → the worker's plan reply, or a WorkerUnavailable."""
@@ -641,6 +649,8 @@ class PoolWorkerPool:
                 self._drop(pool, reason)
                 results[pool] = WorkerUnavailable(pool, reason)
                 continue
+            worker.replies += 1
+            WATCHDOG.beat(f"poolworker.{pool}")
             results[pool] = reply
         return results
 
@@ -735,6 +745,7 @@ class PoolWorkerPool:
         if reply.get("op") != "entries":
             self._drop(pool, "export gave no entries")
             return None
+        worker.replies += 1
         return reply.get("entries", {}), reply.get("signatures", {})
 
     def export_warm_state(self) -> tuple:
@@ -751,10 +762,11 @@ class PoolWorkerPool:
 
     def close(self) -> None:
         """Stop every worker."""
-        for worker in self._workers.values():
+        for pool, worker in self._workers.items():
             try:
                 worker.send({"op": "stop"})
             except (OSError, ValueError):
                 pass
             worker.kill()
+            WATCHDOG.unregister(f"poolworker.{pool}")
         self._workers = {}

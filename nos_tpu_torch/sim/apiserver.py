@@ -13,7 +13,7 @@ with an idle BOOKMARK every half second. ``compact(revision)`` drops the
 event log up to a revision, after which a watch from an older version
 gets 410 Gone, as an API server answers once etcd has compacted it.
 ``inject`` and ``read`` let a test write and read wire objects as an
-outside client. The reference's chaos fault gate waits for item 18b.
+outside client. The reference's chaos fault gate waits for item 18b.3.
 """
 from __future__ import annotations
 

@@ -22,9 +22,9 @@ the report's latencies are then still virtual.
 Model skew: each ``ModelProfile`` owns a share of the arrival stream,
 and each model name maps to its own engine (a replica per model).
 
-The reference also registers each drive with its sampling profiler
-(``nos_tpu.util.profiling.PROFILER``), a control-plane tool the port
-does not carry; the ``serve.drive`` span is kept.
+Each drive's loop is a registered target of the stack profiler
+(``serve-<model>``, ``/debug/profile``), its samples attributed to the
+engine's spans under ``serve.drive``.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Optional, Sequence
 from nos_tpu_torch.serve.engine import Engine, GenRequest
 from nos_tpu_torch.serve.telemetry import RequestRecord, VirtualServeClock
 from nos_tpu_torch.slo.engine import SLOEngine
+from nos_tpu_torch.util.profiling import PROFILER
 from nos_tpu_torch.util.tracing import TRACER
 
 
@@ -181,7 +182,8 @@ class OpenLoopDriver:
         clock = telemetry.clock
         done_before = set(telemetry.completed)
         i = 0
-        with TRACER.span("serve.drive", model=model, arrivals=len(arrivals)):
+        with PROFILER.registered(f"serve-{model}"), \
+                TRACER.span("serve.drive", model=model, arrivals=len(arrivals)):
             while i < len(arrivals) or engine.busy:
                 while i < len(arrivals) and arrivals[i].t <= clock.now():
                     a = arrivals[i]

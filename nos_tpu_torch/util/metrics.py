@@ -1,28 +1,44 @@
-"""Prometheus-text metrics registry: the port's own trimmed copy.
+"""Prometheus-text metrics registry: the port's own copy of
+``nos_tpu/util/metrics.py``.
 
-Keeps what the serving engine and its telemetry use from
-``nos_tpu/util/metrics.py``: counters, gauges and histograms as label
-families (``counter.labels(model="m")`` returns a child series), a
-get-or-create registry with text exposition, the ``SERVE_*`` families,
-the MIG agent's instance counters, the planner's plan, mode, verdict-cache,
-carve-futility and snapshot counters, the pool-sharded planner's pool
-count, pool durations, merge conflicts, backends and warm boots
-(``nos_tpu/util/metrics.py:743-790``), the divergence replans, the drain
-reservations and the preemptions, the autoscaler's replicas, decisions
-and cold starts, the capacity ledger's GB-seconds and gang waits, and
-the forecaster's ETAs, accuracy, unsafe backfills and runs
-(``:928-1078``), and the kube substrate's series (the watch queues'
-depth and drain lag, the store lock's contention, the loops' busy
-fraction, the informers' reconnects, the leader transitions);
-``remove(**labels)`` drops a child series and ``snapshot()`` reads
-every series at once. The
-reference's cardinality governor, percentile windows and incremental
-snapshot cursors serve its control plane and are left out.
+Counters, gauges and histograms are label families:
+``counter.labels(model="m")`` returns a child series, rendered as
+``name{model="m"}``; label values are escaped as the text exposition
+format asks. Beside the families (under the reference's ``nos_tpu_``
+names, so equal emissions render to equal bytes), the registry keeps the
+reference's three fleet-size mechanisms, all off by default:
+
+- **the cardinality governor**: ``apply_series_budgets`` gives a family a
+  series budget. Once it holds ``budget`` exact children, a new label set
+  folds into one ``_other`` child of its label keys and counts once, by
+  family, in ``nos_tpu_metric_series_dropped_total``. Admission depends
+  only on which label sets already exist, so the same emissions fold the
+  same way, and the overflow child keeps every refused increment.
+  ``restore_series_budgets`` puts the previous budgets back;
+  ``series_report`` gives each family's exact, overflow and dropped
+  counts.
+- **child delete**: ``remove(**labels)`` drops a child series (a deleted
+  object's series leave the exposition); ``LABEL_RESET_PATHS`` names the
+  code that removes each per-object family.
+- **the incremental snapshot**: ``cursor()`` returns a ``SnapshotCursor``
+  whose ``collect()`` gives the series touched, and the keys removed,
+  since its last call (the timeline's sample cost follows the changes).
+
+``snapshot()`` reads every touched series at once (a histogram as
+``_count``, ``_sum`` and, once observed, ``_p50`` / ``_p95`` / ``_p99``
+over its last ``WINDOW`` observations): ``/debug/vars``. The families
+of the capacity ledger's gauges, fragmentation, quota and chaos wait
+for their emitters (ROADMAP.md, items 18b.2-18b.3).
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Tuple
+from collections import deque
+from typing import Dict, List, Optional, Set, Tuple
+
+# the label value every refused series folds into; a Kubernetes name
+# cannot start with "_", so it names no object
+OTHER_LABEL = "_other"
 
 
 def escape_label_value(value: str) -> str:
@@ -39,41 +55,103 @@ def render_labels(labels: Dict[str, str]) -> str:
     return "{" + inner + "}"
 
 
+def _admit_child(family, label_values: Dict[str, str]):
+    """``labels()``: the child of this label set, created on first use;
+    at the family's budget a new label set gets the ``_other`` child of
+    its label keys instead."""
+    if family._label_values:
+        raise ValueError(f"{family.name}: labels() on an already-labeled child")
+    key = tuple(sorted((k, str(v)) for k, v in label_values.items()))
+    dropped_new = False
+    with family._lock:
+        child = family._children.get(key)
+        if child is None:
+            budget = family._budget
+            exact = len(family._children) - family._overflow_children
+            if budget is not None and exact >= budget:
+                refused = hash(key)
+                if refused not in family._dropped_hashes:
+                    family._dropped_hashes.add(refused)
+                    dropped_new = True
+                okey = tuple((k, OTHER_LABEL) for k, _ in key)
+                child = family._children.get(okey)
+                if child is None:
+                    child = family._new_child({k: OTHER_LABEL for k, _ in key})
+                    child._is_overflow = True
+                    family._children[okey] = child
+                    family._overflow_children += 1
+                    family._children_sorted = None
+            else:
+                child = family._new_child({k: str(v) for k, v in label_values.items()})
+                family._children[key] = child
+                family._children_sorted = None
+    if dropped_new and family._on_drop is not None:
+        family._on_drop(family.name)
+    return child
+
+
 class _Family:
-    """Label-family plumbing shared by every metric type: a parent holds
-    children keyed by their sorted label items."""
+    """What every metric type shares: a parent holds its children keyed
+    by their sorted label items, the governor's state and the registry's
+    hooks (``_mark`` feeds the cursors' dirty set and is set only while a
+    cursor exists; ``_mark_removed`` tells them of a removal; ``_on_drop``
+    counts a refusal)."""
 
     def __init__(self, name: str, help_text: str, label_values=None) -> None:
         self.name = name
         self.help = help_text
         self._lock = threading.Lock()
         self._label_values: Dict[str, str] = dict(label_values or {})
+        self._label_suffix = render_labels(self._label_values)
         self._children: Dict[Tuple, "_Family"] = {}
+        self._children_sorted: Optional[list] = None
+        self._touched = False
+        self._budget: Optional[int] = None
+        self._overflow_children = 0
+        self._dropped_hashes: Set[int] = set()
+        self._is_overflow = False
+        self._mark = None
+        self._mark_removed = None
+        self._on_drop = None
 
-    def _new_child(self, label_values: Dict[str, str]) -> "_Family":
+    def _make_child(self, label_values: Dict[str, str]) -> "_Family":
         raise NotImplementedError
 
-    def labels(self, **label_values: str):
-        """Child series for this label set (created on first use)."""
-        if self._label_values:
-            raise ValueError(f"{self.name}: labels() on an already-labeled child")
-        key = tuple(sorted((k, str(v)) for k, v in label_values.items()))
-        with self._lock:
-            child = self._children.get(key)
-            if child is None:
-                child = self._new_child({k: str(v) for k, v in label_values.items()})
-                self._children[key] = child
-            return child
+    def _new_child(self, label_values: Dict[str, str]) -> "_Family":
+        child = self._make_child(label_values)
+        child._mark = self._mark
+        return child
 
-    def remove(self, **label_values: str) -> None:
-        """Drop the child series of this label set (a no-op when absent)."""
+    def labels(self, **label_values: str):
+        """The child series of this label set (see ``OTHER_LABEL``)."""
+        return _admit_child(self, label_values)
+
+    def remove(self, **label_values: str) -> bool:
+        """Drop the child series of this label set; False when absent. Its
+        slot counts against the budget again; the dropped count stays."""
         key = tuple(sorted((k, str(v)) for k, v in label_values.items()))
         with self._lock:
-            self._children.pop(key, None)
+            child = self._children.pop(key, None)
+            if child is None:
+                return False
+            if child._is_overflow:
+                self._overflow_children -= 1
+            self._children_sorted = None
+        if self._mark_removed is not None:
+            self._mark_removed(child)
+        return True
 
     def _sorted_children(self):
         with self._lock:
-            return [child for _, child in sorted(self._children.items())]
+            if self._children_sorted is None:
+                self._children_sorted = [child for _, child in sorted(self._children.items())]
+            return self._children_sorted
+
+    def snapshot_into(self, out: Dict[str, float]) -> None:
+        self.snapshot_self_into(out)
+        if self._children:
+            for child in self._sorted_children():
+                child.snapshot_into(out)
 
 
 class Counter(_Family):
@@ -82,26 +160,51 @@ class Counter(_Family):
     def __init__(self, name: str, help_text: str, label_values=None) -> None:
         super().__init__(name, help_text, label_values)
         self._value = 0.0
+        self._snapshot_key = f"{name}{self._label_suffix}"
 
-    def _new_child(self, label_values):
+    def _make_child(self, label_values):
         return type(self)(self.name, self.help, label_values)
+
+    def _removed_snapshot_keys(self) -> Tuple[str, ...]:
+        return (self._snapshot_key,)
 
     def inc(self, amount: float = 1.0) -> None:
         with self._lock:
             self._value += amount
+            self._touched = True
+        if self._mark is not None:
+            self._mark(self)
 
     @property
     def value(self) -> float:
         with self._lock:
             return self._value
 
+    @property
+    def total(self) -> float:
+        """Its own value and every child's."""
+        with self._lock:
+            children = list(self._children.values())
+            own = self._value
+        return own + sum(c.value for c in children)
+
     def render(self) -> str:
         lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.TYPE}"]
-        for series in [self] + self._sorted_children():
-            lines.append(
-                f"{series.name}{render_labels(series._label_values)} {series.value}"
-            )
+        with self._lock:
+            # the bare parent once touched, or when it has no children
+            if self._touched or not self._children:
+                lines.append(f"{self.name}{self._label_suffix} {self._value}")
+        for child in self._sorted_children():
+            with child._lock:
+                lines.append(f"{child.name}{child._label_suffix} {child._value}")
         return "\n".join(lines) + "\n"
+
+    def snapshot_self_into(self, out: Dict[str, float]) -> None:
+        """This series alone, once touched."""
+        with self._lock:
+            touched, value = self._touched, self._value
+        if touched:
+            out[self._snapshot_key] = value
 
 
 class Gauge(Counter):
@@ -110,10 +213,16 @@ class Gauge(Counter):
     def set(self, value: float) -> None:
         with self._lock:
             self._value = float(value)
+            self._touched = True
+        if self._mark is not None:
+            self._mark(self)
 
 
 class Histogram(_Family):
     DEFAULT_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+    # percentiles read the last WINDOW observations; counts, sums and
+    # buckets stay exact
+    WINDOW = 1024
 
     def __init__(self, name: str, help_text: str,
                  buckets: Tuple[float, ...] = DEFAULT_BUCKETS,
@@ -123,56 +232,150 @@ class Histogram(_Family):
         self._counts = [0] * (len(self.buckets) + 1)
         self._sum = 0.0
         self._count = 0
+        self._recent: deque = deque(maxlen=self.WINDOW)
+        self._ordered: Optional[list] = None  # the sorted window, rebuilt lazily
+        self._snapshot_keys = tuple(f"{name}_{part}{self._label_suffix}"
+                                    for part in ("count", "sum", "p50", "p95", "p99"))
 
-    def _new_child(self, label_values):
+    def _make_child(self, label_values):
         return Histogram(self.name, self.help, self.buckets, label_values)
+
+    def _removed_snapshot_keys(self) -> Tuple[str, ...]:
+        return self._snapshot_keys
 
     def observe(self, value: float) -> None:
         with self._lock:
+            self._touched = True
             self._sum += value
             self._count += 1
+            self._recent.append(value)
+            self._ordered = None
             for i, bound in enumerate(self.buckets):
                 if value <= bound:
                     self._counts[i] += 1
                     break
             else:
                 self._counts[-1] += 1
+        if self._mark is not None:
+            self._mark(self)
 
     @property
     def count(self) -> int:
         with self._lock:
             return self._count
 
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def percentile(self, p: float) -> Optional[float]:
+        with self._lock:
+            if not self._recent:
+                return None
+            if self._ordered is None:
+                self._ordered = sorted(self._recent)
+            ordered = self._ordered
+            return ordered[min(len(ordered) - 1, int(p / 100.0 * len(ordered)))]
+
     def _sample_lines(self) -> list:
         with self._lock:
+            if not (self._touched or not self._children):
+                return []
             base = dict(self._label_values)
             lines = []
             cumulative = 0
             for bound, count in zip(self.buckets, self._counts):
                 cumulative += count
-                lines.append(
-                    f"{self.name}_bucket{render_labels({**base, 'le': str(bound)})} "
-                    f"{cumulative}"
-                )
+                lines.append(f"{self.name}_bucket{render_labels({**base, 'le': str(bound)})} "
+                             f"{cumulative}")
             cumulative += self._counts[-1]
-            lines.append(
-                f"{self.name}_bucket{render_labels({**base, 'le': '+Inf'})} {cumulative}"
-            )
-            lines.append(f"{self.name}_sum{render_labels(base)} {self._sum}")
-            lines.append(f"{self.name}_count{render_labels(base)} {self._count}")
+            lines.append(f"{self.name}_bucket{render_labels({**base, 'le': '+Inf'})} "
+                         f"{cumulative}")
+            lines.append(f"{self.name}_sum{self._label_suffix} {self._sum}")
+            lines.append(f"{self.name}_count{self._label_suffix} {self._count}")
             return lines
 
     def render(self) -> str:
         lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
-        for series in [self] + self._sorted_children():
-            lines.extend(series._sample_lines())
+        lines.extend(self._sample_lines())
+        for child in self._sorted_children():
+            lines.extend(child._sample_lines())
         return "\n".join(lines) + "\n"
+
+    def snapshot_self_into(self, out: Dict[str, float]) -> None:
+        """Count and sum always (an empty histogram's zeros are part of the
+        exposition), the percentiles once observed."""
+        key_count, key_sum, key_p50, key_p95, key_p99 = self._snapshot_keys
+        with self._lock:
+            out[key_count] = self._count
+            out[key_sum] = self._sum
+            if self._recent:
+                if self._ordered is None:
+                    self._ordered = sorted(self._recent)
+                ordered = self._ordered
+                last = len(ordered) - 1
+                for p, key in ((50, key_p50), (95, key_p95), (99, key_p99)):
+                    out[key] = ordered[min(last, int(p / 100.0 * len(ordered)))]
+
+
+class SnapshotCursor:
+    """``collect()`` gives ``(changed, removed_keys)`` since its last call;
+    the first call gives the whole snapshot. A series updates its value
+    before it marks itself dirty, and a drain swaps the dirty set before
+    it reads, so no update is lost (one may come twice)."""
+
+    def __init__(self, registry: "MetricsRegistry") -> None:
+        self._registry = registry
+        self._lock = threading.Lock()
+        self._pending: Set[object] = set()
+        self._removed: Set[str] = set()
+        self._primed = False
+
+    def collect(self) -> Tuple[Dict[str, float], List[str]]:
+        reg = self._registry
+        if not self._primed:
+            with self._lock:
+                self._primed = True
+                self._pending.clear()
+                self._removed.clear()
+            return reg.snapshot(), []
+        reg._drain_dirty()
+        with self._lock:
+            pending, self._pending = self._pending, set()
+            removed = sorted(self._removed)
+            self._removed.clear()
+        out: Dict[str, float] = {}
+        for series in pending:
+            series.snapshot_self_into(out)
+        for key in removed:  # changed and removed in one window: removed
+            out.pop(key, None)
+        return out, removed
+
+    def close(self) -> None:
+        """Stop collecting deltas."""
+        reg = self._registry
+        with reg._dirty_lock:
+            if self in reg._cursors:
+                reg._cursors.remove(self)
+
+
+METRIC_SERIES_DROPPED_NAME = "nos_tpu_metric_series_dropped_total"
 
 
 class MetricsRegistry:
     def __init__(self) -> None:
         self._metrics: Dict[str, object] = {}
         self._lock = threading.Lock()
+        # the series touched since the last drain, for the cursors;
+        # _marking stays False until the first cursor attaches
+        self._dirty: Set[object] = set()
+        self._dirty_lock = threading.Lock()
+        self._cursors: List[SnapshotCursor] = []
+        self._marking = False
+        # budgets of families not created yet
+        self._pending_budgets: Dict[str, Optional[int]] = {}
+        self._default_budget: Optional[int] = None
 
     def counter(self, name: str, help_text: str = "") -> Counter:
         return self._get_or_create(name, lambda: Counter(name, help_text))
@@ -187,28 +390,124 @@ class MetricsRegistry:
     def _get_or_create(self, name: str, factory):
         with self._lock:
             if name not in self._metrics:
-                self._metrics[name] = factory()
+                metric = factory()
+                metric._mark_removed = self._mark_removed
+                metric._on_drop = self._note_dropped
+                if name != METRIC_SERIES_DROPPED_NAME:
+                    metric._budget = self._pending_budgets.get(name, self._default_budget)
+                if self._marking:
+                    metric._mark = self._mark_dirty
+                self._metrics[name] = metric
             return self._metrics[name]
+
+    # ------------------------------------------------ incremental snapshot
+
+    def _mark_dirty(self, series) -> None:
+        with self._dirty_lock:
+            self._dirty.add(series)
+
+    def _mark_removed(self, series) -> None:
+        keys = series._removed_snapshot_keys()
+        with self._dirty_lock:
+            self._dirty.discard(series)
+            for cursor in self._cursors:
+                with cursor._lock:
+                    cursor._removed.update(keys)
+
+    def _drain_dirty(self) -> None:
+        with self._dirty_lock:
+            if not self._dirty:
+                return
+            drained, self._dirty = self._dirty, set()
+            cursors = list(self._cursors)
+        for cursor in cursors:
+            with cursor._lock:
+                cursor._pending |= drained
+
+    def cursor(self) -> SnapshotCursor:
+        """A consumer of the deltas (each cursor sees every one); close it
+        when done."""
+        cursor = SnapshotCursor(self)
+        with self._lock:
+            metrics = list(self._metrics.values())
+        with self._dirty_lock:
+            self._cursors.append(cursor)
+            self._marking = True
+        for metric in metrics:
+            metric._mark = self._mark_dirty
+            with metric._lock:
+                children = list(metric._children.values())
+            for child in children:
+                child._mark = self._mark_dirty
+        return cursor
+
+    # ------------------------------------------------ cardinality governor
+
+    def _note_dropped(self, family: str) -> None:
+        self.counter(
+            METRIC_SERIES_DROPPED_NAME,
+            "Distinct label sets refused by a family's series budget and folded into its "
+            "_other child (by family)").labels(family=family).inc()
+
+    def apply_series_budgets(self, budgets: Optional[Dict[str, int]] = None,
+                             default: Optional[int] = None) -> dict:
+        """Set the families' series budgets (``default`` for every family
+        without one; None: unbudgeted). A budget gates new admissions
+        only. The previous state, for ``restore_series_budgets``."""
+        budgets = dict(budgets or {})
+        budgets.pop(METRIC_SERIES_DROPPED_NAME, None)
+        with self._lock:
+            metrics = dict(self._metrics)
+            prev = {"default": self._default_budget, "pending": dict(self._pending_budgets),
+                    "families": {name: metric._budget for name, metric in metrics.items()}}
+            self._default_budget = default
+            self._pending_budgets = dict(budgets)
+        for name, metric in metrics.items():
+            if name != METRIC_SERIES_DROPPED_NAME:
+                metric._budget = budgets.get(name, default)
+        return prev
+
+    def restore_series_budgets(self, prev: dict) -> None:
+        with self._lock:
+            metrics = dict(self._metrics)
+            self._default_budget = prev["default"]
+            self._pending_budgets = dict(prev["pending"])
+        for name, budget in prev["families"].items():
+            metric = metrics.get(name)
+            if metric is not None:
+                metric._budget = budget
+
+    def series_report(self) -> Dict[str, dict]:
+        """family → its exact and overflow children, the distinct label
+        sets it refused and its budget; families with children or a
+        budget only."""
+        with self._lock:
+            metrics = dict(self._metrics)
+        out: Dict[str, dict] = {}
+        for name in sorted(metrics):
+            metric = metrics[name]
+            with metric._lock:
+                total = len(metric._children)
+                overflow = metric._overflow_children
+                dropped = len(metric._dropped_hashes)
+                budget = metric._budget
+            if total or budget is not None:
+                out[name] = {"exact": total - overflow, "overflow": overflow,
+                             "dropped": dropped, "budget": budget}
+        return out
 
     def render(self) -> str:
         with self._lock:
-            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
-        return "".join(m.render() for m in metrics)
+            metrics = list(self._metrics.values())
+        return "".join(m.render() for m in sorted(metrics, key=lambda m: m.name))
 
     def snapshot(self) -> Dict[str, float]:
-        """Every series' value by its exposition key (a histogram's count
-        and sum under ``_count`` and ``_sum``)."""
+        """Every touched series by its exposition key."""
         with self._lock:
-            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
+            metrics = dict(self._metrics)
         out: Dict[str, float] = {}
-        for family in metrics:
-            for series in [family] + family._sorted_children():
-                labels = render_labels(series._label_values)
-                if isinstance(series, Histogram):
-                    out[f"{series.name}_count{labels}"] = float(series.count)
-                    out[f"{series.name}_sum{labels}"] = series._sum
-                else:
-                    out[f"{series.name}{labels}"] = series.value
+        for metric in metrics.values():
+            metric.snapshot_into(out)
         return out
 
 
@@ -487,3 +786,67 @@ WEBHOOK_DENIALS = REGISTRY.counter(
     "nos_tpu_webhook_denials_total",
     "AdmissionReview requests the validating webhooks denied",
 )
+
+# The observability plane (util/profiling.py, timeline/, the governor,
+# util/tracing.py's retention), under the reference's names and help
+# (``nos_tpu/util/metrics.py:1046-1055``, ``:1087-1108``, ``:1119``).
+PROFILER_SAMPLES = REGISTRY.counter(
+    "nos_tpu_profiler_samples_total",
+    "Stack samples captured from registered controller threads by the "
+    "sampling profiler",
+)
+PROFILER_OVERHEAD = REGISTRY.gauge(
+    "nos_tpu_profiler_overhead_fraction",
+    "Sampler duty cycle: time spent capturing stacks divided by wall "
+    "time enabled (the profiler's measured overhead budget)",
+)
+TIMELINE_SAMPLES = REGISTRY.counter(
+    "nos_tpu_timeline_samples_total",
+    "Samples appended to the timeline ring (one per sampler interval)",
+)
+TIMELINE_SERIES = REGISTRY.gauge(
+    "nos_tpu_timeline_series",
+    "Distinct series present in the most recent timeline sample",
+)
+TIMELINE_FINDINGS = REGISTRY.counter(
+    "nos_tpu_timeline_findings_total",
+    "New detector findings over the timeline ring "
+    "(by detector=stall|leak|regression, series); hysteresis means an "
+    "active finding counts once, not once per tick",
+)
+TIMELINE_SAMPLE_DURATION = REGISTRY.histogram(
+    "nos_tpu_timeline_sample_duration_seconds",
+    "Wall time one timeline sample (all collectors + ring append) costs "
+    "— the numerator of the <=2% sampling-overhead budget",
+    buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1),
+)
+METRIC_SERIES_DROPPED = REGISTRY.counter(
+    METRIC_SERIES_DROPPED_NAME,
+    "Distinct label sets refused by a family's series budget and folded "
+    "into its _other child (by family)",
+)
+TRACE_RETAINED = REGISTRY.counter(
+    "nos_tpu_trace_retained_total",
+    "Traces pinned into the tail-kept reservoir "
+    "(by verdict=error|unschedulable|slow)",
+)
+
+# Each family labeled by node, pool or model names the code that removes
+# a series when its object goes away, or says why it keeps it.
+LABEL_RESET_PATHS: Dict[str, str] = {
+    "nos_tpu_autoscaler_replicas":
+        "ModelServingReconciler removes a ModelServing's series when it is deleted",
+}
+LABEL_RESET_EXEMPT: Dict[str, str] = {
+    "nos_tpu_plan_pool_duration_seconds": (
+        "histogram of completed plan durations keyed by the operator's static pool set "
+        "(bounded by config, not by cluster objects); history must survive pool "
+        "reconfiguration for trend comparison"),
+    "nos_tpu_serve_goodput_requests_total": (
+        "monotonic per-model counters; deleting on model teardown would erase goodput "
+        "history mid-scrape and break rate(), bounded by the deployed-model set and "
+        "governable by a series budget"),
+    "nos_tpu_serve_goodput_tokens_total": (
+        "as nos_tpu_serve_goodput_requests_total: monotonic goodput history outlives the "
+        "model object by design"),
+}

@@ -10,6 +10,11 @@
   ``/readyz`` answers the ready check, and ``/debug/`` lists only the
   endpoints whose backend is wired.
 - ``/debug/explain`` returns the scheduler's latest diagnosis of a pod.
+- Each component runs the observability plane: ``/debug/timeline``
+  serves its health timeline (the watchdog's loops, the controllers'
+  workers among them), ``/debug/profile`` the running stack profiler;
+  both stop with the component, and a non-positive
+  ``timelineSampleSeconds`` is refused.
 - The MIG agent refuses to start without NVML, and without ``NODE_NAME``.
 - Leader election hands the scheduler over between two components on
   one API server: the second binds once the first stops. A component
@@ -141,7 +146,10 @@ def test_readyz_answers_the_ready_check():
         assert _get(port, "/healthz") == (200, "ok")
         ready.set()
         assert _get(port, "/readyz") == (200, "ok")
-        assert _get(port, "/debug/") == (200, '{\n  "endpoints": {}\n}')
+        # nothing wired: the two endpoints whose backends every process has
+        status, body = _get(port, "/debug/")
+        assert status == 200
+        assert sorted(json.loads(body)["endpoints"]) == ["/debug/traces", "/debug/vars"]
     finally:
         server.stop()
 
@@ -176,6 +184,46 @@ def test_debug_explain_returns_the_latest_diagnosis(tmp_path):
         assert diagnosis["nodes"]["mig-0"]["plugin"] == "NodeResourcesFit"
         assert _get(c.port, "/debug/explain?pod=team-a/other")[0] == 404
         assert _get(c.port, "/debug/explain")[0] == 400
+
+
+def test_a_component_serves_its_timeline_and_profile(tmp_path):
+    from nos_tpu_torch.timeline.watchdog import WATCHDOG
+    from nos_tpu_torch.util.profiling import PROFILER
+
+    with Running("scheduler", LOCAL, tmp_path) as c:
+        timeline = c.info["timeline"]
+        assert timeline.interval_seconds == 5.0
+        timeline.sample_once()  # driven here, not counted off the sampler's thread
+        status, body = _get(c.port, "/debug/timeline?window=600")
+        assert status == 200
+        doc = json.loads(body)
+        loops = {loop["name"]: loop["periodic"] for loop in doc["watchdog"]["loops"]}
+        assert loops["timeline-sampler"] is True and loops["scheduler-work"] is False
+        assert "loop.scheduler-work" in doc["rollups"] and doc["samples"] >= 1
+        status, body = _get(c.port, "/debug/profile")
+        profile = json.loads(body)
+        assert status == 200 and profile["enabled"]
+        assert {"scheduler-pump", "scheduler-work"} <= set(profile["threads"])
+        status, body = _get(c.port, "/debug/")
+        assert {"/debug/timeline", "/debug/profile", "/debug/traces", "/debug/vars",
+                "/debug/explain", "/debug/loops"} <= set(json.loads(body)["endpoints"])
+        assert _get(c.port, "/debug/timeline?format=jsonl")[1].startswith(
+            '{"base": ')
+    assert c.info["rc"] == 0
+    assert not PROFILER.enabled and timeline._cursor is None
+    assert "timeline-sampler" not in WATCHDOG.periodic_loops()
+
+
+def test_a_non_positive_timeline_interval_is_refused(tmp_path):
+    from nos_tpu_torch.api.config import ConfigError
+    from nos_tpu_torch.cmd import operator
+
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps({"manager": {"healthProbeHost": "127.0.0.1",
+                                            "timelineSampleSeconds": 0}}))
+    with pytest.raises(ConfigError, match="timelineSampleSeconds"):
+        operator.main(["--config", str(path), "--health-port", "0"],
+                      stop_event=threading.Event())
 
 
 def test_the_mig_agent_refuses_without_nvml_or_a_node(tmp_path, monkeypatch, capsys):

@@ -15,7 +15,9 @@
   controllers, the planner core, SimCluster and its sim/ stand-ins, the
   resource math, the loop health, the watch predicates, the components
   of cmd/ with the package's __main__, the health server and the config
-  reader) imports no torch either (an AST scan).
+  reader, the health timeline, the profiler, the tracer, the obsplane
+  helpers and the store and observability benches) imports no torch
+  either (an AST scan).
 """
 import ast
 import os
@@ -113,6 +115,13 @@ def test_no_port_file_imports_jax_or_the_reference():
         "nos_tpu_torch/cmd/metricsexporter.py", "nos_tpu_torch/cmd/cluster.py",
         "nos_tpu_torch/cmd/run.py", "nos_tpu_torch/util/health.py",
         "nos_tpu_torch/util/documents.py", "nos_tpu_torch/kube/webhook.py",
+        "nos_tpu_torch/timeline/__init__.py", "nos_tpu_torch/timeline/sizes.py",
+        "nos_tpu_torch/timeline/watchdog.py", "nos_tpu_torch/timeline/detectors.py",
+        "nos_tpu_torch/timeline/store.py", "nos_tpu_torch/util/profiling.py",
+        "nos_tpu_torch/util/tracing.py", "nos_tpu_torch/obsplane/__init__.py",
+        "nos_tpu_torch/obsplane/streaming.py", "nos_tpu_torch/obsplane/governor.py",
+        "nos_tpu_torch/obsplane/apply.py", "nos_tpu_torch/bench_store.py",
+        "nos_tpu_torch/bench_observability.py",
     } <= names, names
     assert len(files) >= 16, files
     bad = [
@@ -128,7 +137,9 @@ CONTROL_PLANE = ("api", "kube", "scheduler", "controllers", "partitioning/core",
                  "partitioning/bench_planner.py", "device/sim.py", "device/sharing.py",
                  "util/metrics.py", "capacity", "forecast", "bench_autoscale.py",
                  "bench_forecast.py", "sim", "util/loop_health.py", "util/predicates.py",
-                 "cmd", "__main__.py", "util/health.py", "util/documents.py")
+                 "cmd", "__main__.py", "util/health.py", "util/documents.py", "timeline",
+                 "util/profiling.py", "util/tracing.py", "obsplane", "bench_store.py",
+                 "bench_observability.py")
 
 
 def test_control_plane_imports_no_torch():
@@ -160,7 +171,12 @@ def test_control_plane_imports_no_torch():
             "cmd/_component.py", "cmd/scheduler.py", "cmd/operator.py", "cmd/partitioner.py",
             "cmd/autoscaler.py", "cmd/migagent.py", "cmd/mpsagent.py",
             "cmd/metricsexporter.py", "cmd/cluster.py", "cmd/run.py", "__main__.py",
-            "util/health.py", "util/documents.py", "kube/webhook.py"} <= names
+            "util/health.py", "util/documents.py", "kube/webhook.py",
+            "timeline/__init__.py", "timeline/sizes.py", "timeline/watchdog.py",
+            "timeline/detectors.py", "timeline/store.py", "util/profiling.py",
+            "util/tracing.py", "obsplane/__init__.py", "obsplane/streaming.py",
+            "obsplane/governor.py", "obsplane/apply.py", "bench_store.py",
+            "bench_observability.py"} <= names
     bad = [f"{p.relative_to(ROOT)}: {mod}" for p in files for mod in _imports(p)
            if mod == "torch" or mod.startswith("torch.")]
     assert not bad, bad
@@ -198,6 +214,9 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.util.predicates, nos_tpu_torch.util.pod\n"
         "import nos_tpu_torch.cmd.cluster, nos_tpu_torch.cmd.run, nos_tpu_torch.__main__\n"
         "import nos_tpu_torch.cmd.metricsexporter, nos_tpu_torch.kube.webhook\n"
+        "import nos_tpu_torch.timeline, nos_tpu_torch.util.profiling, nos_tpu_torch.obsplane\n"
+        "import nos_tpu_torch.obsplane.apply, nos_tpu_torch.bench_store\n"
+        "import nos_tpu_torch.bench_observability\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'nos_tpu', 'transformers', 'grpc') or m.startswith('google.protobuf'))\n"
         "print(bad)\n"
