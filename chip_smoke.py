@@ -155,6 +155,20 @@ Phases, each fatal on failure (exit code != 0):
     SIGTERM; prints the wall s to all Running, reconciles by controller
     kind, plans applied, each process's start-to-healthy s and the bind
     after the handover;
+1j. observability: the observability plane (observability_phase): the
+    store and observability benches at reference() size, then the
+    threaded suite of 1i's nodes and COMPONENTS_MIX's 240 pods in its two
+    quotas, with the health timeline, the profiler, the flight recorder
+    and the auditor at rate 1: the debug endpoints gated, no finding
+    while healthy, a wedged worker's stall finding and HealthDegraded
+    event;
+1k. record: the flight recorder, the auditor and replay on 1j's log
+    (record_phase): every record kind the suite makes, the ring within
+    its capacity, no live audit violation, the components' events,
+    /debug/record 401 / 200 with as many JSONL lines as the ring; the
+    log replayed in process with 0 drift(s) and 0 audit violation(s)
+    (host seconds and the audits' share printed), and a copy with one
+    node's GPUs taken away replayed with drift and a nonzero exit code;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128,
    bf16), with CUDA-event times of the kernel, the plain version, one
@@ -5912,7 +5926,6 @@ def components_suite(card) -> dict:
 
     from nos_tpu_torch.api.config import AutoscalerConfig, GpuPartitionerConfig, SchedulerConfig
     from nos_tpu_torch.api.v1alpha1 import RESOURCE_GPU_MEMORY
-    from nos_tpu_torch.api.v1alpha1.elasticquota import ElasticQuota
     from nos_tpu_torch.cluster import SimCluster
     from nos_tpu_torch.cmd._component import health_server
     from nos_tpu_torch.cmd.cluster import build_cluster
@@ -5935,22 +5948,11 @@ def components_suite(card) -> dict:
     serving = {"name": "chat", "model": "chat", "sliceProfile": "3g.40gb",
                "minReplicas": 2, "maxReplicas": 2}
 
-    def gb(spec):
-        if "gpus" in spec:
-            return 80 * 16  # two whole nodes
-        # "7g.80gb" and "20gb" both end in their GB
-        return int(spec.get("mig", spec.get("mps", "")).rsplit(".", 1)[-1][:-2])
-
-    demand = {}
-    for spec in pods:
-        ns = spec.get("namespace", "default")
-        demand[ns] = demand.get(ns, 0) + gb(spec)
+    demand = mix_demand(pods)
     gpus = 8 * (COMPONENTS_MIG_NODES + COMPONENTS_MPS_NODES)
-    total_gb = sum(demand.values()) + 2 * gb({"mig": serving["sliceProfile"]})
+    total_gb = sum(demand.values()) + 2 * pod_gb({"mig": serving["sliceProfile"]})
+    quotas = mix_quotas(demand)
     mem = RESOURCE_GPU_MEMORY
-    quotas = [ElasticQuota("quota", "team-a", {mem: int(demand["team-a"] * 0.8)},
-                           {mem: int(demand["team-a"] * 1.2)}),
-              ElasticQuota("quota", "team-b", {mem: int(demand["team-b"] * 1.5)})]
     row = {"nodes": len(nodes), "gpus": gpus, "pods": len(pods),
            "demand_gb": demand, "fleet_share": total_gb / (80 * gpus)}
 
@@ -6313,7 +6315,7 @@ OBS_WEDGED = "sim-kubelet"    # the controller whose worker the phase wedges
 OBS_TOKEN = "observability-smoke"
 
 
-def observability_phase(card) -> dict:
+def observability_phase(card, recording=None) -> dict:
     """The observability plane (item 18b.1) on the card's host:
     bench_observability at reference() size (1,000 nodes x 10,000 pods;
     every *_within_budget true and two governed builds byte-identical),
@@ -6329,7 +6331,12 @@ def observability_phase(card) -> dict:
     event, a stall finding on loop.<OBS_WEDGED>-work (with the profiler's
     stacks of that thread) and a HealthDegraded event about
     default/nos-health-timeline within OBS_STALL_SAMPLES samples; the
-    worker released, it reconciles again."""
+    worker released, it reconciles again. The suite carries the flight
+    recorder (RECORD_CAPACITY records, attached before the first node),
+    the auditor at rate 1 and COMPONENTS_MIX's two quotas (team-a
+    borrowing); once the checks hold, record_capture stops the suite,
+    scrapes /debug/record and exports the log into ``recording`` for
+    record_phase."""
     import json as _json
     import random
     import shutil
@@ -6340,6 +6347,7 @@ def observability_phase(card) -> dict:
 
     from nos_tpu_torch import bench_observability, bench_store
     from nos_tpu_torch.api.config import GpuPartitionerConfig, SchedulerConfig
+    from nos_tpu_torch.record import FlightRecorder
     from nos_tpu_torch.api.v1alpha1.constants import EVENT_REASON_HEALTH_DEGRADED
     from nos_tpu_torch.cmd._component import build_timeline, health_server
     from nos_tpu_torch.cmd.cluster import build_cluster
@@ -6378,10 +6386,14 @@ def observability_phase(card) -> dict:
     pods = [{"name": f"{kind}-{what.replace('.', '-')}-{i}", "namespace": ns, kind: what}
             for ns, kind, what, n in COMPONENTS_MIX for i in range(n)]
     rng.shuffle(pods)
+    flight = FlightRecorder(capacity=RECORD_CAPACITY)
     cluster = build_cluster(
         partitioner_config=GpuPartitionerConfig(batch_window_timeout_seconds=1.0,
-                                                batch_window_idle_seconds=0.05),
-        scheduler_config=SchedulerConfig(retry_seconds=0.2))
+                                                batch_window_idle_seconds=0.05,
+                                                audit_sample_rate=1.0),
+        scheduler_config=SchedulerConfig(retry_seconds=0.2), flight_recorder=flight)
+    # before the first node: every creation is replay's input
+    flight.attach(cluster.store)
     wedged = next(c for c in cluster.manager.controllers if c.name == OBS_WEDGED)
     reconcile, release, parked = wedged.reconciler, threading.Event(), threading.Event()
 
@@ -6392,10 +6404,11 @@ def observability_phase(card) -> dict:
         return reconcile(req)
 
     wedged.reconciler = wedging
-    timeline = build_timeline(config, cluster.store, "nos-health-timeline")
+    timeline = build_timeline(config, cluster.store, "nos-health-timeline", flight=flight)
     # an event-driven loop is stall-checked only where a policy arms it
     timeline.policy.stall_series = (f"loop.{OBS_WEDGED}-work",)
-    health = health_server(config, 0, cluster.scheduler, cluster.store, timeline)
+    health = health_server(config, 0, cluster.scheduler, cluster.store, timeline,
+                           record_fn=flight.records)
     port = health.start()
 
     def get(path, token=None):
@@ -6416,6 +6429,8 @@ def observability_phase(card) -> dict:
     try:
         for spec in nodes:
             cluster.add_node(seed_node(spec))
+        for quota in mix_quotas(mix_demand(pods)):
+            cluster.store.create(quota)
         cluster.start()
         t1 = time.perf_counter()
         for spec in pods:
@@ -6506,10 +6521,13 @@ def observability_phase(card) -> dict:
                                               "message": event[1].message,
                                               "type": event[1].type}},
                    timeline_samples=timeline.samples)
+        if recording is not None:
+            recording.update(record_capture(flight, cluster, timeline, get))
     finally:
         release.set()
         timeline.stop()
         cluster.stop()
+        flight.detach()
         PROFILER.stop()
         health.stop()
         timeline.close()
@@ -6519,6 +6537,159 @@ def observability_phase(card) -> dict:
     emit(row)
     if not row["ok"]:
         raise SystemExit(f"observability failed: {checks}")
+    return row
+
+
+RECORD_CAPACITY = 200_000    # the flight ring of the observability suite: its whole run
+RECORD_SHRUNK_NODE = "mig-00"  # the node whose GPUs the perturbed replay takes away
+RECORD_KINDS = ("scheduler.cycle", "planner.plan", "actuation", "quota.reconcile",
+                "capacity.observe", "timeline.finding")
+
+
+def pod_gb(spec) -> int:
+    """A ``pods:`` entry's GB: a plain GPU job is two whole nodes; "7g.80gb"
+    and "20gb" both end in their GB."""
+    if "gpus" in spec:
+        return 80 * 16
+    return int(spec.get("mig", spec.get("mps", "")).rsplit(".", 1)[-1][:-2])
+
+
+def mix_demand(pods) -> dict:
+    """Namespace → the GB its ``pods:`` entries ask."""
+    demand = {}
+    for spec in pods:
+        ns = spec.get("namespace", "default")
+        demand[ns] = demand.get(ns, 0) + pod_gb(spec)
+    return demand
+
+
+def mix_quotas(demand) -> list:
+    """COMPONENTS_MIX's two quotas over a ``mix_demand`` (in GB of
+    nos.nebuly.com/gpu-memory): team-a's min below its demand (it borrows
+    team-b's unused guarantee)."""
+    from nos_tpu_torch.api.v1alpha1 import RESOURCE_GPU_MEMORY
+    from nos_tpu_torch.api.v1alpha1.elasticquota import ElasticQuota
+
+    mem = RESOURCE_GPU_MEMORY
+    return [ElasticQuota("quota", "team-a", {mem: int(demand["team-a"] * 0.8)},
+                         {mem: int(demand["team-a"] * 1.2)}),
+            ElasticQuota("quota", "team-b", {mem: int(demand["team-b"] * 1.5)})]
+
+
+def record_capture(flight, cluster, timeline, get) -> dict:
+    """The observability suite stopped, the ring final: /debug/record
+    without and with the bearer token (JSONL lines against the ring), the
+    log exported to a temp file, the live auditor's and the store's
+    figures. record_phase checks them."""
+    import collections
+    import tempfile
+
+    timeline.stop()
+    cluster.stop()
+    flight.detach()
+    ring = flight.records()
+    closed = get("/debug/record")[0]
+    status, body = get("/debug/record?format=jsonl", OBS_TOKEN)
+    out_dir = tempfile.mkdtemp(prefix="nos-record-")
+    path = os.path.join(out_dir, "record.jsonl")
+    t0 = time.perf_counter()
+    exported = flight.export_jsonl(path)
+    auditor = cluster.partitioner.auditor
+    return {"path": path, "dir": out_dir, "export_s": time.perf_counter() - t0,
+            "exported": exported, "ring": len(ring), "capacity": flight.capacity,
+            "session_kept": bool(ring) and ring[0]["kind"] == "session.start",
+            "kinds": dict(collections.Counter(r["kind"] for r in ring)),
+            "debug_record": {"without_token": closed, "with_token": status,
+                             "jsonl_lines": len([line for line in body.splitlines() if line])},
+            "audits": auditor.audits_run, "checks_skipped": dict(auditor.checks_skipped),
+            "live_violations": auditor.violations_total,
+            "event_reasons": dict(collections.Counter(
+                e.reason for e in cluster.store.list("Event", copy=False))),
+            "pods": len(cluster.pods())}
+
+
+def record_phase(card, recording: dict) -> dict:
+    """The flight recorder, the auditor and replay (item 18b.2) on the
+    observability suite's log: every record kind the suite makes
+    (RECORD_KINDS), the ring within its capacity with its session header
+    kept, no live audit violation over plans audited at rate 1, the
+    components' Scheduled / FailedScheduling and QuotaBorrowed events in
+    the store, /debug/record 401 without the token and 200 with it, as
+    many JSONL lines as the ring; then the export replayed in process
+    with "0 drift(s), 0 audit violation(s)" (its host seconds and the
+    audits' share printed), and a copy with RECORD_SHRUNK_NODE's GPUs
+    taken from every delta replayed with drift and a nonzero exit code."""
+    import copy as _copy
+    import shutil
+
+    from nos_tpu_torch.record import ReplaySession, drift_exit_code, load_jsonl
+
+    t0 = time.time()
+    try:
+        kinds, reasons = recording["kinds"], recording["event_reasons"]
+        checks = {f"records_{kind.replace('.', '_')}": kinds.get(kind, 0) > 0
+                  for kind in RECORD_KINDS}
+        checks["ring_within_capacity"] = recording["ring"] <= recording["capacity"]
+        checks["ring_kept_its_session_header"] = recording["session_kept"]
+        checks["export_holds_the_ring"] = recording["exported"] == recording["ring"]
+        checks["live_audits_ran"] = recording["audits"] > 0
+        # at rate 1 every plan (one planner.plan record each) is audited
+        checks["every_plan_audited"] = recording["audits"] == kinds.get("planner.plan", 0)
+        checks["no_live_audit_violation"] = (recording["live_violations"] == 0
+                                             and kinds.get("audit", 0) == 0)
+        checks["scheduler_events"] = bool(reasons.get("Scheduled")
+                                          or reasons.get("FailedScheduling"))
+        checks["quota_borrowed_events"] = reasons.get("QuotaBorrowed", 0) > 0
+        debug = recording["debug_record"]
+        checks["debug_record_401_then_200"] = (debug["without_token"] == 401
+                                               and debug["with_token"] == 200)
+        checks["debug_record_jsonl_lines_equal_the_ring"] = (
+            debug["jsonl_lines"] == recording["ring"])
+        t1 = time.perf_counter()
+        records = load_jsonl(recording["path"])
+        load_s = time.perf_counter() - t1
+        report = ReplaySession(_copy.deepcopy(records)).run()
+        rendered = report.render()
+        checks["replay_zero_drift_zero_violations"] = (not report.drifts
+                                                       and not report.violations)
+        checks["replay_exit_code_0"] = drift_exit_code(report) == 0
+        shrunk = 0
+        for r in records:
+            obj = r.get("object") or {}
+            if (r["kind"] == "delta" and obj.get("kind") == "Node"
+                    and obj.get("name") == RECORD_SHRUNK_NODE):
+                for field in ("capacity", "allocatable"):
+                    obj[field] = {"cpu": 8, "memory": 128}
+                obj["annotations"] = {}
+                shrunk += 1
+        perturbed = ReplaySession(records).run()
+        checks["shrunk_node_in_the_log"] = shrunk > 0
+        checks["shrunk_replay_drifts"] = len(perturbed.drifts) >= 1
+        checks["shrunk_replay_exit_code_nonzero"] = drift_exit_code(perturbed) != 0
+        print(f"record: {rendered.splitlines()[0]}; replay {report.seconds:.3f} s on the "
+              f"host, {report.audit_seconds:.3f} s of it auditing", flush=True)
+        row = {"phase": "record", "kinds": kinds, "ring": recording["ring"],
+               "capacity": recording["capacity"], "pods": recording["pods"],
+               "audits_live": recording["audits"],
+               "audit_checks_skipped": recording["checks_skipped"], "event_reasons": reasons,
+               "debug_record": debug, "export_s": recording["export_s"], "load_s": load_s,
+               "replay": {"line": rendered.splitlines()[0], "cycles": report.cycles,
+                          "plans": report.plans, "capacity_observes": report.capacity_observes,
+                          "timeline_findings": report.timeline_findings,
+                          "skips": len(report.skips), "seconds": report.seconds,
+                          "audit_seconds": report.audit_seconds,
+                          "drift_examples": [d["detail"][:300] for d in report.drifts[:3]],
+                          "violation_examples": report.violations[:3]},
+               "shrunk": {"node": RECORD_SHRUNK_NODE, "deltas": shrunk,
+                          "drifts": len(perturbed.drifts), "seconds": perturbed.seconds,
+                          "exit_code": drift_exit_code(perturbed)},
+               "checks": checks, "ok": all(checks.values()), "seconds": time.time() - t0,
+               "card": card}
+    finally:
+        shutil.rmtree(recording.get("dir", ""), ignore_errors=True)
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit(f"record failed: {checks}")
     return row
 
 
@@ -6565,7 +6736,9 @@ def main() -> int:
     control_bench_phase(card)
     pools_phase(card)
     components_phase(card)
-    observability_phase(card)
+    recording: dict = {}
+    observability_phase(card, recording)
+    record_phase(card, recording)
 
     # ----------------------------------------------------------- kernels
     import nos_tpu_torch.ops.flash_attention as fa

@@ -5,8 +5,9 @@ The reference's binaries (SURVEY.md §2.1) in H100 terms: ``run`` starts
 the whole suite in one process; ``operator``, ``partitioner``,
 ``scheduler``, ``autoscaler``, ``migagent`` and ``mpsagent`` each run one
 component (``--config <file>``); ``export-metrics`` is the one-shot
-telemetry job; ``bench`` runs ``nos_tpu_torch/bench.py``. The
-reference's ``replay`` comes with item 18b.2, ``chaos`` with item 18b.3.
+telemetry job; ``replay`` re-runs a flight-recorder log
+(``cmd/replay.py``); ``bench`` runs ``nos_tpu_torch/bench.py``. The
+reference's ``chaos`` comes with item 18b.3.
 """
 import importlib
 import sys
@@ -20,11 +21,12 @@ COMMANDS = {
     "migagent": "a MIG node's reporter and actuator (NODE_NAME)",
     "mpsagent": "an MPS node's reporter (NODE_NAME)",
     "export-metrics": "the one-shot installation telemetry snapshot",
+    "replay": "re-run a flight-recorder log and diff its decisions",
     "bench": "the model and control-plane benchmark (nos_tpu_torch/bench.py)",
 }
 MODULES = {"run": "run", "operator": "operator", "partitioner": "partitioner",
            "scheduler": "scheduler", "autoscaler": "autoscaler", "migagent": "migagent",
-           "mpsagent": "mpsagent", "export-metrics": "metricsexporter"}
+           "mpsagent": "mpsagent", "export-metrics": "metricsexporter", "replay": "replay"}
 
 
 def main(argv=None) -> int:

@@ -21,10 +21,11 @@ nodes:
 
 What the port does not run is refused, never quietly ignored:
 ``forecast_enabled`` raises a ``ConfigError`` naming item 18b.3 (the
-forecaster's thread), an ``audit_sample_rate`` above 0 one naming item
-18b.2 (the auditor), and ``ObservabilityConfig.node_top_k`` above 0 one
+forecaster's thread), and ``ObservabilityConfig.node_top_k`` above 0 one
 naming item 18b.3 (the capacity ledger's per-node gauges); their other
-knobs are validated as the reference's. ``pool_parallelism`` keeps the
+knobs are validated as the reference's. ``audit_sample_rate`` (in [0,
+1], as the reference's) is the share of plans the invariant auditor
+audits (``record/audit.py``; 0 builds none). ``pool_parallelism`` keeps the
 reference's values; its ``thread`` mode plans serially (the port's
 deliberate difference: the planner is pure Python, and threads plan no
 faster). ``timeline_sample_seconds`` reads a component's
@@ -41,7 +42,6 @@ from nos_tpu_torch.api.v1alpha1.constants import SCHEDULER_NAME
 # the H100's GB: what a plain nvidia.com/gpu counts as in quotas
 H100_MEMORY_GB = 80
 DEVICE_PLUGIN_CONFIG_MAP = "nos-device-plugin-config"
-ITEM_18B2 = "item 18b.2 (the flight recorder and the auditor)"
 ITEM_18B3 = "item 18b.3 (the capacity ledger's rest and the forecaster's thread)"
 
 
@@ -72,7 +72,7 @@ class GpuPartitionerConfig:
     aging_per_second: float = 1.0
     # plan only for pods this scheduler binds; empty: every pod
     scheduler_name: str = SCHEDULER_NAME
-    # the auditor's shadow replans: item 18b.2; above 0 is refused
+    # the share of plans the invariant auditor audits (0: no auditor)
     audit_sample_rate: float = 0.0
     incremental_planning: bool = True
     incremental_dirty_threshold: float = 0.25
@@ -129,8 +129,6 @@ class GpuPartitionerConfig:
             raise ConfigError("forecast_small_pod_chips must be >= 1")
         if self.forecast_enabled:
             raise ConfigError(f"forecast_enabled: the forecaster's thread waits for {ITEM_18B3}")
-        if self.audit_sample_rate > 0:
-            raise ConfigError(f"audit_sample_rate > 0: the auditor waits for {ITEM_18B2}")
 
     @property
     def plan_backend(self) -> str:

@@ -36,10 +36,15 @@ Sizes (``ForecastSizes``): ``reference()`` the reference's four nodes
 and seed 5; ``card()`` 32 nodes x 8 H100s in the reference's node roles
 and ratio (16 gang nodes, 8 mixed, 8 spare, every GPU carved as its
 node's role says), the stream's counts and rate scaled by 64, run from
-this module. The report keeps the reference's keys but ``replay``, which
-waits for the flight recorder (ROADMAP.md, item 18b.2), and adds each
+this module. The report keeps the reference's keys and adds each
 cycle's ``run_once`` wall milliseconds (``wall_ms``, named so, the
-host's, out of ``virtual_digest``). The module imports no torch.
+host's, out of ``virtual_digest``). ``replay`` is the reference's: a
+``FlightRecorder`` attached to the store records the run (the ledger's
+and the forecaster's records among the deltas), and ``ReplaySession``
+re-feeds its forecast outcomes through a shadow calibration tracker:
+``records``, ``forecast_cycles``, ``forecast_outcomes``, ``drifts`` and
+``ok``, which the gate requires (``failures``). The ring holds the whole
+run (``RECORD_CAPACITY``). The module imports no torch.
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ from nos_tpu_torch.gpu.node import PARTITIONING_LABEL, PARTITIONING_MIG, RESOURC
 from nos_tpu_torch.kube.store import Node, NodeStore, Pod, PodPhase
 from nos_tpu_torch.partitioning.core import Planner
 from nos_tpu_torch.partitioning.mig import MigSnapshotTaker
+from nos_tpu_torch.record import FlightRecorder, ReplaySession
 from nos_tpu_torch.scheduler.plugins.gang import GANG_NAME_LABEL, GANG_SIZE_LABEL
 
 SEED = 5
@@ -78,6 +84,8 @@ SMALL_PROFILE = "2g.20gb"  # its 1x2
 ACCURACY_TARGET_P95_RATIO = 0.25
 # the stage counts of ``run_bench()`` (the reference's, translated): the
 # CPU tests and the smoke hold them
+# the flight recorder's ring: the whole card() run fits
+RECORD_CAPACITY = 1 << 20
 REFERENCE_STAGES = {"blocked": 76, "feasible-now": 77, "recarve": 63}
 SCHEDULER_NAME = "nos-scheduler"
 # a v5e 2x4 board's tilings (1x1 / 1x2 / 2x2 / 2x4 as 1g.10gb / 2g.20gb /
@@ -209,26 +217,32 @@ def build_workload(rng: random.Random, scale: int = 1) -> List[dict]:
     return sorted(jobs, key=lambda j: (j["arrival"], j["name"]))
 
 
-def run_bench(sizes: Optional[ForecastSizes] = None, seed: int = SEED) -> dict:
+def run_bench(sizes: Optional[ForecastSizes] = None, seed: int = SEED,
+              records: Optional[list] = None) -> dict:
+    """The report; a ``records`` list given receives the run's flight
+    records (the reference returns them beside the report)."""
     sizes = sizes or ForecastSizes.reference()
     saved = known_geometry_overrides()
     set_known_geometries({H100_80GB: [dict(g) for g in BOARD_GEOMETRIES]})
     try:
-        return _run(sizes, seed)
+        return _run(sizes, seed, records)
     finally:
         set_known_geometries(saved or None)
 
 
-def _run(sizes: ForecastSizes, seed: int) -> dict:
+def _run(sizes: ForecastSizes, seed: int, records_out: Optional[list]) -> dict:
     wall0 = time.perf_counter()
     store = NodeStore(clock=lambda: 0.0)
-    ledger = CapacityLedger(store, metrics=False)
+    recorder = FlightRecorder(capacity=RECORD_CAPACITY, clock=store.clock)
+    recorder.attach(store)
+    ledger = CapacityLedger(store, metrics=False, flight_recorder=recorder)
     roles = sizes.node_roles()
     nodes = {name: SimNode(store, name, sizes.gpus_per_node, ROLES[role])
              for name, role in roles.items()}
     spares = sorted(name for name, role in roles.items() if role == "spare")
     forecaster = PlacementForecaster(store, None, Planner(build_sim_framework(store)),
-                                     MigSnapshotTaker(), capacity_ledger=ledger)
+                                     MigSnapshotTaker(), capacity_ledger=ledger,
+                                     flight_recorder=recorder)
     # the control loop's plan of the same pending pods, timed beside the
     # forecast (its result is not used)
     plan_planner = Planner(build_sim_framework(store))
@@ -341,6 +355,11 @@ def _run(sizes: ForecastSizes, seed: int) -> dict:
         if not jobs and not queue:
             break
 
+    recorder.detach()
+    records = [json.loads(line) for line in recorder.to_jsonl().splitlines()]
+    replay = ReplaySession(records).run()
+    if records_out is not None:
+        records_out.extend(records)
     calibration = forecaster.calibration.payload()
     meets = (calibration["p95_ratio"] is not None
              and calibration["p95_ratio"] <= ACCURACY_TARGET_P95_RATIO)
@@ -359,6 +378,9 @@ def _run(sizes: ForecastSizes, seed: int) -> dict:
                     "example": advisor_example},
         "overhead": {"budget": 0.02, "within_budget": True,
                      "forecast_store_writes": forecast_store_writes},
+        "replay": {"records": len(records), "forecast_cycles": replay.forecast_cycles,
+                   "forecast_outcomes": replay.forecast_outcomes,
+                   "drifts": len(replay.drifts), "ok": replay.ok()},
         "sizes": asdict(sizes),
         "wall_ms": {"run_once_p50": _p(run_sorted, 50), "run_once_p95": _p(run_sorted, 95),
                     "plan_p50": _p(plan_sorted, 50), "plan_p95": _p(plan_sorted, 95),
@@ -388,6 +410,8 @@ def failures(report: dict) -> List[str]:
         out.append("no advisor recommendation validated by shadow sim")
     if report["overhead"]["forecast_store_writes"] != 0:
         out.append("forecaster wrote to the store")
+    if not report["replay"]["ok"]:
+        out.append("replay drift")
     return out
 
 

@@ -41,10 +41,14 @@ The frozen edges measure the re-carve latency (``mean_reconfig_seconds``).
 ``self_check`` diffs the incremental state against ``state_from_store``.
 
 Polled, with no thread: whoever drives the loop observes on its clock
-(``SimCluster`` on its virtual one). Left for item 18b.3 (ROADMAP.md):
-the fragmentation indices, the per-node and per-pool gauges, the
-heartbeat and the debug documents; the flight-recorder records wait for
-item 18b.2.
+(``SimCluster`` on its virtual one). With a flight recorder each
+observation writes a ``capacity.observe`` record (the reference's
+``:409-461``): its watermark, its time, the pending label it chose and
+the totals, which replay re-integrates from the recorded deltas and
+compares bit for bit (``record/replay.py``); ``observe(reason=...,
+record=False)`` is replay's. Left for item 18b.3 (ROADMAP.md): the
+fragmentation indices, the per-node and per-pool gauges, the heartbeat
+and the debug documents.
 """
 from __future__ import annotations
 
@@ -83,6 +87,8 @@ WATCH_KINDS = ("ElasticQuota", "Node", "Pod")
 
 # the pending label when the planner gave no reason
 _REASON_QUEUED = "queued"
+# observe(reason=) not given
+_UNSET = object()
 # completed gang waits kept
 _RECENT_GANGS = 64
 
@@ -184,9 +190,12 @@ class CapacityLedger:
     different threads). ``metrics`` off keeps a shadow ledger out of the
     process's registry."""
 
-    def __init__(self, store: NodeStore, metrics: bool = True) -> None:
+    def __init__(self, store: NodeStore, metrics: bool = True,
+                 flight_recorder=None) -> None:
         self.store = store
         self._metrics = metrics
+        # a FlightRecorder: one capacity.observe record an observation
+        self.flight = flight_recorder
         self._lock = threading.Lock()
         self._listed = False  # the first observation lists the store
         # the state at the watermark
@@ -224,23 +233,38 @@ class CapacityLedger:
 
     # ------------------------------------------------------------ observe
 
-    def observe(self, now: float, unserved: Optional[Dict[str, str]] = None) -> None:
+    def observe(self, now: float, unserved: Optional[Dict[str, str]] = None,
+                reason: Any = _UNSET, trace_id: str = "", record: bool = True) -> None:
         """Close the interval since the last observation and move the
         watermark to the store's revision. ``unserved`` (the planner's pod
         → reason map) labels the pending idle time from here to the next
-        observation."""
+        observation; ``reason`` sets that label itself (replay passes the
+        recorded one). With a flight recorder, and ``record``, the
+        observation writes a ``capacity.observe`` record: its watermark,
+        ``now``, the label, the totals and ``trace_id``. The watermark and
+        the store reads it bounds (a relist's too) come under one hold of
+        the store, so the state applied is the store's at the watermark,
+        the state replay observes on."""
         with self._lock:
-            watermark = self.store.revision
             self._integrate(now)
-            self._apply_now = now
-            self._apply_changes(watermark)
-            if unserved is not None:
+            with self.store.hold():
+                watermark = self.store.revision
+                self._apply_now = now
+                self._apply_changes(watermark)
+            if reason is not _UNSET:
+                self._reason = reason
+            elif unserved is not None:
                 self._reason = dominant_unserved_reason(unserved)
             self._last_ts = now
             if self._first_ts is None:
                 self._first_ts = now
             self._revision = watermark
             self.observes += 1
+            totals = self._totals() if record and self.flight is not None else None
+            reason_out = self._reason
+        if totals is not None:
+            self.flight.record_capacity(revision=watermark, now=now, reason=reason_out,
+                                        totals=totals, trace_id=trace_id)
 
     def _integrate(self, now: float) -> None:
         if self._last_ts is None:

@@ -72,6 +72,12 @@ while the carve is still ahead); with ``autoscaler`` (an
 ``AutoscalerConfig``) a ``ModelServingReconciler`` whose registry, on
 the cluster's clock, callers feed through ``autoscaler.signals``, and
 which decides each step.
+
+A ``SimCluster`` records nothing: no flight recorder, no auditor and no
+event recorder are wired (its digests, ``bench_control_plane``'s and
+``bench_autoscale``'s, are pinned without them). A caller may set one
+on a part (``cluster.mig.auditor``, ``cluster.mig.recorder``); the
+threaded suite (``cmd/cluster.py``) wires all three.
 """
 from __future__ import annotations
 

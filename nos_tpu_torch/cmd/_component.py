@@ -98,9 +98,10 @@ def component_argparser(name: str) -> argparse.ArgumentParser:
     return parser
 
 
-def build_timeline(config: dict, store: NodeStore, component: str):
+def build_timeline(config: dict, store: NodeStore, component: str, flight=None):
     """The health timeline of the config's ``manager`` block, its
-    findings recorded as events through ``store``."""
+    findings recorded as events through ``store`` and, given ``flight``
+    (a ``FlightRecorder``), as ``timeline.finding`` records."""
     from nos_tpu_torch.api.config.v1alpha1 import timeline_sample_seconds
     from nos_tpu_torch.kube.events import EventRecorder
     from nos_tpu_torch.kube.objects import ConfigMap
@@ -108,13 +109,13 @@ def build_timeline(config: dict, store: NodeStore, component: str):
 
     timeline = TimelineStore(
         interval_seconds=timeline_sample_seconds(config.get("manager") or {}))
-    timeline.attach(recorder=EventRecorder(store, component=component),
+    timeline.attach(flight=flight, recorder=EventRecorder(store, component=component),
                     event_obj=ConfigMap("nos-health-timeline", "default"))
     return timeline
 
 
 def health_server(config: dict, port: Optional[int], component: Any, store: NodeStore,
-                  timeline=None) -> HealthServer:
+                  timeline=None, record_fn=None) -> HealthServer:
     """The component's health server, from the config's ``manager`` block."""
     manager_cfg = config.get("manager") or {}
     if port is None:
@@ -129,7 +130,8 @@ def health_server(config: dict, port: Optional[int], component: Any, store: Node
         loops_fn=lambda: LOOPS.payload(store=store),
         autoscaler_fn=getattr(component, "debug_payload", None),
         timeline_fn=timeline.debug_payload if timeline is not None else None,
-        timeline_stream_fn=timeline.iter_jsonl if timeline is not None else None)
+        timeline_stream_fn=timeline.iter_jsonl if timeline is not None else None,
+        record_fn=record_fn)
 
 
 def run_component(name: str, build: Callable[[Manager, dict], Any], argv=None,

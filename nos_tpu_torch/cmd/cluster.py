@@ -13,7 +13,12 @@ threads in wall time once ``start()``; ``wait_idle`` waits for every
 queue to settle. ``check()`` holds the store to ``SimCluster.check()``'s
 invariants (every pod running or unserved with a reason, the geometries
 allowed, every plan acknowledged, no GPU over-committed, the quotas' and
-the gangs'), the same code run on this suite's parts.
+the gangs', the capacity ledger's self-check), the same code run on this
+suite's parts. The suite keeps one ``CapacityLedger`` (``ledger``): the
+MIG partitioner observes it after each plan and the scheduler stamps
+the gang clocks on it (the reference's ``:182-199``). Given a
+``flight_recorder`` every component records into it (attach it to the
+store before the nodes are added, so their creation is replay's input).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from nos_tpu_torch.api.config import (
     OperatorConfig,
     SchedulerConfig,
 )
+from nos_tpu_torch.capacity import CapacityLedger
 from nos_tpu_torch.cluster import SimCluster
 from nos_tpu_torch.cmd.autoscaler import build_autoscaler
 from nos_tpu_torch.cmd.migagent import build_migagent, sim_devices
@@ -54,7 +60,8 @@ class SuiteCluster:
     unserved = SimCluster.unserved
 
     def __init__(self, manager: Manager, pool: SimMigPool, partitioner, scheduler,
-                 kubelet: SimKubelet, autoscaler=None, config_map_name: str = "") -> None:
+                 kubelet: SimKubelet, autoscaler=None, config_map_name: str = "",
+                 ledger: Optional[CapacityLedger] = None, flight_recorder=None) -> None:
         self.manager = manager
         self.store: NodeStore = manager.store
         self.pool = pool
@@ -64,7 +71,8 @@ class SuiteCluster:
         self.kubelet = kubelet
         self.autoscaler = autoscaler
         self.config_map_name = config_map_name
-        self.ledger = None
+        self.ledger = ledger
+        self.flight_recorder = flight_recorder
         self.agents: Dict[str, object] = {}
 
     def add_node(self, node: Node, agent_config: Optional[AgentConfig] = None) -> Node:
@@ -104,14 +112,20 @@ class SuiteCluster:
 def build_cluster(partitioner_config: Optional[GpuPartitionerConfig] = None,
                   scheduler_config: Optional[SchedulerConfig] = None,
                   operator_config: Optional[OperatorConfig] = None,
-                  autoscaler_config: Optional[AutoscalerConfig] = None) -> SuiteCluster:
-    store = NodeStore()
+                  autoscaler_config: Optional[AutoscalerConfig] = None,
+                  flight_recorder=None, store: Optional[NodeStore] = None) -> SuiteCluster:
+    store = store if store is not None else NodeStore()
     manager = Manager(store)
-    build_operator(manager, operator_config)
+    # one ledger for the suite: the partitioner observes, the scheduler
+    # stamps the gang clocks
+    ledger = CapacityLedger(store, flight_recorder=flight_recorder)
+    build_operator(manager, operator_config, flight_recorder=flight_recorder)
     partitioner_config = partitioner_config or GpuPartitionerConfig(
         batch_window_timeout_seconds=1.0, batch_window_idle_seconds=0.05)
-    partitioner = build_partitioner(manager, partitioner_config)
-    scheduler = build_scheduler(manager, scheduler_config)
+    partitioner = build_partitioner(manager, partitioner_config, capacity_ledger=ledger,
+                                    flight_recorder=flight_recorder)
+    scheduler = build_scheduler(manager, scheduler_config, capacity_ledger=ledger,
+                                flight_recorder=flight_recorder)
     autoscaler = None
     if autoscaler_config is not None:
         autoscaler = build_autoscaler(manager, autoscaler_config)
@@ -123,4 +137,5 @@ def build_cluster(partitioner_config: Optional[GpuPartitionerConfig] = None,
     config_map = partitioner_config.device_plugin_config_map
     add_sim_device_plugin(manager, SimSharedDevicePlugin(store, config_map))
     return SuiteCluster(manager, pool, partitioner, scheduler, kubelet, autoscaler,
-                        config_map_name=config_map)
+                        config_map_name=config_map, ledger=ledger,
+                        flight_recorder=flight_recorder)

@@ -8,7 +8,10 @@ the store's admission seam. With ``webhook.enabled`` the process also
 serves the TLS admission endpoint (``kube/webhook.py``) from the moment
 it starts, not behind the lease: the webhook Service balances over
 every replica, and one that refused connections would fail the
-cluster's quota writes.
+cluster's quota writes. Both reconcilers record the capacity-label
+flips' events through one ``EventRecorder(component="nos-operator")``
+and, given a ``flight_recorder``, their reconciles (the reference's
+``:19-37``).
 """
 from __future__ import annotations
 
@@ -22,15 +25,20 @@ from nos_tpu_torch.controllers.elasticquota import (
     register_elasticquota_webhooks,
 )
 from nos_tpu_torch.kube.controller import Controller, Manager, Watch
+from nos_tpu_torch.kube.events import EventRecorder
 
 
-def build_operator(manager: Manager, config: Optional[OperatorConfig] = None) -> None:
+def build_operator(manager: Manager, config: Optional[OperatorConfig] = None,
+                   flight_recorder=None) -> None:
     config = config or OperatorConfig()
     config.validate()
     store = manager.store
     register_elasticquota_webhooks(store)
-    eq = ElasticQuotaReconciler(store, config.gpu_memory_gb)
-    ceq = CompositeElasticQuotaReconciler(store, config.gpu_memory_gb)
+    recorder = EventRecorder(store, component="nos-operator", clock=store.clock)
+    eq = ElasticQuotaReconciler(store, config.gpu_memory_gb, recorder=recorder,
+                                flight_recorder=flight_recorder)
+    ceq = CompositeElasticQuotaReconciler(store, config.gpu_memory_gb, recorder=recorder,
+                                          flight_recorder=flight_recorder)
 
     def composite_requests(event):
         return [r for r in pod_to_quota_requests(store, event)

@@ -26,9 +26,13 @@ reference:
   each with its batch thread as a runnable.
 
 The capacity ledger, when given, goes to the MIG controller alone (one
-observer a cluster, ``:164-167``). The forecaster's thread waits for
-item 18b.3, the flight recorder and the auditor for item 18b.2; their
-config knobs are refused (``api/config/v1alpha1.py``).
+observer a cluster, ``:164-167``). Both controllers share one
+``EventRecorder(component="nos-partitioner")``, the ``flight_recorder``
+when given (with the planners' aging in the session facts) and one
+auditor, ``build_auditor(config.audit_sample_rate, ...)``: none at a
+rate of 0 (the reference's ``:70-142``, ``:275``). The forecaster's
+thread waits for item 18b.3; its config knob is refused
+(``api/config/v1alpha1.py``).
 """
 from __future__ import annotations
 
@@ -50,11 +54,13 @@ from nos_tpu_torch.device.sharing import is_mps_resource
 from nos_tpu_torch.gpu.known import set_known_geometries
 from nos_tpu_torch.gpu.node import PARTITIONING_MIG, PARTITIONING_MPS
 from nos_tpu_torch.kube.controller import Controller, Manager, Request, Watch
+from nos_tpu_torch.kube.events import EventRecorder
 from nos_tpu_torch.kube.store import DELETED, Pod, PodPhase
 from nos_tpu_torch.partitioning.core import Actuator, ClusterState, Planner
 from nos_tpu_torch.partitioning.core.codec import is_mig_resource
 from nos_tpu_torch.partitioning.mig import MigNodeInitializer, MigPartitioner, MigSnapshotTaker
 from nos_tpu_torch.partitioning.mps import MpsPartitioner, MpsSnapshotTaker
+from nos_tpu_torch.record.audit import build_auditor
 from nos_tpu_torch.util.predicates import annotations_changed_or_added
 
 
@@ -75,12 +81,18 @@ def _capacity_freed(event) -> bool:
 
 
 def build_partitioner(manager: Manager, config: Optional[GpuPartitionerConfig] = None,
-                      capacity_ledger=None) -> PartitionerController:
+                      capacity_ledger=None, flight_recorder=None) -> PartitionerController:
     """The MIG controller, with the MPS controller at ``.mps``."""
     config = config or GpuPartitionerConfig()
     config.validate()
     store = manager.store
     register_indexers(store)
+    recorder = EventRecorder(store, component="nos-partitioner", clock=store.clock)
+    if flight_recorder is not None:
+        # replay's planners age pods as these do
+        flight_recorder.record_session_meta(aging_per_second=config.aging_per_second)
+    auditor = build_auditor(config.audit_sample_rate, recorder=recorder,
+                            flight_recorder=flight_recorder)
     if config.known_mig_geometries:
         set_known_geometries(config.known_mig_geometries)
     # wall-clock ms and a counter: two plans in one millisecond never share an id
@@ -104,7 +116,8 @@ def build_partitioner(manager: Manager, config: Optional[GpuPartitionerConfig] =
             else "",
             warm_state_save_interval_seconds=config.warm_state_save_interval_seconds,
             capacity_ledger=ledger, state_feed=lambda: None,
-            scheduler_name=config.scheduler_name)
+            scheduler_name=config.scheduler_name, recorder=recorder,
+            flight_recorder=flight_recorder, auditor=auditor)
 
     mig_partitioner = MigPartitioner(store)
     initializer = MigNodeInitializer(mig_partitioner, plan_id)

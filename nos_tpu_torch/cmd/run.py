@@ -16,7 +16,13 @@ SIGTERM end it otherwise. The config's ``observability:`` section
 registry and tracer before any component registers a series, and put
 back on the way out; the suite runs a health timeline
 (``manager.timelineSampleSeconds``) and the stack profiler, and serves
-their ``/debug/`` endpoints.
+their ``/debug/`` endpoints. ``--record <path>`` runs the flight
+recorder (the reference's ``:273-311``): attached to the store before
+the seeding (the nodes' and pods' creation is replay's input), fed by
+every component and by the timeline's findings, served at
+``/debug/record``, and written to ``<path>`` as JSONL on the way out,
+for ``python -m nos_tpu_torch replay``. ``partitioner.auditSampleRate``
+runs the invariant auditor on that share of the plans.
 
 The config keys, where they differ from the reference's:
 
@@ -216,7 +222,7 @@ def seed(cluster, config: dict, agent: Optional[AgentConfig] = None) -> None:
 def main(argv=None, stop_event: Optional[threading.Event] = None,
          on_started: Optional[Callable[[dict], None]] = None) -> int:
     """Run the suite; 0. ``on_started`` gets {"health_port", "cluster",
-    "timeline"} once it runs (in-process callers)."""
+    "timeline", "flight"} once it runs (in-process callers)."""
     from nos_tpu_torch.cmd._component import build_timeline, health_server
     from nos_tpu_torch.cmd.cluster import build_cluster
     from nos_tpu_torch.obsplane.apply import apply_observability
@@ -228,6 +234,8 @@ def main(argv=None, stop_event: Optional[threading.Event] = None,
     parser.add_argument("--health-port", type=int, default=None)
     parser.add_argument("--run-seconds", type=float, default=None,
                         help="stop after this many seconds instead of at a signal")
+    parser.add_argument("--record", default="",
+                        help="write the flight recorder's log here (JSONL) on exit")
     parser.add_argument("-v", "--verbose", action="count", default=0)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
@@ -244,17 +252,24 @@ def main(argv=None, stop_event: Optional[threading.Event] = None,
     # before any component registers a series: the exact / _other split
     # follows the order of admission
     revert_observability = apply_observability(obs)
-    cluster = health = timeline = None
+    cluster = health = timeline = flight = None
     snapshot_thread = None
     try:
+        if args.record:
+            from nos_tpu_torch.record import FlightRecorder
+
+            flight = FlightRecorder()
         cluster = build_cluster(partitioner_config=configs.partitioner,
                                 scheduler_config=configs.scheduler,
                                 operator_config=configs.operator,
-                                autoscaler_config=configs.autoscaler)
+                                autoscaler_config=configs.autoscaler, flight_recorder=flight)
+        if flight is not None:
+            # before the seeding: the creations are replay's input
+            flight.attach(cluster.store)
         seed(cluster, config, configs.agent)
-        timeline = build_timeline(config, cluster.store, "nos-health-timeline")
+        timeline = build_timeline(config, cluster.store, "nos-health-timeline", flight=flight)
         health = health_server(config, args.health_port, cluster.scheduler, cluster.store,
-                               timeline)
+                               timeline, record_fn=flight.records if flight else None)
         health.autoscaler_fn = cluster.autoscaler.debug_payload if cluster.autoscaler else None
         health.debug_page_limit = obs.debug_page_limit
         port = health.start()
@@ -282,7 +297,8 @@ def main(argv=None, stop_event: Optional[threading.Event] = None,
             snapshot_thread.start()
         log.info("the suite is running")
         if on_started is not None:
-            on_started({"health_port": port, "cluster": cluster, "timeline": timeline})
+            on_started({"health_port": port, "cluster": cluster, "timeline": timeline,
+                        "flight": flight})
         stop.wait(args.run_seconds)
     finally:
         stop.set()
@@ -298,6 +314,10 @@ def main(argv=None, stop_event: Optional[threading.Event] = None,
         if timeline is not None:
             timeline.close()
         revert_observability()
+        if flight is not None:
+            flight.detach()
+            count = flight.export_jsonl(args.record)
+            log.info("flight record: %d record(s) -> %s", count, args.record)
     return 0
 
 

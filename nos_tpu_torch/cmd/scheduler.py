@@ -14,7 +14,11 @@ maps it to the reference's requeue: a nomination retries after half of
 its gang after ``retry_seconds``, a bind not at all. The
 ``reservation-janitor`` clears the drain reservations whose holder is
 gone, on node and pod departure events and every half TTL while one is
-held.
+held. The scheduler records its events through an
+``EventRecorder(component="nos-scheduler")`` (``Scheduled``,
+``FailedScheduling``, the preemptor's ``Preempted``) and, given a
+``flight_recorder``, its cycles, with the session facts replay rebuilds
+it from (its name and gang timeout; the reference's ``:17-40``).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional
 
 from nos_tpu_torch.api.config import SchedulerConfig
 from nos_tpu_torch.kube.controller import Controller, Manager, Request, Result, Watch
+from nos_tpu_torch.kube.events import EventRecorder
 from nos_tpu_torch.kube.store import DELETED, PodPhase
 from nos_tpu_torch.scheduler.plugins.reservation import RESERVED_FOR
 from nos_tpu_torch.scheduler.scheduler import CycleOutcome, Scheduler, new_framework
@@ -48,13 +53,20 @@ def cycle_result(scheduler: Scheduler, req: Request, outcome: Optional[CycleOutc
 
 
 def build_scheduler(manager: Manager, config: Optional[SchedulerConfig] = None,
-                    capacity_ledger=None) -> Scheduler:
+                    capacity_ledger=None, flight_recorder=None) -> Scheduler:
     config = config or SchedulerConfig()
     config.validate()
     store = manager.store
     scheduler = Scheduler(store, new_framework(store, config.gang_wait_timeout_seconds),
                           scheduler_name=config.scheduler_name, interval=config.retry_seconds,
-                          capacity_ledger=capacity_ledger)
+                          capacity_ledger=capacity_ledger,
+                          recorder=EventRecorder(store, component="nos-scheduler",
+                                                 clock=store.clock),
+                          flight_recorder=flight_recorder)
+    if flight_recorder is not None:
+        flight_recorder.record_session_meta(
+            scheduler_name=config.scheduler_name,
+            gang_timeout_seconds=config.gang_wait_timeout_seconds)
     logged_foreign: set = set()
 
     def claim_or_log_foreign(pod) -> bool:

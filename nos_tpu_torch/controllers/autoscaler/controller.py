@@ -36,8 +36,14 @@ the reference's ``pod_to_serving_requests`` mapper) through
 the next resync). ``SimCluster`` polls (ROADMAP.md, Queue 3): ``step()``
 reconciles every ModelServing, then collects the replicas of a deleted
 one (``pod_to_serving_requests``, the mapper as a function of a pod).
-There are no events: ``decisions`` keeps the last ``DECISION_RECORDS``
-decisions, as ``Scheduler.preemptions`` keeps preemptions. The status goes through ``NodeStore.patch_merge``.
+With an ``EventRecorder`` (``recorder``) a scale up records ``ScaledUp``
+(and first ``ColdStart`` when it is one), a scale down ``ScaledDown`` or
+``ScaledToZero`` (the reference's ``:104-117``, ``:266-303``); the
+messages are the reference's with one H100 word: a scale to zero's hold
+counts "memory slices" where the reference counts chips (the same
+numbers under the parity tests' translation). ``decisions`` keeps the
+last ``DECISION_RECORDS`` decisions beside the events. The status goes
+through ``NodeStore.patch_merge``.
 """
 from __future__ import annotations
 
@@ -99,14 +105,15 @@ def serving_requests_of(event: WatchEvent) -> List[Request]:
 
 class ModelServingReconciler:
     def __init__(self, store: NodeStore, config: Optional[AutoscalerConfig] = None,
-                 signals: Optional[SignalRegistry] = None) -> None:
+                 signals: Optional[SignalRegistry] = None, recorder=None) -> None:
         self.store = store
+        self.recorder = recorder  # an EventRecorder: the scaling events
         self.config = config or AutoscalerConfig()
         self.signals = signals or SignalRegistry(now_fn=store.clock)
         # serving key → the model label last exported on AUTOSCALER_REPLICAS,
         # so the series die with the ModelServing
         self._exported_models: Dict[str, str] = {}
-        # the last DECISION_RECORDS decisions, in place of the events
+        # the last DECISION_RECORDS decisions
         self.decisions: Deque[dict] = deque(maxlen=DECISION_RECORDS)
 
     # ------------------------------------------------------------ helpers
@@ -276,6 +283,20 @@ class ModelServingReconciler:
                 log.debug("replica %s already exists", name)
                 continue
             created += 1
+        if created and self.recorder is not None:
+            from nos_tpu_torch.api.v1alpha1.constants import (
+                EVENT_REASON_COLD_START,
+                EVENT_REASON_SCALED_UP,
+            )
+
+            if decision.verdict == policy.VERDICT_COLD_START:
+                self.recorder.record(ms, EVENT_REASON_COLD_START,
+                                     f"cold start: {decision.reason}; created {created} "
+                                     f"replica(s) of {ms.spec.model}")
+            self.recorder.record(ms, EVENT_REASON_SCALED_UP,
+                                 f"{decision.reason}: replicas {len(live)} -> "
+                                 f"{decision.desired} ({ms.spec.slice_profile} x {created} "
+                                 "created)")
         return created
 
     def _scale_down(self, ms: ModelServing, live: List[Pod], decision: policy.Decision,
@@ -289,6 +310,22 @@ class ModelServingReconciler:
                 continue
         if decision.desired == 0:
             self._reserve_nodes(ms, vacated, now)
+        if self.recorder is not None:
+            from nos_tpu_torch.api.v1alpha1.constants import (
+                EVENT_REASON_SCALED_DOWN,
+                EVENT_REASON_SCALED_TO_ZERO,
+            )
+
+            if decision.desired == 0:
+                self.recorder.record(
+                    ms, EVENT_REASON_SCALED_TO_ZERO,
+                    f"{decision.reason}: released {len(doomed)} replica(s), "
+                    f"{ms.spec.chips_per_replica * len(doomed)} memory slices held in "
+                    f"{ms.spec.cold_start_grace_seconds:.0f}s cold-start grace")
+            else:
+                self.recorder.record(ms, EVENT_REASON_SCALED_DOWN,
+                                     f"{decision.reason}: replicas {len(live)} -> "
+                                     f"{decision.desired}")
         return len(doomed)
 
     def _update_status(self, ms: ModelServing, decision: policy.Decision, now: float) -> None:

@@ -15,9 +15,14 @@ The operator component (``cmd/operator.py``) runs each reconciler on
 its quota's watch and the pod watch (``pod_to_quota_requests``, the
 reference's mapper), through ``reconcile_request``. ``SimCluster``
 polls: ``ElasticQuotaController.step()`` reconciles every composite
-quota, then every ElasticQuota, each time it is called. Events and the
-flight recorder's quota records wait for their slice (ROADMAP.md); the
-reconcile keeps its ``elasticquota.reconcile`` span.
+quota, then every ElasticQuota, each time it is called. The reconcile
+keeps its ``elasticquota.reconcile`` span. With an ``EventRecorder``
+(``recorder``) a pod labelled over-quota records ``QuotaBorrowed`` and
+one flipped from over-quota back to in-quota ``QuotaReclaimed`` (a
+pod's first in-quota label is no news; the reference's ``:115-160``);
+with a ``FlightRecorder`` each reconcile writes a ``quota.reconcile``
+record: the store revision read before its writes, the usage and the
+label flips ([pod key, new label]) in the order they were written.
 """
 from __future__ import annotations
 
@@ -86,10 +91,13 @@ def pod_to_quota_requests(store: NodeStore, event: WatchEvent) -> List[Request]:
 
 
 class _QuotaReconcilerBase:
-    def __init__(self, store: NodeStore, gpu_memory_gb: Optional[int] = None) -> None:
+    def __init__(self, store: NodeStore, gpu_memory_gb: Optional[int] = None, recorder=None,
+                 flight_recorder=None) -> None:
         self.store = store
         # the NvidiaGpuResourceMemoryGB knob: the GB a plain nvidia.com/gpu counts
         self.gpu_memory_gb = gpu_memory_gb or res.DEFAULT_GPU_MEMORY_GB
+        self.recorder = recorder  # an EventRecorder: the capacity-label flips
+        self.flight_recorder = flight_recorder  # a FlightRecorder: quota.reconcile
 
     def _running_pods(self, namespaces: List[str]) -> List[Pod]:
         # read-only: the labels are written through patch_labels
@@ -100,23 +108,53 @@ class _QuotaReconcilerBase:
         """Label the quota's running pods and write its used; the writes
         made."""
         with TRACER.span("elasticquota.reconcile", quota=f"{quota.namespace}/{quota.name}"):
+            # the watermark before this reconcile's own writes
+            revision = self.store.revision
             writes = 0
+            flips: List[List[str]] = []
             pods = self._running_pods(namespaces)
             used, labels = quota_accounting(pods, quota.min, self.gpu_memory_gb)
             for pod in pods:
                 desired = labels[pod.namespaced_name]
-                if pod.labels.get(CAPACITY_LABEL) != desired:
+                previous = pod.labels.get(CAPACITY_LABEL)
+                if previous != desired:
                     try:
                         self.store.patch_labels("Pod", pod.name, pod.namespace,
                                                 {CAPACITY_LABEL: desired})
                         writes += 1
                     except NotFoundError:
-                        pass
+                        continue
+                    self._record_flip(quota, pod, desired, previous)
+                    flips.append([pod.namespaced_name, desired])
             if quota.used != used:
                 self.store.patch_merge(quota.kind, quota.name, quota.namespace,
                                        lambda q: setattr(q, "used", used))
                 writes += 1
+            if self.flight_recorder is not None:
+                self.flight_recorder.record_quota_reconcile(
+                    quota=f"{quota.namespace}/{quota.name}".lstrip("/"), revision=revision,
+                    used=dict(used), flips=flips)
             return writes
+
+    def _record_flip(self, quota, pod: Pod, label: str, previous: Optional[str]) -> None:
+        if self.recorder is None:
+            return
+        from nos_tpu_torch.api.v1alpha1.constants import (
+            EVENT_REASON_QUOTA_BORROWED,
+            EVENT_REASON_QUOTA_RECLAIMED,
+        )
+
+        name = f"{quota.namespace}/{quota.name}".lstrip("/")
+        if label == CAPACITY_IN_QUOTA:
+            if previous != CAPACITY_OVER_QUOTA:
+                return  # the first in-quota label is the steady state
+            self.recorder.record(pod, EVENT_REASON_QUOTA_RECLAIMED,
+                                 f"{pod.namespaced_name} back within {quota.kind} {name} "
+                                 "guaranteed quota")
+        else:
+            self.recorder.record(pod, EVENT_REASON_QUOTA_BORROWED,
+                                 f"{pod.namespaced_name} running on capacity borrowed over "
+                                 f"{quota.kind} {name} min (preemptible)", type="Warning")
 
     def reconcile_request(self, req: Request) -> Optional[Result]:
         """``reconcile`` on a watch's request."""

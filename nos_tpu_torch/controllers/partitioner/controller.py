@@ -14,8 +14,8 @@ pod state controllers (``node_controller.py``, ``pod_controller.py``,
 which give a MIG node with no geometry yet its first one through
 ``MigNodeInitializer``): ``state_feed``, the drain of those controllers'
 watches; a ``SimCluster`` passes its ``Manager``'s, and a controller
-given none drains a private ``Manager`` of its own. The gate, the mode
-check and the snapshot all read that state. The step then adds every
+given none drains a private ``Manager`` of its own. The gate and the
+mode check read that state; the snapshot reads the store (below). The step then adds every
 pending pod that re-partitioning could help and that asks for this
 mode's resources to the batch, and processes the batch once a window has
 passed. The gate: no plan while a
@@ -100,8 +100,7 @@ mode to measure it). ``PLAN_BACKEND`` counts the pools by backend
 The plan record gives the pools, each pool's backend and milliseconds,
 the merge's milliseconds and, on the process backend, the frame bytes.
 The divergence reconcile, the capacity-freed trigger and the plan-id
-gate do not change. The auditor's shadow replans (``audit_runs``) wait
-for item 18b.2. A started controller's batch loop is sampled by the
+gate do not change. A started controller's batch loop is sampled by the
 profiler and beats the watchdog (``partitioner-<kind>``, its plans
 applied the counter); its verdict cache and futility memo are the
 timeline's ``size.planner.<kind>.*`` series.
@@ -123,9 +122,27 @@ re-carves), ``PLAN_DURATION`` / ``PLAN_MODE`` / ``PLAN_VERDICT_CACHE`` /
 ``PLAN_CARVE_FUTILITY`` in the planner, ``SNAPSHOT_FORKS`` / ``COMMITS``
 / ``REVERTS`` in the snapshot. ``last_unserved``, ``last_pending_ages``
 and ``last_plan_mode`` give the last plan's ledger (the pools' merged,
-when sharded). Out (ROADMAP.md): the flight recorder (a bounded
-``plans`` record stands in for it); ``multihost.py``'s counterpart is
-``multinode.py``.
+when sharded); ``plans`` keeps the last ``PLAN_RECORDS`` plans' records.
+``multihost.py``'s counterpart is ``multinode.py``.
+
+Records, audits and events (the reference's ``:541-558``, ``:610``,
+``:722-754``, ``:904``, ``:936-940``, ``:1016-1090``): with a
+``FlightRecorder`` each plan writes ``planner.plan`` (the store revision
+read before the snapshot, the pending pods and their ages, the desired
+state, the reasons) and ``actuation``, and a pool a worker could not
+serve ``pool.escalation``; with an ``InvariantAuditor`` a sample of the
+plans is audited after the ledger's observation (``audit_plan``, or
+``audit_sharded_plan`` over each pool's planner, snapshot, pending pods
+and desired state, a worker's pool behind its parent-side planner),
+``audit_violations`` set on the ``partitioner.process`` span; with an
+``EventRecorder`` a pod the plan could not serve records ``CarveFailed``
+once a reason and a served pod of a plan that re-partitioned
+``PartitioningApplied``. Every cycle, recorded or not, reads its
+pending pods, its watermark and its snapshot and plans under one hold
+of the store, and snapshots the store itself, as the reference does
+(``take_snapshot(..., store=)``), not the watch-fed state; a worker's
+pool is audited with its cache checks counted as skipped (its memos
+live in the worker).
 With a ``capacity_ledger`` the controller observes it after each plan
 (on its clock, with the plan's unserved reasons), and with a
 ``forecaster`` it notifies it of the cycle's pending pods, at the
@@ -148,6 +165,7 @@ import logging
 import threading
 import time
 from collections import deque
+from contextlib import ExitStack
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 from nos_tpu_torch.controllers.partitioner.incremental import (
@@ -177,7 +195,7 @@ from nos_tpu_torch.partitioning.core.pools import (
     split_pending,
 )
 from nos_tpu_torch.partitioning.core.snapcodec import AdoptReport, WarmStateCodec
-from nos_tpu_torch.partitioning.core.state import partitioning_kind
+from nos_tpu_torch.partitioning.core.state import StoreState, partitioning_kind
 from nos_tpu_torch.scheduler.framework import Framework, vanilla_filter_plugins
 from nos_tpu_torch.scheduler.plugins.capacity import (
     CapacityScheduling,
@@ -245,8 +263,17 @@ class PartitionerController:
                  warm_state_save_interval_seconds: float = 30.0,
                  capacity_ledger=None, forecaster=None,
                  state_feed: Optional[Callable[[], object]] = None,
-                 scheduler_name: str = "") -> None:
+                 scheduler_name: str = "", recorder=None, flight_recorder=None,
+                 auditor=None) -> None:
         self.store = store
+        # an EventRecorder (CarveFailed, PartitioningApplied), a
+        # FlightRecorder (planner.plan, actuation, pool.escalation) and an
+        # InvariantAuditor (record/audit.py), each optional
+        self.recorder = recorder
+        self.flight_recorder = flight_recorder
+        self.auditor = auditor
+        # pod key → the carve-failure reason last evented (no repeat)
+        self._last_carve_reason: Dict[str, str] = {}
         # non-empty: plan only for the pods this scheduler binds
         self.scheduler_name = scheduler_name
         # the watch entry points and the batch thread take it (step does not)
@@ -566,44 +593,23 @@ class PartitionerController:
 
     def process_pending_pods(self) -> int:
         """Snapshot, plan, actuate; the nodes re-partitioned (0: a no-op
-        plan)."""
-        pending = self.fetch_pending_pods()
-        if not pending:
-            return 0
-        with TRACER.span("partitioner.process", kind=self.kind,
-                         pending=len(pending)) as proc:
-            shard = None
-            with TRACER.span("snapshot.take"):
-                if self.pool_sharding:
-                    shard = self._shard_snapshot(pending)
-                    snapshot = shard[0]
-                elif self.incremental_planning:
-                    snapshot, dirty = self._maintain_snapshot()
-                else:
-                    snapshot = self.snapshot_taker.take_snapshot(self.cluster_state)
-                    dirty = None
-            record: dict = {}
-            if shard is not None:
-                current, desired, record = self._plan_sharded(pending, shard)
-            else:
-                current = snapshot.partitioning_state()
-                desired = self.planner.plan(snapshot, pending, dirty=dirty)
-                self.last_unserved = dict(self.planner.last_unserved)
-                self.last_pending_ages = dict(self.planner.last_pending_ages)
-                self.last_plan_mode = self.planner.last_plan_mode
-            plan = PartitioningPlan(desired_state=desired, id=self.plan_id_fn())
-            proc.set_attributes(plan_id=plan.id)
-            with TRACER.span("partitioner.actuate", plan_id=plan.id):
-                applied = self.actuator.apply(current, plan)
-            proc.set_attributes(nodes_repartitioned=applied)
-            self._record_plan(pending, plan, applied, record)
-            if self.capacity_ledger is not None:
-                # close the interval since the last observation and label
-                # the pending idle time with this plan's reasons
-                self.capacity_ledger.observe(self.clock(), unserved=dict(self.last_unserved))
-            if self.forecaster is not None:
-                self.forecaster.notify_cycle(pending, now=self.clock())
-            self._save_warm_state(snapshot, shard)
+        plan). The pending pods, the watermark, the snapshot and the plan
+        are taken under one hold of the store (``NodeStore.hold``), so the
+        plan read the store at its watermark, the state replay re-plans
+        on; the snapshot reads the store (a rebuild through
+        ``StoreState``), not the watch-fed state, which may lag it. The
+        actuation, the records, the ledger, the events and a sampled
+        audit come after the hold."""
+        with ExitStack() as held:
+            held.enter_context(self.store.hold())
+            pending = self.fetch_pending_pods()
+            if not pending:
+                return 0
+            # the watermark: replay applies the deltas up to here, then plans
+            revision = self.store.revision
+            with TRACER.span("partitioner.process", kind=self.kind,
+                             pending=len(pending)) as proc:
+                applied, plan = self._plan_and_apply(pending, revision, proc, held)
         self.plans_processed += 1
         self.last_applied = applied
         if applied:
@@ -612,13 +618,68 @@ class PartitionerController:
             metrics.PLANS_APPLIED.inc()
             log.info("partitioner %s: plan %s applied to %d nodes for %d pending pods",
                      self.kind, plan.id, applied, len(pending))
+        self._record_plan_events(pending, applied)
         return applied
 
-    def _maintain_snapshot(self):
+    def _plan_and_apply(self, pending: List[Pod], revision: int, proc,
+                        held: ExitStack) -> Tuple[int, PartitioningPlan]:
+        """The cycle inside its span; ``held`` is released once the plan
+        has read what it reads."""
+        trace_id = proc.trace_id
+        state = StoreState(self.store)
+        shard = None
+        audit_runs = None
+        with TRACER.span("snapshot.take"):
+            if self.pool_sharding:
+                shard = self._shard_snapshot(state, pending)
+                snapshot = shard[0]
+            elif self.incremental_planning:
+                snapshot, dirty = self._maintain_snapshot(state)
+            else:
+                snapshot = self.snapshot_taker.take_snapshot(state)
+                dirty = None
+        record: dict = {}
+        if shard is not None:
+            current, desired, record, audit_runs = self._plan_sharded(pending, shard)
+        else:
+            current = snapshot.partitioning_state()
+            desired = self.planner.plan(snapshot, pending, dirty=dirty)
+            self.last_unserved = dict(self.planner.last_unserved)
+            self.last_pending_ages = dict(self.planner.last_pending_ages)
+            self.last_plan_mode = self.planner.last_plan_mode
+        held.close()  # the plan has read the store: the rest writes or re-reads it
+        plan = PartitioningPlan(desired_state=desired, id=self.plan_id_fn())
+        proc.set_attributes(plan_id=plan.id)
+        with TRACER.span("partitioner.actuate", plan_id=plan.id):
+            applied = self.actuator.apply(current, plan)
+        proc.set_attributes(nodes_repartitioned=applied)
+        self._record_plan(pending, plan, applied, record)
+        self._record_flight(revision, pending, plan, applied, trace_id)
+        if self.capacity_ledger is not None:
+            # close the interval since the last observation and label
+            # the pending idle time with this plan's reasons
+            self.capacity_ledger.observe(self.clock(), unserved=dict(self.last_unserved),
+                                         trace_id=trace_id)
+        if self.forecaster is not None:
+            self.forecaster.notify_cycle(pending, now=self.clock())
+        if self.auditor is not None and self.auditor.should_audit():
+            if audit_runs is not None:
+                violations = self.auditor.audit_sharded_plan(
+                    audit_runs, snapshot=snapshot, revision=revision,
+                    ledger=self.capacity_ledger)
+            else:
+                violations = self.auditor.audit_plan(
+                    self.planner, snapshot, revision=revision, pending=pending,
+                    desired=desired, ledger=self.capacity_ledger)
+            proc.set_attributes(audit_violations=len(violations))
+        self._save_warm_state(snapshot, shard)
+        return applied, plan
+
+    def _maintain_snapshot(self, cluster_state: ClusterState):
         if self.maintainer is None:
             self.maintainer = IncrementalSnapshotMaintainer(self.store, self.snapshot_taker,
                                                             self.kind)
-        snapshot, dirty = self.maintainer.snapshot(self.cluster_state)
+        snapshot, dirty = self.maintainer.snapshot(cluster_state)
         if self._warm_codec is not None and snapshot is not self._last_base:
             # a new base: adopt the saved memos of every node whose state
             # still matches, plan the others as dirty
@@ -636,11 +697,11 @@ class PartitionerController:
 
     # ------------------------------------------------------ pool sharding
 
-    def _shard_snapshot(self, pending: List[Pod]):
+    def _shard_snapshot(self, cluster_state: ClusterState, pending: List[Pod]):
         if self.shard_maintainer is None:
             self.shard_maintainer = PoolShardedMaintainer(self.store, self.snapshot_taker,
                                                           self.kind)
-        return self.shard_maintainer.shard(self.cluster_state, pending)
+        return self.shard_maintainer.shard(cluster_state, pending)
 
     def _new_planner(self) -> Planner:
         """A pool planner: the controller planner's framework and knobs,
@@ -677,10 +738,16 @@ class PartitionerController:
             self._publish_warm_boot(total)
 
     def _plan_sharded(self, pending: List[Pod], shard) -> Tuple[PartitioningState,
-                                                                  PartitioningState, dict]:
-        """(current, desired, the plan record's sharding fields): each pool
-        planned, the merge checked; a failed check gives desired =
-        current and rebuilds the pools next plan."""
+                                                                  PartitioningState, dict,
+                                                                  list]:
+        """(current, desired, the plan record's sharding fields, the
+        auditor's pool runs): each pool planned, the merge checked; a
+        failed check gives desired = current and rebuilds the pools next
+        plan. A pool planned on its worker process is audited behind its
+        parent-side planner, which takes the worker's mode, ages and
+        reasons (the reference's proxy planner, ``:904``): its cache checks
+        are skipped (``memos_remote``: the memos live in the worker), and
+        the shadow replan runs here."""
         snapshot, _, partition, pool_snaps, pool_dirty = shard
         maintainer = self.shard_maintainer
         self.last_partition = partition
@@ -709,6 +776,17 @@ class PartitionerController:
         self.last_unserved, self.last_pending_ages = {}, {}
         record: dict = {"backends": {}, "pool_ms": {}, "modes": {}, **frames}
         for pool, p in sorted(plans.items()):
+            self._pool_planners[pool].memos_remote = p.backend == "process"
+            if p.backend == "process":
+                proxy = self._pool_planners[pool]
+                keys = {pod.namespaced_name for pod in pool_pending[pool]}
+                proxy.last_plan_mode = p.plan_mode
+                proxy.last_unserved = {k: v for k, v in p.unserved.items() if k in keys}
+                proxy.last_pending_ages = dict(p.pending_ages)
+            elif p.backend == "escalated" and self.flight_recorder is not None:
+                self.flight_recorder.record_pool_escalation(
+                    kind=self.kind, pool=pool, revision=self.store.revision,
+                    reason="the pool's worker did not serve the cycle")
             self.last_unserved.update(p.unserved)
             self.last_pending_ages.update(p.pending_ages)
             metrics.PLAN_POOL_DURATION.labels(pool=pool).observe(p.seconds)
@@ -721,6 +799,8 @@ class PartitionerController:
         t0 = time.perf_counter()
         pool_current = {pool: p.current for pool, p in plans.items()}
         pool_desired = {pool: p.desired for pool, p in plans.items()}
+        audit_runs = [(pool, self._pool_planners[pool], pool_snaps[pool], pool_pending[pool],
+                       pool_desired[pool]) for pool in sorted(plans)]
         current = merge_pool_states(pool_current)
         violations = check_merge_invariants(partition, pool_current, pool_desired,
                                             capacities=node_capacities(pool_snaps.values()))
@@ -732,7 +812,7 @@ class PartitionerController:
             maintainer.force_rebuild()
             log.error("partitioner[%s]: the sharded plan's merge checks failed; actuating "
                       "nothing and rebuilding the pools: %s", self.kind, "; ".join(violations[:5]))
-        return current, desired, record
+        return current, desired, record, audit_runs
 
     # -------------------------------------------------- process backend
 
@@ -855,3 +935,49 @@ class PartitionerController:
             "applied": applied,
             **sharding,
         })
+
+    def _record_flight(self, revision: int, pending: List[Pod], plan: PartitioningPlan,
+                       applied: int, trace_id: str) -> None:
+        """The plan's ``planner.plan`` record (its watermark, pending pods
+        and ages, desired state, reasons) and its ``actuation`` record
+        (the revision after the actuation's writes)."""
+        if self.flight_recorder is None:
+            return
+        self.flight_recorder.record_plan(
+            kind=self.kind, revision=revision, pending=[p.namespaced_name for p in pending],
+            pending_ages=dict(self.last_pending_ages), plan_id=plan.id,
+            desired=partitioning_state_to_dict(plan.desired_state),
+            unserved=dict(self.last_unserved), applied=applied, trace_id=trace_id)
+        self.flight_recorder.record_actuation(kind=self.kind, plan_id=plan.id,
+                                              revision=self.store.revision, applied=applied)
+
+    def _record_plan_events(self, pending: List[Pod], applied: int) -> None:
+        """``CarveFailed`` for a pod the plan could not serve, once a
+        reason (a plan loop re-deriving one verdict records nothing new),
+        and ``PartitioningApplied`` for a served pod of a plan that
+        re-partitioned; no message names the plan id, which changes every
+        plan and would defeat the events' dedup (``:1050-1090``)."""
+        if self.recorder is None:
+            return
+        from nos_tpu_torch.api.v1alpha1.constants import (
+            EVENT_REASON_CARVE_FAILED,
+            EVENT_REASON_PARTITIONING_APPLIED,
+        )
+
+        live = {p.namespaced_name for p in pending}
+        self._last_carve_reason = {k: v for k, v in self._last_carve_reason.items()
+                                   if k in live}
+        for pod in pending:
+            key = pod.namespaced_name
+            reason = self.last_unserved.get(key)
+            if reason is not None:
+                if self._last_carve_reason.get(key) == reason:
+                    continue
+                self._last_carve_reason[key] = reason
+                self.recorder.record(pod, EVENT_REASON_CARVE_FAILED,
+                                     f"cannot carve slices for {key}: {reason}", type="Warning")
+            else:
+                self._last_carve_reason.pop(key, None)
+                if applied:
+                    self.recorder.record(pod, EVENT_REASON_PARTITIONING_APPLIED,
+                                         f"re-partitioned {applied} node(s) to serve {key}")

@@ -18,8 +18,12 @@ No thread and no wall clock: whoever drives the loop calls ``step``
 cycle, at that cycle's time, the store's virtual clock there), or
 ``run_once`` with an explicit ``now`` and pending set (the bench). The
 reference's forecasting thread, its throttle, the watchdog and the
-profiler registrations wait for item 18b.3 and the flight records for
-item 18b.2 (ROADMAP.md). The forecaster never writes
+profiler registrations wait for item 18b.3 (ROADMAP.md). With a flight
+recorder each forecast writes a ``forecast.cycle`` record (every gang's
+ETA, the unsafe backfills, whether the advisor's proposal validated) and
+each join a ``forecast.outcome`` record with the calibration it left,
+which replay recomputes through a shadow tracker (the reference's
+``:54-68``, ``:319-360``). The forecaster never writes
 to the store. With ``cluster_state`` None it keeps its own, fed by state
 controllers of its own (``controllers/partitioner/node_controller.py``)
 whose watches it drains at each run; else it reads the one it is given,
@@ -50,8 +54,9 @@ log = logging.getLogger("nos_tpu_torch.forecast")
 class PlacementForecaster:
     def __init__(self, store: NodeStore, cluster_state: Optional[ClusterState], planner,
                  snapshot_taker, kind: str = "mig", capacity_ledger=None,
-                 default_reconfig_seconds: float = 0.5) -> None:
+                 default_reconfig_seconds: float = 0.5, flight_recorder=None) -> None:
         self.store = store
+        self.flight = flight_recorder
         self._own_state = cluster_state is None
         self.cluster_state = ClusterState() if cluster_state is None else cluster_state
         self._state_manager: Optional[Manager] = None
@@ -137,7 +142,7 @@ class PlacementForecaster:
                                                  reconfig_seconds=reconfig_seconds)
             span.set_attributes(gangs=len(result.gangs), backfill_unsafe=result.unsafe_count,
                                 dirty_nodes=len(dirty))
-        self._publish(result, now)
+        self._publish(result, now, span.trace_id)
         payload = result.payload()
         with self._lock:
             self._last_payload = payload
@@ -153,7 +158,7 @@ class PlacementForecaster:
             return self.ledger.mean_reconfig_seconds(default=self.default_reconfig_seconds)
         return self.default_reconfig_seconds
 
-    def _publish(self, result, now: float) -> None:
+    def _publish(self, result, now: float, trace_id: str = "") -> None:
         self.runs += 1
         metrics.FORECAST_RUNS.inc()
         unsafe = result.unsafe_count
@@ -178,6 +183,11 @@ class PlacementForecaster:
             live = {g.gang for g in result.gangs}
             for key in [k for k in self._feasible_since if k not in live]:
                 del self._feasible_since[key]
+        if self.flight is not None:
+            self.flight.record_forecast(
+                revision=self.store.revision, now=now, trace_id=trace_id,
+                gangs=[g.payload() for g in result.gangs], backfill_unsafe=unsafe,
+                advisor_validated=bool((result.advisor or {}).get("validated")))
 
     # ---------------------------------------------------- accuracy joining
 
@@ -193,6 +203,10 @@ class PlacementForecaster:
             sample = self.calibration.add(stamp["eta_seconds"], actual, wait_seconds,
                                           stage=stamp["stage"])
             payload = self.calibration.payload()
+        if self.flight is not None:
+            self.flight.record_forecast_outcome(
+                gang=gang, now=now, stage=stamp["stage"], eta_seconds=stamp["eta_seconds"],
+                actual_seconds=actual, wait_seconds=wait_seconds, calibration=payload)
         if sample is not None:
             metrics.FORECAST_ACCURACY_RATIO.labels(quantile="p50").set(payload["p50_ratio"])
             metrics.FORECAST_ACCURACY_RATIO.labels(quantile="p95").set(payload["p95_ratio"])

@@ -16,8 +16,15 @@ object (a node) land in ``default``. An event recorded under an open
 span carries its trace id in the ``nos.nebuly.com/trace-id`` annotation
 (``kubectl describe`` leads to ``/debug/traces``; a repeat points it at
 its latest trace); the annotation is no part of the dedup digest. The
-health timeline records ``HealthDegraded`` events; the builders' events
-wait for item 18b.2.
+health timeline records ``HealthDegraded`` events, and the components
+(``cmd/``) theirs: the scheduler's ``Scheduled`` / ``FailedScheduling``
+/ ``Preempted``, the quota controllers' ``QuotaBorrowed`` /
+``QuotaReclaimed``, the autoscaler's ``ScaledUp`` / ``ScaledDown`` /
+``ScaledToZero`` / ``ColdStart``, the partitioner's ``CarveFailed`` /
+``PartitioningApplied`` and the auditor's ``AuditViolation``. Events are
+store writes (they bump the revision and wake the watches of their kind);
+the snapshot maintainer, the capacity ledger and the flight recorder
+pass over the ``Event`` kind.
 """
 from __future__ import annotations
 

@@ -12,6 +12,11 @@ cannot be used there: it writes a creation time to the whole second
 (RFC 3339, as the reference), and the workers order pods tied on
 priority by their creation times, which a ``SimCluster`` ticks 0.05 s
 apart.
+
+``to_wire`` / ``from_wire`` carry any kind of ``KINDS`` as a document
+that names its ``kind``: the flight recorder's deltas
+(``record/recorder.py``), which replay applies to a store of its own, so
+a replayed decision reads every field the live one read.
 """
 from __future__ import annotations
 
@@ -20,12 +25,14 @@ from typing import Any, Callable, Dict, Type
 
 from nos_tpu_torch.api.v1alpha1.elasticquota import CompositeElasticQuota, ElasticQuota
 from nos_tpu_torch.kube.objects import (
+    ConfigMap,
     Node,
     NodeSelectorRequirement,
     NodeSelectorTerm,
     OwnerReference,
     Pod,
     PodAffinityTerm,
+    PodDisruptionBudget,
     Taint,
     Toleration,
     TopologySpreadConstraint,
@@ -125,3 +132,24 @@ def ceq_to_wire(quota: CompositeElasticQuota) -> dict:
 
 def ceq_from_wire(doc: dict) -> CompositeElasticQuota:
     return _from_wire(CompositeElasticQuota, doc)
+
+
+# kind → class of the kinds ``to_wire`` / ``from_wire`` carry
+KINDS: Dict[str, Type] = {cls.kind: cls for cls in (
+    Pod, Node, ConfigMap, PodDisruptionBudget, ElasticQuota, CompositeElasticQuota)}
+
+
+def to_wire(obj: Any) -> dict:
+    """An object of ``KINDS`` as a document naming its ``kind``; a
+    ``KeyError`` for any other kind."""
+    if obj.kind not in KINDS:
+        raise KeyError(obj.kind)
+    doc = _to_wire(obj)
+    doc["kind"] = obj.kind
+    return doc
+
+
+def from_wire(doc: dict) -> Any:
+    """``to_wire``'s inverse."""
+    fields = dict(doc)
+    return _from_wire(KINDS[fields.pop("kind")], fields)

@@ -27,7 +27,8 @@ version stamped or applied, as the reference's in-memory store stamps
 (``apply`` and ``apply_event`` keep the version they are given and raise
 ``version`` to it; a delete stamps the departing object, on a copy). On
 a store no one replays into, ``version == revision``. ``pods_by_node``
-is memoized on ``revision``: the live pods bound to each node.
+is memoized on ``revision``: the live pods bound to each node. ``hold()``
+is the lock as a context, for a reader that must see one revision.
 
 Watches (``:400-465``): ``watch(kinds, name)`` returns a queue that
 first replays every existing object of ``kinds`` as ADDED, in sorted
@@ -394,6 +395,13 @@ class NodeStore:
                      labels: Dict[str, Optional[str]]) -> Any:
         return self.patch_merge(kind, name, namespace,
                                 lambda obj: self._merge(obj.labels, labels))
+
+    def hold(self) -> "_InstrumentedLock":
+        """The store's lock, as a context: while the caller holds it no
+        other thread writes, so what it reads is the store at one
+        revision (a decision reads its watermark and its inputs
+        under it)."""
+        return self._lock
 
     @property
     def version(self) -> int:

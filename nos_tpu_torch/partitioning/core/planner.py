@@ -196,6 +196,12 @@ class Planner:
         # could not serve
         self.last_unserved: Dict[str, str] = {}
         self.last_pending_ages: Dict[str, float] = {}
+        # the last plan's slice tracker (the auditor re-sums its totals)
+        self.last_tracker: Optional[SliceTracker] = None
+        # True while this planner fronts for a pool planned on a worker
+        # process, whose verdict cache and futility memo live there: the
+        # auditor skips its cache checks
+        self.memos_remote = False
         # (namespaced name, uid) → (first seen, last seen) on the clock;
         # pruned after PENDING_TTL_S unseen
         self._pending_seen: Dict[Tuple[str, str], Tuple[float, float]] = {}
@@ -388,7 +394,7 @@ class Planner:
         aged = {p.namespaced_name for p in candidates
                 if (now - pending_since.get(p.namespaced_name, now)) * self.aging_per_second
                 >= AGED_RESCUE_SIZE}
-        tracker = SliceTracker(snapshot, candidates)
+        tracker = self.last_tracker = SliceTracker(snapshot, candidates)
         if tracker.empty and not tracker.split:
             # the geometry already serves every pending pod (planner.go:80-83)
             return snapshot.partitioning_state()
@@ -405,6 +411,7 @@ class Planner:
                 # the real pass would start from the same state in the same
                 # order: the trial is the plan
                 snapshot.commit()
+                self.last_tracker = trial_tracker
                 self._set_unserved(trial_tracker, candidates, trial_placed)
                 span.set_attributes(gang_trial_reused=True)
                 return snapshot.partitioning_state()
@@ -414,7 +421,7 @@ class Planner:
             excluded_reasons = {p.namespaced_name: gang_excluded_reason(gang_of(p)[0])
                                 for p in candidates if (gang_of(p) or (None,))[0] in excluded}
             candidates = [p for p in candidates if p.namespaced_name not in excluded_reasons]
-            tracker = SliceTracker(snapshot, candidates)
+            tracker = self.last_tracker = SliceTracker(snapshot, candidates)
             if tracker.empty and not tracker.split:
                 self.last_unserved = excluded_reasons
                 return snapshot.partitioning_state()

@@ -176,3 +176,28 @@ class ClusterState:
         kind = partitioning_kind(node)
         if kind:
             self._kind_counts[kind] = max(0, self._kind_counts.get(kind, 0) + delta)
+
+
+def state_from_store(store) -> ClusterState:
+    """The state a caught-up pair of state controllers holds, read from
+    the store at once: each node carrying the partitioning label, by
+    name, with its pending and running bound pods, by namespace and
+    name."""
+    state = ClusterState()
+    by_node = store.pods_by_node()
+    for node in store.list("Node", copy=False):
+        if PARTITIONING_LABEL in node.labels:
+            state.update_node(node, list(by_node.get(node.name, ())))
+    return state
+
+
+class StoreState:
+    """The store read as a ``ClusterState`` is: ``read_view`` (a snapshot
+    taker's only read) builds ``state_from_store`` when it is called, so
+    a plan whose incremental base needs no rebuild reads nothing more."""
+
+    def __init__(self, store) -> None:
+        self.store = store
+
+    def read_view(self) -> Dict[str, NodeInfo]:
+        return state_from_store(self.store).read_view()

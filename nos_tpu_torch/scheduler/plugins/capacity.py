@@ -218,6 +218,8 @@ class CapacityScheduling:
         self._external: Dict[str, res.ResourceList] = {}
         # the preemptor's record of the last preemption, read by the scheduler
         self.last_preemption: Optional[dict] = None
+        # the scheduler's EventRecorder: the preemptor's Preempted events
+        self.recorder = None
         # (store revision, node → NodeInfo of its bound live pods): the
         # preemptor's read-only node views, shared by every preemption of
         # one revision

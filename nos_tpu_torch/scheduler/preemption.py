@@ -29,8 +29,10 @@ inter-pod affinity filters of the victim trials read an overlay of the
 published cluster view (``:253-360``): trial copies of the remote nodes
 the evicted members leave, with the filters' per-cycle caches dropped.
 The overlay is taken when the preemptor has spread or affinity terms,
-or a victim has anti-affinity (symmetric terms). Events wait for their
-slice; ``PREEMPTIONS`` counts the evictions.
+or a victim has anti-affinity (symmetric terms). ``PREEMPTIONS`` counts
+the evictions; with the scheduler's ``EventRecorder`` on the quota plugin
+(``recorder``) a preemption records ``Preempted`` about the preemptor,
+naming its victims (the reference's ``:197-226``).
 """
 from __future__ import annotations
 
@@ -212,6 +214,14 @@ class Preemptor:
                 metrics.PREEMPTIONS.labels(namespace=victim.namespace).inc()
             except NotFoundError:
                 pass
+        recorder = getattr(self.plugin, "recorder", None)
+        if recorder is not None:
+            from nos_tpu_torch.api.v1alpha1.constants import EVENT_REASON_PREEMPTED
+
+            names = sorted(v.namespaced_name for v in victims.pods)
+            recorder.record(pod, EVENT_REASON_PREEMPTED,
+                            f"Preempted {len(names)} on {node_name} to fit "
+                            f"{pod.namespaced_name}: {', '.join(names)}", type="Warning")
         return node_name
 
     def _record(self, pod: Pod, node_name: str, victims: List[Pod]) -> dict:

@@ -1,10 +1,10 @@
 """The scheduler: one scheduling cycle per pending pod, polled.
 
 Counterpart of ``nos_tpu/scheduler/scheduler.py``: ``new_framework``
-(``:50-79``), ``Scheduler.reconcile`` (``:162-203``), ``_decide``
-(``:266-401``), ``_bind`` (``:541``), ``_mark_unschedulable``
-(``:574``), ``_set_nominated`` (``:605``) and ``_handle_gang_timeouts``
-(``:614-631``). A cycle runs PreFilter → Filter over every node → Score
+(``:50-79``), ``Scheduler.reconcile`` (``:162-203``), ``decide`` (the
+reference's ``_decide``, ``:266-401``), ``_bind`` (``:541``),
+``_mark_unschedulable`` (``:574``), ``_set_nominated`` (``:605``) and
+``_handle_gang_timeouts`` (``:614-631``). A cycle runs PreFilter → Filter over every node → Score
 → Reserve → Permit → Bind. Every extension point sees the whole cluster
 under ``TOPOLOGY_NODE_INFOS_KEY`` (the spread and affinity filters read
 it). When the PreFilter refuses the pod, or no node passes the filters,
@@ -42,8 +42,26 @@ arrival, a member waiting in Permit or binding its first feasible cycle,
 its bind the bound stamp, a timeout drops the clock. A failed cycle's
 diagnosis is kept, the latest a pod for ``DIAGNOSIS_RECORDS`` pods
 (``:135-136``, ``:517-520``): ``explain(pod_key)``, the
-``/debug/explain`` backend. Events wait for the observability slice
-(ROADMAP.md).
+``/debug/explain`` backend.
+
+A cycle is ``decide`` (the pipeline above, the reference's ``:251-401``)
+then its writes (the bind, the nomination, the Unschedulable condition).
+``settle`` is replay's companion of ``decide`` (``:403``): a bind's
+in-memory effects without its writes. With an ``EventRecorder``
+(``recorder``) a bind records ``Scheduled`` and every failed cycle
+``FailedScheduling`` (``:508-515``, ``:566-573``), and the preemptor
+``Preempted``. With a ``FlightRecorder`` every cycle writes a
+``scheduler.cycle`` record (``:417-437``): the store revision read at
+the cycle's entry, the decision, the pods bound, the victims, the
+diagnosis, the cycle span's trace id (the port's control plane opens no
+pod journey, the reference's root) and whether its writes landed. Every
+cycle, recorded or not, takes its watermark, re-reads its pod and runs
+``decide`` under one hold of the store (``NodeStore.hold``), so the
+decision read exactly the store at its watermark, the state replay
+re-decides on; the reference reads them apart, and its threaded
+recordings can replay with drift. The cycle's writes come after the
+hold. ``preemptions`` keeps the preemptor's records of the last
+``PREEMPTION_RECORDS`` preemptions beside the events.
 """
 from __future__ import annotations
 
@@ -53,6 +71,10 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
 
+from nos_tpu_torch.api.v1alpha1.constants import (
+    EVENT_REASON_FAILED_SCHEDULING,
+    EVENT_REASON_SCHEDULED,
+)
 from nos_tpu_torch.kube.store import NodeStore, NotFoundError, Pod, PodPhase
 from nos_tpu_torch.scheduler.framework import (
     TOPOLOGY_NODE_INFOS_KEY,
@@ -144,17 +166,25 @@ class CycleOutcome:
 class Scheduler:
     def __init__(self, store: NodeStore, framework: Optional[Framework] = None,
                  scheduler_name: str = "", interval: float = 0.5,
-                 capacity_ledger=None) -> None:
+                 capacity_ledger=None, recorder=None, flight_recorder=None) -> None:
         self.store = store
         self.capacity_ledger = capacity_ledger
         self.framework = framework or new_framework(store)
+        # an EventRecorder: Scheduled on a bind, FailedScheduling on every
+        # failed cycle, and through the quota plugin the preemptor's
+        # Preempted
+        self.recorder = recorder
+        # a FlightRecorder: one scheduler.cycle record a cycle
+        self.flight_recorder = flight_recorder
         # the plugins new_framework wired (None when absent)
         self.capacity: Optional[CapacityScheduling] = getattr(self.framework, "capacity", None)
         self.gang: Optional[GangScheduling] = getattr(self.framework, "gang", None)
         self.reservation: Optional[BoardReservation] = getattr(self.framework, "reservation",
                                                                None)
+        if self.capacity is not None and recorder is not None:
+            self.capacity.recorder = recorder
         # the preemptor's records of the last PREEMPTION_RECORDS
-        # preemptions, in place of the flight recorder
+        # preemptions (the invariants read them)
         self.preemptions: Deque[dict] = deque(maxlen=PREEMPTION_RECORDS)
         # pod key → its latest failed cycle's diagnosis (``explain``)
         self._diagnoses: Dict[str, dict] = {}
@@ -260,29 +290,76 @@ class Scheduler:
         with TRACER.span("scheduler.cycle", pod=pod.namespaced_name) as span:
             # idempotent: the first cycle of any member starts the clock
             self._gang_clock(pod, "note_gang_arrival")
-            outcome = self._decide(pod)
+            # the watermark and the reads under one hold of the store: a
+            # replay at the watermark sees what this cycle read
+            with self.store.hold():
+                revision = self.store.revision
+                current = self.store.try_get("Pod", pod.name, pod.namespace, copy=False)
+                if current is not None and current.uid == pod.uid:
+                    pod = current  # the pod as it stands at the watermark
+                outcome = self.decide(pod)
             span.set_attributes(decision=outcome.decision, node=outcome.node)
-            if outcome.decision in ("wait", "bind"):
-                # the whole gang found nodes this cycle
-                self._gang_clock(pod, "note_gang_feasible")
-            if outcome.decision == "bind":
-                span.set_attributes(pods=len(outcome.to_bind))
-                for bind_pod, node_name in outcome.to_bind:
-                    self._assumed.pop(bind_pod.namespaced_name, None)
-                    self._bind(bind_pod, node_name)
-                    if self.reservation is not None:
-                        self.reservation.release_for(bind_pod)
-                for bind_pod, _ in outcome.to_bind:
-                    self._gang_clock(bind_pod, "note_gang_bound")
-            elif outcome.decision == "wait":
-                log.info("scheduler: %s waiting (%s)", pod.namespaced_name, outcome.message)
-            elif outcome.decision == "nominate":
-                span.set_attributes(victims=len(outcome.victims))
-                self._set_nominated(pod, outcome.node)
-            else:
-                self._note_diagnosis(pod, outcome.diagnosis)
-                self._mark_unschedulable(pod, outcome.message)
+            try:
+                self._apply_outcome(pod, outcome, span)
+            except Exception:
+                # the decision's in-memory effects happened; its writes did
+                # not: replay re-decides it and skips settle
+                self._record_cycle(pod, revision, outcome, span, settled=False)
+                raise
+            self._record_cycle(pod, revision, outcome, span)
         return outcome
+
+    def settle(self, outcome: CycleOutcome) -> None:
+        """Replay's companion of ``decide``: a bind's in-memory effects (the
+        assume cache, the quota reservations) without its writes, which
+        come as recorded deltas."""
+        if outcome.decision != "bind":
+            return
+        for bind_pod, _ in outcome.to_bind:
+            self._assumed.pop(bind_pod.namespaced_name, None)
+            if self.capacity is not None:
+                self.capacity.forget(bind_pod)
+
+    def _apply_outcome(self, pod: Pod, outcome: CycleOutcome, span) -> None:
+        """The outcome's writes, events and clocks."""
+        if outcome.decision in ("wait", "bind"):
+            # the whole gang found nodes this cycle
+            self._gang_clock(pod, "note_gang_feasible")
+        if outcome.decision == "bind":
+            span.set_attributes(pods=len(outcome.to_bind))
+            for bind_pod, node_name in outcome.to_bind:
+                self._assumed.pop(bind_pod.namespaced_name, None)
+                self._bind(bind_pod, node_name)
+                if self.reservation is not None:
+                    self.reservation.release_for(bind_pod)
+            for bind_pod, _ in outcome.to_bind:
+                self._gang_clock(bind_pod, "note_gang_bound")
+        elif outcome.decision == "wait":
+            log.info("scheduler: %s waiting (%s)", pod.namespaced_name, outcome.message)
+        elif outcome.decision == "nominate":
+            span.set_attributes(victims=len(outcome.victims))
+            self._set_nominated(pod, outcome.node)
+        else:
+            self._note_diagnosis(pod, outcome.diagnosis)
+            if self.recorder is not None:
+                # every failed cycle: a repeat bumps the event's count
+                self.recorder.record(pod, EVENT_REASON_FAILED_SCHEDULING, outcome.message,
+                                     type="Warning")
+            self._mark_unschedulable(pod, outcome.message)
+
+    def _record_cycle(self, pod: Pod, revision: int, outcome: CycleOutcome, span,
+                      settled: bool = True) -> None:
+        if self.flight_recorder is None:
+            return
+        diagnosis = outcome.diagnosis
+        self.flight_recorder.record_scheduler_cycle(
+            pod=pod.namespaced_name, revision=revision, decision=outcome.decision,
+            node=outcome.node, bound=[[p.namespaced_name, n] for p, n in outcome.to_bind],
+            victims=list(outcome.victims), message=outcome.message,
+            trace_id=span.trace_id,
+            diagnosis=(diagnosis.to_dict(timestamp=self.store.clock())
+                       if diagnosis is not None else None),
+            settled=settled)
 
     def _note_diagnosis(self, pod: Pod, diagnosis: Optional[Diagnosis]) -> None:
         if diagnosis is None:
@@ -318,7 +395,13 @@ class Scheduler:
         diagnosis = self._diagnosis(pod, node_infos, filtered)
         return CycleOutcome("fail", diagnosis=diagnosis, message=diagnosis.aggregate_message())
 
-    def _decide(self, pod: Pod) -> CycleOutcome:
+    def decide(self, pod: Pod) -> CycleOutcome:
+        """The cycle's decision, without its bind, nomination and
+        unschedulable writes: replay's entry point. The in-memory
+        bookkeeping (the assume cache, the gangs, the quota reservations)
+        moves as in a live cycle, and the preemption's evictions and the
+        drain reservation still write (they converge with the recorded
+        deltas)."""
         if self.capacity is not None:
             self.capacity.last_preemption = None
         state = CycleState()
@@ -429,6 +512,9 @@ class Scheduler:
             self.store.patch_merge("Pod", pod.name, pod.namespace, mutate)
         except NotFoundError:
             return
+        if self.recorder is not None:
+            self.recorder.record(pod, EVENT_REASON_SCHEDULED,
+                                 f"Successfully assigned {pod.namespaced_name} to {node_name}")
         log.info("scheduler: bound %s to %s", pod.namespaced_name, node_name)
 
     def _mark_unschedulable(self, pod: Pod, message: str) -> None:

@@ -18,9 +18,10 @@ points of every watched series (the periodic loops' ``loop.*``, every
 check never replays it. A finding fires once (hysteresis: it clears
 after ``clear_samples`` clean checks) and is counted in
 ``nos_tpu_timeline_findings_total``; an ``attach``ed ``EventRecorder``
-records a ``HealthDegraded`` event about ``event_obj``. The reference's
-``flight=`` hook (a ``timeline.finding`` record) waits for the flight
-recorder (ROADMAP.md, item 18b.2).
+records a ``HealthDegraded`` event about ``event_obj``, and an attached
+flight recorder (``flight``) a ``timeline.finding`` record carrying the
+detector's window and parameters beside its verdict, which replay re-runs
+(the reference's ``:228-234``, ``:547-560``).
 
 The ring reads as ``series`` / ``rollups`` / ``sparkline``, as JSONL
 (``iter_jsonl`` / ``to_jsonl`` / ``export``) and as ``/debug/timeline``'s
@@ -175,12 +176,15 @@ class TimelineStore:
         self._active: Dict[Tuple[str, str], dict] = {}
         self.recorder = None
         self._event_obj = None
+        self._flight = None
         self._thread: Optional[threading.Thread] = None
         self._stop_event = threading.Event()
 
-    def attach(self, *, recorder=None, event_obj=None) -> None:
-        """Findings become ``HealthDegraded`` events about ``event_obj``
-        through ``recorder`` (an ``EventRecorder``)."""
+    def attach(self, *, flight=None, recorder=None, event_obj=None) -> None:
+        """Findings become ``timeline.finding`` records of ``flight`` (a
+        ``FlightRecorder``) and ``HealthDegraded`` events about
+        ``event_obj`` through ``recorder`` (an ``EventRecorder``)."""
+        self._flight = flight
         self.recorder = recorder
         self._event_obj = event_obj
 
@@ -418,6 +422,11 @@ class TimelineStore:
                 self._findings.pop(0)
         metrics.TIMELINE_FINDINGS.labels(detector=finding["detector"],
                                          series=finding["series"]).inc()
+        if self._flight is not None:
+            self._flight.record_timeline_finding(
+                t=finding["t"], detector=finding["detector"], series=finding["series"],
+                window=[[t, v] for t, v in finding["window"]], params=finding["params"],
+                verdict=finding["verdict"], stacks=finding.get("stacks", []))
         if self.recorder is not None and self._event_obj is not None:
             from nos_tpu_torch.api.v1alpha1.constants import EVENT_REASON_HEALTH_DEGRADED
 

@@ -23,8 +23,11 @@ switches sampling), ``/debug/loops`` (``util/loop_health.py``'s
 rollup) and ``/debug/timeline`` (the health timeline's rollups,
 sparklines, watchdog loops and findings; ``?window=<seconds>``,
 ``?limit=`` / ``?cursor=`` page the series, ``?format=jsonl`` streams the
-ring's frames). The reference's record, capacity and forecast endpoints
-wait for their backends (ROADMAP.md, items 18b.2-18b.3). A page holds
+ring's frames) and ``/debug/record`` (the flight recorder's ring as JSON,
+``?format=jsonl`` one record a line, ``python -m nos_tpu_torch replay``'s
+input; not registered, so 404, while recording is off). The reference's
+capacity and forecast endpoints wait for their backends (ROADMAP.md,
+item 18b.3). A page holds
 ``debug_page_limit`` items unless ``?limit=`` says otherwise.
 
 ``metrics_token``, a string or a provider called on each request: when
@@ -75,6 +78,7 @@ class HealthServer:
                  autoscaler_fn: Optional[Callable[[], dict]] = None,
                  timeline_fn: Optional[Callable[..., dict]] = None,
                  timeline_stream_fn: Optional[Callable[[], Any]] = None,
+                 record_fn: Optional[Callable[[], list]] = None,
                  debug_page_limit: int = 500) -> None:
         self.port = port
         self.ready_check = ready_check or (lambda: True)
@@ -89,6 +93,8 @@ class HealthServer:
         # called with the ?window= seconds (None: the whole ring) and the page
         self.timeline_fn = timeline_fn
         self.timeline_stream_fn = timeline_stream_fn
+        # the flight recorder's ring (None: recording is off)
+        self.record_fn = record_fn
         self.debug_page_limit = debug_page_limit
         self._servers: list = []
         self._threads: list = []
@@ -115,6 +121,11 @@ class HealthServer:
                      "?pod=<namespace>/<name> — the scheduler's latest per-node "
                      "per-plugin rejection Diagnosis for the pod",
                      self._serve_explain)
+        if self.record_fn is not None:
+            register("/debug/record",
+                     "the flight recorder's decision ring; ?format=jsonl for "
+                     "`python -m nos_tpu_torch replay` input",
+                     self._serve_record)
         if self.profiler is not None:
             register("/debug/profile",
                      "the control-plane sampling profiler: JSON top-N self-time "
@@ -188,6 +199,14 @@ class HealthServer:
             req.respond(404, "no diagnosis recorded for pod")
             return
         req.respond_json(diagnosis)
+
+    def _serve_record(self, req, url) -> None:
+        records = self.record_fn()
+        if parse_qs(url.query).get("format", ["json"])[0] == "jsonl":
+            req.respond(200, "".join(json.dumps(r) + "\n" for r in records),
+                        "application/x-ndjson")
+        else:
+            req.respond(200, json.dumps(records, indent=2), "application/json")
 
     def _serve_profile(self, req, url) -> None:
         query = parse_qs(url.query)

@@ -26,9 +26,11 @@ reference's three fleet-size mechanisms, all off by default:
 
 ``snapshot()`` reads every touched series at once (a histogram as
 ``_count``, ``_sum`` and, once observed, ``_p50`` / ``_p95`` / ``_p99``
-over its last ``WINDOW`` observations): ``/debug/vars``. The families
-of the capacity ledger's gauges, fragmentation, quota and chaos wait
-for their emitters (ROADMAP.md, items 18b.2-18b.3).
+over its last ``WINDOW`` observations): ``/debug/vars``. The invariant
+auditor counts its violations in ``nos_tpu_audit_violations_total``
+(``record/audit.py``); the families of the capacity ledger's gauges,
+fragmentation, quota and chaos wait for their emitters (ROADMAP.md,
+item 18b.3).
 """
 from __future__ import annotations
 
@@ -807,6 +809,13 @@ TIMELINE_SAMPLES = REGISTRY.counter(
 TIMELINE_SERIES = REGISTRY.gauge(
     "nos_tpu_timeline_series",
     "Distinct series present in the most recent timeline sample",
+)
+# the flight recorder's invariant auditor (record/audit.py)
+AUDIT_VIOLATIONS = REGISTRY.counter(
+    "nos_tpu_audit_violations_total",
+    "Invariant-auditor checks whose shadow recompute disagreed with the "
+    "incremental structure (verdict cache, lacking totals, free pool, "
+    "mutation clock, carve-futility memo, capacity ledger) (by check)",
 )
 TIMELINE_FINDINGS = REGISTRY.counter(
     "nos_tpu_timeline_findings_total",

@@ -10,7 +10,8 @@
   (refused until item 18b, where the reference's runs by default).
 - Each ``validate()`` raises on the same bad values, with the same
   message under the field names' translation (parametrised).
-- The port refuses what it does not run: the forecaster and the auditor.
+- The port refuses what it does not run, the forecaster's thread (item
+  18b.3); the auditor's rate is accepted since item 18b.2.
 - Config documents and kubeconfigs are read JSON-first: with ``yaml``
   blocked from ``sys.modules`` a JSON config and a JSON kubeconfig load,
   and a component runs from them against the stub API server; a YAML
@@ -161,12 +162,21 @@ def test_validate_raises_on_the_same_bad_values(ref_cls, port_cls, field, value,
     assert str(got.value) == message
 
 
-@pytest.mark.parametrize("field,value", [("forecast_enabled", True),
-                                         ("audit_sample_rate", 0.5)])
-def test_what_waits_for_item_18b_is_refused(field, value):
+@pytest.mark.parametrize("field,value,waits", [("forecast_enabled", True, True),
+                                               ("audit_sample_rate", 0.5, False)],
+                         ids=["forecast_enabled-True", "audit_sample_rate-0.5"])
+def test_what_waits_for_item_18b_is_refused(field, value, waits):
+    """The forecaster's thread waits for item 18b.3 and is refused; the
+    auditor came with item 18b.2 and its rate is accepted, as the
+    reference accepts both."""
     jcfg.GpuPartitionerConfig(**{field: value}).validate()  # the reference runs it
-    with pytest.raises(tcfg.ConfigError, match="item 18b"):
+    if waits:
+        with pytest.raises(tcfg.ConfigError, match="item 18b"):
+            tcfg.GpuPartitionerConfig(**{field: value}).validate()
+    else:
         tcfg.GpuPartitionerConfig(**{field: value}).validate()
+        assert trun.configs_from(
+            {"partitioner": {"auditSampleRate": value}}).partitioner.audit_sample_rate == value
     with pytest.raises(tcfg.ConfigError, match="item 18b"):
         trun.configs_from({"partitioner": {"forecastEnabled": True}})
 

@@ -139,7 +139,7 @@ CONTROL_PLANE = ("api", "kube", "scheduler", "controllers", "partitioning/core",
                  "bench_forecast.py", "sim", "util/loop_health.py", "util/predicates.py",
                  "cmd", "__main__.py", "util/health.py", "util/documents.py", "timeline",
                  "util/profiling.py", "util/tracing.py", "obsplane", "bench_store.py",
-                 "bench_observability.py")
+                 "bench_observability.py", "record")
 
 
 def test_control_plane_imports_no_torch():
@@ -176,7 +176,8 @@ def test_control_plane_imports_no_torch():
             "timeline/detectors.py", "timeline/store.py", "util/profiling.py",
             "util/tracing.py", "obsplane/__init__.py", "obsplane/streaming.py",
             "obsplane/governor.py", "obsplane/apply.py", "bench_store.py",
-            "bench_observability.py"} <= names
+            "bench_observability.py", "record/__init__.py", "record/recorder.py",
+            "record/audit.py", "record/replay.py", "cmd/replay.py"} <= names
     bad = [f"{p.relative_to(ROOT)}: {mod}" for p in files for mod in _imports(p)
            if mod == "torch" or mod.startswith("torch.")]
     assert not bad, bad
@@ -217,6 +218,7 @@ def test_importing_the_port_loads_no_jax():
         "import nos_tpu_torch.timeline, nos_tpu_torch.util.profiling, nos_tpu_torch.obsplane\n"
         "import nos_tpu_torch.obsplane.apply, nos_tpu_torch.bench_store\n"
         "import nos_tpu_torch.bench_observability\n"
+        "import nos_tpu_torch.record, nos_tpu_torch.cmd.replay\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'nos_tpu', 'transformers', 'grpc') or m.startswith('google.protobuf'))\n"
         "print(bad)\n"
